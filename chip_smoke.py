@@ -1,0 +1,450 @@
+"""Drive the PyTorch port on one NVIDIA card and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases (each prints one line and is fatal on failure):
+  1. the card's name and power limit (``nvidia-smi``); no CUDA -> exit 1;
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  3. each kernel against its plain PyTorch version on the card, at
+     mamba2-2.7b's shapes in bf16 and fp32 with non-zero initial states,
+     with its device time, the plain version's, a library call's where
+     one exists, and its bound;
+  4. full-width, full-depth mamba2-2.7b serving through ``ServingEngine``
+     (4 ragged requests, 32 new tokens each), random weights from a seed;
+     the launch counters are reset just before and read just after;
+  5. the kernel path against the plain path on the card (8 layers, one
+     512-token prompt, teacher-forced decode);
+then a ``kernels`` JSON line, the card line, and the result line last.
+Imports nothing of JAX nor of the reference package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from unittest import mock
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
+PEAK_FLOPS = {torch.bfloat16: 989e12,            # dense bf16 tensor cores
+              torch.float32: 67e12}              # fp32 outside tensor cores
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def device_ms(fn, calls: int = 10, reps: int = 25) -> float:
+    """Device time of one ``fn()``: a CUDA graph of ``calls`` calls is
+    replayed ``reps`` times between CUDA events; median over the replays,
+    divided by ``calls``.  The graph removes host launch gaps, so this is
+    the card's time for the work, inputs warm in L2."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def device_busy(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and read the trace: wall
+    time, the union of kernel intervals on the card, and kernel launches.
+    The trace is kept in ``build/repro_torch/`` (listed in .gitignore)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "repro_torch", "decode_trace.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    prof.export_chrome_trace(out)
+    with open(out) as f:
+        events = json.load(f).get("traceEvents", [])
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "kernel" and "dur" in e)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return dict(wall_ms=wall_us / 1e3, kernel_busy_ms=busy / 1e3,
+                kernels=len(spans),
+                idle_share=(1 - busy / wall_us) if spans else None)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(bytes_moved: int, flops: float, dtype) -> tuple:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(got, want) -> float:
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want))
+
+
+def check_close(name, got, want, tol):
+    """Every output within ``tol`` times max(1, max |reference|)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{name} output {i}: {a.shape}/{a.dtype} "
+                                 f"!= {b.shape}/{b.dtype}")
+        scale = max(1.0, float(b.float().abs().max()))
+        err = float((a.float() - b.float()).abs().max())
+        if not err <= tol * scale:
+            raise AssertionError(f"{name} output {i}: max err {err} > "
+                                 f"{tol} x {scale}")
+
+
+# stated tolerances, relative to max(1, max |reference|): the reference's
+# own kernel-test tolerances (tests/test_kernels.py, tests/test_decode_fused.py)
+TOL = {"conv1d": {torch.float32: 2e-4, torch.bfloat16: 2e-2},
+       "ssd": {torch.float32: 1e-3, torch.bfloat16: 2e-2},
+       "decode_fused": {torch.float32: 1e-5, torch.bfloat16: 2e-2}}
+
+
+def phase_kernels(cfg, gen):
+    """Compare and time every kernel at the main path's shapes (B=4)."""
+    from repro_torch.kernels.conv1d import ops as conv_ops, ref as conv_ref
+    from repro_torch.kernels.decode_fused import (ops as dec_ops,
+                                                  ref as dec_ref)
+    from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
+    import torch.nn.functional as F
+
+    s = cfg.ssm
+    B, S = 4, 256
+    H, P, N, G, K = (s.n_ssm_heads(cfg.d_model), s.headdim, s.d_state,
+                     s.n_groups, s.conv_kernel)
+    C = s.d_inner(cfg.d_model) + 2 * G * N
+    dev = "cuda"
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    rows = []
+    # conv1d: the main shape, plus C and S off the kernel's tiles, and an
+    # input shorter than the conv window
+    for (b_, s_, c_) in ((B, S, C), (3, 200, 5000), (2, 2, 1003)):
+        for dt in (torch.bfloat16, torch.float32):
+            x, w, bias = rn(b_, s_, c_, dtype=dt), rn(c_, K), rn(c_)
+            st = rn(b_, K - 1, c_, dtype=dt)
+            got = conv_ops.causal_conv1d(x, w, bias, initial_state=st)
+            want = conv_ref.causal_conv1d_ref(x, w, bias, st)
+            check_close(f"conv1d {dt} {(b_, s_, c_)}", got, want,
+                        TOL["conv1d"][dt])
+            if (b_, s_, c_) == (B, S, C) and dt == torch.bfloat16:
+                err = max_err(got, want)
+                ms = device_ms(lambda: conv_ops.causal_conv1d(
+                    x, w, bias, initial_state=st))
+                plain = device_ms(lambda: conv_ref.causal_conv1d_ref(
+                    x, w, bias, st))
+                # library yardstick: cuDNN's depthwise conv on the padded
+                # input in its channels-first layout (no SiLU)
+                xp = torch.cat([st, x], 1).transpose(1, 2).contiguous()
+                wl = w.to(dt)[:, None, :].contiguous()
+                bl = bias.to(dt)
+                lib = device_ms(lambda: F.conv1d(xp, wl, bl, groups=c_))
+                bms, by = bound(nbytes(x, w, bias, st) + nbytes(got[0]),
+                                2.0 * K * b_ * s_ * c_, dt)
+                rows.append(dict(
+                    name="causal_conv1d", route="cuda",
+                    source="src/repro_torch/kernels/csrc/conv1d.cu",
+                    replaces="src/repro/kernels/conv1d/kernel.py:37",
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib))
+
+    for dt in (torch.bfloat16, torch.float32):
+        x = rn(B, S, H, P, dtype=dt)
+        dts = ssd_ref.softplus(rn(B, S, H) - 2.0)
+        A = -torch.exp(rn(H))
+        Bm, Cm = rn(B, S, G, N, dtype=dt), rn(B, S, G, N, dtype=dt)
+        D, h0 = rn(H), rn(B, H, P, N)
+        got = ssd_ops.ssd_chunked(x, dts, A, Bm, Cm, D, chunk=s.chunk,
+                                  initial_state=h0)
+        want = ssd_ref.ssd_chunked_ref(x, dts, A, Bm, Cm, D, chunk=s.chunk,
+                                       initial_state=h0)
+        check_close(f"ssd {dt}", got, want, TOL["ssd"][dt])
+        if dt == torch.bfloat16:
+            err = max_err(got, want)
+            ms = device_ms(lambda: ssd_ops.ssd_chunked(
+                x, dts, A, Bm, Cm, D, chunk=s.chunk, initial_state=h0))
+            plain = device_ms(lambda: ssd_ref.ssd_chunked_ref(
+                x, dts, A, Bm, Cm, D, chunk=s.chunk, initial_state=h0))
+            q = s.chunk
+            flops = 2.0 * B * H * (S // q) * (q * q * N + q * q * P
+                                              + 2 * q * P * N)
+            bms, by = bound(nbytes(x, dts, A, Bm, Cm, D, h0) + nbytes(*got),
+                            flops, dt)
+            rows.append(dict(
+                name="ssd_chunked", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd.cu",
+                replaces="src/repro/kernels/ssd/kernel.py:68",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=None))
+
+    for dt in (torch.bfloat16, torch.float32):
+        conv, ssm, xbc = rn(B, K - 1, C, dtype=dt), rn(B, H, P, N), rn(B, C,
+                                                                   dtype=dt)
+        w, cb, dtr = rn(C, K), rn(C), rn(B, H, dtype=dt)
+        dtb, al, D = rn(H), rn(H), rn(H)
+        kw = dict(n_groups=G, d_state=N, headdim=P)
+        args = (conv, ssm, xbc, w, cb, dtr, dtb, al, D)
+        got = dec_ops.mamba2_decode_fused(*args, **kw)
+        want = dec_ref.mamba2_decode_fused_ref(*args, **kw)
+        check_close(f"decode_fused {dt}", got, want, TOL["decode_fused"][dt])
+        if dt == torch.bfloat16:
+            err = max_err(got, want)
+            ms = device_ms(lambda: dec_ops.mamba2_decode_fused(*args, **kw))
+            plain = device_ms(
+                lambda: dec_ref.mamba2_decode_fused_ref(*args, **kw))
+            bms, by = bound(nbytes(*args) + nbytes(*got),
+                            6.0 * B * H * P * N, dt)
+            rows.append(dict(
+                name="mamba2_decode_fused", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_fused.cu",
+                replaces="src/repro/kernels/decode_fused/kernel.py:66",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=None))
+    return rows
+
+
+def counters():
+    from repro_torch.kernels.conv1d.ops import causal_conv1d
+    from repro_torch.kernels.decode_fused.ops import mamba2_decode_fused
+    from repro_torch.kernels.ssd.ops import ssd_chunked
+    return {"causal_conv1d": causal_conv1d, "ssd_chunked": ssd_chunked,
+            "mamba2_decode_fused": mamba2_decode_fused}
+
+
+def phase_serving(cfg, gen):
+    """Serve 4 ragged requests at full width and depth."""
+    import numpy as np
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    params = init_lm_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(0)
+    lens = (300, 700, 1000, 2048)
+    max_new = 32
+
+    def engine():
+        return ServingEngine(cfg, params, slots=4, max_seq=4096,
+                             chunk_size=256, decode_block=8, device="cuda")
+
+    # warm-up: one short request through both phases (cuBLAS handles, the
+    # kernels' first launches); not part of the measured run
+    warm = engine()
+    warm.submit(Request(rid=-1, prompt=rng.integers(0, cfg.vocab_size, 16),
+                        max_new=9))
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    eng = engine()
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new=max_new) for i, n in enumerate(lens)]
+    for c in counters().values():
+        c.launches = 0
+    t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    decode_tok, decode_s = 0, 0.0
+    while True:
+        chunks, toks = eng.stats["prefill_chunks"], eng.stats["decode_tokens"]
+        ts = time.monotonic()
+        left = eng.step()
+        torch.cuda.synchronize()
+        if eng.stats["prefill_chunks"] == chunks:     # a decode-only step
+            decode_tok += eng.stats["decode_tokens"] - toks
+            decode_s += time.monotonic() - ts
+        if not (left or eng.queue or eng._pending):
+            break
+    wall = time.monotonic() - t0
+    launches = {k: c.launches for k, c in counters().items()}
+    for r in reqs:
+        if r.status != "ok" or len(r.out) != max_new:
+            raise AssertionError(f"rid={r.rid}: status {r.status}, "
+                                 f"{len(r.out)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"rid={r.rid}: token outside the vocab")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k}: not launched on the serving path")
+    # steady decode with all 4 slots live: bursts of 8 on the served cache
+    from repro_torch.models.lm import decode_tokens
+    first = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    bursts = []
+    for _ in range(4):
+        ts = time.monotonic()
+        toks, _ = decode_tokens(cfg, eng.params, eng.cache, first, 8)
+        toks.cpu()
+        bursts.append(time.monotonic() - ts)
+    burst_s = statistics.median(bursts[1:])
+    busy = device_busy(lambda: decode_tokens(cfg, eng.params, eng.cache,
+                                             first, 8)[0].cpu())
+    # one prefill chunk of 4 x 256 tokens, as the engine runs it
+    from repro_torch.models.lm import lm_prefill_chunk
+    chunk = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
+                          device="cuda")
+    chunk_busy = device_busy(lambda: lm_prefill_chunk(
+        cfg, eng.params, chunk, eng.cache)[0].cpu())
+    ttft = {r.rid: (r.first_t - r.submit_t) * 1e3 for r in reqs}
+    return dict(ttft_ms=ttft, wall_s=wall,
+                serve_decode_only_tokens_per_s=(
+                    decode_tok / decode_s if decode_s else None),
+                decode_only_tokens=decode_tok,
+                steady_b4_burst8_ms=burst_s * 1e3,
+                steady_b4_tokens_per_s=4 * 8 / burst_s,
+                profiled_decode_burst8_b4=busy,
+                profiled_prefill_chunk_b4_s256=chunk_busy,
+                prefill_chunks=eng.stats["prefill_chunks"],
+                max_memory_allocated=torch.cuda.max_memory_allocated()), \
+        launches
+
+
+def phase_paths(cfg, gen):
+    """Kernel path against plain path on the card: 8 layers, one 512-token
+    prompt, then 8 teacher-forced decode steps."""
+    from repro_torch.kernels.conv1d import ref as conv_ref
+    from repro_torch.kernels.decode_fused import ref as dec_ref
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models.lm import (init_lm_cache, init_lm_params,
+                                       lm_decode_step, prepare_params)
+    from repro_torch.serving.prefill import chunked_prefill
+
+    cfg8 = dataclasses.replace(cfg, n_layers=8)
+    params = prepare_params(cfg8, init_lm_params(cfg8, gen, device="cuda"))
+    prompt = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
+                           device="cuda")
+
+    def run(forced):
+        cache = init_lm_cache(cfg8, 1, 1024, device="cuda")
+        lg, cache = chunked_prefill(cfg8, params, prompt, cache,
+                                    chunk_size=256)
+        out = [lg[:, 0, :cfg.vocab_size].float()]
+        for i in range(8):
+            tok = (forced[i] if forced is not None
+                   else out[-1].argmax(-1, keepdim=True).to(torch.int32))
+            lg, cache = lm_decode_step(cfg8, params, tok, cache)
+            out.append(lg[:, 0, :cfg.vocab_size].float())
+        toks = [o.argmax(-1, keepdim=True).to(torch.int32) for o in out]
+        return torch.cat(out), toks
+
+    kern, toks = run(None)
+
+    def plain_ssd(x, dt_raw, dt_bias, A_log, Bm, Cm, D, *, chunk,
+                  initial_state):
+        dt, A = ssd_ref.preprocess_dt_A(dt_raw, dt_bias, A_log)
+        return ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                       initial_state=initial_state)
+
+    def plain_conv(x, w, b, *, initial_state=None, activation="silu"):
+        return conv_ref.causal_conv1d_ref(x, w, b, initial_state, activation)
+
+    with mock.patch.object(m2, "causal_conv1d", plain_conv), \
+            mock.patch.object(m2, "ssd_chunked_raw", plain_ssd), \
+            mock.patch.object(m2, "mamba2_decode_fused",
+                              dec_ref.mamba2_decode_fused_ref):
+        plain, _ = run(toks)
+    if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
+        raise AssertionError("non-finite logits")
+    err = float((kern - plain).abs().max())
+    # bf16 activations through 8 layers: each bf16 rounding is worth 2^-8
+    # of its value, and the two paths round at different points
+    tol = 0.05 * float(plain.abs().max())
+    if err > tol:
+        raise AssertionError(f"logits differ by {err} > {tol}")
+    top2 = plain.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    agree = kern.argmax(-1) == plain.argmax(-1)
+    checked = margin > 2 * err
+    if not bool(agree[checked].all()):
+        raise AssertionError("greedy tokens disagree above the margin")
+    return dict(max_abs_logit_err=err, tol=tol,
+                max_abs_logit=float(plain.abs().max()),
+                steps_checked=int(checked.sum()), steps=int(agree.numel()),
+                steps_agree=int(agree.sum()))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "src"))
+    from repro_torch.configs import mamba2_2p7b as cfg
+    from repro_torch.kernels import build
+
+    card = card_line()
+    print(f"phase 1 card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 1 reference comparisons with allow_tf32 = False "
+          f"(matmul, cudnn); torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    build.library()
+    print(f"phase 2 build: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = phase_kernels(cfg, gen)
+    for r in rows:
+        print("phase 3 kernel: " + json.dumps(r), flush=True)
+
+    serving, launches = phase_serving(cfg, gen)
+    print("phase 4 serving mamba2-2.7b (64 layers, slots 4, prompts "
+          "300/700/1000/2048, 32 new): " + json.dumps(serving), flush=True)
+
+    paths = phase_paths(cfg, gen)
+    print("phase 5 kernel path vs plain path: " + json.dumps(paths),
+          flush=True)
+
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,48 @@
+"""Configs the port serves, plus ``reduced`` for CPU-sized copies.
+
+Importing this package registers every config with the model registry.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.configs.mamba2_2p7b import CONFIG as mamba2_2p7b  # noqa: F401
+
+
+def reduced(cfg: ModelConfig, *, d_model: int = 64, vocab: int = 256,
+            n_units: int = 2) -> ModelConfig:
+    """Shrink an arch to a CPU-smoke size, preserving family / layer pattern
+    / head-grouping structure (same code paths, tiny shapes).  The same
+    rule as the reference's ``reduced``, so both sides shrink alike."""
+    unit = cfg.layer_pattern
+    n_layers = len(unit) * n_units
+
+    def shrink_attn(a):
+        if a is None:
+            return None
+        kv = max(1, min(a.n_kv_heads, 2))
+        heads = max(kv, min(a.n_heads, 4))
+        heads = (heads // kv) * kv or kv
+        return dataclasses.replace(
+            a, n_heads=heads, n_kv_heads=kv, head_dim=d_model // 4,
+            sliding_window=(8 if a.sliding_window else None),
+            dense_cutoff=a.dense_cutoff)
+
+    ssm = cfg.ssm
+    if ssm is not None:
+        ssm = dataclasses.replace(ssm, d_state=16, headdim=16, chunk=16)
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(moe, n_experts=8,
+                                  experts_per_token=min(
+                                      moe.experts_per_token, 2),
+                                  d_ff_expert=d_model * 2)
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-reduced", n_layers=n_layers, d_model=d_model,
+        d_ff=d_model * 2 if cfg.d_ff else 0, vocab_size=vocab,
+        attn=shrink_attn(cfg.attn), ssm=ssm, moe=moe,
+        shared_attn=shrink_attn(cfg.shared_attn),
+        shared_attn_d_ff=d_model * 2 if cfg.shared_attn_d_ff else 0,
+        frontend_feature_dim=32 if cfg.frontend != "none" else 0,
+        vocab_pad_multiple=16)

@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+``sm_90a`` (all started together), linked into one shared library with a
+plain C interface, and loaded with ``ctypes``.  The library lands in
+``build/repro_torch/`` at the root of the checkout, named by a hash of the
+sources and flags, so an edited source is rebuilt on its next use and an
+unchanged one is loaded as it is.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+P, I = ctypes.c_void_p, ctypes.c_int
+# C entry points: name -> argtypes (pointers and the stream as void*,
+# sizes and dtype codes as int).  Each returns cudaGetLastError().
+SIGNATURES: Dict[str, Tuple] = {
+    "repro_conv1d_fwd": (P, P, P, P, P, I, I, I, I, I, P),
+    "repro_ssd_fwd": (P, P, P, P, P, P, P, P, P,
+                      I, I, I, I, I, I, I, I, P),
+    "repro_mamba2_decode_fwd": (P, P, P, P, P, P, P, P, P, P, P, P,
+                                I, I, I, I, I, I, I, P),
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return path
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out: Path) -> str:
+    """Compile every source in parallel, then link ``out``.  Returns the
+    compilers' output (register and shared-memory use per kernel)."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *ARCH, *FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        failed = []
+        for src, _, proc in procs:
+            text, _ = proc.communicate()
+            log.append(f"== {src.name}\n{text}")
+            if proc.returncode:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError("nvcc failed for " + ", ".join(failed)
+                               + "\n" + "\n".join(log))
+        tmp_so = Path(tmp) / out.name
+        link = [nvcc, *ARCH, "-shared", "-o", str(tmp_so),
+                *[str(obj) for _, obj, _ in procs]]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError("nvcc link failed\n" + res.stdout + res.stderr)
+        os.replace(tmp_so, out)
+    return "\n".join(log)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
+    if not so.exists():
+        (BUILD_DIR / "ptxas.log").write_text(_compile(so))
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def dtype_code(dtype) -> int:
+    """The kernels' element-type code: 0 = float32, 1 = bfloat16."""
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    return codes[dtype]
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

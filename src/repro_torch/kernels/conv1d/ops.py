@@ -1,0 +1,71 @@
+"""Causal depthwise conv1d: the device picks the path.
+
+A CPU tensor runs the plain version (:mod:`.ref`); a CUDA tensor launches
+the hand-written kernel (``csrc/conv1d.cu``) or raises.  The new conv
+state is a slice of the inputs, taken here as the reference takes it
+outside its kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.conv1d import ref as _ref
+
+MAX_K = 4   # the kernel's register window is instantiated for K = 2 .. 4
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                  initial_state: Optional[torch.Tensor] = None,
+                  activation: str = "silu"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B,S,C]; w: [C,K]; b: [C]; initial_state: [B,K-1,C].
+    Returns (y [B,S,C] in x's dtype, new state [B,K-1,C])."""
+    if x.device.type == "cpu":
+        return _ref.causal_conv1d_ref(x, w, b, initial_state, activation)
+    return causal_conv1d_cuda(x, w, b, initial_state=initial_state,
+                              activation=activation)
+
+
+def causal_conv1d_cuda(x, w, b, *, initial_state=None, activation="silu"):
+    if x.device.type != "cuda":
+        raise ValueError(f"causal_conv1d kernel needs a CUDA tensor, got "
+                         f"{x.device}")
+    if activation != "silu":
+        raise ValueError(f"kernel implements silu only, got {activation!r}")
+    bsz, s, c = x.shape
+    k = w.shape[-1]
+    if w.shape != (c, k) or b.shape != (c,) or not 2 <= k <= MAX_K:
+        raise ValueError(f"bad conv shapes x{tuple(x.shape)} w{tuple(w.shape)}"
+                         f" b{tuple(b.shape)} (K must be 2..{MAX_K})")
+    if initial_state is None:
+        initial_state = x.new_zeros((bsz, k - 1, c))
+    if initial_state.shape != (bsz, k - 1, c):
+        raise ValueError(f"initial_state {tuple(initial_state.shape)} != "
+                         f"{(bsz, k - 1, c)}")
+    for t in (w, b, initial_state):
+        if t.device != x.device:
+            raise ValueError("all conv1d inputs must be on one device")
+    code = build.dtype_code(x.dtype)
+    x = x.contiguous()
+    # the plain version reads w, b in fp32 and the state in x's dtype
+    w32, b32 = w.float().contiguous(), b.float().contiguous()
+    init = initial_state.to(x.dtype).contiguous()
+    y = torch.empty_like(x)
+    lib = build.library()
+    rc = lib.repro_conv1d_fwd(x.data_ptr(), w32.data_ptr(), b32.data_ptr(),
+                              init.data_ptr(), y.data_ptr(), bsz, s, c, k,
+                              code, build.stream_ptr(x.device))
+    build.check(rc, "repro_conv1d_fwd")
+    causal_conv1d.launches += 1
+    # the last K-1 inputs; only the rows needed are copied
+    if s >= k - 1:
+        new_state = x[:, s - (k - 1):, :].clone()
+    else:
+        new_state = torch.cat([init[:, s:, :], x], dim=1)
+    return y, new_state
+
+
+causal_conv1d.launches = 0

@@ -1,0 +1,36 @@
+"""Plain PyTorch fused Mamba-2 decode step.
+
+Composes the conv shift step and the SSD state update op for op, cast for
+cast, as the reference's ``mamba2_decode_fused_ref`` does.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.conv1d.ref import conv1d_decode_ref
+from repro_torch.kernels.ssd.ref import softplus, ssd_decode_ref
+
+
+def mamba2_decode_fused_ref(conv_state, ssm_state, xbc_t, conv_w, conv_b,
+                            dt_raw, dt_bias, A_log, D, *, n_groups: int,
+                            d_state: int, headdim: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """conv_state: [B,K-1,C]; ssm_state: [B,H,P,N]; xbc_t: [B,C] (pre-conv
+    packed x|B|C); dt_raw: [B,H].  Returns (y [B,H,P], conv_state',
+    ssm_state' [B,H,P,N] fp32)."""
+    xbc, new_conv = conv1d_decode_ref(conv_state, xbc_t, conv_w, conv_b)
+    gn = n_groups * d_state
+    di = xbc.shape[-1] - 2 * gn
+    b = xbc.shape[0]
+    xs = xbc[..., :di]
+    bm = xbc[..., di:di + gn].reshape(b, n_groups, d_state)
+    cm = xbc[..., di + gn:].reshape(b, n_groups, d_state)
+    dt = softplus(dt_raw.float() + dt_bias.float())
+    A = -torch.exp(A_log.float())
+    y, new_ssm = ssd_decode_ref(ssm_state.float(),
+                                xs.reshape(b, di // headdim, headdim),
+                                dt, A, bm, cm, D)
+    return y, new_conv, new_ssm

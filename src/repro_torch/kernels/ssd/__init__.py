@@ -1,0 +1,1 @@
+"""ssd: plain version (ref) and device-dispatching wrapper (ops)."""

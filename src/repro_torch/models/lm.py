@@ -1,0 +1,234 @@
+"""Language model: embedding -> layer segments -> head.
+
+The port of the reference's ``repro.models.lm`` for the kinds it serves.
+Params and caches keep the reference's layouts: params are the same nested
+dict, with ``segments`` a list of per-unit tuples whose leaves are stacked
+``[n_rep, ...]``; a cache is ``{"segments": [...], "pos": [B] int32}`` with
+mamba2 leaves ``conv: [n_rep,B,K-1,C]`` (bf16) and ``ssm: [n_rep,B,H,P,N]``
+(fp32).  A Python loop over the stacked layers stands in for ``lax.scan``.
+
+Entry points:
+
+* :func:`lm_prefill` — process the prompt, fill the cache.
+* :func:`lm_prefill_chunk` — one state-carrying chunk of a chunked
+  prefill, with per-row valid ``lengths``.
+* :func:`lm_decode_step` — one token for all rows.
+* :func:`decode_tokens` — ``n`` greedy steps with the token selected on
+  the device; the caller reads the whole burst with one host transfer.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.models import blocks
+from repro_torch.models.mamba2 import PROJ_KEYS
+from repro_torch.models.norms import rms_norm
+from repro_torch.models.params import (ParamDef, init_params, stack_defs,
+                                       tree_map)
+
+NEG_INF = -1e30
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# --------------------------------------------------------------------------
+# parameter / cache construction
+# --------------------------------------------------------------------------
+
+def model_param_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            "frontends are not ported yet; ROADMAP.md: the encoder and "
+            "frontends item")
+    D, V = cfg.d_model, cfg.padded_vocab
+    defs: Dict[str, Any] = {
+        "embed": ParamDef((V, D), ("vocab", "embed"), fan_in=1, scale=0.02),
+        "final_norm": ParamDef((D,), ("embed",), init="zeros"),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((D, V), ("embed", "vocab"), fan_in=D)
+    defs["segments"] = [
+        stack_defs(tuple(blocks.layer_param_defs(cfg, kind) for kind in unit),
+                   n_rep)
+        for unit, n_rep in cfg.segments()]
+    return defs
+
+
+def init_lm_params(cfg: ModelConfig,
+                   generator: Optional[torch.Generator] = None, *,
+                   dtype: Optional[torch.dtype] = None,
+                   device: Optional[Union[str, torch.device]] = None):
+    """Random params drawn from the reference's distributions.  ``device``
+    None means the card; ``generator`` None means a generator on that
+    device seeded with 0."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return init_params(model_param_defs(cfg), generator,
+                       dtype or _dtype(cfg.param_dtype), dev)
+
+
+def prepare_params(cfg: ModelConfig, params):
+    """Cast the matmul weights (embedding, head, the mamba projections) to
+    the compute dtype once.  The reference casts them on every use
+    (``.astype(dt_)``); casting once gives the same bits and saves reading
+    the fp32 weights on every decode step.  Norm scales, conv and SSM
+    parameters stay as they are: their consumers read them in fp32."""
+    cd = _dtype(cfg.compute_dtype)
+    out = dict(params)
+    out["embed"] = params["embed"].to(cd)
+    if "lm_head" in params:
+        out["lm_head"] = params["lm_head"].to(cd)
+    segs = []
+    for seg in params["segments"]:
+        unit = []
+        for layer in seg:
+            layer = dict(layer)
+            if "mamba" in layer:
+                layer["mamba"] = {k: (v.to(cd) if k in PROJ_KEYS else v)
+                                  for k, v in layer["mamba"].items()}
+            unit.append(layer)
+        segs.append(tuple(unit))
+    out["segments"] = segs
+    return out
+
+
+def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: Optional[Union[str, torch.device]] = None):
+    """Zero cache in the reference's layout.  ``max_seq`` sizes KV caches;
+    the mamba2 states do not depend on it."""
+    del max_seq   # no KV leaves among the ported kinds
+    dev = resolve_device(device)
+    segs = []
+    for unit, n_rep in cfg.segments():
+        unit_cache = tuple(
+            blocks.init_layer_cache(cfg, kind, batch, dtype=dtype, device=dev)
+            for kind in unit)
+        segs.append(tree_map(
+            lambda t: t.unsqueeze(0).repeat((n_rep,) + (1,) * t.dim()),
+            unit_cache))
+    return {"segments": segs,
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+# --------------------------------------------------------------------------
+# forward passes
+# --------------------------------------------------------------------------
+
+def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(_dtype(cfg.compute_dtype))
+
+
+def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].to(x.dtype).T
+    else:
+        logits = x @ params["lm_head"].to(x.dtype)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, NEG_INF)
+    return logits
+
+
+def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
+                  pos=None, chunk_mask=None):
+    new_segs = []
+    for si, (unit, n_rep) in enumerate(cfg.segments()):
+        seg_p = params["segments"][si]
+        seg_c = cache["segments"][si] if cache is not None else None
+        new_seg = (tree_map(torch.empty_like, seg_c)
+                   if seg_c is not None else None)
+        for r in range(n_rep):
+            for li, kind in enumerate(unit):
+                p = tree_map(lambda t: t[r], seg_p[li])
+                c = (tree_map(lambda t: t[r], seg_c[li])
+                     if seg_c is not None else None)
+                x, nc = blocks.apply_layer(cfg, kind, p, x, cache=c, pos=pos,
+                                           chunk_mask=chunk_mask)
+                if new_seg is not None:
+                    for key, val in nc.items():
+                        new_seg[li][key][r].copy_(val)
+        new_segs.append(new_seg)
+    return x, new_segs
+
+
+def lm_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache
+               ) -> Tuple[torch.Tensor, Any]:
+    """Process the prompt [B,S], fill the cache.  Returns (last-token
+    logits [B,1,V], cache)."""
+    x = _embed(cfg, params, tokens)
+    b, seq = x.shape[0], x.shape[1]
+    x, new_segs = _run_segments(cfg, params, x, cache=cache)
+    logits = _head(cfg, params, x[:, -1:])
+    return logits, {"segments": new_segs,
+                    "pos": torch.full((b,), seq, dtype=torch.int32,
+                                      device=x.device)}
+
+
+def _check_kv_bucket(kv_bucket: Optional[int]) -> None:
+    if kv_bucket is not None and kv_bucket < 1:
+        raise ValueError(f"kv_bucket must be >= 1, got {kv_bucket}")
+
+
+def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
+                     *, lengths: Optional[torch.Tensor] = None,
+                     kv_bucket: Optional[int] = None):
+    """One state-carrying prefill chunk of ``S`` tokens per row, starting at
+    each row's running offset ``cache["pos"]``.  ``lengths`` ([B] int32,
+    default all-S) counts each row's valid leading tokens; the rest are
+    inert.  ``kv_bucket`` bounds KV caches to the live prefix; with no KV
+    leaves (the ported kinds have none) it changes nothing, as in the
+    reference.  Returns (logits of each row's last valid token [B,1,V],
+    cache with ``pos`` advanced by ``lengths``)."""
+    _check_kv_bucket(kv_bucket)
+    x = _embed(cfg, params, tokens)
+    b, s = x.shape[0], x.shape[1]
+    pos = cache["pos"].to(torch.int32).expand(b)
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    else:
+        lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                  device=x.device).expand(b)
+    chunk_mask = torch.arange(s, device=x.device)[None, :] < lengths[:, None]
+    x, new_segs = _run_segments(cfg, params, x, cache=cache, pos=pos,
+                                chunk_mask=chunk_mask)
+    last = torch.clamp(lengths - 1, 0, s - 1).long()
+    x_last = torch.gather(x, 1, last[:, None, None].expand(b, 1, x.shape[2]))
+    logits = _head(cfg, params, x_last)
+    return logits, {"segments": new_segs, "pos": pos + lengths}
+
+
+def lm_decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache
+                   ) -> Tuple[torch.Tensor, Any]:
+    """One token step. token: [B, 1]; ``cache["pos"]`` is a [B] vector."""
+    pos = cache["pos"]
+    x = _embed(cfg, params, token)
+    x, new_segs = _run_segments(cfg, params, x, cache=cache, pos=pos)
+    return _head(cfg, params, x), {"segments": new_segs, "pos": pos + 1}
+
+
+def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
+                  n: int, *, kv_bucket: Optional[int] = None):
+    """``n`` greedy steps: ``first_token`` ([B,1]) feeds the first step and
+    each next input is the argmax (first maximal index) taken on the
+    device, so the burst needs no host sync.  Returns (tokens [B,n] int32
+    on the device, cache); token ``[:, i]`` is the output after consuming
+    the (i-1)-th emitted token, exactly as ``n`` sequential
+    :func:`lm_decode_step` calls."""
+    _check_kv_bucket(kv_bucket)
+    tok = first_token.to(torch.int32)
+    out = []
+    for _ in range(n):
+        logits, cache = lm_decode_step(cfg, params, tok, cache)
+        tok = torch.argmax(logits[:, 0, :cfg.vocab_size], dim=-1
+                           ).to(torch.int32)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1), cache

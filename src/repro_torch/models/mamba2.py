@@ -1,0 +1,164 @@
+"""Mamba-2 (SSD) block — in/out projections + conv1d + chunked SSD core.
+
+The large projections (``wz``, ``wxBC``, ``wdt``, ``out_proj``) are plain
+matmuls, as in the reference, where they sit outside every Pallas kernel.
+They take the weights in the compute dtype: the reference casts them per
+use (``p["wz"].astype(dt_)``), and :func:`repro_torch.models.lm.prepare_params`
+casts them once at load instead, which gives the same bits and saves
+re-reading the fp32 weights on every decode step.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.config import SSMConfig
+from repro_torch.kernels.conv1d.ops import causal_conv1d
+from repro_torch.kernels.decode_fused.ops import mamba2_decode_fused
+from repro_torch.kernels.ssd.ops import ssd_chunked_raw
+from repro_torch.models.norms import gated_rms_norm
+from repro_torch.models.params import ParamDef
+
+# dt_raw of masked and padded tokens: softplus(-30) ~ 1e-13, so they update
+# no SSM state
+INERT_DT = -30.0
+
+
+def mamba2_param_defs(d_model: int, s: SSMConfig) -> Dict[str, ParamDef]:
+    di = s.d_inner(d_model)
+    nh = s.n_ssm_heads(d_model)
+    gn = s.n_groups * s.d_state
+    conv_dim = di + 2 * gn
+    return {
+        "wz": ParamDef((d_model, di), ("embed", "conv_dim"), fan_in=d_model),
+        "wxBC": ParamDef((d_model, conv_dim), ("embed", "conv_dim"),
+                         fan_in=d_model),
+        "wdt": ParamDef((d_model, nh), ("embed", "ssm_heads"), fan_in=d_model),
+        "conv_w": ParamDef((conv_dim, s.conv_kernel), ("conv_dim", None),
+                           fan_in=s.conv_kernel),
+        "conv_b": ParamDef((conv_dim,), ("conv_dim",), init="zeros"),
+        "A_log": ParamDef((nh,), ("ssm_heads",), init="a_log"),
+        "D": ParamDef((nh,), ("ssm_heads",), init="ones"),
+        "dt_bias": ParamDef((nh,), ("ssm_heads",), init="dt_bias"),
+        "norm_scale": ParamDef((di,), ("conv_dim",), init="zeros"),
+        "out_proj": ParamDef((di, d_model), ("conv_dim", "embed"),
+                             init="normal_out", fan_in=di),
+    }
+
+
+# the matmul weights the compute dtype reads (cast once at load)
+PROJ_KEYS = ("wz", "wxBC", "wdt", "out_proj")
+
+
+def masked_conv_state(init_state: Optional[torch.Tensor], x_in: torch.Tensor,
+                      mask: torch.Tensor, k: int) -> torch.Tensor:
+    """Conv state after a ragged chunk: the trailing ``k-1`` *valid* inputs
+    per row.  Valid tokens are a left-aligned prefix of the chunk (length
+    ``mask.sum(1)``), so the window ends at that length.  x_in: [B, S, C]
+    pre-conv inputs; mask: [B, S] bool."""
+    b, _, c = x_in.shape
+    if k <= 1:
+        return x_in.new_zeros((b, 0, c))
+    if init_state is None:
+        init_state = x_in.new_zeros((b, k - 1, c))
+    src = torch.cat([init_state.to(x_in.dtype), x_in], dim=1)
+    lens = mask.sum(1).long()                                  # [B]
+    rows = lens[:, None] + torch.arange(k - 1, device=x_in.device)[None, :]
+    return torch.gather(src, 1, rows[:, :, None].expand(b, k - 1, c))
+
+
+def _split_xbc(xbc: torch.Tensor, s: SSMConfig, d_model: int):
+    di = s.d_inner(d_model)
+    gn = s.n_groups * s.d_state
+    lead = xbc.shape[:-1]
+    return (xbc[..., :di],
+            xbc[..., di:di + gn].reshape(*lead, s.n_groups, s.d_state),
+            xbc[..., di + gn:].reshape(*lead, s.n_groups, s.d_state))
+
+
+def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
+                 cache: Optional[Dict] = None, eps: float = 1e-5,
+                 mask: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Full-sequence pass. If cache is given (prefill), returns final states.
+
+    ``mask`` ([B, S] bool, chunked prefill) marks valid tokens, a
+    left-aligned prefix per row.  Invalid tokens are inert: their dt is
+    driven to zero and the conv state is rebuilt from the trailing valid
+    inputs."""
+    b, seq, _ = x.shape
+    di = s.d_inner(d_model)
+    nh = s.n_ssm_heads(d_model)
+    dt_ = x.dtype
+    z = x @ p["wz"].to(dt_)
+    xbc = x @ p["wxBC"].to(dt_)
+    dt_raw = x @ p["wdt"].to(dt_)
+    if mask is not None:
+        dt_raw = torch.where(mask[:, :, None], dt_raw,
+                             torch.full((), INERT_DT, dtype=dt_,
+                                        device=x.device))
+    xbc_in = xbc
+    init_conv = cache["conv"] if cache is not None else None
+    xbc, conv_state = causal_conv1d(xbc, p["conv_w"], p["conv_b"],
+                                    initial_state=init_conv)
+    if cache is not None and mask is not None:
+        conv_state = masked_conv_state(init_conv, xbc_in, mask, s.conv_kernel)
+    xs, bm, cm = _split_xbc(xbc, s, d_model)
+    xh = xs.reshape(b, seq, nh, s.headdim)
+
+    # pad the sequence to a chunk multiple with inert tokens
+    pad = (-seq) % s.chunk
+    if pad:
+        xh = torch.nn.functional.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt_raw = torch.nn.functional.pad(dt_raw, (0, 0, 0, pad),
+                                         value=INERT_DT)
+        bm = torch.nn.functional.pad(bm, (0, 0, 0, 0, 0, pad))
+        cm = torch.nn.functional.pad(cm, (0, 0, 0, 0, 0, pad))
+    init_ssm = cache["ssm"] if cache is not None else None
+    y, ssm_state = ssd_chunked_raw(xh, dt_raw, p["dt_bias"], p["A_log"],
+                                   bm.contiguous(), cm.contiguous(), p["D"],
+                                   chunk=s.chunk, initial_state=init_ssm)
+    y = y[:, :seq].reshape(b, seq, di)
+    y = gated_rms_norm(y, z, p["norm_scale"], eps)
+    out = y @ p["out_proj"].to(dt_)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"conv": conv_state.to(cache["conv"].dtype),
+                     "ssm": ssm_state.to(cache["ssm"].dtype)}
+    return out, new_cache
+
+
+def mamba2_decode(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
+                  cache: Dict, eps: float = 1e-5) -> Tuple[torch.Tensor, Dict]:
+    """Single-token step. x: [B, 1, D]; cache: {"conv": [B,K-1,C],
+    "ssm": [B,H,P,N]}.  Conv shift + state update run as one fused kernel."""
+    b = x.shape[0]
+    di = s.d_inner(d_model)
+    dt_ = x.dtype
+    xt = x[:, 0]
+    z = xt @ p["wz"].to(dt_)
+    xbc = xt @ p["wxBC"].to(dt_)
+    dt_raw = xt @ p["wdt"].to(dt_)
+    y, conv_state, ssm_state = mamba2_decode_fused(
+        cache["conv"], cache["ssm"], xbc, p["conv_w"], p["conv_b"],
+        dt_raw, p["dt_bias"], p["A_log"], p["D"],
+        n_groups=s.n_groups, d_state=s.d_state, headdim=s.headdim)
+    y = y.reshape(b, di)
+    y = gated_rms_norm(y, z, p["norm_scale"], eps)
+    out = (y @ p["out_proj"].to(dt_))[:, None, :]
+    return out, {"conv": conv_state.to(cache["conv"].dtype),
+                 "ssm": ssm_state.to(cache["ssm"].dtype)}
+
+
+def init_mamba2_cache(d_model: int, s: SSMConfig, batch: int,
+                      dtype: torch.dtype, device: torch.device) -> Dict:
+    di = s.d_inner(d_model)
+    nh = s.n_ssm_heads(d_model)
+    conv_dim = di + 2 * s.n_groups * s.d_state
+    return {
+        "conv": torch.zeros((batch, s.conv_kernel - 1, conv_dim), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, nh, s.headdim, s.d_state),
+                           dtype=torch.float32, device=device),
+    }

@@ -16,6 +16,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavyweight kernel-parity sweep — skipped in tier-1 unless "
         "REPRO_RUN_SLOW=1 (scripts/verify.sh sets it)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a CUDA kernel of the PyTorch port on an NVIDIA card; "
+        "skips where torch.cuda.is_available() is false")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,122 @@
+"""Package rules of the PyTorch port.
+
+* Nothing under ``src/repro_torch/`` nor ``chip_smoke.py`` imports ``jax``
+  or the reference package ``repro``, and the port reads no ``REPRO_*``
+  environment variable.
+* Entry points default to the card and raise where there is none.
+* A kernel op on a CPU tensor runs its plain version; on any other tensor
+  it goes to the kernel and never to the plain version.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), \
+                f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_no_repro_environment_variables():
+    for path in PORT.rglob("*"):
+        if path.is_file() and path.suffix in (".py", ".cu", ".cuh"):
+            assert "REPRO_" not in path.read_text(), path
+
+
+def test_entry_points_need_cuda_by_default(monkeypatch):
+    from repro_torch.configs import mamba2_2p7b, reduced
+    from repro_torch.models.lm import init_lm_cache, init_lm_params
+    from repro_torch.serving.engine import ServingEngine, greedy_generate
+    cfg = reduced(mamba2_2p7b)
+    params = init_lm_params(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_lm_cache(cfg, 1, 16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_lm_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(cfg, params, slots=1, max_seq=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        greedy_generate(cfg, params, {"tokens": torch.zeros(1, 4, dtype=int)},
+                        max_seq=16, gen_len=2)
+
+
+def _op_inputs(device):
+    b, s, h, p, g, n, k = 1, 16, 2, 16, 1, 16, 4
+    c = h * p + 2 * g * n
+    z = lambda *shape: torch.zeros(shape, device=device)  # noqa: E731
+    return {
+        "conv1d": ((z(b, s, c), z(c, k), z(c)), {"initial_state": z(b, 3, c)}),
+        "ssd": ((z(b, s, h, p), z(b, s, h), z(h), z(b, s, g, n),
+                 z(b, s, g, n), z(h)), {"chunk": 16}),
+        "decode": ((z(b, k - 1, c), z(b, h, p, n), z(b, c), z(c, k), z(c),
+                    z(b, h), z(h), z(h), z(h)),
+                   {"n_groups": g, "d_state": n, "headdim": p}),
+    }
+
+
+def _ops():
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.kernels.decode_fused import ops as dec_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return {
+        "conv1d": (conv_ops.causal_conv1d, conv_ops._ref,
+                   "causal_conv1d_ref"),
+        "ssd": (ssd_ops.ssd_chunked, ssd_ops._ref, "ssd_chunked_ref"),
+        "decode": (dec_ops.mamba2_decode_fused, dec_ops._ref,
+                   "mamba2_decode_fused_ref"),
+    }
+
+
+@pytest.mark.parametrize("name", ["conv1d", "ssd", "decode"])
+def test_device_picks_the_path(name, monkeypatch):
+    op, ref_mod, ref_name = _ops()[name]
+    args, kw = _op_inputs("cpu")[name]
+    before = op.launches
+    plain = getattr(ref_mod, ref_name)(*args, **kw)
+    for got, want in zip(op(*args, **kw), plain):
+        assert torch.equal(got, want)
+    assert op.launches == before          # the CPU path launched nothing
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a device tensor")
+    monkeypatch.setattr(ref_mod, ref_name, refuse)
+    args, kw = _op_inputs("meta")[name]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        op(*args, **kw)
+    assert op.launches == before
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """No card: exit code 1 and no result line (the driver relies on it)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=tmp_path)
+    assert res.returncode == 1
+    assert '"ok"' not in res.stdout
