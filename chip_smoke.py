@@ -2,20 +2,27 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line and is fatal on failure):
+Phases (each prints its lines and is fatal on failure):
   1. the card's name and power limit (``nvidia-smi``); no CUDA -> exit 1;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-  3. each kernel against its plain PyTorch version on the card, at
-     mamba2-2.7b's shapes in bf16 and fp32 with non-zero initial states,
-     with its device time, the plain version's, a library call's where
-     one exists, and its bound;
-  4. full-width, full-depth mamba2-2.7b serving through ``ServingEngine``
-     (4 ragged requests, 32 new tokens each), random weights from a seed;
-     the launch counters are reset just before and read just after;
-  5. the kernel path against the plain path on the card (8 layers, one
-     512-token prompt, teacher-forced decode);
-then a ``kernels`` JSON line, the card line, and the result line last.
-Imports nothing of JAX nor of the reference package.
+  3. each kernel against its plain PyTorch version on the card, in bf16
+     and fp32 with non-zero initial states, with its device time, the
+     plain version's, a library call's where one exists, and its bound:
+     the Mamba-2 kernels at mamba2-2.7b's and zamba2-2.7b's shapes, the
+     attention kernels at zamba2-2.7b's (d=80) and llama3-8b's (d=128,
+     GQA 4:1) shapes and a decode whose valid lengths fall on tile and
+     split edges, each attention query row held to a limit of its own;
+  4. full-width, full-depth serving through ``ServingEngine`` (4 ragged
+     requests, 32 new tokens each), random weights from a seed: first
+     mamba2-2.7b (64 layers), then zamba2-2.7b (54 layers); the launch
+     counters are reset just before each run and read just after;
+  5. the kernel path against the plain path on the card (one 512-token
+     prompt, teacher-forced decode): mamba2-2.7b at 8 layers, zamba2-2.7b
+     at 12 layers (two shared-block positions), and a 4-layer ``dense``
+     model at llama3-8b's width;
+then a ``kernels`` JSON line (zamba2-2.7b's shapes, launches of its
+serving run), the card line, and the result line last.  Imports nothing of
+JAX nor of the reference package.
 """
 from __future__ import annotations
 
@@ -115,28 +122,49 @@ def max_err(got, want) -> float:
                for a, b in zip(got, want))
 
 
-def check_close(name, got, want, tol):
-    """Every output within ``tol`` times max(1, max |reference|)."""
+def whole_ratio(got, want, tol) -> float:
+    """max |got - want| over ``tol`` x max(1, max |want|)."""
+    scale = max(1.0, float(want.float().abs().max()))
+    return float((got.float() - want.float()).abs().max()) / (tol * scale)
+
+
+def row_ratio(got, want, tol) -> float:
+    """The worst row (all but the last dim) of max |got - want| over
+    ``tol`` x that row's max |want|.  An attention row's output shrinks
+    with the keys it attends (about sqrt(e / n) for n random keys), so a
+    scale shared by the whole tensor, set by a one-key row's |o| ~ 4,
+    would pass a fault confined to the rows that attend thousands."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().amax(-1)
+    scale = w.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return float((err / (tol * scale)).max())
+
+
+def check_close(name, got, want, tol, ratio=whole_ratio):
+    """Every output within its limit: ``ratio(output, reference, tol)``
+    at most 1."""
     for i, (a, b) in enumerate(zip(got, want)):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"{name} output {i}: {a.shape}/{a.dtype} "
                                  f"!= {b.shape}/{b.dtype}")
-        scale = max(1.0, float(b.float().abs().max()))
-        err = float((a.float() - b.float()).abs().max())
-        if not err <= tol * scale:
-            raise AssertionError(f"{name} output {i}: max err {err} > "
-                                 f"{tol} x {scale}")
+        r = ratio(a, b, tol)
+        if not r <= 1.0:
+            raise AssertionError(f"{name} output {i}: error {r} x its limit "
+                                 f"({ratio.__name__}, tol {tol})")
 
 
-# stated tolerances, relative to max(1, max |reference|): the reference's
-# own kernel-test tolerances (tests/test_kernels.py, tests/test_decode_fused.py)
+# stated tolerances: the reference's own kernel-test tolerances
+# (tests/test_kernels.py, tests/test_decode_fused.py), relative to
+# max(1, max |reference|); attention's relative to each query row's
+# max |o| (row_ratio)
 TOL = {"conv1d": {torch.float32: 2e-4, torch.bfloat16: 2e-2},
        "ssd": {torch.float32: 1e-3, torch.bfloat16: 2e-2},
-       "decode_fused": {torch.float32: 1e-5, torch.bfloat16: 2e-2}}
+       "decode_fused": {torch.float32: 1e-5, torch.bfloat16: 2e-2},
+       "attention": {torch.float32: 2e-4, torch.bfloat16: 2e-2}}
 
 
 def phase_kernels(cfg, gen):
-    """Compare and time every kernel at the main path's shapes (B=4)."""
+    """Compare and time the Mamba-2 kernels at ``cfg``'s shapes (B=4)."""
     from repro_torch.kernels.conv1d import ops as conv_ops, ref as conv_ref
     from repro_torch.kernels.decode_fused import (ops as dec_ops,
                                                   ref as dec_ref)
@@ -240,12 +268,145 @@ def phase_kernels(cfg, gen):
     return rows
 
 
+def attention_cases():
+    """(label, H, KVH, d, bucket, q_offset, valid_len) at B=4: zamba2-2.7b's
+    shared attention and llama3-8b's GQA; a flash chunk of 256 queries, and
+    decode rows of the serving run's lengths."""
+    offs = [0, 512, 1024, 1792]
+    lens = [301, 701, 1001, 2048]
+    return [("zamba2-2.7b", 32, 32, 80, 2048, offs, lens),
+            ("llama3-8b", 32, 8, 128, 2048, offs, lens)]
+
+
+B_ATTN, SQ_ATTN, MAX_SEQ_ATTN = 4, 256, 4096
+
+
+def attention_inputs(gen, h, kvh, d, bucket, dt):
+    """Flash queries [B, H, Sq, d], K and V as [B, KVH, bucket, d] views
+    of a [B, max_seq, KV, d] cache (as the model passes them), and a
+    decode query [B, H, d]."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    q = rn(B_ATTN, SQ_ATTN, h, d).transpose(1, 2)
+    k, v = (rn(B_ATTN, MAX_SEQ_ATTN, kvh, d)[:, :bucket].transpose(1, 2)
+            for _ in range(2))
+    return q, k, v, rn(B_ATTN, h, d)
+
+
+def phase_attention(gen):
+    """Compare and time the flash and decode attention kernels, each query
+    row held to its own limit (``row_ratio``).  The bound counts the live
+    KV prefix and the unmasked products.  The library yardstick is
+    ``F.scaled_dot_product_attention`` with an explicit mask; the port
+    never calls it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attn_decode import ops as dec_ops
+    from repro_torch.kernels.attn_decode import ref as dec_ref
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+
+    B, SQ = B_ATTN, SQ_ATTN
+    dev = "cuda"
+    rows = []
+
+    def library(q, k, v, mask, gqa):
+        kw = {"enable_gqa": True} if gqa else {}
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask, **kw)
+
+    for label, h, kvh, d, bucket, offs, lens in attention_cases():
+        for dt in (torch.bfloat16, torch.float32):
+            tol = TOL["attention"][dt]
+            q, k, v, qd = attention_inputs(gen, h, kvh, d, bucket, dt)
+            off = torch.tensor(offs, dtype=torch.int32, device=dev)
+            got = flash_ops.flash_attention(q, k, v, q_offset=off)
+            want = flash_ref.attention_ref(q, k, v, q_offset=off)
+            check_close(f"flash {label} {dt}", [got], [want], tol,
+                        ratio=row_ratio)
+            vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            dgot = dec_ops.decode_attention(qd, k, v, valid_len=vl)
+            dwant = dec_ref.decode_attention_ref(qd, k, v, valid_len=vl)
+            check_close(f"decode attention {label} {dt}", [dgot], [dwant],
+                        tol, ratio=row_ratio)
+            if dt != torch.bfloat16:
+                continue
+            # flash: live prefix min(off + Sq, bucket) rows per batch row;
+            # each query sees min(off + i + 1, bucket) keys, 4d ops each
+            live = sum(min(o + SQ, bucket) for o in offs)
+            seen = sum(min(o + i + 1, bucket) for o in offs
+                       for i in range(SQ))
+            esz = q.element_size()
+            fb = (2 * B * SQ * h * d * esz + 2 * live * kvh * d * esz)
+            bms, by = bound(fb, 4.0 * d * h * seen, dt)
+            qpos = off.long()[:, None] + torch.arange(SQ, device=dev)
+            mask = (torch.arange(bucket, device=dev)[None, None, :]
+                    <= qpos[:, :, None])[:, None]
+            rows.append(dict(
+                name="flash_attention", route="cuda", at=label,
+                source="src/repro_torch/kernels/csrc/flash.cu",
+                replaces="src/repro/kernels/flash/kernel.py:124",
+                max_abs_err=max_err([got], [want]),
+                worst_row_of_limit=row_ratio(got, want, tol),
+                ms=device_ms(lambda: flash_ops.flash_attention(
+                    q, k, v, q_offset=off)),
+                plain_ms=device_ms(lambda: flash_ref.attention_ref(
+                    q, k, v, q_offset=off)),
+                bound_ms=bms, bound_by=by,
+                library_ms=device_ms(library(q, k, v, mask, h != kvh))))
+            db = (2 * B * h * d * esz + 2 * sum(lens) * kvh * d * esz)
+            bms, by = bound(db, 4.0 * d * h * sum(lens), dt)
+            dmask = (torch.arange(bucket, device=dev)[None, :]
+                     < vl[:, None])[:, None, None, :]
+            q4 = qd[:, :, None]
+            rows.append(dict(
+                name="decode_attention", route="cuda", at=label,
+                source="src/repro_torch/kernels/csrc/attn_decode.cu",
+                replaces="src/repro/kernels/attn_decode/kernel.py:82",
+                max_abs_err=max_err([dgot], [dwant]),
+                worst_row_of_limit=row_ratio(dgot, dwant, tol),
+                ms=device_ms(lambda: dec_ops.decode_attention(
+                    qd, k, v, valid_len=vl)),
+                plain_ms=device_ms(lambda: dec_ref.decode_attention_ref(
+                    qd, k, v, valid_len=vl)),
+                bound_ms=bms, bound_by=by,
+                library_ms=device_ms(library(q4, k, v, dmask, h != kvh))))
+    # valid lengths on the 32-key tile edge and on the split edge, through
+    # every split count the rule can pick here and a forced one
+    h, kvh, d, bucket = 32, 32, 80, 2048
+    _, split_len = dec_ops.split_layout(B, kvh, bucket)
+    vl = torch.tensor([1, 32, split_len, split_len + 1], dtype=torch.int32,
+                      device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        _, k, v, qd = attention_inputs(gen, h, kvh, d, bucket, dt)
+        want = dec_ref.decode_attention_ref(qd, k, v, valid_len=vl)
+        for sk in (None, 1, 5):
+            got = dec_ops.decode_attention(qd, k, v, valid_len=vl,
+                                           split_k=sk)
+            check_close(f"decode attention edges {vl.tolist()} split {sk} "
+                        f"{dt}", [got], [want], TOL["attention"][dt],
+                        ratio=row_ratio)
+    return rows
+
+
 def counters():
+    from repro_torch.kernels.attn_decode.ops import decode_attention
     from repro_torch.kernels.conv1d.ops import causal_conv1d
     from repro_torch.kernels.decode_fused.ops import mamba2_decode_fused
+    from repro_torch.kernels.flash.ops import flash_attention
     from repro_torch.kernels.ssd.ops import ssd_chunked
     return {"causal_conv1d": causal_conv1d, "ssd_chunked": ssd_chunked,
-            "mamba2_decode_fused": mamba2_decode_fused}
+            "mamba2_decode_fused": mamba2_decode_fused,
+            "flash_attention": flash_attention,
+            "decode_attention": decode_attention}
+
+
+def path_kernels(cfg):
+    """The kernels a serving run of ``cfg`` must launch."""
+    names = ["causal_conv1d", "ssd_chunked", "mamba2_decode_fused"]
+    if cfg.attn is not None or cfg.shared_attn is not None:
+        names += ["flash_attention", "decode_attention"]
+    return names
 
 
 def phase_serving(cfg, gen):
@@ -300,27 +461,37 @@ def phase_serving(cfg, gen):
                                  f"{len(r.out)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"rid={r.rid}: token outside the vocab")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in path_kernels(cfg):
+        if launches[k] <= 0:
             raise AssertionError(f"{k}: not launched on the serving path")
-    # steady decode with all 4 slots live: bursts of 8 on the served cache
-    from repro_torch.models.lm import decode_tokens
+    # steady decode with all 4 slots live: bursts of 8 on the served cache,
+    # under the KV bucket the engine would pick
+    from repro_torch.models.lm import decode_tokens, lm_prefill_chunk
+    from repro_torch.serving.bucketing import clamped_bucket
     first = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    pos = [int(p) for p in eng.cache["pos"].tolist()]
+
+    def burst():
+        nonlocal pos
+        bucket = clamped_bucket(max(pos) + 8, eng.kv_extent)
+        toks, eng.cache = decode_tokens(cfg, eng.params, eng.cache, first, 8,
+                                        kv_bucket=bucket)
+        toks.cpu()
+        pos = [p + 8 for p in pos]
+
     bursts = []
     for _ in range(4):
         ts = time.monotonic()
-        toks, _ = decode_tokens(cfg, eng.params, eng.cache, first, 8)
-        toks.cpu()
+        burst()
         bursts.append(time.monotonic() - ts)
     burst_s = statistics.median(bursts[1:])
-    busy = device_busy(lambda: decode_tokens(cfg, eng.params, eng.cache,
-                                             first, 8)[0].cpu())
+    busy = device_busy(burst)
     # one prefill chunk of 4 x 256 tokens, as the engine runs it
-    from repro_torch.models.lm import lm_prefill_chunk
     chunk = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
                           device="cuda")
     chunk_busy = device_busy(lambda: lm_prefill_chunk(
-        cfg, eng.params, chunk, eng.cache)[0].cpu())
+        cfg, eng.params, chunk, eng.cache,
+        kv_bucket=clamped_bucket(max(pos) + 256, eng.kv_extent))[0].cpu())
     ttft = {r.rid: (r.first_t - r.submit_t) * 1e3 for r in reqs}
     return dict(ttft_ms=ttft, wall_s=wall,
                 serve_decode_only_tokens_per_s=(
@@ -335,18 +506,21 @@ def phase_serving(cfg, gen):
         launches
 
 
-def phase_paths(cfg, gen):
-    """Kernel path against plain path on the card: 8 layers, one 512-token
-    prompt, then 8 teacher-forced decode steps."""
+def phase_paths(cfg, gen, n_layers: int):
+    """Kernel path against plain path on the card: ``n_layers`` layers, one
+    512-token prompt, then 8 teacher-forced decode steps."""
+    from repro_torch.kernels.attn_decode import ref as attn_dec_ref
     from repro_torch.kernels.conv1d import ref as conv_ref
     from repro_torch.kernels.decode_fused import ref as dec_ref
+    from repro_torch.kernels.flash import ref as flash_ref
     from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.models import attention as attn
     from repro_torch.models import mamba2 as m2
     from repro_torch.models.lm import (init_lm_cache, init_lm_params,
                                        lm_decode_step, prepare_params)
     from repro_torch.serving.prefill import chunked_prefill
 
-    cfg8 = dataclasses.replace(cfg, n_layers=8)
+    cfg8 = dataclasses.replace(cfg, n_layers=n_layers)
     params = prepare_params(cfg8, init_lm_params(cfg8, gen, device="cuda"))
     prompt = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
                            device="cuda")
@@ -375,16 +549,24 @@ def phase_paths(cfg, gen):
     def plain_conv(x, w, b, *, initial_state=None, activation="silu"):
         return conv_ref.causal_conv1d_ref(x, w, b, initial_state, activation)
 
+    def plain_flash(q, k, v, *, causal=True, window=None, q_offset=None):
+        return flash_ref.attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=0 if q_offset is None
+                                       else q_offset)
+
     with mock.patch.object(m2, "causal_conv1d", plain_conv), \
             mock.patch.object(m2, "ssd_chunked_raw", plain_ssd), \
             mock.patch.object(m2, "mamba2_decode_fused",
-                              dec_ref.mamba2_decode_fused_ref):
+                              dec_ref.mamba2_decode_fused_ref), \
+            mock.patch.object(attn, "flash_attention", plain_flash), \
+            mock.patch.object(attn, "decode_attention",
+                              attn_dec_ref.decode_attention_ref):
         plain, _ = run(toks)
     if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
         raise AssertionError("non-finite logits")
     err = float((kern - plain).abs().max())
-    # bf16 activations through 8 layers: each bf16 rounding is worth 2^-8
-    # of its value, and the two paths round at different points
+    # bf16 activations through the layers: each bf16 rounding is worth
+    # 2^-8 of its value, and the two paths round at different points
     tol = 0.05 * float(plain.abs().max())
     if err > tol:
         raise AssertionError(f"logits differ by {err} > {tol}")
@@ -406,7 +588,7 @@ def main() -> int:
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
-    from repro_torch.configs import mamba2_2p7b as cfg
+    from repro_torch.configs import llama3_8b, mamba2_2p7b, zamba2_2p7b
     from repro_torch.kernels import build
 
     card = card_line()
@@ -422,17 +604,31 @@ def main() -> int:
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = phase_kernels(cfg, gen)
+    rows = []
+    for cfg in (mamba2_2p7b, zamba2_2p7b):
+        for r in phase_kernels(cfg, gen):
+            rows.append(dict(r, at=cfg.name))
+    rows += phase_attention(gen)
     for r in rows:
-        print("phase 3 kernel: " + json.dumps(r), flush=True)
+        print(f"phase 3 kernel at {r['at']}: " + json.dumps(r), flush=True)
+    # the kernels line: zamba2-2.7b's shapes, the path that runs all five
+    rows = [r for r in rows if r["at"] == zamba2_2p7b.name]
 
-    serving, launches = phase_serving(cfg, gen)
-    print("phase 4 serving mamba2-2.7b (64 layers, slots 4, prompts "
-          "300/700/1000/2048, 32 new): " + json.dumps(serving), flush=True)
+    launches = {}
+    for cfg in (mamba2_2p7b, zamba2_2p7b):
+        t0 = time.perf_counter()
+        serving, launches = phase_serving(cfg, gen)
+        torch.cuda.empty_cache()
+        print(f"phase 4 serving {cfg.name} ({cfg.n_layers} layers, slots 4, "
+              f"prompts 300/700/1000/2048, 32 new; "
+              f"{time.perf_counter() - t0:.1f} s): " + json.dumps(serving)
+              + " launches " + json.dumps(launches), flush=True)
 
-    paths = phase_paths(cfg, gen)
-    print("phase 5 kernel path vs plain path: " + json.dumps(paths),
-          flush=True)
+    for cfg, n in ((mamba2_2p7b, 8), (zamba2_2p7b, 12), (llama3_8b, 4)):
+        paths = phase_paths(cfg, gen, n)
+        torch.cuda.empty_cache()
+        print(f"phase 5 kernel path vs plain path, {cfg.name} at {n} "
+              "layers: " + json.dumps(paths), flush=True)
 
     for r in rows:
         r["launches"] = launches[r["name"]]

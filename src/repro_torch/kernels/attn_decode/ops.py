@@ -1,0 +1,101 @@
+"""Decode attention: the device picks the path.
+
+A CPU tensor runs the plain ``decode_attention_ref``; a CUDA tensor
+launches the hand-written split-K kernel (``csrc/attn_decode.cu``) or
+raises.  k and v are read through their strides (unit stride along
+``d``), so a caller may pass ``cache.transpose(1, 2)`` of a bucket slice
+of a ``[B, S, KV, d]`` cache and no copy is made.
+
+The split count is chosen here for the H100 (132 SMs):
+``split_k = min(16, ceil(S / 256), ceil(264 / (B * KVH)))``, at least 1 —
+enough blocks for two waves over the SMs, and at least 256 keys per split
+so each split's partials stay small beside the keys it reads.  Each split
+covers ``ceil(S / split_k)`` keys rounded up to the kernel's 32-key tile.
+The result is the same for every split count up to rounding.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.attn_decode import ref as _ref
+from repro_torch.kernels.flash.ops import check_strided, row_vector
+
+# head_dim values the kernel is instantiated for: zamba2-2.7b's (80),
+# llama3-8b's (128) and the reduced test sizes
+HEAD_DIMS = (16, 32, 64, 80, 128)
+MAX_GROUP = 8           # query heads per KV head
+SMS = 132               # H100 SXM
+TILE = 32               # keys per warp tile
+
+
+def split_layout(batch: int, kv_heads: int, seq: int,
+                 split_k: Optional[int] = None) -> Tuple[int, int]:
+    """(splits, keys per split): ``split_k`` splits, or the H100 rule's
+    when None (module docstring), each a whole number of 32-key tiles."""
+    if split_k is None:
+        split_k = max(1, min(16, -(-seq // 256),
+                             -(-2 * SMS // (batch * kv_heads))))
+    if split_k < 1:
+        raise ValueError(f"split_k must be >= 1, got {split_k}")
+    per = -(-seq // split_k)
+    split_len = -(-per // TILE) * TILE
+    return -(-seq // split_len), split_len
+
+
+def decode_attention(q, k, v, *, valid_len,
+                     split_k: Optional[int] = None) -> torch.Tensor:
+    """q: [B, H, d]; k, v: [B, KVH, S, d]; valid_len: a scalar or [B].
+    ``split_k`` None takes the H100 rule (:func:`split_layout`)."""
+    if q.device.type == "cpu":
+        return _ref.decode_attention_ref(q, k, v, valid_len=valid_len)
+    return decode_attention_cuda(q, k, v, valid_len=valid_len,
+                                 split_k=split_k)
+
+
+def decode_attention_cuda(q, k, v, *, valid_len,
+                          split_k: Optional[int] = None):
+    if q.device.type != "cuda":
+        raise ValueError(f"decode attention kernel needs a CUDA tensor, got "
+                         f"{q.device}")
+    b, h, d = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode attention kernel built for head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    if (k.shape != (b, kvh, s, d) or v.shape != k.shape or h % kvh
+            or h // kvh > MAX_GROUP or s == 0):
+        raise ValueError(f"bad decode attention shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    code = build.dtype_code(q.dtype)
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_strided(name, t)
+    valid = row_vector(valid_len, b, q.device, "valid_len")
+    nsplit, split_len = split_layout(b, kvh, s, split_k)
+    g = h // kvh
+    o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    part_acc = part_ml = None
+    if nsplit > 1:
+        part_acc = torch.empty((b, kvh, nsplit, g, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b, kvh, nsplit, g, 2), dtype=torch.float32,
+                              device=q.device)
+    lib = build.library()
+    rc = lib.repro_decode_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        o.data_ptr(), 0 if part_acc is None else part_acc.data_ptr(),
+        0 if part_ml is None else part_ml.data_ptr(), b, h, kvh, s, d,
+        nsplit, split_len, *q.stride()[:2], *k.stride()[:3],
+        *v.stride()[:3], code, build.stream_ptr(q.device))
+    build.check(rc, "repro_decode_attn_fwd")
+    decode_attention.launches += 1
+    return o
+
+
+decode_attention.launches = 0

@@ -26,15 +26,20 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name -> argtypes (pointers and the stream as void*,
-# sizes and dtype codes as int).  Each returns cudaGetLastError().
+# sizes and dtype codes as int, strides as long long).  Each returns
+# cudaGetLastError().
 SIGNATURES: Dict[str, Tuple] = {
     "repro_conv1d_fwd": (P, P, P, P, P, I, I, I, I, I, P),
     "repro_ssd_fwd": (P, P, P, P, P, P, P, P, P,
                       I, I, I, I, I, I, I, I, P),
     "repro_mamba2_decode_fwd": (P, P, P, P, P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, I, P),
+    "repro_flash_fwd": (P, P, P, P, P, I, I, I, I, I, I,
+                        L, L, L, L, L, L, L, L, L, L, L, L, I, I, I, P),
+    "repro_decode_attn_fwd": (P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                              L, L, L, L, L, L, L, L, I, P),
 }
 
 

@@ -26,7 +26,8 @@
 // shared-memory load feeds several multiply-adds instead of one.  The QxQ
 // score matrix is built 32 rows at a time (16 KB) and consumed at once,
 // and blocks above the diagonal are skipped, which keeps the block's shared
-// memory near 215 KB.  Rows of B, C and the state are padded by one float
+// memory near 215 KB at N=128 (mamba2-2.7b) and 136 KB at N=64
+// (zamba2-2.7b).  Rows of B, C and the state are padded by one float
 // so that threads reading down a column hit distinct banks.
 #include "common.cuh"
 
@@ -284,6 +285,9 @@ cudaError_t dispatch(const void* x, const void* dt, const void* A,
   if (Q == 128 && P == 64 && N == 128)
     return launch<T, 128, 64, 128>(x, dt, A, Bm, Cm, D, init, y, fin, B, S,
                                    H, G, st);
+  if (Q == 128 && P == 64 && N == 64)
+    return launch<T, 128, 64, 64>(x, dt, A, Bm, Cm, D, init, y, fin, B, S,
+                                  H, G, st);
   if (Q == 16 && P == 16 && N == 16)
     return launch<T, 16, 16, 16>(x, dt, A, Bm, Cm, D, init, y, fin, B, S, H,
                                  G, st);

@@ -14,9 +14,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ref as _ref
 
-# (chunk, headdim, d_state) the kernel is instantiated for: mamba2-2.7b's
-# and the reduced test config's
-SHAPES = {(128, 64, 128), (16, 16, 16)}
+# (chunk, headdim, d_state) the kernel is instantiated for: mamba2-2.7b's,
+# zamba2-2.7b's and the reduced test config's
+SHAPES = {(128, 64, 128), (128, 64, 64), (16, 16, 16)}
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128,

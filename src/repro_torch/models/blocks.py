@@ -1,7 +1,8 @@
 """Per-layer block composition: param defs, cache init, and application.
 
-The port serves the ``mamba2`` kind so far; every other kind raises and
-names the ROADMAP item that ports it.
+The port serves the ``mamba2``, ``mamba2+shared`` (Zamba2: a Mamba-2
+layer followed by the one shared attention+MLP block) and ``dense`` kinds;
+every other kind raises and names the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -11,16 +12,17 @@ import torch
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import mamba2 as m2
+from repro_torch.models.attention import (attention, attn_param_defs,
+                                          init_attn_cache)
+from repro_torch.models.mlp import mlp, mlp_param_defs
 from repro_torch.models.norms import rms_norm
 from repro_torch.models.params import ParamDef
 
 _NOT_PORTED = {
-    "dense": "the hybrid/dense slice (attention, rope, mlp)",
-    "local": "the sliding-window ring slice",
+    "hybrid_par": "the hybrid_par (Falcon-H1) item",
+    "local": "the ring mode and local windows item",
     "moe": "the MoE item",
     "dense_moe": "the MoE item",
-    "mamba2+shared": "the hybrid/dense slice (attention, rope, mlp)",
-    "hybrid_par": "the hybrid/dense slice (attention, rope, mlp)",
     "mamba1": "the Mamba-1 slice",
     "encoder": "the encoder and frontends item",
 }
@@ -35,39 +37,102 @@ def _unported(kind: str) -> NotImplementedError:
 
 
 def layer_param_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
-    if kind != "mamba2":
-        raise _unported(kind)
+    D = cfg.d_model
+    if kind == "dense":
+        return {
+            "ln1": ParamDef((D,), ("embed",), init="zeros"),
+            "attn": attn_param_defs(D, cfg.attn),
+            "ln2": ParamDef((D,), ("embed",), init="zeros"),
+            "mlp": mlp_param_defs(D, cfg.d_ff),
+        }
+    if kind in ("mamba2", "mamba2+shared"):
+        return {
+            "ln": ParamDef((D,), ("embed",), init="zeros"),
+            "mamba": m2.mamba2_param_defs(D, cfg.ssm),
+        }
+    raise _unported(kind)
+
+
+def shared_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Zamba2-style shared transformer block (one copy, applied at every
+    'mamba2+shared' position)."""
+    D = cfg.d_model
     return {
-        "ln": ParamDef((cfg.d_model,), ("embed",), init="zeros"),
-        "mamba": m2.mamba2_param_defs(cfg.d_model, cfg.ssm),
+        "ln1": ParamDef((D,), ("embed",), init="zeros"),
+        "attn": attn_param_defs(D, cfg.shared_attn),
+        "ln2": ParamDef((D,), ("embed",), init="zeros"),
+        "mlp": mlp_param_defs(D, cfg.shared_attn_d_ff or cfg.d_ff),
     }
 
 
-def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, *,
-                     dtype: torch.dtype, device: torch.device) -> Dict:
-    if kind != "mamba2":
-        raise _unported(kind)
-    return m2.init_mamba2_cache(cfg.d_model, cfg.ssm, batch, dtype, device)
+def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                     *, dtype: torch.dtype, device: torch.device) -> Dict:
+    if kind == "dense":
+        return init_attn_cache(cfg.attn, batch, max_seq, dtype=dtype,
+                               device=device)
+    if kind in ("mamba2", "mamba2+shared"):
+        c = m2.init_mamba2_cache(cfg.d_model, cfg.ssm, batch, dtype, device)
+        if kind == "mamba2+shared":
+            c["attn"] = init_attn_cache(cfg.shared_attn, batch, max_seq,
+                                        dtype=dtype, device=device)
+        return c
+    raise _unported(kind)
+
+
+def _attn_mlp(cfg: ModelConfig, p: Dict, a, x: torch.Tensor, *, rope, cache,
+              pos, valid_len) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Pre-norm attention then pre-norm MLP, each added to the residual."""
+    eps = cfg.norm_eps
+    h = rms_norm(x, p["ln1"], eps)
+    a_out, new_cache = attention(p["attn"], h, a, rope=rope, cache=cache,
+                                 pos=pos, valid_len=valid_len, eps=eps)
+    x = x + a_out
+    h = rms_norm(x, p["ln2"], eps)
+    return x + mlp(p["mlp"], h, cfg.act), new_cache
 
 
 def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
-                cache: Optional[Dict] = None,
+                rope=None, cache: Optional[Dict] = None,
                 pos: Optional[torch.Tensor] = None,
-                chunk_mask: Optional[torch.Tensor] = None
+                shared: Optional[Dict] = None,
+                chunk_mask: Optional[torch.Tensor] = None,
+                valid_len: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """``chunk_mask`` ([B, S] bool) marks valid tokens during a chunked
     prefill; SSM layers treat invalid tokens as inert.  A one-token call
-    with a cache and ``pos`` is a decode step."""
-    if kind != "mamba2":
+    with a cache and ``pos`` is a decode step.  ``rope`` is the (sin, cos)
+    pair at the call's token positions and ``valid_len`` a decode step's
+    attended rows, both as :func:`repro_torch.models.attention.attention`
+    takes them; ``shared`` the shared block's params.  KV leaves of
+    ``cache`` are written in place (see
+    :mod:`repro_torch.models.attention`)."""
+    if kind == "dense":
+        return _attn_mlp(cfg, p, cfg.attn, x, rope=rope, cache=cache,
+                         pos=pos, valid_len=valid_len)
+    if kind not in ("mamba2", "mamba2+shared"):
         raise _unported(kind)
     eps = cfg.norm_eps
     h = rms_norm(x, p["ln"], eps)
+    mcache = None
+    if cache is not None:
+        mcache = {"conv": cache["conv"], "ssm": cache["ssm"]}
     is_decode = cache is not None and x.shape[1] == 1 and pos is not None
     if is_decode:
         out, new_cache = m2.mamba2_decode(p["mamba"], h, cfg.ssm, cfg.d_model,
-                                          cache=cache, eps=eps)
+                                          cache=mcache, eps=eps)
     else:
         out, new_cache = m2.mamba2_block(p["mamba"], h, cfg.ssm, cfg.d_model,
-                                         cache=cache, eps=eps,
+                                         cache=mcache, eps=eps,
                                          mask=chunk_mask)
-    return x + out, new_cache
+    x = x + out
+    if kind == "mamba2+shared":
+        if shared is None:
+            raise ValueError("mamba2+shared layers need the shared block's "
+                             "params")
+        x, new_attn = _attn_mlp(cfg, shared, cfg.shared_attn, x, rope=rope,
+                                cache=(cache["attn"] if cache is not None
+                                       else None),
+                                pos=pos, valid_len=valid_len)
+        if new_cache is not None:
+            new_cache["attn"] = new_attn
+    return x, new_cache

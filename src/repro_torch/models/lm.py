@@ -1,11 +1,26 @@
 """Language model: embedding -> layer segments -> head.
 
-The port of the reference's ``repro.models.lm`` for the kinds it serves.
-Params and caches keep the reference's layouts: params are the same nested
-dict, with ``segments`` a list of per-unit tuples whose leaves are stacked
-``[n_rep, ...]``; a cache is ``{"segments": [...], "pos": [B] int32}`` with
-mamba2 leaves ``conv: [n_rep,B,K-1,C]`` (bf16) and ``ssm: [n_rep,B,H,P,N]``
-(fp32).  A Python loop over the stacked layers stands in for ``lax.scan``.
+The port of the reference's ``repro.models.lm`` for the kinds it serves
+(``mamba2``, ``mamba2+shared``, ``dense``).  Params and caches keep the
+reference's layouts: params are the same nested dict, with ``segments`` a
+list of per-unit tuples whose leaves are stacked ``[n_rep, ...]`` and, for
+Zamba2-style models, one ``shared`` attention+MLP block; a cache is
+``{"segments": [...], "pos": [B] int32}`` with mamba2 leaves
+``conv: [n_rep,B,K-1,C]`` (bf16) and ``ssm: [n_rep,B,H,P,N]`` (fp32), and
+KV leaves ``k``, ``v: [n_rep,B,max_seq,KV,hd]`` (bf16) — at the top of a
+``dense`` layer's cache, nested under ``attn`` in a ``mamba2+shared``
+layer's.  A Python loop over the stacked layers stands in for
+``lax.scan``.
+
+How a call updates the cache: **KV leaves are written in place**, where
+the reference returns new arrays; every other leaf (the small conv and
+SSM states) is returned as a new tensor and the input's is left as it
+was.  ``kv_bucket`` slices the KV leaves to their first ``kv_bucket``
+rows; the slices are views, so the writes land in the full cache and
+need no write-back, and the returned cache holds the full leaves.  A
+caller that reuses a cache it passed in therefore sees the KV rows the
+call wrote; stale rows are harmless, since every read is bounded by the
+causal mask or by ``valid_len`` (``repro_torch.models.attention``).
 
 Entry points:
 
@@ -25,10 +40,15 @@ import torch
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import blocks
+from repro_torch.models.attention import ATTN_KEYS
 from repro_torch.models.mamba2 import PROJ_KEYS
+from repro_torch.models.mlp import MLP_KEYS
 from repro_torch.models.norms import rms_norm
 from repro_torch.models.params import (ParamDef, init_params, stack_defs,
                                        tree_map)
+from repro_torch.models.rope import rope_at, rope_tables
+
+KV_KEYS = ("k", "v")
 
 NEG_INF = -1e30
 
@@ -57,6 +77,8 @@ def model_param_defs(cfg: ModelConfig) -> Dict[str, Any]:
         stack_defs(tuple(blocks.layer_param_defs(cfg, kind) for kind in unit),
                    n_rep)
         for unit, n_rep in cfg.segments()]
+    if "mamba2+shared" in cfg.layer_kinds:
+        defs["shared"] = blocks.shared_block_defs(cfg)
     return defs
 
 
@@ -74,22 +96,36 @@ def init_lm_params(cfg: ModelConfig,
                        dtype or _dtype(cfg.param_dtype), dev)
 
 
+def _cast_attn_mlp(block, cd):
+    out = dict(block)
+    if "attn" in block:
+        out["attn"] = {k: (v.to(cd) if k in ATTN_KEYS else v)
+                       for k, v in block["attn"].items()}
+    if "mlp" in block:
+        out["mlp"] = {k: (v.to(cd) if k in MLP_KEYS else v)
+                      for k, v in block["mlp"].items()}
+    return out
+
+
 def prepare_params(cfg: ModelConfig, params):
-    """Cast the matmul weights (embedding, head, the mamba projections) to
-    the compute dtype once.  The reference casts them on every use
-    (``.astype(dt_)``); casting once gives the same bits and saves reading
-    the fp32 weights on every decode step.  Norm scales, conv and SSM
-    parameters stay as they are: their consumers read them in fp32."""
+    """Cast the matmul weights (embedding, head, the mamba projections, the
+    attention and MLP weights, the shared block's included) to the compute
+    dtype once.  The reference casts them on every use (``.astype(dt_)``);
+    casting once gives the same bits and saves reading the fp32 weights on
+    every decode step.  Norm scales, conv and SSM parameters stay as they
+    are: their consumers read them in fp32."""
     cd = _dtype(cfg.compute_dtype)
     out = dict(params)
     out["embed"] = params["embed"].to(cd)
     if "lm_head" in params:
         out["lm_head"] = params["lm_head"].to(cd)
+    if "shared" in params:
+        out["shared"] = _cast_attn_mlp(params["shared"], cd)
     segs = []
     for seg in params["segments"]:
         unit = []
         for layer in seg:
-            layer = dict(layer)
+            layer = _cast_attn_mlp(layer, cd)
             if "mamba" in layer:
                 layer["mamba"] = {k: (v.to(cd) if k in PROJ_KEYS else v)
                                   for k, v in layer["mamba"].items()}
@@ -102,14 +138,14 @@ def prepare_params(cfg: ModelConfig, params):
 def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                   dtype: torch.dtype = torch.bfloat16,
                   device: Optional[Union[str, torch.device]] = None):
-    """Zero cache in the reference's layout.  ``max_seq`` sizes KV caches;
-    the mamba2 states do not depend on it."""
-    del max_seq   # no KV leaves among the ported kinds
+    """Zero cache in the reference's layout.  ``max_seq`` sizes the KV
+    leaves; the mamba2 states do not depend on it."""
     dev = resolve_device(device)
     segs = []
     for unit, n_rep in cfg.segments():
         unit_cache = tuple(
-            blocks.init_layer_cache(cfg, kind, batch, dtype=dtype, device=dev)
+            blocks.init_layer_cache(cfg, kind, batch, max_seq, dtype=dtype,
+                                    device=dev)
             for kind in unit)
         segs.append(tree_map(
             lambda t: t.unsqueeze(0).repeat((n_rep,) + (1,) * t.dim()),
@@ -138,26 +174,99 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _rope_for(cfg: ModelConfig, length: int, pos, s: int, device):
+    """The model's (sin, cos) at one call's ``s`` token positions
+    (:func:`repro_torch.models.rope.rope_at`), from tables covering
+    ``length`` positions as the reference's ``_rope_for`` sizes them, or
+    None for a model without attention."""
+    a = cfg.attn or cfg.shared_attn
+    if a is None:
+        return None
+    return rope_at(rope_tables(length, a.head_dim, a.rope_theta, device),
+                   pos, s, _dtype(cfg.compute_dtype))
+
+
+def cache_kv_extent(cache) -> Optional[int]:
+    """Row extent of the largest KV leaf ([n_rep, B, S, KV, hd]), or None
+    without KV leaves.  It sizes the rope tables, as the reference's
+    ``_cache_max_seq`` does; that one also counts the 5-D SSM leaf, which
+    changes only how positions past the KV extent are clipped (rows of
+    retired slots, whose outputs nothing reads)."""
+    best = None
+    for seg in cache["segments"]:
+        for layer in seg:
+            for leaf in _kv_leaves(layer):
+                best = max(best or 0, int(leaf.shape[2]))
+    return best
+
+
+def _kv_leaves(tree):
+    """Every KV leaf of one layer's cache, nested or not."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _kv_leaves(val)
+        elif key in KV_KEYS:
+            yield val
+
+
+def _map_cache(fn_kv, fn_state, tree):
+    """Rebuild one layer's cache dict: ``fn_kv`` on KV leaves, ``fn_state``
+    on the others."""
+    return {k: (_map_cache(fn_kv, fn_state, v) if isinstance(v, dict)
+                else fn_kv(v) if k in KV_KEYS else fn_state(v))
+            for k, v in tree.items()}
+
+
+def _store_state(dst, src, r: int) -> None:
+    """Copy layer ``r``'s new state leaves into the stacked ``dst``; KV
+    leaves were already written in place."""
+    for key, val in src.items():
+        if isinstance(val, dict):
+            _store_state(dst[key], val, r)
+        elif key not in KV_KEYS:
+            dst[key][r].copy_(val)
+
+
 def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
-                  pos=None, chunk_mask=None):
+                  pos=None, chunk_mask=None, rope=None, kv_bucket=None,
+                  valid_len=None):
+    """Every layer in order.  Each layer gets views of its cache: state
+    leaves at its repeat, KV leaves cut to their first ``kv_bucket`` rows
+    (None: all), so its KV writes land in the full cache.  Returns (x, the
+    new segments: new state leaves, the cache's own KV leaves)."""
+    shared = params.get("shared")
     new_segs = []
     for si, (unit, n_rep) in enumerate(cfg.segments()):
         seg_p = params["segments"][si]
         seg_c = cache["segments"][si] if cache is not None else None
-        new_seg = (tree_map(torch.empty_like, seg_c)
-                   if seg_c is not None else None)
+        new_seg = (tuple(_map_cache(lambda t: t, torch.empty_like, c)
+                         for c in seg_c) if seg_c is not None else None)
         for r in range(n_rep):
             for li, kind in enumerate(unit):
                 p = tree_map(lambda t: t[r], seg_p[li])
-                c = (tree_map(lambda t: t[r], seg_c[li])
+                c = (_map_cache(lambda t: t[r, :, :kv_bucket],
+                                lambda t: t[r], seg_c[li])
                      if seg_c is not None else None)
-                x, nc = blocks.apply_layer(cfg, kind, p, x, cache=c, pos=pos,
-                                           chunk_mask=chunk_mask)
+                x, nc = blocks.apply_layer(cfg, kind, p, x, rope=rope,
+                                           cache=c, pos=pos, shared=shared,
+                                           chunk_mask=chunk_mask,
+                                           valid_len=valid_len)
                 if new_seg is not None:
-                    for key, val in nc.items():
-                        new_seg[li][key][r].copy_(val)
+                    _store_state(new_seg[li], nc, r)
         new_segs.append(new_seg)
     return x, new_segs
+
+
+def _check_kv_bucket(kv_bucket: Optional[int]) -> None:
+    if kv_bucket is not None and kv_bucket < 1:
+        raise ValueError(f"kv_bucket must be >= 1, got {kv_bucket}")
+
+
+def _kv_rows(cache, kv_bucket: Optional[int]) -> Optional[int]:
+    """Rows of the KV leaves a call attends: their extent, cut to
+    ``kv_bucket``; None without KV leaves."""
+    ext = cache_kv_extent(cache)
+    return ext if ext is None or kv_bucket is None else min(ext, kv_bucket)
 
 
 def lm_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache
@@ -166,16 +275,13 @@ def lm_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache
     logits [B,1,V], cache)."""
     x = _embed(cfg, params, tokens)
     b, seq = x.shape[0], x.shape[1]
-    x, new_segs = _run_segments(cfg, params, x, cache=cache)
+    rope = _rope_for(cfg, max(seq, cache_kv_extent(cache) or seq), None, seq,
+                     x.device)
+    x, new_segs = _run_segments(cfg, params, x, cache=cache, rope=rope)
     logits = _head(cfg, params, x[:, -1:])
     return logits, {"segments": new_segs,
                     "pos": torch.full((b,), seq, dtype=torch.int32,
                                       device=x.device)}
-
-
-def _check_kv_bucket(kv_bucket: Optional[int]) -> None:
-    if kv_bucket is not None and kv_bucket < 1:
-        raise ValueError(f"kv_bucket must be >= 1, got {kv_bucket}")
 
 
 def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
@@ -184,10 +290,13 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
     """One state-carrying prefill chunk of ``S`` tokens per row, starting at
     each row's running offset ``cache["pos"]``.  ``lengths`` ([B] int32,
     default all-S) counts each row's valid leading tokens; the rest are
-    inert.  ``kv_bucket`` bounds KV caches to the live prefix; with no KV
-    leaves (the ported kinds have none) it changes nothing, as in the
-    reference.  Returns (logits of each row's last valid token [B,1,V],
-    cache with ``pos`` advanced by ``lengths``)."""
+    inert.  Attention writes the chunk's KV at ``pos`` and attends with the
+    offset causal mask.  ``kv_bucket`` (None for the whole cache) bounds
+    attention to the KV leaves' first ``kv_bucket`` rows; the caller picks
+    ``kv_bucket >= max(pos) + S`` capped at the leaves' extent
+    (``repro_torch.serving.bucketing``), and the outputs are bit-identical
+    to the unbucketed call.  Returns (logits of each row's last valid token
+    [B,1,V], cache with ``pos`` advanced by ``lengths``)."""
     _check_kv_bucket(kv_bucket)
     x = _embed(cfg, params, tokens)
     b, s = x.shape[0], x.shape[1]
@@ -198,20 +307,32 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=x.device).expand(b)
     chunk_mask = torch.arange(s, device=x.device)[None, :] < lengths[:, None]
+    rope = _rope_for(cfg, max(s, _kv_rows(cache, kv_bucket) or s), pos, s,
+                     x.device)
     x, new_segs = _run_segments(cfg, params, x, cache=cache, pos=pos,
-                                chunk_mask=chunk_mask)
+                                chunk_mask=chunk_mask, rope=rope,
+                                kv_bucket=kv_bucket)
     last = torch.clamp(lengths - 1, 0, s - 1).long()
     x_last = torch.gather(x, 1, last[:, None, None].expand(b, 1, x.shape[2]))
     logits = _head(cfg, params, x_last)
     return logits, {"segments": new_segs, "pos": pos + lengths}
 
 
-def lm_decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache
+def lm_decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
+                   kv_bucket: Optional[int] = None
                    ) -> Tuple[torch.Tensor, Any]:
-    """One token step. token: [B, 1]; ``cache["pos"]`` is a [B] vector."""
+    """One token step. token: [B, 1]; ``cache["pos"]`` is a [B] vector.
+    ``kv_bucket`` as in :func:`decode_tokens`."""
+    _check_kv_bucket(kv_bucket)
     pos = cache["pos"]
     x = _embed(cfg, params, token)
-    x, new_segs = _run_segments(cfg, params, x, cache=cache, pos=pos)
+    rows = _kv_rows(cache, kv_bucket)
+    rope = _rope_for(cfg, rows or 1, pos, 1, x.device)
+    valid_len = (None if rows is None
+                 else torch.clamp(pos + 1, max=rows).to(torch.int32))
+    x, new_segs = _run_segments(cfg, params, x, cache=cache, pos=pos,
+                                rope=rope, kv_bucket=kv_bucket,
+                                valid_len=valid_len)
     return _head(cfg, params, x), {"segments": new_segs, "pos": pos + 1}
 
 
@@ -222,12 +343,16 @@ def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
     device, so the burst needs no host sync.  Returns (tokens [B,n] int32
     on the device, cache); token ``[:, i]`` is the output after consuming
     the (i-1)-th emitted token, exactly as ``n`` sequential
-    :func:`lm_decode_step` calls."""
+    :func:`lm_decode_step` calls.  ``kv_bucket`` (None for the whole
+    cache, else ``>= max(live pos) + n``) bounds the burst's attention to
+    the KV leaves' first ``kv_bucket`` rows, bit-identically; a retired
+    row whose ``pos`` is past the bucket writes nothing."""
     _check_kv_bucket(kv_bucket)
     tok = first_token.to(torch.int32)
     out = []
     for _ in range(n):
-        logits, cache = lm_decode_step(cfg, params, tok, cache)
+        logits, cache = lm_decode_step(cfg, params, tok, cache,
+                                       kv_bucket=kv_bucket)
         tok = torch.argmax(logits[:, 0, :cfg.vocab_size], dim=-1
                            ).to(torch.int32)[:, None]
         out.append(tok)

@@ -2,9 +2,10 @@
 
 The port's copy of the reference's ladder rules.  Before a chunk or decode
 burst the caller picks the smallest power-of-two KV extent covering
-``max(pos) + chunk``, capped at the model's largest KV-cache extent.  A
-model with no KV cache (pure SSM stacks such as mamba2) gets ``None``: no
-bucketing.
+``max(pos) + chunk``, capped at the model's largest KV-cache extent.  The
+ported kinds that hold KV caches are ``dense`` layers and the shared
+attention of ``mamba2+shared`` (Zamba2) layers; a model with none (pure
+SSM stacks such as mamba2) gets ``None``: no bucketing.
 """
 from __future__ import annotations
 

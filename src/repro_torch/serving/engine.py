@@ -74,17 +74,14 @@ def _scatter_group(batch_cache, src_cache, dst: np.ndarray) -> None:
     """Copy rows ``i`` of a batch-k prefill cache into slots ``dst[i]`` of the
     engine's cache, in place (the engine owns that cache).  Rows with
     ``dst[i] < 0`` are skipped.  Leaves are stacked [n_rep, B, ...]: the
-    batch dim is axis 1."""
+    batch dim is axis 1.  Row by row, slice to slice, so no gathered copy
+    of a row's KV leaves is made on the way."""
     rows = np.nonzero(dst >= 0)[0]
-    if rows.size == 0:
-        return
-    dev = batch_cache["pos"].device
-    src = torch.from_numpy(rows).to(dev)
-    dsti = torch.from_numpy(dst[rows].astype(np.int64)).to(dev)
     for full_seg, one_seg in zip(batch_cache["segments"],
                                  src_cache["segments"]):
         for full, one in zip(tree_leaves(full_seg), tree_leaves(one_seg)):
-            full[:, dsti] = one[:, src].to(full.dtype)
+            for i in rows:
+                full[:, int(dst[i])].copy_(one[:, int(i)])
 
 
 class ServingEngine:

@@ -2,8 +2,11 @@
 
 Prompts are right-padded onto the chunk grid and driven through
 :func:`repro_torch.models.lm.lm_prefill_chunk`, which carries the conv and
-SSM states from chunk to chunk; a per-row ``lengths`` vector makes padding
-inert.  :class:`ChunkedPrefill` owns one in-flight group: one
+SSM states from chunk to chunk and writes each chunk's KV at the row's
+running offset; a per-row ``lengths`` vector makes padding inert.  Chunk
+``i`` runs under the KV bucket covering ``(i + 1) * chunk`` rows
+(:mod:`repro_torch.serving.bucketing`), so early chunks read only the
+early prefix.  :class:`ChunkedPrefill` owns one in-flight group: one
 :meth:`~ChunkedPrefill.step` advances it by exactly one chunk, so the
 engine can interleave one chunk with one decode burst, and a row is
 emitted as soon as its own prompt completes.
@@ -16,7 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.config import ModelConfig
-from repro_torch.models.lm import init_lm_cache, lm_prefill_chunk
+from repro_torch.models.lm import (cache_kv_extent, init_lm_cache,
+                                   lm_prefill_chunk)
 from repro_torch.serving.bucketing import clamped_bucket, kv_cache_extent
 
 
@@ -45,9 +49,11 @@ def chunked_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *,
                     ) -> Tuple[torch.Tensor, Any]:
     """Prefill ``tokens`` [B, S] (right-padded, per-row valid ``lengths``)
     in ``chunk_size`` chunks.  Returns (last-valid-token logits [B,1,V],
-    filled cache), as :func:`repro_torch.models.lm.lm_prefill` does."""
+    filled cache), as :func:`repro_torch.models.lm.lm_prefill` does.  The
+    cache's KV leaves are written in place."""
     b, total = tokens.shape
     dev = tokens.device
+    extent = cache_kv_extent(cache)
     lens = (np.full((b,), total, np.int64) if lengths is None
             else np.asarray(lengths, np.int64))
     n_chunks = max(1, -(-total // chunk_size))
@@ -59,7 +65,8 @@ def chunked_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *,
         off, clens, fin = chunk_schedule(lens, chunk_size, i)
         lg, cache = lm_prefill_chunk(
             cfg, params, tokens[:, off:off + chunk_size], cache,
-            lengths=torch.from_numpy(clens).to(dev))
+            lengths=torch.from_numpy(clens).to(dev),
+            kv_bucket=clamped_bucket(off + chunk_size, extent))
         if logits is None:
             logits = lg
         elif fin.any():
@@ -71,8 +78,14 @@ def chunked_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *,
 class ChunkedPrefill:
     """Incremental chunked-prefill scheduler for the serving engine: one
     group at a time, one chunk per :meth:`step`.  The group cache template
-    is allocated once per batch size and reused (prefill never mutates
-    it)."""
+    is allocated once per batch size and reused.  Prefill leaves the
+    template's conv and SSM states as they were (each chunk returns new
+    ones) but writes its KV leaves in place, so a later group starts on
+    the earlier group's KV rows.  No stale row is ever read: chunk ``i``
+    of a row writes rows ``[pos, pos + chunk)`` before it attends, and
+    attends only rows ``<= pos + j`` (causal), all written earlier in the
+    same group; decode reads rows ``< pos + 1`` only.  The tests hold two
+    groups in a row through one scheduler against two fresh ones."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_seq: int,
                  chunk_size: int = 256):

@@ -7,16 +7,26 @@ card and no JAX it runs on its own:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 Shapes are the reduced config's and widths off each kernel's tiles; the
-full mamba2-2.7b shapes are held by ``chip_smoke.py``.  Tolerances: 1e-4 in
-fp32 (sums in another order), 2e-2 in bf16 (one bf16 rounding).
+full mamba2-2.7b and zamba2-2.7b shapes are held by ``chip_smoke.py``.
+Tolerances: 1e-4 in fp32 (sums in another order), 2e-2 in bf16 (one bf16
+rounding; the flash kernel also rounds its probabilities to bf16 for the
+P.V product), of max(1, max |reference|) for the Mamba-2 kernels and of
+each query row's own max |o| for attention.  The attention kernels take
+their K and V as
+``transpose(1, 2)`` views of a ``[B, S, KV, d]`` cache, as the model
+hands them over.
 """
 import pytest
 import torch
 
+from repro_torch.kernels.attn_decode import ops as dec_attn_ops
+from repro_torch.kernels.attn_decode import ref as dec_attn_ref
 from repro_torch.kernels.conv1d import ops as conv_ops
 from repro_torch.kernels.conv1d import ref as conv_ref
 from repro_torch.kernels.decode_fused import ops as dec_ops
 from repro_torch.kernels.decode_fused import ref as dec_ref
+from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.flash import ref as flash_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 
@@ -39,6 +49,17 @@ def _close(got, want, tol):
         assert a.shape == b.shape and a.dtype == b.dtype
         scale = max(1.0, float(b.float().abs().max()))
         assert float((a.float() - b.float()).abs().max()) <= tol * scale
+
+
+def _close_rows(got, want, tol):
+    """Each attention query row (the last dim) within ``tol`` times that
+    row's max |reference|: a row that attends many keys has a far smaller
+    output than a one-key row, so a shared scale would hide its faults."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    err = (g - w).abs().amax(-1)
+    assert bool((err <= tol * w.abs().amax(-1)).all()), float(
+        (err / w.abs().amax(-1)).max())
 
 
 def _rn(gen, dev):
@@ -66,11 +87,16 @@ def test_conv1d_kernel(cuda, dtype, s, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 4, 16, 16, 16),
+                                   (1, 256, 4, 64, 64, 128)],
+                         ids=["reduced", "zamba2"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ssd_kernel(cuda, dtype):
+def test_ssd_kernel(cuda, dtype, shape):
+    """The reduced shape and zamba2-2.7b's (P, N, chunk) = (64, 64, 128)."""
     rn = _rn(torch.Generator(device=cuda).manual_seed(1), cuda)
     td = DTYPES[dtype]
-    b, s, h, p, g, n, q = 2, 64, 4, 16, 1, 16, 16
+    b, s, h, p, n, q = shape
+    g = 1
     args = (rn(b, s, h, p, dt=td), ssd_ref.softplus(rn(b, s, h)),
             -torch.exp(rn(h)), rn(b, s, g, n, dt=td), rn(b, s, g, n, dt=td),
             rn(h))
@@ -95,3 +121,88 @@ def test_mamba2_decode_kernel(cuda, dtype, n):
     got = dec_ops.mamba2_decode_fused(*args, **kw)
     torch.cuda.synchronize()
     _close(got, dec_ref.mamba2_decode_fused_ref(*args, **kw), TOL[dtype])
+
+
+def _cache_view(rn, b, s, kvh, d, dt):
+    """k or v as the model hands it over: [B,KVH,S,d] view of [B,S,KVH,d]."""
+    return rn(b, s, kvh, d, dt=dt).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,kvh", [(80, 4, 4), (128, 8, 2), (16, 4, 2),
+                                     (32, 8, 2)])
+@pytest.mark.parametrize("mode", ["offsets", "causal", "full", "window"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel(cuda, dtype, mode, d, h, kvh):
+    """Per-row q_offset against a longer KV prefix (chunked prefill), plain
+    causal, non-causal and windowed, at head_dim 80 and 128 (GQA 4:1) and
+    the reduced sizes; query and key counts off the 64-row tiles."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(3), cuda)
+    td = DTYPES[dtype]
+    b, sq = 3, 70
+    skv = 200 if mode == "offsets" else sq
+    q = rn(b, sq, h, d, dt=td).transpose(1, 2)
+    k = _cache_view(rn, b, skv, kvh, d, td)
+    v = _cache_view(rn, b, skv, kvh, d, td)
+    kw = dict(causal=mode != "full", window=16 if mode == "window" else None)
+    if mode == "offsets":
+        kw["q_offset"] = torch.tensor([0, 61, 130], dtype=torch.int32,
+                                      device=cuda)
+    n0 = flash_ops.flash_attention.launches
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == n0 + 1
+    want = flash_ref.attention_ref(q, k, v, **{**kw, "q_offset": kw.get(
+        "q_offset", 0)})
+    _close_rows(got, want, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,kvh", [(80, 32, 32), (128, 32, 8), (16, 4, 2),
+                                     (64, 4, 1)])
+@pytest.mark.parametrize("split_k", [None, 1, 3, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_kernel(cuda, dtype, split_k, d, h, kvh):
+    """GQA groups of 1, 4, 2 and 4; valid_len of 1, on a tile edge (32, 64),
+    one past it, and the whole cache; every split count gives the plain
+    result."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(4), cuda)
+    td = DTYPES[dtype]
+    b, s = 6, 300
+    q = rn(b, h, d, dt=td)
+    k = _cache_view(rn, b, s, kvh, d, td)
+    v = _cache_view(rn, b, s, kvh, d, td)
+    valid = torch.tensor([1, 32, 33, 64, 255, s], dtype=torch.int32,
+                         device=cuda)
+    n0 = dec_attn_ops.decode_attention.launches
+    got = dec_attn_ops.decode_attention(q, k, v, valid_len=valid,
+                                        split_k=split_k)
+    torch.cuda.synchronize()
+    assert dec_attn_ops.decode_attention.launches == n0 + 1
+    _close_rows(got, dec_attn_ref.decode_attention_ref(q, k, v,
+                                                       valid_len=valid),
+                TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_shapes_not_built(cuda):
+    """A head_dim, SSD shape or layout the kernels were not built for
+    raises; nothing falls back to the plain version."""
+    z = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_ops.flash_attention(z(1, 2, 8, 48), z(1, 2, 8, 48),
+                                  z(1, 2, 8, 48))
+    with pytest.raises(ValueError, match="head_dim"):
+        dec_attn_ops.decode_attention(z(1, 2, 48), z(1, 2, 8, 48),
+                                      z(1, 2, 8, 48), valid_len=4)
+    with pytest.raises(ValueError, match="strides"):
+        flash_ops.flash_attention(z(1, 2, 16, 8).transpose(2, 3),
+                                  z(1, 2, 8, 16), z(1, 2, 8, 16))
+    with pytest.raises(NotImplementedError, match="ring"):
+        flash_ops.flash_attention(z(1, 2, 8, 16), z(1, 2, 8, 16),
+                                  z(1, 2, 8, 16), window=4, kv_wrap=0,
+                                  ring_len=8)
+    with pytest.raises(ValueError, match="ssd kernel built"):
+        ssd_ops.ssd_chunked(z(1, 128, 2, 64), z(1, 128, 2), z(2),
+                            z(1, 128, 1, 32), z(1, 128, 1, 32), z(2),
+                            chunk=128)

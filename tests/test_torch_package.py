@@ -47,11 +47,14 @@ def test_no_repro_environment_variables():
             assert "REPRO_" not in path.read_text(), path
 
 
-def test_entry_points_need_cuda_by_default(monkeypatch):
-    from repro_torch.configs import mamba2_2p7b, reduced
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b",
+                                  "llama3-8b"])
+def test_entry_points_need_cuda_by_default(arch, monkeypatch):
+    from repro_torch.configs import reduced
+    from repro_torch.core.registry import get
     from repro_torch.models.lm import init_lm_cache, init_lm_params
     from repro_torch.serving.engine import ServingEngine, greedy_generate
-    cfg = reduced(mamba2_2p7b)
+    cfg = reduced(get(arch))
     params = init_lm_params(cfg, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -76,14 +79,24 @@ def _op_inputs(device):
         "decode": ((z(b, k - 1, c), z(b, h, p, n), z(b, c), z(c, k), z(c),
                     z(b, h), z(h), z(h), z(h)),
                    {"n_groups": g, "d_state": n, "headdim": p}),
+        "flash": ((z(b, 4, s, 16), z(b, 2, s, 16), z(b, 2, s, 16)),
+                  {"q_offset": 0}),
+        "attn_decode": ((z(b, 4, 16), z(b, 2, s, 16), z(b, 2, s, 16)),
+                        {"valid_len": 3}),
     }
 
 
 def _ops():
+    from repro_torch.kernels.attn_decode import ops as attn_dec_ops
     from repro_torch.kernels.conv1d import ops as conv_ops
     from repro_torch.kernels.decode_fused import ops as dec_ops
+    from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     return {
+        "flash": (flash_ops.flash_attention, flash_ops._ref,
+                  "attention_ref"),
+        "attn_decode": (attn_dec_ops.decode_attention, attn_dec_ops._ref,
+                        "decode_attention_ref"),
         "conv1d": (conv_ops.causal_conv1d, conv_ops._ref,
                    "causal_conv1d_ref"),
         "ssd": (ssd_ops.ssd_chunked, ssd_ops._ref, "ssd_chunked_ref"),
@@ -92,14 +105,18 @@ def _ops():
     }
 
 
-@pytest.mark.parametrize("name", ["conv1d", "ssd", "decode"])
+@pytest.mark.parametrize("name", ["conv1d", "ssd", "decode", "flash",
+                                  "attn_decode"])
 def test_device_picks_the_path(name, monkeypatch):
     op, ref_mod, ref_name = _ops()[name]
     args, kw = _op_inputs("cpu")[name]
     before = op.launches
     plain = getattr(ref_mod, ref_name)(*args, **kw)
-    for got, want in zip(op(*args, **kw), plain):
-        assert torch.equal(got, want)
+    got = op(*args, **kw)
+    if isinstance(plain, torch.Tensor):
+        got, plain = [got], [plain]
+    for g, want in zip(got, plain):
+        assert torch.equal(g, want)
     assert op.launches == before          # the CPU path launched nothing
 
     def refuse(*a, **k):
