@@ -12,22 +12,33 @@ Phases (each prints its lines and is fatal on failure):
      attention kernels at zamba2-2.7b's (d=80) and llama3-8b's (d=128,
      GQA 4:1) shapes and a decode whose valid lengths fall on tile and
      split edges, each attention query row held to a limit of its own;
+     the Mamba-1 kernels (selective scan, fused decode step) at
+     mamba-130m's shapes and off their tiles (the decode step's inputs
+     drawn at the model's scales), and one long-context scan
+     (B=1, S=16384) beside its bound;
   4. full-width, full-depth serving through ``ServingEngine`` (4 ragged
-     requests, 32 new tokens each), random weights from a seed: first
-     mamba2-2.7b (64 layers), then zamba2-2.7b (54 layers); the launch
-     counters are reset just before each run and read just after;
+     requests, 32 new tokens each), random weights from a seed:
+     mamba2-2.7b (64 layers), zamba2-2.7b (54 layers), then mamba-130m
+     (24 Mamba-1 layers); the launch counters are reset just before each
+     run and read just after, and each run must launch exactly the
+     kernels of its layer kinds;
   5. the kernel path against the plain path on the card (one 512-token
      prompt, teacher-forced decode): mamba2-2.7b at 8 layers, zamba2-2.7b
-     at 12 layers (two shared-block positions), and a 4-layer ``dense``
-     model at llama3-8b's width;
-then a ``kernels`` JSON line (zamba2-2.7b's shapes, launches of its
-serving run), the card line, and the result line last.  Imports nothing of
-JAX nor of the reference package.
+     at 12 layers (two shared-block positions), a 4-layer ``dense`` model
+     at llama3-8b's width, and mamba-130m at its 24 layers, in bf16 and
+     again in fp32 (where only the order of sums differs); the plain run
+     must launch no kernel;
+then a ``kernels`` JSON line (the five Mamba-2 and attention kernels at
+zamba2-2.7b's shapes and the two Mamba-1 kernels at mamba-130m's, each
+with the launches of its own config's serving run), the card line, and
+the result line last.  Imports nothing of JAX nor of the reference
+package.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -122,9 +133,9 @@ def max_err(got, want) -> float:
                for a, b in zip(got, want))
 
 
-def whole_ratio(got, want, tol) -> float:
-    """max |got - want| over ``tol`` x max(1, max |want|)."""
-    scale = max(1.0, float(want.float().abs().max()))
+def whole_ratio(got, want, tol, floor=1.0) -> float:
+    """max |got - want| over ``tol`` x max(``floor``, max |want|)."""
+    scale = max(floor, float(want.float().abs().max()))
     return float((got.float() - want.float()).abs().max()) / (tol * scale)
 
 
@@ -140,14 +151,21 @@ def row_ratio(got, want, tol) -> float:
     return float((err / (tol * scale)).max())
 
 
-def check_close(name, got, want, tol, ratio=whole_ratio):
-    """Every output within its limit: ``ratio(output, reference, tol)``
-    at most 1."""
+def allclose_ratio(got, want, tol) -> float:
+    """The worst element of |got - want| over ``tol`` x (1 + |want|):
+    ``assert_allclose`` with rtol = atol = ``tol``."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / (tol * (1.0 + w.abs()))).max())
+
+
+def check_close(name, got, want, tol, ratio=whole_ratio, **kw):
+    """Every output within its limit: ``ratio(output, reference, tol,
+    **kw)`` at most 1."""
     for i, (a, b) in enumerate(zip(got, want)):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"{name} output {i}: {a.shape}/{a.dtype} "
                                  f"!= {b.shape}/{b.dtype}")
-        r = ratio(a, b, tol)
+        r = ratio(a, b, tol, **kw)
         if not r <= 1.0:
             raise AssertionError(f"{name} output {i}: error {r} x its limit "
                                  f"({ratio.__name__}, tol {tol})")
@@ -160,7 +178,10 @@ def check_close(name, got, want, tol, ratio=whole_ratio):
 TOL = {"conv1d": {torch.float32: 2e-4, torch.bfloat16: 2e-2},
        "ssd": {torch.float32: 1e-3, torch.bfloat16: 2e-2},
        "decode_fused": {torch.float32: 1e-5, torch.bfloat16: 2e-2},
-       "attention": {torch.float32: 2e-4, torch.bfloat16: 2e-2}}
+       "attention": {torch.float32: 2e-4, torch.bfloat16: 2e-2},
+       # tests/test_scan1_kernel.py: y relative to max |y|, state 1e-3
+       "scan1": {torch.float32: 2e-4, torch.bfloat16: 3e-2}}
+SCAN1_STATE_TOL = 1e-3
 
 
 def phase_kernels(cfg, gen):
@@ -266,6 +287,141 @@ def phase_kernels(cfg, gen):
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=None))
     return rows
+
+
+def mamba1_decode_inputs(gen, b, c, n, r, k, dt):
+    """Inputs of one Mamba-1 decode step (conv window, state, token,
+    conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D) at the model's
+    scales: x_proj and dt_proj drawn with std 1/sqrt(fan-in), dt_bias the
+    inverse softplus of dt log-uniform in [1e-3, 1e-1] (the model's
+    init), A_log = log(1..n) per channel, so dt = softplus(dt_low @
+    dt_proj + dt_bias) falls near the serving run's 1e-3..0.3 and the
+    old state's share h * exp(dt * A) of the new state is of the order of
+    dt * x * B.  Unscaled projections would give dt ~ 0 or ~ 100s, where
+    exp(dt * A) is 1 or 0 and a fault in the carry hides below a limit
+    set by |h'| ~ 1e6."""
+    def rn(*shape, dtype=torch.float32, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * std).to(dtype)
+
+    u = torch.rand((c,), generator=gen, device="cuda")
+    dt_init = torch.exp(u * (math.log(1e-1) - math.log(1e-3))
+                        + math.log(1e-3))
+    dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device="cuda")).repeat(c, 1)
+    return (rn(b, k - 1, c, dtype=dt), rn(b, c, n), rn(b, c, dtype=dt),
+            rn(c, k, std=k ** -0.5), rn(c),
+            rn(c, r + 2 * n, dtype=dt, std=c ** -0.5),
+            rn(r, c, dtype=dt, std=r ** -0.5), dt_bias, a_log, rn(c))
+
+
+def phase_mamba1_kernels(cfg, gen):
+    """Compare and time the Mamba-1 kernels at ``cfg``'s shapes (B=4,
+    S=256), off their tiles (S=200 with C=1000, and S=7), and one
+    long-context scan (B=1, S=16384) against its bound.  No PyTorch call
+    computes either function, so ``library_ms`` is None.  The bounds count
+    operations at the fp32 CUDA-core peak: neither kernel has a matrix
+    product on the tensor cores."""
+    from repro_torch.kernels.decode_fused import (ops as dec_ops,
+                                                  ref as dec_ref)
+    from repro_torch.kernels.scan1 import ops as scan_ops, ref as scan_ref
+    from repro_torch.kernels.ssd.ref import softplus
+    from repro_torch.models.mamba1 import dt_rank
+
+    s = cfg.ssm
+    B, S = 4, 256
+    C, N, K = s.d_inner(cfg.d_model), s.d_state, s.conv_kernel
+    R = dt_rank(cfg.d_model, s)
+    F32 = torch.float32
+
+    def rn(*shape, dtype=F32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def scan_inputs(b_, s_, c_, dt):
+        return (rn(b_, s_, c_, dtype=dt), softplus(rn(b_, s_, c_) - 2.0),
+                -torch.exp(rn(c_, N)), rn(b_, s_, N, dtype=dt),
+                rn(b_, s_, N, dtype=dt), rn(c_), rn(b_, c_, N))
+
+    def check_scan(name, got, want, dt):
+        (y, h), (wy, wh) = got, want
+        check_close(name + " y", [y], [wy], TOL["scan1"][dt],
+                    floor=torch.finfo(F32).tiny)
+        check_close(name + " state", [h], [wh], SCAN1_STATE_TOL,
+                    ratio=allclose_ratio)
+
+    def scan_bound(args, out):
+        b_, s_, c_ = args[0].shape
+        # per state and step: dt*A, exp, h*dA + (dt*x)*B (3), C.h (2)
+        flops = 7.0 * b_ * s_ * c_ * N + 3.0 * b_ * s_ * c_
+        return bound(nbytes(*args) + nbytes(*out), flops, F32)
+
+    rows = []
+    for (b_, s_, c_) in ((B, S, C), (3, 200, 1000), (2, 7, C)):
+        for dt in (torch.bfloat16, F32):
+            args = scan_inputs(b_, s_, c_, dt)
+            got = scan_ops.selective_scan(*args[:6], initial_state=args[6])
+            want = scan_ref.selective_scan_ref(*args)
+            check_scan(f"selective scan {dt} {(b_, s_, c_)}", got, want, dt)
+            if (b_, s_, c_) == (B, S, C) and dt == torch.bfloat16:
+                bms, by = scan_bound(args, got)
+                rows.append(dict(
+                    name="selective_scan", route="cuda",
+                    source="src/repro_torch/kernels/csrc/scan1.cu",
+                    replaces="src/repro/kernels/scan1/kernel.py:52",
+                    max_abs_err=max_err(got, want),
+                    ms=device_ms(lambda: scan_ops.selective_scan(
+                        *args[:6], initial_state=args[6])),
+                    plain_ms=device_ms(
+                        lambda: scan_ref.selective_scan_ref(*args)),
+                    bound_ms=bms, bound_by=by, library_ms=None, at=cfg.name))
+
+    # long context: the kernel at S=16384 against its bound; the plain
+    # loop (one launch chain per step) is held against it at S=2048 only
+    long_ = {}
+    for s_ in (2048, 16384):
+        args = scan_inputs(1, s_, C, torch.bfloat16)
+        got = scan_ops.selective_scan(*args[:6], initial_state=args[6])
+        if s_ == 2048:
+            want = scan_ref.selective_scan_ref(*args)
+            check_scan(f"selective scan bf16 (1, {s_}, {C})", got, want,
+                       torch.bfloat16)
+            long_["plain_ms_s2048"] = device_ms(
+                lambda: scan_ref.selective_scan_ref(*args), calls=1, reps=3)
+        ms = device_ms(lambda: scan_ops.selective_scan(
+            *args[:6], initial_state=args[6]), calls=3, reps=10)
+        bms, by = scan_bound(args, got)
+        long_[f"s{s_}"] = dict(ms=ms, bound_ms=bms, bound_by=by,
+                               bytes=nbytes(*args) + nbytes(*got))
+        del args, got
+    long_["shape"] = f"B=1, C={C}, N={N}, bf16"
+
+    for (b_, c_, n_, r_) in ((B, C, N, R), (1, C, N, R), (3, 1000, 8, 6)):
+        for dt in (torch.bfloat16, F32):
+            args = mamba1_decode_inputs(gen, b_, c_, n_, r_, K, dt)
+            kw = dict(d_state=n_, dt_rank=r_)
+            got = dec_ops.mamba1_decode_fused(*args, **kw)
+            want = dec_ref.mamba1_decode_fused_ref(*args, **kw)
+            check_close(f"mamba1 decode {dt} {(b_, c_, n_, r_)}", got, want,
+                        TOL["decode_fused"][dt])
+            if (b_, c_) == (B, C) and dt == torch.bfloat16:
+                f_ = r_ + 2 * n_
+                # conv, x_proj, dt_proj; per state: exp(A_log), dt*A,
+                # exp, h*dA + (dt*x)*B (3), C.h (2)
+                flops = b_ * (2.0 * K * c_ + 2.0 * c_ * f_ + 2.0 * r_ * c_
+                              + 8.0 * c_ * n_)
+                bms, by = bound(nbytes(*args) + nbytes(*got), flops, F32)
+                rows.append(dict(
+                    name="mamba1_decode_fused", route="cuda",
+                    source="src/repro_torch/kernels/csrc/mamba1_decode.cu",
+                    replaces="src/repro/kernels/decode_fused/kernel.py:138",
+                    max_abs_err=max_err(got, want),
+                    ms=device_ms(lambda: dec_ops.mamba1_decode_fused(
+                        *args, **kw)),
+                    plain_ms=device_ms(lambda: dec_ref.mamba1_decode_fused_ref(
+                        *args, **kw)),
+                    bound_ms=bms, bound_by=by, library_ms=None, at=cfg.name))
+    return rows, long_
 
 
 def attention_cases():
@@ -392,20 +548,39 @@ def phase_attention(gen):
 def counters():
     from repro_torch.kernels.attn_decode.ops import decode_attention
     from repro_torch.kernels.conv1d.ops import causal_conv1d
-    from repro_torch.kernels.decode_fused.ops import mamba2_decode_fused
+    from repro_torch.kernels.decode_fused.ops import (mamba1_decode_fused,
+                                                      mamba2_decode_fused)
     from repro_torch.kernels.flash.ops import flash_attention
+    from repro_torch.kernels.scan1.ops import selective_scan
     from repro_torch.kernels.ssd.ops import ssd_chunked
     return {"causal_conv1d": causal_conv1d, "ssd_chunked": ssd_chunked,
             "mamba2_decode_fused": mamba2_decode_fused,
             "flash_attention": flash_attention,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention,
+            "selective_scan": selective_scan,
+            "mamba1_decode_fused": mamba1_decode_fused}
+
+
+def reset_counters():
+    for c in counters().values():
+        c.launches = 0
+
+
+def read_counters():
+    return {k: c.launches for k, c in counters().items()}
 
 
 def path_kernels(cfg):
-    """The kernels a serving run of ``cfg`` must launch."""
-    names = ["causal_conv1d", "ssd_chunked", "mamba2_decode_fused"]
+    """The kernels a serving run of ``cfg`` launches, by its layer kinds;
+    every other kernel must stay at 0."""
+    kinds = set(cfg.layer_kinds)
+    names = set()
+    if kinds & {"mamba2", "mamba2+shared"}:
+        names |= {"causal_conv1d", "ssd_chunked", "mamba2_decode_fused"}
+    if "mamba1" in kinds:
+        names |= {"causal_conv1d", "selective_scan", "mamba1_decode_fused"}
     if cfg.attn is not None or cfg.shared_attn is not None:
-        names += ["flash_attention", "decode_attention"]
+        names |= {"flash_attention", "decode_attention"}
     return names
 
 
@@ -437,8 +612,7 @@ def phase_serving(cfg, gen):
     eng = engine()
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n),
                     max_new=max_new) for i, n in enumerate(lens)]
-    for c in counters().values():
-        c.launches = 0
+    reset_counters()
     t0 = time.monotonic()
     for r in reqs:
         eng.submit(r)
@@ -454,16 +628,19 @@ def phase_serving(cfg, gen):
         if not (left or eng.queue or eng._pending):
             break
     wall = time.monotonic() - t0
-    launches = {k: c.launches for k, c in counters().items()}
+    launches = read_counters()
     for r in reqs:
         if r.status != "ok" or len(r.out) != max_new:
             raise AssertionError(f"rid={r.rid}: status {r.status}, "
                                  f"{len(r.out)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"rid={r.rid}: token outside the vocab")
-    for k in path_kernels(cfg):
-        if launches[k] <= 0:
-            raise AssertionError(f"{k}: not launched on the serving path")
+    on_path = path_kernels(cfg)
+    for k, n in launches.items():
+        if (n > 0) != (k in on_path):
+            raise AssertionError(f"{k}: {n} launches on the serving path of "
+                                 f"{cfg.name}; its kernels are "
+                                 f"{sorted(on_path)}")
     # steady decode with all 4 slots live: bursts of 8 on the served cache,
     # under the KV bucket the engine would pick
     from repro_torch.models.lm import decode_tokens, lm_prefill_chunk
@@ -506,27 +683,36 @@ def phase_serving(cfg, gen):
         launches
 
 
-def phase_paths(cfg, gen, n_layers: int):
+def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16"):
     """Kernel path against plain path on the card: ``n_layers`` layers, one
-    512-token prompt, then 8 teacher-forced decode steps."""
+    512-token prompt, then 8 teacher-forced decode steps, in
+    ``compute_dtype`` (the caches too).  Logits agree within 5% of max
+    |logit| in bf16 (each bf16 rounding is worth 2^-8 of its value, and
+    the two paths round at different points) and 1e-4 in fp32 (sums in
+    another order)."""
     from repro_torch.kernels.attn_decode import ref as attn_dec_ref
     from repro_torch.kernels.conv1d import ref as conv_ref
     from repro_torch.kernels.decode_fused import ref as dec_ref
     from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.kernels.scan1 import ref as scan_ref
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.models import attention as attn
+    from repro_torch.models import mamba1 as m1
     from repro_torch.models import mamba2 as m2
     from repro_torch.models.lm import (init_lm_cache, init_lm_params,
                                        lm_decode_step, prepare_params)
     from repro_torch.serving.prefill import chunked_prefill
 
-    cfg8 = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg8 = dataclasses.replace(cfg, n_layers=n_layers,
+                               compute_dtype=compute_dtype)
+    cache_dtype = getattr(torch, compute_dtype)
     params = prepare_params(cfg8, init_lm_params(cfg8, gen, device="cuda"))
     prompt = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
                            device="cuda")
 
     def run(forced):
-        cache = init_lm_cache(cfg8, 1, 1024, device="cuda")
+        cache = init_lm_cache(cfg8, 1, 1024, dtype=cache_dtype,
+                              device="cuda")
         lg, cache = chunked_prefill(cfg8, params, prompt, cache,
                                     chunk_size=256)
         out = [lg[:, 0, :cfg.vocab_size].float()]
@@ -554,20 +740,30 @@ def phase_paths(cfg, gen, n_layers: int):
                                        q_offset=0 if q_offset is None
                                        else q_offset)
 
+    def plain_scan(x, dt, A, Bm, Cm, D, *, initial_state=None):
+        return scan_ref.selective_scan_ref(x, dt, A, Bm, Cm, D, initial_state)
+
+    reset_counters()
     with mock.patch.object(m2, "causal_conv1d", plain_conv), \
             mock.patch.object(m2, "ssd_chunked_raw", plain_ssd), \
             mock.patch.object(m2, "mamba2_decode_fused",
                               dec_ref.mamba2_decode_fused_ref), \
+            mock.patch.object(m1, "causal_conv1d", plain_conv), \
+            mock.patch.object(m1, "selective_scan", plain_scan), \
+            mock.patch.object(m1, "mamba1_decode_fused",
+                              dec_ref.mamba1_decode_fused_ref), \
             mock.patch.object(attn, "flash_attention", plain_flash), \
             mock.patch.object(attn, "decode_attention",
                               attn_dec_ref.decode_attention_ref):
         plain, _ = run(toks)
+    launched = {k: n for k, n in read_counters().items() if n}
+    if launched:
+        raise AssertionError(f"the plain path launched kernels: {launched}")
     if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
         raise AssertionError("non-finite logits")
     err = float((kern - plain).abs().max())
-    # bf16 activations through the layers: each bf16 rounding is worth
-    # 2^-8 of its value, and the two paths round at different points
-    tol = 0.05 * float(plain.abs().max())
+    tol = (0.05 if compute_dtype == "bfloat16" else 1e-4) * float(
+        plain.abs().max())
     if err > tol:
         raise AssertionError(f"logits differ by {err} > {tol}")
     top2 = plain.topk(2, dim=-1).values
@@ -588,7 +784,8 @@ def main() -> int:
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
-    from repro_torch.configs import llama3_8b, mamba2_2p7b, zamba2_2p7b
+    from repro_torch.configs import (llama3_8b, mamba2_2p7b, mamba_130m,
+                                     zamba2_2p7b)
     from repro_torch.kernels import build
 
     card = card_line()
@@ -609,29 +806,39 @@ def main() -> int:
         for r in phase_kernels(cfg, gen):
             rows.append(dict(r, at=cfg.name))
     rows += phase_attention(gen)
+    m1_rows, long_scan = phase_mamba1_kernels(mamba_130m, gen)
+    rows += m1_rows
     for r in rows:
         print(f"phase 3 kernel at {r['at']}: " + json.dumps(r), flush=True)
-    # the kernels line: zamba2-2.7b's shapes, the path that runs all five
-    rows = [r for r in rows if r["at"] == zamba2_2p7b.name]
+    print("phase 3 long-context selective scan at mamba-130m's width: "
+          + json.dumps(long_scan), flush=True)
+    # the kernels line: zamba2-2.7b's shapes, the path that runs the five
+    # Mamba-2 and attention kernels, and mamba-130m's for the Mamba-1 two
+    rows = [r for r in rows if r["at"] in (zamba2_2p7b.name,
+                                           mamba_130m.name)]
 
     launches = {}
-    for cfg in (mamba2_2p7b, zamba2_2p7b):
+    for cfg in (mamba2_2p7b, zamba2_2p7b, mamba_130m):
         t0 = time.perf_counter()
-        serving, launches = phase_serving(cfg, gen)
+        serving, launches[cfg.name] = phase_serving(cfg, gen)
         torch.cuda.empty_cache()
         print(f"phase 4 serving {cfg.name} ({cfg.n_layers} layers, slots 4, "
               f"prompts 300/700/1000/2048, 32 new; "
               f"{time.perf_counter() - t0:.1f} s): " + json.dumps(serving)
-              + " launches " + json.dumps(launches), flush=True)
+              + " launches " + json.dumps(launches[cfg.name]), flush=True)
 
-    for cfg, n in ((mamba2_2p7b, 8), (zamba2_2p7b, 12), (llama3_8b, 4)):
-        paths = phase_paths(cfg, gen, n)
+    for cfg, n, cd in ((mamba2_2p7b, 8, "bfloat16"),
+                       (zamba2_2p7b, 12, "bfloat16"),
+                       (llama3_8b, 4, "bfloat16"),
+                       (mamba_130m, mamba_130m.n_layers, "bfloat16"),
+                       (mamba_130m, mamba_130m.n_layers, "float32")):
+        paths = phase_paths(cfg, gen, n, cd)
         torch.cuda.empty_cache()
         print(f"phase 5 kernel path vs plain path, {cfg.name} at {n} "
-              "layers: " + json.dumps(paths), flush=True)
+              f"layers, {cd}: " + json.dumps(paths), flush=True)
 
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches[r["at"]][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

@@ -1,0 +1,205 @@
+"""Show that chip_smoke.py's kernel checks catch planted faults that the
+checks they replaced let through.
+
+    python3 scripts/kernel_mutants.py
+
+Needs an NVIDIA card and ``nvcc``.  For the unchanged sources and for each
+mutant below, it copies ``src/repro_torch`` into ``build/mutants/<name>/``
+(listed in .gitignore), applies the mutant's edit to one kernel source
+there, and in a child process builds that copy and runs two checks:
+
+- ``attention``: the flash and decode kernels against their plain
+  versions on zamba2-2.7b's shapes, the inputs of
+  ``chip_smoke.phase_attention``.  ``ratio`` is the per-row check that
+  chip_smoke.py applies (``row_ratio``), ``old_ratio`` the whole-tensor
+  check it replaced (``whole_ratio``: 2e-2 of max(1, max |o|) in bf16).
+- ``mamba1_decode``: the fused Mamba-1 decode step against its plain
+  version at mamba-130m's shapes (B=4).  ``ratio`` is chip_smoke.py's
+  check on inputs at the model's scales (``mamba1_decode_inputs``),
+  ``old_ratio`` the same limit on the unscaled normal draws it replaced,
+  where dt is ~0 or ~100s; both the worst output's ``whole_ratio``.
+
+1 is the limit.  Exits 1 if the unchanged kernels fail a check or a
+mutant passes its kernel's check.  The repository's own sources are never
+edited.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join("repro_torch", "kernels", "csrc")
+
+# name -> (check, kernel source, text to replace, replacement, what it
+# breaks)
+MUTANTS = {
+    "unchanged": None,
+    "flash_drop_tile_17": (
+        "attention", "flash.cu", "  bool ok = key < p.Skv;\n",
+        "  bool ok = key < p.Skv && !(qpos >= 1024 && key / 64 == 17);\n",
+        "flash: queries at positions >= 1024 lose KV tile 17 (keys "
+        "1088-1151)"),
+    "decode_drop_tile_1024": (
+        "attention", "attn_decode.cu",
+        "    const bool live = k0 + lane < hi;\n",
+        "    const bool live = k0 + lane < hi && k0 != 1024;\n",
+        "decode: rows with more than 1024 valid keys lose keys 1024-1055"),
+    "flash_drop_4_keys": (
+        "attention", "flash.cu", "  bool ok = key < p.Skv;\n",
+        "  bool ok = key < p.Skv && !(qpos >= 1536 && key >= 1536 && "
+        "key < 1540);\n",
+        "flash: queries at positions >= 1536 lose keys 1536-1539"),
+    "decode_drop_4_keys": (
+        "attention", "attn_decode.cu",
+        "    const bool live = k0 + lane < hi;\n",
+        "    const bool live = k0 + lane < hi && (k0 + lane < 1536 || "
+        "k0 + lane >= 1540);\n",
+        "decode: rows with more than 1536 valid keys lose keys 1536-1539"),
+    "mamba1_drop_carry": (
+        "mamba1_decode", "mamba1_decode.cu",
+        "const float hn = __fadd_rn(__fmul_rn(ssm[idx], da),",
+        "const float hn = __fadd_rn(0.0f * da,",
+        "Mamba-1 decode: the new state drops h * exp(dt * A), "
+        "h' = dt * x * B"),
+    "mamba1_odd_readout": (
+        "mamba1_decode", "mamba1_decode.cu",
+        "y[(size_t)b * di + c] = __fadd_rn(v, __fmul_rn(xs[c], Dv[c]));",
+        "y[(size_t)b * di + c] = __fadd_rn((c & 1) ? 0.0f : v, "
+        "__fmul_rn(xs[c], Dv[c]));",
+        "Mamba-1 decode: odd channels lose C . h' from y"),
+}
+
+
+def attention_readings(cs, torch, gen) -> dict:
+    from repro_torch.kernels.attn_decode import ops as dec_ops
+    from repro_torch.kernels.attn_decode import ref as dec_ref
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+
+    label, h, kvh, d, bucket, offs, lens = cs.attention_cases()[0]
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tol = cs.TOL["attention"][dt]
+        q, k, v, qd = cs.attention_inputs(gen, h, kvh, d, bucket, dt)
+        off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        pairs = {
+            "flash": (flash_ops.flash_attention(q, k, v, q_offset=off),
+                      flash_ref.attention_ref(q, k, v, q_offset=off)),
+            "decode": (dec_ops.decode_attention(qd, k, v, valid_len=vl),
+                       dec_ref.decode_attention_ref(qd, k, v, valid_len=vl)),
+        }
+        for name, (got, want) in pairs.items():
+            out[f"{name} {label} {str(dt)[6:]}"] = dict(
+                ratio=cs.row_ratio(got, want, tol),
+                old_ratio=cs.whole_ratio(got, want, tol),
+                max_abs_err=float((got.float() - want.float()).abs().max()))
+    return out
+
+
+def mamba1_decode_readings(cs, torch, gen) -> dict:
+    from repro_torch.configs import mamba_130m as cfg
+    from repro_torch.kernels.decode_fused import ops as dec_ops
+    from repro_torch.kernels.decode_fused import ref as dec_ref
+    from repro_torch.models.mamba1 import dt_rank
+
+    s = cfg.ssm
+    b, c, n, k = 4, s.d_inner(cfg.d_model), s.d_state, s.conv_kernel
+    r = dt_rank(cfg.d_model, s)
+    kw = dict(d_state=n, dt_rank=r)
+
+    def unscaled(dt):
+        def rn(*shape, dtype=torch.float32):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        return (rn(b, k - 1, c, dtype=dt), rn(b, c, n), rn(b, c, dtype=dt),
+                rn(c, k), rn(c), rn(c, r + 2 * n, dtype=dt),
+                rn(r, c, dtype=dt), rn(c), rn(c, n), rn(c))
+
+    def worst(args, tol):
+        got = dec_ops.mamba1_decode_fused(*args, **kw)
+        want = dec_ref.mamba1_decode_fused_ref(*args, **kw)
+        return (max(cs.whole_ratio(g, w, tol) for g, w in zip(got, want)),
+                cs.max_err(got, want))
+
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tol = cs.TOL["decode_fused"][dt]
+        ratio, err = worst(cs.mamba1_decode_inputs(gen, b, c, n, r, k, dt),
+                           tol)
+        old_ratio, _ = worst(unscaled(dt), tol)
+        out[f"mamba1_decode {cfg.name} {str(dt)[6:]}"] = dict(
+            ratio=ratio, old_ratio=old_ratio, max_abs_err=err)
+    return out
+
+
+CHECKS = {"attention": attention_readings,
+          "mamba1_decode": mamba1_decode_readings}
+
+
+def child() -> int:
+    """Run every check on the package first on ``sys.path``."""
+    import torch
+
+    sys.path.insert(1, ROOT)
+    import chip_smoke as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for check, readings in CHECKS.items():
+        out[check] = readings(cs, torch,
+                              torch.Generator(device="cuda").manual_seed(0))
+    print(json.dumps(out))
+    return 0
+
+
+def run_one(name: str, mutant) -> dict:
+    base = os.path.join(ROOT, "build", "mutants", name)
+    shutil.rmtree(base, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "src", "repro_torch"),
+                    os.path.join(base, "src", "repro_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    if mutant is not None:
+        _, src, old, new, _ = mutant
+        path = os.path.join(base, "src", CSRC, src)
+        with open(path) as f:
+            text = f.read()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: the text to replace is not found "
+                               f"exactly once in {src}")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+    env = dict(os.environ, PYTHONPATH=os.path.join(base, "src"))
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--child"], env=env, capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode:
+        raise RuntimeError(f"{name}: child failed\n{res.stdout}\n"
+                           f"{res.stderr}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def main() -> int:
+    failed = []
+    for name, mutant in MUTANTS.items():
+        readings = run_one(name, mutant)
+        what = "no edit" if mutant is None else mutant[4]
+        print(f"{name} ({what}): {json.dumps(readings)}", flush=True)
+        if mutant is None:
+            for check, rs in readings.items():
+                if max(r["ratio"] for r in rs.values()) > 1.0:
+                    failed.append(f"{name}: unchanged kernels fail the "
+                                  f"{check} check")
+        elif max(r["ratio"] for r in readings[mutant[0]].values()) <= 1.0:
+            failed.append(f"{name}: the {mutant[0]} check passes this "
+                          f"mutant")
+    for line in failed:
+        print("FAIL " + line)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(child() if sys.argv[1:] == ["--child"] else main())

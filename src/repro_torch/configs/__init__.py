@@ -10,6 +10,8 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.configs.llama3_8b import CONFIG as llama3_8b  # noqa: F401
 from repro_torch.configs.mamba2_2p7b import CONFIG as mamba2_2p7b  # noqa: F401
 from repro_torch.configs.zamba2_2p7b import CONFIG as zamba2_2p7b  # noqa: F401
+from repro_torch.configs.paper_models import (  # noqa: F401
+    MAMBA1_130M as mamba_130m)
 
 
 def reduced(cfg: ModelConfig, *, d_model: int = 64, vocab: int = 256,

@@ -40,6 +40,9 @@ SIGNATURES: Dict[str, Tuple] = {
                         L, L, L, L, L, L, L, L, L, L, L, L, I, I, I, P),
     "repro_decode_attn_fwd": (P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                               L, L, L, L, L, L, L, L, I, P),
+    "repro_scan1_fwd": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "repro_mamba1_decode_fwd": (P, P, P, P, P, P, P, P, P, P, P, P, P,
+                                I, I, I, I, I, I, P),
 }
 
 

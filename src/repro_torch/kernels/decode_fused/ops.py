@@ -1,9 +1,11 @@
-"""Fused Mamba-2 decode step: the device picks the path.
+"""Fused decode steps (Mamba-2 and Mamba-1): the device picks the path.
 
-One call is one Mamba-2 layer's whole per-token recurrence: the conv shift
-step, SiLU, softplus(dt), the state update ``h' = h*exp(dt*A) + dt*B*x``
-and the readout ``y = C.h' + D*x``.  A CPU tensor runs the plain version;
-a CUDA tensor launches ``csrc/decode_fused.cu`` or raises.
+One call is one Mamba layer's whole per-token recurrence: the conv shift
+step, SiLU, (Mamba-1: the x_proj and dt_proj projections,) softplus(dt),
+the state update ``h' = h*exp(dt*A) + dt*B*x`` and the readout
+``y = C.h' + D*x``.  A CPU tensor runs the plain version; a CUDA tensor
+launches ``csrc/decode_fused.cu`` (Mamba-2) or ``csrc/mamba1_decode.cu``
+(Mamba-1), or raises.
 """
 from __future__ import annotations
 
@@ -74,3 +76,76 @@ def mamba2_decode_fused_cuda(conv_state, ssm_state, xbc_t, conv_w, conv_b,
 
 
 mamba2_decode_fused.launches = 0
+
+
+# d_state values the Mamba-1 kernel is instantiated for, and its limits
+M1_D_STATES = (8, 16)
+M1_MAX_PROJ = 128           # dt_rank + 2 * d_state
+M1_MAX_DI = 48 * 1024 // 4 - 2304     # shared memory: di + 2304 floats
+
+
+def mamba1_decode_fused(conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj,
+                        dt_proj, dt_bias, A_log, D, *, d_state: int,
+                        dt_rank: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """conv_state: [B,K-1,di]; ssm_state: [B,di,N]; xi_t: [B,di] (pre-conv).
+    Returns (y [B,di] fp32, conv window' [B,K-1,di], ssm' [B,di,N] fp32)."""
+    if xi_t.device.type == "cpu":
+        return _ref.mamba1_decode_fused_ref(
+            conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj, dt_proj,
+            dt_bias, A_log, D, d_state=d_state, dt_rank=dt_rank)
+    return mamba1_decode_fused_cuda(
+        conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj, dt_proj,
+        dt_bias, A_log, D, d_state=d_state, dt_rank=dt_rank)
+
+
+def mamba1_decode_fused_cuda(conv_state, ssm_state, xi_t, conv_w, conv_b,
+                             x_proj, dt_proj, dt_bias, A_log, D, *,
+                             d_state: int, dt_rank: int):
+    if xi_t.device.type != "cuda":
+        raise ValueError(f"decode kernel needs a CUDA tensor, got "
+                         f"{xi_t.device}")
+    b, km1, di = conv_state.shape
+    k, n, r = km1 + 1, d_state, dt_rank
+    f = r + 2 * n
+    if n not in M1_D_STATES:
+        raise ValueError(f"mamba1 decode kernel built for d_state in "
+                         f"{M1_D_STATES}, got {n}")
+    if (xi_t.shape != (b, di) or ssm_state.shape != (b, di, n)
+            or conv_w.shape != (di, k) or conv_b.shape != (di,)
+            or x_proj.shape != (di, f) or dt_proj.shape != (r, di)
+            or not (dt_bias.shape == D.shape == (di,))
+            or A_log.shape != (di, n) or not 2 <= k <= 4 or r < 1
+            or f > M1_MAX_PROJ or di > M1_MAX_DI):
+        raise ValueError("bad mamba1 decode shapes")
+    if conv_state.dtype != xi_t.dtype:
+        raise TypeError("kernel takes conv_state in xi's dtype")
+    if ssm_state.dtype != torch.float32:
+        raise TypeError("kernel takes an fp32 ssm state")
+    cd = xi_t.dtype
+    code = build.dtype_code(cd)
+    # the plain version reads the projections in xi's dtype and the conv
+    # and SSM parameters in fp32
+    ins = [conv_state.contiguous(), ssm_state.contiguous(),
+           xi_t.contiguous(), conv_w.float().contiguous(),
+           conv_b.float().contiguous(), x_proj.to(cd).contiguous(),
+           dt_proj.to(cd).contiguous(), dt_bias.float().contiguous(),
+           A_log.float().contiguous(), D.float().contiguous()]
+    if ins[5].data_ptr() % 16:      # x_proj is read in 16-byte vectors
+        ins[5] = ins[5].clone()
+    if any(t.device != xi_t.device for t in ins):
+        raise ValueError("all decode inputs must be on one device")
+    y = torch.empty((b, di), dtype=torch.float32, device=xi_t.device)
+    nconv = torch.empty_like(ins[0])
+    nssm = torch.empty_like(ins[1])
+    lib = build.library()
+    rc = lib.repro_mamba1_decode_fwd(
+        *[t.data_ptr() for t in ins], y.data_ptr(), nconv.data_ptr(),
+        nssm.data_ptr(), b, di, n, r, k, code,
+        build.stream_ptr(xi_t.device))
+    build.check(rc, "repro_mamba1_decode_fwd")
+    mamba1_decode_fused.launches += 1
+    return y, nconv, nssm
+
+
+mamba1_decode_fused.launches = 0

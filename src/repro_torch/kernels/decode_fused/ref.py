@@ -1,7 +1,8 @@
-"""Plain PyTorch fused Mamba-2 decode step.
+"""Plain PyTorch fused decode steps (Mamba-2 and Mamba-1).
 
-Composes the conv shift step and the SSD state update op for op, cast for
-cast, as the reference's ``mamba2_decode_fused_ref`` does.
+Each composes the conv shift step, the projections and the state update
+op for op, cast for cast, as the reference's ``mamba2_decode_fused_ref``
+and ``mamba1_decode_fused_ref`` do.
 """
 from __future__ import annotations
 
@@ -34,3 +35,29 @@ def mamba2_decode_fused_ref(conv_state, ssm_state, xbc_t, conv_w, conv_b,
                                 xs.reshape(b, di // headdim, headdim),
                                 dt, A, bm, cm, D)
     return y, new_conv, new_ssm
+
+
+def mamba1_decode_fused_ref(conv_state, ssm_state, xi_t, conv_w, conv_b,
+                            x_proj, dt_proj, dt_bias, A_log, D, *,
+                            d_state: int, dt_rank: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """conv_state: [B,K-1,di]; ssm_state: [B,di,N]; xi_t: [B,di] (pre-conv).
+    Returns (y [B,di] fp32, conv_state', ssm_state' [B,di,N] fp32).  The
+    projections read ``x_proj`` and ``dt_proj`` in the conv output's dtype
+    and round their outputs to it, as the reference's oracle does."""
+    xi, new_conv = conv1d_decode_ref(conv_state, xi_t, conv_w, conv_b)
+    dt_ = xi.dtype
+    proj = xi @ x_proj.to(dt_)
+    dt_low = proj[..., :dt_rank]
+    bm = proj[..., dt_rank:dt_rank + d_state]
+    cm = proj[..., dt_rank + d_state:]
+    dt = softplus((dt_low @ dt_proj.to(dt_)).float() + dt_bias.float())
+    A = -torch.exp(A_log.float())
+    h = ssm_state.float()
+    dA = torch.exp(dt[..., None] * A[None])
+    dBx = (dt * xi.float())[..., None] * bm.float()[:, None, :]
+    h = h * dA + dBx
+    y = torch.einsum("bdn,bn->bd", h, cm.float())
+    y = y + xi.float() * D.float()
+    return y, new_conv, h

@@ -1,8 +1,9 @@
 """Per-layer block composition: param defs, cache init, and application.
 
 The port serves the ``mamba2``, ``mamba2+shared`` (Zamba2: a Mamba-2
-layer followed by the one shared attention+MLP block) and ``dense`` kinds;
-every other kind raises and names the ROADMAP item that ports it.
+layer followed by the one shared attention+MLP block), ``mamba1``
+(selective scan) and ``dense`` kinds; every other kind raises and names
+the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.models import mamba1 as m1
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.attention import (attention, attn_param_defs,
                                           init_attn_cache)
@@ -23,7 +25,6 @@ _NOT_PORTED = {
     "local": "the ring mode and local windows item",
     "moe": "the MoE item",
     "dense_moe": "the MoE item",
-    "mamba1": "the Mamba-1 slice",
     "encoder": "the encoder and frontends item",
 }
 
@@ -49,6 +50,11 @@ def layer_param_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
         return {
             "ln": ParamDef((D,), ("embed",), init="zeros"),
             "mamba": m2.mamba2_param_defs(D, cfg.ssm),
+        }
+    if kind == "mamba1":
+        return {
+            "ln": ParamDef((D,), ("embed",), init="zeros"),
+            "mamba": m1.mamba1_param_defs(D, cfg.ssm),
         }
     raise _unported(kind)
 
@@ -76,6 +82,9 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
             c["attn"] = init_attn_cache(cfg.shared_attn, batch, max_seq,
                                         dtype=dtype, device=device)
         return c
+    if kind == "mamba1":
+        return m1.init_mamba1_cache(cfg.d_model, cfg.ssm, batch, dtype,
+                                    device)
     raise _unported(kind)
 
 
@@ -109,7 +118,7 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
     if kind == "dense":
         return _attn_mlp(cfg, p, cfg.attn, x, rope=rope, cache=cache,
                          pos=pos, valid_len=valid_len)
-    if kind not in ("mamba2", "mamba2+shared"):
+    if kind not in ("mamba2", "mamba2+shared", "mamba1"):
         raise _unported(kind)
     eps = cfg.norm_eps
     h = rms_norm(x, p["ln"], eps)
@@ -117,13 +126,14 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
     if cache is not None:
         mcache = {"conv": cache["conv"], "ssm": cache["ssm"]}
     is_decode = cache is not None and x.shape[1] == 1 and pos is not None
+    block, decode = ((m1.mamba1_block, m1.mamba1_decode) if kind == "mamba1"
+                     else (m2.mamba2_block, m2.mamba2_decode))
     if is_decode:
-        out, new_cache = m2.mamba2_decode(p["mamba"], h, cfg.ssm, cfg.d_model,
-                                          cache=mcache, eps=eps)
+        out, new_cache = decode(p["mamba"], h, cfg.ssm, cfg.d_model,
+                                cache=mcache, eps=eps)
     else:
-        out, new_cache = m2.mamba2_block(p["mamba"], h, cfg.ssm, cfg.d_model,
-                                         cache=mcache, eps=eps,
-                                         mask=chunk_mask)
+        out, new_cache = block(p["mamba"], h, cfg.ssm, cfg.d_model,
+                               cache=mcache, eps=eps, mask=chunk_mask)
     x = x + out
     if kind == "mamba2+shared":
         if shared is None:

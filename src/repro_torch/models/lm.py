@@ -1,15 +1,16 @@
 """Language model: embedding -> layer segments -> head.
 
 The port of the reference's ``repro.models.lm`` for the kinds it serves
-(``mamba2``, ``mamba2+shared``, ``dense``).  Params and caches keep the
-reference's layouts: params are the same nested dict, with ``segments`` a
-list of per-unit tuples whose leaves are stacked ``[n_rep, ...]`` and, for
-Zamba2-style models, one ``shared`` attention+MLP block; a cache is
-``{"segments": [...], "pos": [B] int32}`` with mamba2 leaves
-``conv: [n_rep,B,K-1,C]`` (bf16) and ``ssm: [n_rep,B,H,P,N]`` (fp32), and
-KV leaves ``k``, ``v: [n_rep,B,max_seq,KV,hd]`` (bf16) — at the top of a
-``dense`` layer's cache, nested under ``attn`` in a ``mamba2+shared``
-layer's.  A Python loop over the stacked layers stands in for
+(``mamba2``, ``mamba2+shared``, ``mamba1``, ``dense``).  Params and caches
+keep the reference's layouts: params are the same nested dict, with
+``segments`` a list of per-unit tuples whose leaves are stacked
+``[n_rep, ...]`` and, for Zamba2-style models, one ``shared``
+attention+MLP block; a cache is ``{"segments": [...], "pos": [B] int32}``
+with mamba2 leaves ``conv: [n_rep,B,K-1,C]`` (bf16) and
+``ssm: [n_rep,B,H,P,N]`` (fp32), mamba1 leaves ``conv: [n_rep,B,K-1,di]``
+(bf16) and ``ssm: [n_rep,B,di,N]`` (fp32), and KV leaves ``k``,
+``v: [n_rep,B,max_seq,KV,hd]`` (bf16) — at the top of a ``dense``
+layer's cache, nested under ``attn`` in a ``mamba2+shared`` layer's.  A Python loop over the stacked layers stands in for
 ``lax.scan``.
 
 How a call updates the cache: **KV leaves are written in place**, where
@@ -41,7 +42,7 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.attention import ATTN_KEYS
-from repro_torch.models.mamba2 import PROJ_KEYS
+from repro_torch.models import mamba1, mamba2
 from repro_torch.models.mlp import MLP_KEYS
 from repro_torch.models.norms import rms_norm
 from repro_torch.models.params import (ParamDef, init_params, stack_defs,
@@ -107,13 +108,20 @@ def _cast_attn_mlp(block, cd):
     return out
 
 
+# per layer kind, the keys of its "mamba" params that are matmul weights
+_MAMBA_PROJ_KEYS = {"mamba2": mamba2.PROJ_KEYS,
+                    "mamba2+shared": mamba2.PROJ_KEYS,
+                    "mamba1": mamba1.PROJ_KEYS}
+
+
 def prepare_params(cfg: ModelConfig, params):
-    """Cast the matmul weights (embedding, head, the mamba projections, the
-    attention and MLP weights, the shared block's included) to the compute
-    dtype once.  The reference casts them on every use (``.astype(dt_)``);
-    casting once gives the same bits and saves reading the fp32 weights on
-    every decode step.  Norm scales, conv and SSM parameters stay as they
-    are: their consumers read them in fp32."""
+    """Cast the matmul weights (embedding, head, the mamba projections of
+    each layer's kind, the attention and MLP weights, the shared block's
+    included) to the compute dtype once.  The reference casts them on
+    every use (``.astype(dt_)``); casting once gives the same bits and
+    saves reading the fp32 weights on every decode step.  Norm scales,
+    conv and SSM parameters stay as they are: their consumers read them
+    in fp32."""
     cd = _dtype(cfg.compute_dtype)
     out = dict(params)
     out["embed"] = params["embed"].to(cd)
@@ -122,12 +130,13 @@ def prepare_params(cfg: ModelConfig, params):
     if "shared" in params:
         out["shared"] = _cast_attn_mlp(params["shared"], cd)
     segs = []
-    for seg in params["segments"]:
+    for (kinds, _), seg in zip(cfg.segments(), params["segments"]):
         unit = []
-        for layer in seg:
+        for kind, layer in zip(kinds, seg):
             layer = _cast_attn_mlp(layer, cd)
             if "mamba" in layer:
-                layer["mamba"] = {k: (v.to(cd) if k in PROJ_KEYS else v)
+                keys = _MAMBA_PROJ_KEYS[kind]
+                layer["mamba"] = {k: (v.to(cd) if k in keys else v)
                                   for k, v in layer["mamba"].items()}
             unit.append(layer)
         segs.append(tuple(unit))

@@ -342,7 +342,6 @@ def test_unported_attention_paths_raise():
         attention.init_attn_cache(ta, 1, 16, window=8)
     cfg = reduced(zamba2_2p7b)
     for kind, item in (("local", "local windows"), ("hybrid_par", "Falcon"),
-                       ("moe", "MoE"), ("mamba1", "Mamba-1"),
-                       ("encoder", "encoder")):
+                       ("moe", "MoE"), ("encoder", "encoder")):
         with pytest.raises(NotImplementedError, match=item):
             blocks.layer_param_defs(cfg, kind)

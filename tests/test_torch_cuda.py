@@ -7,15 +7,20 @@ card and no JAX it runs on its own:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 Shapes are the reduced config's and widths off each kernel's tiles; the
-full mamba2-2.7b and zamba2-2.7b shapes are held by ``chip_smoke.py``.
+full mamba2-2.7b, zamba2-2.7b and mamba-130m shapes are held by
+``chip_smoke.py``.
 Tolerances: 1e-4 in fp32 (sums in another order), 2e-2 in bf16 (one bf16
 rounding; the flash kernel also rounds its probabilities to bf16 for the
-P.V product), of max(1, max |reference|) for the Mamba-2 kernels and of
-each query row's own max |o| for attention.  The attention kernels take
+P.V product), of max(1, max |reference|) for the Mamba kernels and of
+each query row's own max |o| for attention; the selective scan is held
+to the reference's scan-kernel tolerances, 2e-4 (fp32) or 3e-2 (bf16) of
+max |y| and 1e-3 on the state.  The attention kernels take
 their K and V as
 ``transpose(1, 2)`` views of a ``[B, S, KV, d]`` cache, as the model
 hands them over.
 """
+import math
+
 import pytest
 import torch
 
@@ -27,6 +32,8 @@ from repro_torch.kernels.decode_fused import ops as dec_ops
 from repro_torch.kernels.decode_fused import ref as dec_ref
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.flash import ref as flash_ref
+from repro_torch.kernels.scan1 import ops as scan_ops
+from repro_torch.kernels.scan1 import ref as scan_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 
@@ -206,3 +213,88 @@ def test_wrappers_raise_on_shapes_not_built(cuda):
         ssd_ops.ssd_chunked(z(1, 128, 2, 64), z(1, 128, 2), z(2),
                             z(1, 128, 1, 32), z(1, 128, 1, 32), z(2),
                             chunk=128)
+
+
+SCAN_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c", [(2, 64, 128), (3, 200, 1000), (2, 7, 96)],
+                         ids=["reduced", "off-tile", "short"])
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_selective_scan_kernel(cuda, dtype, with_state, n, b, s, c):
+    """The reduced width, S and C off the 32-step and channel tiles, and a
+    sequence shorter than one tile."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(5), cuda)
+    td = DTYPES[dtype]
+    args = (rn(b, s, c, dt=td), ssd_ref.softplus(rn(b, s, c)),
+            -torch.exp(rn(c, n)), rn(b, s, n, dt=td), rn(b, s, n, dt=td),
+            rn(c))
+    h0 = rn(b, c, n) if with_state else None
+    n0 = scan_ops.selective_scan.launches
+    y, h = scan_ops.selective_scan(*args, initial_state=h0)
+    torch.cuda.synchronize()
+    assert scan_ops.selective_scan.launches == n0 + 1
+    wy, wh = scan_ref.selective_scan_ref(*args, h0)
+    assert y.dtype == wy.dtype and h.dtype == torch.float32
+    err = float((y.float() - wy.float()).abs().max())
+    assert err <= SCAN_TOL[dtype] * float(wy.float().abs().max())
+    torch.testing.assert_close(h, wh, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("di,n,dtr", [(1536, 16, 48), (128, 16, 4),
+                                      (1000, 8, 6)],
+                         ids=["mamba-130m", "reduced", "off-tile"])
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba1_decode_kernel(cuda, dtype, b, di, n, dtr):
+    """mamba-130m's widths, the reduced ones, and d_inner off the
+    128-channel tile with d_state 8; x_proj and dt_proj in the compute
+    dtype, as the model passes them.  The inputs are at the model's
+    scales (projections with std 1/sqrt(fan-in), dt_bias from dt
+    log-uniform in [1e-3, 1e-1], A_log = log(1..n)), so dt lands where
+    serving puts it and the old state's share of the new one is not
+    rounded away by exp(dt * A) being 0 or 1."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    rn = _rn(gen, cuda)
+    td = DTYPES[dtype]
+    k = 4
+    u = torch.rand((di,), generator=gen, device=cuda)
+    dt0 = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device=cuda)).repeat(di, 1)
+    args = (rn(b, k - 1, di, dt=td), rn(b, di, n), rn(b, di, dt=td),
+            rn(di, k) / k ** 0.5, rn(di),
+            (rn(di, dtr + 2 * n) / di ** 0.5).to(td),
+            (rn(dtr, di) / dtr ** 0.5).to(td), dt_bias, a_log, rn(di))
+    kw = dict(d_state=n, dt_rank=dtr)
+    n0 = dec_ops.mamba1_decode_fused.launches
+    got = dec_ops.mamba1_decode_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert dec_ops.mamba1_decode_fused.launches == n0 + 1
+    _close(got, dec_ref.mamba1_decode_fused_ref(*args, **kw), TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_mamba1_wrappers_raise_on_shapes_not_built(cuda):
+    """A d_state the Mamba-1 kernels were not built for, or projections
+    wider than the decode kernel takes, raise; nothing falls back."""
+    z = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
+    with pytest.raises(ValueError, match="d_state"):
+        scan_ops.selective_scan(z(1, 8, 64), z(1, 8, 64), z(64, 32),
+                                z(1, 8, 32), z(1, 8, 32), z(64))
+    di, k = 64, 4
+
+    def decode(n, r):
+        return dec_ops.mamba1_decode_fused(
+            z(1, k - 1, di), z(1, di, n), z(1, di), z(di, k), z(di),
+            z(di, r + 2 * n), z(r, di), z(di), z(di, n), z(di), d_state=n,
+            dt_rank=r)
+    with pytest.raises(ValueError, match="d_state"):
+        decode(32, 4)
+    with pytest.raises(ValueError, match="bad mamba1 decode shapes"):
+        decode(16, 100)

@@ -48,7 +48,7 @@ def test_no_repro_environment_variables():
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b",
-                                  "llama3-8b"])
+                                  "llama3-8b", "mamba-130m"])
 def test_entry_points_need_cuda_by_default(arch, monkeypatch):
     from repro_torch.configs import reduced
     from repro_torch.core.registry import get
@@ -71,8 +71,14 @@ def test_entry_points_need_cuda_by_default(arch, monkeypatch):
 def _op_inputs(device):
     b, s, h, p, g, n, k = 1, 16, 2, 16, 1, 16, 4
     c = h * p + 2 * g * n
+    di, r = h * p, 4
     z = lambda *shape: torch.zeros(shape, device=device)  # noqa: E731
     return {
+        "scan1": ((z(b, s, di), z(b, s, di), z(di, n), z(b, s, n),
+                   z(b, s, n), z(di)), {"initial_state": z(b, di, n)}),
+        "mamba1_decode": ((z(b, k - 1, di), z(b, di, n), z(b, di), z(di, k),
+                           z(di), z(di, r + 2 * n), z(r, di), z(di),
+                           z(di, n), z(di)), {"d_state": n, "dt_rank": r}),
         "conv1d": ((z(b, s, c), z(c, k), z(c)), {"initial_state": z(b, 3, c)}),
         "ssd": ((z(b, s, h, p), z(b, s, h), z(h), z(b, s, g, n),
                  z(b, s, g, n), z(h)), {"chunk": 16}),
@@ -91,8 +97,13 @@ def _ops():
     from repro_torch.kernels.conv1d import ops as conv_ops
     from repro_torch.kernels.decode_fused import ops as dec_ops
     from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.scan1 import ops as scan_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     return {
+        "scan1": (scan_ops.selective_scan, scan_ops._ref,
+                  "selective_scan_ref"),
+        "mamba1_decode": (dec_ops.mamba1_decode_fused, dec_ops._ref,
+                          "mamba1_decode_fused_ref"),
         "flash": (flash_ops.flash_attention, flash_ops._ref,
                   "attention_ref"),
         "attn_decode": (attn_dec_ops.decode_attention, attn_dec_ops._ref,
@@ -106,7 +117,7 @@ def _ops():
 
 
 @pytest.mark.parametrize("name", ["conv1d", "ssd", "decode", "flash",
-                                  "attn_decode"])
+                                  "attn_decode", "scan1", "mamba1_decode"])
 def test_device_picks_the_path(name, monkeypatch):
     op, ref_mod, ref_name = _ops()[name]
     args, kw = _op_inputs("cpu")[name]
