@@ -15,24 +15,34 @@ Phases (each prints its lines and is fatal on failure):
      the Mamba-1 kernels (selective scan, fused decode step) at
      mamba-130m's shapes and off their tiles (the decode step's inputs
      drawn at the model's scales), and one long-context scan
-     (B=1, S=16384) beside its bound;
+     (B=1, S=16384) beside its bound; the flash kernel's ring mode at
+     gemma3-1b's shapes (B=4, H=4, KVH=1, d=256, window 512): a 256-query
+     chunk at cursors 0/300/700/1792 against a 512-slot ring, sliced
+     rings, and a 1024-query chunk that wraps inside itself, with the
+     plain flash and the decode kernel at d=256 (gemma3-1b's global
+     layers);
   4. full-width, full-depth serving through ``ServingEngine`` (4 ragged
      requests, 32 new tokens each), random weights from a seed:
-     mamba2-2.7b (64 layers), zamba2-2.7b (54 layers), then mamba-130m
-     (24 Mamba-1 layers); the launch counters are reset just before each
-     run and read just after, and each run must launch exactly the
-     kernels of its layer kinds;
-  5. the kernel path against the plain path on the card (one 512-token
-     prompt, teacher-forced decode): mamba2-2.7b at 8 layers, zamba2-2.7b
-     at 12 layers (two shared-block positions), a 4-layer ``dense`` model
-     at llama3-8b's width, and mamba-130m at its 24 layers, in bf16 and
-     again in fp32 (where only the order of sums differs); the plain run
-     must launch no kernel;
+     mamba2-2.7b (64 layers), zamba2-2.7b (54 layers), mamba-130m
+     (24 Mamba-1 layers), then gemma3-1b (26 layers: 22 ring layers, 4
+     global); the launch counters are reset just before each run and
+     read just after, each run must launch exactly the kernels of its
+     layer kinds, and the attention kernels exactly once per attention
+     layer and prefill chunk (flash; ring layers apart) or token step
+     (decode);
+  5. the kernel path against the plain path on the card (one prompt,
+     teacher-forced decode): mamba2-2.7b at 8 layers, zamba2-2.7b at 12
+     layers (two shared-block positions), a 4-layer ``dense`` model at
+     llama3-8b's width and mamba-130m at its 24 layers on a 512-token
+     prompt, and gemma3-1b at its 26 layers on a 1300-token prompt (past
+     the window, so its rings wrap in prefill and again in decode), in
+     bf16 and, for mamba-130m and gemma3-1b, again in fp32 (where only
+     the order of sums differs); the plain run must launch no kernel;
 then a ``kernels`` JSON line (the five Mamba-2 and attention kernels at
-zamba2-2.7b's shapes and the two Mamba-1 kernels at mamba-130m's, each
-with the launches of its own config's serving run), the card line, and
-the result line last.  Imports nothing of JAX nor of the reference
-package.
+zamba2-2.7b's shapes, the two Mamba-1 kernels at mamba-130m's and the
+flash kernel's ring mode at gemma3-1b's, each with the launches of its
+own config's serving run), the card line, and the result line last.
+Imports nothing of JAX nor of the reference package.
 """
 from __future__ import annotations
 
@@ -431,7 +441,8 @@ def attention_cases():
     offs = [0, 512, 1024, 1792]
     lens = [301, 701, 1001, 2048]
     return [("zamba2-2.7b", 32, 32, 80, 2048, offs, lens),
-            ("llama3-8b", 32, 8, 128, 2048, offs, lens)]
+            ("llama3-8b", 32, 8, 128, 2048, offs, lens),
+            ("gemma3-1b", 4, 1, 256, 2048, offs, lens)]
 
 
 B_ATTN, SQ_ATTN, MAX_SEQ_ATTN = 4, 256, 4096
@@ -545,6 +556,84 @@ def phase_attention(gen):
     return rows
 
 
+RING = dict(B=4, H=4, KVH=1, d=256, window=512)     # gemma3-1b
+
+
+def ring_cases():
+    """(label, ring_len, Sq, cursors) of the ring mode at gemma3-1b's
+    shapes: a 256-query chunk against the full 512-slot ring at cursors
+    before and after its wrap (the serving run's chunk); rings sliced by
+    a bucket below the window (the serving run's first chunk, where no
+    slot is written yet, and one with cursor + Sq <= ring_len); a chunk
+    longer than the window."""
+    return [("ring", 512, 256, [0, 300, 700, 1792]),
+            ("sliced ring", 256, 256, [0, 0, 0, 0]),
+            ("sliced ring, partly written", 384, 128, [0, 100, 200, 256]),
+            ("chunk past the window", 512, 1024, [0, 300, 700, 1792])]
+
+
+def phase_ring(gen):
+    """Compare and time the flash kernel's ring mode: keys are the model's
+    ``[ring | chunk]`` concatenation seen through ``transpose(1, 2)``,
+    ``q_offset = kv_wrap``.  Each query row is held to its own limit.  The
+    bound counts Q and O once and the K and V slots some query of the
+    row sees (written, and inside the window of the chunk), and the
+    unmasked products; the library yardstick is SDPA with the boolean
+    mask of ``ring_kv_positions``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+
+    B, H, KVH, d, W = (RING[k] for k in ("B", "H", "KVH", "d", "window"))
+    rows = []
+    for label, ring_len, sq, wraps in ring_cases():
+        for dt in (torch.bfloat16, torch.float32):
+            def rn(*shape):
+                return torch.randn(shape, generator=gen,
+                                   device="cuda").to(dt)
+            q = rn(B, sq, H, d).transpose(1, 2)
+            k, v = (rn(B, ring_len + sq, KVH, d).transpose(1, 2)
+                    for _ in range(2))
+            wrap = torch.tensor(wraps, dtype=torch.int32, device="cuda")
+            kw = dict(causal=True, window=W, q_offset=wrap, kv_wrap=wrap,
+                      ring_len=ring_len)
+            got = flash_ops.flash_attention(q, k, v, **kw)
+            want = flash_ref.attention_ref(q, k, v, **kw)
+            tol = TOL["attention"][dt]
+            check_close(f"flash ring {label} {dt}", [got], [want], tol,
+                        ratio=row_ratio)
+            if dt != torch.bfloat16 and label != "ring":
+                continue
+            kpos = flash_ref.ring_kv_positions(wrap, W, ring_len,
+                                               ring_len + sq).long()
+            qpos = wrap.long()[:, None] + torch.arange(sq, device="cuda")
+            mask = ((kpos[:, None, :] >= 0)
+                    & (qpos[:, :, None] >= kpos[:, None, :])
+                    & (qpos[:, :, None] - kpos[:, None, :] < W))
+            live = int(mask.any(1).sum())          # K/V slots some query sees
+            esz = q.element_size()
+            bms, by = bound(2 * B * sq * H * d * esz + 2 * live * KVH * d * esz,
+                            4.0 * d * H * float(mask.sum()), dt)
+            rows.append(dict(
+                name="flash_attention_ring", route="cuda",
+                at=f"gemma3-1b {label}", dtype=str(dt)[6:],
+                source="src/repro_torch/kernels/csrc/flash.cu",
+                replaces="src/repro/kernels/flash/kernel.py:124",
+                shape=f"B={B} H={H} KVH={KVH} d={d} window={W} "
+                      f"ring_len={ring_len} Sq={sq} cursors={wraps}",
+                max_abs_err=max_err([got], [want]),
+                worst_row_of_limit=row_ratio(got, want, tol),
+                ms=device_ms(lambda: flash_ops.flash_attention(q, k, v,
+                                                               **kw)),
+                plain_ms=device_ms(lambda: flash_ref.attention_ref(
+                    q, k, v, **kw)),
+                bound_ms=bms, bound_by=by,
+                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask[:, None], enable_gqa=True))))
+    return rows
+
+
+# the launch counters: name -> (wrapper, attribute)
 def counters():
     from repro_torch.kernels.attn_decode.ops import decode_attention
     from repro_torch.kernels.conv1d.ops import causal_conv1d
@@ -553,21 +642,24 @@ def counters():
     from repro_torch.kernels.flash.ops import flash_attention
     from repro_torch.kernels.scan1.ops import selective_scan
     from repro_torch.kernels.ssd.ops import ssd_chunked
-    return {"causal_conv1d": causal_conv1d, "ssd_chunked": ssd_chunked,
-            "mamba2_decode_fused": mamba2_decode_fused,
-            "flash_attention": flash_attention,
-            "decode_attention": decode_attention,
-            "selective_scan": selective_scan,
-            "mamba1_decode_fused": mamba1_decode_fused}
+    fns = {"causal_conv1d": causal_conv1d, "ssd_chunked": ssd_chunked,
+           "mamba2_decode_fused": mamba2_decode_fused,
+           "flash_attention": flash_attention,
+           "decode_attention": decode_attention,
+           "selective_scan": selective_scan,
+           "mamba1_decode_fused": mamba1_decode_fused}
+    out = {k: (f, "launches") for k, f in fns.items()}
+    out["flash_attention_ring"] = (flash_attention, "ring_launches")
+    return out
 
 
 def reset_counters():
-    for c in counters().values():
-        c.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counters():
-    return {k: c.launches for k, c in counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
 def path_kernels(cfg):
@@ -579,15 +671,31 @@ def path_kernels(cfg):
         names |= {"causal_conv1d", "ssd_chunked", "mamba2_decode_fused"}
     if "mamba1" in kinds:
         names |= {"causal_conv1d", "selective_scan", "mamba1_decode_fused"}
-    if cfg.attn is not None or cfg.shared_attn is not None:
+    if kinds & {"dense", "mamba2+shared"}:
         names |= {"flash_attention", "decode_attention"}
+    if "local" in kinds:
+        names |= {"flash_attention_ring", "decode_attention"}
     return names
+
+
+def attention_launches(cfg, chunks: int, steps: int) -> dict:
+    """The attention kernels' exact launches in a serving run of ``chunks``
+    prefill chunks and ``steps`` decode token steps: one flash launch per
+    attention layer and chunk (ring layers in ring mode), one decode
+    launch per attention layer and token step."""
+    kinds = cfg.layer_kinds
+    n_ring = kinds.count("local")
+    n_plain = kinds.count("dense") + kinds.count("mamba2+shared")
+    return {"flash_attention": n_plain * chunks,
+            "flash_attention_ring": n_ring * chunks,
+            "decode_attention": (n_plain + n_ring) * steps}
 
 
 def phase_serving(cfg, gen):
     """Serve 4 ragged requests at full width and depth."""
     import numpy as np
     from repro_torch.models.lm import init_lm_params
+    from repro_torch.serving import engine as engine_mod
     from repro_torch.serving.engine import Request, ServingEngine
 
     params = init_lm_params(cfg, gen, device="cuda")
@@ -612,21 +720,31 @@ def phase_serving(cfg, gen):
     eng = engine()
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n),
                     max_new=max_new) for i, n in enumerate(lens)]
+    # token steps the engine's decode bursts run (every slot steps at once)
+    token_steps = [0]
+    real_decode = engine_mod.decode_tokens
+
+    def counted_decode(cfg_, params_, cache, first, n, **kw):
+        token_steps[0] += n
+        return real_decode(cfg_, params_, cache, first, n, **kw)
+
     reset_counters()
     t0 = time.monotonic()
-    for r in reqs:
-        eng.submit(r)
-    decode_tok, decode_s = 0, 0.0
-    while True:
-        chunks, toks = eng.stats["prefill_chunks"], eng.stats["decode_tokens"]
-        ts = time.monotonic()
-        left = eng.step()
-        torch.cuda.synchronize()
-        if eng.stats["prefill_chunks"] == chunks:     # a decode-only step
-            decode_tok += eng.stats["decode_tokens"] - toks
-            decode_s += time.monotonic() - ts
-        if not (left or eng.queue or eng._pending):
-            break
+    with mock.patch.object(engine_mod, "decode_tokens", counted_decode):
+        for r in reqs:
+            eng.submit(r)
+        decode_tok, decode_s = 0, 0.0
+        while True:
+            chunks = eng.stats["prefill_chunks"]
+            toks = eng.stats["decode_tokens"]
+            ts = time.monotonic()
+            left = eng.step()
+            torch.cuda.synchronize()
+            if eng.stats["prefill_chunks"] == chunks:   # a decode-only step
+                decode_tok += eng.stats["decode_tokens"] - toks
+                decode_s += time.monotonic() - ts
+            if not (left or eng.queue or eng._pending):
+                break
     wall = time.monotonic() - t0
     launches = read_counters()
     for r in reqs:
@@ -641,6 +759,13 @@ def phase_serving(cfg, gen):
             raise AssertionError(f"{k}: {n} launches on the serving path of "
                                  f"{cfg.name}; its kernels are "
                                  f"{sorted(on_path)}")
+    want = attention_launches(cfg, eng.stats["prefill_chunks"],
+                              token_steps[0])
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{cfg.name}: attention launches {got}, "
+                             f"expected {want} ({eng.stats['prefill_chunks']} "
+                             f"chunks, {token_steps[0]} token steps)")
     # steady decode with all 4 slots live: bursts of 8 on the served cache,
     # under the KV bucket the engine would pick
     from repro_torch.models.lm import decode_tokens, lm_prefill_chunk
@@ -652,7 +777,8 @@ def phase_serving(cfg, gen):
         nonlocal pos
         bucket = clamped_bucket(max(pos) + 8, eng.kv_extent)
         toks, eng.cache = decode_tokens(cfg, eng.params, eng.cache, first, 8,
-                                        kv_bucket=bucket)
+                                        kv_bucket=bucket,
+                                        rope_len=eng.rope_len)
         toks.cpu()
         pos = [p + 8 for p in pos]
 
@@ -668,7 +794,8 @@ def phase_serving(cfg, gen):
                           device="cuda")
     chunk_busy = device_busy(lambda: lm_prefill_chunk(
         cfg, eng.params, chunk, eng.cache,
-        kv_bucket=clamped_bucket(max(pos) + 256, eng.kv_extent))[0].cpu())
+        kv_bucket=clamped_bucket(max(pos) + 256, eng.kv_extent),
+        rope_len=eng.rope_len)[0].cpu())
     ttft = {r.rid: (r.first_t - r.submit_t) * 1e3 for r in reqs}
     return dict(ttft_ms=ttft, wall_s=wall,
                 serve_decode_only_tokens_per_s=(
@@ -679,14 +806,18 @@ def phase_serving(cfg, gen):
                 profiled_decode_burst8_b4=busy,
                 profiled_prefill_chunk_b4_s256=chunk_busy,
                 prefill_chunks=eng.stats["prefill_chunks"],
+                decode_token_steps=token_steps[0],
                 max_memory_allocated=torch.cuda.max_memory_allocated()), \
         launches
 
 
-def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16"):
+def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16",
+                prompt_len: int = 512):
     """Kernel path against plain path on the card: ``n_layers`` layers, one
-    512-token prompt, then 8 teacher-forced decode steps, in
-    ``compute_dtype`` (the caches too).  Logits agree within 5% of max
+    ``prompt_len``-token prompt in 256-token chunks (a ragged last chunk
+    where it does not divide), on a cache of ``2 * prompt_len`` rows, then
+    8 teacher-forced decode steps, in ``compute_dtype`` (the caches too).
+    Logits agree within 5% of max
     |logit| in bf16 (each bf16 rounding is worth 2^-8 of its value, and
     the two paths round at different points) and 1e-4 in fp32 (sums in
     another order)."""
@@ -707,11 +838,11 @@ def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16"):
                                compute_dtype=compute_dtype)
     cache_dtype = getattr(torch, compute_dtype)
     params = prepare_params(cfg8, init_lm_params(cfg8, gen, device="cuda"))
-    prompt = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen,
                            device="cuda")
 
     def run(forced):
-        cache = init_lm_cache(cfg8, 1, 1024, dtype=cache_dtype,
+        cache = init_lm_cache(cfg8, 1, 2 * prompt_len, dtype=cache_dtype,
                               device="cuda")
         lg, cache = chunked_prefill(cfg8, params, prompt, cache,
                                     chunk_size=256)
@@ -735,10 +866,12 @@ def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16"):
     def plain_conv(x, w, b, *, initial_state=None, activation="silu"):
         return conv_ref.causal_conv1d_ref(x, w, b, initial_state, activation)
 
-    def plain_flash(q, k, v, *, causal=True, window=None, q_offset=None):
+    def plain_flash(q, k, v, *, causal=True, window=None, q_offset=None,
+                    kv_wrap=None, ring_len=None):
         return flash_ref.attention_ref(q, k, v, causal=causal, window=window,
                                        q_offset=0 if q_offset is None
-                                       else q_offset)
+                                       else q_offset, kv_wrap=kv_wrap,
+                                       ring_len=ring_len)
 
     def plain_scan(x, dt, A, Bm, Cm, D, *, initial_state=None):
         return scan_ref.selective_scan_ref(x, dt, A, Bm, Cm, D, initial_state)
@@ -784,8 +917,8 @@ def main() -> int:
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
-    from repro_torch.configs import (llama3_8b, mamba2_2p7b, mamba_130m,
-                                     zamba2_2p7b)
+    from repro_torch.configs import (gemma3_1b, llama3_8b, mamba2_2p7b,
+                                     mamba_130m, zamba2_2p7b)
     from repro_torch.kernels import build
 
     card = card_line()
@@ -808,17 +941,21 @@ def main() -> int:
     rows += phase_attention(gen)
     m1_rows, long_scan = phase_mamba1_kernels(mamba_130m, gen)
     rows += m1_rows
+    ring_rows = phase_ring(gen)
+    rows += ring_rows
     for r in rows:
         print(f"phase 3 kernel at {r['at']}: " + json.dumps(r), flush=True)
     print("phase 3 long-context selective scan at mamba-130m's width: "
           + json.dumps(long_scan), flush=True)
     # the kernels line: zamba2-2.7b's shapes, the path that runs the five
-    # Mamba-2 and attention kernels, and mamba-130m's for the Mamba-1 two
+    # Mamba-2 and attention kernels, mamba-130m's for the Mamba-1 two, and
+    # gemma3-1b's serving chunk (bf16) for the ring mode
     rows = [r for r in rows if r["at"] in (zamba2_2p7b.name,
                                            mamba_130m.name)]
+    rows.append(dict(ring_rows[0], at=gemma3_1b.name))
 
     launches = {}
-    for cfg in (mamba2_2p7b, zamba2_2p7b, mamba_130m):
+    for cfg in (mamba2_2p7b, zamba2_2p7b, mamba_130m, gemma3_1b):
         t0 = time.perf_counter()
         serving, launches[cfg.name] = phase_serving(cfg, gen)
         torch.cuda.empty_cache()
@@ -827,15 +964,22 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s): " + json.dumps(serving)
               + " launches " + json.dumps(launches[cfg.name]), flush=True)
 
-    for cfg, n, cd in ((mamba2_2p7b, 8, "bfloat16"),
-                       (zamba2_2p7b, 12, "bfloat16"),
-                       (llama3_8b, 4, "bfloat16"),
-                       (mamba_130m, mamba_130m.n_layers, "bfloat16"),
-                       (mamba_130m, mamba_130m.n_layers, "float32")):
-        paths = phase_paths(cfg, gen, n, cd)
+    for cfg, n, cd, plen in ((mamba2_2p7b, 8, "bfloat16", 512),
+                             (zamba2_2p7b, 12, "bfloat16", 512),
+                             (llama3_8b, 4, "bfloat16", 512),
+                             (mamba_130m, mamba_130m.n_layers, "bfloat16",
+                              512),
+                             (mamba_130m, mamba_130m.n_layers, "float32",
+                              512),
+                             (gemma3_1b, gemma3_1b.n_layers, "bfloat16",
+                              1300),
+                             (gemma3_1b, gemma3_1b.n_layers, "float32",
+                              1300)):
+        paths = phase_paths(cfg, gen, n, cd, plen)
         torch.cuda.empty_cache()
         print(f"phase 5 kernel path vs plain path, {cfg.name} at {n} "
-              f"layers, {cd}: " + json.dumps(paths), flush=True)
+              f"layers, {cd}, {plen}-token prompt: " + json.dumps(paths),
+              flush=True)
 
     for r in rows:
         r["launches"] = launches[r["at"]][r["name"]]

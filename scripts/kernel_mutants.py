@@ -18,6 +18,10 @@ there, and in a child process builds that copy and runs two checks:
   check on inputs at the model's scales (``mamba1_decode_inputs``),
   ``old_ratio`` the same limit on the unscaled normal draws it replaced,
   where dt is ~0 or ~100s; both the worst output's ``whole_ratio``.
+- ``ring``: the flash kernel's ring mode against its plain version on
+  every case of ``chip_smoke.ring_cases`` (gemma3-1b's shapes).
+  ``ratio`` is chip_smoke.py's per-row check, ``old_ratio`` the
+  whole-tensor limit.
 
 1 is the limit.  Exits 1 if the unchanged kernels fail a check or a
 mutant passes its kernel's check.  The repository's own sources are never
@@ -71,6 +75,18 @@ MUTANTS = {
         "y[(size_t)b * di + c] = __fadd_rn((c & 1) ? 0.0f : v, "
         "__fmul_rn(xs[c], Dv[c]));",
         "Mamba-1 decode: odd channels lose C . h' from y"),
+    "ring_signed_mod": (
+        "ring", "flash.cu", "  return r < 0 ? r + m : r;\n",
+        "  return r;\n",
+        "flash ring: C's signed %, so a slot at or past an unwrapped "
+        "cursor reads as position j, not as never written"),
+    "ring_skip_after_wrap": (
+        "ring", "flash.cu",
+        "  const int ring_keys = wrap >= p.window ? ring : max(0, min(ring, "
+        "wrap));\n",
+        "  const int ring_keys = max(0, min(ring, wrap % p.window));\n",
+        "flash ring: ring tiles past the cursor's slot skipped after the "
+        "wrap too"),
 }
 
 
@@ -136,8 +152,36 @@ def mamba1_decode_readings(cs, torch, gen) -> dict:
     return out
 
 
+def ring_readings(cs, torch, gen) -> dict:
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+
+    b, h, kvh, d, w = (cs.RING[k] for k in ("B", "H", "KVH", "d", "window"))
+    out = {}
+    for label, ring_len, sq, wraps in cs.ring_cases():
+        for dt in (torch.bfloat16, torch.float32):
+            def rn(*shape):
+                return torch.randn(shape, generator=gen,
+                                   device="cuda").to(dt)
+            q = rn(b, sq, h, d).transpose(1, 2)
+            k, v = (rn(b, ring_len + sq, kvh, d).transpose(1, 2)
+                    for _ in range(2))
+            wrap = torch.tensor(wraps, dtype=torch.int32, device="cuda")
+            kw = dict(causal=True, window=w, q_offset=wrap, kv_wrap=wrap,
+                      ring_len=ring_len)
+            got = flash_ops.flash_attention(q, k, v, **kw)
+            want = flash_ref.attention_ref(q, k, v, **kw)
+            tol = cs.TOL["attention"][dt]
+            out[f"ring {label} {str(dt)[6:]}"] = dict(
+                ratio=cs.row_ratio(got, want, tol),
+                old_ratio=cs.whole_ratio(got, want, tol),
+                max_abs_err=float((got.float() - want.float()).abs().max()))
+    return out
+
+
 CHECKS = {"attention": attention_readings,
-          "mamba1_decode": mamba1_decode_readings}
+          "mamba1_decode": mamba1_decode_readings,
+          "ring": ring_readings}
 
 
 def child() -> int:

@@ -7,6 +7,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.configs.gemma3_1b import CONFIG as gemma3_1b  # noqa: F401
 from repro_torch.configs.llama3_8b import CONFIG as llama3_8b  # noqa: F401
 from repro_torch.configs.mamba2_2p7b import CONFIG as mamba2_2p7b  # noqa: F401
 from repro_torch.configs.zamba2_2p7b import CONFIG as zamba2_2p7b  # noqa: F401

@@ -3,8 +3,9 @@
 Field names, defaults and the derived ``padded_vocab`` / ``layer_kinds`` /
 ``segments`` rules are the reference's, so a config built on either side
 describes the same network and the same parameter / cache layout.
-``AttnConfig`` describes the attention of the ``dense`` layers and of
-the shared block of ``mamba2+shared`` layers; ``MoEConfig`` is kept only
+``AttnConfig`` describes the attention of the ``dense`` and ``local``
+layers (``sliding_window`` is the local layers' window) and of the
+shared block of ``mamba2+shared`` layers; ``MoEConfig`` is kept only
 as far as ``ModelConfig`` needs its fields, since no MoE layer is ported
 yet.
 """

@@ -24,8 +24,8 @@ from repro_torch.kernels.attn_decode import ref as _ref
 from repro_torch.kernels.flash.ops import check_strided, row_vector
 
 # head_dim values the kernel is instantiated for: zamba2-2.7b's (80),
-# llama3-8b's (128) and the reduced test sizes
-HEAD_DIMS = (16, 32, 64, 80, 128)
+# llama3-8b's (128), gemma3-1b's (256) and the reduced test sizes
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 MAX_GROUP = 8           # query heads per KV head
 SMS = 132               # H100 SXM
 TILE = 32               # keys per warp tile

@@ -12,14 +12,15 @@
 //
 // Design: the TPU walks a split's KV blocks along a sequential grid axis.
 // Here one block owns one (batch row, KV head, split) and keeps the G query
-// rows of the group in shared memory.  Its four warps walk the split's
-// 32-key tiles in turn (warp w takes tiles w, w+4, ...): each warp stages
+// rows of the group in shared memory.  Its W warps walk the split's
+// 32-key tiles in turn (warp w takes tiles w, w+W, ...): each warp stages
 // its tile of K and V in its own shared memory with 16-byte loads, all
 // issued before the first store so they are in flight together, lane j
 // scores key j for every query of the group, and each lane accumulates its
 // own columns of the output, with (m, l, acc) in registers.  Tiles that
 // start at or past valid_len[b] are never read.  At the end the block merges
-// its four warps' partials.  With one split the block writes the output;
+// its W warps' partials.  W is four, or two for fp32 at d=256, where four
+// warps' staged tiles (4 x 64 KB) would pass the 227 KB a block may hold.  With one split the block writes the output;
 // with several it writes its unnormalised (acc, m, l), and a second small
 // kernel merges the splits exactly as at :146-150 (empty splits carry
 // m = -1e30 and l = 0 and vanish).  The split count is the caller's
@@ -33,7 +34,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 4;
 constexpr int kTile = 32;     // keys per warp tile, one per lane
 constexpr int kMaxG = 8;      // query heads per KV head
 constexpr int kLoadBatch = 10;  // 16-byte loads per lane in flight, K and V
@@ -66,6 +66,7 @@ __device__ __forceinline__ float2 pair_f32(const __nv_bfloat16* p) {
 
 template <typename T, int D>
 struct Smem {
+  static constexpr int kWarps = (sizeof(T) == 4 && D > 128) ? 2 : 4;
   static constexpr int KST = D + KeyRow<T>::pad;
   static constexpr size_t kWarpBytes =
       ((size_t)kTile * KST + (size_t)kTile * D) * sizeof(T);
@@ -74,9 +75,10 @@ struct Smem {
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(Smem<T, D>::kWarps * 32)
 decode_kernel(DecodeParams p) {
   using L = Smem<T, D>;
+  constexpr int kWarps = L::kWarps;
   constexpr int KST = L::KST;
   constexpr int VEC = 16 / sizeof(T);        // elements per 16-byte load
   constexpr int NV = D / VEC;                // 16-byte loads per row
@@ -265,7 +267,7 @@ cudaError_t launch(const DecodeParams& p, int B, cudaStream_t st) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (attr != cudaSuccess) return attr;
-  kern<<<B * p.KVH * p.nsplit, kWarps * 32, bytes, st>>>(p);
+  kern<<<B * p.KVH * p.nsplit, Smem<T, D>::kWarps * 32, bytes, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.nsplit == 1) return err;
   merge_kernel<T><<<B * p.KVH, 128, 0, st>>>(
@@ -282,6 +284,7 @@ cudaError_t dispatch(const DecodeParams& p, int B, int D, cudaStream_t st) {
     case 64: return launch<T, 64>(p, B, st);
     case 80: return launch<T, 80>(p, B, st);
     case 128: return launch<T, 128>(p, B, st);
+    case 256: return launch<T, 256>(p, B, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,26 +1,46 @@
 // Flash attention for prefill: online softmax over KV tiles, GQA, causal
-// and window masks, per-row query offsets (chunked prefill).
+// and window masks, per-row query offsets (chunked prefill), and the ring
+// layout of rolling sliding-window caches.
 //
 // Replaces the TPU kernel flash_attention_pallas
-// (src/repro/kernels/flash/kernel.py:124, body _flash_kernel :44), in its
-// non-ring mode (the ring-buffer layout of rolling windows is not ported).
+// (src/repro/kernels/flash/kernel.py:124, body _flash_kernel :44), in both
+// of its modes.  The mode is chosen per launch: ring_len <= 0 is the plain
+// layout (key slot j sits at position j); ring_len > 0 is the ring layout
+// of kernel.py:69-106.
+//
+// Ring layout: the first ring_len key slots are a ring with modulus
+// window and a per-row cursor kv_wrap[b] (tokens written before the
+// chunk); slot j < ring_len holds position
+// wrap - 1 - mod(wrap - 1 - j, window) with a non-negative mod (C's %
+// keeps the sign of wrap - 1 - j, which is negative for every slot at or
+// past the cursor), and a negative position marks a slot never written,
+// which is masked.  Slots j >= ring_len are the in-flight chunk at
+// positions wrap + (j - ring_len).  The causal and window masks apply to
+// these positions, never to the slot index.  Tiles follow the skip rule of
+// kernel.py:69-83: ring tiles run unless they lie wholly past an unwrapped
+// cursor (slot order is not position order, so no other ring skip is
+// sound); tail tiles keep the causal skip on their positions; a tile that
+// straddles ring_len runs if either part is live.  ring_len need not be a
+// multiple of the 64-key tile.
 //
 // Bound on the H100: at zamba2-2.7b's prefill chunk (B=4, H=KVH=32, d=80,
 // 256 queries at offsets 0..1792 against a 2048-row bucket) the live KV
 // prefix is about 45 MB and the unmasked products about 10 GFLOP, so the
 // bytes bound it (~13 us at 3.35 TB/s) just ahead of the bf16 tensor cores
-// (~10 us at 989 TFLOP/s).
+// (~10 us at 989 TFLOP/s).  At gemma3-1b's ring chunk (B=4, H=4, KVH=1,
+// d=256, 512 ring slots + 256 chunk keys) it moves about 7 MB, ~2 us.
 //
 // Design: the TPU walks KV blocks along a sequential grid axis with
 // (m, l, acc) in VMEM scratch.  Here one block owns one (batch row, head,
 // tile of 64 query rows) and loops over 64-row KV tiles itself; (m, l, acc)
-// stay in registers.  The loop starts at the first tile inside the window
-// and stops after the last key the tile's last query may see,
-// q_offset[b] + tile_end (the per-row causal skip of _flash_kernel
-// :63-68), so a short-prefix row never reads a long row's KV; keys at or
-// past Skv are masked.  q, k, v and o are read and written through
-// strides, so the caller hands in a bucket view of a [B, S, KV, d] cache
-// without a copy.
+// stay in registers.  In the plain layout the loop starts at the first
+// tile inside the window and stops after the last key the tile's last
+// query may see, q_offset[b] + tile_end (the per-row causal skip of
+// _flash_kernel :63-68), so a short-prefix row never reads a long row's
+// KV; keys at or past Skv are masked.  In the ring layout the block walks
+// the live ring tiles, then the live tail tiles (kv_tiles below).  q, k,
+// v and o are read and written through strides, so the caller hands in a
+// bucket view of a [B, S, KV, d] cache without a copy.
 //
 // bf16: four warps each own 16 query rows and run mma.sync m16n8k16 with
 // fp32 accumulate for S = Q K^T and for O += P V.  K and V tiles are
@@ -28,9 +48,14 @@
 // bytes so the fragment loads hit distinct banks.  P is rounded to bf16
 // for the P.V product (the Pallas kernel keeps it in fp32); the row sums l
 // are taken from the fp32 P.  The error this adds stays inside the bf16
-// tolerance, 2e-2 of each query row's own max |o|.
+// tolerance, 2e-2 of each query row's own max |o|.  Up to d=128 each warp
+// keeps its Q fragments in registers; at d=256 the output accumulator
+// alone takes 128 registers a thread, so the Q fragments are read from
+// shared memory at every tile instead.
 // fp32: CUDA cores.  Each warp owns 4 query rows; lane j scores key j of a
 // 32-key tile, and each lane accumulates its own columns of the output.
+// Its tiles live in static shared memory up to d=128 and in dynamic
+// shared memory at d=256 (82 KB, past the 48 KB static limit).
 #include <math.h>
 #include <stdint.h>
 
@@ -46,30 +71,85 @@ struct FlashParams {
   const void* v;
   void* o;
   const int* qoff;   // [B] query offsets, or null for all zero
+  const int* kv_wrap;   // [B] ring cursors (ring layout only)
   int H, KVH, Sq, Skv;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
   int causal, window;   // window <= 0: none
+  int ring_len;         // > 0: ring layout, <= 0: plain
   float scale;
 };
 
-// first and one-past-last key a block of queries [qa, qb] may see
-__device__ __forceinline__ void kv_range(const FlashParams& p, int qa, int qb,
-                                         int* lo, int* hi) {
-  int h = p.Skv;
-  if (p.causal) h = min(h, qb + 1);
-  int l = 0;
-  if (p.window > 0) l = max(0, qa - p.window + 1);
-  *lo = l;
-  *hi = h;
+// a mod m in [0, m)
+__device__ __forceinline__ int pmod(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
 }
 
-__device__ __forceinline__ bool key_ok(const FlashParams& p, int qpos,
+// The layout is a template argument (kRing), chosen per launch from
+// ring_len, so the plain instances compile to the code they had before
+// the ring mode existed.
+
+// absolute position of key slot `key` (negative: a ring slot never written)
+template <bool kRing>
+__device__ __forceinline__ int key_pos(const FlashParams& p, int wrap,
                                        int key) {
+  if (!kRing) return key;
+  if (key < p.ring_len) return wrap - 1 - pmod(wrap - 1 - key, p.window);
+  return wrap + (key - p.ring_len);
+}
+
+template <bool kRing>
+__device__ __forceinline__ bool key_ok(const FlashParams& p, int qpos,
+                                       int key, int kpos) {
   bool ok = key < p.Skv;
-  if (p.causal) ok = ok && key <= qpos;
-  if (p.window > 0) ok = ok && (qpos - key) < p.window;
+  if (kRing) ok = ok && kpos >= 0;
+  if (p.causal) ok = ok && kpos <= qpos;
+  if (p.window > 0) ok = ok && (qpos - kpos) < p.window;
   return ok;
+}
+
+// The KV tiles of `tile` keys that a block of queries at positions
+// [qa, qb] visits, in order: tiles 0 .. n_head - 1, then t_tail,
+// t_tail + 1, ... (n tiles in all; n_head is 0 in the plain layout).
+struct Tiles {
+  int n_head, t_tail, n;
+};
+
+template <bool kRing>
+__device__ __forceinline__ int tile_at(const Tiles& t, int i) {
+  if (!kRing) return t.t_tail + i;
+  return i < t.n_head ? i : t.t_tail + (i - t.n_head);
+}
+
+template <bool kRing>
+__device__ __forceinline__ Tiles kv_tiles(const FlashParams& p, int wrap,
+                                          int qa, int qb, int tile) {
+  Tiles t;
+  if (!kRing) {
+    // from the first key inside the window to the last the causal mask
+    // lets the block's last query see
+    int hi = p.Skv;
+    if (p.causal) hi = min(hi, qb + 1);
+    int lo = 0;
+    if (p.window > 0) lo = max(0, qa - p.window + 1);
+    const int end = hi > 0 ? (hi + tile - 1) / tile : 0;
+    t.n_head = 0;
+    t.t_tail = lo / tile;
+    t.n = max(0, end - t.t_tail);
+    return t;
+  }
+  // ring slots [0, ring_keys) were written; an unwrapped ring has written
+  // exactly the slots below its cursor
+  const int ring = min(p.ring_len, p.Skv);
+  const int ring_keys = wrap >= p.window ? ring : max(0, min(ring, wrap));
+  t.n_head = (ring_keys + tile - 1) / tile;
+  // tail slot j is live for the block while wrap + (j - ring_len) <= qb
+  const int tail_hi = min(p.Skv, ring + qb - wrap + 1);
+  const int end = tail_hi > ring ? (tail_hi + tile - 1) / tile : 0;
+  t.t_tail = max(ring / tile, t.n_head);
+  t.n = t.n_head + max(0, end - t.t_tail);
+  return t;
 }
 
 // ---------------------------------------------------------------- bf16, mma
@@ -118,6 +198,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the A fragment of m16n8k16 for rows r, r + 8 and columns c, c + 8 of a
+// padded row-major bf16 tile; `a` points at (r, c)
+__device__ __forceinline__ void load_q_frag(uint32_t (&f)[4],
+                                            const __nv_bfloat16* a, int dp) {
+  f[0] = *reinterpret_cast<const uint32_t*>(a);
+  f[1] = *reinterpret_cast<const uint32_t*>(a + 8 * dp);
+  f[2] = *reinterpret_cast<const uint32_t*>(a + 8);
+  f[3] = *reinterpret_cast<const uint32_t*>(a + 8 * dp + 8);
+}
+
 // rows [r0, r0 + kBK) of a [rows, D] strided matrix into a padded tile;
 // rows at or past n_rows are zero
 template <int D>
@@ -135,13 +225,14 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
   }
 }
 
-template <int D>
+template <int D, bool kRing>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_bf16_kernel(FlashParams p) {
   constexpr int DP = D + 8;          // padded row, in elements
   constexpr int KD = D / 16;         // k-steps of Q K^T
   constexpr int ND = D / 8;          // n-tiles of the output
   constexpr int NK = kBK / 8;        // n-tiles of S
+  constexpr bool kQRegs = D <= 128;  // Q fragments held in registers
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -154,11 +245,9 @@ flash_bf16_kernel(FlashParams p) {
   const int kvh = h / (p.H / p.KVH);
   const int q0 = qt * kBQ;
   const int qoff = p.qoff ? p.qoff[b] : 0;
+  const int wrap = kRing ? p.kv_wrap[b] : 0;
   const int q_last = min(q0 + kBQ, p.Sq) - 1;
-  int lo, hi;
-  kv_range(p, qoff + q0, qoff + q_last, &lo, &hi);
-  const int t_first = lo / kBK;
-  const int t_end = hi > 0 ? (hi + kBK - 1) / kBK : 0;
+  const Tiles tl = kv_tiles<kRing>(p, wrap, qoff + q0, qoff + q_last, kBK);
 
   const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
                             b * p.q_sb + h * p.q_sh;
@@ -175,9 +264,10 @@ flash_bf16_kernel(FlashParams p) {
                ok ? qg + (long long)(q0 + r) * p.q_ss + c * 8 : qg,
                ok ? 16 : 0);
   }
-  if (t_first < t_end) {
-    load_tile_async<D>(ks, kg, p.k_ss, t_first * kBK, p.Skv, tid);
-    load_tile_async<D>(vs, vg, p.v_ss, t_first * kBK, p.Skv, tid);
+  if (tl.n > 0) {
+    const int t0 = tile_at<kRing>(tl, 0);
+    load_tile_async<D>(ks, kg, p.k_ss, t0 * kBK, p.Skv, tid);
+    load_tile_async<D>(vs, vg, p.v_ss, t0 * kBK, p.Skv, tid);
   }
   cp_async_commit();
 
@@ -191,28 +281,25 @@ flash_bf16_kernel(FlashParams p) {
   for (int n = 0; n < ND; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
-  uint32_t qa[KD][4];
+  uint32_t qa[kQRegs ? KD : 1][4];
 
-  for (int t = t_first; t < t_end; ++t) {
-    const int stage = (t - t_first) & 1;
-    if (t + 1 < t_end) {
-      load_tile_async<D>(ks + (stage ^ 1) * kBK * DP, kg, p.k_ss,
-                         (t + 1) * kBK, p.Skv, tid);
-      load_tile_async<D>(vs + (stage ^ 1) * kBK * DP, vg, p.v_ss,
-                         (t + 1) * kBK, p.Skv, tid);
+  for (int i = 0; i < tl.n; ++i) {
+    const int t = tile_at<kRing>(tl, i);
+    const int stage = i & 1;
+    if (i + 1 < tl.n) {
+      const int tn = tile_at<kRing>(tl, i + 1);
+      load_tile_async<D>(ks + (stage ^ 1) * kBK * DP, kg, p.k_ss, tn * kBK,
+                         p.Skv, tid);
+      load_tile_async<D>(vs + (stage ^ 1) * kBK * DP, vg, p.v_ss, tn * kBK,
+                         p.Skv, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (t == t_first) {
+    if (kQRegs && i == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const __nv_bfloat16* a = qs + row0 * DP + kk * 16 + gc;
-        qa[kk][0] = *reinterpret_cast<const uint32_t*>(a);
-        qa[kk][1] = *reinterpret_cast<const uint32_t*>(a + 8 * DP);
-        qa[kk][2] = *reinterpret_cast<const uint32_t*>(a + 8);
-        qa[kk][3] = *reinterpret_cast<const uint32_t*>(a + 8 * DP + 8);
-      }
+      for (int kk = 0; kk < (kQRegs ? KD : 0); ++kk)
+        load_q_frag(qa[kk], qs + row0 * DP + kk * 16 + gc, DP);
     }
     const __nv_bfloat16* kt = ks + stage * kBK * DP;
     const __nv_bfloat16* vt = vs + stage * kBK * DP;
@@ -223,10 +310,19 @@ flash_bf16_kernel(FlashParams p) {
     for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qf[4];
+      if (kQRegs) {
+        qf[0] = qa[kQRegs ? kk : 0][0];
+        qf[1] = qa[kQRegs ? kk : 0][1];
+        qf[2] = qa[kQRegs ? kk : 0][2];
+        qf[3] = qa[kQRegs ? kk : 0][3];
+      } else {
+        load_q_frag(qf, qs + row0 * DP + kk * 16 + gc, DP);
+      }
 #pragma unroll
       for (int n = 0; n < NK; ++n) {
         const __nv_bfloat16* bp = kt + (n * 8 + gr) * DP + kk * 16 + gc;
-        mma_bf16(s[n], qa[kk], *reinterpret_cast<const uint32_t*>(bp),
+        mma_bf16(s[n], qf, *reinterpret_cast<const uint32_t*>(bp),
                  *reinterpret_cast<const uint32_t*>(bp + 8));
       }
     }
@@ -239,8 +335,12 @@ flash_bf16_kernel(FlashParams p) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int key = k0 + n * 8 + gc + j;
-        s[n][j] = key_ok(p, qpos0, key) ? s[n][j] * p.scale : kNegInf;
-        s[n][2 + j] = key_ok(p, qpos1, key) ? s[n][2 + j] * p.scale : kNegInf;
+        const int kpos = key_pos<kRing>(p, wrap, key);
+        s[n][j] = key_ok<kRing>(p, qpos0, key, kpos) ? s[n][j] * p.scale
+                                                     : kNegInf;
+        s[n][2 + j] = key_ok<kRing>(p, qpos1, key, kpos)
+                          ? s[n][2 + j] * p.scale
+                          : kNegInf;
         mx0 = fmaxf(mx0, s[n][j]);
         mx1 = fmaxf(mx1, s[n][2 + j]);
       }
@@ -323,23 +423,45 @@ constexpr int kFQ = 16;            // query rows per block (4 per warp)
 constexpr int kFK = 32;            // keys per tile (one per lane)
 constexpr int kFRows = kFQ / kWarps;
 
+// the fp32 kernel's tiles: Q [kFQ][D], K [kFK][D + 1] (padded key rows),
+// V [kFK][D]; static shared memory up to 48 KB (d <= 128), dynamic past it
 template <int D>
+struct F32Tiles {
+  float q[kFQ][D];
+  float k[kFK][D + 1];
+  float v[kFK][D];
+};
+
+template <int D>
+struct F32Smem {
+  static constexpr size_t kDynamicBytes =
+      sizeof(F32Tiles<D>) <= 48 * 1024 ? 0 : sizeof(F32Tiles<D>);
+};
+
+template <int D, bool kRing>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_f32_kernel(FlashParams p) {
-  constexpr int KST = D + 1;                  // padded key row
   constexpr int NC = (D + 31) / 32;           // output columns per lane
-  __shared__ float qs[kFQ][D];
-  __shared__ float ks[kFK][KST];
-  __shared__ float vs[kFK][D];
+  F32Tiles<D>* tiles;
+  if constexpr (F32Smem<D>::kDynamicBytes == 0) {
+    __shared__ F32Tiles<D> static_tiles;
+    tiles = &static_tiles;
+  } else {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    tiles = reinterpret_cast<F32Tiles<D>*>(smem_raw);
+  }
+  auto& qs = tiles->q;
+  auto& ks = tiles->k;
+  auto& vs = tiles->v;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KVH);
   const int q0 = qt * kFQ;
   const int qoff = p.qoff ? p.qoff[b] : 0;
+  const int wrap = kRing ? p.kv_wrap[b] : 0;
   const int q_last = min(q0 + kFQ, p.Sq) - 1;
-  int lo, hi;
-  kv_range(p, qoff + q0, qoff + q_last, &lo, &hi);
+  const Tiles tl = kv_tiles<kRing>(p, wrap, qoff + q0, qoff + q_last, kFK);
 
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb +
@@ -359,7 +481,8 @@ flash_f32_kernel(FlashParams p) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
   }
-  for (int k0 = (lo / kFK) * kFK; k0 < hi; k0 += kFK) {
+  for (int it = 0; it < tl.n; ++it) {
+    const int k0 = tile_at<kRing>(tl, it) * kFK;
     __syncthreads();   // previous tile consumed (and qs written)
     for (int e = tid; e < kFK * D; e += kWarps * 32) {
       const int r = e / D, d = e % D;
@@ -378,10 +501,11 @@ flash_f32_kernel(FlashParams p) {
         s[i] = fmaf(qs[warp * kFRows + i][d], kv, s[i]);
     }
     const int key = k0 + lane;
+    const int kpos = key_pos<kRing>(p, wrap, key);
 #pragma unroll
     for (int i = 0; i < kFRows; ++i) {
       const int qpos = qoff + q0 + warp * kFRows + i;
-      float si = key_ok(p, qpos, key) ? s[i] * p.scale : kNegInf;
+      float si = key_ok<kRing>(p, qpos, key, kpos) ? s[i] * p.scale : kNegInf;
       float mx = si;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -421,11 +545,11 @@ flash_f32_kernel(FlashParams p) {
   }
 }
 
-template <int D>
+template <int D, bool kRing>
 cudaError_t launch(const FlashParams& p, int B, int dtype, cudaStream_t st) {
   if (dtype == 1) {
     constexpr size_t bytes = (size_t)(kBQ + 4 * kBK) * (D + 8) * 2;
-    auto kern = flash_bf16_kernel<D>;
+    auto kern = flash_bf16_kernel<D, kRing>;
     // once per instantiation, so a launch inside CUDA-graph capture makes
     // no configuration call
     static const cudaError_t attr = cudaFuncSetAttribute(
@@ -434,40 +558,63 @@ cudaError_t launch(const FlashParams& p, int B, int dtype, cudaStream_t st) {
     dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
     kern<<<grid, kWarps * 32, bytes, st>>>(p);
   } else {
+    constexpr size_t bytes = F32Smem<D>::kDynamicBytes;
+    auto kern = flash_f32_kernel<D, kRing>;
+    if constexpr (bytes > 0) {
+      static const cudaError_t attr = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (attr != cudaSuccess) return attr;
+    }
     dim3 grid((p.Sq + kFQ - 1) / kFQ, p.H, B);
-    flash_f32_kernel<D><<<grid, kWarps * 32, 0, st>>>(p);
+    kern<<<grid, kWarps * 32, bytes, st>>>(p);
   }
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_layout(const FlashParams& p, int B, int dtype,
+                          cudaStream_t st) {
+  return p.ring_len > 0 ? launch<D, true>(p, B, dtype, st)
+                        : launch<D, false>(p, B, dtype, st);
 }
 
 }  // namespace
 
 // q: [B,H,Sq,D], k, v: [B,KVH,Skv,D], o: [B,H,Sq,D], each through its
 // (batch, head, row) strides in elements with unit stride along D; qoff:
-// [B] int32 or null; window <= 0 for none; dtype 0 = float32, 1 = bfloat16
-// (shared by q, k, v and o).
+// [B] int32 or null; window <= 0 for none; ring_len > 0 selects the ring
+// layout, which needs causal, a window and kv_wrap ([B] int32 cursors),
+// with ring_len <= Skv; dtype 0 = float32, 1 = bfloat16 (shared by q, k,
+// v and o).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
-                               void* o, const void* qoff, int B, int H,
+                               void* o, const void* qoff,
+                               const void* kv_wrap, int B, int H,
                                int KVH, int Sq, int Skv, int D,
                                long long q_sb, long long q_sh, long long q_ss,
                                long long k_sb, long long k_sh, long long k_ss,
                                long long v_sb, long long v_sh, long long v_ss,
                                long long o_sb, long long o_sh, long long o_ss,
-                               int causal, int window, int dtype,
-                               void* stream) {
+                               int causal, int window, int ring_len,
+                               int dtype, void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH || Sq <= 0 || Skv <= 0 ||
       B > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  FlashParams p{q, k, v, o, static_cast<const int*>(qoff), H, KVH, Sq, Skv,
+  if (ring_len > 0 &&
+      (!causal || window <= 0 || kv_wrap == nullptr || ring_len > Skv))
+    return (int)cudaErrorInvalidValue;
+  FlashParams p{q, k, v, o, static_cast<const int*>(qoff),
+                ring_len > 0 ? static_cast<const int*>(kv_wrap) : nullptr,
+                H, KVH, Sq, Skv,
                 q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-                o_sb, o_sh, o_ss, causal, window,
+                o_sb, o_sh, o_ss, causal, window, ring_len,
                 (float)(1.0 / sqrt((double)D))};   // the reference's scale
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return (int)launch<16>(p, B, dtype, st);
-    case 32: return (int)launch<32>(p, B, dtype, st);
-    case 80: return (int)launch<80>(p, B, dtype, st);
-    case 128: return (int)launch<128>(p, B, dtype, st);
+    case 16: return (int)launch_layout<16>(p, B, dtype, st);
+    case 32: return (int)launch_layout<32>(p, B, dtype, st);
+    case 80: return (int)launch_layout<80>(p, B, dtype, st);
+    case 128: return (int)launch_layout<128>(p, B, dtype, st);
+    case 256: return (int)launch_layout<256>(p, B, dtype, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

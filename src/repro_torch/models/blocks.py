@@ -2,8 +2,11 @@
 
 The port serves the ``mamba2``, ``mamba2+shared`` (Zamba2: a Mamba-2
 layer followed by the one shared attention+MLP block), ``mamba1``
-(selective scan) and ``dense`` kinds; every other kind raises and names
-the ROADMAP item that ports it.
+(selective scan), ``dense`` and ``local`` kinds.  A ``local`` layer is a
+``dense`` one with a sliding window: the same params, a ring cache of
+``sliding_window`` slots, and the local rope table (theta 1e4) where the
+model has one.  Every other kind raises and names the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -22,7 +25,6 @@ from repro_torch.models.params import ParamDef
 
 _NOT_PORTED = {
     "hybrid_par": "the hybrid_par (Falcon-H1) item",
-    "local": "the ring mode and local windows item",
     "moe": "the MoE item",
     "dense_moe": "the MoE item",
     "encoder": "the encoder and frontends item",
@@ -39,7 +41,7 @@ def _unported(kind: str) -> NotImplementedError:
 
 def layer_param_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     D = cfg.d_model
-    if kind == "dense":
+    if kind in ("dense", "local"):
         return {
             "ln1": ParamDef((D,), ("embed",), init="zeros"),
             "attn": attn_param_defs(D, cfg.attn),
@@ -73,9 +75,10 @@ def shared_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      *, dtype: torch.dtype, device: torch.device) -> Dict:
-    if kind == "dense":
-        return init_attn_cache(cfg.attn, batch, max_seq, dtype=dtype,
-                               device=device)
+    if kind in ("dense", "local"):
+        window = cfg.attn.sliding_window if kind == "local" else None
+        return init_attn_cache(cfg.attn, batch, max_seq, window=window,
+                               dtype=dtype, device=device)
     if kind in ("mamba2", "mamba2+shared"):
         c = m2.init_mamba2_cache(cfg.d_model, cfg.ssm, batch, dtype, device)
         if kind == "mamba2+shared":
@@ -89,19 +92,21 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
 
 
 def _attn_mlp(cfg: ModelConfig, p: Dict, a, x: torch.Tensor, *, rope, cache,
-              pos, valid_len) -> Tuple[torch.Tensor, Optional[Dict]]:
+              pos, valid_len, chunk_mask=None, window=None
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Pre-norm attention then pre-norm MLP, each added to the residual."""
     eps = cfg.norm_eps
     h = rms_norm(x, p["ln1"], eps)
-    a_out, new_cache = attention(p["attn"], h, a, rope=rope, cache=cache,
-                                 pos=pos, valid_len=valid_len, eps=eps)
+    a_out, new_cache = attention(p["attn"], h, a, rope=rope, window=window,
+                                 cache=cache, pos=pos, valid_len=valid_len,
+                                 chunk_mask=chunk_mask, eps=eps)
     x = x + a_out
     h = rms_norm(x, p["ln2"], eps)
     return x + mlp(p["mlp"], h, cfg.act), new_cache
 
 
 def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
-                rope=None, cache: Optional[Dict] = None,
+                rope=None, rope_local=None, cache: Optional[Dict] = None,
                 pos: Optional[torch.Tensor] = None,
                 shared: Optional[Dict] = None,
                 chunk_mask: Optional[torch.Tensor] = None,
@@ -111,13 +116,19 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
     prefill; SSM layers treat invalid tokens as inert.  A one-token call
     with a cache and ``pos`` is a decode step.  ``rope`` is the (sin, cos)
     pair at the call's token positions and ``valid_len`` a decode step's
-    attended rows, both as :func:`repro_torch.models.attention.attention`
-    takes them; ``shared`` the shared block's params.  KV leaves of
+    attended rows of this layer's cache, both as
+    :func:`repro_torch.models.attention.attention` takes them;
+    ``rope_local`` the local table's pair, which ``local`` layers take
+    where it is given; ``shared`` the shared block's params.  KV leaves of
     ``cache`` are written in place (see
     :mod:`repro_torch.models.attention`)."""
-    if kind == "dense":
-        return _attn_mlp(cfg, p, cfg.attn, x, rope=rope, cache=cache,
-                         pos=pos, valid_len=valid_len)
+    if kind in ("dense", "local"):
+        local = kind == "local"
+        return _attn_mlp(
+            cfg, p, cfg.attn, x,
+            rope=rope_local if local and rope_local is not None else rope,
+            cache=cache, pos=pos, valid_len=valid_len, chunk_mask=chunk_mask,
+            window=cfg.attn.sliding_window if local else None)
     if kind not in ("mamba2", "mamba2+shared", "mamba1"):
         raise _unported(kind)
     eps = cfg.norm_eps

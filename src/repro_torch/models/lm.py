@@ -1,7 +1,7 @@
 """Language model: embedding -> layer segments -> head.
 
 The port of the reference's ``repro.models.lm`` for the kinds it serves
-(``mamba2``, ``mamba2+shared``, ``mamba1``, ``dense``).  Params and caches
+(``mamba2``, ``mamba2+shared``, ``mamba1``, ``dense``, ``local``).  Params and caches
 keep the reference's layouts: params are the same nested dict, with
 ``segments`` a list of per-unit tuples whose leaves are stacked
 ``[n_rep, ...]`` and, for Zamba2-style models, one ``shared``
@@ -10,8 +10,10 @@ with mamba2 leaves ``conv: [n_rep,B,K-1,C]`` (bf16) and
 ``ssm: [n_rep,B,H,P,N]`` (fp32), mamba1 leaves ``conv: [n_rep,B,K-1,di]``
 (bf16) and ``ssm: [n_rep,B,di,N]`` (fp32), and KV leaves ``k``,
 ``v: [n_rep,B,max_seq,KV,hd]`` (bf16) — at the top of a ``dense``
-layer's cache, nested under ``attn`` in a ``mamba2+shared`` layer's.  A Python loop over the stacked layers stands in for
-``lax.scan``.
+layer's cache, nested under ``attn`` in a ``mamba2+shared`` layer's —
+or ``[n_rep,B,window,KV,hd]`` rings at the top of a ``local`` layer's
+(``repro_torch.models.attention``).  A Python loop over the stacked
+layers stands in for ``lax.scan``.
 
 How a call updates the cache: **KV leaves are written in place**, where
 the reference returns new arrays; every other leaf (the small conv and
@@ -19,9 +21,22 @@ SSM states) is returned as a new tensor and the input's is left as it
 was.  ``kv_bucket`` slices the KV leaves to their first ``kv_bucket``
 rows; the slices are views, so the writes land in the full cache and
 need no write-back, and the returned cache holds the full leaves.  A
-caller that reuses a cache it passed in therefore sees the KV rows the
-call wrote; stale rows are harmless, since every read is bounded by the
-causal mask or by ``valid_len`` (``repro_torch.models.attention``).
+ring is cut like any other KV leaf; the bucket rule
+(``repro_torch.serving.bucketing``) guarantees that a ring cut below its
+window has not wrapped.  (The reference's environment switch that keeps
+rings whole is not ported: the port reads no environment variable.)  A
+caller that reuses a cache it passed in therefore sees the KV
+rows the call wrote; stale rows are harmless, since every read is bounded
+by the causal mask, the ring's positions or ``valid_len``
+(``repro_torch.models.attention``).  A decode step attends
+``min(pos + 1, Skv)`` rows of each layer's own extent ``Skv``.
+
+Rope: the tables cover ``max(S, KV rows, rope_len)`` positions, as in the
+reference.  ``rope_len`` (the serving layer passes
+``repro_torch.serving.bucketing.rope_len_for``) matters where the largest
+KV leaf is a window-sized ring and positions run past it.  A model with
+sliding windows builds a second, local pair at theta 1e4 for its
+``local`` layers.
 
 Entry points:
 
@@ -47,7 +62,7 @@ from repro_torch.models.mlp import MLP_KEYS
 from repro_torch.models.norms import rms_norm
 from repro_torch.models.params import (ParamDef, init_params, stack_defs,
                                        tree_map)
-from repro_torch.models.rope import rope_at, rope_tables
+from repro_torch.models.rope import LOCAL_ROPE_THETA, rope_at, rope_tables
 
 KV_KEYS = ("k", "v")
 
@@ -186,13 +201,21 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 def _rope_for(cfg: ModelConfig, length: int, pos, s: int, device):
     """The model's (sin, cos) at one call's ``s`` token positions
     (:func:`repro_torch.models.rope.rope_at`), from tables covering
-    ``length`` positions as the reference's ``_rope_for`` sizes them, or
-    None for a model without attention."""
+    ``length`` positions as the reference's ``_rope_for`` sizes them:
+    (global pair, local pair), the local one at ``LOCAL_ROPE_THETA`` when
+    the model has a sliding window, else None; (None, None) for a model
+    without attention."""
     a = cfg.attn or cfg.shared_attn
     if a is None:
-        return None
-    return rope_at(rope_tables(length, a.head_dim, a.rope_theta, device),
-                   pos, s, _dtype(cfg.compute_dtype))
+        return None, None
+    cd = _dtype(cfg.compute_dtype)
+    rope = rope_at(rope_tables(length, a.head_dim, a.rope_theta, device),
+                   pos, s, cd)
+    local = None
+    if cfg.attn is not None and cfg.attn.sliding_window is not None:
+        local = rope_at(rope_tables(length, a.head_dim, LOCAL_ROPE_THETA,
+                                    device), pos, s, cd)
+    return rope, local
 
 
 def cache_kv_extent(cache) -> Optional[int]:
@@ -236,12 +259,27 @@ def _store_state(dst, src, r: int) -> None:
             dst[key][r].copy_(val)
 
 
+def _decode_valid_lens(pos: torch.Tensor):
+    """A decode step's attended rows for a KV extent, ``min(pos + 1,
+    extent)`` as the reference clamps them per layer; computed once per
+    extent for all the layers that share it."""
+    memo: Dict[int, torch.Tensor] = {}
+
+    def get(extent: int) -> torch.Tensor:
+        if extent not in memo:
+            memo[extent] = torch.clamp(pos + 1, max=extent).to(torch.int32)
+        return memo[extent]
+    return get
+
+
 def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
-                  pos=None, chunk_mask=None, rope=None, kv_bucket=None,
-                  valid_len=None):
+                  pos=None, chunk_mask=None, rope=(None, None),
+                  kv_bucket=None, valid_lens=None):
     """Every layer in order.  Each layer gets views of its cache: state
     leaves at its repeat, KV leaves cut to their first ``kv_bucket`` rows
-    (None: all), so its KV writes land in the full cache.  Returns (x, the
+    (None: all), so its KV writes land in the full cache.  ``rope`` is the
+    (global, local) pair of :func:`_rope_for`; ``valid_lens`` (a decode
+    step) maps a layer's KV extent to its attended rows.  Returns (x, the
     new segments: new state leaves, the cache's own KV leaves)."""
     shared = params.get("shared")
     new_segs = []
@@ -256,10 +294,13 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
                 c = (_map_cache(lambda t: t[r, :, :kv_bucket],
                                 lambda t: t[r], seg_c[li])
                      if seg_c is not None else None)
-                x, nc = blocks.apply_layer(cfg, kind, p, x, rope=rope,
-                                           cache=c, pos=pos, shared=shared,
-                                           chunk_mask=chunk_mask,
-                                           valid_len=valid_len)
+                kv = next(_kv_leaves(c), None) if c is not None else None
+                x, nc = blocks.apply_layer(
+                    cfg, kind, p, x, rope=rope[0], rope_local=rope[1],
+                    cache=c, pos=pos, shared=shared, chunk_mask=chunk_mask,
+                    valid_len=(valid_lens(kv.shape[1])
+                               if valid_lens is not None and kv is not None
+                               else None))
                 if new_seg is not None:
                     _store_state(new_seg[li], nc, r)
         new_segs.append(new_seg)
@@ -295,7 +336,8 @@ def lm_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache
 
 def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
                      *, lengths: Optional[torch.Tensor] = None,
-                     kv_bucket: Optional[int] = None):
+                     kv_bucket: Optional[int] = None,
+                     rope_len: Optional[int] = None):
     """One state-carrying prefill chunk of ``S`` tokens per row, starting at
     each row's running offset ``cache["pos"]``.  ``lengths`` ([B] int32,
     default all-S) counts each row's valid leading tokens; the rest are
@@ -304,8 +346,10 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
     attention to the KV leaves' first ``kv_bucket`` rows; the caller picks
     ``kv_bucket >= max(pos) + S`` capped at the leaves' extent
     (``repro_torch.serving.bucketing``), and the outputs are bit-identical
-    to the unbucketed call.  Returns (logits of each row's last valid token
-    [B,1,V], cache with ``pos`` advanced by ``lengths``)."""
+    to the unbucketed call.  ``rope_len`` (None, or the serving layer's
+    ``max_seq``) extends the rope tables past the KV rows.  Returns
+    (logits of each row's last valid token [B,1,V], cache with ``pos``
+    advanced by ``lengths``)."""
     _check_kv_bucket(kv_bucket)
     x = _embed(cfg, params, tokens)
     b, s = x.shape[0], x.shape[1]
@@ -316,8 +360,8 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=x.device).expand(b)
     chunk_mask = torch.arange(s, device=x.device)[None, :] < lengths[:, None]
-    rope = _rope_for(cfg, max(s, _kv_rows(cache, kv_bucket) or s), pos, s,
-                     x.device)
+    rope = _rope_for(cfg, max(s, _kv_rows(cache, kv_bucket) or s,
+                              rope_len or 0), pos, s, x.device)
     x, new_segs = _run_segments(cfg, params, x, cache=cache, pos=pos,
                                 chunk_mask=chunk_mask, rope=rope,
                                 kv_bucket=kv_bucket)
@@ -328,25 +372,25 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
 
 
 def lm_decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
-                   kv_bucket: Optional[int] = None
+                   kv_bucket: Optional[int] = None,
+                   rope_len: Optional[int] = None
                    ) -> Tuple[torch.Tensor, Any]:
     """One token step. token: [B, 1]; ``cache["pos"]`` is a [B] vector.
-    ``kv_bucket`` as in :func:`decode_tokens`."""
+    ``kv_bucket`` and ``rope_len`` as in :func:`decode_tokens`."""
     _check_kv_bucket(kv_bucket)
     pos = cache["pos"]
     x = _embed(cfg, params, token)
     rows = _kv_rows(cache, kv_bucket)
-    rope = _rope_for(cfg, rows or 1, pos, 1, x.device)
-    valid_len = (None if rows is None
-                 else torch.clamp(pos + 1, max=rows).to(torch.int32))
+    rope = _rope_for(cfg, max(rows or 1, rope_len or 0), pos, 1, x.device)
     x, new_segs = _run_segments(cfg, params, x, cache=cache, pos=pos,
                                 rope=rope, kv_bucket=kv_bucket,
-                                valid_len=valid_len)
+                                valid_lens=_decode_valid_lens(pos))
     return _head(cfg, params, x), {"segments": new_segs, "pos": pos + 1}
 
 
 def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
-                  n: int, *, kv_bucket: Optional[int] = None):
+                  n: int, *, kv_bucket: Optional[int] = None,
+                  rope_len: Optional[int] = None):
     """``n`` greedy steps: ``first_token`` ([B,1]) feeds the first step and
     each next input is the argmax (first maximal index) taken on the
     device, so the burst needs no host sync.  Returns (tokens [B,n] int32
@@ -355,13 +399,16 @@ def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
     :func:`lm_decode_step` calls.  ``kv_bucket`` (None for the whole
     cache, else ``>= max(live pos) + n``) bounds the burst's attention to
     the KV leaves' first ``kv_bucket`` rows, bit-identically; a retired
-    row whose ``pos`` is past the bucket writes nothing."""
+    row whose ``pos`` is past the bucket writes nothing.  ``rope_len``
+    (None, or the serving layer's ``max_seq``) extends the rope tables
+    past the KV rows."""
     _check_kv_bucket(kv_bucket)
     tok = first_token.to(torch.int32)
     out = []
     for _ in range(n):
         logits, cache = lm_decode_step(cfg, params, tok, cache,
-                                       kv_bucket=kv_bucket)
+                                       kv_bucket=kv_bucket,
+                                       rope_len=rope_len)
         tok = torch.argmax(logits[:, 0, :cfg.vocab_size], dim=-1
                            ).to(torch.int32)[:, None]
         out.append(tok)

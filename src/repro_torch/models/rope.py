@@ -5,6 +5,8 @@ head_dim, theta, device)`` and keeps them: every decode step and prefill
 chunk reuses the same tensors instead of rebuilding them.  The cached
 tensors are shared by all callers and must not be written to.
 ``rope_at`` takes one call's rows of them, once for all its layers.
+Sliding-window (``local``) layers rotate with their own table at
+``LOCAL_ROPE_THETA``, the value the reference's ``_rope_for`` fixes.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+
+LOCAL_ROPE_THETA = 10_000.0
 
 
 @functools.lru_cache(maxsize=64)

@@ -28,7 +28,8 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models.lm import (decode_tokens, init_lm_cache, lm_prefill,
                                    prepare_params)
 from repro_torch.models.params import tree_leaves
-from repro_torch.serving.bucketing import clamped_bucket, kv_cache_extent
+from repro_torch.serving.bucketing import (clamped_bucket, kv_cache_extent,
+                                           rope_len_for)
 from repro_torch.serving.prefill import ChunkedPrefill, supports_chunked_prefill
 
 
@@ -53,7 +54,8 @@ def greedy_generate(cfg: ModelConfig, params, inputs: Dict[str, torch.Tensor],
     first = torch.argmax(logits[..., :cfg.vocab_size], -1).to(torch.int32)
     if gen_len <= 1:
         return first, cache
-    rest, cache = decode_tokens(cfg, params, cache, first, gen_len - 1)
+    rest, cache = decode_tokens(cfg, params, cache, first, gen_len - 1,
+                                rope_len=rope_len_for(cfg, max_seq))
     return torch.cat([first, rest], dim=1), cache
 
 
@@ -106,6 +108,7 @@ class ServingEngine:
         self.chunk_size = chunk_size or min(256, max_seq)
         self._clock = clock or time.monotonic
         self.kv_extent = kv_cache_extent(cfg, max_seq)
+        self.rope_len = rope_len_for(cfg, max_seq)
         self.cache = init_lm_cache(cfg, slots, max_seq, device=self.device)
         self._prefill = ChunkedPrefill(cfg, self.params, max_seq=max_seq,
                                        chunk_size=self.chunk_size)
@@ -193,7 +196,7 @@ class ServingEngine:
         toks_d, self.cache = decode_tokens(
             self.cfg, self.params, self.cache,
             torch.from_numpy(self.tokens).to(self.device), kblk,
-            kv_bucket=kv_bucket)
+            kv_bucket=kv_bucket, rope_len=self.rope_len)
         toks = toks_d.cpu().numpy()      # the burst's one host sync
         now = self._clock()
         n_live = 0

@@ -6,7 +6,8 @@ SSM states from chunk to chunk and writes each chunk's KV at the row's
 running offset; a per-row ``lengths`` vector makes padding inert.  Chunk
 ``i`` runs under the KV bucket covering ``(i + 1) * chunk`` rows
 (:mod:`repro_torch.serving.bucketing`), so early chunks read only the
-early prefix.  :class:`ChunkedPrefill` owns one in-flight group: one
+early prefix, and with rope tables that cover the positions served
+(``rope_len``), which pass a window-sized ring's extent.  :class:`ChunkedPrefill` owns one in-flight group: one
 :meth:`~ChunkedPrefill.step` advances it by exactly one chunk, so the
 engine can interleave one chunk with one decode burst, and a row is
 emitted as soon as its own prompt completes.
@@ -21,7 +22,8 @@ import torch
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.lm import (cache_kv_extent, init_lm_cache,
                                    lm_prefill_chunk)
-from repro_torch.serving.bucketing import clamped_bucket, kv_cache_extent
+from repro_torch.serving.bucketing import (clamped_bucket, kv_cache_extent,
+                                           rope_len_for)
 
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
@@ -50,10 +52,16 @@ def chunked_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *,
     """Prefill ``tokens`` [B, S] (right-padded, per-row valid ``lengths``)
     in ``chunk_size`` chunks.  Returns (last-valid-token logits [B,1,V],
     filled cache), as :func:`repro_torch.models.lm.lm_prefill` does.  The
-    cache's KV leaves are written in place."""
+    cache's KV leaves are written in place.  Where the KV extent is
+    shorter than the prompt (a model whose largest KV leaf is a ring), the
+    rope tables reach past it as the reference sizes them: to the next
+    power of two at or above ``S``."""
     b, total = tokens.shape
     dev = tokens.device
     extent = cache_kv_extent(cache)
+    rope_len = None
+    if extent is not None and extent < total:
+        rope_len = max(extent, 1 << (total - 1).bit_length())
     lens = (np.full((b,), total, np.int64) if lengths is None
             else np.asarray(lengths, np.int64))
     n_chunks = max(1, -(-total // chunk_size))
@@ -66,7 +74,8 @@ def chunked_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *,
         lg, cache = lm_prefill_chunk(
             cfg, params, tokens[:, off:off + chunk_size], cache,
             lengths=torch.from_numpy(clens).to(dev),
-            kv_bucket=clamped_bucket(off + chunk_size, extent))
+            kv_bucket=clamped_bucket(off + chunk_size, extent),
+            rope_len=rope_len)
         if logits is None:
             logits = lg
         elif fin.any():
@@ -98,6 +107,7 @@ class ChunkedPrefill:
         self.max_seq = max_seq
         self.chunk = int(chunk_size)
         self.kv_extent = kv_cache_extent(cfg, max_seq)
+        self.rope_len = rope_len_for(cfg, max_seq)
         self._templates: Dict[int, Any] = {}
         self._group: Optional[Dict[str, Any]] = None
 
@@ -165,7 +175,8 @@ class ChunkedPrefill:
         logits, g["cache"] = lm_prefill_chunk(
             self.cfg, self.params, g["tokens"][:, off:off + self.chunk],
             g["cache"], lengths=torch.from_numpy(clens).to(self.device),
-            kv_bucket=clamped_bucket(off + self.chunk, self.kv_extent))
+            kv_bucket=clamped_bucket(off + self.chunk, self.kv_extent),
+            rope_len=self.rope_len)
         g["idx"] += 1
         fin &= ~g["emitted"]
         fin[g["k"]:] = False

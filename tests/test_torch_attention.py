@@ -17,7 +17,8 @@ function and the port's counterpart:
   Pallas semantics (fp32 probabilities), at 2e-2.  The ``ref`` backend
   rounds bf16 probabilities before P.V, so bf16 is not held against it.
 
-The ring layout and sliding windows are not ported: they raise.
+The ring layout and sliding windows are held against the reference in
+``tests/test_torch_local.py``; here only the kinds still unported raise.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -180,8 +181,8 @@ def test_flash_ref_q_offset_matches_reference(dtype):
 
 
 def test_ring_positions_and_ring_ref_match_reference():
-    """The ring layout's plain math is kept (ref.py); the kernel path
-    raises for it."""
+    """The ring layout's plain math (ref.py), the CPU path of the ring
+    mode."""
     wrap = np.array([0, 3, 8, 13], np.int32)
     got = flash_ref.ring_kv_positions(torch.from_numpy(wrap), 8, 8, 12)
     want = j_ring_pos(jnp.asarray(wrap), 8, 8, 12)
@@ -329,19 +330,14 @@ def test_attention_module_bf16_matches_pallas_semantics(mode):
 
 
 def test_unported_attention_paths_raise():
+    """The layer kinds still unported raise and name their ROADMAP item;
+    a ring without a window breaks the Pallas contract and raises."""
     z = torch.zeros(1, 2, 8, 16)
-    with pytest.raises(NotImplementedError, match="ring mode"):
-        flash_ops.flash_attention(z, z, z, window=4, kv_wrap=torch.zeros(1),
+    with pytest.raises(ValueError, match="ring KV layout requires"):
+        flash_ops.flash_attention(z, z, z, kv_wrap=torch.zeros(1),
                                   ring_len=8)
-    ta = AttnConfig(**A_CFG)
-    p = {k: torch.from_numpy(v) for k, v in _attn_params(False).items()}
-    with pytest.raises(NotImplementedError, match="local windows"):
-        attention.attention(p, torch.zeros(1, 4, D_MODEL), ta, rope=None,
-                            window=8)
-    with pytest.raises(NotImplementedError, match="local windows"):
-        attention.init_attn_cache(ta, 1, 16, window=8)
     cfg = reduced(zamba2_2p7b)
-    for kind, item in (("local", "local windows"), ("hybrid_par", "Falcon"),
-                       ("moe", "MoE"), ("encoder", "encoder")):
+    for kind, item in (("hybrid_par", "Falcon"), ("moe", "MoE"),
+                       ("encoder", "encoder")):
         with pytest.raises(NotImplementedError, match=item):
             blocks.layer_param_defs(cfg, kind)

@@ -6,9 +6,9 @@ card and no JAX it runs on its own:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-Shapes are the reduced config's and widths off each kernel's tiles; the
-full mamba2-2.7b, zamba2-2.7b and mamba-130m shapes are held by
-``chip_smoke.py``.
+Shapes are the reduced config's and widths off each kernel's tiles, and
+gemma3-1b's head_dim 256; the full mamba2-2.7b, zamba2-2.7b, mamba-130m
+and gemma3-1b shapes are held by ``chip_smoke.py``.
 Tolerances: 1e-4 in fp32 (sums in another order), 2e-2 in bf16 (one bf16
 rounding; the flash kernel also rounds its probabilities to bf16 for the
 P.V product), of max(1, max |reference|) for the Mamba kernels and of
@@ -137,13 +137,14 @@ def _cache_view(rn, b, s, kvh, d, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,h,kvh", [(80, 4, 4), (128, 8, 2), (16, 4, 2),
-                                     (32, 8, 2)])
+                                     (32, 8, 2), (256, 4, 1)])
 @pytest.mark.parametrize("mode", ["offsets", "causal", "full", "window"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel(cuda, dtype, mode, d, h, kvh):
     """Per-row q_offset against a longer KV prefix (chunked prefill), plain
-    causal, non-causal and windowed, at head_dim 80 and 128 (GQA 4:1) and
-    the reduced sizes; query and key counts off the 64-row tiles."""
+    causal, non-causal and windowed, at head_dim 80, 128 (GQA 4:1), 256
+    (gemma3-1b, GQA 4:1) and the reduced sizes; query and key counts off
+    the 64-row tiles."""
     rn = _rn(torch.Generator(device=cuda).manual_seed(3), cuda)
     td = DTYPES[dtype]
     b, sq = 3, 70
@@ -164,15 +165,53 @@ def test_flash_kernel(cuda, dtype, mode, d, h, kvh):
     _close_rows(got, want, TOL[dtype])
 
 
+# (window, ring_len, Sq, cursors): a full ring with cursors before, at and
+# after the wrap; a ring sliced below the window (cursor + Sq <= ring_len,
+# as a bucket slices it); a chunk longer than the window, which wraps
+# inside itself.  Windows and ring lengths off the 64-key tile.
+RING_CASES = {"wrap": (100, 100, 70, [0, 37, 100, 333]),
+              "sliced": (128, 80, 40, [0, 17, 40, 3]),
+              "long_chunk": (48, 48, 150, [0, 20, 48, 200])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RING_CASES))
+@pytest.mark.parametrize("d,h,kvh", [(32, 8, 2), (256, 4, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_ring(cuda, dtype, d, h, kvh, case):
+    """The ring layout: [ring | chunk] keys with per-row cursors
+    ``kv_wrap = q_offset``, each slot's position from the modular formula.
+    The ring slots hold random rows, so a slot the mask should drop (never
+    written, or outside the window) shows in the output if it is kept."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(7), cuda)
+    td = DTYPES[dtype]
+    window, ring_len, sq, wraps = RING_CASES[case]
+    b = len(wraps)
+    q = rn(b, sq, h, d, dt=td).transpose(1, 2)
+    k = _cache_view(rn, b, ring_len + sq, kvh, d, td)
+    v = _cache_view(rn, b, ring_len + sq, kvh, d, td)
+    wrap = torch.tensor(wraps, dtype=torch.int32, device=cuda)
+    kw = dict(causal=True, window=window, q_offset=wrap, kv_wrap=wrap,
+              ring_len=ring_len)
+    n0 = flash_ops.flash_attention.ring_launches
+    p0 = flash_ops.flash_attention.launches
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.ring_launches == n0 + 1
+    assert flash_ops.flash_attention.launches == p0
+    _close_rows(got, flash_ref.attention_ref(q, k, v, **kw), TOL[dtype])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,h,kvh", [(80, 32, 32), (128, 32, 8), (16, 4, 2),
-                                     (64, 4, 1)])
+                                     (64, 4, 1), (256, 4, 1)])
 @pytest.mark.parametrize("split_k", [None, 1, 3, 8])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel(cuda, dtype, split_k, d, h, kvh):
-    """GQA groups of 1, 4, 2 and 4; valid_len of 1, on a tile edge (32, 64),
-    one past it, and the whole cache; every split count gives the plain
-    result."""
+    """GQA groups of 1, 4, 2, 4 and 4 (gemma3-1b's head_dim 256, whose
+    fp32 instance runs two warps a block); valid_len of 1, on a tile edge
+    (32, 64), one past it, and the whole cache; every split count gives
+    the plain result."""
     rn = _rn(torch.Generator(device=cuda).manual_seed(4), cuda)
     td = DTYPES[dtype]
     b, s = 6, 300
@@ -205,10 +244,9 @@ def test_wrappers_raise_on_shapes_not_built(cuda):
     with pytest.raises(ValueError, match="strides"):
         flash_ops.flash_attention(z(1, 2, 16, 8).transpose(2, 3),
                                   z(1, 2, 8, 16), z(1, 2, 8, 16))
-    with pytest.raises(NotImplementedError, match="ring"):
+    with pytest.raises(ValueError, match="ring KV layout requires"):
         flash_ops.flash_attention(z(1, 2, 8, 16), z(1, 2, 8, 16),
-                                  z(1, 2, 8, 16), window=4, kv_wrap=0,
-                                  ring_len=8)
+                                  z(1, 2, 8, 16), kv_wrap=0, ring_len=4)
     with pytest.raises(ValueError, match="ssd kernel built"):
         ssd_ops.ssd_chunked(z(1, 128, 2, 64), z(1, 128, 2), z(2),
                             z(1, 128, 1, 32), z(1, 128, 1, 32), z(2),

@@ -48,7 +48,7 @@ def test_no_repro_environment_variables():
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b",
-                                  "llama3-8b", "mamba-130m"])
+                                  "llama3-8b", "mamba-130m", "gemma3-1b"])
 def test_entry_points_need_cuda_by_default(arch, monkeypatch):
     from repro_torch.configs import reduced
     from repro_torch.core.registry import get
@@ -87,6 +87,10 @@ def _op_inputs(device):
                    {"n_groups": g, "d_state": n, "headdim": p}),
         "flash": ((z(b, 4, s, 16), z(b, 2, s, 16), z(b, 2, s, 16)),
                   {"q_offset": 0}),
+        "flash_ring": ((z(b, 4, s, 16), z(b, 2, s + 8, 16),
+                        z(b, 2, s + 8, 16)),
+                       {"window": 8, "q_offset": 5, "kv_wrap": 5,
+                        "ring_len": 8}),
         "attn_decode": ((z(b, 4, 16), z(b, 2, s, 16), z(b, 2, s, 16)),
                         {"valid_len": 3}),
     }
@@ -106,6 +110,8 @@ def _ops():
                           "mamba1_decode_fused_ref"),
         "flash": (flash_ops.flash_attention, flash_ops._ref,
                   "attention_ref"),
+        "flash_ring": (flash_ops.flash_attention, flash_ops._ref,
+                       "attention_ref"),
         "attn_decode": (attn_dec_ops.decode_attention, attn_dec_ops._ref,
                         "decode_attention_ref"),
         "conv1d": (conv_ops.causal_conv1d, conv_ops._ref,
@@ -117,7 +123,8 @@ def _ops():
 
 
 @pytest.mark.parametrize("name", ["conv1d", "ssd", "decode", "flash",
-                                  "attn_decode", "scan1", "mamba1_decode"])
+                                  "flash_ring", "attn_decode", "scan1",
+                                  "mamba1_decode"])
 def test_device_picks_the_path(name, monkeypatch):
     op, ref_mod, ref_name = _ops()[name]
     args, kw = _op_inputs("cpu")[name]
@@ -129,6 +136,7 @@ def test_device_picks_the_path(name, monkeypatch):
     for g, want in zip(got, plain):
         assert torch.equal(g, want)
     assert op.launches == before          # the CPU path launched nothing
+    ring = getattr(op, "ring_launches", None)
 
     def refuse(*a, **k):
         raise AssertionError("plain version called for a device tensor")
@@ -137,6 +145,7 @@ def test_device_picks_the_path(name, monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensor"):
         op(*args, **kw)
     assert op.launches == before
+    assert getattr(op, "ring_launches", None) == ring
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
