@@ -20,7 +20,9 @@ Phases (each prints its lines and is fatal on failure):
      chunk at cursors 0/300/700/1792 against a 512-slot ring, sliced
      rings, and a 1024-query chunk that wraps inside itself, with the
      plain flash and the decode kernel at d=256 (gemma3-1b's global
-     layers);
+     layers), and decode over gemma3-1b's 512-slot local ring caches
+     (valid 301/512/512/512); each attention row gives its grid
+     (``blocks``);
   4. full-width, full-depth serving through ``ServingEngine`` (4 ragged
      requests, 32 new tokens each), random weights from a seed:
      mamba2-2.7b (64 layers), zamba2-2.7b (54 layers), mamba-130m
@@ -513,6 +515,8 @@ def phase_attention(gen):
                 name="flash_attention", route="cuda", at=label,
                 source="src/repro_torch/kernels/csrc/flash.cu",
                 replaces="src/repro/kernels/flash/kernel.py:124",
+                blocks=flash_ops.flash_plan(B, h, kvh, SQ, bucket, d,
+                                            dt).blocks,
                 max_abs_err=max_err([got], [want]),
                 worst_row_of_limit=row_ratio(got, want, tol),
                 ms=device_ms(lambda: flash_ops.flash_attention(
@@ -530,6 +534,7 @@ def phase_attention(gen):
                 name="decode_attention", route="cuda", at=label,
                 source="src/repro_torch/kernels/csrc/attn_decode.cu",
                 replaces="src/repro/kernels/attn_decode/kernel.py:82",
+                blocks=decode_blocks(B, kvh, bucket),
                 max_abs_err=max_err([dgot], [dwant]),
                 worst_row_of_limit=row_ratio(dgot, dwant, tol),
                 ms=device_ms(lambda: dec_ops.decode_attention(
@@ -538,11 +543,12 @@ def phase_attention(gen):
                     qd, k, v, valid_len=vl)),
                 bound_ms=bms, bound_by=by,
                 library_ms=device_ms(library(q4, k, v, dmask, h != kvh))))
-    # valid lengths on the 32-key tile edge and on the split edge, through
+    rows += local_decode(gen, library)
+    # valid lengths on the 64-key tile edge and on the split edge, through
     # every split count the rule can pick here and a forced one
     h, kvh, d, bucket = 32, 32, 80, 2048
     _, split_len = dec_ops.split_layout(B, kvh, bucket)
-    vl = torch.tensor([1, 32, split_len, split_len + 1], dtype=torch.int32,
+    vl = torch.tensor([1, 64, split_len, split_len + 1], dtype=torch.int32,
                       device=dev)
     for dt in (torch.bfloat16, torch.float32):
         _, k, v, qd = attention_inputs(gen, h, kvh, d, bucket, dt)
@@ -553,6 +559,65 @@ def phase_attention(gen):
             check_close(f"decode attention edges {vl.tolist()} split {sk} "
                         f"{dt}", [got], [want], TOL["attention"][dt],
                         ratio=row_ratio)
+    return rows
+
+
+def decode_blocks(b: int, kvh: int, seq: int) -> int:
+    """The decode kernel's grid: one block per (row, KV head, split)."""
+    from repro_torch.kernels.attn_decode import ops as dec_ops
+    return b * kvh * dec_ops.split_layout(b, kvh, seq)[0]
+
+
+LOCAL_DECODE = dict(H=4, KVH=1, d=256, ring=512,
+                    valid=[301, 512, 512, 512])      # gemma3-1b local layers
+
+
+def local_decode(gen, library):
+    """Decode attention over gemma3-1b's local layers' 512-slot ring
+    caches (``models/attention.py``: ``Skv == window``, ``valid_len =
+    min(pos + 1, 512)``), the shape of 1760 of its 2080 decode launches
+    in phase 4, in bf16 and fp32, each query row held to its own limit;
+    timed in bf16 beside SDPA with the valid-length mask."""
+    from repro_torch.kernels.attn_decode import ops as dec_ops
+    from repro_torch.kernels.attn_decode import ref as dec_ref
+
+    h, kvh, d, ring, lens = (LOCAL_DECODE[k] for k in
+                             ("H", "KVH", "d", "ring", "valid"))
+    B = B_ATTN
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+        k, v = (rn(B, ring, kvh, d).transpose(1, 2) for _ in range(2))
+        qd = rn(B, h, d)
+        vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = dec_ops.decode_attention(qd, k, v, valid_len=vl)
+        want = dec_ref.decode_attention_ref(qd, k, v, valid_len=vl)
+        tol = TOL["attention"][dt]
+        check_close(f"decode attention gemma3-1b local ring {dt}", [got],
+                    [want], tol, ratio=row_ratio)
+        if dt != torch.bfloat16:
+            continue
+        esz = qd.element_size()
+        bms, by = bound(2 * B * h * d * esz + 2 * sum(lens) * kvh * d * esz,
+                        4.0 * d * h * sum(lens), dt)
+        dmask = (torch.arange(ring, device="cuda")[None, :]
+                 < vl[:, None])[:, None, None, :]
+        rows.append(dict(
+            name="decode_attention", route="cuda", at="gemma3-1b local",
+            source="src/repro_torch/kernels/csrc/attn_decode.cu",
+            replaces="src/repro/kernels/attn_decode/kernel.py:82",
+            shape=f"B={B} H={h} KVH={kvh} d={d} ring={ring} valid={lens}",
+            blocks=decode_blocks(B, kvh, ring),
+            max_abs_err=max_err([got], [want]),
+            worst_row_of_limit=row_ratio(got, want, tol),
+            ms=device_ms(lambda: dec_ops.decode_attention(
+                qd, k, v, valid_len=vl)),
+            plain_ms=device_ms(lambda: dec_ref.decode_attention_ref(
+                qd, k, v, valid_len=vl)),
+            bound_ms=bms, bound_by=by,
+            library_ms=device_ms(library(qd[:, :, None], k, v, dmask,
+                                         True))))
     return rows
 
 
@@ -621,6 +686,8 @@ def phase_ring(gen):
                 replaces="src/repro/kernels/flash/kernel.py:124",
                 shape=f"B={B} H={H} KVH={KVH} d={d} window={W} "
                       f"ring_len={ring_len} Sq={sq} cursors={wraps}",
+                blocks=flash_ops.flash_plan(B, H, KVH, sq, ring_len + sq, d,
+                                            dt).blocks,
                 max_abs_err=max_err([got], [want]),
                 worst_row_of_limit=row_ratio(got, want, tol),
                 ms=device_ms(lambda: flash_ops.flash_attention(q, k, v,

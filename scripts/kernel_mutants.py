@@ -9,8 +9,11 @@ mutant below, it copies ``src/repro_torch`` into ``build/mutants/<name>/``
 there, and in a child process builds that copy and runs two checks:
 
 - ``attention``: the flash and decode kernels against their plain
-  versions on zamba2-2.7b's shapes, the inputs of
-  ``chip_smoke.phase_attention``.  ``ratio`` is the per-row check that
+  versions at every shape of ``chip_smoke.attention_cases`` (zamba2-2.7b
+  on the ``mma.sync`` flash, llama3-8b and gemma3-1b on the ``wgmma``
+  flash with its key splits, decode with up to 16 splits), the inputs of
+  ``chip_smoke.phase_attention``, and decode over gemma3-1b's local ring
+  (``chip_smoke.LOCAL_DECODE``).  ``ratio`` is the per-row check that
   chip_smoke.py applies (``row_ratio``), ``old_ratio`` the whole-tensor
   check it replaced (``whole_ratio``: 2e-2 of max(1, max |o|) in bf16).
 - ``mamba1_decode``: the fused Mamba-1 decode step against its plain
@@ -48,9 +51,8 @@ MUTANTS = {
         "flash: queries at positions >= 1024 lose KV tile 17 (keys "
         "1088-1151)"),
     "decode_drop_tile_1024": (
-        "attention", "attn_decode.cu",
-        "    const bool live = k0 + lane < hi;\n",
-        "    const bool live = k0 + lane < hi && k0 != 1024;\n",
+        "attention", "attn_decode.cu", "  return key < hi;\n",
+        "  return key < hi && (key < 1024 || key >= 1056);\n",
         "decode: rows with more than 1024 valid keys lose keys 1024-1055"),
     "flash_drop_4_keys": (
         "attention", "flash.cu", "  bool ok = key < p.Skv;\n",
@@ -58,11 +60,14 @@ MUTANTS = {
         "key < 1540);\n",
         "flash: queries at positions >= 1536 lose keys 1536-1539"),
     "decode_drop_4_keys": (
-        "attention", "attn_decode.cu",
-        "    const bool live = k0 + lane < hi;\n",
-        "    const bool live = k0 + lane < hi && (k0 + lane < 1536 || "
-        "k0 + lane >= 1540);\n",
+        "attention", "attn_decode.cu", "  return key < hi;\n",
+        "  return key < hi && (key < 1536 || key >= 1540);\n",
         "decode: rows with more than 1536 valid keys lose keys 1536-1539"),
+    "decode_merge_drops_last_split": (
+        "attention", "attn_decode.cu",
+        "      if (s < nlive) {\n        o.x",
+        "      if (s < nlive - 1) {\n        o.x",
+        "decode: the in-kernel merge leaves out the last live split"),
     "mamba1_drop_carry": (
         "mamba1_decode", "mamba1_decode.cu",
         "const float hn = __fadd_rn(__fmul_rn(ssm[idx], da),",
@@ -87,6 +92,15 @@ MUTANTS = {
         "  const int ring_keys = max(0, min(ring, wrap % p.window));\n",
         "flash ring: ring tiles past the cursor's slot skipped after the "
         "wrap too"),
+    "flash_merge_drops_last_split": (
+        "ring", "flash.cu",
+        "        for (int sp = 0; sp < n_active; ++sp) {\n"
+        "          const float* ml = w.part_ml + (tile0 + sp) * kWRows * 2;\n"
+        "          const float* px",
+        "        for (int sp = 0; sp < n_active - 1; ++sp) {\n"
+        "          const float* ml = w.part_ml + (tile0 + sp) * kWRows * 2;\n"
+        "          const float* px",
+        "flash (wgmma, key splits): the merge leaves out the last split"),
 }
 
 
@@ -96,24 +110,39 @@ def attention_readings(cs, torch, gen) -> dict:
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash import ref as flash_ref
 
-    label, h, kvh, d, bucket, offs, lens = cs.attention_cases()[0]
     out = {}
+
+    def reading(key, got, want, tol):
+        out[key] = dict(
+            ratio=cs.row_ratio(got, want, tol),
+            old_ratio=cs.whole_ratio(got, want, tol),
+            max_abs_err=float((got.float() - want.float()).abs().max()))
+
+    for label, h, kvh, d, bucket, offs, lens in cs.attention_cases():
+        for dt in (torch.bfloat16, torch.float32):
+            tol = cs.TOL["attention"][dt]
+            q, k, v, qd = cs.attention_inputs(gen, h, kvh, d, bucket, dt)
+            off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+            vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            reading(f"flash {label} {str(dt)[6:]}",
+                    flash_ops.flash_attention(q, k, v, q_offset=off),
+                    flash_ref.attention_ref(q, k, v, q_offset=off), tol)
+            reading(f"decode {label} {str(dt)[6:]}",
+                    dec_ops.decode_attention(qd, k, v, valid_len=vl),
+                    dec_ref.decode_attention_ref(qd, k, v, valid_len=vl),
+                    tol)
+    loc = cs.LOCAL_DECODE
     for dt in (torch.bfloat16, torch.float32):
-        tol = cs.TOL["attention"][dt]
-        q, k, v, qd = cs.attention_inputs(gen, h, kvh, d, bucket, dt)
-        off = torch.tensor(offs, dtype=torch.int32, device="cuda")
-        vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        pairs = {
-            "flash": (flash_ops.flash_attention(q, k, v, q_offset=off),
-                      flash_ref.attention_ref(q, k, v, q_offset=off)),
-            "decode": (dec_ops.decode_attention(qd, k, v, valid_len=vl),
-                       dec_ref.decode_attention_ref(qd, k, v, valid_len=vl)),
-        }
-        for name, (got, want) in pairs.items():
-            out[f"{name} {label} {str(dt)[6:]}"] = dict(
-                ratio=cs.row_ratio(got, want, tol),
-                old_ratio=cs.whole_ratio(got, want, tol),
-                max_abs_err=float((got.float() - want.float()).abs().max()))
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+        k, v = (rn(cs.B_ATTN, loc["ring"], loc["KVH"], loc["d"]).transpose(
+            1, 2) for _ in range(2))
+        qd = rn(cs.B_ATTN, loc["H"], loc["d"])
+        vl = torch.tensor(loc["valid"], dtype=torch.int32, device="cuda")
+        reading(f"decode gemma3-1b local {str(dt)[6:]}",
+                dec_ops.decode_attention(qd, k, v, valid_len=vl),
+                dec_ref.decode_attention_ref(qd, k, v, valid_len=vl),
+                cs.TOL["attention"][dt])
     return out
 
 

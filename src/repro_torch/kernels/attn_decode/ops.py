@@ -7,11 +7,20 @@ raises.  k and v are read through their strides (unit stride along
 of a ``[B, S, KV, d]`` cache and no copy is made.
 
 The split count is chosen here for the H100 (132 SMs):
-``split_k = min(16, ceil(S / 256), ceil(264 / (B * KVH)))``, at least 1 —
-enough blocks for two waves over the SMs, and at least 256 keys per split
-so each split's partials stay small beside the keys it reads.  Each split
-covers ``ceil(S / split_k)`` keys rounded up to the kernel's 32-key tile.
-The result is the same for every split count up to rounding.
+``split_k = min(16, ceil(S / 64), ceil(264 / (B * KVH)))``, at least 1
+— about two waves of blocks over the SMs, down to one 64-key tile per
+split, and at most 16 splits, since the block that merges them loads
+every split's partial at once.  Each split covers ``ceil(S / split_k)``
+keys rounded up to the 64-key tile, so the last may be shorter and none
+is empty.  At the four shapes the served models decode (B=4):
+zamba2-2.7b (32 KV heads, a 2048-row bucket) 3 splits of 704 keys, 384
+blocks; llama3-8b (8 KV heads) 8 of 256, 256 blocks; gemma3-1b's global
+layers (1 KV head) 16 of 128, 64 blocks; its local layers' 512-slot
+ring 8 of 64, 32 blocks.  Splits that start at or past a row's
+``valid_len`` return at once; the kernel merges the live ones itself (one
+launch per call), through a per-(row, KV head) ticket counter that it
+leaves at zero.  The result is the same for every split count up to
+rounding.
 """
 from __future__ import annotations
 
@@ -21,25 +30,28 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.attn_decode import ref as _ref
-from repro_torch.kernels.flash.ops import check_strided, row_vector
+from repro_torch.kernels.flash.ops import (check_strided, row_vector,
+                                          ticket_counters)
 
 # head_dim values the kernel is instantiated for: zamba2-2.7b's (80),
 # llama3-8b's (128), gemma3-1b's (256) and the reduced test sizes
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 MAX_GROUP = 8           # query heads per KV head
 SMS = 132               # H100 SXM
-TILE = 32               # keys per warp tile
+TILE = 64               # keys per split tile
+MAX_SPLIT = 16          # splits the kernel merges
 
 
 def split_layout(batch: int, kv_heads: int, seq: int,
                  split_k: Optional[int] = None) -> Tuple[int, int]:
     """(splits, keys per split): ``split_k`` splits, or the H100 rule's
-    when None (module docstring), each a whole number of 32-key tiles."""
+    when None (module docstring), each a whole number of 64-key tiles."""
     if split_k is None:
-        split_k = max(1, min(16, -(-seq // 256),
+        split_k = max(1, min(MAX_SPLIT, -(-seq // TILE),
                              -(-2 * SMS // (batch * kv_heads))))
-    if split_k < 1:
-        raise ValueError(f"split_k must be >= 1, got {split_k}")
+    if not 1 <= split_k <= MAX_SPLIT:
+        raise ValueError(f"split_k must be in [1, {MAX_SPLIT}], got "
+                         f"{split_k}")
     per = -(-seq // split_k)
     split_len = -(-per // TILE) * TILE
     return -(-seq // split_len), split_len
@@ -80,17 +92,19 @@ def decode_attention_cuda(q, k, v, *, valid_len,
     nsplit, split_len = split_layout(b, kvh, s, split_k)
     g = h // kvh
     o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    part_acc = part_ml = None
+    part_acc = part_ml = tickets = None
     if nsplit > 1:
         part_acc = torch.empty((b, kvh, nsplit, g, d), dtype=torch.float32,
                                device=q.device)
         part_ml = torch.empty((b, kvh, nsplit, g, 2), dtype=torch.float32,
                               device=q.device)
+        tickets = ticket_counters(q.device, b * kvh)
     lib = build.library()
     rc = lib.repro_decode_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         o.data_ptr(), 0 if part_acc is None else part_acc.data_ptr(),
-        0 if part_ml is None else part_ml.data_ptr(), b, h, kvh, s, d,
+        0 if part_ml is None else part_ml.data_ptr(),
+        0 if tickets is None else tickets.data_ptr(), b, h, kvh, s, d,
         nsplit, split_len, *q.stride()[:2], *k.stride()[:3],
         *v.stride()[:3], code, build.stream_ptr(q.device))
     build.check(rc, "repro_decode_attn_fwd")

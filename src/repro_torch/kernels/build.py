@@ -37,8 +37,9 @@ SIGNATURES: Dict[str, Tuple] = {
     "repro_mamba2_decode_fwd": (P, P, P, P, P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, I, P),
     "repro_flash_fwd": (P, P, P, P, P, P, I, I, I, I, I, I,
-                        L, L, L, L, L, L, L, L, L, L, L, L, I, I, I, I, P),
-    "repro_decode_attn_fwd": (P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                        L, L, L, L, L, L, L, L, L, L, L, L, I, I, I,
+                        I, I, P, P, P, I, P),
+    "repro_decode_attn_fwd": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                               L, L, L, L, L, L, L, L, I, P),
     "repro_scan1_fwd": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
     "repro_mamba1_decode_fwd": (P, P, P, P, P, P, P, P, P, P, P, P, P,

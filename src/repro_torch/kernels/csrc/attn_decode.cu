@@ -1,31 +1,48 @@
 // Flash decode: one query token per head against a KV cache, with early
-// exit past each row's valid length and a split-K partial-softmax merge.
+// exit past each row's valid length and a split-K partial-softmax merge
+// done inside the kernel.
 //
 // Replaces the TPU kernel decode_attention_pallas
 // (src/repro/kernels/attn_decode/kernel.py:82, body _decode_kernel :38,
 // split merge :146-150).
 //
 // Bound on the H100: bytes.  Each live key and value row is read once
-// (zamba2-2.7b, B=4, 32 KV heads of d=80 in bf16: 10 KB per position of a
+// (gemma3-1b, B=4, one KV head of d=256 in bf16: 1 KB per position of a
 // row), a few operations per byte; at valid lengths 301/701/1001/2048 the
-// call moves about 41 MB, ~12 us at 3.35 TB/s.
+// call moves about 4.2 MB, ~1.2 us at 3.35 TB/s.
 //
 // Design: the TPU walks a split's KV blocks along a sequential grid axis.
-// Here one block owns one (batch row, KV head, split) and keeps the G query
-// rows of the group in shared memory.  Its W warps walk the split's
-// 32-key tiles in turn (warp w takes tiles w, w+W, ...): each warp stages
-// its tile of K and V in its own shared memory with 16-byte loads, all
-// issued before the first store so they are in flight together, lane j
-// scores key j for every query of the group, and each lane accumulates its
-// own columns of the output, with (m, l, acc) in registers.  Tiles that
-// start at or past valid_len[b] are never read.  At the end the block merges
-// its W warps' partials.  W is four, or two for fp32 at d=256, where four
-// warps' staged tiles (4 x 64 KB) would pass the 227 KB a block may hold.  With one split the block writes the output;
-// with several it writes its unnormalised (acc, m, l), and a second small
-// kernel merges the splits exactly as at :146-150 (empty splits carry
-// m = -1e30 and l = 0 and vanish).  The split count is the caller's
-// (ops.py states the rule); the result does not depend on it beyond
-// rounding.
+// Here one block owns one (batch row, KV head, split) and the whole query
+// group (G <= 8 heads).  The split rule (ops.py) gives about two waves of
+// blocks over the 132 SMs, down to one 64-key tile per split; at gemma3-1b's
+// single KV head even its ring decode (512 slots) reads one tile a block,
+// so a block keeps the group rather than owning one head: more blocks would
+// re-read K/V for a call whose time is the latency of one tile.  Splits
+// that start at or past valid_len[b] return at once.
+//
+// bf16: tensor cores with no padding waste at G <= 8.  The keys sit on the
+// M side of mma.sync m16n8k16 and the group's queries on N = 8:
+// S^T = K Q^T, then O^T = V^T P^T with head_dim on M.  Each of the four
+// warps takes 16 keys of every 64-key tile and keeps its own (m, l, O^T)
+// in registers; P is rounded to bf16 for the second product (as the flash
+// kernel does) and moved from the accumulator layout to the B operand's
+// by movmatrix.  K/V tiles stream through a 3-stage cp.async ring, so two
+// tiles load while one is scored; rows at or past the split's end are
+// zero-filled, so stale cache rows (NaN included) never reach P.V.
+// fp32: CUDA cores, as before (TF32 would break fp32's 2e-4 limit): lane j
+// scores key j of a warp's 32-key tile.
+//
+// The merge: the block first merges its warps through shared memory.  With
+// one live split it writes the output.  Otherwise it writes its unnormalised
+// (acc, m, l) to fp32 scratch, fences, and takes a ticket from a per-(row,
+// KV head) counter; the block that draws the last ticket merges the live
+// splits exactly as at :146-150 (a split with no live key carries
+// m = -1e30, l = 0 and vanishes) and writes the counter back to zero, so
+// the next call, or the next replay of a CUDA graph, starts from zero.
+// One launch per call.  At most 16 splits: the merging block loads every
+// split's partial at once, and its time grows with their number (a first
+// version with 32 one-tile splits at gemma3-1b's global layers, merged one
+// load at a time, lost to SDPA).
 #include <math.h>
 #include <stdint.h>
 
@@ -34,80 +51,458 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kTile = 32;     // keys per warp tile, one per lane
-constexpr int kMaxG = 8;      // query heads per KV head
-constexpr int kLoadBatch = 10;  // 16-byte loads per lane in flight, K and V
+constexpr int kMaxG = 8;       // query heads per KV head
+constexpr int kSplitTile = 64; // split_len is a multiple of this
+constexpr int kMaxSplit = 16;  // splits per (row, KV head)
 
 struct DecodeParams {
   const void* q;
   const void* k;
   const void* v;
   const int* valid;          // [B]
-  void* o;                   // [B, H, D] when nsplit == 1
+  void* o;                   // [B, H, D]
   float* part_acc;           // [B, KVH, nsplit, G, D] when nsplit > 1
   float* part_ml;            // [B, KVH, nsplit, G, 2]
+  int* tickets;              // [B * KVH], zero between calls
   int H, KVH, S, G, nsplit, split_len;
   long long q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   float scale;
 };
 
-// shared-memory row of a staged key tile: an odd number of 32-bit words,
-// so lane j reading row j hits bank j
-template <typename T> struct KeyRow;
-template <> struct KeyRow<float> { static constexpr int pad = 1; };
-template <> struct KeyRow<__nv_bfloat16> { static constexpr int pad = 2; };
+// ------------------------------------------------------------ the merge
 
-__device__ __forceinline__ float2 pair_f32(const float* p) {
-  return make_float2(p[0], p[1]);
-}
-__device__ __forceinline__ float2 pair_f32(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
+// Called by every thread of a live split's block once the block's own
+// (m, l, acc) for each (g, d) sit in shared memory: ml [G][2], acc [G][D].
+// Writes the output (one live split) or the partial, and merges the splits
+// in the block that finishes last: first each query's weights
+// exp(m_s - max m) / sum_s l_s exp(m_s - max m), then the outputs four
+// columns a thread, every split's partial loaded before the first is
+// summed, so the merge costs one round trip to L2 rather than one per
+// split.
 template <typename T, int D>
-struct Smem {
-  static constexpr int kWarps = (sizeof(T) == 4 && D > 128) ? 2 : 4;
-  static constexpr int KST = D + KeyRow<T>::pad;
-  static constexpr size_t kWarpBytes =
-      ((size_t)kTile * KST + (size_t)kTile * D) * sizeof(T);
-  static constexpr size_t kQBytes = (size_t)kMaxG * D * sizeof(float);
-  static constexpr size_t kBytes = kQBytes + kWarps * kWarpBytes;
+__device__ void finish_split(const DecodeParams& p, const float* ml,
+                             const float* acc, int b, int kvh, int sp,
+                             int nlive) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int G = p.G;
+  const int bk = b * p.KVH + kvh;
+  T* og = static_cast<T*>(p.o) + ((long long)b * p.H + kvh * G) * D;
+  if (nlive == 1) {
+    for (int e = tid; e < G * D; e += nthr)
+      og[e] = repro::from_f32<T>(acc[e] /
+                                 fmaxf(ml[(e / D) * 2 + 1], 1e-37f));
+    return;
+  }
+  // partials [nsplit][G][D] and [nsplit][G][2] of this (row, KV head)
+  float* pacc = p.part_acc + (long long)bk * p.nsplit * G * D;
+  float* pml = p.part_ml + (long long)bk * p.nsplit * G * 2;
+  for (int e = tid; e < G * D; e += nthr)
+    pacc[(long long)sp * G * D + e] = acc[e];
+  if (tid < 2 * G) pml[sp * G * 2 + tid] = ml[tid];
+  __threadfence();
+  __syncthreads();
+  __shared__ int last;
+  __shared__ float w[kMaxSplit][kMaxG];
+  if (tid == 0) last = atomicAdd(&p.tickets[bk], 1) == nlive - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (tid < G) {
+    float m[kMaxSplit], l[kMaxSplit];
+    float mall = kNegInf;
+#pragma unroll
+    for (int s = 0; s < kMaxSplit; ++s) {
+      m[s] = s < nlive ? __ldcg(pml + (s * G + tid) * 2) : kNegInf;
+      l[s] = s < nlive ? __ldcg(pml + (s * G + tid) * 2 + 1) : 0.0f;
+      mall = fmaxf(mall, m[s]);
+    }
+    float lsum = 0.0f;
+#pragma unroll
+    for (int s = 0; s < kMaxSplit; ++s) {
+      m[s] = expf(m[s] - mall);
+      lsum += l[s] * m[s];
+    }
+    const float inv = 1.0f / fmaxf(lsum, 1e-37f);
+#pragma unroll
+    for (int s = 0; s < kMaxSplit; ++s) w[s][tid] = m[s] * inv;
+  }
+  __syncthreads();
+  for (int c = tid; c < G * D / 4; c += nthr) {
+    const int g = c / (D / 4);
+    float4 a[kMaxSplit];
+#pragma unroll
+    for (int s = 0; s < kMaxSplit; ++s)
+      if (s < nlive)
+        a[s] = __ldcg(reinterpret_cast<const float4*>(
+            pacc + (long long)s * G * D) + c);
+    float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int s = 0; s < kMaxSplit; ++s) {
+      if (s < nlive) {
+        o.x = fmaf(w[s][g], a[s].x, o.x);
+        o.y = fmaf(w[s][g], a[s].y, o.y);
+        o.z = fmaf(w[s][g], a[s].z, o.z);
+        o.w = fmaf(w[s][g], a[s].w, o.w);
+      }
+    }
+    og[4 * c] = repro::from_f32<T>(o.x);
+    og[4 * c + 1] = repro::from_f32<T>(o.y);
+    og[4 * c + 2] = repro::from_f32<T>(o.z);
+    og[4 * c + 3] = repro::from_f32<T>(o.w);
+  }
+  if (tid == 0) p.tickets[bk] = 0;
+}
+
+// key slot `key` of a split that ends at `hi` (its end or valid_len)
+__device__ __forceinline__ bool key_live(int key, int hi) {
+  return key < hi;
+}
+
+// the live splits of batch row b: those that start before valid_len
+__device__ __forceinline__ int live_splits(const DecodeParams& p, int valid) {
+  return max(1, min(p.nsplit, (valid + p.split_len - 1) / p.split_len));
+}
+
+// merge W warps' (m, l, acc) held in shared memory as wml [W][kMaxG][2]
+// and wacc [W][kMaxG][D] into ml [G][2] and acc [G][D]
+template <int D, int W>
+__device__ void merge_warps(const float* wml, const float* wacc, float* ml,
+                            float* acc, int G) {
+  for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
+    const int g = e / D, d = e % D;
+    float mall = kNegInf;
+#pragma unroll
+    for (int w = 0; w < W; ++w) mall = fmaxf(mall, wml[(w * kMaxG + g) * 2]);
+    float lsum = 0.0f, a = 0.0f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float alpha = expf(wml[(w * kMaxG + g) * 2] - mall);
+      lsum += wml[(w * kMaxG + g) * 2 + 1] * alpha;
+      a += wacc[(w * kMaxG + g) * D + d] * alpha;
+    }
+    acc[e] = a;
+    if (d == 0) {
+      ml[g * 2] = mall;
+      ml[g * 2 + 1] = lsum;
+    }
+  }
+}
+
+// ------------------------------------------------------ bf16, tensor cores
+
+constexpr int kTile = 64;      // keys per pipeline stage, 16 per warp
+constexpr int kWarps = 4;
+constexpr int kStages = 3;
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* s) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* s) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the transpose of an 8x8 bf16 matrix held one pair a thread (row t/4,
+// columns 2(t%4), 2(t%4)+1), in the same layout
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y) : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(addr), "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+struct Bf16Smem {
+  static constexpr int DP = D + 8;   // padded row: ldmatrix hits 8 banks
+  static constexpr size_t kStageBytes = (size_t)2 * kTile * DP * 2;
+  static constexpr size_t kMergeBytes =
+      (size_t)(kWarps + 1) * kMaxG * (D + 2) * sizeof(float);
+  static constexpr size_t kBytes =
+      kStages * kStageBytes > kMergeBytes ? kStages * kStageBytes
+                                          : kMergeBytes;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Smem<T, D>::kWarps * 32)
-decode_kernel(DecodeParams p) {
-  using L = Smem<T, D>;
-  constexpr int kWarps = L::kWarps;
-  constexpr int KST = L::KST;
-  constexpr int VEC = 16 / sizeof(T);        // elements per 16-byte load
-  constexpr int NV = D / VEC;                // 16-byte loads per row
-  constexpr int NC = (D + 31) / 32;          // output columns per lane
-  static_assert(D % VEC == 0, "head_dim must fill 16-byte loads");
+// rows [r0, r0 + kTile) of K and V into one stage; rows at or past hi are
+// zeros
+template <int D>
+__device__ __forceinline__ void load_stage(__nv_bfloat16* ks,
+                                           __nv_bfloat16* vs,
+                                           const __nv_bfloat16* kg,
+                                           const __nv_bfloat16* vg,
+                                           const DecodeParams& p, int r0,
+                                           int hi, int tid) {
+  constexpr int DP = Bf16Smem<D>::DP, V = D / 8;
+  for (int e = tid; e < kTile * V; e += kWarps * 32) {
+    const int r = e / V, c = e % V;
+    const bool ok = r0 + r < hi;
+    cp_async16(ks + r * DP + c * 8,
+               ok ? kg + (long long)(r0 + r) * p.k_ss + c * 8 : kg,
+               ok ? 16 : 0);
+    cp_async16(vs + r * DP + c * 8,
+               ok ? vg + (long long)(r0 + r) * p.v_ss + c * 8 : vg,
+               ok ? 16 : 0);
+  }
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);               // [G][D]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  T* ks = reinterpret_cast<T*>(smem_raw + L::kQBytes + warp * L::kWarpBytes);
-  T* vs = ks + kTile * KST;
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32)
+decode_bf16_kernel(DecodeParams p) {
+  using L = Bf16Smem<D>;
+  constexpr int DP = L::DP;
+  constexpr int KD = D / 16;     // k-steps of S^T = K Q^T; m-tiles of O^T
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
 
   const int sp = blockIdx.x % p.nsplit;
   const int bk = blockIdx.x / p.nsplit;          // b * KVH + kvh
   const int b = bk / p.KVH, kvh = bk % p.KVH;
+  const int valid = min(p.valid[b], p.S);
+  const int nlive = live_splits(p, valid);
+  if (sp >= nlive) return;
+  const int lo = sp * p.split_len;
+  const int hi = min(lo + p.split_len, valid);
+  const int nt = hi > lo ? (hi - lo + kTile - 1) / kTile : 0;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* stage0 = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) +
+                            b * p.k_sb + kvh * p.k_sh;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
+                            b * p.v_sb + kvh * p.v_sh;
+  auto kstage = [&](int s) { return stage0 + (size_t)s * 2 * kTile * DP; };
+  auto vstage = [&](int s) { return kstage(s) + kTile * DP; };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nt) load_stage<D>(kstage(s), vstage(s), kg, vg, p,
+                              lo + s * kTile, hi, tid);
+    cp_async_commit();
+  }
+
+  const int gr = lane >> 2, gc = (lane & 3) * 2;
+  const int G = p.G;
+  // Q^T as the B operand of S^T = K Q^T: query gr, dims 16kk + gc (+1, +8,
+  // +9); queries past the group are zeros
+  uint32_t qb[KD][2];
+  {
+    const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
+                              b * p.q_sb + (long long)(kvh * G + gr) * p.q_sh;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      qb[kk][0] = gr < G ? *reinterpret_cast<const uint32_t*>(
+                               qg + kk * 16 + gc) : 0u;
+      qb[kk][1] = gr < G ? *reinterpret_cast<const uint32_t*>(
+                               qg + kk * 16 + gc + 8) : 0u;
+    }
+  }
+
+  // O^T [d][g]: m-tile kk holds dims 16kk + gr (+8), queries gc, gc + 1
+  float acc[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    acc[kk][0] = acc[kk][1] = acc[kk][2] = acc[kk][3] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;   // queries gc, gc+1
+
+  // ldmatrix row addresses: K (A of S^T, row-major keys x dims) and V
+  // (A of O^T = V^T, read transposed)
+  const int krow = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int kcol = (lane >> 4) * 8;
+  const int vrow = warp * 16 + (lane & 7) + ((lane >> 4) & 1) * 8;
+  const int vcol = ((lane >> 3) & 1) * 8;
+
+  for (int i = 0; i < nt; ++i) {
+    const int pre = i + kStages - 1;
+    if (pre < nt) load_stage<D>(kstage(pre % kStages), vstage(pre % kStages),
+                                kg, vg, p, lo + pre * kTile, hi, tid);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const __nv_bfloat16* kt = kstage(i % kStages);
+    const __nv_bfloat16* vt = vstage(i % kStages);
+
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ka[4];
+      ldmatrix_x4(ka, kt + krow * DP + kk * 16 + kcol);
+      mma_bf16(s, ka, qb[kk][0], qb[kk][1]);
+    }
+    // keys k0 + gr and k0 + gr + 8 of this warp's 16
+    const int k0 = lo + i * kTile + warp * 16;
+    const bool live0 = key_live(k0 + gr, hi);
+    const bool live1 = key_live(k0 + gr + 8, hi);
+    s[0] = live0 ? s[0] * p.scale : kNegInf;
+    s[1] = live0 ? s[1] * p.scale : kNegInf;
+    s[2] = live1 ? s[2] * p.scale : kNegInf;
+    s[3] = live1 ? s[3] * p.scale : kNegInf;
+    float mx0 = fmaxf(s[0], s[2]), mx1 = fmaxf(s[1], s[3]);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    s[0] = expf(s[0] - mn0);
+    s[1] = expf(s[1] - mn1);
+    s[2] = expf(s[2] - mn0);
+    s[3] = expf(s[3] - mn1);
+    l0 = l0 * c0 + s[0] + s[2];   // this thread's keys; summed at the end
+    l1 = l1 * c1 + s[1] + s[3];
+    // P^T as the B operand of O^T = V^T P^T: keys 2(t%4) (+1, +8, +9) of
+    // query t/4, the transposes of the accumulator's two 8x8 blocks
+    const uint32_t pb0 = movmatrix_trans(pack_bf16(s[0], s[1]));
+    const uint32_t pb1 = movmatrix_trans(pack_bf16(s[2], s[3]));
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      acc[kk][0] *= c0;
+      acc[kk][1] *= c1;
+      acc[kk][2] *= c0;
+      acc[kk][3] *= c1;
+      uint32_t va[4];
+      ldmatrix_x4_trans(va, vt + vrow * DP + kk * 16 + vcol);
+      mma_bf16(acc[kk], va, pb0, pb1);
+    }
+    __syncthreads();   // this stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the four warps' partials through shared memory (reusing the stages)
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  float* wml = reinterpret_cast<float*>(smem_raw);   // [W][kMaxG][2]
+  float* wacc = wml + kWarps * kMaxG * 2;            // [W][kMaxG][D]
+  if (gr == 0) {
+    if (gc < G) {
+      wml[(warp * kMaxG + gc) * 2] = m0;
+      wml[(warp * kMaxG + gc) * 2 + 1] = l0;
+    }
+    if (gc + 1 < G) {
+      wml[(warp * kMaxG + gc + 1) * 2] = m1;
+      wml[(warp * kMaxG + gc + 1) * 2 + 1] = l1;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    const int d = kk * 16 + gr;
+    if (gc < G) {
+      wacc[(warp * kMaxG + gc) * D + d] = acc[kk][0];
+      wacc[(warp * kMaxG + gc) * D + d + 8] = acc[kk][2];
+    }
+    if (gc + 1 < G) {
+      wacc[(warp * kMaxG + gc + 1) * D + d] = acc[kk][1];
+      wacc[(warp * kMaxG + gc + 1) * D + d + 8] = acc[kk][3];
+    }
+  }
+  __syncthreads();
+  float* ml = wacc + kWarps * kMaxG * D;             // [G][2]
+  float* bacc = ml + kMaxG * 2;                      // [G][D]
+  merge_warps<D, kWarps>(wml, wacc, ml, bacc, G);
+  __syncthreads();
+  finish_split<__nv_bfloat16, D>(p, ml, bacc, b, kvh, sp, nlive);
+}
+
+// ------------------------------------------------------- fp32, CUDA cores
+
+constexpr int kFTile = 32;      // keys per warp tile, one per lane
+constexpr int kLoadBatch = 10;  // 16-byte loads per lane in flight, K and V
+
+template <int D>
+struct F32Smem {
+  // two warps at d=256, where four warps' staged tiles (4 x 64 KB) would
+  // pass the 227 KB a block may hold
+  static constexpr int kWarps = D > 128 ? 2 : 4;
+  static constexpr int KST = D + 1;   // odd key rows: lane j hits bank j
+  static constexpr size_t kWarpBytes =
+      ((size_t)kFTile * KST + (size_t)kFTile * D) * sizeof(float);
+  static constexpr size_t kQBytes = (size_t)kMaxG * D * sizeof(float);
+  static constexpr size_t kMergeBytes =
+      ((size_t)kWarps * kMaxG * (D + 2) + kMaxG * (D + 2)) * sizeof(float);
+  static constexpr size_t kTileBytes = kQBytes + kWarps * kWarpBytes;
+  static constexpr size_t kBytes =
+      kTileBytes > kMergeBytes ? kTileBytes : kMergeBytes;
+};
+
+template <int D>
+__global__ void __launch_bounds__(F32Smem<D>::kWarps * 32)
+decode_f32_kernel(DecodeParams p) {
+  using L = F32Smem<D>;
+  constexpr int kW = L::kWarps;
+  constexpr int KST = L::KST;
+  constexpr int NV = D / 4;                  // 16-byte loads per row
+  constexpr int NC = (D + 31) / 32;          // output columns per lane
+
+  const int sp = blockIdx.x % p.nsplit;
+  const int bk = blockIdx.x / p.nsplit;
+  const int b = bk / p.KVH, kvh = bk % p.KVH;
   const int G = p.G;
   const int valid = min(p.valid[b], p.S);
+  const int nlive = live_splits(p, valid);
+  if (sp >= nlive) return;
   const int lo = sp * p.split_len;
   const int hi = min(lo + p.split_len, valid);
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb;
-  for (int e = tid; e < G * D; e += kWarps * 32) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);               // [G][D]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* ks = reinterpret_cast<float*>(smem_raw + L::kQBytes +
+                                       warp * L::kWarpBytes);
+  float* vs = ks + kFTile * KST;
+
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb;
+  for (int e = tid; e < G * D; e += kW * 32) {
     const int g = e / D, d = e % D;
-    qs[e] = repro::to_f32(qg[(long long)(kvh * G + g) * p.q_sh + d]);
+    qs[e] = qg[(long long)(kvh * G + g) * p.q_sh + d];
   }
   __syncthreads();
 
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb +
+                    kvh * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb +
+                    kvh * p.v_sh;
   float m[kMaxG], l[kMaxG], acc[kMaxG][NC];
 #pragma unroll
   for (int g = 0; g < kMaxG; ++g) {
@@ -117,7 +512,7 @@ decode_kernel(DecodeParams p) {
     for (int c = 0; c < NC; ++c) acc[g][c] = 0.0f;
   }
 
-  for (int k0 = lo + warp * kTile; k0 < hi; k0 += kWarps * kTile) {
+  for (int k0 = lo + warp * kFTile; k0 < hi; k0 += kW * kFTile) {
     // the loads of a batch are all issued before its first store, so a
     // lane keeps 2 * kLoadBatch loads in flight at once
 #pragma unroll
@@ -129,9 +524,9 @@ decode_kernel(DecodeParams p) {
         kv[i] = vv[i] = make_uint4(0, 0, 0, 0);
         if (i0 + i < NV && k0 + r < hi) {
           kv[i] = *reinterpret_cast<const uint4*>(
-              kg + (long long)(k0 + r) * p.k_ss + c * VEC);
+              kg + (long long)(k0 + r) * p.k_ss + c * 4);
           vv[i] = *reinterpret_cast<const uint4*>(
-              vg + (long long)(k0 + r) * p.v_ss + c * VEC);
+              vg + (long long)(k0 + r) * p.v_ss + c * 4);
         }
       }
 #pragma unroll
@@ -139,26 +534,23 @@ decode_kernel(DecodeParams p) {
         if (i0 + i >= NV) break;
         const int e = lane + 32 * (i0 + i), r = e / NV, c = e % NV;
         // key rows are an odd number of words long: store word by word
-        uint32_t* kw = reinterpret_cast<uint32_t*>(ks + r * KST + c * VEC);
-        kw[0] = kv[i].x;
-        kw[1] = kv[i].y;
-        kw[2] = kv[i].z;
-        kw[3] = kv[i].w;
-        *reinterpret_cast<uint4*>(vs + r * D + c * VEC) = vv[i];
+        float* kw = ks + r * KST + c * 4;
+        kw[0] = __uint_as_float(kv[i].x);
+        kw[1] = __uint_as_float(kv[i].y);
+        kw[2] = __uint_as_float(kv[i].z);
+        kw[3] = __uint_as_float(kv[i].w);
+        *reinterpret_cast<uint4*>(vs + r * D + c * 4) = vv[i];
       }
     }
     __syncwarp();
-    const bool live = k0 + lane < hi;
+    const bool live = key_live(k0 + lane, hi);
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
       if (g >= G) break;
       float s = 0.0f;
 #pragma unroll 8
-      for (int d = 0; d < D; d += 2) {
-        const float2 kk = pair_f32(ks + lane * KST + d);
-        s = fmaf(qs[g * D + d], kk.x, s);
-        s = fmaf(qs[g * D + d + 1], kk.y, s);
-      }
+      for (int d = 0; d < D; ++d)
+        s = fmaf(qs[g * D + d], ks[lane * KST + d], s);
       s = live ? s * p.scale : kNegInf;
       float mx = s;
 #pragma unroll
@@ -175,24 +567,21 @@ decode_kernel(DecodeParams p) {
       m[g] = mn;
 #pragma unroll
       for (int c = 0; c < NC; ++c) acc[g][c] *= corr;
-      for (int j = 0; j < kTile; ++j) {
+      for (int j = 0; j < kFTile; ++j) {
         const float pj = __shfl_sync(0xffffffffu, pr, j);
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
           const int d = lane + 32 * c;
-          if (d < D) acc[g][c] = fmaf(pj, repro::to_f32(vs[j * D + d]),
-                                      acc[g][c]);
+          if (d < D) acc[g][c] = fmaf(pj, vs[j * D + d], acc[g][c]);
         }
       }
     }
     __syncwarp();   // the tile is consumed before the warp refills it
   }
 
-  // merge the four warps: partials through shared memory (reusing the
-  // tiles), then threads over (g, d)
   __syncthreads();
-  float* wml = reinterpret_cast<float*>(smem_raw + L::kQBytes);  // [W][G][2]
-  float* wacc = wml + kWarps * kMaxG * 2;                        // [W][G][D]
+  float* wml = reinterpret_cast<float*>(smem_raw);   // [W][kMaxG][2]
+  float* wacc = wml + kW * kMaxG * 2;                // [W][kMaxG][D]
 #pragma unroll
   for (int g = 0; g < kMaxG; ++g) {
     if (g >= G) break;
@@ -207,72 +596,33 @@ decode_kernel(DecodeParams p) {
     }
   }
   __syncthreads();
-  for (int e = tid; e < G * D; e += kWarps * 32) {
-    const int g = e / D, d = e % D;
-    float mall = kNegInf;
-    for (int w = 0; w < kWarps; ++w)
-      mall = fmaxf(mall, wml[(w * kMaxG + g) * 2]);
-    float lsum = 0.0f, a = 0.0f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float alpha = expf(wml[(w * kMaxG + g) * 2] - mall);
-      lsum += wml[(w * kMaxG + g) * 2 + 1] * alpha;
-      a += wacc[(w * kMaxG + g) * D + d] * alpha;
-    }
-    if (p.nsplit == 1) {
-      T* og = static_cast<T*>(p.o) + ((long long)b * p.H + kvh * G + g) * D;
-      og[d] = repro::from_f32<T>(a / fmaxf(lsum, 1e-37f));
-    } else {
-      const long long row = ((long long)bk * p.nsplit + sp) * G + g;
-      p.part_acc[row * D + d] = a;
-      if (d == 0) {
-        p.part_ml[row * 2] = mall;
-        p.part_ml[row * 2 + 1] = lsum;
-      }
-    }
-  }
-}
-
-// exact online-softmax merge of the split partials: one block per
-// (batch row, KV head), threads over (g, d)
-template <typename T>
-__global__ void __launch_bounds__(128)
-merge_kernel(const float* __restrict__ part_acc,
-             const float* __restrict__ part_ml, T* __restrict__ o, int H,
-             int KVH, int G, int D, int nsplit) {
-  const int bk = blockIdx.x;
-  const int b = bk / KVH, kvh = bk % KVH;
-  for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
-    const int g = e / D, d = e % D;
-    float mall = kNegInf;
-    for (int s = 0; s < nsplit; ++s)
-      mall = fmaxf(mall, part_ml[(((long long)bk * nsplit + s) * G + g) * 2]);
-    float lsum = 0.0f, a = 0.0f;
-    for (int s = 0; s < nsplit; ++s) {
-      const long long row = ((long long)bk * nsplit + s) * G + g;
-      const float alpha = expf(part_ml[row * 2] - mall);
-      lsum += part_ml[row * 2 + 1] * alpha;
-      a += part_acc[row * D + d] * alpha;
-    }
-    o[((long long)b * H + kvh * G + g) * D + d] =
-        repro::from_f32<T>(a / fmaxf(lsum, 1e-37f));
-  }
+  float* ml = wacc + kW * kMaxG * D;                 // [G][2]
+  float* bacc = ml + kMaxG * 2;                      // [G][D]
+  merge_warps<D, kW>(wml, wacc, ml, bacc, G);
+  __syncthreads();
+  finish_split<float, D>(p, ml, bacc, b, kvh, sp, nlive);
 }
 
 template <typename T, int D>
 cudaError_t launch(const DecodeParams& p, int B, cudaStream_t st) {
-  auto kern = decode_kernel<T, D>;
-  const size_t bytes = Smem<T, D>::kBytes;
+  void (*kern)(DecodeParams);
+  size_t bytes;
+  int threads;
+  if constexpr (sizeof(T) == 2) {
+    kern = decode_bf16_kernel<D>;
+    bytes = Bf16Smem<D>::kBytes;
+    threads = kWarps * 32;
+  } else {
+    kern = decode_f32_kernel<D>;
+    bytes = F32Smem<D>::kBytes;
+    threads = F32Smem<D>::kWarps * 32;
+  }
   // once per instantiation, so a launch inside CUDA-graph capture makes no
   // configuration call
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (attr != cudaSuccess) return attr;
-  kern<<<B * p.KVH * p.nsplit, Smem<T, D>::kWarps * 32, bytes, st>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || p.nsplit == 1) return err;
-  merge_kernel<T><<<B * p.KVH, 128, 0, st>>>(
-      p.part_acc, p.part_ml, static_cast<T*>(p.o), p.H, p.KVH, p.G, D,
-      p.nsplit);
+  kern<<<B * p.KVH * p.nsplit, threads, bytes, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -294,20 +644,25 @@ cudaError_t dispatch(const DecodeParams& p, int B, int D, cudaStream_t st) {
 // q: [B,H,D] through (batch, head) strides; k, v: [B,KVH,S,D] through
 // (batch, head, row) strides, unit stride along D; valid: [B] int32;
 // o: [B,H,D] contiguous; part_acc [B,KVH,nsplit,G,D] and part_ml
-// [B,KVH,nsplit,G,2] fp32 scratch, used when nsplit > 1; split_len keys
-// per split, a multiple of 32.  dtype 0 = float32, 1 = bfloat16.
+// [B,KVH,nsplit,G,2] fp32 scratch, used when nsplit > 1; tickets: [B*KVH]
+// int32, zero before the call and zero after it; split_len keys per split,
+// a multiple of 64.  dtype 0 = float32, 1 = bfloat16.
 extern "C" int repro_decode_attn_fwd(
     const void* q, const void* k, const void* v, const void* valid, void* o,
-    void* part_acc, void* part_ml, int B, int H, int KVH, int S, int D,
-    int nsplit, int split_len, long long q_sb, long long q_sh,
+    void* part_acc, void* part_ml, void* tickets, int B, int H, int KVH,
+    int S, int D, int nsplit, int split_len, long long q_sb, long long q_sh,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH || H / KVH > kMaxG || S <= 0 ||
-      nsplit <= 0 || split_len <= 0 || split_len % kTile ||
-      (long long)nsplit * split_len < S)
+      nsplit <= 0 || nsplit > kMaxSplit || split_len <= 0 ||
+      split_len % kSplitTile ||
+      (long long)nsplit * split_len < S ||
+      (nsplit > 1 && (part_acc == nullptr || part_ml == nullptr ||
+                      tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   DecodeParams p{q, k, v, static_cast<const int*>(valid), o,
                  static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+                 static_cast<int*>(tickets),
                  H, KVH, S, H / KVH, nsplit, split_len,
                  q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                  (float)(1.0 / sqrt((double)D))};   // the reference's scale

@@ -18,40 +18,66 @@
 // positions wrap + (j - ring_len).  The causal and window masks apply to
 // these positions, never to the slot index.  Tiles follow the skip rule of
 // kernel.py:69-83: ring tiles run unless they lie wholly past an unwrapped
-// cursor (slot order is not position order, so no other ring skip is
+// cursor (slot order is not position order, so no skip inside the ring is
 // sound); tail tiles keep the causal skip on their positions; a tile that
-// straddles ring_len runs if either part is live.  ring_len need not be a
-// multiple of the 64-key tile.
+// straddles ring_len runs if either part is live.  Two more skips only drop
+// tiles the masks would empty: the whole ring once the cursor is a window
+// behind the block's first query (every ring slot is older than the
+// cursor), and tail tiles wholly before that query's window (tail
+// positions rise with the slot).  ring_len need not be a multiple of the
+// 64-key tile.
 //
-// Bound on the H100: at zamba2-2.7b's prefill chunk (B=4, H=KVH=32, d=80,
-// 256 queries at offsets 0..1792 against a 2048-row bucket) the live KV
-// prefix is about 45 MB and the unmasked products about 10 GFLOP, so the
-// bytes bound it (~13 us at 3.35 TB/s) just ahead of the bf16 tensor cores
-// (~10 us at 989 TFLOP/s).  At gemma3-1b's ring chunk (B=4, H=4, KVH=1,
-// d=256, 512 ring slots + 256 chunk keys) it moves about 7 MB, ~2 us.
+// Bound on the H100: at llama3-8b's prefill chunk (B=4, H=32, KVH=8,
+// d=128, 256 queries at offsets 0..1792 against a 2048-row bucket) the
+// unmasked products are about 16 GFLOP, ~16 us at 989 TFLOP/s, ahead of
+// the live KV prefix's bytes.  At zamba2-2.7b's (H=KVH=32, d=80) the
+// bytes bound it (about 45 MB, ~13 us).  At gemma3-1b's ring chunk (B=4,
+// H=4, KVH=1, d=256, 512 ring slots + 256 chunk keys) it moves about 7 MB,
+// ~2 us.
 //
 // Design: the TPU walks KV blocks along a sequential grid axis with
-// (m, l, acc) in VMEM scratch.  Here one block owns one (batch row, head,
-// tile of 64 query rows) and loops over 64-row KV tiles itself; (m, l, acc)
-// stay in registers.  In the plain layout the loop starts at the first
-// tile inside the window and stops after the last key the tile's last
-// query may see, q_offset[b] + tile_end (the per-row causal skip of
-// _flash_kernel :63-68), so a short-prefix row never reads a long row's
-// KV; keys at or past Skv are masked.  In the ring layout the block walks
-// the live ring tiles, then the live tail tiles (kv_tiles below).  q, k,
-// v and o are read and written through strides, so the caller hands in a
-// bucket view of a [B, S, KV, d] cache without a copy.
+// (m, l, acc) in VMEM scratch.  Here a block loops over 64-key KV tiles
+// itself with (m, l, acc) in registers.  In the plain layout the loop
+// starts at the first tile inside the window and stops after the last key
+// the block's last query may see, q_offset[b] + its position (the per-row
+// causal skip of _flash_kernel :63-68), so a short-prefix row never reads
+// a long row's KV; keys at or past Skv are masked.  In the ring layout the
+// block walks the live ring tiles, then the live tail tiles (kv_tiles
+// below).  q, k, v and o are read and written through strides, so the
+// caller hands in a bucket view of a [B, S, KV, d] cache without a copy.
+// P is rounded to bf16 for the P.V product (the Pallas kernel keeps it in
+// fp32); the row sums l are taken from the fp32 P.  The error this adds
+// stays inside the bf16 tolerance, 2e-2 of each query row's own max |o|.
 //
-// bf16: four warps each own 16 query rows and run mma.sync m16n8k16 with
-// fp32 accumulate for S = Q K^T and for O += P V.  K and V tiles are
-// double-buffered in shared memory with cp.async; rows are padded by 16
-// bytes so the fragment loads hit distinct banks.  P is rounded to bf16
-// for the P.V product (the Pallas kernel keeps it in fp32); the row sums l
-// are taken from the fp32 P.  The error this adds stays inside the bf16
-// tolerance, 2e-2 of each query row's own max |o|.  Up to d=128 each warp
-// keeps its Q fragments in registers; at d=256 the output accumulator
-// alone takes 128 registers a thread, so the Q fragments are read from
-// shared memory at every tile instead.
+// bf16 at d = 128 and 256 (llama3-8b, gemma3-1b): wgmma and TMA.  A block
+// holds 128 query rows: the query heads of one KV head packed together
+// (rows pos * G + g for a group of G = 1, 2, 4 or 8; one head otherwise),
+// so each K/V tile is loaded once for the group.  One producer thread
+// keeps TMA loads of K and V tiles (128-byte swizzle, 64-column panels) in
+// flight into a ring of 2 (d=256) or 3 (d=128) stages tracked by
+// mbarriers, after Q, which TMA brings once.  Two consumer warpgroups own
+// 64 rows each: wgmma m64n64k16 gives S = Q K^T from shared memory, the
+// online softmax runs in registers, and wgmma m64n{d}k16 adds P V with P
+// from registers.  setmaxnreg gives the consumers 232 registers and the
+// producer warpgroup 40 (the d=256 accumulator alone is 128 a thread).
+// When the query tiles are fewer than the 132 SMs (gemma3-1b's four heads
+// and one KV head), each tile's keys are split across blocks as
+// flash/ops.py plans: the tiles the masks leave a query tile go to as many
+// of its splits as get two tiles each, and the rest return at once.  Each
+// split writes its unnormalised (acc, m, l); the block that draws the last
+// ticket of the tile merges them exactly, in split order whichever block
+// that is, and resets the ticket.  Blocks start with the batch rows of the
+// largest q_offset and the last query tiles, which see the most keys.
+// Measured (scripts/kernel_variants.py): a deeper K/V ring at d=128 and
+// turns between the two warpgroups (so one's softmax meets the other's
+// products) changed nothing; at 128 query rows a block, re-reading K/V
+// from L2 for every query tile bounds the compute-bound case.
+// bf16 at d = 16, 32, 80 (zamba2-2.7b and the test sizes): four warps
+// each own 16 query rows and run mma.sync m16n8k16 with fp32 accumulate;
+// K and V tiles are double-buffered in shared memory with cp.async, rows
+// padded by 16 bytes so the fragment loads hit distinct banks.  d=80 does
+// not fill whole 128-byte panels, and this instance already beats SDPA
+// there, so it stays.
 // fp32: CUDA cores.  Each warp owns 4 query rows; lane j scores key j of a
 // 32-key tile, and each lane accumulates its own columns of the output.
 // Its tiles live in static shared memory up to d=128 and in dynamic
@@ -60,6 +86,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -143,13 +170,31 @@ __device__ __forceinline__ Tiles kv_tiles(const FlashParams& p, int wrap,
   // exactly the slots below its cursor
   const int ring = min(p.ring_len, p.Skv);
   const int ring_keys = wrap >= p.window ? ring : max(0, min(ring, wrap));
-  t.n_head = (ring_keys + tile - 1) / tile;
-  // tail slot j is live for the block while wrap + (j - ring_len) <= qb
+  // every ring slot holds a position below the cursor, so none is inside
+  // the window of the block's first query once wrap - 1 <= qa - window
+  const int ring_live = wrap - 1 > qa - p.window ? ring_keys : 0;
+  t.n_head = (ring_live + tile - 1) / tile;
+  // tail slot j (position wrap + j - ring_len) is live for the block while
+  // that position is at most qb and inside the window of qa
   const int tail_hi = min(p.Skv, ring + qb - wrap + 1);
+  const int tail_lo = max(ring, ring + qa - p.window + 1 - wrap);
   const int end = tail_hi > ring ? (tail_hi + tile - 1) / tile : 0;
-  t.t_tail = max(ring / tile, t.n_head);
+  t.t_tail = max(tail_lo / tile, t.n_head);
   t.n = t.n_head + max(0, end - t.t_tail);
   return t;
+}
+
+// whether every query at positions [qa, qb] sees every key slot of the
+// tile [k0, k0 + tile): no mask is needed there.  Only tail tiles of the
+// ring layout qualify (ring slots are not in position order).
+template <bool kRing>
+__device__ __forceinline__ bool tile_full(const FlashParams& p, int wrap,
+                                          int k0, int tile, int qa, int qb) {
+  const int k1 = k0 + tile - 1;
+  if (k1 >= p.Skv || (kRing && k0 < p.ring_len)) return false;
+  const int pos0 = kRing ? wrap + (k0 - p.ring_len) : k0;
+  const int pos1 = pos0 + tile - 1;
+  return (!p.causal || pos1 <= qa) && (p.window <= 0 || qb - pos0 < p.window);
 }
 
 // ---------------------------------------------------------------- bf16, mma
@@ -232,7 +277,6 @@ flash_bf16_kernel(FlashParams p) {
   constexpr int KD = D / 16;         // k-steps of Q K^T
   constexpr int ND = D / 8;          // n-tiles of the output
   constexpr int NK = kBK / 8;        // n-tiles of S
-  constexpr bool kQRegs = D <= 128;  // Q fragments held in registers
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -281,7 +325,7 @@ flash_bf16_kernel(FlashParams p) {
   for (int n = 0; n < ND; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
-  uint32_t qa[kQRegs ? KD : 1][4];
+  uint32_t qa[KD][4];                // this warp's Q fragments
 
   for (int i = 0; i < tl.n; ++i) {
     const int t = tile_at<kRing>(tl, i);
@@ -296,9 +340,9 @@ flash_bf16_kernel(FlashParams p) {
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (kQRegs && i == 0) {
+    if (i == 0) {
 #pragma unroll
-      for (int kk = 0; kk < (kQRegs ? KD : 0); ++kk)
+      for (int kk = 0; kk < KD; ++kk)
         load_q_frag(qa[kk], qs + row0 * DP + kk * 16 + gc, DP);
     }
     const __nv_bfloat16* kt = ks + stage * kBK * DP;
@@ -310,19 +354,10 @@ flash_bf16_kernel(FlashParams p) {
     for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qf[4];
-      if (kQRegs) {
-        qf[0] = qa[kQRegs ? kk : 0][0];
-        qf[1] = qa[kQRegs ? kk : 0][1];
-        qf[2] = qa[kQRegs ? kk : 0][2];
-        qf[3] = qa[kQRegs ? kk : 0][3];
-      } else {
-        load_q_frag(qf, qs + row0 * DP + kk * 16 + gc, DP);
-      }
 #pragma unroll
       for (int n = 0; n < NK; ++n) {
         const __nv_bfloat16* bp = kt + (n * 8 + gr) * DP + kk * 16 + gc;
-        mma_bf16(s[n], qf, *reinterpret_cast<const uint32_t*>(bp),
+        mma_bf16(s[n], qa[kk], *reinterpret_cast<const uint32_t*>(bp),
                  *reinterpret_cast<const uint32_t*>(bp + 8));
       }
     }
@@ -414,6 +449,370 @@ flash_bf16_kernel(FlashParams p) {
     if (r1 < p.Sq)
       *reinterpret_cast<uint32_t*>(og + (long long)r1 * p.o_ss + col) =
           pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+}
+
+// ------------------------------------------ bf16 at d = 128, 256: wgmma
+
+constexpr int kWRows = 128;      // query rows a block: two consumer warpgroups
+constexpr int kWK = 64;          // keys a tile
+constexpr int kWThreads = 384;   // consumer warpgroups 0, 1; producer 2
+constexpr int kPanel = 64;       // bf16 columns of one 128-byte swizzle panel
+constexpr int kMaxFSplit = 8;    // key splits of a query tile
+
+// The launch plan (computed in Python from shapes, flash/ops.py) and the
+// tensor maps' coordinate order: map dim i takes the logical coordinate
+// (d, head, row, batch)[byte i of perm].
+struct WgmmaPlan {
+  int B, hp, npos, q_tiles, HG, nsplit;
+  int rows_pos_major;   // Q rows: pos * hp + g (1) or g * npos + pos (0)
+  int q_perm, k_perm, v_perm;   // byte i: the logical index of map dim i
+  float* part_acc;      // [tiles][nsplit][kWRows][D] when nsplit > 1
+  float* part_ml;       // [tiles][nsplit][kWRows][2]
+  int* tickets;         // [tiles], zero between calls
+};
+
+template <int D>
+struct WSmem {
+  static constexpr int kPanels = D / kPanel;
+  static constexpr int kStages = D > 128 ? 2 : 3;
+  static constexpr int kQBytes = kWRows * D * 2;
+  static constexpr int kKVBytes = kWK * D * 2;     // one of K, V
+  // 1024 bytes of slack to align the tiles for the swizzle
+  static constexpr int kBytes = kQBytes + kStages * 2 * kKVBytes + 1024;
+};
+
+// the key splits of ns that share a query tile's n KV tiles: at least
+// kMinSplitTiles each, so a split's merge never costs more than its tiles
+constexpr int kMinSplitTiles = 2;
+__device__ __forceinline__ int active_splits(int n, int ns) {
+  return max(1, min(ns, n / kMinSplitTiles));
+}
+
+__device__ __forceinline__ int pick(int i, int a0, int a1, int a2, int a3) {
+  return i == 0 ? a0 : i == 1 ? a1 : i == 2 ? a2 : a3;
+}
+
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int perm, int d,
+                                         int head, int row, int b) {
+  repro::tma_load_4d(dst, map, bar, pick(perm & 255, d, head, row, b),
+                     pick((perm >> 8) & 255, d, head, row, b),
+                     pick((perm >> 16) & 255, d, head, row, b),
+                     pick(perm >> 24, d, head, row, b));
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 128) repro::wgmma_rs_n128(o, a, db);
+  else repro::wgmma_rs_n256(o, a, db);
+}
+
+template <int D, bool kRing>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, FlashParams p,
+                   WgmmaPlan w) {
+  using L = WSmem<D>;
+  constexpr int NP = L::kPanels, NS = L::kStages;
+  static_assert(D == 128 || D == 256, "the wgmma instances are d=128, 256");
+  __shared__ __align__(8) uint64_t full_bar[NS], empty_bar[NS], q_bar;
+  __shared__ int s_last;
+  extern __shared__ __align__(1024) unsigned char wgmma_smem[];
+  unsigned char* base =
+      wgmma_smem + ((1024 - (repro::smem_u32(wgmma_smem) & 1023)) & 1023);
+  // Q [NP][kWRows][64], then stages of K [NP][kWK][64] and V alike
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* kvs = qs + kWRows * D;
+
+  // the block's (batch row, head group, query tile, key split): batch rows
+  // by descending q_offset and query tiles from the last, so the rows with
+  // the most keys start first
+  int i = blockIdx.x;
+  const int split = i % w.nsplit;
+  i /= w.nsplit;
+  const int hg = i % w.HG;
+  i /= w.HG;
+  const int brank = i % w.B;
+  const int qt = w.q_tiles - 1 - i / w.B;
+  int b = brank;
+  if (p.qoff) {
+    for (int c = 0; c < w.B; ++c) {
+      const int oc = p.qoff[c];
+      int rank = 0;
+      for (int e = 0; e < w.B; ++e) {
+        const int oe = p.qoff[e];
+        rank += oe > oc || (oe == oc && e < c);
+      }
+      if (rank == brank) b = c;
+    }
+  }
+  const int kvh = hg * w.hp / (p.H / p.KVH);
+  const int q0 = qt * w.npos;
+  const int qoff = p.qoff ? p.qoff[b] : 0;
+  const int wrap = kRing ? p.kv_wrap[b] : 0;
+  const int q_last = min(q0 + w.npos, p.Sq) - 1;
+  const Tiles tl = kv_tiles<kRing>(p, wrap, qoff + q0, qoff + q_last, kWK);
+  // the tiles the masks leave this query tile are cut among the first
+  // n_active splits, at least two tiles each; the other splits return at
+  // once, and with one active split the block writes its rows itself
+  const int n_active = active_splits(tl.n, w.nsplit);
+  if (split >= n_active) return;
+  const int t_lo = (int)((long long)tl.n * split / n_active);
+  const int n_mine = (int)((long long)tl.n * (split + 1) / n_active) - t_lo;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      repro::mbar_init(&full_bar[s], 1);
+      repro::mbar_init(&empty_bar[s], 8);   // the consumers' eight warps
+    }
+    repro::mbar_init(&q_bar, 1);
+    repro::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer: one thread keeps the TMA loads of the K/V ring in flight
+    repro::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256 && n_mine > 0) {
+      repro::mbar_expect_tx(&q_bar, L::kQBytes);
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn)
+        tma_tile(qs + pn * kWRows * kPanel, &tq, &q_bar, w.q_perm,
+                 pn * kPanel, hg * w.hp, q0, b);
+      for (int j = 0; j < n_mine; ++j) {
+        const int st = j % NS;
+        repro::mbar_wait(&empty_bar[st], ((j / NS) & 1) ^ 1);
+        repro::mbar_expect_tx(&full_bar[st], 2 * L::kKVBytes);
+        const int key0 = tile_at<kRing>(tl, t_lo + j) * kWK;
+        __nv_bfloat16* ks = kvs + (size_t)st * 2 * kWK * D;
+        __nv_bfloat16* vs = ks + kWK * D;
+#pragma unroll
+        for (int pn = 0; pn < NP; ++pn) {
+          tma_tile(ks + pn * kWK * kPanel, &tk, &full_bar[st], w.k_perm,
+                   pn * kPanel, kvh, key0, b);
+          tma_tile(vs + pn * kWK * kPanel, &tv, &full_bar[st], w.v_perm,
+                   pn * kPanel, kvh, key0, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the block
+    repro::setmaxnreg_inc<232>();
+    const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int r0 = wg * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+    const int pos0 = q0 + (w.rows_pos_major ? r0 / w.hp : r0 % w.npos);
+    const int pos1 = q0 + (w.rows_pos_major ? r1 / w.hp : r1 % w.npos);
+    const int qpos0 = qoff + pos0, qpos1 = qoff + pos1;
+    const int gc = (lane & 3) * 2;
+
+    float o[D / 2];
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) o[k] = 0.0f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+    const float scale2 = p.scale * 1.4426950408889634f;   // log2(e)
+    const uint32_t q_addr = repro::smem_u32(qs) + wg * 64 * 128;
+    if (n_mine > 0) repro::mbar_wait(&q_bar, 0);
+
+    for (int j = 0; j < n_mine; ++j) {
+      const int st = j % NS;
+      repro::mbar_wait(&full_bar[st], (j / NS) & 1);
+      const uint32_t k_addr =
+          repro::smem_u32(kvs + (size_t)st * 2 * kWK * D);
+      const uint32_t v_addr = k_addr + kWK * D * 2;
+
+      // S = Q K^T: 64 rows x 64 keys, Q and K K-major in shared memory
+      float s[32];
+#pragma unroll
+      for (int k = 0; k < 32; ++k) s[k] = 0.0f;
+      repro::wgmma_fence();
+      repro::reg_fence(s);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t da = repro::wgmma_desc(
+            q_addr + (kk >> 2) * kWRows * 128 + (kk & 3) * 32, 16, 1024);
+        const uint64_t db = repro::wgmma_desc(
+            k_addr + (kk >> 2) * kWK * 128 + (kk & 3) * 32, 16, 1024);
+        repro::wgmma_ss_n64(s, da, db, 1);
+      }
+      repro::wgmma_commit();
+      repro::reg_fence(s);
+      repro::wgmma_wait0();
+      repro::reg_fence(s);
+
+      // mask, scale, online softmax in base 2 (scores times scale *
+      // log2(e)): s[4n + e] is (r0, key 8n + gc + e), s[4n + 2 + e] is
+      // (r1, the same key).  A tile every key of which every query of the
+      // block sees skips the masks.
+      const int k0 = tile_at<kRing>(tl, t_lo + j) * kWK;
+      if (tile_full<kRing>(p, wrap, k0, kWK, qoff + q0, qoff + q_last)) {
+#pragma unroll
+        for (int k = 0; k < 32; ++k) s[k] *= scale2;
+      } else {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + n * 8 + gc + e;
+            const int kpos = key_pos<kRing>(p, wrap, key);
+            s[4 * n + e] = key_ok<kRing>(p, qpos0, key, kpos)
+                               ? s[4 * n + e] * scale2 : kNegInf;
+            s[4 * n + 2 + e] = key_ok<kRing>(p, qpos1, key, kpos)
+                                   ? s[4 * n + 2 + e] * scale2 : kNegInf;
+          }
+        }
+      }
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.0f, rs1 = 0.0f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[4 * n + e] = exp2f(s[4 * n + e] - mn0);
+          s[4 * n + 2 + e] = exp2f(s[4 * n + 2 + e] - mn1);
+          rs0 += s[4 * n + e];
+          rs1 += s[4 * n + 2 + e];
+        }
+      }
+      l0 = l0 * c0 + rs0;   // this thread's columns; the quad sums at the end
+      l1 = l1 * c1 + rs1;
+#pragma unroll
+      for (int k = 0; k < D / 2; ++k) o[k] *= (k & 2) ? c1 : c0;
+
+      // O += P V: P in bf16 from registers (the accumulator's layout is
+      // the A operand's), V N-major in shared memory
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+      repro::wgmma_fence();
+      repro::reg_fence(o);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<D>(o, pa[kk],
+                    repro::wgmma_desc(v_addr + kk * 2048, kWK * 128, 1024));
+      repro::wgmma_commit();
+      repro::reg_fence(o);
+      repro::wgmma_wait0();
+      repro::reg_fence(o);
+      __syncwarp();
+      if (lane == 0) repro::mbar_arrive(&empty_bar[st]);
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    bool write = true;
+    if (n_active > 1) {
+      // key splits: write this split's unnormalised (o, m, l); the block
+      // that draws the last ticket of the query tile merges them
+      const int ti = (b * w.HG + hg) * w.q_tiles + qt;
+      const long long tile0 = (long long)ti * w.nsplit;
+      float* pacc = w.part_acc + (tile0 + split) * kWRows * D;
+      float* pml = w.part_ml + (tile0 + split) * kWRows * 2;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<float2*>(pacc + r0 * D + n * 8 + gc) =
+            make_float2(o[4 * n], o[4 * n + 1]);
+        *reinterpret_cast<float2*>(pacc + r1 * D + n * 8 + gc) =
+            make_float2(o[4 * n + 2], o[4 * n + 3]);
+      }
+      if ((lane & 3) == 0) {
+        *reinterpret_cast<float2*>(pml + r0 * 2) = make_float2(m0, l0);
+        *reinterpret_cast<float2*>(pml + r1 * 2) = make_float2(m1, l1);
+      }
+      __threadfence();
+      consumer_sync();
+      if (threadIdx.x == 0)
+        s_last = atomicAdd(&w.tickets[ti], 1) == n_active - 1;
+      consumer_sync();
+      write = s_last;
+      if (write) {
+        // every split's partial from L2 in split order, whichever block
+        // finishes last, so the sums run in one order on every call
+        __threadfence();
+        float ma0 = kNegInf, ma1 = kNegInf;
+        for (int sp = 0; sp < n_active; ++sp) {
+          const float* ml = w.part_ml + (tile0 + sp) * kWRows * 2;
+          ma0 = fmaxf(ma0, __ldcg(ml + r0 * 2));
+          ma1 = fmaxf(ma1, __ldcg(ml + r1 * 2));
+        }
+        l0 = l1 = 0.0f;
+#pragma unroll
+        for (int k = 0; k < D / 2; ++k) o[k] = 0.0f;
+        for (int sp = 0; sp < n_active; ++sp) {
+          const float* ml = w.part_ml + (tile0 + sp) * kWRows * 2;
+          const float* px = w.part_acc + (tile0 + sp) * kWRows * D;
+          const float2 e0 = __ldcg(reinterpret_cast<const float2*>(
+              ml + r0 * 2));
+          const float2 e1 = __ldcg(reinterpret_cast<const float2*>(
+              ml + r1 * 2));
+          const float f0 = exp2f(e0.x - ma0), f1 = exp2f(e1.x - ma1);
+          l0 += e0.y * f0;
+          l1 += e1.y * f1;
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            const float2 x0 = __ldcg(reinterpret_cast<const float2*>(
+                px + r0 * D + n * 8 + gc));
+            const float2 x1 = __ldcg(reinterpret_cast<const float2*>(
+                px + r1 * D + n * 8 + gc));
+            o[4 * n] = fmaf(x0.x, f0, o[4 * n]);
+            o[4 * n + 1] = fmaf(x0.y, f0, o[4 * n + 1]);
+            o[4 * n + 2] = fmaf(x1.x, f1, o[4 * n + 2]);
+            o[4 * n + 3] = fmaf(x1.y, f1, o[4 * n + 3]);
+          }
+        }
+        if (threadIdx.x == 0) w.tickets[ti] = 0;
+      }
+    }
+    if (write) {
+      const float inv0 = 1.0f / fmaxf(l0, 1e-37f);
+      const float inv1 = 1.0f / fmaxf(l1, 1e-37f);
+      const int h0 = hg * w.hp + (w.rows_pos_major ? r0 % w.hp : r0 / w.npos);
+      const int h1 = hg * w.hp + (w.rows_pos_major ? r1 % w.hp : r1 / w.npos);
+      __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int col = n * 8 + gc;
+        if (pos0 < p.Sq)
+          *reinterpret_cast<uint32_t*>(og + h0 * p.o_sh +
+                                       (long long)pos0 * p.o_ss + col) =
+              pack_bf16(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+        if (pos1 < p.Sq)
+          *reinterpret_cast<uint32_t*>(og + h1 * p.o_sh +
+                                       (long long)pos1 * p.o_ss + col) =
+              pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+      }
+    }
   }
 }
 
@@ -545,18 +944,121 @@ flash_f32_kernel(FlashParams p) {
   }
 }
 
+// cuTensorMapEncodeTiled from libcuda, looked up at run time so that the
+// library links against the CUDA runtime alone
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-d bf16 tensor map of a strided [batch, head, row, d] tensor (unit
+// stride along d), 128-byte swizzle, boxes of 64 along d and `box_head`,
+// `box_row` along heads and rows.  The three outer dims go into the map
+// in ascending order of stride; `perm` receives the logical index of each
+// map dim, one byte each.  A dim of extent 1 takes a stride past the
+// others'.
+bool make_map(CUtensorMap* map, const void* ptr, int D, int n_head,
+              long long s_head, int n_row, long long s_row, int n_b,
+              long long s_b, int box_head, int box_row, int* perm) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  long long n[4] = {D, n_head, n_row, n_b};
+  long long st[4] = {1, s_head, s_row, s_b};
+  const int box[4] = {kPanel, box_head, box_row, 1};
+  long long span = 0;
+  for (int i = 1; i < 4; ++i) span = max(span, n[i] * st[i]);
+  for (int i = 1; i < 4; ++i)
+    if (n[i] == 1) st[i] = span;
+  int order[4] = {0, 1, 2, 3};
+  for (int i = 1; i < 4; ++i)
+    for (int j = i + 1; j < 4; ++j)
+      if (st[order[j]] < st[order[i]]) {
+        const int t = order[i];
+        order[i] = order[j];
+        order[j] = t;
+      }
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t boxes[4], es[4] = {1, 1, 1, 1};
+  *perm = 0;
+  for (int i = 0; i < 4; ++i) {
+    dims[i] = (cuuint64_t)n[order[i]];
+    boxes[i] = (cuuint32_t)box[order[i]];
+    if (i > 0) strides[i - 1] = (cuuint64_t)st[order[i]] * 2;
+    *perm |= order[i] << (8 * i);
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, boxes, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D, bool kRing>
-cudaError_t launch(const FlashParams& p, int B, int dtype, cudaStream_t st) {
+cudaError_t launch_wgmma(const FlashParams& p, WgmmaPlan w,
+                         cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  const int npos = w.npos;
+  if (!make_map(&tq, p.q, D, p.H, p.q_sh, p.Sq, p.q_ss, w.B, p.q_sb, w.hp,
+                npos, &w.q_perm) ||
+      !make_map(&tk, p.k, D, p.KVH, p.k_sh, p.Skv, p.k_ss, w.B, p.k_sb, 1,
+                kWK, &w.k_perm) ||
+      !make_map(&tv, p.v, D, p.KVH, p.v_sh, p.Skv, p.v_ss, w.B, p.v_sb, 1,
+                kWK, &w.v_perm))
+    return cudaErrorInvalidValue;
+  // Q rows land head-minor when the head dim precedes the row dim in the
+  // map
+  int head_at = 0, row_at = 0;
+  for (int i = 0; i < 4; ++i) {
+    if (((w.q_perm >> (8 * i)) & 255) == 1) head_at = i;
+    if (((w.q_perm >> (8 * i)) & 255) == 2) row_at = i;
+  }
+  w.rows_pos_major = head_at < row_at;
+  auto kern = flash_wgmma_kernel<D, kRing>;
+  constexpr int bytes = WSmem<D>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return attr;
+  const long long blocks =
+      (long long)w.nsplit * w.HG * w.q_tiles * w.B;
+  kern<<<(unsigned)blocks, kWThreads, bytes, st>>>(tq, tk, tv, p, w);
+  return cudaGetLastError();
+}
+
+template <int D, bool kRing>
+cudaError_t launch(const FlashParams& p, const WgmmaPlan& w, int dtype,
+                   cudaStream_t st) {
+  const int B = w.B;
   if (dtype == 1) {
-    constexpr size_t bytes = (size_t)(kBQ + 4 * kBK) * (D + 8) * 2;
-    auto kern = flash_bf16_kernel<D, kRing>;
-    // once per instantiation, so a launch inside CUDA-graph capture makes
-    // no configuration call
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (attr != cudaSuccess) return attr;
-    dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
-    kern<<<grid, kWarps * 32, bytes, st>>>(p);
+    if constexpr (D == 128 || D == 256) {
+      return launch_wgmma<D, kRing>(p, w, st);
+    } else {
+      constexpr size_t bytes = (size_t)(kBQ + 4 * kBK) * (D + 8) * 2;
+      auto kern = flash_bf16_kernel<D, kRing>;
+      // once per instantiation, so a launch inside CUDA-graph capture
+      // makes no configuration call
+      static const cudaError_t attr = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (attr != cudaSuccess) return attr;
+      dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
+      kern<<<grid, kWarps * 32, bytes, st>>>(p);
+    }
   } else {
     constexpr size_t bytes = F32Smem<D>::kDynamicBytes;
     auto kern = flash_f32_kernel<D, kRing>;
@@ -572,10 +1074,10 @@ cudaError_t launch(const FlashParams& p, int B, int dtype, cudaStream_t st) {
 }
 
 template <int D>
-cudaError_t launch_layout(const FlashParams& p, int B, int dtype,
-                          cudaStream_t st) {
-  return p.ring_len > 0 ? launch<D, true>(p, B, dtype, st)
-                        : launch<D, false>(p, B, dtype, st);
+cudaError_t launch_layout(const FlashParams& p, const WgmmaPlan& w,
+                          int dtype, cudaStream_t st) {
+  return p.ring_len > 0 ? launch<D, true>(p, w, dtype, st)
+                        : launch<D, false>(p, w, dtype, st);
 }
 
 }  // namespace
@@ -585,7 +1087,12 @@ cudaError_t launch_layout(const FlashParams& p, int B, int dtype,
 // [B] int32 or null; window <= 0 for none; ring_len > 0 selects the ring
 // layout, which needs causal, a window and kv_wrap ([B] int32 cursors),
 // with ring_len <= Skv; dtype 0 = float32, 1 = bfloat16 (shared by q, k,
-// v and o).
+// v and o).  bf16 at D = 128, 256 runs the wgmma kernel with the plan
+// (heads_packed query heads of one KV head a block, nsplit key splits;
+// part_acc [tiles, nsplit, 128, D] and part_ml [tiles, nsplit, 128, 2]
+// fp32 scratch and tickets [tiles] int32, zero before and after, when
+// nsplit > 1, tiles = B * H / heads_packed * ceil(Sq * heads_packed /
+// 128)); every other instance takes heads_packed = nsplit = 1.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, const void* qoff,
                                const void* kv_wrap, int B, int H,
@@ -595,12 +1102,22 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                long long v_sb, long long v_sh, long long v_ss,
                                long long o_sb, long long o_sh, long long o_ss,
                                int causal, int window, int ring_len,
-                               int dtype, void* stream) {
+                               int heads_packed, int nsplit, void* part_acc,
+                               void* part_ml, void* tickets, int dtype,
+                               void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH || Sq <= 0 || Skv <= 0 ||
       B > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (ring_len > 0 &&
       (!causal || window <= 0 || kv_wrap == nullptr || ring_len > Skv))
+    return (int)cudaErrorInvalidValue;
+  const bool wgmma = dtype == 1 && (D == 128 || D == 256);
+  const int hp = heads_packed;
+  if (wgmma ? (hp < 1 || (H / KVH) % hp || kWRows % hp || nsplit < 1 ||
+               nsplit > kMaxFSplit ||
+               (nsplit > 1 && (part_acc == nullptr || part_ml == nullptr ||
+                               tickets == nullptr)))
+            : (hp != 1 || nsplit != 1))
     return (int)cudaErrorInvalidValue;
   FlashParams p{q, k, v, o, static_cast<const int*>(qoff),
                 ring_len > 0 ? static_cast<const int*>(kv_wrap) : nullptr,
@@ -608,13 +1125,17 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                 q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                 o_sb, o_sh, o_ss, causal, window, ring_len,
                 (float)(1.0 / sqrt((double)D))};   // the reference's scale
+  const int npos = kWRows / hp;
+  WgmmaPlan w{B, hp, npos, (Sq + npos - 1) / npos, H / hp, nsplit, 1,
+              0, 0, 0, static_cast<float*>(part_acc),
+              static_cast<float*>(part_ml), static_cast<int*>(tickets)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return (int)launch_layout<16>(p, B, dtype, st);
-    case 32: return (int)launch_layout<32>(p, B, dtype, st);
-    case 80: return (int)launch_layout<80>(p, B, dtype, st);
-    case 128: return (int)launch_layout<128>(p, B, dtype, st);
-    case 256: return (int)launch_layout<256>(p, B, dtype, st);
+    case 16: return (int)launch_layout<16>(p, w, dtype, st);
+    case 32: return (int)launch_layout<32>(p, w, dtype, st);
+    case 80: return (int)launch_layout<80>(p, w, dtype, st);
+    case 128: return (int)launch_layout<128>(p, w, dtype, st);
+    case 256: return (int)launch_layout<256>(p, w, dtype, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -13,10 +13,17 @@ modulus ``window``, the rest the in-flight chunk.  As in the Pallas
 kernel, the ring needs ``causal``, a ``window`` and ``kv_wrap``.  Ring
 launches are counted apart from plain ones:
 ``flash_attention.ring_launches`` and ``flash_attention.launches``.
+
+Each launch follows :func:`flash_plan`, from shapes only: bf16 at
+head_dim 128 and 256 runs the ``wgmma`` + TMA kernel with a GQA group's
+query heads packed into one block's 128 rows and, when that leaves fewer
+blocks than the H100's 132 SMs, each query tile's keys split across
+blocks (gemma3-1b's chunk: 32 tiles x 4 splits); bf16 elsewhere runs
+``mma.sync``, fp32 CUDA cores.  Either way one call is one launch.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,6 +33,98 @@ from repro_torch.kernels.flash import ref as _ref
 # head_dim values the kernel is instantiated for: zamba2-2.7b's (80),
 # llama3-8b's (128), gemma3-1b's (256) and the reduced test sizes
 HEAD_DIMS = (16, 32, 80, 128, 256)
+WGMMA_HEAD_DIMS = (128, 256)   # bf16 on wgmma + TMA; the rest mma.sync
+SMS = 132                      # H100 SXM
+BLOCK_ROWS = 128               # query rows a wgmma block
+KEY_TILE = 64                  # keys a tile
+MAX_SPLIT = 8                  # key splits of a query tile
+MIN_SPLIT_TILES = 2            # KV tiles an active key split takes
+
+
+class FlashPlan(NamedTuple):
+    """How one call is cut into blocks: ``route`` "wgmma" (bf16 at d=128,
+    256), "mma" (bf16 elsewhere) or "fp32"; ``heads_packed`` query heads
+    of one KV head share a block's rows, ``positions`` query positions
+    each; ``q_tiles`` x ``head_groups`` x B query tiles, each cut into
+    ``splits`` key splits; ``blocks`` in all."""
+    route: str
+    heads_packed: int
+    positions: int
+    q_tiles: int
+    head_groups: int
+    splits: int
+    blocks: int
+
+
+def flash_plan(b: int, h: int, kvh: int, sq: int, skv: int, d: int,
+               dtype, *, heads_packed: Optional[int] = None,
+               splits: Optional[int] = None) -> FlashPlan:
+    """The launch plan, from shapes only.  On the wgmma route a block
+    holds 128 query rows: the G = H / KVH heads of one KV head packed
+    together (G of 1, 2, 4 or 8; one head otherwise), 128 / G positions
+    each, so each K/V tile is loaded once for the group.  When the query
+    tiles number fewer than the 132 SMs, the keys of each are split into
+    ``min(8, 132 // tiles, ceil(Skv / 64))`` ranges of whole 64-key tiles,
+    of which the kernel uses as many as the masks leave two tiles each
+    (:func:`key_split`), merged exactly by the block that finishes last.
+    Elsewhere a block is 64 (bf16) or 16 (fp32) rows of one head.
+    ``heads_packed`` and ``splits`` force the wgmma route's choices (the
+    card tests do); they must divide G and 128, and lie in [1, 8]."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        g = h // kvh
+        hp = heads_packed or (g if g in (1, 2, 4, 8) else 1)
+        if g % hp or BLOCK_ROWS % hp:
+            raise ValueError(f"heads_packed {hp} must divide the group {g} "
+                             f"and {BLOCK_ROWS}")
+        npos = BLOCK_ROWS // hp
+        qt = -(-sq // npos)
+        tiles = qt * (h // hp) * b
+        if splits is None:
+            splits = 1
+            if tiles < SMS:
+                splits = max(1, min(MAX_SPLIT, SMS // tiles,
+                                    -(-skv // KEY_TILE)))
+        if not 1 <= splits <= MAX_SPLIT:
+            raise ValueError(f"splits must be in [1, {MAX_SPLIT}], got "
+                             f"{splits}")
+        return FlashPlan("wgmma", hp, npos, qt, h // hp, splits,
+                         tiles * splits)
+    if heads_packed not in (None, 1) or splits not in (None, 1):
+        raise ValueError("heads_packed and splits apply to the wgmma route "
+                         "(bf16 at head_dim 128 or 256)")
+    rows = 64 if dtype == torch.bfloat16 else 16
+    qt = -(-sq // rows)
+    return FlashPlan("mma" if dtype == torch.bfloat16 else "fp32", 1, rows,
+                     qt, h, 1, qt * h * b)
+
+
+def key_split(n_tiles: int, splits: int, s: int) -> Tuple[int, int]:
+    """Split ``s``'s range [lo, hi) of a query tile's ``n_tiles`` KV tiles
+    (the tiles the masks leave it, in the kernel's order), as the kernel
+    cuts them: the first ``max(1, min(splits, n_tiles // 2))`` splits share
+    the tiles in contiguous ranges of at least two (sizes within one of
+    each other); the rest get none and return at once."""
+    active = max(1, min(splits, n_tiles // MIN_SPLIT_TILES))
+    if s >= active:
+        return n_tiles, n_tiles
+    return n_tiles * s // active, n_tiles * (s + 1) // active
+
+
+_TICKETS = {}
+
+
+def ticket_counters(device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 ticket counters on ``device``, zeroed once when
+    made.  A split kernel (flash or decode attention) draws one ticket per
+    split block, and the block that draws the last writes the counter back
+    to zero, so the same counters serve every later call and every replay
+    of a captured CUDA graph.  Kernels on one stream only: two calls in
+    flight at once would share them."""
+    have = _TICKETS.get(device)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = have
+    return have
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -83,7 +182,11 @@ def row_vector(x, b: int, device, name: str) -> torch.Tensor:
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None, q_offset=None,
-                         kv_wrap=None, ring_len: Optional[int] = None):
+                         kv_wrap=None, ring_len: Optional[int] = None,
+                         heads_packed: Optional[int] = None,
+                         splits: Optional[int] = None):
+    """The kernel; ``heads_packed`` and ``splits`` override the plan's
+    choices (:func:`flash_plan`)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel needs a CUDA tensor, got {q.device}")
     b, h, sq, d = q.shape
@@ -111,13 +214,27 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     # [B, Sq, H, d] storage: the caller's layout after the projection
     o = torch.empty((b, sq, h, d), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
+    plan = flash_plan(b, h, kvh, sq, skv, d, q.dtype,
+                      heads_packed=heads_packed, splits=splits)
+    part_acc = part_ml = tickets = None
+    if plan.splits > 1:
+        tiles = plan.blocks // plan.splits
+        part_acc = torch.empty((tiles, plan.splits, BLOCK_ROWS, d),
+                               dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((tiles, plan.splits, BLOCK_ROWS, 2),
+                              dtype=torch.float32, device=q.device)
+        tickets = ticket_counters(q.device, tiles)
     lib = build.library()
     rc = lib.repro_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         0 if qoff is None else qoff.data_ptr(),
         0 if wrap is None else wrap.data_ptr(), b, h, kvh, sq, skv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        int(causal), int(window or 0), int(ring_len or 0), code,
+        int(causal), int(window or 0), int(ring_len or 0),
+        plan.heads_packed, plan.splits,
+        0 if part_acc is None else part_acc.data_ptr(),
+        0 if part_ml is None else part_ml.data_ptr(),
+        0 if tickets is None else tickets.data_ptr(), code,
         build.stream_ptr(q.device))
     build.check(rc, "repro_flash_fwd")
     if wrap is None:

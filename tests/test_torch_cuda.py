@@ -231,6 +231,118 @@ def test_decode_attention_kernel(cuda, dtype, split_k, d, h, kvh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,h,kvh", [(128, 8, 2), (256, 4, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_ring_cache(cuda, dtype, d, h, kvh):
+    """A local layer's 512-slot ring cache (gemma3-1b: ``Skv == window``,
+    ``valid_len = min(pos + 1, 512)``): one live key, all but one, all."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(8), cuda)
+    td = DTYPES[dtype]
+    b, s = 3, 512
+    q = rn(b, h, d, dt=td)
+    k = _cache_view(rn, b, s, kvh, d, td)
+    v = _cache_view(rn, b, s, kvh, d, td)
+    valid = torch.tensor([1, 511, 512], dtype=torch.int32, device=cuda)
+    got = dec_attn_ops.decode_attention(q, k, v, valid_len=valid)
+    torch.cuda.synchronize()
+    _close_rows(got, dec_attn_ref.decode_attention_ref(q, k, v,
+                                                       valid_len=valid),
+                TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,kvh", [(128, 8, 2), (256, 4, 1), (80, 4, 4)])
+@pytest.mark.parametrize("split_k", [None, 12, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_many_splits(cuda, dtype, split_k, d, h, kvh):
+    """Split counts up to the rule's largest (16) on a 1100-row cache,
+    valid lengths inside the first split, on a tile edge, mid-cache and
+    the whole cache, so rows merge 1 to 16 live splits."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(9), cuda)
+    td = DTYPES[dtype]
+    b, s = 4, 1100
+    q = rn(b, h, d, dt=td)
+    k = _cache_view(rn, b, s, kvh, d, td)
+    v = _cache_view(rn, b, s, kvh, d, td)
+    valid = torch.tensor([1, 64, 700, s], dtype=torch.int32, device=cuda)
+    got = dec_attn_ops.decode_attention(q, k, v, valid_len=valid,
+                                        split_k=split_k)
+    torch.cuda.synchronize()
+    _close_rows(got, dec_attn_ref.decode_attention_ref(q, k, v,
+                                                       valid_len=valid),
+                TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_graph_replays_agree(cuda, dtype):
+    """One split decode call captured in a CUDA graph and replayed three
+    times gives the eager call's output each time: the kernel leaves its
+    merge tickets at zero."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(10), cuda)
+    td = DTYPES[dtype]
+    b, h, kvh, d, s = 4, 4, 1, 256, 2048
+    q = rn(b, h, d, dt=td)
+    k = _cache_view(rn, b, s, kvh, d, td)
+    v = _cache_view(rn, b, s, kvh, d, td)
+    valid = torch.tensor([301, 701, 1001, 2048], dtype=torch.int32,
+                         device=cuda)
+    assert dec_attn_ops.split_layout(b, kvh, s)[0] > 1
+    eager = dec_attn_ops.decode_attention(q, k, v, valid_len=valid)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dec_attn_ops.decode_attention(q, k, v, valid_len=valid)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    tickets = dec_attn_ops.ticket_counters(q.device, b * kvh)
+    assert int(tickets.abs().sum()) == 0
+
+
+# (heads packed, key splits) forced on the wgmma route
+FORCED = [(None, 8), (1, 3), (None, 1), (2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed,splits", FORCED)
+@pytest.mark.parametrize("d,h,kvh", [(128, 8, 2), (256, 4, 1)])
+@pytest.mark.parametrize("mode", ["offsets", "causal", "full", "window"]
+                         + list(RING_CASES))
+def test_flash_kernel_packing_and_splits(cuda, mode, d, h, kvh, packed,
+                                         splits):
+    """bf16 at d=128 and 256 with head packing and key splits forced (the
+    group's heads packed or not, up to 8 key splits merged in the
+    kernel), in the plain layout's modes and every ring case."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(11), cuda)
+    td = torch.bfloat16
+    if mode in RING_CASES:
+        window, ring_len, sq, wraps = RING_CASES[mode]
+        b, skv = len(wraps), ring_len + sq
+        wrap = torch.tensor(wraps, dtype=torch.int32, device=cuda)
+        kw = dict(causal=True, window=window, q_offset=wrap, kv_wrap=wrap,
+                  ring_len=ring_len)
+    else:
+        b, sq = 3, 70
+        skv = 200 if mode == "offsets" else sq
+        kw = dict(causal=mode != "full",
+                  window=16 if mode == "window" else None, q_offset=0)
+        if mode == "offsets":
+            kw["q_offset"] = torch.tensor([0, 61, 130], dtype=torch.int32,
+                                          device=cuda)
+    hp = packed or h // kvh
+    q = rn(b, sq, h, d, dt=td).transpose(1, 2)
+    k = _cache_view(rn, b, skv, kvh, d, td)
+    v = _cache_view(rn, b, skv, kvh, d, td)
+    got = flash_ops.flash_attention_cuda(q, k, v, heads_packed=hp,
+                                         splits=splits, **kw)
+    torch.cuda.synchronize()
+    _close_rows(got, flash_ref.attention_ref(q, k, v, **kw), TOL["bfloat16"])
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_shapes_not_built(cuda):
     """A head_dim, SSD shape or layout the kernels were not built for
     raises; nothing falls back to the plain version."""
