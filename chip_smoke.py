@@ -8,10 +8,14 @@ Phases (each prints its lines and is fatal on failure):
   3. each kernel against its plain PyTorch version on the card, in bf16
      and fp32 with non-zero initial states, with its device time, the
      plain version's, a library call's where one exists, and its bound:
-     the Mamba-2 kernels at mamba2-2.7b's and zamba2-2.7b's shapes, the
-     attention kernels at zamba2-2.7b's (d=80) and llama3-8b's (d=128,
-     GQA 4:1) shapes and a decode whose valid lengths fall on tile and
-     split edges, each attention query row held to a limit of its own;
+     the Mamba-2 kernels at mamba2-2.7b's and zamba2-2.7b's shapes (SSD
+     also on a 16-chunk sequence, and the decode step again, with dt, A
+     and the states drawn at the model's scales; each (token, head) row
+     of SSD's y held to a limit of its own), the attention kernels at
+     zamba2-2.7b's (d=80), llama3-8b's (d=128, GQA 4:1), qwen2.5-0.5b's
+     (d=64, GQA 7:1) and phi-3-mini's (d=96) shapes and a decode whose
+     valid lengths fall on tile and split edges, each attention query row
+     held to a limit of its own;
      the Mamba-1 kernels (selective scan, fused decode step) at
      mamba-130m's shapes and off their tiles (the decode step's inputs
      drawn at the model's scales), and one long-context scan
@@ -36,10 +40,12 @@ Phases (each prints its lines and is fatal on failure):
      teacher-forced decode): mamba2-2.7b at 8 layers, zamba2-2.7b at 12
      layers (two shared-block positions), a 4-layer ``dense`` model at
      llama3-8b's width and mamba-130m at its 24 layers on a 512-token
-     prompt, and gemma3-1b at its 26 layers on a 1300-token prompt (past
-     the window, so its rings wrap in prefill and again in decode), in
-     bf16 and, for mamba-130m and gemma3-1b, again in fp32 (where only
-     the order of sums differs); the plain run must launch no kernel;
+     prompt, gemma3-1b at its 26 layers on a 1300-token prompt (past
+     the window, so its rings wrap in prefill and again in decode), and
+     qwen2.5-0.5b (d=64) and phi-3-mini (d=96) at full width and 4
+     layers, in bf16 and, for all but the first three, again in fp32
+     (where only the order of sums differs); the plain run must launch
+     no kernel;
 then a ``kernels`` JSON line (the five Mamba-2 and attention kernels at
 zamba2-2.7b's shapes, the two Mamba-1 kernels at mamba-130m's and the
 flash kernel's ring mode at gemma3-1b's, each with the launches of its
@@ -99,8 +105,11 @@ def device_ms(fn, calls: int = 10, reps: int = 25) -> float:
 
 def device_busy(fn) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and read the trace: wall
-    time, the union of kernel intervals on the card, and kernel launches.
-    The trace is kept in ``build/repro_torch/`` (listed in .gitignore)."""
+    time, the union of kernel intervals on the card, kernel launches, and
+    the device-side memory copies (``copy_`` of one tensor into another
+    of its type, as a cache leaf is stored, runs as a memcpy, not a
+    kernel) with their summed time.  The trace is kept in
+    ``build/repro_torch/`` (listed in .gitignore)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -117,6 +126,8 @@ def device_busy(fn) -> dict:
         events = json.load(f).get("traceEvents", [])
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                    if e.get("cat") == "kernel" and "dur" in e)
+    copies = [e["dur"] for e in events
+              if e.get("cat") == "gpu_memcpy" and "dur" in e]
     busy, end = 0.0, None
     for a, b in spans:
         if end is None or a > end:
@@ -126,7 +137,8 @@ def device_busy(fn) -> dict:
             busy += b - end
             end = b
     return dict(wall_ms=wall_us / 1e3, kernel_busy_ms=busy / 1e3,
-                kernels=len(spans),
+                kernels=len(spans), memcpys=len(copies),
+                memcpy_ms=sum(copies) / 1e3,
                 idle_share=(1 - busy / wall_us) if spans else None)
 
 
@@ -256,7 +268,15 @@ def phase_kernels(cfg, gen):
                                   initial_state=h0)
         want = ssd_ref.ssd_chunked_ref(x, dts, A, Bm, Cm, D, chunk=s.chunk,
                                        initial_state=h0)
-        check_close(f"ssd {dt}", got, want, TOL["ssd"][dt])
+        check_ssd(f"ssd {dt}", got, want, dt)
+        # 16 chunks at the model's scales: a fault in the carried state
+        # or in one score tile shows in the rows it reaches
+        args16, h16 = ssd_model_inputs(gen, B, 16 * s.chunk, H, P, N, dt)
+        check_ssd(f"ssd {dt} 16 chunks", ssd_ops.ssd_chunked(
+            *args16, chunk=s.chunk, initial_state=h16),
+            ssd_ref.ssd_chunked_ref(*args16, chunk=s.chunk,
+                                    initial_state=h16), dt)
+        del args16, h16
         if dt == torch.bfloat16:
             err = max_err(got, want)
             ms = device_ms(lambda: ssd_ops.ssd_chunked(
@@ -268,12 +288,17 @@ def phase_kernels(cfg, gen):
                                               + 2 * q * P * N)
             bms, by = bound(nbytes(x, dts, A, Bm, Cm, D, h0) + nbytes(*got),
                             flops, dt)
+            plan = ssd_ops.ssd_plan(B, H, q, P, N, dt)
             rows.append(dict(
                 name="ssd_chunked", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd.cu",
                 replaces="src/repro/kernels/ssd/kernel.py:68",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=None))
+                blocks=plan.blocks, p_split=plan.p_split,
+                smem_bytes=plan.smem_bytes, max_abs_err=err,
+                worst_row_of_limit=row_ratio(got[0], want[0],
+                                             TOL["ssd"][dt]),
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=None))
 
     for dt in (torch.bfloat16, torch.float32):
         conv, ssm, xbc = rn(B, K - 1, C, dtype=dt), rn(B, H, P, N), rn(B, C,
@@ -285,6 +310,11 @@ def phase_kernels(cfg, gen):
         got = dec_ops.mamba2_decode_fused(*args, **kw)
         want = dec_ref.mamba2_decode_fused_ref(*args, **kw)
         check_close(f"decode_fused {dt}", got, want, TOL["decode_fused"][dt])
+        scaled = mamba2_decode_inputs(gen, B, H, P, G, N, K, dt)
+        check_close(f"decode_fused {dt} at the model's scales",
+                    dec_ops.mamba2_decode_fused(*scaled, **kw),
+                    dec_ref.mamba2_decode_fused_ref(*scaled, **kw),
+                    TOL["decode_fused"][dt])
         if dt == torch.bfloat16:
             err = max_err(got, want)
             ms = device_ms(lambda: dec_ops.mamba2_decode_fused(*args, **kw))
@@ -299,6 +329,67 @@ def phase_kernels(cfg, gen):
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=None))
     return rows
+
+
+def check_ssd(name, got, want, dt):
+    """SSD's y and final state each within the whole-tensor limit, and each
+    (token, head) row of y within the same tolerance of its own max |y|."""
+    check_close(name, got, want, TOL["ssd"][dt])
+    check_close(name + " y rows", got[:1], want[:1], TOL["ssd"][dt],
+                ratio=row_ratio)
+
+
+def ssd_model_inputs(gen, b, s, h, p, n, dt, warmup=128):
+    """SSD inputs ((x, dt, A, B, C, D), initial state) at a Mamba-2 model's
+    scales: dt = softplus(dt_bias + 0.1 * noise) with dt_bias the inverse
+    softplus of dt log-uniform in [1e-3, 1e-1] per head (the model's
+    init), A = -(uniform in [1, 16]) (A_log's init), x, B and C standard
+    normal (conv outputs; B and C of one group, as both served Mamba-2
+    models have), and the initial state the plain version's final
+    state after ``warmup`` such tokens from zero, the size a served state
+    has.  Unscaled draws put dt * A where exp(dt * A) is ~1 or ~0 and can
+    hide a dropped carry (the Mamba-1 decode check's lesson)."""
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    u = torch.rand((h,), generator=gen, device="cuda")
+    dt0 = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    A = -(torch.rand((h,), generator=gen, device="cuda") * 15.0 + 1.0)
+    D = rn(h)
+
+    def draw(s_):
+        return (rn(b, s_, h, p, dtype=dt),
+                ssd_ref.softplus(dt_bias + 0.1 * rn(b, s_, h)),
+                rn(b, s_, 1, n, dtype=dt), rn(b, s_, 1, n, dtype=dt))
+    wx, wdt, wB, wC = draw(warmup)
+    _, h0 = ssd_ref.ssd_chunked_ref(wx, wdt, A, wB, wC, D, chunk=warmup)
+    x, dts, Bm, Cm = draw(s)
+    return (x, dts, A, Bm, Cm, D), h0
+
+
+def mamba2_decode_inputs(gen, b, h, p, g, n, k, dt):
+    """Inputs of one Mamba-2 decode step (conv window, state, token,
+    conv_w, conv_b, dt_raw, dt_bias, A_log, D) at the model's scales:
+    dt_raw small, dt_bias from the model's dt init (dt log-uniform in
+    [1e-3, 1e-1]), A_log = log(uniform in [1, 16]), conv taps with std
+    1/sqrt(K), so exp(dt * A) falls in [0.2, 1) and the old state's share
+    h * exp(dt * A) dominates the new state, as in a served decode."""
+    c = h * p + 2 * g * n
+
+    def rn(*shape, dtype=torch.float32, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * std).to(dtype)
+
+    u = torch.rand((h,), generator=gen, device="cuda")
+    dt0 = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+    a_log = torch.log(torch.rand((h,), generator=gen, device="cuda") * 15.0
+                      + 1.0)
+    return (rn(b, k - 1, c, dtype=dt), rn(b, h, p, n), rn(b, c, dtype=dt),
+            rn(c, k, std=k ** -0.5), rn(c), rn(b, h, dtype=dt, std=0.1),
+            dt0 + torch.log(-torch.expm1(-dt0)), a_log, rn(h))
 
 
 def mamba1_decode_inputs(gen, b, c, n, r, k, dt):
@@ -438,13 +529,16 @@ def phase_mamba1_kernels(cfg, gen):
 
 def attention_cases():
     """(label, H, KVH, d, bucket, q_offset, valid_len) at B=4: zamba2-2.7b's
-    shared attention and llama3-8b's GQA; a flash chunk of 256 queries, and
-    decode rows of the serving run's lengths."""
+    shared attention, llama3-8b's GQA, gemma3-1b's global layers,
+    qwen2.5-0.5b's d=64 GQA 7:1 and phi-3-mini's d=96; a flash chunk of
+    256 queries, and decode rows of the serving run's lengths."""
     offs = [0, 512, 1024, 1792]
     lens = [301, 701, 1001, 2048]
     return [("zamba2-2.7b", 32, 32, 80, 2048, offs, lens),
             ("llama3-8b", 32, 8, 128, 2048, offs, lens),
-            ("gemma3-1b", 4, 1, 256, 2048, offs, lens)]
+            ("gemma3-1b", 4, 1, 256, 2048, offs, lens),
+            ("qwen2.5-0.5b", 14, 2, 64, 2048, offs, lens),
+            ("phi-3-mini", 32, 32, 96, 2048, offs, lens)]
 
 
 B_ATTN, SQ_ATTN, MAX_SEQ_ATTN = 4, 256, 4096
@@ -925,10 +1019,11 @@ def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16",
     kern, toks = run(None)
 
     def plain_ssd(x, dt_raw, dt_bias, A_log, Bm, Cm, D, *, chunk,
-                  initial_state):
+                  initial_state, out_state=None):
         dt, A = ssd_ref.preprocess_dt_A(dt_raw, dt_bias, A_log)
         return ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk,
-                                       initial_state=initial_state)
+                                       initial_state=initial_state,
+                                       out_state=out_state)
 
     def plain_conv(x, w, b, *, initial_state=None, activation="silu"):
         return conv_ref.causal_conv1d_ref(x, w, b, initial_state, activation)
@@ -986,6 +1081,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(here, "src"))
     from repro_torch.configs import (gemma3_1b, llama3_8b, mamba2_2p7b,
                                      mamba_130m, zamba2_2p7b)
+    from repro_torch.configs.paper_models import PHI3_MINI, QWEN25_05B
     from repro_torch.kernels import build
 
     card = card_line()
@@ -1041,7 +1137,11 @@ def main() -> int:
                              (gemma3_1b, gemma3_1b.n_layers, "bfloat16",
                               1300),
                              (gemma3_1b, gemma3_1b.n_layers, "float32",
-                              1300)):
+                              1300),
+                             (QWEN25_05B, 4, "bfloat16", 512),
+                             (QWEN25_05B, 4, "float32", 512),
+                             (PHI3_MINI, 4, "bfloat16", 512),
+                             (PHI3_MINI, 4, "float32", 512)):
         paths = phase_paths(cfg, gen, n, cd, plen)
         torch.cuda.empty_cache()
         print(f"phase 5 kernel path vs plain path, {cfg.name} at {n} "

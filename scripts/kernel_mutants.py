@@ -6,12 +6,14 @@ checks they replaced let through.
 Needs an NVIDIA card and ``nvcc``.  For the unchanged sources and for each
 mutant below, it copies ``src/repro_torch`` into ``build/mutants/<name>/``
 (listed in .gitignore), applies the mutant's edit to one kernel source
-there, and in a child process builds that copy and runs two checks:
+there, and in a child process builds that copy and runs the check of the
+mutant's kernel (every check for the unchanged sources):
 
 - ``attention``: the flash and decode kernels against their plain
   versions at every shape of ``chip_smoke.attention_cases`` (zamba2-2.7b
-  on the ``mma.sync`` flash, llama3-8b and gemma3-1b on the ``wgmma``
-  flash with its key splits, decode with up to 16 splits), the inputs of
+  on the ``mma.sync`` flash at d=80; qwen2.5-0.5b, phi-3-mini, llama3-8b
+  and gemma3-1b on the ``wgmma`` flash at d=64, 96, 128 and 256 with its
+  key splits; decode with up to 16 splits), the inputs of
   ``chip_smoke.phase_attention``, and decode over gemma3-1b's local ring
   (``chip_smoke.LOCAL_DECODE``).  ``ratio`` is the per-row check that
   chip_smoke.py applies (``row_ratio``), ``old_ratio`` the whole-tensor
@@ -25,6 +27,17 @@ there, and in a child process builds that copy and runs two checks:
   every case of ``chip_smoke.ring_cases`` (gemma3-1b's shapes).
   ``ratio`` is chip_smoke.py's per-row check, ``old_ratio`` the
   whole-tensor limit.
+- ``ssd``: the SSD scan against its plain version at mamba2-2.7b's and
+  zamba2-2.7b's shapes (B=4).  ``ratio`` is chip_smoke.py's check on a
+  16-chunk sequence at the model's scales (``ssd_model_inputs``): the
+  worst of y's and the state's whole-tensor limits and y's per-row
+  limit (``check_ssd``); ``old_ratio`` the whole-tensor limits on the
+  2-chunk unscaled draws that were the only check before.
+- ``mamba2_decode``: the fused Mamba-2 decode step against its plain
+  version at both models' shapes (B=4).  ``ratio`` is chip_smoke.py's
+  check on inputs at the model's scales (``mamba2_decode_inputs``),
+  ``old_ratio`` the same limit on unscaled normal draws; both the worst
+  output's ``whole_ratio``.
 
 1 is the limit.  Exits 1 if the unchanged kernels fail a check or a
 mutant passes its kernel's check.  The repository's own sources are never
@@ -92,6 +105,24 @@ MUTANTS = {
         "  const int ring_keys = max(0, min(ring, wrap % p.window));\n",
         "flash ring: ring tiles past the cursor's slot skipped after the "
         "wrap too"),
+    "ssd_drop_carry": (
+        "ssd", "ssd.cu", "      const float decay = ecum[Q - 1];\n",
+        "      const float decay = 0.0f * ecum[Q - 1];\n",
+        "SSD (tensor cores): the state carried into a chunk is dropped "
+        "from the next state"),
+    "ssd_drop_score_tile": (
+        "ssd", "ssd.cu",
+        "    for (int cb = 0; cb <= rt; ++cb) {\n",
+        "    for (int cb = 0; cb <= rt; ++cb) {\n"
+        "      if (rt == 5 && cb == 4) continue;\n",
+        "SSD (tensor cores): rows 80-95 of each chunk lose the score tile "
+        "of columns 64-79, just below the diagonal"),
+    "mamba2_decode_drop_h_da": (
+        "mamba2_decode", "decode_fused.cu",
+        "return __fadd_rn(__fmul_rn(hval, da), upd);",
+        "return __fadd_rn(0.0f * da, upd);",
+        "Mamba-2 decode: the new state drops h * exp(dt * A), "
+        "h' = dt * B * x"),
     "flash_merge_drops_last_split": (
         "ring", "flash.cu",
         "        for (int sp = 0; sp < n_active; ++sp) {\n"
@@ -208,13 +239,91 @@ def ring_readings(cs, torch, gen) -> dict:
     return out
 
 
+def ssd_readings(cs, torch, gen) -> dict:
+    from repro_torch.configs import mamba2_2p7b, zamba2_2p7b
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    out = {}
+    for cfg in (mamba2_2p7b, zamba2_2p7b):
+        s = cfg.ssm
+        b, h, p, n, q = 4, s.n_ssm_heads(cfg.d_model), s.headdim, \
+            s.d_state, s.chunk
+        for dt in (torch.bfloat16, torch.float32):
+            tol = cs.TOL["ssd"][dt]
+            args, h0 = cs.ssd_model_inputs(gen, b, 16 * q, h, p, n, dt)
+            got = ssd_ops.ssd_chunked(*args, chunk=q, initial_state=h0)
+            want = ssd_ref.ssd_chunked_ref(*args, chunk=q, initial_state=h0)
+            ratio = max(cs.whole_ratio(got[0], want[0], tol),
+                        cs.whole_ratio(got[1], want[1], tol),
+                        cs.row_ratio(got[0], want[0], tol))
+            err = cs.max_err(got, want)
+            del args, h0, got, want
+
+            def rn(*shape, dtype=torch.float32):
+                return torch.randn(shape, generator=gen,
+                                   device="cuda").to(dtype)
+            old = (rn(b, 2 * q, h, p, dtype=dt),
+                   ssd_ref.softplus(rn(b, 2 * q, h) - 2.0),
+                   -torch.exp(rn(h)), rn(b, 2 * q, 1, n, dtype=dt),
+                   rn(b, 2 * q, 1, n, dtype=dt), rn(h))
+            h0 = rn(b, h, p, n)
+            got = ssd_ops.ssd_chunked(*old, chunk=q, initial_state=h0)
+            want = ssd_ref.ssd_chunked_ref(*old, chunk=q, initial_state=h0)
+            out[f"ssd {cfg.name} {str(dt)[6:]}"] = dict(
+                ratio=ratio, old_ratio=max(cs.whole_ratio(g, w, tol)
+                                           for g, w in zip(got, want)),
+                max_abs_err=err)
+    return out
+
+
+def mamba2_decode_readings(cs, torch, gen) -> dict:
+    from repro_torch.configs import mamba2_2p7b, zamba2_2p7b
+    from repro_torch.kernels.decode_fused import ops as dec_ops
+    from repro_torch.kernels.decode_fused import ref as dec_ref
+
+    out = {}
+    for cfg in (mamba2_2p7b, zamba2_2p7b):
+        s = cfg.ssm
+        b, h, p, g, n, k = (4, s.n_ssm_heads(cfg.d_model), s.headdim,
+                            s.n_groups, s.d_state, s.conv_kernel)
+        kw = dict(n_groups=g, d_state=n, headdim=p)
+        c = h * p + 2 * g * n
+
+        def unscaled(dt):
+            def rn(*shape, dtype=torch.float32):
+                return torch.randn(shape, generator=gen,
+                                   device="cuda").to(dtype)
+            return (rn(b, k - 1, c, dtype=dt), rn(b, h, p, n),
+                    rn(b, c, dtype=dt), rn(c, k), rn(c), rn(b, h, dtype=dt),
+                    rn(h), rn(h), rn(h))
+
+        def worst(args, tol):
+            got = dec_ops.mamba2_decode_fused(*args, **kw)
+            want = dec_ref.mamba2_decode_fused_ref(*args, **kw)
+            return (max(cs.whole_ratio(gg, ww, tol)
+                        for gg, ww in zip(got, want)),
+                    cs.max_err(got, want))
+        for dt in (torch.bfloat16, torch.float32):
+            tol = cs.TOL["decode_fused"][dt]
+            ratio, err = worst(cs.mamba2_decode_inputs(gen, b, h, p, g, n, k,
+                                                       dt), tol)
+            old_ratio, _ = worst(unscaled(dt), tol)
+            out[f"mamba2_decode {cfg.name} {str(dt)[6:]}"] = dict(
+                ratio=ratio, old_ratio=old_ratio, max_abs_err=err)
+    return out
+
+
 CHECKS = {"attention": attention_readings,
           "mamba1_decode": mamba1_decode_readings,
-          "ring": ring_readings}
+          "ring": ring_readings,
+          "ssd": ssd_readings,
+          "mamba2_decode": mamba2_decode_readings}
 
 
-def child() -> int:
-    """Run every check on the package first on ``sys.path``."""
+def child(checks) -> int:
+    """Run ``checks`` (all when empty) on the package first on
+    ``sys.path``."""
     import torch
 
     sys.path.insert(1, ROOT)
@@ -222,14 +331,16 @@ def child() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    for check, readings in CHECKS.items():
-        out[check] = readings(cs, torch,
-                              torch.Generator(device="cuda").manual_seed(0))
+    for check in checks or CHECKS:
+        out[check] = CHECKS[check](
+            cs, torch, torch.Generator(device="cuda").manual_seed(0))
     print(json.dumps(out))
     return 0
 
 
 def run_one(name: str, mutant) -> dict:
+    """Build ``name``'s copy and run its kernel's check (every check for
+    the unchanged sources)."""
     base = os.path.join(ROOT, "build", "mutants", name)
     shutil.rmtree(base, ignore_errors=True)
     shutil.copytree(os.path.join(ROOT, "src", "repro_torch"),
@@ -246,8 +357,9 @@ def run_one(name: str, mutant) -> dict:
         with open(path, "w") as f:
             f.write(text.replace(old, new))
     env = dict(os.environ, PYTHONPATH=os.path.join(base, "src"))
+    checks = [] if mutant is None else [mutant[0]]
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--child"], env=env, capture_output=True,
+                          "--child", *checks], env=env, capture_output=True,
                          text=True, timeout=600)
     if res.returncode:
         raise RuntimeError(f"{name}: child failed\n{res.stdout}\n"
@@ -275,4 +387,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(child() if sys.argv[1:] == ["--child"] else main())
+    sys.exit(child(sys.argv[2:]) if sys.argv[1:2] == ["--child"]
+             else main())

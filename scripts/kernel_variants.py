@@ -1,10 +1,11 @@
-"""Time variants of the flash kernel's source against each other on one
-card.
+"""Time variants of the flash or the SSD kernel's source against each
+other on one card.
 
     python3 scripts/kernel_variants.py SET [--micro]
 
 SET names a set in ``SETS`` below, or a JSON file of the same form:
-``{"variant": [["file in csrc/", "text", "replacement"], ...], ...}``; a
+``{"variant": [["file in csrc/", "text", "replacement"], ...], ...}``
+(a path such as ``../ssd/ops.py`` reaches a wrapper beside ``csrc/``); a
 variant with no edits is the source as it stands.  Needs an NVIDIA card
 and ``nvcc``.  Each variant is a copy of ``src/repro_torch`` under
 ``build/variants/<name>/`` (listed in .gitignore) with its edits applied,
@@ -13,10 +14,15 @@ and times the flash kernel (``chip_smoke.device_ms``) at the bf16 shapes
 of ``chip_smoke.attention_cases`` that run on ``wgmma`` (llama3-8b,
 gemma3-1b) and ``chip_smoke.ring_cases``, or with ``--micro`` at one
 compute-bound shape (4224 queries of 4 heads over one KV head, no mask,
-132 blocks sharing K/V through L2, d=128 and 256, 1024 and 4096 keys).
-The variants run in turn, then again in reverse order; each case prints
-every variant's two times.  An output past chip_smoke's per-row limit
-prints WRONG (a variant that drops a product is wrong on purpose).
+132 blocks sharing K/V through L2, d=128 and 256, 1024 and 4096 keys);
+a set whose name starts with ``ssd`` times and checks the SSD scan in
+bf16 at mamba2-2.7b's and zamba2-2.7b's shapes (B=4) on 2 chunks of
+phase 3's draws and on 16 chunks at the model's scales
+(``chip_smoke.check_ssd``'s limits).  The variants run in turn, then
+again in reverse order; each case prints every variant's two times and
+its worst ratio to the check's limit (1 is the limit).  An output past
+the limit also prints WRONG (a variant that drops a product is wrong on
+purpose).
 """
 from __future__ import annotations
 
@@ -54,7 +60,143 @@ SETS = {
                     "          s[4 * n + e] = s[4 * n + e] - mn0;\n"
                     "          s[4 * n + 2 + e] = s[4 * n + 2 + e] - mn1;"]],
     },
+    # the SSD kernel's fp32 operands each as one bf16 term instead of two
+    # (hi + lo): what each split buys in error and costs in time
+    "ssd_operands": {
+        "split (as is)": [],
+        "one-term scores": [["ssd.cu",
+                             "        mma_bf16(acc[2 * pp], plo, "
+                             "vb[0], vb[1]);\n"
+                             "        mma_bf16(acc[2 * pp + 1], plo, "
+                             "vb[2], vb[3]);\n", ""]],
+        "one-term state": [["ssd.cu",
+                            "        mma_bf16(acc[2 * pp], ca[kk], "
+                            "bl4[0], bl4[1]);\n"
+                            "        mma_bf16(acc[2 * pp + 1], ca[kk], "
+                            "bl4[2], bl4[3]);\n", ""]],
+        "one-term x*w": [["ssd.cu",
+                          "        mma_bf16(sacc[t], alo, r[0], "
+                          "r[1]);\n", ""],
+                         ["ssd.cu",
+                          "        mma_bf16(sacc[t + 1], alo, r[2], "
+                          "r[3]);\n", ""]],
+    },
+    # what each part of the SSD kernel's chunk costs: drop a product or
+    # the score exponentials
+    "ssd_breakdown": {
+        "as is": [],
+        "no intra-chunk (C B^T and its product)": [
+            ["ssd.cu", "    for (int cb = 0; cb <= rt; ++cb) {\n",
+             "    for (int cb = 0; cb < 0; ++cb) {\n"]],
+        "no inter-chunk (C . state^T)": [
+            ["ssd.cu",
+             "        mma_bf16(acc[2 * pp], ca[kk], bh4[0], bh4[1]);\n"
+             "        mma_bf16(acc[2 * pp + 1], ca[kk], bh4[2], "
+             "bh4[3]);\n"
+             "        mma_bf16(acc[2 * pp], ca[kk], bl4[0], bl4[1]);\n"
+             "        mma_bf16(acc[2 * pp + 1], ca[kk], bl4[2], "
+             "bl4[3]);\n", ""]],
+        "no state update": [
+            ["ssd.cu",
+             "        mma_bf16(sacc[t], ahi, r[0], r[1]);\n"
+             "        mma_bf16(sacc[t], alo, r[0], r[1]);\n"
+             "        mma_bf16(sacc[t + 1], ahi, r[2], r[3]);\n"
+             "        mma_bf16(sacc[t + 1], alo, r[2], r[3]);\n", ""]],
+        "no score exponentials": [
+            ["ssd.cu", "exp2_approx(cuma - cj[jj])", "(cuma - cj[jj])"],
+            ["ssd.cu", "exp2_approx(cumb - cj[jj])", "(cumb - cj[jj])"]],
+        "skeleton (loads, scan, stores; no products, no exponentials)": [
+            ["ssd.cu", "    for (int cb = 0; cb <= rt; ++cb) {\n",
+             "    for (int cb = 0; cb < 0; ++cb) {\n"],
+            ["ssd.cu",
+             "        mma_bf16(acc[2 * pp], ca[kk], bh4[0], bh4[1]);\n"
+             "        mma_bf16(acc[2 * pp + 1], ca[kk], bh4[2], "
+             "bh4[3]);\n"
+             "        mma_bf16(acc[2 * pp], ca[kk], bl4[0], bl4[1]);\n"
+             "        mma_bf16(acc[2 * pp + 1], ca[kk], bl4[2], "
+             "bl4[3]);\n", ""],
+            ["ssd.cu",
+             "        mma_bf16(sacc[t], ahi, r[0], r[1]);\n"
+             "        mma_bf16(sacc[t], alo, r[0], r[1]);\n"
+             "        mma_bf16(sacc[t + 1], ahi, r[2], r[3]);\n"
+             "        mma_bf16(sacc[t + 1], alo, r[2], r[3]);\n", ""],
+            ["ssd.cu", "        ecum[i] = exp2_approx(c2);\n"
+             "        wend[i] = dtc[i] * exp2_approx(last2 - c2);\n",
+             "        ecum[i] = c2;\n        wend[i] = dtc[i] * (last2 - c2);\n"]],
+    },
+    # what the SSD kernel's chunk loads cost: B and C (shared by every
+    # head of a batch row, read from L2 by each head's block) or x loaded
+    # for the first chunk only (wrong after it, on purpose)
+    "ssd_traffic": {
+        "as is": [],
+        "B and C for chunk 0 only": [
+            ["ssd.cu",
+             "    for (int e = tid; e < Q * BV; e += kTThreads) {\n",
+             "    for (int e = tid; ci == 0 && e < Q * BV; e += kTThreads) {\n"]],
+        "x for chunk 0 only": [
+            ["ssd.cu",
+             "    for (int e = tid; e < Q * XV; e += kTThreads) {\n",
+             "    for (int e = tid; ci == 0 && e < Q * XV; e += kTThreads) {\n"]],
+    },
+    # the SSD launch plan: each head's state rows over two blocks at B=4
+    # too (640 blocks, each computing C B^T for its half)
+    "ssd_plans": {
+        "split 1 (as planned at B=4)": [],
+        "split 2": [["../ssd/ops.py",
+                     "            p_split = 2 if 2 * b * h <= SMS else 1\n",
+                     "            p_split = 2\n"]],
+    },
 }
+
+
+def ssd_child() -> int:
+    """Each SSD case's check (chip_smoke.check_ssd's worst ratio to its
+    limits) and its time."""
+    import torch
+
+    sys.path.insert(1, ROOT)
+    import chip_smoke as cs
+    from repro_torch.configs import mamba2_2p7b, zamba2_2p7b
+    from repro_torch.kernels.ssd import ops, ref
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def worst(got, want):
+        tol = cs.TOL["ssd"][bf16]
+        return max(cs.whole_ratio(got[0], want[0], tol),
+                   cs.whole_ratio(got[1], want[1], tol),
+                   cs.row_ratio(got[0], want[0], tol))
+
+    out = {}
+    for cfg in (mamba2_2p7b, zamba2_2p7b):
+        s = cfg.ssm
+        b, h, p, n, q = 4, s.n_ssm_heads(cfg.d_model), s.headdim, \
+            s.d_state, s.chunk
+        # phase 3's unscaled draws at the served shape, then 16 chunks at
+        # the model's scales
+        args = (rn(b, 2 * q, h, p, dtype=bf16),
+                ref.softplus(rn(b, 2 * q, h) - 2.0), -torch.exp(rn(h)),
+                rn(b, 2 * q, 1, n, dtype=bf16), rn(b, 2 * q, 1, n, dtype=bf16),
+                rn(h))
+        h0 = rn(b, h, p, n)
+        kw = dict(chunk=q, initial_state=h0)
+        out[f"ssd {cfg.name} 2 chunks"] = (
+            worst(ops.ssd_chunked(*args, **kw),
+                  ref.ssd_chunked_ref(*args, **kw)),
+            cs.device_ms(lambda: ops.ssd_chunked(*args, **kw)))
+        args16, h16 = cs.ssd_model_inputs(gen, b, 16 * q, h, p, n, bf16)
+        kw16 = dict(chunk=q, initial_state=h16)
+        out[f"ssd {cfg.name} 16 chunks"] = (
+            worst(ops.ssd_chunked(*args16, **kw16),
+                  ref.ssd_chunked_ref(*args16, **kw16)),
+            cs.device_ms(lambda: ops.ssd_chunked(*args16, **kw16), calls=3,
+                         reps=10))
+    print(json.dumps(out))
+    return 0
 
 
 def child(micro: bool) -> int:
@@ -104,7 +246,7 @@ def child(micro: bool) -> int:
     return 0
 
 
-def run_variant(name: str, edits, micro: bool):
+def run_variant(name: str, edits, micro: bool, ssd: bool):
     base = os.path.join(ROOT, "build", "variants", name.replace(" ", "_"))
     shutil.rmtree(base, ignore_errors=True)
     shutil.copytree(os.path.join(ROOT, "src", "repro_torch"),
@@ -120,10 +262,10 @@ def run_variant(name: str, edits, micro: bool):
         with open(path, "w") as f:
             f.write(text.replace(old, new))
     env = dict(os.environ, PYTHONPATH=os.path.join(base, "src"))
+    flag = ["--ssd"] if ssd else ["--micro"] if micro else []
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--child"] + (["--micro"] if micro else []),
-                         env=env, capture_output=True, text=True,
-                         timeout=900)
+                          "--child"] + flag, env=env, capture_output=True,
+                         text=True, timeout=900)
     if res.returncode:
         raise RuntimeError(f"{name}: child failed\n{res.stdout}\n"
                            f"{res.stderr}")
@@ -137,15 +279,18 @@ def main(spec: str, micro: bool) -> int:
         with open(spec) as f:
             variants = json.load(f)
     names = list(variants)
-    times = {}
+    ssd = spec.startswith("ssd")
+    times, ratios = {}, {}
     for name in names + names[::-1]:
-        for key, (ratio, ms) in run_variant(name, variants[name],
-                                            micro).items():
+        for key, (ratio, ms) in run_variant(name, variants[name], micro,
+                                            ssd).items():
             times.setdefault(key, {}).setdefault(name, []).append(ms)
+            ratios.setdefault(key, {}).setdefault(name, []).append(ratio)
             if ratio > 1.0:
-                print(f"WRONG {name} {key}: {ratio} x the per-row limit")
+                print(f"WRONG {name} {key}: {ratio} x its limit")
     for key, by_name in times.items():
-        print(json.dumps({"case": key, "ms": by_name}))
+        print(json.dumps({"case": key, "ms": by_name,
+                          "of_limit": ratios[key]}))
     return 0
 
 
@@ -153,6 +298,8 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     micro = "--micro" in args
     args = [a for a in args if a != "--micro"]
+    if args == ["--child", "--ssd"]:
+        sys.exit(ssd_child())
     if args == ["--child"]:
         sys.exit(child(micro))
     if len(args) != 1:

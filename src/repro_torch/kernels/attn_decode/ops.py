@@ -33,9 +33,10 @@ from repro_torch.kernels.attn_decode import ref as _ref
 from repro_torch.kernels.flash.ops import (check_strided, row_vector,
                                           ticket_counters)
 
-# head_dim values the kernel is instantiated for: zamba2-2.7b's (80),
-# llama3-8b's (128), gemma3-1b's (256) and the reduced test sizes
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+# head_dim values the kernel is instantiated for: qwen2.5-0.5b's and
+# llama3.2-1b's (64), zamba2-2.7b's (80), phi-3-mini's (96), llama3-8b's
+# (128), gemma3-1b's (256) and the reduced test sizes
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 MAX_GROUP = 8           # query heads per KV head
 SMS = 132               # H100 SXM
 TILE = 64               # keys per split tile

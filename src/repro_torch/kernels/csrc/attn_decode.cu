@@ -47,8 +47,18 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::ldmatrix_x4;
+using repro::ldmatrix_x4_trans;
+using repro::mma_bf16;
+using repro::movmatrix_trans;
+using repro::pack_bf16;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxG = 8;       // query heads per KV head
@@ -193,60 +203,6 @@ __device__ void merge_warps(const float* wml, const float* wacc, float* ml,
 constexpr int kTile = 64;      // keys per pipeline stage, 16 per warp
 constexpr int kWarps = 4;
 constexpr int kStages = 3;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* s) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(s));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* s) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(s));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// the transpose of an 8x8 bf16 matrix held one pair a thread (row t/4,
-// columns 2(t%4), 2(t%4)+1), in the same layout
-__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
-  uint32_t y;
-  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
-               : "=r"(y) : "r"(x));
-  return y;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int D>
 struct Bf16Smem {
@@ -633,6 +589,7 @@ cudaError_t dispatch(const DecodeParams& p, int B, int D, cudaStream_t st) {
     case 32: return launch<T, 32>(p, B, st);
     case 64: return launch<T, 64>(p, B, st);
     case 80: return launch<T, 80>(p, B, st);
+    case 96: return launch<T, 96>(p, B, st);
     case 128: return launch<T, 128>(p, B, st);
     case 256: return launch<T, 256>(p, B, st);
     default: return cudaErrorInvalidValue;

@@ -49,12 +49,14 @@
 // fp32); the row sums l are taken from the fp32 P.  The error this adds
 // stays inside the bf16 tolerance, 2e-2 of each query row's own max |o|.
 //
-// bf16 at d = 128 and 256 (llama3-8b, gemma3-1b): wgmma and TMA.  A block
+// bf16 at d = 64, 96, 128 and 256 (qwen2.5-0.5b and llama3.2-1b,
+// phi-3-mini, llama3-8b, gemma3-1b): wgmma and TMA; d=96 runs padded to
+// 128, TMA filling the columns past 96 with zeros.  A block
 // holds 128 query rows: the query heads of one KV head packed together
 // (rows pos * G + g for a group of G = 1, 2, 4 or 8; one head otherwise),
 // so each K/V tile is loaded once for the group.  One producer thread
 // keeps TMA loads of K and V tiles (128-byte swizzle, 64-column panels) in
-// flight into a ring of 2 (d=256) or 3 (d=128) stages tracked by
+// flight into a ring of 2 (d=256) or 3 (d <= 128) stages tracked by
 // mbarriers, after Q, which TMA brings once.  Two consumer warpgroups own
 // 64 rows each: wgmma m64n64k16 gives S = Q K^T from shared memory, the
 // online softmax runs in registers, and wgmma m64n{d}k16 adds P V with P
@@ -87,8 +89,16 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::ldmatrix_x4_trans;
+using repro::mma_bf16;
+using repro::pack_bf16;
 
 constexpr float kNegInf = -1e30f;
 
@@ -202,46 +212,6 @@ __device__ __forceinline__ bool tile_full(const FlashParams& p, int wrap,
 constexpr int kBQ = 64;    // query rows per block (16 per warp)
 constexpr int kBK = 64;    // keys per tile
 constexpr int kWarps = 4;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16 bytes global -> shared; src_bytes 0 fills zeros
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // the A fragment of m16n8k16 for rows r, r + 8 and columns c, c + 8 of a
 // padded row-major bf16 tile; `a` points at (r, c)
@@ -452,7 +422,7 @@ flash_bf16_kernel(FlashParams p) {
   }
 }
 
-// ------------------------------------------ bf16 at d = 128, 256: wgmma
+// ---------------------------------- bf16 at d = 64, 96, 128, 256: wgmma
 
 constexpr int kWRows = 128;      // query rows a block: two consumer warpgroups
 constexpr int kWK = 64;          // keys a tile
@@ -472,12 +442,15 @@ struct WgmmaPlan {
   int* tickets;         // [tiles], zero between calls
 };
 
+// d=96 runs padded to 128: TMA fills the columns past d with zeros, which
+// add nothing to Q K^T and give P V columns that are never stored
 template <int D>
 struct WSmem {
-  static constexpr int kPanels = D / kPanel;
-  static constexpr int kStages = D > 128 ? 2 : 3;
-  static constexpr int kQBytes = kWRows * D * 2;
-  static constexpr int kKVBytes = kWK * D * 2;     // one of K, V
+  static constexpr int kDP = (D + kPanel - 1) / kPanel * kPanel;
+  static constexpr int kPanels = kDP / kPanel;
+  static constexpr int kStages = kDP > 128 ? 2 : 3;
+  static constexpr int kQBytes = kWRows * kDP * 2;
+  static constexpr int kKVBytes = kWK * kDP * 2;     // one of K, V
   // 1024 bytes of slack to align the tiles for the swizzle
   static constexpr int kBytes = kQBytes + kStages * 2 * kKVBytes + 1024;
 };
@@ -510,7 +483,8 @@ template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (D == 128) repro::wgmma_rs_n128(o, a, db);
+  if constexpr (D == 64) repro::wgmma_rs_n64(o, a, db);
+  else if constexpr (D == 128) repro::wgmma_rs_n128(o, a, db);
   else repro::wgmma_rs_n256(o, a, db);
 }
 
@@ -521,8 +495,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tv, FlashParams p,
                    WgmmaPlan w) {
   using L = WSmem<D>;
-  constexpr int NP = L::kPanels, NS = L::kStages;
-  static_assert(D == 128 || D == 256, "the wgmma instances are d=128, 256");
+  constexpr int NP = L::kPanels, NS = L::kStages, DP = L::kDP;
+  static_assert(D == 64 || D == 96 || D == 128 || D == 256,
+                "the wgmma instances are d=64, 96, 128, 256");
   __shared__ __align__(8) uint64_t full_bar[NS], empty_bar[NS], q_bar;
   __shared__ int s_last;
   extern __shared__ __align__(1024) unsigned char wgmma_smem[];
@@ -530,7 +505,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_smem + ((1024 - (repro::smem_u32(wgmma_smem) & 1023)) & 1023);
   // Q [NP][kWRows][64], then stages of K [NP][kWK][64] and V alike
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(base);
-  __nv_bfloat16* kvs = qs + kWRows * D;
+  __nv_bfloat16* kvs = qs + kWRows * DP;
 
   // the block's (batch row, head group, query tile, key split): batch rows
   // by descending q_offset and query tiles from the last, so the rows with
@@ -593,8 +568,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         repro::mbar_wait(&empty_bar[st], ((j / NS) & 1) ^ 1);
         repro::mbar_expect_tx(&full_bar[st], 2 * L::kKVBytes);
         const int key0 = tile_at<kRing>(tl, t_lo + j) * kWK;
-        __nv_bfloat16* ks = kvs + (size_t)st * 2 * kWK * D;
-        __nv_bfloat16* vs = ks + kWK * D;
+        __nv_bfloat16* ks = kvs + (size_t)st * 2 * kWK * DP;
+        __nv_bfloat16* vs = ks + kWK * DP;
 #pragma unroll
         for (int pn = 0; pn < NP; ++pn) {
           tma_tile(ks + pn * kWK * kPanel, &tk, &full_bar[st], w.k_perm,
@@ -615,9 +590,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int qpos0 = qoff + pos0, qpos1 = qoff + pos1;
     const int gc = (lane & 3) * 2;
 
-    float o[D / 2];
+    float o[DP / 2];
 #pragma unroll
-    for (int k = 0; k < D / 2; ++k) o[k] = 0.0f;
+    for (int k = 0; k < DP / 2; ++k) o[k] = 0.0f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
     const float scale2 = p.scale * 1.4426950408889634f;   // log2(e)
     const uint32_t q_addr = repro::smem_u32(qs) + wg * 64 * 128;
@@ -627,8 +602,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int st = j % NS;
       repro::mbar_wait(&full_bar[st], (j / NS) & 1);
       const uint32_t k_addr =
-          repro::smem_u32(kvs + (size_t)st * 2 * kWK * D);
-      const uint32_t v_addr = k_addr + kWK * D * 2;
+          repro::smem_u32(kvs + (size_t)st * 2 * kWK * DP);
+      const uint32_t v_addr = k_addr + kWK * DP * 2;
 
       // S = Q K^T: 64 rows x 64 keys, Q and K K-major in shared memory
       float s[32];
@@ -637,7 +612,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       repro::wgmma_fence();
       repro::reg_fence(s);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DP / 16; ++kk) {
         const uint64_t da = repro::wgmma_desc(
             q_addr + (kk >> 2) * kWRows * 128 + (kk & 3) * 32, 16, 1024);
         const uint64_t db = repro::wgmma_desc(
@@ -700,7 +675,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l0 = l0 * c0 + rs0;   // this thread's columns; the quad sums at the end
       l1 = l1 * c1 + rs1;
 #pragma unroll
-      for (int k = 0; k < D / 2; ++k) o[k] *= (k & 2) ? c1 : c0;
+      for (int k = 0; k < DP / 2; ++k) o[k] *= (k & 2) ? c1 : c0;
 
       // O += P V: P in bf16 from registers (the accumulator's layout is
       // the A operand's), V N-major in shared memory
@@ -716,7 +691,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       repro::reg_fence(o);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<D>(o, pa[kk],
+        wgmma_pv<DP>(o, pa[kk],
                     repro::wgmma_desc(v_addr + kk * 2048, kWK * 128, 1024));
       repro::wgmma_commit();
       repro::reg_fence(o);
@@ -768,7 +743,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
         l0 = l1 = 0.0f;
 #pragma unroll
-        for (int k = 0; k < D / 2; ++k) o[k] = 0.0f;
+        for (int k = 0; k < DP / 2; ++k) o[k] = 0.0f;
         for (int sp = 0; sp < n_active; ++sp) {
           const float* ml = w.part_ml + (tile0 + sp) * kWRows * 2;
           const float* px = w.part_acc + (tile0 + sp) * kWRows * D;
@@ -1046,7 +1021,7 @@ cudaError_t launch(const FlashParams& p, const WgmmaPlan& w, int dtype,
                    cudaStream_t st) {
   const int B = w.B;
   if (dtype == 1) {
-    if constexpr (D == 128 || D == 256) {
+    if constexpr (D == 64 || D == 96 || D == 128 || D == 256) {
       return launch_wgmma<D, kRing>(p, w, st);
     } else {
       constexpr size_t bytes = (size_t)(kBQ + 4 * kBK) * (D + 8) * 2;
@@ -1087,8 +1062,8 @@ cudaError_t launch_layout(const FlashParams& p, const WgmmaPlan& w,
 // [B] int32 or null; window <= 0 for none; ring_len > 0 selects the ring
 // layout, which needs causal, a window and kv_wrap ([B] int32 cursors),
 // with ring_len <= Skv; dtype 0 = float32, 1 = bfloat16 (shared by q, k,
-// v and o).  bf16 at D = 128, 256 runs the wgmma kernel with the plan
-// (heads_packed query heads of one KV head a block, nsplit key splits;
+// v and o).  bf16 at D = 64, 96, 128, 256 runs the wgmma kernel with the
+// plan (heads_packed query heads of one KV head a block, nsplit key splits;
 // part_acc [tiles, nsplit, 128, D] and part_ml [tiles, nsplit, 128, 2]
 // fp32 scratch and tickets [tiles] int32, zero before and after, when
 // nsplit > 1, tiles = B * H / heads_packed * ceil(Sq * heads_packed /
@@ -1111,7 +1086,8 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
   if (ring_len > 0 &&
       (!causal || window <= 0 || kv_wrap == nullptr || ring_len > Skv))
     return (int)cudaErrorInvalidValue;
-  const bool wgmma = dtype == 1 && (D == 128 || D == 256);
+  const bool wgmma =
+      dtype == 1 && (D == 64 || D == 96 || D == 128 || D == 256);
   const int hp = heads_packed;
   if (wgmma ? (hp < 1 || (H / KVH) % hp || kWRows % hp || nsplit < 1 ||
                nsplit > kMaxFSplit ||
@@ -1133,7 +1109,9 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
   switch (D) {
     case 16: return (int)launch_layout<16>(p, w, dtype, st);
     case 32: return (int)launch_layout<32>(p, w, dtype, st);
+    case 64: return (int)launch_layout<64>(p, w, dtype, st);
     case 80: return (int)launch_layout<80>(p, w, dtype, st);
+    case 96: return (int)launch_layout<96>(p, w, dtype, st);
     case 128: return (int)launch_layout<128>(p, w, dtype, st);
     case 256: return (int)launch_layout<256>(p, w, dtype, st);
     default: return (int)cudaErrorInvalidValue;

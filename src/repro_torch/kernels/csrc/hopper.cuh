@@ -1,6 +1,7 @@
 // Hopper building blocks for the port's kernels (sm_90a): mbarriers, TMA
 // tile loads, wgmma descriptors and instructions, register rebalancing.
-// Only the flash kernel's bf16 instances at head_dim 128 and 256 use them.
+// Only the flash kernel's bf16 instances at head_dim 64, 128 and 256 use
+// them.
 #pragma once
 
 #include <cuda.h>
@@ -121,6 +122,28 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the m16n8k16
+// A layout per warp), B from shared memory (N-major, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // D[64 x 128] += A[64 x 16] B[16 x 128], A from registers (the m16n8k16

@@ -3,33 +3,55 @@
 // Replaces the TPU kernel ssd_pallas (src/repro/kernels/ssd/kernel.py:68,
 // body _ssd_kernel :25).
 //
-// Bound on the H100: at mamba2-2.7b's shapes (B=4, S=256, H=80, P=64,
-// N=128, chunk Q=128) the scan moves about 43 MB and does about 6.7 GFLOP;
-// in fp32 outside the tensor cores the operations bound it (~0.1 ms at
-// 67 TFLOP/s), against ~13 us for the bytes.  This first kernel computes
-// on the CUDA cores in fp32; moving the three chunk products onto wgmma
-// is later work.
+// Bound on the H100: bytes.  At mamba2-2.7b's shapes (B=4, S=256, H=80,
+// P=64, N=128, chunk Q=128) the scan moves about 43 MB (x, y, the fp32
+// state in and out; B and C are shared by all heads) and does about
+// 6.7 GFLOP: ~13 us for the bytes, ~7 us for the operations on bf16 tensor
+// cores.
 //
-// Design: the TPU iterates chunks along a sequential grid axis and keeps
-// the [P,N] state in VMEM scratch.  Blocks here run in no order, so one
-// block owns one (batch row, head) and loops over the chunks itself; the
-// fp32 state (32 KB) stays in shared memory for the whole sequence and
-// is read from and written to device memory once.  Per chunk the block
-// stages x [Q,P], B and C [Q,N] (fp32) and dt [Q] in shared memory, takes
-// the prefix sum of dt*A with one warp, and then computes
+// Per chunk, as in _ssd_kernel :42-61, with cum the prefix sum of dt*A:
 //   y   = exp(cum) * (C . state^T) + D*x                 (inter-chunk)
 //       + ((C B^T) (.) L (.) dt) x                        (intra-chunk)
 //   state = state * exp(cum_last) + (x (.) dt*exp(cum_last - cum))^T B
-// as in _ssd_kernel :42-61.  Each of the four products is a small matrix
-// product out of shared memory; the 256 threads form a 16x16 grid and each
-// computes a register tile (rows ty + 16r, columns tx + 16c), so one
-// shared-memory load feeds several multiply-adds instead of one.  The QxQ
-// score matrix is built 32 rows at a time (16 KB) and consumed at once,
-// and blocks above the diagonal are skipped, which keeps the block's shared
-// memory near 215 KB at N=128 (mamba2-2.7b) and 136 KB at N=64
-// (zamba2-2.7b).  Rows of B, C and the state are padded by one float
-// so that threads reading down a column hit distinct banks.
+// The TPU iterates chunks along a sequential grid axis and keeps the [P,N]
+// state in VMEM scratch.  Blocks here run in no order, so a block owns
+// one (batch row, head) -- or, when B*H leaves SMs idle, one half of its
+// P state rows (ssd/ops.py: ssd_plan) -- and loops over the chunks itself.
+//
+// bf16 at (Q, P, N) = (128, 64, 128) and (128, 64, 64) (mamba2-2.7b,
+// zamba2-2.7b) runs the four products on tensor cores, mma.sync m16n8k16
+// with fp32 accumulate, eight warps a block:
+// - x, B and C stay bf16, as they arrive, in shared memory rows padded by
+//   16 bytes (ldmatrix hits eight distinct bank groups); cp.async streams
+//   the next chunk's x, B, C and dt into a second buffer while this chunk
+//   computes.
+// - y: warp w owns 16 rows of the chunk (row tiles 0-3, 7-4, so the two
+//   warps of each SM sub-partition share the causal work evenly).  Its C
+//   fragments feed both C . state^T and C B^T.  C B^T is exact in fp32 and
+//   only the 16-column blocks on or below the diagonal are computed; the
+//   masked, decayed scores feed the product with x from registers, as
+//   flash attention's P.V.  Every decay is 2^(x log2 e) on the SFU
+//   (ex2.approx), with cum * log2 e kept per token: the accurate expf was
+//   a fifth of the kernel's time (scripts/kernel_variants.py
+//   ssd_breakdown).
+// - The fp32 state lives in registers, in the accumulator layout of the
+//   update (x (.) w)^T B: warp w owns 16 state rows and a range of
+//   columns.  The state's hi and lo terms are kept in shared memory for the
+//   next chunk's C . state^T; its last value goes straight to its
+//   destination (the cache slot when the caller gives one).
+// - Every fp32 operand (the scores, the state in C . state^T, x (.) w in
+//   the update) is split into two bf16 terms, hi + lo, two products, which
+//   keeps it to ~2^-17 of its size.  One bf16 term would carry 2^-9 of
+//   it: into a state that adds it up chunk after chunk, and into rows of y
+//   whose terms cancel (the diagonal score's x against D*x), which then
+//   break their per-row limit (scripts/kernel_variants.py ssd_operands
+//   measures each operand rounded to one term).
+// Other instances (fp32, and the reduced (16, 16, 16) test shape) run the
+// first kernel below on the CUDA cores, in fp32: one block per (batch row,
+// head), x, B and C staged as padded fp32, the four products as 8 x 4
+// register tiles out of shared memory.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -277,17 +299,381 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
   return cudaGetLastError();
 }
 
+// ------------------------------------------ bf16 on tensor cores
+
+constexpr int kTQ = 128;         // chunk
+constexpr int kTWarps = 8;
+constexpr int kTThreads = kTWarps * 32;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared memory of the tensor-core kernel, PB state rows a block: two
+// stages of x [Q][PB], B and C [Q][N] in bf16, the state's hi and lo terms
+// [PB][N] in bf16 (rows padded by 8 elements), dt [2][Q], exp(cum) and
+// the update weights [Q], and (cum * log2(e), dt) [Q] in fp32 (mirrored
+// by ssd/ops.py: ssd_plan)
+template <int PB, int N>
+struct TcSmem {
+  static constexpr int XS = PB + 8, BS = N + 8;
+  static constexpr size_t kX = (size_t)kTQ * XS, kB = (size_t)kTQ * BS;
+  static constexpr size_t kStage = kX + 2 * kB;
+  static constexpr size_t kState = (size_t)PB * BS;
+  static constexpr size_t kBytes =
+      (2 * kStage + 2 * kState) * 2 + 6 * (size_t)kTQ * 4;
+};
+
+// 2^x in one instruction (MUFU.EX2, ~2^-22 relative; flushes to 0 below
+// 2^-126)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int PB, int N>
+__global__ void __launch_bounds__(kTThreads, 1)
+ssd_tc_kernel(const __nv_bfloat16* __restrict__ x,
+              const float* __restrict__ dt, const float* __restrict__ A,
+              const __nv_bfloat16* __restrict__ Bm,
+              const __nv_bfloat16* __restrict__ Cm,
+              const float* __restrict__ Dv, const float* __restrict__ init,
+              __nv_bfloat16* __restrict__ y, float* __restrict__ final_state,
+              int S, int H, int G, int psplit) {
+  using L = TcSmem<PB, N>;
+  constexpr int Q = kTQ, XS = L::XS, BS = L::BS;
+  constexpr int NK = N / 16;          // k-steps over the state's columns
+  constexpr int PT = PB / 8;          // n-tiles of y
+  constexpr int MT = PB / 16;         // m-tiles of the state
+  constexpr int WN = kTWarps / MT;    // warps sharing one state m-tile
+  constexpr int NT = N / 8 / WN;      // state n-tiles a warp owns
+  static_assert(PB % 16 == 0 && kTWarps % MT == 0 && (N / 8) % WN == 0 &&
+                NT % 2 == 0 && PT % 2 == 0, "tile shapes");
+  using repro::ldmatrix_x4;
+  using repro::ldmatrix_x4_trans;
+  using repro::mma_bf16;
+  using repro::pack_bf16;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* stage0 = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sthi = stage0 + 2 * L::kStage;
+  __nv_bfloat16* stlo = sthi + L::kState;
+  float* dts = reinterpret_cast<float*>(stlo + L::kState);   // [2][Q]
+  float* ecum = dts + 2 * Q;    // exp(cum)
+  float* wend = ecum + Q;       // dt * exp(cum_last - cum)
+  float2* cdt = reinterpret_cast<float2*>(wend + Q);   // (cum log2 e, dt)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, gc = (lane & 3) * 2;
+  const int ps = blockIdx.x % psplit, bh = blockIdx.x / psplit;
+  const int b = bh / H, h = bh % H;
+  const int g = h / (H / G);
+  const int P = PB * psplit, p0 = ps * PB;
+  const float a = A[h], dskip = Dv[h];
+  const int nc = S / Q;
+
+  // chunk ci's x[:, p0:p0+PB], B, C and dt into stage st
+  auto load_chunk = [&](int ci, int st) {
+    const int t0 = ci * Q;
+    __nv_bfloat16* xd = stage0 + st * L::kStage;
+    __nv_bfloat16* bd = xd + L::kX;
+    __nv_bfloat16* cd = bd + L::kB;
+    constexpr int XV = PB / 8, BV = N / 8;   // 16-byte vectors a row
+    for (int e = tid; e < Q * XV; e += kTThreads) {
+      const int i = e / XV, c = e % XV;
+      repro::cp_async16(xd + i * XS + c * 8,
+                        x + (((size_t)b * S + t0 + i) * H + h) * P + p0 +
+                            c * 8, 16);
+    }
+    for (int e = tid; e < Q * BV; e += kTThreads) {
+      const int i = e / BV, c = e % BV;
+      const size_t off = (((size_t)b * S + t0 + i) * G + g) * N + c * 8;
+      repro::cp_async16(bd + i * BS + c * 8, Bm + off, 16);
+      repro::cp_async16(cd + i * BS + c * 8, Cm + off, 16);
+    }
+    if (tid < Q)
+      repro::cp_async4(dts + st * Q + tid,
+                        dt + ((size_t)b * S + t0 + tid) * H + h);
+  };
+
+  load_chunk(0, 0);
+  repro::cp_async_commit();
+
+  // this warp's state tile: rows pm + gr (+8), n-tiles nb .. nb + NT - 1
+  const int pm = (warp % MT) * 16, nb = (warp / MT) * NT;
+  float sacc[NT][4];
+  const size_t sbase = ((size_t)bh * P + p0) * N;
+  {
+    const float* in = init + sbase;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int n = (nb + t) * 8 + gc;
+      const float2 v0 = *reinterpret_cast<const float2*>(
+          in + (size_t)(pm + gr) * N + n);
+      const float2 v1 = *reinterpret_cast<const float2*>(
+          in + (size_t)(pm + gr + 8) * N + n);
+      sacc[t][0] = v0.x;
+      sacc[t][1] = v0.y;
+      sacc[t][2] = v1.x;
+      sacc[t][3] = v1.y;
+    }
+  }
+  // the state's hi and lo bf16 terms, for C . state^T
+  auto store_terms = [&]() {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int n = (nb + t) * 8 + gc;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t hi, lo;
+        repro::split_bf16(sacc[t][2 * r], sacc[t][2 * r + 1], hi, lo);
+        const int off = (pm + gr + 8 * r) * BS + n;
+        *reinterpret_cast<uint32_t*>(sthi + off) = hi;
+        *reinterpret_cast<uint32_t*>(stlo + off) = lo;
+      }
+    }
+  };
+  store_terms();
+
+  // y row tile: 0-3 for warps 0-3, 7-4 for warps 4-7
+  const int i0 = (warp < 4 ? warp : 11 - warp) * 16;
+  const int rt = i0 / 16;
+
+  for (int ci = 0; ci < nc; ++ci) {
+    const int st = ci & 1;
+    if (ci + 1 < nc) load_chunk(ci + 1, st ^ 1);
+    repro::cp_async_commit();
+    repro::cp_async_wait<1>();
+    __syncthreads();   // stage st, and the state's terms, are in place
+    const __nv_bfloat16* xs = stage0 + st * L::kStage;
+    const __nv_bfloat16* bs = xs + L::kX;
+    const __nv_bfloat16* cs = bs + L::kB;
+    const float* dtc = dts + st * Q;
+    if (warp == 0) {
+      // inclusive prefix sum of dt*A, four rows a lane, as the CUDA-core
+      // kernel takes it
+      constexpr int kPer = Q / 32;
+      float v[kPer];
+      float run = 0.0f;
+#pragma unroll
+      for (int r = 0; r < kPer; ++r) {
+        run += dtc[lane * kPer + r] * a;
+        v[r] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float up = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += up;
+      }
+      const float base = incl - run;
+      const float last2 =
+          __shfl_sync(0xffffffffu, base + v[kPer - 1], 31) * kLog2e;
+#pragma unroll
+      for (int r = 0; r < kPer; ++r) {
+        const int i = lane * kPer + r;
+        const float c2 = (base + v[r]) * kLog2e;
+        ecum[i] = exp2_approx(c2);
+        wend[i] = dtc[i] * exp2_approx(last2 - c2);
+        cdt[i] = make_float2(c2, dtc[i]);
+      }
+    }
+    __syncthreads();
+
+    // ---- y for rows i0 .. i0 + 15
+    uint32_t ca[NK][4];
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+      ldmatrix_x4(ca[kk], cs + (i0 + (lane & 7) + ((lane >> 3) & 1) * 8) * BS +
+                          kk * 16 + (lane >> 4) * 8);
+    float acc[PT][4];
+#pragma unroll
+    for (int t = 0; t < PT; ++t)
+      acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+    // inter-chunk: C . state^T, the state as hi + lo
+#pragma unroll
+    for (int pp = 0; pp < PT / 2; ++pp) {
+      const int off = (pp * 16 + (lane & 7) + (lane >> 4) * 8) * BS +
+                      ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t bh4[4], bl4[4];
+        ldmatrix_x4(bh4, sthi + off + kk * 16);
+        ldmatrix_x4(bl4, stlo + off + kk * 16);
+        mma_bf16(acc[2 * pp], ca[kk], bh4[0], bh4[1]);
+        mma_bf16(acc[2 * pp + 1], ca[kk], bh4[2], bh4[3]);
+        mma_bf16(acc[2 * pp], ca[kk], bl4[0], bl4[1]);
+        mma_bf16(acc[2 * pp + 1], ca[kk], bl4[2], bl4[3]);
+      }
+    }
+    const int ia = i0 + gr, ib = ia + 8;
+    {
+      const float e0 = ecum[ia], e1 = ecum[ib];
+#pragma unroll
+      for (int t = 0; t < PT; ++t) {
+        acc[t][0] *= e0;
+        acc[t][1] *= e0;
+        acc[t][2] *= e1;
+        acc[t][3] *= e1;
+      }
+    }
+    // intra-chunk: the 16-column blocks of C B^T on or below the diagonal
+    const float cuma = cdt[ia].x, cumb = cdt[ib].x;
+    for (int cb = 0; cb <= rt; ++cb) {
+      float sc[2][4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) sc[t][0] = sc[t][1] = sc[t][2] = sc[t][3] = 0.0f;
+      const __nv_bfloat16* brow =
+          bs + (cb * 16 + (lane & 7) + (lane >> 4) * 8) * BS +
+          ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t r[4];
+        ldmatrix_x4(r, brow + kk * 16);
+        mma_bf16(sc[0], ca[kk], r[0], r[1]);
+        mma_bf16(sc[1], ca[kk], r[2], r[3]);
+      }
+      // (C B^T) (.) exp(cum_i - cum_j) (.) dt_j on and below the diagonal,
+      // the decay as 2^((cum_i - cum_j) log2 e)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int j0 = cb * 16 + t * 8 + gc;
+        const float4 cd = *reinterpret_cast<const float4*>(cdt + j0);
+        const float cj[2] = {cd.x, cd.z}, dj[2] = {cd.y, cd.w};
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = j0 + jj;
+          sc[t][jj] = j <= ia ? sc[t][jj] * exp2_approx(cuma - cj[jj]) *
+                                    dj[jj] : 0.0f;
+          sc[t][2 + jj] = j <= ib ? sc[t][2 + jj] *
+                                        exp2_approx(cumb - cj[jj]) * dj[jj]
+                                  : 0.0f;
+        }
+      }
+      // the scores as the A operand, hi + lo: y is a signed sum, and where
+      // its terms cancel (the diagonal's against D*x) one bf16 term's
+      // 2^-9 would be far above the row's own size
+      uint32_t phi[4], plo[4];
+      repro::split_bf16(sc[0][0], sc[0][1], phi[0], plo[0]);
+      repro::split_bf16(sc[0][2], sc[0][3], phi[1], plo[1]);
+      repro::split_bf16(sc[1][0], sc[1][1], phi[2], plo[2]);
+      repro::split_bf16(sc[1][2], sc[1][3], phi[3], plo[3]);
+      const __nv_bfloat16* xrow =
+          xs + (cb * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * XS +
+          (lane >> 4) * 8;
+#pragma unroll
+      for (int pp = 0; pp < PT / 2; ++pp) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, xrow + pp * 16);
+        mma_bf16(acc[2 * pp], phi, vb[0], vb[1]);
+        mma_bf16(acc[2 * pp + 1], phi, vb[2], vb[3]);
+        mma_bf16(acc[2 * pp], plo, vb[0], vb[1]);
+        mma_bf16(acc[2 * pp + 1], plo, vb[2], vb[3]);
+      }
+    }
+    // the skip term, and y
+    {
+      const size_t t0 = (size_t)ci * Q;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = r ? ib : ia;
+        __nv_bfloat16* yrow =
+            y + (((size_t)b * S + t0 + i) * H + h) * P + p0;
+#pragma unroll
+        for (int t = 0; t < PT; ++t) {
+          const int col = t * 8 + gc;
+          const float2 xv = repro::unpack_bf16(
+              *reinterpret_cast<const uint32_t*>(xs + i * XS + col));
+          *reinterpret_cast<uint32_t*>(yrow + col) = pack_bf16(
+              acc[t][2 * r] + dskip * xv.x, acc[t][2 * r + 1] + dskip * xv.y);
+        }
+      }
+    }
+
+    // ---- state = state * exp(cum_last) + (x (.) w)^T B, x (.) w as hi + lo
+    {
+      const float decay = ecum[Q - 1];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        sacc[t][0] *= decay;
+        sacc[t][1] *= decay;
+        sacc[t][2] *= decay;
+        sacc[t][3] *= decay;
+      }
+    }
+#pragma unroll 2
+    for (int kk = 0; kk < Q / 16; ++kk) {
+      uint32_t xr[4], ahi[4], alo[4];
+      ldmatrix_x4_trans(xr, xs + (kk * 16 + (lane & 7) + (lane >> 4) * 8) * XS +
+                            pm + ((lane >> 3) & 1) * 8);
+      const int j0 = kk * 16 + gc;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = j0 + (q >> 1) * 8;
+        const float2 xv = repro::unpack_bf16(xr[q]);
+        repro::split_bf16(xv.x * wend[j], xv.y * wend[j + 1], ahi[q],
+                            alo[q]);
+      }
+      const __nv_bfloat16* brow =
+          bs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * BS +
+          nb * 8 + (lane >> 4) * 8;
+#pragma unroll
+      for (int t = 0; t < NT; t += 2) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, brow + t * 8);
+        mma_bf16(sacc[t], ahi, r[0], r[1]);
+        mma_bf16(sacc[t], alo, r[0], r[1]);
+        mma_bf16(sacc[t + 1], ahi, r[2], r[3]);
+        mma_bf16(sacc[t + 1], alo, r[2], r[3]);
+      }
+    }
+    __syncthreads();   // every read of stage st and of the state's terms done
+    if (ci + 1 < nc) store_terms();
+  }
+
+  float* out = final_state + sbase;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const int n = (nb + t) * 8 + gc;
+    *reinterpret_cast<float2*>(out + (size_t)(pm + gr) * N + n) =
+        make_float2(sacc[t][0], sacc[t][1]);
+    *reinterpret_cast<float2*>(out + (size_t)(pm + gr + 8) * N + n) =
+        make_float2(sacc[t][2], sacc[t][3]);
+  }
+}
+
+template <int PB, int N>
+cudaError_t launch_tc(const void* x, const void* dt, const void* A,
+                      const void* Bm, const void* Cm, const void* D,
+                      const void* init, void* y, void* fin, int B, int S,
+                      int H, int G, int psplit, cudaStream_t stream) {
+  auto kern = ssd_tc_kernel<PB, N>;
+  const size_t bytes = TcSmem<PB, N>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (attr != cudaSuccess) return attr;
+  kern<<<B * H * psplit, kTThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(Bm),
+      static_cast<const __nv_bfloat16*>(Cm), static_cast<const float*>(D),
+      static_cast<const float*>(init), static_cast<__nv_bfloat16*>(y),
+      static_cast<float*>(fin), S, H, G, psplit);
+  return cudaGetLastError();
+}
+
+// the CUDA-core instances: fp32 at the served shapes, both types at the
+// reduced (16, 16, 16)
 template <typename T>
 cudaError_t dispatch(const void* x, const void* dt, const void* A,
                      const void* Bm, const void* Cm, const void* D,
                      const void* init, void* y, void* fin, int B, int S,
                      int H, int P, int G, int N, int Q, cudaStream_t st) {
-  if (Q == 128 && P == 64 && N == 128)
-    return launch<T, 128, 64, 128>(x, dt, A, Bm, Cm, D, init, y, fin, B, S,
-                                   H, G, st);
-  if (Q == 128 && P == 64 && N == 64)
-    return launch<T, 128, 64, 64>(x, dt, A, Bm, Cm, D, init, y, fin, B, S,
-                                  H, G, st);
+  if constexpr (sizeof(T) == 4) {
+    if (Q == 128 && P == 64 && N == 128)
+      return launch<T, 128, 64, 128>(x, dt, A, Bm, Cm, D, init, y, fin, B, S,
+                                     H, G, st);
+    if (Q == 128 && P == 64 && N == 64)
+      return launch<T, 128, 64, 64>(x, dt, A, Bm, Cm, D, init, y, fin, B, S,
+                                    H, G, st);
+  }
   if (Q == 16 && P == 16 && N == 16)
     return launch<T, 16, 16, 16>(x, dt, A, Bm, Cm, D, init, y, fin, B, S, H,
                                  G, st);
@@ -298,14 +684,31 @@ cudaError_t dispatch(const void* x, const void* dt, const void* A,
 
 // x, y: [B,S,H,P]; B, C: [B,S,G,N] (dtype 0 = float32, 1 = bfloat16, shared
 // by x, B, C and y); dt: [B,S,H], A, D: [H], init, final: [B,H,P,N] fp32.
+// psplit: blocks a (batch row, head), each owning P / psplit state rows;
+// 1 or 2 on the tensor-core instances (bf16 at Q = 128, P = 64, N = 128 or
+// 64), which need x, B and C 16-byte aligned; 1 elsewhere.
 extern "C" int repro_ssd_fwd(const void* x, const void* dt, const void* A,
                              const void* Bm, const void* Cm, const void* D,
                              const void* init, void* y, void* fin, int B,
                              int S, int H, int P, int G, int N, int Q,
-                             int dtype, void* stream) {
+                             int dtype, int psplit, void* stream) {
   if (B <= 0 || S <= 0 || Q <= 0 || S % Q || G <= 0 || H % G)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && Q == kTQ && P == 64 && (N == 128 || N == 64)) {
+    if (psplit == 1)
+      return N == 128 ? (int)launch_tc<64, 128>(x, dt, A, Bm, Cm, D, init, y,
+                                                fin, B, S, H, G, 1, st)
+                      : (int)launch_tc<64, 64>(x, dt, A, Bm, Cm, D, init, y,
+                                               fin, B, S, H, G, 1, st);
+    if (psplit == 2)
+      return N == 128 ? (int)launch_tc<32, 128>(x, dt, A, Bm, Cm, D, init, y,
+                                                fin, B, S, H, G, 2, st)
+                      : (int)launch_tc<32, 64>(x, dt, A, Bm, Cm, D, init, y,
+                                               fin, B, S, H, G, 2, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (psplit != 1) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       dtype == 0 ? dispatch<float>(x, dt, A, Bm, Cm, D, init, y, fin, B, S, H,
                                    P, G, N, Q, st)

@@ -9,7 +9,7 @@ launches ``csrc/decode_fused.cu`` (Mamba-2) or ``csrc/mamba1_decode.cu``
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,24 +17,53 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_fused import ref as _ref
 
 
+# d_state values the Mamba-2 kernel is instantiated for, and its most
+# state rows (headdim) a block
+M2_D_STATES = (16, 64, 128)
+M2_MAX_HEADDIM = 64
+
+
 def mamba2_decode_fused(conv_state, ssm_state, xbc_t, conv_w, conv_b,
                         dt_raw, dt_bias, A_log, D, *, n_groups: int,
-                        d_state: int, headdim: int
+                        d_state: int, headdim: int,
+                        out_conv: Optional[torch.Tensor] = None,
+                        out_ssm: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (y [B,H,P] in xbc's dtype, conv window' [B,K-1,C],
-    ssm' [B,H,P,N] fp32)."""
+    ssm' [B,H,P,N] fp32).  ``out_conv`` and ``out_ssm`` (contiguous
+    tensors of those shapes and types, e.g. slots of a new cache, apart
+    from the inputs) receive the new window and state, and are returned
+    as them."""
     if xbc_t.device.type == "cpu":
         return _ref.mamba2_decode_fused_ref(
             conv_state, ssm_state, xbc_t, conv_w, conv_b, dt_raw, dt_bias,
-            A_log, D, n_groups=n_groups, d_state=d_state, headdim=headdim)
+            A_log, D, n_groups=n_groups, d_state=d_state, headdim=headdim,
+            out_conv=out_conv, out_ssm=out_ssm)
     return mamba2_decode_fused_cuda(
         conv_state, ssm_state, xbc_t, conv_w, conv_b, dt_raw, dt_bias,
-        A_log, D, n_groups=n_groups, d_state=d_state, headdim=headdim)
+        A_log, D, n_groups=n_groups, d_state=d_state, headdim=headdim,
+        out_conv=out_conv, out_ssm=out_ssm)
+
+
+def _out(out, like: torch.Tensor, name: str) -> torch.Tensor:
+    """``out`` checked as a destination the kernel may write (contiguous,
+    16-byte aligned, ``like``'s shape, type and device), or a new tensor
+    when None."""
+    if out is None:
+        return torch.empty_like(like)
+    if (out.shape != like.shape or out.dtype != like.dtype
+            or out.device != like.device or not out.is_contiguous()
+            or out.data_ptr() % 16):
+        raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                         f"{like.dtype} {tuple(like.shape)} on "
+                         f"{like.device}")
+    return out
 
 
 def mamba2_decode_fused_cuda(conv_state, ssm_state, xbc_t, conv_w, conv_b,
                              dt_raw, dt_bias, A_log, D, *, n_groups: int,
-                             d_state: int, headdim: int):
+                             d_state: int, headdim: int, out_conv=None,
+                             out_ssm=None):
     if xbc_t.device.type != "cuda":
         raise ValueError(f"decode kernel needs a CUDA tensor, got "
                          f"{xbc_t.device}")
@@ -43,6 +72,10 @@ def mamba2_decode_fused_cuda(conv_state, ssm_state, xbc_t, conv_w, conv_b,
     g, n, p = n_groups, d_state, headdim
     di = c - 2 * g * n
     h = di // p
+    if n not in M2_D_STATES or p > M2_MAX_HEADDIM:
+        raise ValueError(f"mamba2 decode kernel built for d_state in "
+                         f"{M2_D_STATES} and headdim <= {M2_MAX_HEADDIM}, "
+                         f"got {n}, {p}")
     if (xbc_t.shape != (b, c) or di <= 0 or di % p or h % g
             or ssm_state.shape != (b, h, p, n) or conv_w.shape != (c, k)
             or conv_b.shape != (c,) or dt_raw.shape != (b, h)
@@ -60,11 +93,13 @@ def mamba2_decode_fused_cuda(conv_state, ssm_state, xbc_t, conv_w, conv_b,
            conv_b.float().contiguous(), dt_raw.float().contiguous(),
            dt_bias.float().contiguous(), A_log.float().contiguous(),
            D.float().contiguous()]
+    if ins[1].data_ptr() % 16:      # the state is read in 16-byte vectors
+        ins[1] = ins[1].clone()
     if any(t.device != xbc_t.device for t in ins):
         raise ValueError("all decode inputs must be on one device")
     y = torch.empty((b, h, p), dtype=xbc_t.dtype, device=xbc_t.device)
-    nconv = torch.empty_like(ins[0])
-    nssm = torch.empty_like(ins[1])
+    nconv = _out(out_conv, ins[0], "out_conv")
+    nssm = _out(out_ssm, ins[1], "out_ssm")
     lib = build.library()
     rc = lib.repro_mamba2_decode_fwd(
         *[t.data_ptr() for t in ins], y.data_ptr(), nconv.data_ptr(),

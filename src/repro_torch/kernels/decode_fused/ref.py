@@ -6,22 +6,26 @@ and ``mamba1_decode_fused_ref`` do.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.conv1d.ref import conv1d_decode_ref
-from repro_torch.kernels.ssd.ref import softplus, ssd_decode_ref
+from repro_torch.kernels.ssd.ref import into, softplus, ssd_decode_ref
 
 
 def mamba2_decode_fused_ref(conv_state, ssm_state, xbc_t, conv_w, conv_b,
                             dt_raw, dt_bias, A_log, D, *, n_groups: int,
-                            d_state: int, headdim: int
+                            d_state: int, headdim: int,
+                            out_conv: Optional[torch.Tensor] = None,
+                            out_ssm: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """conv_state: [B,K-1,C]; ssm_state: [B,H,P,N]; xbc_t: [B,C] (pre-conv
     packed x|B|C); dt_raw: [B,H].  Returns (y [B,H,P], conv_state',
-    ssm_state' [B,H,P,N] fp32)."""
+    ssm_state' [B,H,P,N] fp32); ``out_conv`` and ``out_ssm``, when given,
+    receive copies of the last two and are returned in their place, as
+    the kernel writes its destinations."""
     xbc, new_conv = conv1d_decode_ref(conv_state, xbc_t, conv_w, conv_b)
     gn = n_groups * d_state
     di = xbc.shape[-1] - 2 * gn
@@ -34,7 +38,7 @@ def mamba2_decode_fused_ref(conv_state, ssm_state, xbc_t, conv_w, conv_b,
     y, new_ssm = ssd_decode_ref(ssm_state.float(),
                                 xs.reshape(b, di // headdim, headdim),
                                 dt, A, bm, cm, D)
-    return y, new_conv, new_ssm
+    return y, into(out_conv, new_conv), into(out_ssm, new_ssm)
 
 
 def mamba1_decode_fused_ref(conv_state, ssm_state, xi_t, conv_w, conv_b,

@@ -15,7 +15,8 @@ launches are counted apart from plain ones:
 ``flash_attention.ring_launches`` and ``flash_attention.launches``.
 
 Each launch follows :func:`flash_plan`, from shapes only: bf16 at
-head_dim 128 and 256 runs the ``wgmma`` + TMA kernel with a GQA group's
+head_dim 64, 96 (padded to 128), 128 and 256 runs the ``wgmma`` + TMA
+kernel with a GQA group's
 query heads packed into one block's 128 rows and, when that leaves fewer
 blocks than the H100's 132 SMs, each query tile's keys split across
 blocks (gemma3-1b's chunk: 32 tiles x 4 splits); bf16 elsewhere runs
@@ -30,10 +31,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash import ref as _ref
 
-# head_dim values the kernel is instantiated for: zamba2-2.7b's (80),
-# llama3-8b's (128), gemma3-1b's (256) and the reduced test sizes
-HEAD_DIMS = (16, 32, 80, 128, 256)
-WGMMA_HEAD_DIMS = (128, 256)   # bf16 on wgmma + TMA; the rest mma.sync
+# head_dim values the kernel is instantiated for: qwen2.5-0.5b's and
+# llama3.2-1b's (64), zamba2-2.7b's (80), phi-3-mini's (96), llama3-8b's
+# (128), gemma3-1b's (256) and the reduced test sizes
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
+WGMMA_HEAD_DIMS = (64, 96, 128, 256)   # bf16 on wgmma; the rest mma.sync
 SMS = 132                      # H100 SXM
 BLOCK_ROWS = 128               # query rows a wgmma block
 KEY_TILE = 64                  # keys a tile
@@ -42,11 +44,11 @@ MIN_SPLIT_TILES = 2            # KV tiles an active key split takes
 
 
 class FlashPlan(NamedTuple):
-    """How one call is cut into blocks: ``route`` "wgmma" (bf16 at d=128,
-    256), "mma" (bf16 elsewhere) or "fp32"; ``heads_packed`` query heads
-    of one KV head share a block's rows, ``positions`` query positions
-    each; ``q_tiles`` x ``head_groups`` x B query tiles, each cut into
-    ``splits`` key splits; ``blocks`` in all."""
+    """How one call is cut into blocks: ``route`` "wgmma" (bf16 at d=64,
+    96, 128, 256), "mma" (bf16 elsewhere) or "fp32"; ``heads_packed``
+    query heads of one KV head share a block's rows, ``positions`` query
+    positions each; ``q_tiles`` x ``head_groups`` x B query tiles, each
+    cut into ``splits`` key splits; ``blocks`` in all."""
     route: str
     heads_packed: int
     positions: int
@@ -91,7 +93,7 @@ def flash_plan(b: int, h: int, kvh: int, sq: int, skv: int, d: int,
                          tiles * splits)
     if heads_packed not in (None, 1) or splits not in (None, 1):
         raise ValueError("heads_packed and splits apply to the wgmma route "
-                         "(bf16 at head_dim 128 or 256)")
+                         f"(bf16 at head_dim in {WGMMA_HEAD_DIMS})")
     rows = 64 if dtype == torch.bfloat16 else 16
     qt = -(-sq // rows)
     return FlashPlan("mma" if dtype == torch.bfloat16 else "fp32", 1, rows,

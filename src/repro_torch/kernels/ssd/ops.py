@@ -7,7 +7,7 @@ as the reference keeps it outside its ``pallas_call``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -17,28 +17,81 @@ from repro_torch.kernels.ssd import ref as _ref
 # (chunk, headdim, d_state) the kernel is instantiated for: mamba2-2.7b's,
 # zamba2-2.7b's and the reduced test config's
 SHAPES = {(128, 64, 128), (128, 64, 64), (16, 16, 16)}
+# the bf16 instances that run on tensor cores; the rest run on CUDA cores
+TC_SHAPES = {(128, 64, 128), (128, 64, 64)}
+SMS = 132                   # H100 SXM
+
+
+class SsdPlan(NamedTuple):
+    """How one call is cut into blocks: ``route`` "mma" (bf16 on tensor
+    cores) or "cuda_cores"; ``p_split`` blocks per (batch row, head), each
+    owning ``headdim / p_split`` state rows; ``blocks`` in all;
+    ``smem_bytes`` of dynamic shared memory a block."""
+    route: str
+    p_split: int
+    blocks: int
+    smem_bytes: int
+
+
+def ssd_plan(b: int, h: int, chunk: int, p: int, n: int, dtype, *,
+             p_split: Optional[int] = None) -> SsdPlan:
+    """The launch plan, from shapes only.  bf16 at a ``TC_SHAPES`` shape
+    runs on tensor cores, one block per (batch row, head) (a block holds
+    two stages of x, B and C in bf16, the state's two bf16 terms, rows
+    padded by 8 elements, and six fp32 rows of per-token scalars:
+    ``csrc/ssd.cu``, TcSmem, one block an SM).  Where twice as many blocks
+    still run in one wave on the 132 SMs (mamba2-130m's 24 heads at B=1,
+    say), each head's 64 state rows go to two blocks, which both compute
+    C B^T; past that a split only adds work (at B=4 and 80 heads it is
+    slower: scripts/kernel_variants.py ssd_plans).  Elsewhere one block
+    per (row, head) on CUDA cores, with padded fp32 stages.  ``p_split``
+    forces the split (the card tests do): 1 or 2, on the tensor-core
+    route only."""
+    if (chunk, p, n) not in SHAPES:
+        raise ValueError(f"ssd kernel built for (chunk, P, N) in "
+                         f"{sorted(SHAPES)}, got {(chunk, p, n)}")
+    if dtype == torch.bfloat16 and (chunk, p, n) in TC_SHAPES:
+        if p_split is None:
+            p_split = 2 if 2 * b * h <= SMS else 1
+        if p_split not in (1, 2):
+            raise ValueError(f"p_split must be 1 or 2, got {p_split}")
+        pb = p // p_split
+        bf16 = 2 * chunk * ((pb + 8) + 2 * (n + 8)) + 2 * pb * (n + 8)
+        return SsdPlan("mma", p_split, b * h * p_split,
+                       2 * bf16 + 6 * chunk * 4)
+    if p_split not in (None, 1):
+        raise ValueError("p_split applies to the tensor-core route (bf16 "
+                         f"at (chunk, P, N) in {sorted(TC_SHAPES)})")
+    rb = min(chunk, 32)
+    floats = (p * (n + 1) + 2 * chunk * (n + 1) + chunk * p
+              + rb * (chunk + 16) + 3 * chunk)
+    return SsdPlan("cuda_cores", 1, b * h, 4 * floats)
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
-                initial_state: Optional[torch.Tensor] = None
+                initial_state: Optional[torch.Tensor] = None,
+                out_state: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan. Returns (y [B,S,H,P], final_state [B,H,P,N])."""
+    """Chunked SSD scan. Returns (y [B,S,H,P], final_state [B,H,P,N]).
+    ``out_state`` (a contiguous fp32 [B,H,P,N], e.g. a cache slot) receives
+    the final state, and is returned as it."""
     if x.device.type == "cpu":
         return _ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk,
-                                    initial_state=initial_state)
+                                    initial_state=initial_state,
+                                    out_state=out_state)
     return ssd_chunked_cuda(x, dt, A, Bm, Cm, D, chunk=chunk,
-                            initial_state=initial_state)
+                            initial_state=initial_state, out_state=out_state)
 
 
 def ssd_chunked_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
-                     initial_state=None):
+                     initial_state=None, out_state=None,
+                     p_split: Optional[int] = None):
+    """The kernel; ``p_split`` overrides the plan's (:func:`ssd_plan`)."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd kernel needs a CUDA tensor, got {x.device}")
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
-    if (chunk, p, n) not in SHAPES:
-        raise ValueError(f"ssd kernel built for (chunk, P, N) in "
-                         f"{sorted(SHAPES)}, got {(chunk, p, n)}")
+    plan = ssd_plan(b, h, chunk, p, n, x.dtype, p_split=p_split)
     if s % chunk or h % g:
         raise ValueError(f"seq {s} must be a multiple of chunk {chunk} and "
                          f"heads {h} of groups {g}")
@@ -53,17 +106,21 @@ def ssd_chunked_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
                                     device=x.device)
     if initial_state.shape != (b, h, p, n):
         raise ValueError(f"initial_state {tuple(initial_state.shape)}")
+    final = _state_out(out_state, (b, h, p, n), x.device)
     ins = [x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
            Bm.contiguous(), Cm.contiguous(), D.float().contiguous(),
            initial_state.float().contiguous()]
     if any(t.device != x.device for t in ins):
         raise ValueError("all ssd inputs must be on one device")
+    # the tensor-core kernel reads x, B and C in 16-byte vectors
+    for i in (0, 3, 4):
+        if ins[i].data_ptr() % 16:
+            ins[i] = ins[i].clone()
     y = torch.empty_like(ins[0])
-    final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     lib = build.library()
     rc = lib.repro_ssd_fwd(*[t.data_ptr() for t in ins], y.data_ptr(),
                            final.data_ptr(), b, s, h, p, g, n, chunk, code,
-                           build.stream_ptr(x.device))
+                           plan.p_split, build.stream_ptr(x.device))
     build.check(rc, "repro_ssd_fwd")
     ssd_chunked.launches += 1
     return y, final
@@ -72,12 +129,26 @@ def ssd_chunked_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
 ssd_chunked.launches = 0
 
 
+def _state_out(out, shape, device) -> torch.Tensor:
+    """``out`` checked as a destination the kernel may write (contiguous
+    fp32 of ``shape`` on ``device``), or a new tensor when None."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != torch.float32
+            or out.device != device or not out.is_contiguous()):
+        raise ValueError(f"out_state must be a contiguous fp32 {shape} on "
+                         f"{device}, got {tuple(out.shape)} {out.dtype} "
+                         f"{out.device}")
+    return out
+
+
 def ssd_chunked_raw(x, dt_raw, dt_bias, A_log, Bm, Cm, D, *,
                     chunk: int = 128,
-                    initial_state: Optional[torch.Tensor] = None
+                    initial_state: Optional[torch.Tensor] = None,
+                    out_state: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Raw-dt entry point: softplus(dt_raw + dt_bias) and -exp(A_log) in
     plain torch, then the scan."""
     dt, A = _ref.preprocess_dt_A(dt_raw, dt_bias, A_log)
     return ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
-                       initial_state=initial_state)
+                       initial_state=initial_state, out_state=out_state)

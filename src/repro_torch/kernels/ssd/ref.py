@@ -74,9 +74,12 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
 
 
 def ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk: int = 128,
-                    initial_state: Optional[torch.Tensor] = None
+                    initial_state: Optional[torch.Tensor] = None,
+                    out_state: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD (matmul dual form), numerically matching ssd_sequential."""
+    """Chunked SSD (matmul dual form), numerically matching ssd_sequential.
+    ``out_state``, when given, receives a copy of the final state and is
+    returned in its place, as the kernel writes its destination."""
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     if s % chunk:
@@ -109,7 +112,15 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk: int = 128,
     y_off = torch.einsum("bcqhn,bchpn,bchq->bcqhp", Ch, h_in, torch.exp(cum))
     y = (y_diag + y_off).reshape(b, s, h, p)
     y = y + x.float() * D.float()[None, None, :, None]
-    return y.to(x.dtype), hprev
+    return y.to(x.dtype), into(out_state, hprev)
+
+
+def into(out: Optional[torch.Tensor], t: torch.Tensor) -> torch.Tensor:
+    """``t``, or ``out`` holding a copy of it."""
+    if out is None:
+        return t
+    out.copy_(t)
+    return out
 
 
 def ssd_decode_ref(state, x_t, dt_t, A, B_t, C_t, D

@@ -110,7 +110,8 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
                 pos: Optional[torch.Tensor] = None,
                 shared: Optional[Dict] = None,
                 chunk_mask: Optional[torch.Tensor] = None,
-                valid_len: Optional[torch.Tensor] = None
+                valid_len: Optional[torch.Tensor] = None,
+                out_state: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """``chunk_mask`` ([B, S] bool) marks valid tokens during a chunked
     prefill; SSM layers treat invalid tokens as inert.  A one-token call
@@ -121,7 +122,9 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
     ``rope_local`` the local table's pair, which ``local`` layers take
     where it is given; ``shared`` the shared block's params.  KV leaves of
     ``cache`` are written in place (see
-    :mod:`repro_torch.models.attention`)."""
+    :mod:`repro_torch.models.attention`); a Mamba-2 layer's kernels write
+    its new states into ``out_state`` (the layer's slots in the new cache:
+    {"conv", "ssm"}) where they can, and return them."""
     if kind in ("dense", "local"):
         local = kind == "local"
         return _attn_mlp(
@@ -137,14 +140,17 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
     if cache is not None:
         mcache = {"conv": cache["conv"], "ssm": cache["ssm"]}
     is_decode = cache is not None and x.shape[1] == 1 and pos is not None
-    block, decode = ((m1.mamba1_block, m1.mamba1_decode) if kind == "mamba1"
-                     else (m2.mamba2_block, m2.mamba2_decode))
+    if kind == "mamba1":
+        block, decode, kw = m1.mamba1_block, m1.mamba1_decode, {}
+    else:
+        block, decode = m2.mamba2_block, m2.mamba2_decode
+        kw = {"out": out_state}
     if is_decode:
         out, new_cache = decode(p["mamba"], h, cfg.ssm, cfg.d_model,
-                                cache=mcache, eps=eps)
+                                cache=mcache, eps=eps, **kw)
     else:
         out, new_cache = block(p["mamba"], h, cfg.ssm, cfg.d_model,
-                               cache=mcache, eps=eps, mask=chunk_mask)
+                               cache=mcache, eps=eps, mask=chunk_mask, **kw)
     x = x + out
     if kind == "mamba2+shared":
         if shared is None:

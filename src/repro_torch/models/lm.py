@@ -18,9 +18,11 @@ layers stands in for ``lax.scan``.
 How a call updates the cache: **KV leaves are written in place**, where
 the reference returns new arrays; every other leaf (the small conv and
 SSM states) is returned as a new tensor and the input's is left as it
-was.  ``kv_bucket`` slices the KV leaves to their first ``kv_bucket``
-rows; the slices are views, so the writes land in the full cache and
-need no write-back, and the returned cache holds the full leaves.  A
+was (a Mamba-2 layer's kernels write their new states straight into the
+new tensor's slot).  ``kv_bucket`` slices the KV leaves to their first
+``kv_bucket`` rows; the slices are views, so the writes land in the full
+cache and need no write-back, and the returned cache holds the full
+leaves.  A
 ring is cut like any other KV leaf; the bucket rule
 (``repro_torch.serving.bucketing``) guarantees that a ring cut below its
 window has not wrapped.  (The reference's environment switch that keeps
@@ -249,14 +251,30 @@ def _map_cache(fn_kv, fn_state, tree):
             for k, v in tree.items()}
 
 
-def _store_state(dst, src, r: int) -> None:
+def _state_slots(seg, r: int) -> Dict:
+    """Repeat ``r``'s slots of one layer's top-level state leaves (not KV)
+    in the stacked new cache ``seg``: where its kernels write in place."""
+    return {k: v[r] for k, v in seg.items()
+            if not isinstance(v, dict) and k not in KV_KEYS}
+
+
+def _store_state(dst, src, r: int) -> int:
     """Copy layer ``r``'s new state leaves into the stacked ``dst``; KV
-    leaves were already written in place."""
+    leaves were already written in place, and so was a state leaf that is
+    its slot's own storage (a kernel wrote it there).  Returns the number
+    of leaves copied."""
+    copies = 0
     for key, val in src.items():
         if isinstance(val, dict):
-            _store_state(dst[key], val, r)
+            copies += _store_state(dst[key], val, r)
         elif key not in KV_KEYS:
-            dst[key][r].copy_(val)
+            slot = dst[key][r]
+            if not (val.data_ptr() == slot.data_ptr()
+                    and val.shape == slot.shape
+                    and val.stride() == slot.stride()):
+                slot.copy_(val)
+                copies += 1
+    return copies
 
 
 def _decode_valid_lens(pos: torch.Tensor):
@@ -277,7 +295,9 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
                   kv_bucket=None, valid_lens=None):
     """Every layer in order.  Each layer gets views of its cache: state
     leaves at its repeat, KV leaves cut to their first ``kv_bucket`` rows
-    (None: all), so its KV writes land in the full cache.  ``rope`` is the
+    (None: all), so its KV writes land in the full cache; and its state
+    leaves' slots in the new cache, which its kernels may write in place
+    (the old cache's state leaves stay as they were).  ``rope`` is the
     (global, local) pair of :func:`_rope_for`; ``valid_lens`` (a decode
     step) maps a layer's KV extent to its attended rows.  Returns (x, the
     new segments: new state leaves, the cache's own KV leaves)."""
@@ -300,7 +320,9 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
                     cache=c, pos=pos, shared=shared, chunk_mask=chunk_mask,
                     valid_len=(valid_lens(kv.shape[1])
                                if valid_lens is not None and kv is not None
-                               else None))
+                               else None),
+                    out_state=(_state_slots(new_seg[li], r)
+                               if new_seg is not None else None))
                 if new_seg is not None:
                     _store_state(new_seg[li], nc, r)
         new_segs.append(new_seg)

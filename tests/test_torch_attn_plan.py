@@ -82,14 +82,20 @@ FLASH_SHAPES = {"gemma3-1b ring chunk": (4, 1, 256, 768, 256),
                 "gemma3-1b chunk past the window": (4, 1, 1024, 1536, 256),
                 "gemma3-1b global": (4, 1, 256, 2048, 256),
                 "llama3-8b": (32, 8, 256, 2048, 128),
-                "zamba2-2.7b": (32, 32, 256, 2048, 80)}
+                "zamba2-2.7b": (32, 32, 256, 2048, 80),
+                "qwen2.5-0.5b": (14, 2, 256, 2048, 64),
+                "phi-3-mini": (32, 32, 256, 2048, 96)}
 # (route, heads packed, positions a block, query tiles, splits, blocks)
 FLASH_PLANS = {"gemma3-1b ring chunk": ("wgmma", 4, 32, 8, 4, 128),
                "gemma3-1b chunk past the window": ("wgmma", 4, 32, 32, 1,
                                                    128),
                "gemma3-1b global": ("wgmma", 4, 32, 8, 4, 128),
                "llama3-8b": ("wgmma", 4, 32, 8, 1, 256),
-               "zamba2-2.7b": ("mma", 1, 64, 4, 1, 512)}
+               "zamba2-2.7b": ("mma", 1, 64, 4, 1, 512),
+               # a group of 7 is not packed; 112 tiles already take 112
+               # SMs, so one split
+               "qwen2.5-0.5b": ("wgmma", 1, 128, 2, 1, 112),
+               "phi-3-mini": ("wgmma", 1, 128, 2, 1, 256)}
 
 
 @pytest.mark.parametrize("label", list(FLASH_SHAPES))

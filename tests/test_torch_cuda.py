@@ -6,13 +6,18 @@ card and no JAX it runs on its own:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-Shapes are the reduced config's and widths off each kernel's tiles, and
-gemma3-1b's head_dim 256; the full mamba2-2.7b, zamba2-2.7b, mamba-130m
-and gemma3-1b shapes are held by ``chip_smoke.py``.
+Shapes are the reduced config's and widths off each kernel's tiles,
+gemma3-1b's head_dim 256, qwen2.5-0.5b's 64 and phi-3-mini's 96, and the
+SSD scan at both served Mamba-2 models' (P, N) on 2 and 16 chunks at the
+model's scales with every state-row split, SSD and the Mamba-2 decode
+step writing into slots of stacked cache leaves; the full mamba2-2.7b,
+zamba2-2.7b, mamba-130m and gemma3-1b shapes are held by
+``chip_smoke.py``.
 Tolerances: 1e-4 in fp32 (sums in another order), 2e-2 in bf16 (one bf16
 rounding; the flash kernel also rounds its probabilities to bf16 for the
 P.V product), of max(1, max |reference|) for the Mamba kernels and of
-each query row's own max |o| for attention; the selective scan is held
+each query row's own max |o| for attention (and, on the model-scale SSD
+cases, of each (token, head) row's own max |y|); the selective scan is held
 to the reference's scan-kernel tolerances, 2e-4 (fp32) or 3e-2 (bf16) of
 max |y| and 1e-3 on the state.  The attention kernels take
 their K and V as
@@ -114,6 +119,106 @@ def test_ssd_kernel(cuda, dtype, shape):
            TOL[dtype])
 
 
+def ssd_model_inputs(gen, dev, b, s, h, p, n, dt, *, warmup=128):
+    """SSD inputs at a Mamba-2 model's scales: dt = softplus(dt_bias +
+    0.1 * noise), dt_bias the inverse softplus of dt log-uniform in [1e-3,
+    1e-1] per head (the model's init), A = -(uniform in [1, 16]) (A_log's
+    init); x, B, C standard normal (conv outputs); the initial state is
+    the plain version's final state after ``warmup`` such tokens from
+    zero, so it has the size a served state has.  Unscaled draws give dt
+    and A where exp(dt * A) is ~1 or ~0, and a dropped carry can hide."""
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    u = torch.rand((h,), generator=gen, device=dev)
+    dt0 = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    A = -(torch.rand((h,), generator=gen, device=dev) * 15.0 + 1.0)
+    D = rn(h)
+
+    def draw(s_):
+        return (rn(b, s_, h, p, dtype=dt),
+                ssd_ref.softplus(dt_bias + 0.1 * rn(b, s_, h)),
+                rn(b, s_, 1, n, dtype=dt), rn(b, s_, 1, n, dtype=dt))
+    wx, wdt, wB, wC = draw(warmup)
+    _, h0 = ssd_ref.ssd_chunked_ref(wx, wdt, A, wB, wC, D, chunk=warmup)
+    x, dts, Bm, Cm = draw(s)
+    return (x, dts, A, Bm, Cm, D), h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(128, 256), (64, 256), (128, 2048),
+                                 (64, 2048)])
+@pytest.mark.parametrize("dtype,p_split", [("float32", None),
+                                           ("bfloat16", None),
+                                           ("bfloat16", 1), ("bfloat16", 2)])
+def test_ssd_kernel_model_scales(cuda, dtype, p_split, n, s):
+    """(P, chunk) = (64, 128) at both served d_states (mamba2-2.7b's 128,
+    zamba2-2.7b's 64), on a 2-chunk and a 16-chunk sequence, inputs at
+    the model's scales, the plan's own split and both forced on the bf16
+    tensor-core route (fp32 runs on CUDA cores); each (token, head) row
+    of y held to its own max |y|, the final state to max(1, max
+    |state|)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    args, h0 = ssd_model_inputs(gen, cuda, 2, s, 8, 64, n, DTYPES[dtype])
+    n0 = ssd_ops.ssd_chunked.launches
+    got = ssd_ops.ssd_chunked_cuda(*args, chunk=128, initial_state=h0,
+                                   p_split=p_split)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_chunked.launches == n0 + 1
+    want = ssd_ref.ssd_chunked_ref(*args, chunk=128, initial_state=h0)
+    _close_rows(got[0], want[0], TOL[dtype])
+    _close(got[1:], want[1:], TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_writes_destination(cuda, dtype):
+    """``out_state`` a slot of a stacked [n_rep, ...] leaf: the final state
+    lands there, the other slots and the initial state stay as they
+    were."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    args, h0 = ssd_model_inputs(gen, cuda, 2, 256, 8, 64, 64, DTYPES[dtype])
+    stacked = torch.full((3, 2, 8, 64, 64), 7.0, device=cuda)
+    h0_before = h0.clone()
+    y, fin = ssd_ops.ssd_chunked(*args, chunk=128, initial_state=h0,
+                                 out_state=stacked[1])
+    torch.cuda.synchronize()
+    assert fin.data_ptr() == stacked[1].data_ptr()
+    want = ssd_ref.ssd_chunked_ref(*args, chunk=128, initial_state=h0)
+    _close([y, fin], want, TOL[dtype])
+    assert bool((stacked[0] == 7.0).all() and (stacked[2] == 7.0).all())
+    assert torch.equal(h0, h0_before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_decode_kernel_writes_destination(cuda, dtype):
+    """``out_conv`` and ``out_ssm`` slots of stacked leaves, as a new cache
+    hands them over: the new window and state land there and equal the
+    plain version's; the old window and state and the other slots stay
+    as they were."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(13), cuda)
+    td = DTYPES[dtype]
+    b, h, p, g, n, k = 2, 8, 64, 1, 64, 4
+    c = h * p + 2 * g * n
+    args = (rn(b, k - 1, c, dt=td), rn(b, h, p, n), rn(b, c, dt=td),
+            rn(c, k), rn(c), rn(b, h, dt=td), rn(h), rn(h), rn(h))
+    before = [t.clone() for t in args[:2]]
+    conv_dst = torch.full((3, b, k - 1, c), 7.0, device=cuda).to(td)
+    ssm_dst = torch.full((3, b, h, p, n), 7.0, device=cuda)
+    kw = dict(n_groups=g, d_state=n, headdim=p)
+    got = dec_ops.mamba2_decode_fused(*args, **kw, out_conv=conv_dst[2],
+                                      out_ssm=ssm_dst[1])
+    torch.cuda.synchronize()
+    assert got[1].data_ptr() == conv_dst[2].data_ptr()
+    assert got[2].data_ptr() == ssm_dst[1].data_ptr()
+    _close(got, dec_ref.mamba2_decode_fused_ref(*args, **kw), TOL[dtype])
+    assert torch.equal(args[0], before[0]) and torch.equal(args[1], before[1])
+    assert bool((conv_dst[:2] == 7.0).all() and (ssm_dst[0] == 7.0).all()
+                and (ssm_dst[2] == 7.0).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [16, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -137,14 +242,15 @@ def _cache_view(rn, b, s, kvh, d, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,h,kvh", [(80, 4, 4), (128, 8, 2), (16, 4, 2),
-                                     (32, 8, 2), (256, 4, 1)])
+                                     (32, 8, 2), (256, 4, 1), (64, 14, 2),
+                                     (96, 4, 4)])
 @pytest.mark.parametrize("mode", ["offsets", "causal", "full", "window"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel(cuda, dtype, mode, d, h, kvh):
     """Per-row q_offset against a longer KV prefix (chunked prefill), plain
     causal, non-causal and windowed, at head_dim 80, 128 (GQA 4:1), 256
-    (gemma3-1b, GQA 4:1) and the reduced sizes; query and key counts off
-    the 64-row tiles."""
+    (gemma3-1b, GQA 4:1), 64 (qwen2.5-0.5b, GQA 7:1), 96 (phi-3-mini) and
+    the reduced sizes; query and key counts off the 64-row tiles."""
     rn = _rn(torch.Generator(device=cuda).manual_seed(3), cuda)
     td = DTYPES[dtype]
     b, sq = 3, 70
@@ -204,14 +310,15 @@ def test_flash_kernel_ring(cuda, dtype, d, h, kvh, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,h,kvh", [(80, 32, 32), (128, 32, 8), (16, 4, 2),
-                                     (64, 4, 1), (256, 4, 1)])
+                                     (64, 4, 1), (256, 4, 1), (64, 14, 2),
+                                     (96, 4, 4)])
 @pytest.mark.parametrize("split_k", [None, 1, 3, 8])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel(cuda, dtype, split_k, d, h, kvh):
-    """GQA groups of 1, 4, 2, 4 and 4 (gemma3-1b's head_dim 256, whose
-    fp32 instance runs two warps a block); valid_len of 1, on a tile edge
-    (32, 64), one past it, and the whole cache; every split count gives
-    the plain result."""
+    """GQA groups of 1, 4, 2, 4, 4 (gemma3-1b's head_dim 256, whose fp32
+    instance runs two warps a block), 7 (qwen2.5-0.5b, d=64) and 1
+    (phi-3-mini, d=96); valid_len of 1, on a tile edge (32, 64), one past
+    it, and the whole cache; every split count gives the plain result."""
     rn = _rn(torch.Generator(device=cuda).manual_seed(4), cuda)
     td = DTYPES[dtype]
     b, s = 6, 300
@@ -308,14 +415,16 @@ FORCED = [(None, 8), (1, 3), (None, 1), (2, 2)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("packed,splits", FORCED)
-@pytest.mark.parametrize("d,h,kvh", [(128, 8, 2), (256, 4, 1)])
+@pytest.mark.parametrize("d,h,kvh", [(128, 8, 2), (256, 4, 1), (64, 8, 2),
+                                     (96, 8, 2)])
 @pytest.mark.parametrize("mode", ["offsets", "causal", "full", "window"]
                          + list(RING_CASES))
 def test_flash_kernel_packing_and_splits(cuda, mode, d, h, kvh, packed,
                                          splits):
-    """bf16 at d=128 and 256 with head packing and key splits forced (the
-    group's heads packed or not, up to 8 key splits merged in the
-    kernel), in the plain layout's modes and every ring case."""
+    """bf16 on the wgmma route (d=64, 96 padded to 128, 128, 256) with
+    head packing and key splits forced (the group's heads packed or not,
+    up to 8 key splits merged in the kernel), in the plain layout's modes
+    and every ring case."""
     rn = _rn(torch.Generator(device=cuda).manual_seed(11), cuda)
     td = torch.bfloat16
     if mode in RING_CASES:
