@@ -271,7 +271,8 @@ def phase_kernels(cfg, gen):
         check_ssd(f"ssd {dt}", got, want, dt)
         # 16 chunks at the model's scales: a fault in the carried state
         # or in one score tile shows in the rows it reaches
-        args16, h16 = ssd_model_inputs(gen, B, 16 * s.chunk, H, P, N, dt)
+        args16, h16 = ssd_ref.model_scale_inputs(gen, B, 16 * s.chunk, H,
+                                                  P, N, dt)
         check_ssd(f"ssd {dt} 16 chunks", ssd_ops.ssd_chunked(
             *args16, chunk=s.chunk, initial_state=h16),
             ssd_ref.ssd_chunked_ref(*args16, chunk=s.chunk,
@@ -293,7 +294,7 @@ def phase_kernels(cfg, gen):
                 name="ssd_chunked", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd.cu",
                 replaces="src/repro/kernels/ssd/kernel.py:68",
-                blocks=plan.blocks, p_split=plan.p_split,
+                blocks=plan.blocks,
                 smem_bytes=plan.smem_bytes, max_abs_err=err,
                 worst_row_of_limit=row_ratio(got[0], want[0],
                                              TOL["ssd"][dt]),
@@ -337,37 +338,6 @@ def check_ssd(name, got, want, dt):
     check_close(name, got, want, TOL["ssd"][dt])
     check_close(name + " y rows", got[:1], want[:1], TOL["ssd"][dt],
                 ratio=row_ratio)
-
-
-def ssd_model_inputs(gen, b, s, h, p, n, dt, warmup=128):
-    """SSD inputs ((x, dt, A, B, C, D), initial state) at a Mamba-2 model's
-    scales: dt = softplus(dt_bias + 0.1 * noise) with dt_bias the inverse
-    softplus of dt log-uniform in [1e-3, 1e-1] per head (the model's
-    init), A = -(uniform in [1, 16]) (A_log's init), x, B and C standard
-    normal (conv outputs; B and C of one group, as both served Mamba-2
-    models have), and the initial state the plain version's final
-    state after ``warmup`` such tokens from zero, the size a served state
-    has.  Unscaled draws put dt * A where exp(dt * A) is ~1 or ~0 and can
-    hide a dropped carry (the Mamba-1 decode check's lesson)."""
-    from repro_torch.kernels.ssd import ref as ssd_ref
-
-    def rn(*shape, dtype=torch.float32):
-        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-
-    u = torch.rand((h,), generator=gen, device="cuda")
-    dt0 = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
-    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
-    A = -(torch.rand((h,), generator=gen, device="cuda") * 15.0 + 1.0)
-    D = rn(h)
-
-    def draw(s_):
-        return (rn(b, s_, h, p, dtype=dt),
-                ssd_ref.softplus(dt_bias + 0.1 * rn(b, s_, h)),
-                rn(b, s_, 1, n, dtype=dt), rn(b, s_, 1, n, dtype=dt))
-    wx, wdt, wB, wC = draw(warmup)
-    _, h0 = ssd_ref.ssd_chunked_ref(wx, wdt, A, wB, wC, D, chunk=warmup)
-    x, dts, Bm, Cm = draw(s)
-    return (x, dts, A, Bm, Cm, D), h0
 
 
 def mamba2_decode_inputs(gen, b, h, p, g, n, k, dt):

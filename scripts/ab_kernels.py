@@ -3,7 +3,7 @@ this checkout against another tree's, on one card: each tree's outputs
 within chip_smoke.py's limits, the largest difference between the trees,
 and their device times.
 
-    python3 scripts/ab_kernels.py OTHER_TREE
+    python3 scripts/ab_kernels.py OTHER_TREE [--serving-pairs N]
 
 OTHER_TREE is the root of another checkout of the repository (for
 example the parent commit unpacked with ``git archive`` into a directory
@@ -16,9 +16,10 @@ into its own ``build/repro_torch/``.  A child draws the inputs of
 seed, runs the flash and decode kernels on them in bf16 and fp32 (the
 ring cases in bf16), runs the SSD scan (B=4, S=256) and the Mamba-2
 decode step (B=4) at mamba2-2.7b's and zamba2-2.7b's shapes on inputs at
-the model's scales (``chip_smoke.ssd_model_inputs``,
-``mamba2_decode_inputs``) in bf16 and fp32, and saves the outputs, the
-plain versions' outputs and the device times (``chip_smoke.device_ms``).
+the model's scales (this checkout's ``ssd.ref.model_scale_inputs`` and
+``chip_smoke.mamba2_decode_inputs``, so both trees get inputs drawn by
+the same code) in bf16 and fp32, and saves the outputs, the plain
+versions' outputs and the device times (``chip_smoke.device_ms``).
 An attention kernel's cases are those whose head_dim both trees take.
 Prints one JSON line per case: each run's worst output over chip_smoke's
 limit (1 is the limit: ``row_ratio`` per attention row; for SSD the worst
@@ -31,11 +32,18 @@ the profiled decode burst and prefill chunk), and one JSON line per model
 gives each run's TTFTs, decode rate, and the burst's and the chunk's
 kernels, device memcpys and kernel-busy time.  Exits 1 if any run passes
 its limit.
+
+With ``--serving-pairs N`` only the serving runs are made, N rounds of
+other, this, this, other (2N runs a tree), since host-bound rates move
+from run to run: one JSON line per model and tree gives each run's
+decode rate and TTFTs with their median, least and greatest.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -121,6 +129,7 @@ def mamba2_cases(cs, torch):
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
 
+    draws = this_ssd_ref()
     out = []
     for cfg in (mamba2_2p7b, zamba2_2p7b):
         s = cfg.ssm
@@ -128,7 +137,8 @@ def mamba2_cases(cs, torch):
                             s.n_groups, s.d_state, s.conv_kernel, s.chunk)
         for dt in (torch.bfloat16, torch.float32):
             def make(gen, h=h, p=p, g=g, n=n, k=k, q=q, dt=dt):
-                args, h0 = cs.ssd_model_inputs(gen, 4, 2 * q, h, p, n, dt)
+                args, h0 = draws.model_scale_inputs(gen, 4, 2 * q, h, p, n,
+                                                    dt)
                 dargs = cs.mamba2_decode_inputs(gen, 4, h, p, g, n, k, dt)
                 kw = dict(n_groups=g, d_state=n, headdim=p)
                 return {
@@ -142,6 +152,18 @@ def mamba2_cases(cs, torch):
                                                                **kw))}
             out.append((f"{cfg.name} {str(dt)[6:]}", ("mamba2", dt), make))
     return out
+
+
+def this_ssd_ref():
+    """This checkout's ``repro_torch/kernels/ssd/ref.py`` (plain torch, no
+    imports from the package), loaded by its path whichever tree is on
+    ``sys.path``."""
+    path = os.path.join(ROOT, "src", "repro_torch", "kernels", "ssd",
+                        "ref.py")
+    spec = importlib.util.spec_from_file_location("ab_ssd_ref", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def worst_of_limit(cs, kernel: str, dt, got, want) -> float:
@@ -158,7 +180,7 @@ def worst_of_limit(cs, kernel: str, dt, got, want) -> float:
     return cs.row_ratio(got[0], want[0], cs.TOL["attention"][dt])
 
 
-def child(out_path: str) -> int:
+def child(out_path: str, serving_only: bool) -> int:
     import torch
 
     sys.path.insert(1, ROOT)
@@ -168,7 +190,9 @@ def child(out_path: str) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    for label, (_, dt), make in cases(cs, torch, flash_ops, dec_ops):
+    kernel_cases = [] if serving_only else cases(cs, torch, flash_ops,
+                                                 dec_ops)
+    for label, (_, dt), make in kernel_cases:
         runs = make(torch.Generator(device="cuda").manual_seed(0))
         for name, (fn, plain) in runs.items():
             got, want = as_list(fn()), as_list(plain())
@@ -192,13 +216,15 @@ def as_list(out):
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
-def run_tree(tree: str, out_path: str) -> dict:
+def run_tree(tree: str, out_path: str, serving_only: bool = False) -> dict:
     import torch
 
     env = dict(os.environ, PYTHONPATH=os.path.join(tree, "src"))
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--child", out_path], env=env,
-                         capture_output=True, text=True, timeout=900)
+                          "--child", out_path]
+                         + (["--serving-only"] if serving_only else []),
+                         env=env, capture_output=True, text=True,
+                         timeout=900)
     if res.returncode:
         raise RuntimeError(f"{tree}: child failed\n{res.stdout}\n"
                            f"{res.stderr}")
@@ -231,9 +257,41 @@ def main(other: str) -> int:
     return 1 if failed else 0
 
 
+def spread(xs) -> dict:
+    xs = sorted(xs)
+    return {"median": statistics.median(xs), "min": xs[0], "max": xs[-1],
+            "runs": xs}
+
+
+def main_serving(other: str, pairs: int) -> int:
+    trees = [("other", os.path.abspath(other)), ("this", ROOT),
+             ("this", ROOT), ("other", os.path.abspath(other))] * pairs
+    runs = {"other": [], "this": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, tree) in enumerate(trees):
+            runs[name].append(run_tree(tree, os.path.join(tmp, f"{i}.pt"),
+                                       serving_only=True)["serving"])
+    for model in runs["this"][0]:
+        for name, rs in runs.items():
+            res = [r[model] for r in rs]
+            print(json.dumps({
+                "serving": model, "tree": name,
+                "steady_b4_tokens_per_s": spread(
+                    r["steady_b4_tokens_per_s"] for r in res),
+                "ttft_ms": {k: spread(r["ttft_ms"][k] for r in res)
+                            for k in res[0]["ttft_ms"]},
+                "burst_memcpys": sorted({r["profiled_decode_burst8_b4"][
+                    "memcpys"] for r in res}),
+                "burst_kernels": sorted({r["profiled_decode_burst8_b4"][
+                    "kernels"] for r in res})}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
-        sys.exit(child(sys.argv[2]))
+        sys.exit(child(sys.argv[2], "--serving-only" in sys.argv[3:]))
+    if len(sys.argv) == 4 and sys.argv[2] == "--serving-pairs":
+        sys.exit(main_serving(sys.argv[1], int(sys.argv[3])))
     if len(sys.argv) != 2:
         sys.exit(__doc__)
     sys.exit(main(sys.argv[1]))

@@ -10,10 +10,10 @@ there, and in a child process builds that copy and runs the check of the
 mutant's kernel (every check for the unchanged sources):
 
 - ``attention``: the flash and decode kernels against their plain
-  versions at every shape of ``chip_smoke.attention_cases`` (zamba2-2.7b
-  on the ``mma.sync`` flash at d=80; qwen2.5-0.5b, phi-3-mini, llama3-8b
-  and gemma3-1b on the ``wgmma`` flash at d=64, 96, 128 and 256 with its
-  key splits; decode with up to 16 splits), the inputs of
+  versions at every shape of ``chip_smoke.attention_cases``
+  (qwen2.5-0.5b, zamba2-2.7b, phi-3-mini, llama3-8b and gemma3-1b on the
+  ``wgmma`` flash at d=64, 80, 96, 128 and 256 with its key splits;
+  decode with up to 16 splits), the inputs of
   ``chip_smoke.phase_attention``, and decode over gemma3-1b's local ring
   (``chip_smoke.LOCAL_DECODE``).  ``ratio`` is the per-row check that
   chip_smoke.py applies (``row_ratio``), ``old_ratio`` the whole-tensor
@@ -29,10 +29,11 @@ mutant's kernel (every check for the unchanged sources):
   whole-tensor limit.
 - ``ssd``: the SSD scan against its plain version at mamba2-2.7b's and
   zamba2-2.7b's shapes (B=4).  ``ratio`` is chip_smoke.py's check on a
-  16-chunk sequence at the model's scales (``ssd_model_inputs``): the
-  worst of y's and the state's whole-tensor limits and y's per-row
-  limit (``check_ssd``); ``old_ratio`` the whole-tensor limits on the
-  2-chunk unscaled draws that were the only check before.
+  16-chunk sequence at the model's scales
+  (``ssd.ref.model_scale_inputs``): the worst of y's and the state's
+  whole-tensor limits and y's per-row limit (``check_ssd``);
+  ``old_ratio`` the whole-tensor limits on the 2-chunk unscaled draws
+  that were the only check before.
 - ``mamba2_decode``: the fused Mamba-2 decode step against its plain
   version at both models' shapes (B=4).  ``ratio`` is chip_smoke.py's
   check on inputs at the model's scales (``mamba2_decode_inputs``),
@@ -251,7 +252,8 @@ def ssd_readings(cs, torch, gen) -> dict:
             s.d_state, s.chunk
         for dt in (torch.bfloat16, torch.float32):
             tol = cs.TOL["ssd"][dt]
-            args, h0 = cs.ssd_model_inputs(gen, b, 16 * q, h, p, n, dt)
+            args, h0 = ssd_ref.model_scale_inputs(gen, b, 16 * q, h, p, n,
+                                                  dt)
             got = ssd_ops.ssd_chunked(*args, chunk=q, initial_state=h0)
             want = ssd_ref.ssd_chunked_ref(*args, chunk=q, initial_state=h0)
             ratio = max(cs.whole_ratio(got[0], want[0], tol),

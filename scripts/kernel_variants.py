@@ -1,28 +1,30 @@
-"""Time variants of the flash or the SSD kernel's source against each
-other on one card.
+"""Time variants of the flash kernel's, the SSD scan's or the Mamba-2
+decode step's source against each other on one card.
 
     python3 scripts/kernel_variants.py SET [--micro]
 
 SET names a set in ``SETS`` below, or a JSON file of the same form:
-``{"variant": [["file in csrc/", "text", "replacement"], ...], ...}``
-(a path such as ``../ssd/ops.py`` reaches a wrapper beside ``csrc/``); a
-variant with no edits is the source as it stands.  Needs an NVIDIA card
-and ``nvcc``.  Each variant is a copy of ``src/repro_torch`` under
-``build/variants/<name>/`` (listed in .gitignore) with its edits applied,
-so the repository's sources are never edited; a child process builds it
-and times the flash kernel (``chip_smoke.device_ms``) at the bf16 shapes
-of ``chip_smoke.attention_cases`` that run on ``wgmma`` (llama3-8b,
-gemma3-1b) and ``chip_smoke.ring_cases``, or with ``--micro`` at one
-compute-bound shape (4224 queries of 4 heads over one KV head, no mask,
-132 blocks sharing K/V through L2, d=128 and 256, 1024 and 4096 keys);
-a set whose name starts with ``ssd`` times and checks the SSD scan in
-bf16 at mamba2-2.7b's and zamba2-2.7b's shapes (B=4) on 2 chunks of
-phase 3's draws and on 16 chunks at the model's scales
-(``chip_smoke.check_ssd``'s limits).  The variants run in turn, then
-again in reverse order; each case prints every variant's two times and
-its worst ratio to the check's limit (1 is the limit).  An output past
-the limit also prints WRONG (a variant that drops a product is wrong on
-purpose).
+``{"variant": [["file in csrc/", "text", "replacement"], ...], ...}`` (a
+path such as ``../ssd/ops.py`` reaches a wrapper beside ``csrc/``); a
+variant with no edits is the source as it stands. Needs an NVIDIA card
+and ``nvcc``. Each variant is a copy of ``src/repro_torch`` under
+``build/variants/<name>/`` (listed in .gitignore) with its edits
+applied, so the repository's sources are never edited; a child process
+builds it and times the flash kernel (``chip_smoke.device_ms``) at the
+bf16 shapes of ``chip_smoke.attention_cases`` and
+``chip_smoke.ring_cases``, or with ``--micro`` at one compute-bound
+shape (4224 queries of 4 heads over one KV head, no mask, 132 blocks
+sharing K/V through L2, d=128 and 256, 1024 and 4096 keys); a set whose
+name starts with ``ssd`` times and checks the SSD scan in bf16 at
+mamba2-2.7b's and zamba2-2.7b's shapes (B=4) on 2 chunks of phase 3's
+draws and on 16 chunks at the model's scales (``chip_smoke.check_ssd``'s
+limits); one whose name starts with ``mamba2_decode`` the Mamba-2 decode
+step at both models' shapes, bf16 and fp32, on
+``chip_smoke.mamba2_decode_inputs``. Each variant's kernels that ptxas
+reports spilling are printed. The variants run in turn, then again in
+reverse order; each case prints every variant's two times and its worst
+ratio to the check's limit (1 is the limit). An output past the limit
+also prints WRONG (a variant that drops a product is wrong on purpose).
 """
 from __future__ import annotations
 
@@ -40,8 +42,8 @@ SETS = {
     "stages": {
         "3 stages": [],
         "4 stages": [["flash.cu",
-                      "static constexpr int kStages = D > 128 ? 2 : 3;",
-                      "static constexpr int kStages = D > 128 ? 2 : 4;"]],
+                      "static constexpr int kStages = kDP > 128 ? 2 : 3;",
+                      "static constexpr int kStages = kDP > 128 ? 2 : 4;"]],
     },
     # what each part of a tile costs: drop a product or the exponentials
     "breakdown": {
@@ -49,7 +51,7 @@ SETS = {
         "no S": [["flash.cu", "        repro::wgmma_ss_n64(s, da, db, 1);",
                   "        (void)da; (void)db;"]],
         "no PV": [["flash.cu",
-                   "        wgmma_pv<D>(o, pa[kk],\n"
+                   "        wgmma_pv<DP>(o, pa[kk],\n"
                    "                    repro::wgmma_desc(v_addr + kk * 2048,"
                    " kWK * 128, 1024));",
                    "        (void)pa[kk];"]],
@@ -138,15 +140,48 @@ SETS = {
              "    for (int e = tid; e < Q * XV; e += kTThreads) {\n",
              "    for (int e = tid; ci == 0 && e < Q * XV; e += kTThreads) {\n"]],
     },
-    # the SSD launch plan: each head's state rows over two blocks at B=4
-    # too (640 blocks, each computing C B^T for its half)
-    "ssd_plans": {
-        "split 1 (as planned at B=4)": [],
-        "split 2": [["../ssd/ops.py",
-                     "            p_split = 2 if 2 * b * h <= SMS else 1\n",
-                     "            p_split = 2\n"]],
+    # the Mamba-2 decode step's copy of the conv window into the new
+    # cache: its own loop (unrolled or not) or inside the conv loop, which
+    # has the window's values loaded already
+    "mamba2_decode_window": {
+        "own loop (as is)": [],
+        "own loop, not unrolled": [["decode_fused.cu",
+                                    "      for (int k = 0; k < K - 2; ++k)",
+                                    "#pragma unroll 1\n      for (int k = 0; "
+                                    "k < K - 2; ++k)"]],
+        "in the conv loop": [["decode_fused.cu", "    for (int k = 0; k < kMaxK; ++k) {\n      if (k < K) {\n        const float v = k < K - 1 ? repro::to_f32(conv_b[(size_t)k * C + c])\n                                  : repro::to_f32(xt);\n        acc = __fadd_rn(acc, __fmul_rn(v, w[c * K + k]));\n      }\n    }\n", "    for (int k = 0; k < kMaxK; ++k) {\n      if (k < K) {\n        const T raw = k < K - 1 ? conv_b[(size_t)k * C + c] : xt;\n        acc = __fadd_rn(acc, __fmul_rn(repro::to_f32(raw), w[c * K + k]));\n        if (write_window && k > 0) nconv_b[(size_t)(k - 1) * C + c] = raw;\n      }\n    }\n"],
+                             ["decode_fused.cu", "    if (write_window) {\n      for (int k = 0; k < K - 2; ++k)\n        nconv_b[(size_t)k * C + c] = conv_b[(size_t)(k + 1) * C + c];\n      nconv_b[(size_t)(K - 2) * C + c] = xt;\n    }\n", ""]],
     },
 }
+
+
+def decode_child() -> int:
+    """The Mamba-2 decode step's check (chip_smoke's limit on inputs at
+    the model's scales, worst output) and its time, bf16 and fp32."""
+    import torch
+
+    sys.path.insert(1, ROOT)
+    import chip_smoke as cs
+    from repro_torch.configs import mamba2_2p7b, zamba2_2p7b
+    from repro_torch.kernels.decode_fused import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for cfg in (mamba2_2p7b, zamba2_2p7b):
+        s = cfg.ssm
+        h, p, g, n, k = (s.n_ssm_heads(cfg.d_model), s.headdim, s.n_groups,
+                         s.d_state, s.conv_kernel)
+        kw = dict(n_groups=g, d_state=n, headdim=p)
+        for dt in (torch.bfloat16, torch.float32):
+            args = cs.mamba2_decode_inputs(gen, 4, h, p, g, n, k, dt)
+            tol = cs.TOL["decode_fused"][dt]
+            got = ops.mamba2_decode_fused(*args, **kw)
+            want = ref.mamba2_decode_fused_ref(*args, **kw)
+            out[f"mamba2_decode {cfg.name} {str(dt)[6:]}"] = (
+                max(cs.whole_ratio(a, b, tol) for a, b in zip(got, want)),
+                cs.device_ms(lambda: ops.mamba2_decode_fused(*args, **kw)))
+    print(json.dumps(out))
+    return 0
 
 
 def ssd_child() -> int:
@@ -188,7 +223,7 @@ def ssd_child() -> int:
             worst(ops.ssd_chunked(*args, **kw),
                   ref.ssd_chunked_ref(*args, **kw)),
             cs.device_ms(lambda: ops.ssd_chunked(*args, **kw)))
-        args16, h16 = cs.ssd_model_inputs(gen, b, 16 * q, h, p, n, bf16)
+        args16, h16 = ref.model_scale_inputs(gen, b, 16 * q, h, p, n, bf16)
         kw16 = dict(chunk=q, initial_state=h16)
         out[f"ssd {cfg.name} 16 chunks"] = (
             worst(ops.ssd_chunked(*args16, **kw16),
@@ -222,8 +257,6 @@ def child(micro: bool) -> int:
                                                      dict(causal=False))
     else:
         for label, h, kvh, d, bucket, offs, _ in cs.attention_cases():
-            if d not in ops.WGMMA_HEAD_DIMS:
-                continue
             q, k, v, _ = cs.attention_inputs(gen, h, kvh, d, bucket, bf16)
             off = torch.tensor(offs, dtype=torch.int32, device="cuda")
             calls[f"flash {label}"] = (q, k, v, dict(q_offset=off))
@@ -246,7 +279,7 @@ def child(micro: bool) -> int:
     return 0
 
 
-def run_variant(name: str, edits, micro: bool, ssd: bool):
+def run_variant(name: str, edits, micro: bool, kind: str):
     base = os.path.join(ROOT, "build", "variants", name.replace(" ", "_"))
     shutil.rmtree(base, ignore_errors=True)
     shutil.copytree(os.path.join(ROOT, "src", "repro_torch"),
@@ -262,14 +295,28 @@ def run_variant(name: str, edits, micro: bool, ssd: bool):
         with open(path, "w") as f:
             f.write(text.replace(old, new))
     env = dict(os.environ, PYTHONPATH=os.path.join(base, "src"))
-    flag = ["--ssd"] if ssd else ["--micro"] if micro else []
+    flag = {"ssd": ["--ssd"], "decode": ["--decode"]}.get(
+        kind, ["--micro"] if micro else [])
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
                           "--child"] + flag, env=env, capture_output=True,
                          text=True, timeout=900)
     if res.returncode:
         raise RuntimeError(f"{name}: child failed\n{res.stdout}\n"
                            f"{res.stderr}")
-    return json.loads(res.stdout.strip().splitlines()[-1])
+    return json.loads(res.stdout.strip().splitlines()[-1]), spills(base)
+
+
+def spills(base: str):
+    """The kernels of a variant's build that ptxas reports spilling."""
+    out, fn = [], None
+    with open(os.path.join(base, "build", "repro_torch", "ptxas.log")) as f:
+        for line in f:
+            if "Function properties for" in line:
+                fn = line.rsplit(" ", 1)[-1].strip()
+            elif "spill stores" in line and not line.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill"):
+                out.append(f"{fn}: {line.strip()}")
+    return out
 
 
 def main(spec: str, micro: bool) -> int:
@@ -279,11 +326,14 @@ def main(spec: str, micro: bool) -> int:
         with open(spec) as f:
             variants = json.load(f)
     names = list(variants)
-    ssd = spec.startswith("ssd")
+    kind = ("ssd" if spec.startswith("ssd") else
+            "decode" if spec.startswith("mamba2_decode") else "flash")
     times, ratios = {}, {}
-    for name in names + names[::-1]:
-        for key, (ratio, ms) in run_variant(name, variants[name], micro,
-                                            ssd).items():
+    for i, name in enumerate(names + names[::-1]):
+        res, spilled = run_variant(name, variants[name], micro, kind)
+        if i < len(names):
+            print(json.dumps({"variant": name, "spills": spilled}))
+        for key, (ratio, ms) in res.items():
             times.setdefault(key, {}).setdefault(name, []).append(ms)
             ratios.setdefault(key, {}).setdefault(name, []).append(ratio)
             if ratio > 1.0:
@@ -300,6 +350,8 @@ if __name__ == "__main__":
     args = [a for a in args if a != "--micro"]
     if args == ["--child", "--ssd"]:
         sys.exit(ssd_child())
+    if args == ["--child", "--decode"]:
+        sys.exit(decode_child())
     if args == ["--child"]:
         sys.exit(child(micro))
     if len(args) != 1:

@@ -33,7 +33,7 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES: Dict[str, Tuple] = {
     "repro_conv1d_fwd": (P, P, P, P, P, I, I, I, I, I, P),
     "repro_ssd_fwd": (P, P, P, P, P, P, P, P, P,
-                      I, I, I, I, I, I, I, I, I, P),
+                      I, I, I, I, I, I, I, I, P),
     "repro_mamba2_decode_fwd": (P, P, P, P, P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, I, P),
     "repro_flash_fwd": (P, P, P, P, P, P, I, I, I, I, I, I,

@@ -49,9 +49,11 @@
 // fp32); the row sums l are taken from the fp32 P.  The error this adds
 // stays inside the bf16 tolerance, 2e-2 of each query row's own max |o|.
 //
-// bf16 at d = 64, 96, 128 and 256 (qwen2.5-0.5b and llama3.2-1b,
-// phi-3-mini, llama3-8b, gemma3-1b): wgmma and TMA; d=96 runs padded to
-// 128, TMA filling the columns past 96 with zeros.  A block
+// bf16 at every head_dim (16 and 32 for the tests, 64 for qwen2.5-0.5b
+// and llama3.2-1b, 80 zamba2-2.7b, 96 phi-3-mini, 128 llama3-8b, 256
+// gemma3-1b): wgmma and TMA.  d runs padded to 64, 128 or 256 columns,
+// TMA filling the columns past d with zeros (80 and 96 were both faster
+// padded to 128 on wgmma than on an mma.sync kernel: PERF.md).  A block
 // holds 128 query rows: the query heads of one KV head packed together
 // (rows pos * G + g for a group of G = 1, 2, 4 or 8; one head otherwise),
 // so each K/V tile is loaded once for the group.  One producer thread
@@ -59,8 +61,8 @@
 // flight into a ring of 2 (d=256) or 3 (d <= 128) stages tracked by
 // mbarriers, after Q, which TMA brings once.  Two consumer warpgroups own
 // 64 rows each: wgmma m64n64k16 gives S = Q K^T from shared memory, the
-// online softmax runs in registers, and wgmma m64n{d}k16 adds P V with P
-// from registers.  setmaxnreg gives the consumers 232 registers and the
+// online softmax runs in registers, and wgmma m64n{padded d}k16 adds P V
+// with P from registers.  setmaxnreg gives the consumers 232 registers and the
 // producer warpgroup 40 (the d=256 accumulator alone is 128 a thread).
 // When the query tiles are fewer than the 132 SMs (gemma3-1b's four heads
 // and one KV head), each tile's keys are split across blocks as
@@ -74,12 +76,6 @@
 // turns between the two warpgroups (so one's softmax meets the other's
 // products) changed nothing; at 128 query rows a block, re-reading K/V
 // from L2 for every query tile bounds the compute-bound case.
-// bf16 at d = 16, 32, 80 (zamba2-2.7b and the test sizes): four warps
-// each own 16 query rows and run mma.sync m16n8k16 with fp32 accumulate;
-// K and V tiles are double-buffered in shared memory with cp.async, rows
-// padded by 16 bytes so the fragment loads hit distinct banks.  d=80 does
-// not fill whole 128-byte panels, and this instance already beats SDPA
-// there, so it stays.
 // fp32: CUDA cores.  Each warp owns 4 query rows; lane j scores key j of a
 // 32-key tile, and each lane accumulates its own columns of the output.
 // Its tiles live in static shared memory up to d=128 and in dynamic
@@ -93,11 +89,6 @@
 
 namespace {
 
-using repro::cp_async16;
-using repro::cp_async_commit;
-using repro::cp_async_wait;
-using repro::ldmatrix_x4_trans;
-using repro::mma_bf16;
 using repro::pack_bf16;
 
 constexpr float kNegInf = -1e30f;
@@ -207,222 +198,9 @@ __device__ __forceinline__ bool tile_full(const FlashParams& p, int wrap,
   return (!p.causal || pos1 <= qa) && (p.window <= 0 || qb - pos0 < p.window);
 }
 
-// ---------------------------------------------------------------- bf16, mma
+constexpr int kWarps = 4;   // warps of an fp32 block
 
-constexpr int kBQ = 64;    // query rows per block (16 per warp)
-constexpr int kBK = 64;    // keys per tile
-constexpr int kWarps = 4;
-
-// the A fragment of m16n8k16 for rows r, r + 8 and columns c, c + 8 of a
-// padded row-major bf16 tile; `a` points at (r, c)
-__device__ __forceinline__ void load_q_frag(uint32_t (&f)[4],
-                                            const __nv_bfloat16* a, int dp) {
-  f[0] = *reinterpret_cast<const uint32_t*>(a);
-  f[1] = *reinterpret_cast<const uint32_t*>(a + 8 * dp);
-  f[2] = *reinterpret_cast<const uint32_t*>(a + 8);
-  f[3] = *reinterpret_cast<const uint32_t*>(a + 8 * dp + 8);
-}
-
-// rows [r0, r0 + kBK) of a [rows, D] strided matrix into a padded tile;
-// rows at or past n_rows are zero
-template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                long long stride, int r0,
-                                                int n_rows, int tid) {
-  constexpr int DP = D + 8, V = D / 8;
-  for (int e = tid; e < kBK * V; e += kWarps * 32) {
-    const int r = e / V, c = e % V;
-    const bool ok = r0 + r < n_rows;
-    const __nv_bfloat16* g = ok ? src + (long long)(r0 + r) * stride + c * 8
-                                : src;
-    cp_async16(dst + r * DP + c * 8, g, ok ? 16 : 0);
-  }
-}
-
-template <int D, bool kRing>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_bf16_kernel(FlashParams p) {
-  constexpr int DP = D + 8;          // padded row, in elements
-  constexpr int KD = D / 16;         // k-steps of Q K^T
-  constexpr int ND = D / 8;          // n-tiles of the output
-  constexpr int NK = kBK / 8;        // n-tiles of S
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBQ * DP;         // [2][kBK][DP]
-  __nv_bfloat16* vs = ks + 2 * kBK * DP;     // [2][kBK][DP]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KVH);
-  const int q0 = qt * kBQ;
-  const int qoff = p.qoff ? p.qoff[b] : 0;
-  const int wrap = kRing ? p.kv_wrap[b] : 0;
-  const int q_last = min(q0 + kBQ, p.Sq) - 1;
-  const Tiles tl = kv_tiles<kRing>(p, wrap, qoff + q0, qoff + q_last, kBK);
-
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
-                            b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) +
-                            b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
-                            b * p.v_sb + kvh * p.v_sh;
-
-  // Q tile, then the first K/V tile, in flight together
-  for (int e = tid; e < kBQ * (D / 8); e += kWarps * 32) {
-    const int r = e / (D / 8), c = e % (D / 8);
-    const bool ok = q0 + r < p.Sq;
-    cp_async16(qs + r * DP + c * 8,
-               ok ? qg + (long long)(q0 + r) * p.q_ss + c * 8 : qg,
-               ok ? 16 : 0);
-  }
-  if (tl.n > 0) {
-    const int t0 = tile_at<kRing>(tl, 0);
-    load_tile_async<D>(ks, kg, p.k_ss, t0 * kBK, p.Skv, tid);
-    load_tile_async<D>(vs, vg, p.v_ss, t0 * kBK, p.Skv, tid);
-  }
-  cp_async_commit();
-
-  const int gr = lane >> 2;          // fragment row within 8
-  const int gc = (lane & 3) * 2;     // fragment column pair
-  const int row0 = warp * 16 + gr;   // this thread's rows: row0, row0 + 8
-  const int qpos0 = qoff + q0 + row0, qpos1 = qpos0 + 8;
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
-  uint32_t qa[KD][4];                // this warp's Q fragments
-
-  for (int i = 0; i < tl.n; ++i) {
-    const int t = tile_at<kRing>(tl, i);
-    const int stage = i & 1;
-    if (i + 1 < tl.n) {
-      const int tn = tile_at<kRing>(tl, i + 1);
-      load_tile_async<D>(ks + (stage ^ 1) * kBK * DP, kg, p.k_ss, tn * kBK,
-                         p.Skv, tid);
-      load_tile_async<D>(vs + (stage ^ 1) * kBK * DP, vg, p.v_ss, tn * kBK,
-                         p.Skv, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (i == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        load_q_frag(qa[kk], qs + row0 * DP + kk * 16 + gc, DP);
-    }
-    const __nv_bfloat16* kt = ks + stage * kBK * DP;
-    const __nv_bfloat16* vt = vs + stage * kBK * DP;
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        const __nv_bfloat16* bp = kt + (n * 8 + gr) * DP + kk * 16 + gc;
-        mma_bf16(s[n], qa[kk], *reinterpret_cast<const uint32_t*>(bp),
-                 *reinterpret_cast<const uint32_t*>(bp + 8));
-      }
-    }
-
-    // mask, scale, online softmax
-    const int k0 = t * kBK;
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = k0 + n * 8 + gc + j;
-        const int kpos = key_pos<kRing>(p, wrap, key);
-        s[n][j] = key_ok<kRing>(p, qpos0, key, kpos) ? s[n][j] * p.scale
-                                                     : kNegInf;
-        s[n][2 + j] = key_ok<kRing>(p, qpos1, key, kpos)
-                          ? s[n][2 + j] * p.scale
-                          : kNegInf;
-        mx0 = fmaxf(mx0, s[n][j]);
-        mx1 = fmaxf(mx1, s[n][2 + j]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.0f, rs1 = 0.0f;
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[n][j] = expf(s[n][j] - mn0);
-        s[n][2 + j] = expf(s[n][2 + j] - mn1);
-        rs0 += s[n][j];
-        rs1 += s[n][2 + j];
-      }
-    }
-    l0 = l0 * c0 + rs0;   // this thread's columns; the quad sums at the end
-    l1 = l1 * c1 + rs1;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= c0;
-      acc[n][1] *= c0;
-      acc[n][2] *= c1;
-      acc[n][3] *= c1;
-    }
-
-    // O += P V: P's accumulator layout is the A operand's layout
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int n = 0; n < ND; n += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vt + vrow * DP + n * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[n], pa, vb[0], vb[1]);
-        mma_bf16(acc[n + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();   // this stage is consumed before it is refilled
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.0f / fmaxf(l0, 1e-37f), inv1 = 1.0f / fmaxf(l1, 1e-37f);
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
-                      h * p.o_sh;
-  const int r0 = q0 + row0, r1 = r0 + 8;
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + gc;
-    if (r0 < p.Sq)
-      *reinterpret_cast<uint32_t*>(og + (long long)r0 * p.o_ss + col) =
-          pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (r1 < p.Sq)
-      *reinterpret_cast<uint32_t*>(og + (long long)r1 * p.o_ss + col) =
-          pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
-  }
-}
-
-// ---------------------------------- bf16 at d = 64, 96, 128, 256: wgmma
+// ------------------------------------------------------ bf16: wgmma
 
 constexpr int kWRows = 128;      // query rows a block: two consumer warpgroups
 constexpr int kWK = 64;          // keys a tile
@@ -442,7 +220,8 @@ struct WgmmaPlan {
   int* tickets;         // [tiles], zero between calls
 };
 
-// d=96 runs padded to 128: TMA fills the columns past d with zeros, which
+// d runs padded to the next multiple of the 64-column panel (16 and 32 to
+// 64, 80 and 96 to 128): TMA fills the columns past d with zeros, which
 // add nothing to Q K^T and give P V columns that are never stored
 template <int D>
 struct WSmem {
@@ -496,8 +275,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    WgmmaPlan w) {
   using L = WSmem<D>;
   constexpr int NP = L::kPanels, NS = L::kStages, DP = L::kDP;
-  static_assert(D == 64 || D == 96 || D == 128 || D == 256,
-                "the wgmma instances are d=64, 96, 128, 256");
+  static_assert(D % 16 == 0 && (DP == 64 || DP == 128 || DP == 256),
+                "wgmma takes d padded to 64, 128 or 256 columns");
   __shared__ __align__(8) uint64_t full_bar[NS], empty_bar[NS], q_bar;
   __shared__ int s_last;
   extern __shared__ __align__(1024) unsigned char wgmma_smem[];
@@ -1019,32 +798,18 @@ cudaError_t launch_wgmma(const FlashParams& p, WgmmaPlan w,
 template <int D, bool kRing>
 cudaError_t launch(const FlashParams& p, const WgmmaPlan& w, int dtype,
                    cudaStream_t st) {
-  const int B = w.B;
-  if (dtype == 1) {
-    if constexpr (D == 64 || D == 96 || D == 128 || D == 256) {
-      return launch_wgmma<D, kRing>(p, w, st);
-    } else {
-      constexpr size_t bytes = (size_t)(kBQ + 4 * kBK) * (D + 8) * 2;
-      auto kern = flash_bf16_kernel<D, kRing>;
-      // once per instantiation, so a launch inside CUDA-graph capture
-      // makes no configuration call
-      static const cudaError_t attr = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (attr != cudaSuccess) return attr;
-      dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
-      kern<<<grid, kWarps * 32, bytes, st>>>(p);
-    }
-  } else {
-    constexpr size_t bytes = F32Smem<D>::kDynamicBytes;
-    auto kern = flash_f32_kernel<D, kRing>;
-    if constexpr (bytes > 0) {
-      static const cudaError_t attr = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (attr != cudaSuccess) return attr;
-    }
-    dim3 grid((p.Sq + kFQ - 1) / kFQ, p.H, B);
-    kern<<<grid, kWarps * 32, bytes, st>>>(p);
+  if (dtype == 1) return launch_wgmma<D, kRing>(p, w, st);
+  constexpr size_t bytes = F32Smem<D>::kDynamicBytes;
+  auto kern = flash_f32_kernel<D, kRing>;
+  if constexpr (bytes > 0) {
+    // once per instantiation, so a launch inside CUDA-graph capture makes
+    // no configuration call
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (attr != cudaSuccess) return attr;
   }
+  dim3 grid((p.Sq + kFQ - 1) / kFQ, p.H, w.B);
+  kern<<<grid, kWarps * 32, bytes, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -1062,12 +827,12 @@ cudaError_t launch_layout(const FlashParams& p, const WgmmaPlan& w,
 // [B] int32 or null; window <= 0 for none; ring_len > 0 selects the ring
 // layout, which needs causal, a window and kv_wrap ([B] int32 cursors),
 // with ring_len <= Skv; dtype 0 = float32, 1 = bfloat16 (shared by q, k,
-// v and o).  bf16 at D = 64, 96, 128, 256 runs the wgmma kernel with the
+// v and o).  bf16 runs the wgmma kernel with the
 // plan (heads_packed query heads of one KV head a block, nsplit key splits;
 // part_acc [tiles, nsplit, 128, D] and part_ml [tiles, nsplit, 128, 2]
 // fp32 scratch and tickets [tiles] int32, zero before and after, when
 // nsplit > 1, tiles = B * H / heads_packed * ceil(Sq * heads_packed /
-// 128)); every other instance takes heads_packed = nsplit = 1.
+// 128)); fp32 takes heads_packed = nsplit = 1.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, const void* qoff,
                                const void* kv_wrap, int B, int H,
@@ -1086,8 +851,7 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
   if (ring_len > 0 &&
       (!causal || window <= 0 || kv_wrap == nullptr || ring_len > Skv))
     return (int)cudaErrorInvalidValue;
-  const bool wgmma =
-      dtype == 1 && (D == 64 || D == 96 || D == 128 || D == 256);
+  const bool wgmma = dtype == 1;
   const int hp = heads_packed;
   if (wgmma ? (hp < 1 || (H / KVH) % hp || kWRows % hp || nsplit < 1 ||
                nsplit > kMaxFSplit ||

@@ -1,7 +1,6 @@
 // Hopper building blocks for the port's kernels (sm_90a): mbarriers, TMA
 // tile loads, wgmma descriptors and instructions, register rebalancing.
-// Only the flash kernel's bf16 instances at head_dim 64, 128 and 256 use
-// them.
+// Only the flash kernel's bf16 instances use them.
 #pragma once
 
 #include <cuda.h>

@@ -15,8 +15,7 @@
 //   state = state * exp(cum_last) + (x (.) dt*exp(cum_last - cum))^T B
 // The TPU iterates chunks along a sequential grid axis and keeps the [P,N]
 // state in VMEM scratch.  Blocks here run in no order, so a block owns
-// one (batch row, head) -- or, when B*H leaves SMs idle, one half of its
-// P state rows (ssd/ops.py: ssd_plan) -- and loops over the chunks itself.
+// one (batch row, head) and loops over the chunks itself.
 //
 // bf16 at (Q, P, N) = (128, 64, 128) and (128, 64, 64) (mamba2-2.7b,
 // zamba2-2.7b) runs the four products on tensor cores, mma.sync m16n8k16
@@ -306,17 +305,17 @@ constexpr int kTWarps = 8;
 constexpr int kTThreads = kTWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// shared memory of the tensor-core kernel, PB state rows a block: two
-// stages of x [Q][PB], B and C [Q][N] in bf16, the state's hi and lo terms
-// [PB][N] in bf16 (rows padded by 8 elements), dt [2][Q], exp(cum) and
+// shared memory of the tensor-core kernel: two stages of x [Q][P], B and
+// C [Q][N] in bf16, the state's hi and lo terms [P][N] in bf16 (rows
+// padded by 8 elements), dt [2][Q], exp(cum) and
 // the update weights [Q], and (cum * log2(e), dt) [Q] in fp32 (mirrored
 // by ssd/ops.py: ssd_plan)
-template <int PB, int N>
+template <int P, int N>
 struct TcSmem {
-  static constexpr int XS = PB + 8, BS = N + 8;
+  static constexpr int XS = P + 8, BS = N + 8;
   static constexpr size_t kX = (size_t)kTQ * XS, kB = (size_t)kTQ * BS;
   static constexpr size_t kStage = kX + 2 * kB;
-  static constexpr size_t kState = (size_t)PB * BS;
+  static constexpr size_t kState = (size_t)P * BS;
   static constexpr size_t kBytes =
       (2 * kStage + 2 * kState) * 2 + 6 * (size_t)kTQ * 4;
 };
@@ -329,7 +328,7 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-template <int PB, int N>
+template <int P, int N>
 __global__ void __launch_bounds__(kTThreads, 1)
 ssd_tc_kernel(const __nv_bfloat16* __restrict__ x,
               const float* __restrict__ dt, const float* __restrict__ A,
@@ -337,15 +336,15 @@ ssd_tc_kernel(const __nv_bfloat16* __restrict__ x,
               const __nv_bfloat16* __restrict__ Cm,
               const float* __restrict__ Dv, const float* __restrict__ init,
               __nv_bfloat16* __restrict__ y, float* __restrict__ final_state,
-              int S, int H, int G, int psplit) {
-  using L = TcSmem<PB, N>;
+              int S, int H, int G) {
+  using L = TcSmem<P, N>;
   constexpr int Q = kTQ, XS = L::XS, BS = L::BS;
   constexpr int NK = N / 16;          // k-steps over the state's columns
-  constexpr int PT = PB / 8;          // n-tiles of y
-  constexpr int MT = PB / 16;         // m-tiles of the state
+  constexpr int PT = P / 8;           // n-tiles of y
+  constexpr int MT = P / 16;          // m-tiles of the state
   constexpr int WN = kTWarps / MT;    // warps sharing one state m-tile
   constexpr int NT = N / 8 / WN;      // state n-tiles a warp owns
-  static_assert(PB % 16 == 0 && kTWarps % MT == 0 && (N / 8) % WN == 0 &&
+  static_assert(P % 16 == 0 && kTWarps % MT == 0 && (N / 8) % WN == 0 &&
                 NT % 2 == 0 && PT % 2 == 0, "tile shapes");
   using repro::ldmatrix_x4;
   using repro::ldmatrix_x4_trans;
@@ -363,25 +362,24 @@ ssd_tc_kernel(const __nv_bfloat16* __restrict__ x,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gr = lane >> 2, gc = (lane & 3) * 2;
-  const int ps = blockIdx.x % psplit, bh = blockIdx.x / psplit;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int g = h / (H / G);
-  const int P = PB * psplit, p0 = ps * PB;
   const float a = A[h], dskip = Dv[h];
   const int nc = S / Q;
 
-  // chunk ci's x[:, p0:p0+PB], B, C and dt into stage st
+  // chunk ci's x, B, C and dt into stage st
   auto load_chunk = [&](int ci, int st) {
     const int t0 = ci * Q;
     __nv_bfloat16* xd = stage0 + st * L::kStage;
     __nv_bfloat16* bd = xd + L::kX;
     __nv_bfloat16* cd = bd + L::kB;
-    constexpr int XV = PB / 8, BV = N / 8;   // 16-byte vectors a row
+    constexpr int XV = P / 8, BV = N / 8;    // 16-byte vectors a row
     for (int e = tid; e < Q * XV; e += kTThreads) {
       const int i = e / XV, c = e % XV;
       repro::cp_async16(xd + i * XS + c * 8,
-                        x + (((size_t)b * S + t0 + i) * H + h) * P + p0 +
-                            c * 8, 16);
+                        x + (((size_t)b * S + t0 + i) * H + h) * P + c * 8,
+                        16);
     }
     for (int e = tid; e < Q * BV; e += kTThreads) {
       const int i = e / BV, c = e % BV;
@@ -400,7 +398,7 @@ ssd_tc_kernel(const __nv_bfloat16* __restrict__ x,
   // this warp's state tile: rows pm + gr (+8), n-tiles nb .. nb + NT - 1
   const int pm = (warp % MT) * 16, nb = (warp / MT) * NT;
   float sacc[NT][4];
-  const size_t sbase = ((size_t)bh * P + p0) * N;
+  const size_t sbase = (size_t)bh * P * N;
   {
     const float* in = init + sbase;
 #pragma unroll
@@ -576,7 +574,7 @@ ssd_tc_kernel(const __nv_bfloat16* __restrict__ x,
       for (int r = 0; r < 2; ++r) {
         const int i = r ? ib : ia;
         __nv_bfloat16* yrow =
-            y + (((size_t)b * S + t0 + i) * H + h) * P + p0;
+            y + (((size_t)b * S + t0 + i) * H + h) * P;
 #pragma unroll
         for (int t = 0; t < PT; ++t) {
           const int col = t * 8 + gc;
@@ -640,22 +638,22 @@ ssd_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int PB, int N>
+template <int P, int N>
 cudaError_t launch_tc(const void* x, const void* dt, const void* A,
                       const void* Bm, const void* Cm, const void* D,
                       const void* init, void* y, void* fin, int B, int S,
-                      int H, int G, int psplit, cudaStream_t stream) {
-  auto kern = ssd_tc_kernel<PB, N>;
-  const size_t bytes = TcSmem<PB, N>::kBytes;
+                      int H, int G, cudaStream_t stream) {
+  auto kern = ssd_tc_kernel<P, N>;
+  const size_t bytes = TcSmem<P, N>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (attr != cudaSuccess) return attr;
-  kern<<<B * H * psplit, kTThreads, bytes, stream>>>(
+  kern<<<B * H, kTThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(Bm),
       static_cast<const __nv_bfloat16*>(Cm), static_cast<const float*>(D),
       static_cast<const float*>(init), static_cast<__nv_bfloat16*>(y),
-      static_cast<float*>(fin), S, H, G, psplit);
+      static_cast<float*>(fin), S, H, G);
   return cudaGetLastError();
 }
 
@@ -684,31 +682,21 @@ cudaError_t dispatch(const void* x, const void* dt, const void* A,
 
 // x, y: [B,S,H,P]; B, C: [B,S,G,N] (dtype 0 = float32, 1 = bfloat16, shared
 // by x, B, C and y); dt: [B,S,H], A, D: [H], init, final: [B,H,P,N] fp32.
-// psplit: blocks a (batch row, head), each owning P / psplit state rows;
-// 1 or 2 on the tensor-core instances (bf16 at Q = 128, P = 64, N = 128 or
-// 64), which need x, B and C 16-byte aligned; 1 elsewhere.
+// The tensor-core instances (bf16 at Q = 128, P = 64, N = 128 or 64) need
+// x, B and C 16-byte aligned.
 extern "C" int repro_ssd_fwd(const void* x, const void* dt, const void* A,
                              const void* Bm, const void* Cm, const void* D,
                              const void* init, void* y, void* fin, int B,
                              int S, int H, int P, int G, int N, int Q,
-                             int dtype, int psplit, void* stream) {
+                             int dtype, void* stream) {
   if (B <= 0 || S <= 0 || Q <= 0 || S % Q || G <= 0 || H % G)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && Q == kTQ && P == 64 && (N == 128 || N == 64)) {
-    if (psplit == 1)
-      return N == 128 ? (int)launch_tc<64, 128>(x, dt, A, Bm, Cm, D, init, y,
-                                                fin, B, S, H, G, 1, st)
-                      : (int)launch_tc<64, 64>(x, dt, A, Bm, Cm, D, init, y,
-                                               fin, B, S, H, G, 1, st);
-    if (psplit == 2)
-      return N == 128 ? (int)launch_tc<32, 128>(x, dt, A, Bm, Cm, D, init, y,
-                                                fin, B, S, H, G, 2, st)
-                      : (int)launch_tc<32, 64>(x, dt, A, Bm, Cm, D, init, y,
-                                               fin, B, S, H, G, 2, st);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (psplit != 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && Q == kTQ && P == 64 && (N == 128 || N == 64))
+    return N == 128 ? (int)launch_tc<64, 128>(x, dt, A, Bm, Cm, D, init, y,
+                                              fin, B, S, H, G, st)
+                    : (int)launch_tc<64, 64>(x, dt, A, Bm, Cm, D, init, y,
+                                             fin, B, S, H, G, st);
   cudaError_t err =
       dtype == 0 ? dispatch<float>(x, dt, A, Bm, Cm, D, init, y, fin, B, S, H,
                                    P, G, N, Q, st)

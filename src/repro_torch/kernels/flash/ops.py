@@ -14,13 +14,12 @@ kernel, the ring needs ``causal``, a ``window`` and ``kv_wrap``.  Ring
 launches are counted apart from plain ones:
 ``flash_attention.ring_launches`` and ``flash_attention.launches``.
 
-Each launch follows :func:`flash_plan`, from shapes only: bf16 at
-head_dim 64, 96 (padded to 128), 128 and 256 runs the ``wgmma`` + TMA
-kernel with a GQA group's
-query heads packed into one block's 128 rows and, when that leaves fewer
-blocks than the H100's 132 SMs, each query tile's keys split across
-blocks (gemma3-1b's chunk: 32 tiles x 4 splits); bf16 elsewhere runs
-``mma.sync``, fp32 CUDA cores.  Either way one call is one launch.
+Each launch follows :func:`flash_plan`, from shapes only: bf16 runs the
+``wgmma`` + TMA kernel (head_dim padded to 64, 128 or 256 columns) with a
+GQA group's query heads packed into one block's 128 rows and, when that
+leaves fewer blocks than the H100's 132 SMs, each query tile's keys split
+across blocks (gemma3-1b's chunk: 32 tiles x 4 splits); fp32 runs on CUDA
+cores.  Either way one call is one launch.
 """
 from __future__ import annotations
 
@@ -35,7 +34,6 @@ from repro_torch.kernels.flash import ref as _ref
 # llama3.2-1b's (64), zamba2-2.7b's (80), phi-3-mini's (96), llama3-8b's
 # (128), gemma3-1b's (256) and the reduced test sizes
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
-WGMMA_HEAD_DIMS = (64, 96, 128, 256)   # bf16 on wgmma; the rest mma.sync
 SMS = 132                      # H100 SXM
 BLOCK_ROWS = 128               # query rows a wgmma block
 KEY_TILE = 64                  # keys a tile
@@ -44,8 +42,8 @@ MIN_SPLIT_TILES = 2            # KV tiles an active key split takes
 
 
 class FlashPlan(NamedTuple):
-    """How one call is cut into blocks: ``route`` "wgmma" (bf16 at d=64,
-    96, 128, 256), "mma" (bf16 elsewhere) or "fp32"; ``heads_packed``
+    """How one call is cut into blocks: ``route`` "wgmma" (bf16) or
+    "fp32"; ``heads_packed``
     query heads of one KV head share a block's rows, ``positions`` query
     positions each; ``q_tiles`` x ``head_groups`` x B query tiles, each
     cut into ``splits`` key splits; ``blocks`` in all."""
@@ -69,10 +67,10 @@ def flash_plan(b: int, h: int, kvh: int, sq: int, skv: int, d: int,
     ``min(8, 132 // tiles, ceil(Skv / 64))`` ranges of whole 64-key tiles,
     of which the kernel uses as many as the masks leave two tiles each
     (:func:`key_split`), merged exactly by the block that finishes last.
-    Elsewhere a block is 64 (bf16) or 16 (fp32) rows of one head.
-    ``heads_packed`` and ``splits`` force the wgmma route's choices (the
-    card tests do); they must divide G and 128, and lie in [1, 8]."""
-    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+    In fp32 a block is 16 rows of one head.  ``heads_packed`` and
+    ``splits`` force the wgmma route's choices (the card tests do); they
+    must divide G and 128, and lie in [1, 8]."""
+    if dtype == torch.bfloat16:
         g = h // kvh
         hp = heads_packed or (g if g in (1, 2, 4, 8) else 1)
         if g % hp or BLOCK_ROWS % hp:
@@ -93,11 +91,10 @@ def flash_plan(b: int, h: int, kvh: int, sq: int, skv: int, d: int,
                          tiles * splits)
     if heads_packed not in (None, 1) or splits not in (None, 1):
         raise ValueError("heads_packed and splits apply to the wgmma route "
-                         f"(bf16 at head_dim in {WGMMA_HEAD_DIMS})")
-    rows = 64 if dtype == torch.bfloat16 else 16
+                         "(bf16)")
+    rows = 16
     qt = -(-sq // rows)
-    return FlashPlan("mma" if dtype == torch.bfloat16 else "fp32", 1, rows,
-                     qt, h, 1, qt * h * b)
+    return FlashPlan("fp32", 1, rows, qt, h, 1, qt * h * b)
 
 
 def key_split(n_tiles: int, splits: int, s: int) -> Tuple[int, int]:

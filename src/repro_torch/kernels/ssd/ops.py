@@ -19,53 +19,34 @@ from repro_torch.kernels.ssd import ref as _ref
 SHAPES = {(128, 64, 128), (128, 64, 64), (16, 16, 16)}
 # the bf16 instances that run on tensor cores; the rest run on CUDA cores
 TC_SHAPES = {(128, 64, 128), (128, 64, 64)}
-SMS = 132                   # H100 SXM
 
 
 class SsdPlan(NamedTuple):
     """How one call is cut into blocks: ``route`` "mma" (bf16 on tensor
-    cores) or "cuda_cores"; ``p_split`` blocks per (batch row, head), each
-    owning ``headdim / p_split`` state rows; ``blocks`` in all;
+    cores) or "cuda_cores"; ``blocks``, one per (batch row, head);
     ``smem_bytes`` of dynamic shared memory a block."""
     route: str
-    p_split: int
     blocks: int
     smem_bytes: int
 
 
-def ssd_plan(b: int, h: int, chunk: int, p: int, n: int, dtype, *,
-             p_split: Optional[int] = None) -> SsdPlan:
-    """The launch plan, from shapes only.  bf16 at a ``TC_SHAPES`` shape
-    runs on tensor cores, one block per (batch row, head) (a block holds
-    two stages of x, B and C in bf16, the state's two bf16 terms, rows
-    padded by 8 elements, and six fp32 rows of per-token scalars:
-    ``csrc/ssd.cu``, TcSmem, one block an SM).  Where twice as many blocks
-    still run in one wave on the 132 SMs (mamba2-130m's 24 heads at B=1,
-    say), each head's 64 state rows go to two blocks, which both compute
-    C B^T; past that a split only adds work (at B=4 and 80 heads it is
-    slower: scripts/kernel_variants.py ssd_plans).  Elsewhere one block
-    per (row, head) on CUDA cores, with padded fp32 stages.  ``p_split``
-    forces the split (the card tests do): 1 or 2, on the tensor-core
-    route only."""
+def ssd_plan(b: int, h: int, chunk: int, p: int, n: int, dtype) -> SsdPlan:
+    """The launch plan, from shapes only: one block per (batch row, head).
+    bf16 at a ``TC_SHAPES`` shape runs on tensor cores (a block holds two
+    stages of x, B and C in bf16, the state's two bf16 terms, rows padded
+    by 8 elements, and six fp32 rows of per-token scalars: ``csrc/ssd.cu``,
+    TcSmem, one block an SM); elsewhere on CUDA cores, with padded fp32
+    stages."""
     if (chunk, p, n) not in SHAPES:
         raise ValueError(f"ssd kernel built for (chunk, P, N) in "
                          f"{sorted(SHAPES)}, got {(chunk, p, n)}")
     if dtype == torch.bfloat16 and (chunk, p, n) in TC_SHAPES:
-        if p_split is None:
-            p_split = 2 if 2 * b * h <= SMS else 1
-        if p_split not in (1, 2):
-            raise ValueError(f"p_split must be 1 or 2, got {p_split}")
-        pb = p // p_split
-        bf16 = 2 * chunk * ((pb + 8) + 2 * (n + 8)) + 2 * pb * (n + 8)
-        return SsdPlan("mma", p_split, b * h * p_split,
-                       2 * bf16 + 6 * chunk * 4)
-    if p_split not in (None, 1):
-        raise ValueError("p_split applies to the tensor-core route (bf16 "
-                         f"at (chunk, P, N) in {sorted(TC_SHAPES)})")
+        bf16 = 2 * chunk * ((p + 8) + 2 * (n + 8)) + 2 * p * (n + 8)
+        return SsdPlan("mma", b * h, 2 * bf16 + 6 * chunk * 4)
     rb = min(chunk, 32)
     floats = (p * (n + 1) + 2 * chunk * (n + 1) + chunk * p
               + rb * (chunk + 16) + 3 * chunk)
-    return SsdPlan("cuda_cores", 1, b * h, 4 * floats)
+    return SsdPlan("cuda_cores", b * h, 4 * floats)
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
@@ -84,14 +65,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
 
 
 def ssd_chunked_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
-                     initial_state=None, out_state=None,
-                     p_split: Optional[int] = None):
-    """The kernel; ``p_split`` overrides the plan's (:func:`ssd_plan`)."""
+                     initial_state=None, out_state=None):
+    """The kernel, launched as :func:`ssd_plan` says."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd kernel needs a CUDA tensor, got {x.device}")
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
-    plan = ssd_plan(b, h, chunk, p, n, x.dtype, p_split=p_split)
+    ssd_plan(b, h, chunk, p, n, x.dtype)
     if s % chunk or h % g:
         raise ValueError(f"seq {s} must be a multiple of chunk {chunk} and "
                          f"heads {h} of groups {g}")
@@ -120,7 +100,7 @@ def ssd_chunked_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
     lib = build.library()
     rc = lib.repro_ssd_fwd(*[t.data_ptr() for t in ins], y.data_ptr(),
                            final.data_ptr(), b, s, h, p, g, n, chunk, code,
-                           plan.p_split, build.stream_ptr(x.device))
+                           build.stream_ptr(x.device))
     build.check(rc, "repro_ssd_fwd")
     ssd_chunked.launches += 1
     return y, final

@@ -14,6 +14,7 @@ Returns y : [B, S, H, P] and final state [B, H, P, N] (fp32).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -137,3 +138,35 @@ def ssd_decode_ref(state, x_t, dt_t, A, B_t, C_t, D
     y = (torch.einsum("bhpn,bhn->bhp", new_state, Ch)
          + xf * D.float()[None, :, None])
     return y.to(x_t.dtype), new_state
+
+
+def model_scale_inputs(gen: torch.Generator, b: int, s: int, h: int, p: int,
+                       n: int, dtype, warmup: int = 128):
+    """SSD inputs ((x, dt, A, B, C, D), initial state) at a Mamba-2 model's
+    scales, drawn from ``gen`` on its device: dt = softplus(dt_bias + 0.1 *
+    noise) with dt_bias the inverse softplus of dt log-uniform in [1e-3,
+    1e-1] per head (the model's init), A = -(uniform in [1, 16]) (A_log's
+    init), x, B and C standard normal in ``dtype`` (conv outputs; B and C
+    of one group), and the initial state the plain version's final state
+    after ``warmup`` such tokens from zero, the size a served state has.
+    Unscaled draws put dt * A where exp(dt * A) is ~1 or ~0, where a
+    dropped carry can hide."""
+    dev = gen.device
+
+    def rn(*shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    u = torch.rand((h,), generator=gen, device=dev)
+    dt0 = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    A = -(torch.rand((h,), generator=gen, device=dev) * 15.0 + 1.0)
+    D = rn(h)
+
+    def draw(s_):
+        return (rn(b, s_, h, p, dt=dtype),
+                softplus(dt_bias + 0.1 * rn(b, s_, h)),
+                rn(b, s_, 1, n, dt=dtype), rn(b, s_, 1, n, dt=dtype))
+    wx, wdt, wB, wC = draw(warmup)
+    _, h0 = ssd_chunked_ref(wx, wdt, A, wB, wC, D, chunk=warmup)
+    x, dts, Bm, Cm = draw(s)
+    return (x, dts, A, Bm, Cm, D), h0

@@ -111,7 +111,7 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
                 shared: Optional[Dict] = None,
                 chunk_mask: Optional[torch.Tensor] = None,
                 valid_len: Optional[torch.Tensor] = None,
-                out_state: Optional[Dict] = None
+                slots: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """``chunk_mask`` ([B, S] bool) marks valid tokens during a chunked
     prefill; SSM layers treat invalid tokens as inert.  A one-token call
@@ -123,7 +123,7 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
     where it is given; ``shared`` the shared block's params.  KV leaves of
     ``cache`` are written in place (see
     :mod:`repro_torch.models.attention`); a Mamba-2 layer's kernels write
-    its new states into ``out_state`` (the layer's slots in the new cache:
+    its new states into ``slots`` (the layer's slots in the new cache:
     {"conv", "ssm"}) where they can, and return them."""
     if kind in ("dense", "local"):
         local = kind == "local"
@@ -144,7 +144,7 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
         block, decode, kw = m1.mamba1_block, m1.mamba1_decode, {}
     else:
         block, decode = m2.mamba2_block, m2.mamba2_decode
-        kw = {"out": out_state}
+        kw = {"slots": slots}
     if is_decode:
         out, new_cache = decode(p["mamba"], h, cfg.ssm, cfg.d_model,
                                 cache=mcache, eps=eps, **kw)

@@ -321,8 +321,8 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
                     valid_len=(valid_lens(kv.shape[1])
                                if valid_lens is not None and kv is not None
                                else None),
-                    out_state=(_state_slots(new_seg[li], r)
-                               if new_seg is not None else None))
+                    slots=(_state_slots(new_seg[li], r)
+                           if new_seg is not None else None))
                 if new_seg is not None:
                     _store_state(new_seg[li], nc, r)
         new_segs.append(new_seg)

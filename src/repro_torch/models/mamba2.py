@@ -80,15 +80,15 @@ def _split_xbc(xbc: torch.Tensor, s: SSMConfig, d_model: int):
 def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
                  cache: Optional[Dict] = None, eps: float = 1e-5,
                  mask: Optional[torch.Tensor] = None,
-                 out: Optional[Dict] = None
+                 slots: Optional[Dict] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence pass. If cache is given (prefill), returns final states.
 
     ``mask`` ([B, S] bool, chunked prefill) marks valid tokens, a
     left-aligned prefix per row.  Invalid tokens are inert: their dt is
     driven to zero and the conv state is rebuilt from the trailing valid
-    inputs.  ``out`` ({"ssm": ...}, the layer's slot in a new cache) takes
-    the final SSM state in place; the returned cache holds it."""
+    inputs.  ``slots`` ({"ssm": ...}, the layer's slot in a new cache)
+    takes the final SSM state in place; the returned cache holds it."""
     b, seq, _ = x.shape
     di = s.d_inner(d_model)
     nh = s.n_ssm_heads(d_model)
@@ -121,7 +121,8 @@ def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
     y, ssm_state = ssd_chunked_raw(xh, dt_raw, p["dt_bias"], p["A_log"],
                                    bm.contiguous(), cm.contiguous(), p["D"],
                                    chunk=s.chunk, initial_state=init_ssm,
-                                   out_state=_slot(out, "ssm", torch.float32))
+                                   out_state=_slot(slots, "ssm",
+                                                   torch.float32))
     y = y[:, :seq].reshape(b, seq, di)
     y = gated_rms_norm(y, z, p["norm_scale"], eps)
     out = y @ p["out_proj"].to(dt_)
@@ -132,21 +133,22 @@ def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
     return out, new_cache
 
 
-def _slot(out: Optional[Dict], key: str, dtype: torch.dtype):
-    """``out[key]`` where the kernel can write it in place: present, of
+def _slot(slots: Optional[Dict], key: str, dtype: torch.dtype):
+    """``slots[key]`` where the kernel can write it in place: present, of
     ``dtype`` and contiguous; else None (the caller copies)."""
-    t = None if out is None else out.get(key)
+    t = None if slots is None else slots.get(key)
     return t if t is not None and t.dtype == dtype and t.is_contiguous() \
         else None
 
 
 def mamba2_decode(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
-                  cache: Dict, eps: float = 1e-5, out: Optional[Dict] = None
+                  cache: Dict, eps: float = 1e-5,
+                  slots: Optional[Dict] = None
                   ) -> Tuple[torch.Tensor, Dict]:
     """Single-token step. x: [B, 1, D]; cache: {"conv": [B,K-1,C],
     "ssm": [B,H,P,N]}.  Conv shift + state update run as one fused kernel,
-    which writes the new window and state into ``out`` ({"conv", "ssm"},
-    the layer's slots in a new cache) where their types allow."""
+    which writes the new window and state into ``slots`` ({"conv",
+    "ssm"}, the layer's slots in a new cache) where their types allow."""
     b = x.shape[0]
     di = s.d_inner(d_model)
     dt_ = x.dtype
@@ -158,8 +160,8 @@ def mamba2_decode(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
         cache["conv"], cache["ssm"], xbc, p["conv_w"], p["conv_b"],
         dt_raw, p["dt_bias"], p["A_log"], p["D"],
         n_groups=s.n_groups, d_state=s.d_state, headdim=s.headdim,
-        out_conv=_slot(out, "conv", dt_),
-        out_ssm=_slot(out, "ssm", torch.float32))
+        out_conv=_slot(slots, "conv", dt_),
+        out_ssm=_slot(slots, "ssm", torch.float32))
     y = y.reshape(b, di)
     y = gated_rms_norm(y, z, p["norm_scale"], eps)
     out = (y @ p["out_proj"].to(dt_))[:, None, :]

@@ -91,7 +91,7 @@ FLASH_PLANS = {"gemma3-1b ring chunk": ("wgmma", 4, 32, 8, 4, 128),
                                                    128),
                "gemma3-1b global": ("wgmma", 4, 32, 8, 4, 128),
                "llama3-8b": ("wgmma", 4, 32, 8, 1, 256),
-               "zamba2-2.7b": ("mma", 1, 64, 4, 1, 512),
+               "zamba2-2.7b": ("wgmma", 1, 128, 2, 1, 256),
                # a group of 7 is not packed; 112 tiles already take 112
                # SMs, so one split
                "qwen2.5-0.5b": ("wgmma", 1, 128, 2, 1, 112),
@@ -114,8 +114,7 @@ def test_flash_plan_at_served_shapes(label):
 
 
 def test_flash_plan_routes_and_forced_choices():
-    """fp32 and head_dims off the wgmma instances keep one head and no
-    split; forced choices are checked."""
+    """fp32 keeps one head and no split; forced choices are checked."""
     p = flash_ops.flash_plan(B, 4, 1, 256, 768, 256, torch.float32)
     assert (p.route, p.heads_packed, p.splits) == ("fp32", 1, 1)
     p = flash_ops.flash_plan(3, 8, 2, 70, 200, 128, torch.bfloat16,
@@ -130,7 +129,7 @@ def test_flash_plan_routes_and_forced_choices():
             flash_ops.flash_plan(B, 8, 2, 256, 512, 128, torch.bfloat16,
                                  **kw)
     with pytest.raises(ValueError, match="wgmma route"):
-        flash_ops.flash_plan(B, 8, 2, 256, 512, 80, torch.bfloat16,
+        flash_ops.flash_plan(B, 8, 2, 256, 512, 80, torch.float32,
                              splits=2)
 
 

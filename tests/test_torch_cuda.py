@@ -119,51 +119,21 @@ def test_ssd_kernel(cuda, dtype, shape):
            TOL[dtype])
 
 
-def ssd_model_inputs(gen, dev, b, s, h, p, n, dt, *, warmup=128):
-    """SSD inputs at a Mamba-2 model's scales: dt = softplus(dt_bias +
-    0.1 * noise), dt_bias the inverse softplus of dt log-uniform in [1e-3,
-    1e-1] per head (the model's init), A = -(uniform in [1, 16]) (A_log's
-    init); x, B, C standard normal (conv outputs); the initial state is
-    the plain version's final state after ``warmup`` such tokens from
-    zero, so it has the size a served state has.  Unscaled draws give dt
-    and A where exp(dt * A) is ~1 or ~0, and a dropped carry can hide."""
-    def rn(*shape, dtype=torch.float32):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
-    u = torch.rand((h,), generator=gen, device=dev)
-    dt0 = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
-    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
-    A = -(torch.rand((h,), generator=gen, device=dev) * 15.0 + 1.0)
-    D = rn(h)
-
-    def draw(s_):
-        return (rn(b, s_, h, p, dtype=dt),
-                ssd_ref.softplus(dt_bias + 0.1 * rn(b, s_, h)),
-                rn(b, s_, 1, n, dtype=dt), rn(b, s_, 1, n, dtype=dt))
-    wx, wdt, wB, wC = draw(warmup)
-    _, h0 = ssd_ref.ssd_chunked_ref(wx, wdt, A, wB, wC, D, chunk=warmup)
-    x, dts, Bm, Cm = draw(s)
-    return (x, dts, A, Bm, Cm, D), h0
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,s", [(128, 256), (64, 256), (128, 2048),
                                  (64, 2048)])
-@pytest.mark.parametrize("dtype,p_split", [("float32", None),
-                                           ("bfloat16", None),
-                                           ("bfloat16", 1), ("bfloat16", 2)])
-def test_ssd_kernel_model_scales(cuda, dtype, p_split, n, s):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_model_scales(cuda, dtype, n, s):
     """(P, chunk) = (64, 128) at both served d_states (mamba2-2.7b's 128,
     zamba2-2.7b's 64), on a 2-chunk and a 16-chunk sequence, inputs at
-    the model's scales, the plan's own split and both forced on the bf16
-    tensor-core route (fp32 runs on CUDA cores); each (token, head) row
-    of y held to its own max |y|, the final state to max(1, max
-    |state|)."""
+    the model's scales (bf16 on the tensor-core kernel, fp32 on CUDA
+    cores); each (token, head) row of y held to its own max |y|, the
+    final state to max(1, max |state|)."""
     gen = torch.Generator(device=cuda).manual_seed(11)
-    args, h0 = ssd_model_inputs(gen, cuda, 2, s, 8, 64, n, DTYPES[dtype])
+    args, h0 = ssd_ref.model_scale_inputs(gen, 2, s, 8, 64, n,
+                                          DTYPES[dtype])
     n0 = ssd_ops.ssd_chunked.launches
-    got = ssd_ops.ssd_chunked_cuda(*args, chunk=128, initial_state=h0,
-                                   p_split=p_split)
+    got = ssd_ops.ssd_chunked_cuda(*args, chunk=128, initial_state=h0)
     torch.cuda.synchronize()
     assert ssd_ops.ssd_chunked.launches == n0 + 1
     want = ssd_ref.ssd_chunked_ref(*args, chunk=128, initial_state=h0)
@@ -178,7 +148,8 @@ def test_ssd_kernel_writes_destination(cuda, dtype):
     lands there, the other slots and the initial state stay as they
     were."""
     gen = torch.Generator(device=cuda).manual_seed(12)
-    args, h0 = ssd_model_inputs(gen, cuda, 2, 256, 8, 64, 64, DTYPES[dtype])
+    args, h0 = ssd_ref.model_scale_inputs(gen, 2, 256, 8, 64, 64,
+                                          DTYPES[dtype])
     stacked = torch.full((3, 2, 8, 64, 64), 7.0, device=cuda)
     h0_before = h0.clone()
     y, fin = ssd_ops.ssd_chunked(*args, chunk=128, initial_state=h0,
@@ -416,15 +387,15 @@ FORCED = [(None, 8), (1, 3), (None, 1), (2, 2)]
 @pytest.mark.cuda
 @pytest.mark.parametrize("packed,splits", FORCED)
 @pytest.mark.parametrize("d,h,kvh", [(128, 8, 2), (256, 4, 1), (64, 8, 2),
-                                     (96, 8, 2)])
+                                     (96, 8, 2), (80, 8, 4), (32, 8, 2)])
 @pytest.mark.parametrize("mode", ["offsets", "causal", "full", "window"]
                          + list(RING_CASES))
 def test_flash_kernel_packing_and_splits(cuda, mode, d, h, kvh, packed,
                                          splits):
-    """bf16 on the wgmma route (d=64, 96 padded to 128, 128, 256) with
-    head packing and key splits forced (the group's heads packed or not,
-    up to 8 key splits merged in the kernel), in the plain layout's modes
-    and every ring case."""
+    """bf16 on the wgmma route (d=32 padded to 64, 64, 80 and 96 padded
+    to 128, 128, 256) with head packing and key splits forced (the
+    group's heads packed or not, up to 8 key splits merged in the
+    kernel), in the plain layout's modes and every ring case."""
     rn = _rn(torch.Generator(device=cuda).manual_seed(11), cuda)
     td = torch.bfloat16
     if mode in RING_CASES:

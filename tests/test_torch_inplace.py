@@ -240,35 +240,34 @@ def test_plain_ssd_fills_destination(with_out):
 
 # ----------------------------------------------------------- launch plan
 
-@pytest.mark.parametrize("b,h,p_split,blocks", [
-    (4, 80, 1, 320), (1, 80, 1, 80), (1, 24, 2, 48), (2, 33, 2, 132),
-    (2, 34, 1, 68)])
+@pytest.mark.parametrize("b,h", [(4, 80), (1, 80), (1, 24), (2, 33),
+                                 (2, 34)])
 @pytest.mark.parametrize("n", [128, 64])
-def test_ssd_plan_tensor_cores(b, h, p_split, blocks, n):
-    """bf16 at the served (P, N) takes tensor cores; the state rows of each
-    head go to two blocks only where 2 B H blocks fit one wave on the 132
-    SMs (mamba2-130m's 24 heads at B=1); a block's shared memory fits."""
+def test_ssd_plan_tensor_cores(b, h, n):
+    """bf16 at the served (P, N) takes tensor cores, one block per (batch
+    row, head); a block's shared memory fits."""
     plan = ssd_ops.ssd_plan(b, h, 128, 64, n, torch.bfloat16)
     assert plan.route == "mma"
-    assert (plan.p_split, plan.blocks) == (p_split, blocks)
-    assert plan.smem_bytes == _tc_smem(64 // p_split, n)
+    assert plan.blocks == b * h
+    assert plan.smem_bytes == _tc_smem(64, n)
     assert plan.smem_bytes <= SMEM_PER_BLOCK
 
 
-def _tc_smem(pb, n):
+def _tc_smem(p, n):
     """Two stages of bf16 x, B, C with 8-element row padding, the state's
     two bf16 terms, six fp32 rows of per-token scalars."""
-    return (2 * (2 * 128 * ((pb + 8) + 2 * (n + 8)) + 2 * pb * (n + 8))
+    return (2 * (2 * 128 * ((p + 8) + 2 * (n + 8)) + 2 * p * (n + 8))
             + 6 * 128 * 4)
 
 
-@pytest.mark.parametrize("n", [128, 64])
-def test_ssd_plan_forced_split(n):
-    forced = ssd_ops.ssd_plan(4, 80, 128, 64, n, torch.bfloat16, p_split=2)
-    assert (forced.p_split, forced.blocks) == (2, 640)
-    assert forced.smem_bytes == _tc_smem(32, n)
-    with pytest.raises(ValueError, match="p_split"):
-        ssd_ops.ssd_plan(4, 80, 128, 64, n, torch.bfloat16, p_split=4)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_plan_unbuilt_shape(dtype):
+    """A (chunk, P, N) with no instance is refused before any launch, on
+    either route."""
+    with pytest.raises(ValueError, match="ssd kernel built"):
+        ssd_ops.ssd_plan(4, 80, 128, 32, 128, dtype)
+    with pytest.raises(ValueError, match="ssd kernel built"):
+        ssd_ops.ssd_plan(4, 80, 64, 64, 64, dtype)
 
 
 def test_ssd_plan_cuda_cores():
@@ -276,15 +275,12 @@ def test_ssd_plan_cuda_cores():
                          ((16, 16, 16), torch.bfloat16),
                          ((16, 16, 16), torch.float32)):
         plan = ssd_ops.ssd_plan(4, 80, *shape, dtype)
-        assert (plan.route, plan.p_split, plan.blocks) == ("cuda_cores", 1,
-                                                           320)
+        assert (plan.route, plan.blocks) == ("cuda_cores", 320)
         assert plan.smem_bytes <= SMEM_PER_BLOCK
     # the CUDA-core kernel's fp32 stages at mamba2-2.7b's shape: ~215 KB
     assert ssd_ops.ssd_plan(4, 80, 128, 64, 128,
                             torch.float32).smem_bytes == 4 * (
         64 * 129 + 2 * 128 * 129 + 128 * 64 + 32 * 144 + 3 * 128)
-    with pytest.raises(ValueError, match="p_split"):
-        ssd_ops.ssd_plan(4, 80, 128, 64, 128, torch.float32, p_split=2)
     with pytest.raises(ValueError, match="ssd kernel built"):
         ssd_ops.ssd_plan(4, 80, 128, 32, 128, torch.bfloat16)
 
