@@ -8,6 +8,10 @@ Phases (each prints its lines and is fatal on failure):
   3. each kernel against its plain PyTorch version on the card, in bf16
      and fp32 with non-zero initial states, with its device time, the
      plain version's, a library call's where one exists, and its bound:
+     conv1d at the channel counts of mamba2-2.7b, zamba2-2.7b and
+     mamba-130m, also with valid lengths 0, 1, 2, K-1, 200 and S across
+     rows (the new state held bit for bit) and timed once with L2
+     flushed before each call;
      the Mamba-2 kernels at mamba2-2.7b's and zamba2-2.7b's shapes (SSD
      also on a 16-chunk sequence, and the decode step again, with dt, A
      and the states drawn at the model's scales; each (token, head) row
@@ -17,14 +21,14 @@ Phases (each prints its lines and is fatal on failure):
      valid lengths fall on tile and split edges, each attention query row
      held to a limit of its own;
      the Mamba-1 kernels (selective scan, fused decode step) at
-     mamba-130m's shapes and off their tiles (the decode step's inputs
-     drawn at the model's scales), and one long-context scan
-     (B=1, S=16384) beside its bound; the flash kernel's ring mode at
-     gemma3-1b's shapes (B=4, H=4, KVH=1, d=256, window 512): a 256-query
-     chunk at cursors 0/300/700/1792 against a 512-slot ring, sliced
-     rings, and a 1024-query chunk that wraps inside itself, with the
-     plain flash and the decode kernel at d=256 (gemma3-1b's global
-     layers), and decode over gemma3-1b's 512-slot local ring caches
+     mamba-130m's shapes, the step also at B=1 and B=16, and off their
+     tiles (the decode step's inputs drawn at the model's scales), and one
+     long-context scan (B=1, S=16384) beside its bound; the flash kernel's
+     ring mode at gemma3-1b's shapes (B=4, H=4, KVH=1, d=256, window
+     512): a 256-query chunk at cursors 0/300/700/1792 against a 512-slot
+     ring, sliced rings, and a 1024-query chunk that wraps inside itself,
+     with the plain flash and the decode kernel at d=256 (gemma3-1b's
+     global layers), and decode over gemma3-1b's 512-slot local ring caches
      (valid 301/512/512/512); each attention row gives its grid
      (``blocks``);
   4. full-width, full-depth serving through ``ServingEngine`` (4 ragged
@@ -33,9 +37,9 @@ Phases (each prints its lines and is fatal on failure):
      (24 Mamba-1 layers), then gemma3-1b (26 layers: 22 ring layers, 4
      global); the launch counters are reset just before each run and
      read just after, each run must launch exactly the kernels of its
-     layer kinds, and the attention kernels exactly once per attention
-     layer and prefill chunk (flash; ring layers apart) or token step
-     (decode);
+     layer kinds, each exactly once per layer and prefill chunk (flash,
+     ring flash, conv1d, SSD or the scan) or token step (decode
+     attention, the decode steps);
   5. the kernel path against the plain path on the card (one prompt,
      teacher-forced decode): mamba2-2.7b at 8 layers, zamba2-2.7b at 12
      layers (two shared-block positions), a 4-layer ``dense`` model at
@@ -100,6 +104,25 @@ def device_ms(fn, calls: int = 10, reps: int = 25) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def device_ms_cold(fn, reps: int = 25) -> float:
+    """Device time of one ``fn()`` with L2 flushed before it: a 256 MB
+    buffer is zeroed (past the 50 MB L2) and ``fn`` is timed between CUDA
+    events right behind it; median over ``reps``."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
@@ -214,7 +237,6 @@ def phase_kernels(cfg, gen):
     from repro_torch.kernels.decode_fused import (ops as dec_ops,
                                                   ref as dec_ref)
     from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
-    import torch.nn.functional as F
 
     s = cfg.ssm
     B, S = 4, 256
@@ -226,37 +248,17 @@ def phase_kernels(cfg, gen):
     def rn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    rows = []
-    # conv1d: the main shape, plus C and S off the kernel's tiles, and an
-    # input shorter than the conv window
-    for (b_, s_, c_) in ((B, S, C), (3, 200, 5000), (2, 2, 1003)):
+    rows = [conv_row(gen, cfg.name, C, K)]
+    # conv1d off the kernel's vectors and tiles, and an input shorter than
+    # the conv window
+    for (b_, s_, c_) in ((3, 200, 5000), (3, 200, 5003), (2, 2, 1003)):
         for dt in (torch.bfloat16, torch.float32):
             x, w, bias = rn(b_, s_, c_, dtype=dt), rn(c_, K), rn(c_)
             st = rn(b_, K - 1, c_, dtype=dt)
-            got = conv_ops.causal_conv1d(x, w, bias, initial_state=st)
-            want = conv_ref.causal_conv1d_ref(x, w, bias, st)
-            check_close(f"conv1d {dt} {(b_, s_, c_)}", got, want,
+            check_close(f"conv1d {dt} {(b_, s_, c_)}",
+                        conv_ops.causal_conv1d(x, w, bias, initial_state=st),
+                        conv_ref.causal_conv1d_ref(x, w, bias, st),
                         TOL["conv1d"][dt])
-            if (b_, s_, c_) == (B, S, C) and dt == torch.bfloat16:
-                err = max_err(got, want)
-                ms = device_ms(lambda: conv_ops.causal_conv1d(
-                    x, w, bias, initial_state=st))
-                plain = device_ms(lambda: conv_ref.causal_conv1d_ref(
-                    x, w, bias, st))
-                # library yardstick: cuDNN's depthwise conv on the padded
-                # input in its channels-first layout (no SiLU)
-                xp = torch.cat([st, x], 1).transpose(1, 2).contiguous()
-                wl = w.to(dt)[:, None, :].contiguous()
-                bl = bias.to(dt)
-                lib = device_ms(lambda: F.conv1d(xp, wl, bl, groups=c_))
-                bms, by = bound(nbytes(x, w, bias, st) + nbytes(got[0]),
-                                2.0 * K * b_ * s_ * c_, dt)
-                rows.append(dict(
-                    name="causal_conv1d", route="cuda",
-                    source="src/repro_torch/kernels/csrc/conv1d.cu",
-                    replaces="src/repro/kernels/conv1d/kernel.py:37",
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=lib))
 
     for dt in (torch.bfloat16, torch.float32):
         x = rn(B, S, H, P, dtype=dt)
@@ -330,6 +332,90 @@ def phase_kernels(cfg, gen):
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=None))
     return rows
+
+
+def conv_row(gen, at, c, k):
+    """causal conv1d at (B=4, S=256, ``c``) against its plain version in
+    bf16 and fp32, the new state bit for bit, also with valid lengths
+    0, 1, 2, K-1, 200 and S across six rows; the bf16 row of the kernels
+    line: its time (inputs warm in L2, and once with L2 flushed before
+    each call), with lengths, the plain version's, ``F.conv1d``'s on the
+    padded input in its channels-first layout (no SiLU, no state) and
+    the bound (x, w, b and the old state read once, y and the new state
+    written once)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv1d import ops as conv_ops, ref as conv_ref
+
+    B, S = 4, 256
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    row = None
+    for dt in (torch.bfloat16, torch.float32):
+        x, w, bias = rn(B, S, c, dtype=dt), rn(c, k), rn(c)
+        st = rn(B, k - 1, c, dtype=dt)
+        got = conv_ops.causal_conv1d(x, w, bias, initial_state=st)
+        want = conv_ref.causal_conv1d_ref(x, w, bias, st)
+        check_close(f"conv1d {dt} {(B, S, c)} at {at}", got, want,
+                    TOL["conv1d"][dt])
+        check_equal(f"conv1d {dt} {(B, S, c)} at {at} state", got[1],
+                    want[1])
+        lens = torch.tensor([0, 1, 2, k - 1, 200, S], dtype=torch.int32,
+                            device="cuda")
+        xl, stl = rn(6, S, c, dtype=dt), rn(6, k - 1, c, dtype=dt)
+        gl = conv_ops.causal_conv1d(xl, w, bias, initial_state=stl,
+                                    lengths=lens)
+        wl = conv_ref.causal_conv1d_ref(xl, w, bias, stl, lengths=lens)
+        check_close(f"conv1d {dt} lengths {lens.tolist()} at {at}", gl, wl,
+                    TOL["conv1d"][dt])
+        check_equal(f"conv1d {dt} lengths {lens.tolist()} at {at} state",
+                    gl[1], wl[1])
+        if dt != torch.bfloat16:
+            continue
+        lens4 = lens[[0, 3, 4, 5]]
+        xp = torch.cat([st, x], 1).transpose(1, 2).contiguous()
+        wl_, bl_ = w.to(dt)[:, None, :].contiguous(), bias.to(dt)
+        bms, by = bound(nbytes(x, w, bias, st) + nbytes(*got),
+                        2.0 * k * B * S * c, dt)
+        row = dict(
+            name="causal_conv1d", route="cuda", at=at,
+            source="src/repro_torch/kernels/csrc/conv1d.cu",
+            replaces="src/repro/kernels/conv1d/kernel.py:37",
+            shape=f"B={B} S={S} C={c} K={k}",
+            max_abs_err=max_err(got, want),
+            ms=device_ms(lambda: conv_ops.causal_conv1d(
+                x, w, bias, initial_state=st)),
+            ms_lengths=device_ms(lambda: conv_ops.causal_conv1d(
+                x, w, bias, initial_state=st, lengths=lens4)),
+            cold_l2_ms=device_ms_cold(lambda: conv_ops.causal_conv1d(
+                x, w, bias, initial_state=st)),
+            plain_ms=device_ms(lambda: conv_ref.causal_conv1d_ref(
+                x, w, bias, st)),
+            bound_ms=bms, bound_by=by,
+            library_ms=device_ms(lambda: F.conv1d(xp, wl_, bl_, groups=c)))
+    return row
+
+
+def conv_shapes():
+    """(model, conv channels) of the served Mamba models: d_inner + 2 G N
+    for Mamba-2, d_inner for Mamba-1."""
+    from repro_torch.configs import mamba2_2p7b, mamba_130m, zamba2_2p7b
+    out = []
+    for cfg in (mamba2_2p7b, zamba2_2p7b, mamba_130m):
+        s = cfg.ssm
+        c = s.d_inner(cfg.d_model)
+        if s.variant != "mamba1":
+            c += 2 * s.n_groups * s.d_state
+        out.append((cfg.name, c))
+    return out
+
+
+def check_equal(name, got, want):
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: not bit-equal to the plain version "
+                             f"(max |diff| "
+                             f"{float((got.float() - want.float()).abs().max())})")
 
 
 def check_ssd(name, got, want, dt):
@@ -429,7 +515,7 @@ def phase_mamba1_kernels(cfg, gen):
         flops = 7.0 * b_ * s_ * c_ * N + 3.0 * b_ * s_ * c_
         return bound(nbytes(*args) + nbytes(*out), flops, F32)
 
-    rows = []
+    rows = [conv_row(gen, cfg.name, C, K)]
     for (b_, s_, c_) in ((B, S, C), (3, 200, 1000), (2, 7, C)):
         for dt in (torch.bfloat16, F32):
             args = scan_inputs(b_, s_, c_, dt)
@@ -469,7 +555,9 @@ def phase_mamba1_kernels(cfg, gen):
         del args, got
     long_["shape"] = f"B=1, C={C}, N={N}, bf16"
 
-    for (b_, c_, n_, r_) in ((B, C, N, R), (1, C, N, R), (3, 1000, 8, 6)):
+    b_ms = {}
+    for (b_, c_, n_, r_) in ((B, C, N, R), (1, C, N, R), (16, C, N, R),
+                             (3, 1000, 8, 6)):
         for dt in (torch.bfloat16, F32):
             args = mamba1_decode_inputs(gen, b_, c_, n_, r_, K, dt)
             kw = dict(d_state=n_, dt_rank=r_)
@@ -477,6 +565,9 @@ def phase_mamba1_kernels(cfg, gen):
             want = dec_ref.mamba1_decode_fused_ref(*args, **kw)
             check_close(f"mamba1 decode {dt} {(b_, c_, n_, r_)}", got, want,
                         TOL["decode_fused"][dt])
+            if b_ in (1, 16) and dt == torch.bfloat16:
+                b_ms[f"ms_b{b_}"] = device_ms(
+                    lambda: dec_ops.mamba1_decode_fused(*args, **kw))
             if (b_, c_) == (B, C) and dt == torch.bfloat16:
                 f_ = r_ + 2 * n_
                 # conv, x_proj, dt_proj; per state: exp(A_log), dt*A,
@@ -494,6 +585,7 @@ def phase_mamba1_kernels(cfg, gen):
                     plain_ms=device_ms(lambda: dec_ref.mamba1_decode_fused_ref(
                         *args, **kw)),
                     bound_ms=bms, bound_by=by, library_ms=None, at=cfg.name))
+    rows[-1].update(b_ms)
     return rows, long_
 
 
@@ -809,17 +901,25 @@ def path_kernels(cfg):
     return names
 
 
-def attention_launches(cfg, chunks: int, steps: int) -> dict:
-    """The attention kernels' exact launches in a serving run of ``chunks``
-    prefill chunks and ``steps`` decode token steps: one flash launch per
-    attention layer and chunk (ring layers in ring mode), one decode
-    launch per attention layer and token step."""
+def exact_launches(cfg, chunks: int, steps: int) -> dict:
+    """Every kernel's exact launches in a serving run of ``chunks`` prefill
+    chunks and ``steps`` decode token steps: per layer and chunk one flash
+    launch (ring layers in ring mode), one conv1d and one SSD or scan
+    launch; per layer and token step one decode attention or decode step
+    launch."""
     kinds = cfg.layer_kinds
     n_ring = kinds.count("local")
     n_plain = kinds.count("dense") + kinds.count("mamba2+shared")
+    n_m2 = kinds.count("mamba2") + kinds.count("mamba2+shared")
+    n_m1 = kinds.count("mamba1")
     return {"flash_attention": n_plain * chunks,
             "flash_attention_ring": n_ring * chunks,
-            "decode_attention": (n_plain + n_ring) * steps}
+            "decode_attention": (n_plain + n_ring) * steps,
+            "causal_conv1d": (n_m2 + n_m1) * chunks,
+            "ssd_chunked": n_m2 * chunks,
+            "selective_scan": n_m1 * chunks,
+            "mamba2_decode_fused": n_m2 * steps,
+            "mamba1_decode_fused": n_m1 * steps}
 
 
 def phase_serving(cfg, gen):
@@ -890,11 +990,10 @@ def phase_serving(cfg, gen):
             raise AssertionError(f"{k}: {n} launches on the serving path of "
                                  f"{cfg.name}; its kernels are "
                                  f"{sorted(on_path)}")
-    want = attention_launches(cfg, eng.stats["prefill_chunks"],
-                              token_steps[0])
+    want = exact_launches(cfg, eng.stats["prefill_chunks"], token_steps[0])
     got = {k: launches[k] for k in want}
     if got != want:
-        raise AssertionError(f"{cfg.name}: attention launches {got}, "
+        raise AssertionError(f"{cfg.name}: launches {got}, "
                              f"expected {want} ({eng.stats['prefill_chunks']} "
                              f"chunks, {token_steps[0]} token steps)")
     # steady decode with all 4 slots live: bursts of 8 on the served cache,
@@ -995,8 +1094,11 @@ def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16",
                                        initial_state=initial_state,
                                        out_state=out_state)
 
-    def plain_conv(x, w, b, *, initial_state=None, activation="silu"):
-        return conv_ref.causal_conv1d_ref(x, w, b, initial_state, activation)
+    def plain_conv(x, w, b, *, initial_state=None, activation="silu",
+                   lengths=None, out_state=None):
+        return conv_ref.causal_conv1d_ref(x, w, b, initial_state, activation,
+                                          lengths=lengths,
+                                          out_state=out_state)
 
     def plain_flash(q, k, v, *, causal=True, window=None, q_offset=None,
                     kv_wrap=None, ring_len=None):
@@ -1083,8 +1185,8 @@ def main() -> int:
     # the kernels line: zamba2-2.7b's shapes, the path that runs the five
     # Mamba-2 and attention kernels, mamba-130m's for the Mamba-1 two, and
     # gemma3-1b's serving chunk (bf16) for the ring mode
-    rows = [r for r in rows if r["at"] in (zamba2_2p7b.name,
-                                           mamba_130m.name)]
+    rows = [r for r in rows if r["at"] == zamba2_2p7b.name
+            or (r["at"] == mamba_130m.name and r["name"] != "causal_conv1d")]
     rows.append(dict(ring_rows[0], at=gemma3_1b.name))
 
     launches = {}

@@ -1,7 +1,7 @@
-"""Hold the attention kernels, the SSD scan and the Mamba-2 decode step of
-this checkout against another tree's, on one card: each tree's outputs
-within chip_smoke.py's limits, the largest difference between the trees,
-and their device times.
+"""Hold the attention kernels, the SSD scan, both decode steps and causal
+conv1d of this checkout against another tree's, on one card: each tree's
+outputs within chip_smoke.py's limits, the largest difference between
+the trees, and their device times.
 
     python3 scripts/ab_kernels.py OTHER_TREE [--serving-pairs N]
 
@@ -18,15 +18,20 @@ ring cases in bf16), runs the SSD scan (B=4, S=256) and the Mamba-2
 decode step (B=4) at mamba2-2.7b's and zamba2-2.7b's shapes on inputs at
 the model's scales (this checkout's ``ssd.ref.model_scale_inputs`` and
 ``chip_smoke.mamba2_decode_inputs``, so both trees get inputs drawn by
-the same code) in bf16 and fp32, and saves the outputs, the plain
-versions' outputs and the device times (``chip_smoke.device_ms``).
+the same code) in bf16 and fp32, the Mamba-1 decode step (B=4) at
+mamba-130m's shape on ``chip_smoke.mamba1_decode_inputs`` and causal
+conv1d (B=4, S=256) at the channel counts of ``chip_smoke.conv_shapes``,
+without and (where the tree's wrapper takes them) with ragged valid
+lengths, and saves the outputs, the plain versions' outputs and the
+device times (``chip_smoke.device_ms``).
 An attention kernel's cases are those whose head_dim both trees take.
 Prints one JSON line per case: each run's worst output over chip_smoke's
 limit (1 is the limit: ``row_ratio`` per attention row; for SSD the worst
 of y's and the state's whole-tensor limits and y's per-row limit; for the
-decode step the worst output's whole-tensor limit), the largest
-difference between any two runs, and each run's time.  Then each child
-serves mamba2-2.7b and zamba2-2.7b as phase 4 of chip_smoke.py does
+decode steps the worst output's whole-tensor limit; for conv1d y's limit
+and the new state's bit-equality), the largest difference between any
+two runs, and each run's time.  Then each child serves mamba2-2.7b,
+zamba2-2.7b and mamba-130m as phase 4 of chip_smoke.py does
 (``chip_smoke.phase_serving``: full width and depth, 4 ragged requests,
 the profiled decode burst and prefill chunk), and one JSON line per model
 gives each run's TTFTs, decode rate, and the burst's and the chunk's
@@ -81,6 +86,7 @@ def cases(cs, torch, flash_ops, dec_ops):
                 return runs
             out.append((f"{label} {str(dt)[6:]}", ("attention", dt), make))
     out += mamba2_cases(cs, torch)
+    out += mamba1_and_conv_cases(cs, torch)
     r = cs.RING
     b, h, kvh, d, w = r["B"], r["H"], r["KVH"], r["d"], r["window"]
     for label, ring_len, sq, wraps in cs.ring_cases():
@@ -154,6 +160,60 @@ def mamba2_cases(cs, torch):
     return out
 
 
+def mamba1_and_conv_cases(cs, torch):
+    """The Mamba-1 decode step at mamba-130m's shape (B=4, inputs at the
+    model's scales) and causal conv1d (B=4, S=256) at the channel counts
+    of ``chip_smoke.conv_shapes``, without and, where the tree's wrapper
+    takes them, with ragged valid lengths (256, 200, 3, 0)."""
+    import inspect
+
+    from repro_torch.configs import mamba_130m
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.kernels.conv1d import ref as conv_ref
+    from repro_torch.kernels.decode_fused import ops as dec_ops
+    from repro_torch.kernels.decode_fused import ref as dec_ref
+    from repro_torch.models.mamba1 import dt_rank
+
+    out = []
+    s = mamba_130m.ssm
+    c, n, k = s.d_inner(mamba_130m.d_model), s.d_state, s.conv_kernel
+    r = dt_rank(mamba_130m.d_model, s)
+    for dt in (torch.bfloat16, torch.float32):
+        def make(gen, dt=dt):
+            args = cs.mamba1_decode_inputs(gen, 4, c, n, r, k, dt)
+            kw = dict(d_state=n, dt_rank=r)
+            return {"mamba1_decode": (
+                lambda: dec_ops.mamba1_decode_fused(*args, **kw),
+                lambda: dec_ref.mamba1_decode_fused_ref(*args, **kw))}
+        out.append((f"{mamba_130m.name} {str(dt)[6:]}", ("mamba1", dt),
+                    make))
+    takes_lengths = "lengths" in inspect.signature(
+        conv_ops.causal_conv1d).parameters
+    for label, cc in cs.conv_shapes():
+        for dt in (torch.bfloat16, torch.float32):
+            def make(gen, cc=cc, dt=dt):
+                def rn(*shape, dtype=torch.float32):
+                    return torch.randn(shape, generator=gen,
+                                       device="cuda").to(dtype)
+                x, w, b = rn(4, 256, cc, dtype=dt), rn(cc, 4), rn(cc)
+                st = rn(4, 3, cc, dtype=dt)
+                lens = torch.tensor([256, 200, 3, 0], dtype=torch.int32,
+                                    device="cuda")
+                runs = {"conv1d": (
+                    lambda: conv_ops.causal_conv1d(x, w, b,
+                                                   initial_state=st),
+                    lambda: conv_ref.causal_conv1d_ref(x, w, b, st))}
+                if takes_lengths:
+                    runs["conv1d lengths"] = (
+                        lambda: conv_ops.causal_conv1d(
+                            x, w, b, initial_state=st, lengths=lens),
+                        lambda: conv_ref.causal_conv1d_ref(
+                            x, w, b, st, lengths=lens))
+                return runs
+            out.append((f"{label} {str(dt)[6:]}", ("conv1d", dt), make))
+    return out
+
+
 def this_ssd_ref():
     """This checkout's ``repro_torch/kernels/ssd/ref.py`` (plain torch, no
     imports from the package), loaded by its path whichever tree is on
@@ -174,10 +234,19 @@ def worst_of_limit(cs, kernel: str, dt, got, want) -> float:
         return max(cs.whole_ratio(got[0], want[0], tol),
                    cs.whole_ratio(got[1], want[1], tol),
                    cs.row_ratio(got[0], want[0], tol))
-    if kernel == "mamba2_decode":
+    if kernel in ("mamba2_decode", "mamba1_decode"):
         tol = cs.TOL["decode_fused"][dt]
         return max(cs.whole_ratio(g, w, tol) for g, w in zip(got, want))
+    if kernel.startswith("conv1d"):
+        # y within the limit, the new state bit for bit (a copy)
+        return max(cs.whole_ratio(got[0], want[0], cs.TOL["conv1d"][dt]),
+                   0.0 if torch_equal(got[1], want[1]) else float("inf"))
     return cs.row_ratio(got[0], want[0], cs.TOL["attention"][dt])
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return torch.equal(a, b)
 
 
 def child(out_path: str, serving_only: bool) -> int:
@@ -200,9 +269,9 @@ def child(out_path: str, serving_only: bool) -> int:
                 o=[t.cpu() for t in got], ms=cs.device_ms(fn),
                 worst_of_limit=worst_of_limit(cs, name, dt, got, want))
     serving = {}
-    from repro_torch.configs import mamba2_2p7b, zamba2_2p7b
+    from repro_torch.configs import mamba2_2p7b, mamba_130m, zamba2_2p7b
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for cfg in (mamba2_2p7b, zamba2_2p7b):
+    for cfg in (mamba2_2p7b, zamba2_2p7b, mamba_130m):
         res, _ = cs.phase_serving(cfg, gen)
         torch.cuda.empty_cache()
         serving[cfg.name] = {k: res[k] for k in (
@@ -240,17 +309,21 @@ def main(other: str) -> int:
             results.append((name, run_tree(tree, os.path.join(
                 tmp, f"{i}.pt"))))
     failed = False
-    for key in results[0][1]["kernels"]:
-        runs = [r["kernels"][key] for _, r in results]
-        ratios = [r["worst_of_limit"] for r in runs]
+    keys = dict.fromkeys(k for _, r in results for k in r["kernels"])
+    for key in keys:
+        # a case one tree does not take (a head dim, conv1d's lengths)
+        # is held against the runs that have it
+        have = [(name, r["kernels"][key]) for name, r in results
+                if key in r["kernels"]]
+        ratios = [r["worst_of_limit"] for _, r in have]
         failed |= not all(x <= 1.0 for x in ratios)
         diff = max(float((x.float() - y.float()).abs().max())
-                   for a in runs for b in runs
+                   for _, a in have for _, b in have
                    for x, y in zip(a["o"], b["o"]))
         print(json.dumps({"case": key, "worst_of_limit": [
-            [name, x] for (name, _), x in zip(results, ratios)],
+            [name, x] for (name, _), x in zip(have, ratios)],
             "max_abs_diff_between_runs": diff,
-            "ms": [[name, r["kernels"][key]["ms"]] for name, r in results]}))
+            "ms": [[name, r["ms"]] for name, r in have]}))
     for model in results[0][1]["serving"]:
         print(json.dumps({"serving": model, "runs": [
             [name, r["serving"][model]] for name, r in results]}))
@@ -283,6 +356,10 @@ def main_serving(other: str, pairs: int) -> int:
                 "burst_memcpys": sorted({r["profiled_decode_burst8_b4"][
                     "memcpys"] for r in res}),
                 "burst_kernels": sorted({r["profiled_decode_burst8_b4"][
+                    "kernels"] for r in res}),
+                "chunk_memcpys": sorted({r["profiled_prefill_chunk_b4_s256"][
+                    "memcpys"] for r in res}),
+                "chunk_kernels": sorted({r["profiled_prefill_chunk_b4_s256"][
                     "kernels"] for r in res})}))
     return 0
 

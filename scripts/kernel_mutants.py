@@ -1,11 +1,11 @@
 """Show that chip_smoke.py's kernel checks catch planted faults that the
 checks they replaced let through.
 
-    python3 scripts/kernel_mutants.py
+    python3 scripts/kernel_mutants.py [MUTANT ...]
 
 Needs an NVIDIA card and ``nvcc``.  For the unchanged sources and for each
-mutant below, it copies ``src/repro_torch`` into ``build/mutants/<name>/``
-(listed in .gitignore), applies the mutant's edit to one kernel source
+mutant below (or each one named), it copies ``src/repro_torch`` into
+``build/mutants/<name>/`` (listed in .gitignore), applies the mutant's edit to one kernel source
 there, and in a child process builds that copy and runs the check of the
 mutant's kernel (every check for the unchanged sources):
 
@@ -18,11 +18,16 @@ mutant's kernel (every check for the unchanged sources):
   (``chip_smoke.LOCAL_DECODE``).  ``ratio`` is the per-row check that
   chip_smoke.py applies (``row_ratio``), ``old_ratio`` the whole-tensor
   check it replaced (``whole_ratio``: 2e-2 of max(1, max |o|) in bf16).
-- ``mamba1_decode``: the fused Mamba-1 decode step against its plain
-  version at mamba-130m's shapes (B=4).  ``ratio`` is chip_smoke.py's
-  check on inputs at the model's scales (``mamba1_decode_inputs``),
-  ``old_ratio`` the same limit on the unscaled normal draws it replaced,
-  where dt is ~0 or ~100s; both the worst output's ``whole_ratio``.
+- ``mamba1_decode``: the fused Mamba-1 decode step (one thread block
+  cluster per batch row) against its plain version at mamba-130m's
+  shapes (B=4).  ``ratio`` is chip_smoke.py's check on inputs at the
+  model's scales (``mamba1_decode_inputs``), ``old_ratio`` the same limit
+  on the unscaled normal draws it replaced, where dt is ~0 or ~100s;
+  both the worst output's ``whole_ratio``.
+- ``conv1d``: causal conv1d against its plain version at the channel
+  counts of mamba2-2.7b, zamba2-2.7b and mamba-130m (B=4, S=256), and
+  with ragged valid lengths: ``ratio`` the worst of y's limit and the
+  new state's bit-equality, ``old_ratio`` y's limit alone.
 - ``ring``: the flash kernel's ring mode against its plain version on
   every case of ``chip_smoke.ring_cases`` (gemma3-1b's shapes).
   ``ratio`` is chip_smoke.py's per-row check, ``old_ratio`` the
@@ -84,16 +89,35 @@ MUTANTS = {
         "decode: the in-kernel merge leaves out the last live split"),
     "mamba1_drop_carry": (
         "mamba1_decode", "mamba1_decode.cu",
-        "const float hn = __fadd_rn(__fmul_rn(ssm[idx], da),",
+        "const float hn = __fadd_rn(__fmul_rn(hs[i * N + n], da),",
         "const float hn = __fadd_rn(0.0f * da,",
         "Mamba-1 decode: the new state drops h * exp(dt * A), "
         "h' = dt * x * B"),
     "mamba1_odd_readout": (
         "mamba1_decode", "mamba1_decode.cu",
-        "y[(size_t)b * di + c] = __fadd_rn(v, __fmul_rn(xs[c], Dv[c]));",
-        "y[(size_t)b * di + c] = __fadd_rn((c & 1) ? 0.0f : v, "
-        "__fmul_rn(xs[c], Dv[c]));",
+        "y[(size_t)b * di + c0 + s0 + i] = __fadd_rn(v[it], xd[s0 + i]);",
+        "y[(size_t)b * di + c0 + s0 + i] = __fadd_rn(((c0 + s0 + i) & 1) ? "
+        "0.0f : v[it], xd[s0 + i]);",
         "Mamba-1 decode: odd channels lose C . h' from y"),
+    "mamba1_cluster_drops_last_partial": (
+        "mamba1_decode", "mamba1_decode.cu",
+        "    for (int q = 0; q < kCluster; ++q) s += parts[q * F + f];\n",
+        "    for (int q = 0; q < kCluster - 1; ++q) s += parts[q * F + f];\n",
+        "Mamba-1 decode: the rank-order sum of the x_proj partials leaves "
+        "out the last block's"),
+    "conv1d_drop_halo": (
+        "conv1d", "conv1d.cu",
+        "  // the new state: rows len .. len + K - 2 of [init; x], copied as "
+        "they are\n",
+        "  if (blockIdx.y > 0) win[K - 2] = Vec<T, V>{};\n"
+        "  // the new state: rows len .. len + K - 2 of [init; x], copied as "
+        "they are\n",
+        "conv1d: a sequence tile's first row ignores the previous tile's "
+        "last input"),
+    "conv1d_state_off_by_one": (
+        "conv1d", "conv1d.cu", "      const int j = len + k;\n",
+        "      const int j = min(len + k + 1, S + K - 2);\n",
+        "conv1d: the new state starts at row len + 1 of [init; x]"),
     "ring_signed_mod": (
         "ring", "flash.cu", "  return r < 0 ? r + m : r;\n",
         "  return r;\n",
@@ -213,6 +237,42 @@ def mamba1_decode_readings(cs, torch, gen) -> dict:
     return out
 
 
+def conv1d_readings(cs, torch, gen) -> dict:
+    """causal conv1d at B=4, S=256 and the channel counts of
+    ``chip_smoke.conv_shapes``, and on six rows with valid lengths 0, 1,
+    2, K-1, 200 and S: ``ratio`` the worst of y's whole-tensor limit and
+    the new state's bit-equality (0 if equal, else inf), ``old_ratio``
+    y's limit alone without lengths."""
+    from repro_torch.kernels.conv1d import ops, ref
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    out = {}
+    for label, c in cs.conv_shapes():
+        for dt in (torch.bfloat16, torch.float32):
+            tol = cs.TOL["conv1d"][dt]
+            w, b = rn(c, 4), rn(c)
+            x, st = rn(4, 256, c, dtype=dt), rn(4, 3, c, dtype=dt)
+            lens = torch.tensor([0, 1, 2, 3, 200, 256], dtype=torch.int32,
+                                device="cuda")
+            xl, stl = rn(6, 256, c, dtype=dt), rn(6, 3, c, dtype=dt)
+            ratios = []
+            for args, kw in (((x, w, b), dict(initial_state=st)),
+                             ((xl, w, b), dict(initial_state=stl,
+                                               lengths=lens))):
+                (y, s_), (wy, ws) = (ops.causal_conv1d(*args, **kw),
+                                     ref.causal_conv1d_ref(*args, **kw))
+                ratios.append((cs.whole_ratio(y, wy, tol),
+                               0.0 if torch.equal(s_, ws) else float("inf"),
+                               float((y.float() - wy.float()).abs().max())))
+            out[f"conv1d {label} {str(dt)[6:]}"] = dict(
+                ratio=max(max(r[:2]) for r in ratios),
+                old_ratio=ratios[0][0],
+                max_abs_err=max(r[2] for r in ratios))
+    return out
+
+
 def ring_readings(cs, torch, gen) -> dict:
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash import ref as flash_ref
@@ -318,6 +378,7 @@ def mamba2_decode_readings(cs, torch, gen) -> dict:
 
 CHECKS = {"attention": attention_readings,
           "mamba1_decode": mamba1_decode_readings,
+          "conv1d": conv1d_readings,
           "ring": ring_readings,
           "ssd": ssd_readings,
           "mamba2_decode": mamba2_decode_readings}
@@ -369,9 +430,14 @@ def run_one(name: str, mutant) -> dict:
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
-def main() -> int:
+def main(names) -> int:
+    unknown = set(names) - set(MUTANTS)
+    if unknown:
+        sys.exit(f"no such mutant: {sorted(unknown)}")
     failed = []
     for name, mutant in MUTANTS.items():
+        if names and mutant is not None and name not in names:
+            continue
         readings = run_one(name, mutant)
         what = "no edit" if mutant is None else mutant[4]
         print(f"{name} ({what}): {json.dumps(readings)}", flush=True)
@@ -390,4 +456,4 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(child(sys.argv[2:]) if sys.argv[1:2] == ["--child"]
-             else main())
+             else main(sys.argv[1:]))

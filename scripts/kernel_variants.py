@@ -1,15 +1,19 @@
-"""Time variants of the flash kernel's, the SSD scan's or the Mamba-2
-decode step's source against each other on one card.
+"""Time variants of the flash kernel's, the SSD scan's, the Mamba-2 or
+Mamba-1 decode step's or causal conv1d's source against each other on
+one card.
 
-    python3 scripts/kernel_variants.py SET [--micro]
+    python3 scripts/kernel_variants.py SET [--micro] [--tree TREE]
 
 SET names a set in ``SETS`` below, or a JSON file of the same form:
 ``{"variant": [["file in csrc/", "text", "replacement"], ...], ...}`` (a
 path such as ``../ssd/ops.py`` reaches a wrapper beside ``csrc/``); a
 variant with no edits is the source as it stands. Needs an NVIDIA card
-and ``nvcc``. Each variant is a copy of ``src/repro_torch`` under
-``build/variants/<name>/`` (listed in .gitignore) with its edits
-applied, so the repository's sources are never edited; a child process
+and ``nvcc``. Each variant is a copy of ``src/repro_torch`` (of TREE, the
+root of another checkout, where ``--tree`` names one: a set whose edits
+are to an earlier source) under ``build/variants/<name>/`` (listed in
+.gitignore) with its edits applied, so the repository's sources are
+never edited; the second pass reuses the first's copies and builds; a
+child process
 builds it and times the flash kernel (``chip_smoke.device_ms``) at the
 bf16 shapes of ``chip_smoke.attention_cases`` and
 ``chip_smoke.ring_cases``, or with ``--micro`` at one compute-bound
@@ -20,7 +24,12 @@ mamba2-2.7b's and zamba2-2.7b's shapes (B=4) on 2 chunks of phase 3's
 draws and on 16 chunks at the model's scales (``chip_smoke.check_ssd``'s
 limits); one whose name starts with ``mamba2_decode`` the Mamba-2 decode
 step at both models' shapes, bf16 and fp32, on
-``chip_smoke.mamba2_decode_inputs``. Each variant's kernels that ptxas
+``chip_smoke.mamba2_decode_inputs``; one that starts with
+``mamba1_decode`` the Mamba-1 decode step at mamba-130m's shape, bf16,
+B=4, B=1 and B=16, on ``chip_smoke.mamba1_decode_inputs``; one that starts
+with ``conv1d`` causal conv1d in bf16 at B=4, S=256 and the channel
+counts of ``chip_smoke.conv_shapes``, without and (where the wrapper
+takes them) with ragged lengths. Each variant's kernels that ptxas
 reports spilling are printed. The variants run in turn, then again in
 reverse order; each case prints every variant's two times and its worst
 ratio to the check's limit (1 is the limit). An output past the limit
@@ -36,6 +45,19 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join("repro_torch", "kernels", "csrc")
+
+# conv1d's launch rule, which the conv1d_design variants replace
+_RULE = ("  const int rows = threads(v, 16) >= kFill ? 16 : 8;\n"
+         "  while (v > 1 && threads(v, rows) < kFill) v /= 2;\n")
+
+# the Mamba-1 step with one cluster per batch row, each block updating
+# its whole tile's state (the shared-memory bound is then the widest
+# tile's in bf16 only)
+_M1_ONE_CLUSTER = [
+    ["mamba1_decode.cu", "constexpr int kHalves = 2;",
+     "constexpr int kHalves = 1;"],
+    ["mamba1_decode.cu", "static_assert(Layout(",
+     "static_assert(kHalves == 1 || Layout("]]
 
 SETS = {
     # K/V pipeline depth of the d=128 instance
@@ -152,7 +174,216 @@ SETS = {
         "in the conv loop": [["decode_fused.cu", "    for (int k = 0; k < kMaxK; ++k) {\n      if (k < K) {\n        const float v = k < K - 1 ? repro::to_f32(conv_b[(size_t)k * C + c])\n                                  : repro::to_f32(xt);\n        acc = __fadd_rn(acc, __fmul_rn(v, w[c * K + k]));\n      }\n    }\n", "    for (int k = 0; k < kMaxK; ++k) {\n      if (k < K) {\n        const T raw = k < K - 1 ? conv_b[(size_t)k * C + c] : xt;\n        acc = __fadd_rn(acc, __fmul_rn(repro::to_f32(raw), w[c * K + k]));\n        if (write_window && k > 0) nconv_b[(size_t)(k - 1) * C + c] = raw;\n      }\n    }\n"],
                              ["decode_fused.cu", "    if (write_window) {\n      for (int k = 0; k < K - 2; ++k)\n        nconv_b[(size_t)k * C + c] = conv_b[(size_t)(k + 1) * C + c];\n      nconv_b[(size_t)(K - 2) * C + c] = xt;\n    }\n", ""]],
     },
+    # the Mamba-1 decode step before its cluster design (one block per
+    # 128-channel tile and batch row, each rerunning the conv for every
+    # channel and the whole x_proj product): what each phase costs.  Its
+    # edits are to that earlier source, so run it with --tree on a
+    # checkout of the commit before the cluster design.
+    "mamba1_decode_breakdown_tiled": {
+        "as is": [],
+        "conv for the tile's channels only": [
+            ["mamba1_decode.cu",
+             "  for (int c = tid; c < di; c += kThreads) {\n"
+             "    const T xt = xit[(size_t)b * di + c];",
+             "  for (int c = c0 + tid; c < min(di, c0 + kTile); "
+             "c += kThreads) {\n"
+             "    const T xt = xit[(size_t)b * di + c];"]],
+        "no x_proj product": [
+            ["mamba1_decode.cu", "  if (tid < R * V) {\n",
+             "  if (false) {\n"]],
+        "no state phase": [
+            ["mamba1_decode.cu",
+             "    if (c < di) {                        // the same for the N "
+             "lanes\n",
+             "    if (false) {\n"]],
+    },
+    # the redesigned step (8-block clusters, two per batch row, each
+    # updating half of every tile's state): one phase cut, the floors (the
+    # launch, a cluster barrier, the staged bytes), and cumulatively,
+    # returning after one more phase
+    "mamba1_decode_breakdown": {
+        "as is": [],
+        "no x_proj product": [
+            ["mamba1_decode.cu", "      for (int i = r0; i < nc; i += R) {",
+             "      for (int i = r0; i < 0; i += R) {"]],
+        "no exchange between blocks (own partial only)": [
+            ["mamba1_decode.cu",
+             "        cluster.map_shared_rank(parts, q)[rank * F + f] = s;",
+             "        parts[q * F + f] = s;"]],
+        "no state phase": [
+            ["mamba1_decode.cu",
+             "    if (i < ns) {                        // the same for the "
+             "N lanes\n",
+             "    if (false) {\n"]],
+        "no exponentials in the state update": [
+            ["mamba1_decode.cu",
+             "      const float a = -expf(als[i * N + n]);\n"
+             "      const float da = expf(dt * a);\n",
+             "      const float da = dt * als[i * N + n];\n"]],
+        "no staging": [
+            ["mamba1_decode.cu",
+             "  stage(xps, 0, xp + (size_t)c0 * F, 0, 1, nc * F, tid);\n", ""],
+            ["mamba1_decode.cu",
+             "  stage(hs, 0, ssm + ((size_t)b * di + c0 + s0) * N, 0, 1, "
+             "ns * N, tid);\n  stage(als, 0, A_log + (size_t)(c0 + s0) * N, "
+             "0, 1, ns * N, tid);\n  stage(dps, ts, dtp + c0 + s0, di, dtr, "
+             "ns, tid);\n", ""]],
+        "one cluster per batch row (no state halves)": _M1_ONE_CLUSTER,
+        "launch only (returns at once)": [
+            ["mamba1_decode.cu", "  const int tid = threadIdx.x;\n",
+             "  const int tid = threadIdx.x;\n  if (di > 0) return;\n"]],
+        "one cluster barrier only": [
+            ["mamba1_decode.cu", "  const int tid = threadIdx.x;\n",
+             "  const int tid = threadIdx.x;\n"
+             "  if (di > 0) { cluster.sync(); return; }\n"]],
+        "up to the conv step and the staging": [
+            ["mamba1_decode.cu",
+             "  repro::cp_async_wait<1>();\n  __syncthreads();\n",
+             "  if (di > 0) { repro::cp_async_wait<0>(); return; }\n"
+             "  repro::cp_async_wait<1>();\n  __syncthreads();\n"]],
+        "up to the exchange": [
+            ["mamba1_decode.cu",
+             "    proj[f] = repro::to_f32(repro::from_f32<T>(s));\n  }\n",
+             "    proj[f] = repro::to_f32(repro::from_f32<T>(s));\n  }\n"
+             "  if (di > 0) { repro::cp_async_wait<0>(); return; }\n"]],
+        "up to dt": [
+            ["mamba1_decode.cu",
+             "      dts[tid] = repro::softplus(s + dtb);\n    }\n"
+             "    __syncthreads();\n  }\n",
+             "      dts[tid] = repro::softplus(s + dtb);\n    }\n"
+             "    __syncthreads();\n  }\n"
+             "  if (di > 0) return;\n"]],
+    },
+    # the Mamba-1 step's exchange and layout: the partials pushed into
+    # every block before one barrier (as is) against each block pulling
+    # the others' after it, with a second barrier before exit; and one
+    # cluster per batch row against two (also at B=16, two waves)
+    "mamba1_decode_exchange": {
+        "push, one barrier (as is)": [],
+        "pull, a second barrier before exit": [
+            ["mamba1_decode.cu",
+             "#pragma unroll\n      for (int q = 0; q < kCluster; ++q)\n"
+             "        cluster.map_shared_rank(parts, q)[rank * F + f] = s;",
+             "      parts[rank * F + f] = s;"],
+            ["mamba1_decode.cu",
+             "    for (int q = 0; q < kCluster; ++q) s += parts[q * F + f];",
+             "    for (int q = 0; q < kCluster; ++q)\n"
+             "      s += cluster.map_shared_rank(parts, q)[q * F + f];"],
+            ["mamba1_decode.cu",
+             "    proj[f] = repro::to_f32(repro::from_f32<T>(s));\n  }\n",
+             "    proj[f] = repro::to_f32(repro::from_f32<T>(s));\n  }\n"
+             "  cluster.sync();\n"]],
+        "one cluster per batch row (no state halves)": _M1_ONE_CLUSTER,
+    },
+    # causal conv1d: the launch rule's (vector, rows) against fixed ones,
+    # one channel a thread, the floors (its loads and stores alone, its
+    # arithmetic alone with the window made up from the row and channel
+    # indices), SiLU with the IEEE division, and the taps read from
+    # memory instead of staged in shared memory
+    "conv1d_design": {
+        "the launch rule (as is)": [],
+        "16-byte vectors, 8 rows": [
+            ["conv1d.cu", _RULE, "  const int rows = 8;\n"]],
+        "16-byte vectors, 16 rows": [
+            ["conv1d.cu", _RULE, "  const int rows = 16;\n"]],
+        "8-byte vectors, 16 rows": [
+            ["conv1d.cu", _RULE,
+             "  const int rows = 16;\n  v = v > 1 ? v / 2 : 1;\n"]],
+        "8-byte vectors, 8 rows": [
+            ["conv1d.cu", _RULE,
+             "  const int rows = 8;\n  v = v > 1 ? v / 2 : 1;\n"]],
+        "one channel a thread, 8 rows": [
+            ["conv1d.cu", _RULE, "  const int rows = 8;\n  v = 1;\n"]],
+        "loads and stores only (y = x)": [
+            ["conv1d.cu", "        res[e] = silu(acc);",
+             "        res[e] = win[r + K - 1].get(e);"]],
+        "arithmetic only (no window loads)": [
+            ["conv1d.cu",
+             "      else if (r < S) win[i].load(xb + (size_t)r * C);",
+             "      else if (r < S) {\n"
+             "        for (int q = 0; q < Vec<T, V>::kWords; ++q)\n"
+             "          win[i].u[q] = (unsigned)(r * 40503 + c * 7 + q) & "
+             "0x3fff3fffu;\n      }"]],
+        "SiLU with the IEEE division": [
+            ["conv1d.cu", "        res[e] = silu(acc);",
+             "        res[e] = repro::silu(acc);"]],
+        "taps read from memory": [
+            ["conv1d.cu",
+             "    for (int i = 0; i < K; ++i) wk[e][i] = ws[i][padded(tid * V "
+             "+ e)];\n    bc[e] = ws[K][padded(tid * V + e)];",
+             "    for (int i = 0; i < K; ++i) wk[e][i] = w[(size_t)(c + e) * K "
+             "+ i];\n    bc[e] = bias[c + e];"]],
+    },
 }
+
+
+def m1_child() -> int:
+    """The Mamba-1 decode step's check (chip_smoke's limit on inputs at
+    the model's scales, worst output) and its time at mamba-130m's shape,
+    bf16, B=4, B=1 and B=16."""
+    import torch
+
+    sys.path.insert(1, ROOT)
+    import chip_smoke as cs
+    from repro_torch.configs import mamba_130m as cfg
+    from repro_torch.kernels.decode_fused import ops, ref
+    from repro_torch.models.mamba1 import dt_rank
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    s = cfg.ssm
+    c, n, k, r = s.d_inner(cfg.d_model), s.d_state, s.conv_kernel, \
+        dt_rank(cfg.d_model, s)
+    kw = dict(d_state=n, dt_rank=r)
+    out = {}
+    for b in (4, 1, 16):
+        args = cs.mamba1_decode_inputs(gen, b, c, n, r, k, torch.bfloat16)
+        tol = cs.TOL["decode_fused"][torch.bfloat16]
+        got = ops.mamba1_decode_fused(*args, **kw)
+        want = ref.mamba1_decode_fused_ref(*args, **kw)
+        out[f"mamba1_decode {cfg.name} B={b} bfloat16"] = (
+            max(cs.whole_ratio(x, y, tol) for x, y in zip(got, want)),
+            cs.device_ms(lambda: ops.mamba1_decode_fused(*args, **kw)))
+    print(json.dumps(out))
+    return 0
+
+
+def conv_child() -> int:
+    """causal conv1d's check (chip_smoke's limit, worst output) and its
+    time in bf16 at B=4, S=256 and the channel counts of mamba2-2.7b,
+    zamba2-2.7b and mamba-130m; with ragged ``lengths`` too where the
+    wrapper takes them."""
+    import inspect
+
+    import torch
+
+    sys.path.insert(1, ROOT)
+    import chip_smoke as cs
+    from repro_torch.kernels.conv1d import ops, ref
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    takes_lengths = "lengths" in inspect.signature(
+        ops.causal_conv1d).parameters
+    out = {}
+    for label, c in cs.conv_shapes():
+        x = torch.randn((4, 256, c), generator=gen, device="cuda").to(bf16)
+        w = torch.randn((c, 4), generator=gen, device="cuda")
+        b = torch.randn((c,), generator=gen, device="cuda")
+        st = torch.randn((4, 3, c), generator=gen, device="cuda").to(bf16)
+        tol = cs.TOL["conv1d"][bf16]
+        calls = {"": {}}
+        if takes_lengths:
+            calls[" lengths"] = dict(lengths=torch.tensor(
+                [256, 200, 2, 0], dtype=torch.int32, device="cuda"))
+        for tag, kw in calls.items():
+            got = ops.causal_conv1d(x, w, b, initial_state=st, **kw)
+            want = ref.causal_conv1d_ref(x, w, b, st, **kw)
+            out[f"conv1d {label}{tag}"] = (
+                max(cs.whole_ratio(g, v, tol) for g, v in zip(got, want)),
+                cs.device_ms(lambda: ops.causal_conv1d(
+                    x, w, b, initial_state=st, **kw)))
+    print(json.dumps(out))
+    return 0
 
 
 def decode_child() -> int:
@@ -279,24 +510,29 @@ def child(micro: bool) -> int:
     return 0
 
 
-def run_variant(name: str, edits, micro: bool, kind: str):
-    base = os.path.join(ROOT, "build", "variants", name.replace(" ", "_"))
-    shutil.rmtree(base, ignore_errors=True)
-    shutil.copytree(os.path.join(ROOT, "src", "repro_torch"),
-                    os.path.join(base, "src", "repro_torch"),
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    for src, old, new in edits:
-        path = os.path.join(base, "src", CSRC, src)
-        with open(path) as f:
-            text = f.read()
-        if text.count(old) != 1:
-            raise RuntimeError(f"{name}: the text to replace is not found "
-                               f"exactly once in {src}")
-        with open(path, "w") as f:
-            f.write(text.replace(old, new))
+def run_variant(name: str, edits, micro: bool, kind: str, tree: str,
+                fresh: bool):
+    """Copy ``tree``'s package with ``name``'s edits (``fresh``; else the
+    copy and its build from the first pass are reused) and time it."""
+    base = os.path.join(ROOT, "build", "variants",
+                        "".join(ch if ch.isalnum() else "_" for ch in name))
+    if fresh:
+        shutil.rmtree(base, ignore_errors=True)
+        shutil.copytree(os.path.join(tree, "src", "repro_torch"),
+                        os.path.join(base, "src", "repro_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        for src, old, new in edits:
+            path = os.path.join(base, "src", CSRC, src)
+            with open(path) as f:
+                text = f.read()
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: the text to replace is not "
+                                   f"found exactly once in {src}")
+            with open(path, "w") as f:
+                f.write(text.replace(old, new))
     env = dict(os.environ, PYTHONPATH=os.path.join(base, "src"))
-    flag = {"ssd": ["--ssd"], "decode": ["--decode"]}.get(
-        kind, ["--micro"] if micro else [])
+    flag = {"ssd": ["--ssd"], "decode": ["--decode"], "m1": ["--m1"],
+            "conv": ["--conv"]}.get(kind, ["--micro"] if micro else [])
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
                           "--child"] + flag, env=env, capture_output=True,
                          text=True, timeout=900)
@@ -319,7 +555,7 @@ def spills(base: str):
     return out
 
 
-def main(spec: str, micro: bool) -> int:
+def main(spec: str, micro: bool, tree: str) -> int:
     if spec in SETS:
         variants = SETS[spec]
     else:
@@ -327,10 +563,13 @@ def main(spec: str, micro: bool) -> int:
             variants = json.load(f)
     names = list(variants)
     kind = ("ssd" if spec.startswith("ssd") else
-            "decode" if spec.startswith("mamba2_decode") else "flash")
+            "decode" if spec.startswith("mamba2_decode") else
+            "m1" if spec.startswith("mamba1_decode") else
+            "conv" if spec.startswith("conv1d") else "flash")
     times, ratios = {}, {}
     for i, name in enumerate(names + names[::-1]):
-        res, spilled = run_variant(name, variants[name], micro, kind)
+        res, spilled = run_variant(name, variants[name], micro, kind, tree,
+                                   fresh=i < len(names))
         if i < len(names):
             print(json.dumps({"variant": name, "spills": spilled}))
         for key, (ratio, ms) in res.items():
@@ -348,12 +587,17 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     micro = "--micro" in args
     args = [a for a in args if a != "--micro"]
-    if args == ["--child", "--ssd"]:
-        sys.exit(ssd_child())
-    if args == ["--child", "--decode"]:
-        sys.exit(decode_child())
+    tree = ROOT
+    if "--tree" in args:
+        i = args.index("--tree")
+        tree = os.path.abspath(args[i + 1])
+        del args[i:i + 2]
+    children = {"--ssd": ssd_child, "--decode": decode_child,
+                "--m1": m1_child, "--conv": conv_child}
+    if args[:1] == ["--child"] and args[1:] and args[1] in children:
+        sys.exit(children[args[1]]())
     if args == ["--child"]:
         sys.exit(child(micro))
     if len(args) != 1:
         sys.exit(__doc__)
-    sys.exit(main(args[0], micro))
+    sys.exit(main(args[0], micro, tree))

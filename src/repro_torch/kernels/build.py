@@ -31,7 +31,7 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # sizes and dtype codes as int, strides as long long).  Each returns
 # cudaGetLastError().
 SIGNATURES: Dict[str, Tuple] = {
-    "repro_conv1d_fwd": (P, P, P, P, P, I, I, I, I, I, P),
+    "repro_conv1d_fwd": (P, P, P, P, P, P, P, I, I, I, I, I, P),
     "repro_ssd_fwd": (P, P, P, P, P, P, P, P, P,
                       I, I, I, I, I, I, I, I, P),
     "repro_mamba2_decode_fwd": (P, P, P, P, P, P, P, P, P, P, P, P,
@@ -125,6 +125,42 @@ def dtype_code(dtype) -> int:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the memory spans of ``a`` and ``b`` meet."""
+    if a.numel() == 0 or b.numel() == 0:
+        return False
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a0 < b0 + _span(b) * b.element_size()
+            and b0 < a0 + _span(a) * a.element_size())
+
+
+def _span(t: torch.Tensor) -> int:
+    """Elements from ``t``'s first to one past its last."""
+    if t.is_contiguous():
+        return t.numel()
+    return 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+
+
+def destination(out, like: torch.Tensor, name: str, inputs=(),
+                align: int = 16) -> torch.Tensor:
+    """``out`` checked as a destination a kernel may write (contiguous,
+    ``align``-byte aligned, ``like``'s shape, type and device, apart from
+    every tensor of ``inputs``: those a kernel could read after another
+    of its blocks wrote the destination), or a new tensor like ``like``
+    when None."""
+    if out is None:
+        return torch.empty_like(like)
+    if (out.shape != like.shape or out.dtype != like.dtype
+            or out.device != like.device or not out.is_contiguous()
+            or out.data_ptr() % align):
+        raise ValueError(f"{name} must be a contiguous, {align}-byte "
+                         f"aligned {like.dtype} {tuple(like.shape)} on "
+                         f"{like.device}")
+    if any(_overlap(out, t) for t in inputs):
+        raise ValueError(f"{name} overlaps an input of the kernel")
+    return out
 
 
 def stream_ptr(device) -> int:

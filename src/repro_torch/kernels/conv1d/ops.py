@@ -1,9 +1,9 @@
 """Causal depthwise conv1d: the device picks the path.
 
 A CPU tensor runs the plain version (:mod:`.ref`); a CUDA tensor launches
-the hand-written kernel (``csrc/conv1d.cu``) or raises.  The new conv
-state is a slice of the inputs, taken here as the reference takes it
-outside its kernel.
+the hand-written kernel (``csrc/conv1d.cu``) or raises.  Both also give
+the new conv state: the ``K-1`` inputs that end each row's valid prefix
+(``lengths``), which the kernel writes into ``out_state`` when given.
 """
 from __future__ import annotations
 
@@ -19,17 +19,27 @@ MAX_K = 4   # the kernel's register window is instantiated for K = 2 .. 4
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                   initial_state: Optional[torch.Tensor] = None,
-                  activation: str = "silu"
+                  activation: str = "silu",
+                  lengths: Optional[torch.Tensor] = None,
+                  out_state: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B,S,C]; w: [C,K]; b: [C]; initial_state: [B,K-1,C].
-    Returns (y [B,S,C] in x's dtype, new state [B,K-1,C])."""
+    """x: [B,S,C]; w: [C,K]; b: [C]; initial_state: [B,K-1,C]; lengths:
+    [B] int, each row's valid prefix (None: every row is full).  Returns
+    (y [B,S,C] in x's dtype, new state [B,K-1,C] in x's dtype: rows
+    ``lengths[b] .. lengths[b] + K - 2`` of ``[initial_state; x]``).
+    ``out_state`` (a contiguous tensor of that shape and type, e.g. a slot
+    of a new cache, apart from x and initial_state) receives the new
+    state and is returned as it."""
     if x.device.type == "cpu":
-        return _ref.causal_conv1d_ref(x, w, b, initial_state, activation)
+        return _ref.causal_conv1d_ref(x, w, b, initial_state, activation,
+                                      lengths=lengths, out_state=out_state)
     return causal_conv1d_cuda(x, w, b, initial_state=initial_state,
-                              activation=activation)
+                              activation=activation, lengths=lengths,
+                              out_state=out_state)
 
 
-def causal_conv1d_cuda(x, w, b, *, initial_state=None, activation="silu"):
+def causal_conv1d_cuda(x, w, b, *, initial_state=None, activation="silu",
+                       lengths=None, out_state=None):
     if x.device.type != "cuda":
         raise ValueError(f"causal_conv1d kernel needs a CUDA tensor, got "
                          f"{x.device}")
@@ -45,7 +55,12 @@ def causal_conv1d_cuda(x, w, b, *, initial_state=None, activation="silu"):
     if initial_state.shape != (bsz, k - 1, c):
         raise ValueError(f"initial_state {tuple(initial_state.shape)} != "
                          f"{(bsz, k - 1, c)}")
-    for t in (w, b, initial_state):
+    if lengths is not None:
+        if lengths.shape != (bsz,):
+            raise ValueError(f"lengths {tuple(lengths.shape)} != ({bsz},)")
+        lengths = lengths.to(torch.int32).contiguous()
+    for t in (w, b, initial_state) + ((lengths,) if lengths is not None
+                                      else ()):
         if t.device != x.device:
             raise ValueError("all conv1d inputs must be on one device")
     code = build.dtype_code(x.dtype)
@@ -54,18 +69,17 @@ def causal_conv1d_cuda(x, w, b, *, initial_state=None, activation="silu"):
     w32, b32 = w.float().contiguous(), b.float().contiguous()
     init = initial_state.to(x.dtype).contiguous()
     y = torch.empty_like(x)
+    # the kernel narrows its vectors to the addresses it is given
+    state = build.destination(out_state, init, "out_state", (x, init),
+                              align=x.element_size())
     lib = build.library()
-    rc = lib.repro_conv1d_fwd(x.data_ptr(), w32.data_ptr(), b32.data_ptr(),
-                              init.data_ptr(), y.data_ptr(), bsz, s, c, k,
-                              code, build.stream_ptr(x.device))
+    rc = lib.repro_conv1d_fwd(
+        x.data_ptr(), w32.data_ptr(), b32.data_ptr(), init.data_ptr(),
+        None if lengths is None else lengths.data_ptr(), y.data_ptr(),
+        state.data_ptr(), bsz, s, c, k, code, build.stream_ptr(x.device))
     build.check(rc, "repro_conv1d_fwd")
     causal_conv1d.launches += 1
-    # the last K-1 inputs; only the rows needed are copied
-    if s >= k - 1:
-        new_state = x[:, s - (k - 1):, :].clone()
-    else:
-        new_state = torch.cat([init[:, s:, :], x], dim=1)
-    return y, new_state
+    return y, state
 
 
 causal_conv1d.launches = 0

@@ -11,17 +11,34 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.ssd.ref import into
+
 
 def silu(y: torch.Tensor) -> torch.Tensor:
     return y * torch.sigmoid(y)
 
 
+def window_at(src: torch.Tensor, lengths: torch.Tensor, k: int
+              ) -> torch.Tensor:
+    """Rows ``lengths[b] .. lengths[b] + k - 2`` of each row of ``src``
+    ([B, K-1+S, C], the old window then the inputs): the conv state after
+    a row's first ``lengths[b]`` inputs."""
+    b, _, c = src.shape
+    rows = lengths.long()[:, None] + torch.arange(k - 1, device=src.device)
+    return torch.gather(src, 1, rows[:, :, None].expand(b, k - 1, c))
+
+
 def causal_conv1d_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       initial_state: Optional[torch.Tensor] = None,
-                      activation: str = "silu"
+                      activation: str = "silu", *,
+                      lengths: Optional[torch.Tensor] = None,
+                      out_state: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, C]; w: [C, K]; b: [C].  Returns (y [B,S,C], state [B,K-1,C]):
-    the state carries the last K-1 inputs for streaming decode."""
+    the state carries the K-1 inputs that end each row's valid prefix
+    (``lengths``, None for all S) for streaming decode; ``out_state``,
+    when given, receives a copy of it and is returned in its place, as the
+    kernel writes its destination."""
     bsz, s, c = x.shape
     k = w.shape[-1]
     if initial_state is None:
@@ -34,7 +51,8 @@ def causal_conv1d_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = y + b.float()
     if activation == "silu":
         y = silu(y)
-    return y.to(x.dtype), xp[:, s:, :]
+    state = xp[:, s:, :] if lengths is None else window_at(xp, lengths, k)
+    return y.to(x.dtype), into(out_state, state)
 
 
 def conv1d_decode_ref(state: torch.Tensor, x_t: torch.Tensor,

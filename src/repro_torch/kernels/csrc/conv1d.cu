@@ -1,101 +1,311 @@
-// Causal depthwise conv1d with bias and SiLU, for Mamba-2 prefill.
+// Causal depthwise conv1d with bias and SiLU, for Mamba prefill; also
+// writes the new conv state (the K-1 inputs that end each row's valid
+// prefix) into the caller's destination.
 //
 // Replaces the TPU kernel causal_conv1d_pallas
-// (src/repro/kernels/conv1d/kernel.py:37, body _conv_kernel :16).
+// (src/repro/kernels/conv1d/kernel.py:37, body _conv_kernel :16), and the
+// conv-state slice the reference takes outside it (masked_conv_state,
+// src/repro/models/mamba2.py:39).
 //
 // Bound on the H100: bytes.  Each output does K multiply-adds and reads
 // one input, so the work is a stream of x in and y out (about 22 MB at
 // mamba2-2.7b's B=4, S=256, C=5376 in bf16, ~6.6 us at 3.35 TB/s).
 //
 // Design: the TPU kernel walks the sequence in order and carries the K-1
-// halo rows in scratch from one block to the next.  Blocks here run in
-// no order, so nothing is carried: each block covers (channel tile,
-// sequence tile, batch row) and reads its own K-1 halo rows, from x or,
-// for the first tile, from initial_state.  One thread per channel walks
-// its rows with the last K-1 inputs in registers, so each input is read
-// from memory once (plus K-1 halo rows per tile of TS rows).  Neighbouring
-// threads hold neighbouring channels, so each row's loads and stores are
-// coalesced.  Taps accumulate in fp32 in the reference's order
-// (i = 0 .. K-1 from zero, then the bias) with rounded multiplies and adds,
-// so no fused multiply-add changes the sum.
+// halo rows in scratch from one block to the next.  Threads here run in
+// no order, so nothing is carried: each thread owns one vector of V
+// channels (16 bytes: 8 bf16 or 4 fp32, narrower where C or an address
+// does not allow it) over a tile of R rows of one batch row (16, or 8
+// and narrower vectors where the grid would otherwise leave the SMs short
+// of threads: at mamba-130m's C=1536), and loads its own K-1 halo rows,
+// from x or, for the first tile, from initial_state.
+// It issues all R + K - 1 loads of its window before any arithmetic, so
+// each thread has R + K - 1 vectors in flight; neighbouring threads hold
+// neighbouring vectors of one row, so each row's loads and stores are
+// coalesced.  A thread's V x K taps are V*K consecutive floats of w, so
+// reading them straight from memory would touch one cache line per thread
+// and load; the block stages its channels' taps and bias in shared memory
+// instead (cp.async, while the window loads are in flight) and turns them
+// tap-major there.  The threads of the first tile also copy the rows
+// len .. len + K - 2 of [initial_state; x] (len = the row's valid length,
+// S when no lengths are given) into the new state, bit for bit.  Taps
+// accumulate in fp32 in the reference's order (i = 0 .. K-1 from zero,
+// then the bias) with rounded multiplies and adds, so no fused
+// multiply-add changes the sum.  On the H100 the arithmetic, not the
+// bytes, bounds the kernel (scripts/kernel_variants.py conv1d_design
+// times its loads and stores alone and its arithmetic alone).
 #include "common.cuh"
+#include "mma.cuh"
+
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 128;   // channels per block
-constexpr int kRows = 64;       // sequence rows per block
+constexpr int kThreads = 128;
 
-template <typename T, int K>
+// V elements of T as 32-bit words in registers (a lone bf16 in the low
+// half of one word), loaded and stored as one vector
+template <typename T, int V>
+struct Vec {
+  static constexpr int kWords = (V * (int)sizeof(T) + 3) / 4;
+  unsigned u[kWords];
+
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (V * sizeof(T) == 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      u[0] = v.x; u[1] = v.y; u[2] = v.z; u[3] = v.w;
+    } else if constexpr (V * sizeof(T) == 8) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      u[0] = v.x; u[1] = v.y;
+    } else if constexpr (V * sizeof(T) == 4) {
+      u[0] = *reinterpret_cast<const unsigned*>(p);
+    } else {
+      u[0] = *reinterpret_cast<const unsigned short*>(p);
+    }
+  }
+  __device__ __forceinline__ void store(T* p) const {
+    if constexpr (V * sizeof(T) == 16) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+    } else if constexpr (V * sizeof(T) == 8) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
+    } else if constexpr (V * sizeof(T) == 4) {
+      *reinterpret_cast<unsigned*>(p) = u[0];
+    } else {
+      *reinterpret_cast<unsigned short*>(p) = (unsigned short)u[0];
+    }
+  }
+  __device__ __forceinline__ float get(int e) const {
+    if constexpr (std::is_same_v<T, float>) {
+      return __uint_as_float(u[e]);
+    } else {
+      const unsigned w = u[e >> 1];
+      return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+    }
+  }
+  // v rounded to T; bf16 pairs by one packed conversion each
+  __device__ __forceinline__ void pack(const float (&v)[V]) {
+    if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) u[e] = __float_as_uint(v[e]);
+    } else if constexpr (V == 1) {
+      u[0] = __bfloat16_as_ushort(__float2bfloat16_rn(v[0]));
+    } else {
+#pragma unroll
+      for (int q = 0; q < V / 2; ++q) {
+        const __nv_bfloat162 p = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+        u[q] = (unsigned)__bfloat16_as_ushort(p.x) |
+               ((unsigned)__bfloat16_as_ushort(p.y) << 16);
+      }
+    }
+  }
+};
+
+// y * sigmoid(y) with the hardware's reciprocal: the IEEE division of
+// repro::silu ends every element with a branch to its slow path, which
+// keeps the compiler from interleaving elements; the result stays within
+// the check's limits
+__device__ __forceinline__ float silu(float y) {
+  return __fmul_rn(y, __fdividef(1.0f, 1.0f + expf(-y)));
+}
+
+// a block's weights in shared memory, tap-major with one pad word per 32,
+// so that the threads' reads of V neighbouring channels hit distinct banks
+constexpr int kMaxV = 8;
+constexpr int kBlockCh = kThreads * kMaxV;
+__host__ __device__ constexpr int padded(int c) { return c + (c >> 5); }
+
+// n floats from src to shared dst (16-byte aligned): 16-byte cp.async
+// pieces where src is 16-byte aligned, the rest by element
+__device__ __forceinline__ void stage(float* dst, const float* src, int n,
+                                      int tid) {
+  int head = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    head = n / 4 * 4;
+    for (int q = tid; q < n / 4; q += kThreads)
+      repro::cp_async16(dst + 4 * q, src + 4 * q, 16);
+  }
+  for (int j = head + tid; j < n; j += kThreads) dst[j] = src[j];
+}
+
+template <typename T, int K, int V, int R>
 __global__ void __launch_bounds__(kThreads)
 conv1d_kernel(const T* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ bias, const T* __restrict__ init,
-              T* __restrict__ y, int S, int C) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
-  const int s0 = blockIdx.y * kRows;
-  const int b = blockIdx.z;
-  const T* xb = x + (size_t)b * S * C;
-  const T* ib = init + (size_t)b * (K - 1) * C;
-  T* yb = y + (size_t)b * S * C;
+              const int* __restrict__ lengths, T* __restrict__ y,
+              T* __restrict__ state, int S, int C) {
+  __shared__ __align__(16) float raw[(K + 1) * kBlockCh];  // [c][K], bias
+  __shared__ float ws[K + 1][padded(kBlockCh)];   // taps, then the bias
+  const int tid = threadIdx.x;
+  const int cb = blockIdx.x * kThreads * V;        // the block's channels
+  const int nch = min(kThreads * V, C - cb);
+  const int c = cb + tid * V, t0 = blockIdx.y * R, b = blockIdx.z;
+  const bool live = tid * V < nch;
+  const T* xb = x + (size_t)b * S * C + c;
+  const T* ib = init + (size_t)b * (K - 1) * C + c;
 
-  float wk[K];
+  // the window: input rows t0 - (K-1) .. t0 + R - 1, all loads first
+  Vec<T, V> win[R + K - 1];
+  if (live) {
 #pragma unroll
-  for (int i = 0; i < K; ++i) wk[i] = w[c * K + i];
-  const float bc = bias[c];
+    for (int i = 0; i < R + K - 1; ++i) {
+      const int r = t0 - (K - 1) + i;
+      if (r < 0) win[i].load(ib + (size_t)(r + K - 1) * C);
+      else if (r < S) win[i].load(xb + (size_t)r * C);
+    }
+  }
+  // the block's weights and bias, requested while the window loads are in
+  // flight, then turned tap-major inside shared memory
+  stage(raw, w + (size_t)cb * K, nch * K, tid);
+  stage(raw + K * kBlockCh, bias + cb, nch, tid);
+  repro::cp_async_commit();
+  repro::cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll 8
+  for (int j = tid; j < nch * K; j += kThreads)
+    ws[j % K][padded(j / K)] = raw[j];
+  for (int j = tid; j < nch; j += kThreads)
+    ws[K][padded(j)] = raw[K * kBlockCh + j];
+  __syncthreads();
+  if (!live) return;
 
-  // window[i] holds input row (t - (K-1) + i) for the row t being produced
-  float win[K];
+  // the new state: rows len .. len + K - 2 of [init; x], copied as they are
+  if (blockIdx.y == 0) {
+    const int len = lengths ? min(max(lengths[b], 0), S) : S;
+    T* sb = state + (size_t)b * (K - 1) * C + c;
 #pragma unroll
-  for (int i = 0; i < K - 1; ++i) {
-    const int r = s0 - (K - 1) + i;
-    win[i] = r >= 0 ? repro::to_f32(xb[(size_t)r * C + c])
-                    : repro::to_f32(ib[(size_t)(r + K - 1) * C + c]);
+    for (int k = 0; k < K - 1; ++k) {
+      const int j = len + k;
+      Vec<T, V> v;
+      v.load(j < K - 1 ? ib + (size_t)j * C : xb + (size_t)(j - (K - 1)) * C);
+      v.store(sb + (size_t)k * C);
+    }
   }
-  const int s1 = min(s0 + kRows, S);
-  for (int t = s0; t < s1; ++t) {
-    win[K - 1] = repro::to_f32(xb[(size_t)t * C + c]);
-    float acc = 0.0f;
+  float wk[V][K], bc[V];
 #pragma unroll
-    for (int i = 0; i < K; ++i) acc = __fadd_rn(acc, __fmul_rn(win[i], wk[i]));
-    acc = __fadd_rn(acc, bc);
-    yb[(size_t)t * C + c] = repro::from_f32<T>(repro::silu(acc));
+  for (int e = 0; e < V; ++e) {
 #pragma unroll
-    for (int i = 0; i < K - 1; ++i) win[i] = win[i + 1];
+    for (int i = 0; i < K; ++i) wk[e][i] = ws[i][padded(tid * V + e)];
+    bc[e] = ws[K][padded(tid * V + e)];
   }
+
+  T* yb = y + (size_t)b * S * C + c;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (t0 + r < S) {
+      float res[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int i = 0; i < K; ++i)
+          acc = __fadd_rn(acc, __fmul_rn(win[r + i].get(e), wk[e][i]));
+        acc = __fadd_rn(acc, bc[e]);
+        res[e] = silu(acc);
+      }
+      Vec<T, V> out;
+      out.pack(res);
+      out.store(yb + (size_t)(t0 + r) * C);
+    }
+  }
+}
+
+// a launch's threads fill the card when they give each SM this many
+constexpr int kFill = 132 * 256;
+
+template <typename T, int K, int V, int R>
+cudaError_t run(const void* x, const void* w, const void* b,
+                const void* init, const int* lengths, void* y, void* state,
+                int B, int S, int C, cudaStream_t stream) {
+  const dim3 grid((C / V + kThreads - 1) / kThreads, (S + R - 1) / R, B);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  conv1d_kernel<T, K, V, R><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<const T*>(init), lengths,
+      static_cast<T*>(y), static_cast<T*>(state), S, C);
+  return cudaGetLastError();
+}
+
+// the widest vector of at most 16 bytes that divides C and every address
+template <typename T>
+int vec_width(int C, uintptr_t addrs) {
+  for (int v = 16 / (int)sizeof(T); v > 1; v /= 2)
+    if (C % v == 0 && addrs % (v * sizeof(T)) == 0) return v;
+  return 1;
+}
+
+template <typename T, int K, int R>
+cudaError_t with_rows(int v, const void* x, const void* w, const void* b,
+                      const void* init, const int* lengths, void* y,
+                      void* state, int B, int S, int C, cudaStream_t st) {
+  switch (v) {
+    case 8:
+      if constexpr (sizeof(T) == 2)
+        return run<T, K, 8, R>(x, w, b, init, lengths, y, state, B, S, C,
+                               st);
+      return cudaErrorInvalidValue;
+    case 4:
+      return run<T, K, 4, R>(x, w, b, init, lengths, y, state, B, S, C, st);
+    case 2:
+      return run<T, K, 2, R>(x, w, b, init, lengths, y, state, B, S, C, st);
+    default:
+      return run<T, K, 1, R>(x, w, b, init, lengths, y, state, B, S, C, st);
+  }
+}
+
+// 16 rows a thread where that still fills the card, else 8; then the
+// widest vector that does (each halving doubles the threads)
+template <typename T, int K>
+cudaError_t with_k(const void* x, const void* w, const void* b,
+                   const void* init, const int* lengths, void* y,
+                   void* state, int B, int S, int C, cudaStream_t st) {
+  const uintptr_t addrs = reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(init) |
+                          reinterpret_cast<uintptr_t>(y) |
+                          reinterpret_cast<uintptr_t>(state);
+  auto threads = [&](int v, int r) {
+    return (long long)B * ((S + r - 1) / r) * (C / v);
+  };
+  int v = vec_width<T>(C, addrs);
+  const int rows = threads(v, 16) >= kFill ? 16 : 8;
+  while (v > 1 && threads(v, rows) < kFill) v /= 2;
+  return rows == 16
+      ? with_rows<T, K, 16>(v, x, w, b, init, lengths, y, state, B, S, C, st)
+      : with_rows<T, K, 8>(v, x, w, b, init, lengths, y, state, B, S, C, st);
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* b,
-                   const void* init, void* y, int B, int S, int C, int K,
-                   cudaStream_t stream) {
-  dim3 grid((C + kThreads - 1) / kThreads, (S + kRows - 1) / kRows, B);
-  auto args = [&](auto kern) {
-    kern<<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(b), static_cast<const T*>(init),
-        static_cast<T*>(y), S, C);
-  };
+                   const void* init, const void* lengths, void* y,
+                   void* state, int B, int S, int C, int K,
+                   cudaStream_t st) {
+  const int* len = static_cast<const int*>(lengths);
   switch (K) {
-    case 2: args(conv1d_kernel<T, 2>); break;
-    case 3: args(conv1d_kernel<T, 3>); break;
-    case 4: args(conv1d_kernel<T, 4>); break;
+    case 2: return with_k<T, 2>(x, w, b, init, len, y, state, B, S, C, st);
+    case 3: return with_k<T, 3>(x, w, b, init, len, y, state, B, S, C, st);
+    case 4: return with_k<T, 4>(x, w, b, init, len, y, state, B, S, C, st);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x, y: [B,S,C] (dtype 0 = float32, 1 = bfloat16); w: [C,K] fp32;
-// b: [C] fp32; init: [B,K-1,C] in x's dtype.
+// b: [C] fp32; init, state: [B,K-1,C] in x's dtype; lengths: [B] int32,
+// each row's valid prefix, or null (every row full).  state must not
+// overlap x or init.
 extern "C" int repro_conv1d_fwd(const void* x, const void* w, const void* b,
-                                const void* init, void* y, int B, int S,
-                                int C, int K, int dtype, void* stream) {
+                                const void* init, const void* lengths,
+                                void* y, void* state, int B, int S, int C,
+                                int K, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0
-      ? launch<float>(x, w, b, init, y, B, S, C, K, st)
-      : dtype == 1 ? launch<__nv_bfloat16>(x, w, b, init, y, B, S, C, K, st)
+  cudaError_t err =
+      dtype == 0
+          ? launch<float>(x, w, b, init, lengths, y, state, B, S, C, K, st)
+      : dtype == 1 ? launch<__nv_bfloat16>(x, w, b, init, lengths, y, state,
+                                           B, S, C, K, st)
                    : cudaErrorInvalidValue;
   return (int)err;
 }

@@ -45,21 +45,6 @@ def mamba2_decode_fused(conv_state, ssm_state, xbc_t, conv_w, conv_b,
         out_conv=out_conv, out_ssm=out_ssm)
 
 
-def _out(out, like: torch.Tensor, name: str) -> torch.Tensor:
-    """``out`` checked as a destination the kernel may write (contiguous,
-    16-byte aligned, ``like``'s shape, type and device), or a new tensor
-    when None."""
-    if out is None:
-        return torch.empty_like(like)
-    if (out.shape != like.shape or out.dtype != like.dtype
-            or out.device != like.device or not out.is_contiguous()
-            or out.data_ptr() % 16):
-        raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                         f"{like.dtype} {tuple(like.shape)} on "
-                         f"{like.device}")
-    return out
-
-
 def mamba2_decode_fused_cuda(conv_state, ssm_state, xbc_t, conv_w, conv_b,
                              dt_raw, dt_bias, A_log, D, *, n_groups: int,
                              d_state: int, headdim: int, out_conv=None,
@@ -98,8 +83,10 @@ def mamba2_decode_fused_cuda(conv_state, ssm_state, xbc_t, conv_w, conv_b,
     if any(t.device != xbc_t.device for t in ins):
         raise ValueError("all decode inputs must be on one device")
     y = torch.empty((b, h, p), dtype=xbc_t.dtype, device=xbc_t.device)
-    nconv = _out(out_conv, ins[0], "out_conv")
-    nssm = _out(out_ssm, ins[1], "out_ssm")
+    # the old window and state, and the token, are read while other
+    # blocks write the destinations
+    nconv = build.destination(out_conv, ins[0], "out_conv", ins[:3])
+    nssm = build.destination(out_ssm, ins[1], "out_ssm", ins[:3] + [nconv])
     lib = build.library()
     rc = lib.repro_mamba2_decode_fwd(
         *[t.data_ptr() for t in ins], y.data_ptr(), nconv.data_ptr(),
@@ -113,30 +100,51 @@ def mamba2_decode_fused_cuda(conv_state, ssm_state, xbc_t, conv_w, conv_b,
 mamba2_decode_fused.launches = 0
 
 
-# d_state values the Mamba-1 kernel is instantiated for, and its limits
+# d_state values the Mamba-1 kernel is instantiated for, and its limits:
+# the blocks of one batch row form a cluster of M1_CLUSTER, each taking at
+# most 256 channels, one thread each (every shape within these limits fits
+# a block's shared memory)
 M1_D_STATES = (8, 16)
 M1_MAX_PROJ = 128           # dt_rank + 2 * d_state
-M1_MAX_DI = 48 * 1024 // 4 - 2304     # shared memory: di + 2304 floats
+M1_CLUSTER = 8
+M1_MAX_D_INNER = M1_CLUSTER * 256
+
+
+def m1_check_width(di: int) -> None:
+    """Raises where ``di`` channels need a cluster of more than
+    ``M1_CLUSTER`` blocks."""
+    if di > M1_MAX_D_INNER:
+        raise ValueError(
+            f"mamba1 decode kernel: d_inner {di} needs a cluster of more "
+            f"than {M1_CLUSTER} blocks")
 
 
 def mamba1_decode_fused(conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj,
                         dt_proj, dt_bias, A_log, D, *, d_state: int,
-                        dt_rank: int
+                        dt_rank: int,
+                        out_conv: Optional[torch.Tensor] = None,
+                        out_ssm: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """conv_state: [B,K-1,di]; ssm_state: [B,di,N]; xi_t: [B,di] (pre-conv).
-    Returns (y [B,di] fp32, conv window' [B,K-1,di], ssm' [B,di,N] fp32)."""
+    Returns (y [B,di] fp32, conv window' [B,K-1,di], ssm' [B,di,N] fp32).
+    ``out_conv`` and ``out_ssm`` (contiguous tensors of those shapes and
+    types, e.g. slots of a new cache, apart from the inputs) receive the
+    new window and state, and are returned as them."""
     if xi_t.device.type == "cpu":
         return _ref.mamba1_decode_fused_ref(
             conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj, dt_proj,
-            dt_bias, A_log, D, d_state=d_state, dt_rank=dt_rank)
+            dt_bias, A_log, D, d_state=d_state, dt_rank=dt_rank,
+            out_conv=out_conv, out_ssm=out_ssm)
     return mamba1_decode_fused_cuda(
         conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj, dt_proj,
-        dt_bias, A_log, D, d_state=d_state, dt_rank=dt_rank)
+        dt_bias, A_log, D, d_state=d_state, dt_rank=dt_rank,
+        out_conv=out_conv, out_ssm=out_ssm)
 
 
 def mamba1_decode_fused_cuda(conv_state, ssm_state, xi_t, conv_w, conv_b,
                              x_proj, dt_proj, dt_bias, A_log, D, *,
-                             d_state: int, dt_rank: int):
+                             d_state: int, dt_rank: int, out_conv=None,
+                             out_ssm=None):
     if xi_t.device.type != "cuda":
         raise ValueError(f"decode kernel needs a CUDA tensor, got "
                          f"{xi_t.device}")
@@ -151,7 +159,7 @@ def mamba1_decode_fused_cuda(conv_state, ssm_state, xi_t, conv_w, conv_b,
             or x_proj.shape != (di, f) or dt_proj.shape != (r, di)
             or not (dt_bias.shape == D.shape == (di,))
             or A_log.shape != (di, n) or not 2 <= k <= 4 or r < 1
-            or f > M1_MAX_PROJ or di > M1_MAX_DI):
+            or f > M1_MAX_PROJ):
         raise ValueError("bad mamba1 decode shapes")
     if conv_state.dtype != xi_t.dtype:
         raise TypeError("kernel takes conv_state in xi's dtype")
@@ -159,6 +167,7 @@ def mamba1_decode_fused_cuda(conv_state, ssm_state, xi_t, conv_w, conv_b,
         raise TypeError("kernel takes an fp32 ssm state")
     cd = xi_t.dtype
     code = build.dtype_code(cd)
+    m1_check_width(di)
     # the plain version reads the projections in xi's dtype and the conv
     # and SSM parameters in fp32
     ins = [conv_state.contiguous(), ssm_state.contiguous(),
@@ -166,13 +175,13 @@ def mamba1_decode_fused_cuda(conv_state, ssm_state, xi_t, conv_w, conv_b,
            conv_b.float().contiguous(), x_proj.to(cd).contiguous(),
            dt_proj.to(cd).contiguous(), dt_bias.float().contiguous(),
            A_log.float().contiguous(), D.float().contiguous()]
-    if ins[5].data_ptr() % 16:      # x_proj is read in 16-byte vectors
-        ins[5] = ins[5].clone()
     if any(t.device != xi_t.device for t in ins):
         raise ValueError("all decode inputs must be on one device")
     y = torch.empty((b, di), dtype=torch.float32, device=xi_t.device)
-    nconv = torch.empty_like(ins[0])
-    nssm = torch.empty_like(ins[1])
+    # the old window and state, and the token, are read while other
+    # blocks write the destinations
+    nconv = build.destination(out_conv, ins[0], "out_conv", ins[:3])
+    nssm = build.destination(out_ssm, ins[1], "out_ssm", ins[:3] + [nconv])
     lib = build.library()
     rc = lib.repro_mamba1_decode_fwd(
         *[t.data_ptr() for t in ins], y.data_ptr(), nconv.data_ptr(),

@@ -43,13 +43,18 @@ def mamba2_decode_fused_ref(conv_state, ssm_state, xbc_t, conv_w, conv_b,
 
 def mamba1_decode_fused_ref(conv_state, ssm_state, xi_t, conv_w, conv_b,
                             x_proj, dt_proj, dt_bias, A_log, D, *,
-                            d_state: int, dt_rank: int
+                            d_state: int, dt_rank: int,
+                            out_conv: Optional[torch.Tensor] = None,
+                            out_ssm: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """conv_state: [B,K-1,di]; ssm_state: [B,di,N]; xi_t: [B,di] (pre-conv).
     Returns (y [B,di] fp32, conv_state', ssm_state' [B,di,N] fp32).  The
     projections read ``x_proj`` and ``dt_proj`` in the conv output's dtype
-    and round their outputs to it, as the reference's oracle does."""
+    and round their outputs to it, as the reference's oracle does.
+    ``out_conv`` and ``out_ssm``, when given, receive copies of the last
+    two and are returned in their place, as the kernel writes its
+    destinations."""
     xi, new_conv = conv1d_decode_ref(conv_state, xi_t, conv_w, conv_b)
     dt_ = xi.dtype
     proj = xi @ x_proj.to(dt_)
@@ -64,4 +69,4 @@ def mamba1_decode_fused_ref(conv_state, ssm_state, xi_t, conv_w, conv_b,
     h = h * dA + dBx
     y = torch.einsum("bdn,bn->bd", h, cm.float())
     y = y + xi.float() * D.float()
-    return y, new_conv, h
+    return y, into(out_conv, new_conv), into(out_ssm, h)

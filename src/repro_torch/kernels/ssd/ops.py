@@ -54,8 +54,9 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
                 out_state: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan. Returns (y [B,S,H,P], final_state [B,H,P,N]).
-    ``out_state`` (a contiguous fp32 [B,H,P,N], e.g. a cache slot) receives
-    the final state, and is returned as it."""
+    ``out_state`` (a contiguous, 16-byte aligned fp32 [B,H,P,N], e.g. a
+    cache slot, apart from the other inputs) receives the final state, and
+    is returned as it."""
     if x.device.type == "cpu":
         return _ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk,
                                     initial_state=initial_state,
@@ -86,7 +87,6 @@ def ssd_chunked_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
                                     device=x.device)
     if initial_state.shape != (b, h, p, n):
         raise ValueError(f"initial_state {tuple(initial_state.shape)}")
-    final = _state_out(out_state, (b, h, p, n), x.device)
     ins = [x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
            Bm.contiguous(), Cm.contiguous(), D.float().contiguous(),
            initial_state.float().contiguous()]
@@ -97,6 +97,9 @@ def ssd_chunked_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
         if ins[i].data_ptr() % 16:
             ins[i] = ins[i].clone()
     y = torch.empty_like(ins[0])
+    # each block reads its own rows of initial_state before it writes them,
+    # and every block reads the other inputs
+    final = build.destination(out_state, ins[6], "out_state", ins[:6])
     lib = build.library()
     rc = lib.repro_ssd_fwd(*[t.data_ptr() for t in ins], y.data_ptr(),
                            final.data_ptr(), b, s, h, p, g, n, chunk, code,
@@ -107,19 +110,6 @@ def ssd_chunked_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
 
 
 ssd_chunked.launches = 0
-
-
-def _state_out(out, shape, device) -> torch.Tensor:
-    """``out`` checked as a destination the kernel may write (contiguous
-    fp32 of ``shape`` on ``device``), or a new tensor when None."""
-    if out is None:
-        return torch.empty(shape, dtype=torch.float32, device=device)
-    if (tuple(out.shape) != tuple(shape) or out.dtype != torch.float32
-            or out.device != device or not out.is_contiguous()):
-        raise ValueError(f"out_state must be a contiguous fp32 {shape} on "
-                         f"{device}, got {tuple(out.shape)} {out.dtype} "
-                         f"{out.device}")
-    return out
 
 
 def ssd_chunked_raw(x, dt_raw, dt_bias, A_log, Bm, Cm, D, *,

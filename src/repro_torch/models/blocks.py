@@ -110,11 +110,13 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
                 pos: Optional[torch.Tensor] = None,
                 shared: Optional[Dict] = None,
                 chunk_mask: Optional[torch.Tensor] = None,
+                chunk_lengths: Optional[torch.Tensor] = None,
                 valid_len: Optional[torch.Tensor] = None,
                 slots: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """``chunk_mask`` ([B, S] bool) marks valid tokens during a chunked
-    prefill; SSM layers treat invalid tokens as inert.  A one-token call
+    prefill, a prefix of ``chunk_lengths`` ([B] int32) per row; SSM layers
+    treat invalid tokens as inert.  A one-token call
     with a cache and ``pos`` is a decode step.  ``rope`` is the (sin, cos)
     pair at the call's token positions and ``valid_len`` a decode step's
     attended rows of this layer's cache, both as
@@ -122,7 +124,7 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
     ``rope_local`` the local table's pair, which ``local`` layers take
     where it is given; ``shared`` the shared block's params.  KV leaves of
     ``cache`` are written in place (see
-    :mod:`repro_torch.models.attention`); a Mamba-2 layer's kernels write
+    :mod:`repro_torch.models.attention`); a Mamba layer's kernels write
     its new states into ``slots`` (the layer's slots in the new cache:
     {"conv", "ssm"}) where they can, and return them."""
     if kind in ("dense", "local"):
@@ -141,16 +143,16 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
         mcache = {"conv": cache["conv"], "ssm": cache["ssm"]}
     is_decode = cache is not None and x.shape[1] == 1 and pos is not None
     if kind == "mamba1":
-        block, decode, kw = m1.mamba1_block, m1.mamba1_decode, {}
+        block, decode = m1.mamba1_block, m1.mamba1_decode
     else:
         block, decode = m2.mamba2_block, m2.mamba2_decode
-        kw = {"slots": slots}
     if is_decode:
         out, new_cache = decode(p["mamba"], h, cfg.ssm, cfg.d_model,
-                                cache=mcache, eps=eps, **kw)
+                                cache=mcache, eps=eps, slots=slots)
     else:
         out, new_cache = block(p["mamba"], h, cfg.ssm, cfg.d_model,
-                               cache=mcache, eps=eps, mask=chunk_mask, **kw)
+                               cache=mcache, eps=eps, mask=chunk_mask,
+                               lengths=chunk_lengths, slots=slots)
     x = x + out
     if kind == "mamba2+shared":
         if shared is None:

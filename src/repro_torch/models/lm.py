@@ -291,16 +291,17 @@ def _decode_valid_lens(pos: torch.Tensor):
 
 
 def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
-                  pos=None, chunk_mask=None, rope=(None, None),
-                  kv_bucket=None, valid_lens=None):
+                  pos=None, chunk_mask=None, chunk_lengths=None,
+                  rope=(None, None), kv_bucket=None, valid_lens=None):
     """Every layer in order.  Each layer gets views of its cache: state
     leaves at its repeat, KV leaves cut to their first ``kv_bucket`` rows
     (None: all), so its KV writes land in the full cache; and its state
     leaves' slots in the new cache, which its kernels may write in place
-    (the old cache's state leaves stay as they were).  ``rope`` is the
-    (global, local) pair of :func:`_rope_for`; ``valid_lens`` (a decode
-    step) maps a layer's KV extent to its attended rows.  Returns (x, the
-    new segments: new state leaves, the cache's own KV leaves)."""
+    (the old cache's state leaves stay as they were).  ``chunk_mask``
+    and ``chunk_lengths`` mark a prefill chunk's valid tokens.  ``rope``
+    is the (global, local) pair of :func:`_rope_for`; ``valid_lens`` (a
+    decode step) maps a layer's KV extent to its attended rows.  Returns
+    (x, the new segments: new state leaves, the cache's own KV leaves)."""
     shared = params.get("shared")
     new_segs = []
     for si, (unit, n_rep) in enumerate(cfg.segments()):
@@ -318,6 +319,7 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
                 x, nc = blocks.apply_layer(
                     cfg, kind, p, x, rope=rope[0], rope_local=rope[1],
                     cache=c, pos=pos, shared=shared, chunk_mask=chunk_mask,
+                    chunk_lengths=chunk_lengths,
                     valid_len=(valid_lens(kv.shape[1])
                                if valid_lens is not None and kv is not None
                                else None),
@@ -385,8 +387,8 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
     rope = _rope_for(cfg, max(s, _kv_rows(cache, kv_bucket) or s,
                               rope_len or 0), pos, s, x.device)
     x, new_segs = _run_segments(cfg, params, x, cache=cache, pos=pos,
-                                chunk_mask=chunk_mask, rope=rope,
-                                kv_bucket=kv_bucket)
+                                chunk_mask=chunk_mask, chunk_lengths=lengths,
+                                rope=rope, kv_bucket=kv_bucket)
     last = torch.clamp(lengths - 1, 0, s - 1).long()
     x_last = torch.gather(x, 1, last[:, None, None].expand(b, 1, x.shape[2]))
     logits = _head(cfg, params, x_last)

@@ -21,7 +21,7 @@ from repro_torch.kernels.conv1d.ref import silu
 from repro_torch.kernels.decode_fused.ops import mamba1_decode_fused
 from repro_torch.kernels.scan1.ops import selective_scan
 from repro_torch.kernels.ssd.ref import softplus
-from repro_torch.models.mamba2 import INERT_DT, masked_conv_state
+from repro_torch.models.mamba2 import INERT_DT, conv_lengths, state_slot
 from repro_torch.models.params import ParamDef
 
 
@@ -56,23 +56,27 @@ PROJ_KEYS = ("wx", "wz", "x_proj", "dt_proj", "out_proj")
 
 def mamba1_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
                  cache: Optional[Dict] = None, eps: float = 1e-5,
-                 mask: Optional[torch.Tensor] = None
+                 mask: Optional[torch.Tensor] = None,
+                 lengths: Optional[torch.Tensor] = None,
+                 slots: Optional[Dict] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence pass; with a cache (prefill) also returns the final
     states.  ``mask`` ([B, S] bool, chunked prefill) marks valid tokens, a
-    left-aligned prefix per row: invalid tokens are inert (their dt is
-    softplus(-30), so the scan state passes through) and the conv state is
-    rebuilt from the trailing valid inputs."""
+    left-aligned prefix per row of ``lengths`` tokens ([B] int32, given
+    with the mask): invalid tokens are inert (their dt is
+    softplus(-30), so the scan state passes through) and the conv state
+    ends at the last valid input.  ``slots`` ({"conv", ...}, the layer's
+    slots in a new cache) take the final conv state in place where its
+    type allows."""
     dtr = dt_rank(d_model, s)
     dt_ = x.dtype
     xi = x @ p["wx"].to(dt_)
     z = x @ p["wz"].to(dt_)
-    xi_in = xi
     init_conv = cache["conv"] if cache is not None else None
-    xi, conv_state = causal_conv1d(xi, p["conv_w"], p["conv_b"],
-                                   initial_state=init_conv)
-    if cache is not None and mask is not None:
-        conv_state = masked_conv_state(init_conv, xi_in, mask, s.conv_kernel)
+    xi, conv_state = causal_conv1d(
+        xi, p["conv_w"], p["conv_b"], initial_state=init_conv,
+        lengths=conv_lengths(mask, lengths),
+        out_state=state_slot(slots, "conv", dt_))
     proj = xi @ p["x_proj"].to(dt_)
     dt_low = proj[..., :dtr]
     bm = proj[..., dtr:dtr + s.d_state]
@@ -96,10 +100,13 @@ def mamba1_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
 
 
 def mamba1_decode(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
-                  cache: Dict, eps: float = 1e-5) -> Tuple[torch.Tensor, Dict]:
+                  cache: Dict, eps: float = 1e-5,
+                  slots: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
     """Single-token step. x: [B, 1, D]; cache: {"conv": [B,K-1,di],
     "ssm": [B,di,N]}.  Conv shift, the dt/B/C projections and the state
-    update run as one fused kernel.  The new conv window comes back in the
+    update run as one fused kernel, which writes the new window and state
+    into ``slots`` ({"conv", "ssm"}, the layer's slots in a new cache)
+    where their types allow.  The new conv window comes back in the
     cache's dtype."""
     dt_ = x.dtype
     xt = x[:, 0]
@@ -108,7 +115,9 @@ def mamba1_decode(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
     y, conv_state, h = mamba1_decode_fused(
         cache["conv"], cache["ssm"], xi, p["conv_w"], p["conv_b"],
         p["x_proj"], p["dt_proj"], p["dt_bias"], p["A_log"], p["D"],
-        d_state=s.d_state, dt_rank=dt_rank(d_model, s))
+        d_state=s.d_state, dt_rank=dt_rank(d_model, s),
+        out_conv=state_slot(slots, "conv", dt_),
+        out_ssm=state_slot(slots, "ssm", torch.float32))
     y = y * silu(z.float())
     out = (y.to(dt_) @ p["out_proj"].to(dt_))[:, None, :]
     return out, {"conv": conv_state.to(cache["conv"].dtype), "ssm": h}

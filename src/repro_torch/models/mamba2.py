@@ -51,23 +51,6 @@ def mamba2_param_defs(d_model: int, s: SSMConfig) -> Dict[str, ParamDef]:
 PROJ_KEYS = ("wz", "wxBC", "wdt", "out_proj")
 
 
-def masked_conv_state(init_state: Optional[torch.Tensor], x_in: torch.Tensor,
-                      mask: torch.Tensor, k: int) -> torch.Tensor:
-    """Conv state after a ragged chunk: the trailing ``k-1`` *valid* inputs
-    per row.  Valid tokens are a left-aligned prefix of the chunk (length
-    ``mask.sum(1)``), so the window ends at that length.  x_in: [B, S, C]
-    pre-conv inputs; mask: [B, S] bool."""
-    b, _, c = x_in.shape
-    if k <= 1:
-        return x_in.new_zeros((b, 0, c))
-    if init_state is None:
-        init_state = x_in.new_zeros((b, k - 1, c))
-    src = torch.cat([init_state.to(x_in.dtype), x_in], dim=1)
-    lens = mask.sum(1).long()                                  # [B]
-    rows = lens[:, None] + torch.arange(k - 1, device=x_in.device)[None, :]
-    return torch.gather(src, 1, rows[:, :, None].expand(b, k - 1, c))
-
-
 def _split_xbc(xbc: torch.Tensor, s: SSMConfig, d_model: int):
     di = s.d_inner(d_model)
     gn = s.n_groups * s.d_state
@@ -77,18 +60,31 @@ def _split_xbc(xbc: torch.Tensor, s: SSMConfig, d_model: int):
             xbc[..., di + gn:].reshape(*lead, s.n_groups, s.d_state))
 
 
+def conv_lengths(mask: Optional[torch.Tensor],
+                 lengths: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``lengths`` ([B] int32, the valid prefix per row, which ends a
+    prefill's conv state; None: every row is full), which a chunk's
+    ``mask`` must come with."""
+    if mask is not None and lengths is None:
+        raise ValueError("a chunk's mask comes with its rows' lengths")
+    return lengths
+
+
 def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
                  cache: Optional[Dict] = None, eps: float = 1e-5,
                  mask: Optional[torch.Tensor] = None,
+                 lengths: Optional[torch.Tensor] = None,
                  slots: Optional[Dict] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence pass. If cache is given (prefill), returns final states.
 
     ``mask`` ([B, S] bool, chunked prefill) marks valid tokens, a
-    left-aligned prefix per row.  Invalid tokens are inert: their dt is
-    driven to zero and the conv state is rebuilt from the trailing valid
-    inputs.  ``slots`` ({"ssm": ...}, the layer's slot in a new cache)
-    takes the final SSM state in place; the returned cache holds it."""
+    left-aligned prefix per row of ``lengths`` tokens ([B] int32, given
+    with the mask).  Invalid tokens are inert: their dt is
+    driven to zero and the conv state ends at the last valid input.
+    ``slots`` ({"conv", "ssm"}, the layer's slots in a new cache) take the
+    final conv and SSM states in place where their types allow; the
+    returned cache holds them."""
     b, seq, _ = x.shape
     di = s.d_inner(d_model)
     nh = s.n_ssm_heads(d_model)
@@ -100,12 +96,11 @@ def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
         dt_raw = torch.where(mask[:, :, None], dt_raw,
                              torch.full((), INERT_DT, dtype=dt_,
                                         device=x.device))
-    xbc_in = xbc
     init_conv = cache["conv"] if cache is not None else None
-    xbc, conv_state = causal_conv1d(xbc, p["conv_w"], p["conv_b"],
-                                    initial_state=init_conv)
-    if cache is not None and mask is not None:
-        conv_state = masked_conv_state(init_conv, xbc_in, mask, s.conv_kernel)
+    xbc, conv_state = causal_conv1d(
+        xbc, p["conv_w"], p["conv_b"], initial_state=init_conv,
+        lengths=conv_lengths(mask, lengths),
+        out_state=state_slot(slots, "conv", dt_))
     xs, bm, cm = _split_xbc(xbc, s, d_model)
     xh = xs.reshape(b, seq, nh, s.headdim)
 
@@ -121,7 +116,7 @@ def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
     y, ssm_state = ssd_chunked_raw(xh, dt_raw, p["dt_bias"], p["A_log"],
                                    bm.contiguous(), cm.contiguous(), p["D"],
                                    chunk=s.chunk, initial_state=init_ssm,
-                                   out_state=_slot(slots, "ssm",
+                                   out_state=state_slot(slots, "ssm",
                                                    torch.float32))
     y = y[:, :seq].reshape(b, seq, di)
     y = gated_rms_norm(y, z, p["norm_scale"], eps)
@@ -133,12 +128,13 @@ def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
     return out, new_cache
 
 
-def _slot(slots: Optional[Dict], key: str, dtype: torch.dtype):
+def state_slot(slots: Optional[Dict], key: str, dtype: torch.dtype):
     """``slots[key]`` where the kernel can write it in place: present, of
-    ``dtype`` and contiguous; else None (the caller copies)."""
+    ``dtype``, contiguous and 16-byte aligned; else None (the caller
+    copies)."""
     t = None if slots is None else slots.get(key)
-    return t if t is not None and t.dtype == dtype and t.is_contiguous() \
-        else None
+    return t if (t is not None and t.dtype == dtype and t.is_contiguous()
+                 and t.data_ptr() % 16 == 0) else None
 
 
 def mamba2_decode(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
@@ -160,8 +156,8 @@ def mamba2_decode(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
         cache["conv"], cache["ssm"], xbc, p["conv_w"], p["conv_b"],
         dt_raw, p["dt_bias"], p["A_log"], p["D"],
         n_groups=s.n_groups, d_state=s.d_state, headdim=s.headdim,
-        out_conv=_slot(slots, "conv", dt_),
-        out_ssm=_slot(slots, "ssm", torch.float32))
+        out_conv=state_slot(slots, "conv", dt_),
+        out_ssm=state_slot(slots, "ssm", torch.float32))
     y = y.reshape(b, di)
     y = gated_rms_norm(y, z, p["norm_scale"], eps)
     out = (y @ p["out_proj"].to(dt_))[:, None, :]

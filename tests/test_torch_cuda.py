@@ -9,8 +9,10 @@ card and no JAX it runs on its own:
 Shapes are the reduced config's and widths off each kernel's tiles,
 gemma3-1b's head_dim 256, qwen2.5-0.5b's 64 and phi-3-mini's 96, and the
 SSD scan at both served Mamba-2 models' (P, N) on 2 and 16 chunks at the
-model's scales with every state-row split, SSD and the Mamba-2 decode
-step writing into slots of stacked cache leaves; the full mamba2-2.7b,
+model's scales, SSD, conv1d (with ragged valid lengths) and both decode
+steps writing into slots of stacked cache leaves, and the wrappers'
+refusals (unbuilt shapes, a destination that overlaps an input, a
+Mamba-1 d_inner past a cluster of 8 blocks); the full mamba2-2.7b,
 zamba2-2.7b, mamba-130m and gemma3-1b shapes are held by
 ``chip_smoke.py``.
 Tolerances: 1e-4 in fp32 (sums in another order), 2e-2 in bf16 (one bf16
@@ -96,6 +98,37 @@ def test_conv1d_kernel(cuda, dtype, s, c):
     torch.cuda.synchronize()
     assert conv_ops.causal_conv1d.launches == n0 + 1
     _close(got, conv_ref.causal_conv1d_ref(x, w, bias, st), TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c", [(200, 1000), (200, 1003), (2, 1000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv1d_kernel_lengths_and_destination(cuda, dtype, s, c):
+    """Valid lengths 0, 1, 2, K-1, 150 and S across rows (clipped to S for
+    a 2-token input), the new state written into a slot of a stacked
+    leaf: y within the limit, the state equal to the plain version's bit
+    for bit, the other slots and the inputs as they were."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(14), cuda)
+    td = DTYPES[dtype]
+    k = 4
+    lens = torch.tensor([0, 1, 2, k - 1, 150, s], dtype=torch.int32,
+                        device=cuda).clamp(max=s)
+    b = lens.numel()
+    x, w, bias = rn(b, s, c, dt=td), rn(c, k), rn(c)
+    st = rn(b, k - 1, c, dt=td)
+    before = (x.clone(), st.clone())
+    dst = torch.full((3, b, k - 1, c), 7.0, device=cuda).to(td)
+    n0 = conv_ops.causal_conv1d.launches
+    y, state = conv_ops.causal_conv1d(x, w, bias, initial_state=st,
+                                      lengths=lens, out_state=dst[1])
+    torch.cuda.synchronize()
+    assert conv_ops.causal_conv1d.launches == n0 + 1
+    assert state.data_ptr() == dst[1].data_ptr()
+    wy, wstate = conv_ref.causal_conv1d_ref(x, w, bias, st, lengths=lens)
+    _close([y], [wy], TOL[dtype])
+    assert torch.equal(state, wstate)
+    assert bool((dst[0] == 7.0).all() and (dst[2] == 7.0).all())
+    assert torch.equal(x, before[0]) and torch.equal(st, before[1])
 
 
 @pytest.mark.cuda
@@ -478,11 +511,12 @@ def test_selective_scan_kernel(cuda, dtype, with_state, n, b, s, c):
 @pytest.mark.parametrize("di,n,dtr", [(1536, 16, 48), (128, 16, 4),
                                       (1000, 8, 6)],
                          ids=["mamba-130m", "reduced", "off-tile"])
-@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("b", [1, 4, 16])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mamba1_decode_kernel(cuda, dtype, b, di, n, dtr):
     """mamba-130m's widths, the reduced ones, and d_inner off the
-    128-channel tile with d_state 8; x_proj and dt_proj in the compute
+    128-channel tile with d_state 8, at batch rows up to 16 (whose 256
+    blocks take two waves of the card); x_proj and dt_proj in the compute
     dtype, as the model passes them.  The inputs are at the model's
     scales (projections with std 1/sqrt(fan-in), dt_bias from dt
     log-uniform in [1e-3, 1e-1], A_log = log(1..n)), so dt lands where
@@ -507,6 +541,67 @@ def test_mamba1_decode_kernel(cuda, dtype, b, di, n, dtr):
     torch.cuda.synchronize()
     assert dec_ops.mamba1_decode_fused.launches == n0 + 1
     _close(got, dec_ref.mamba1_decode_fused_ref(*args, **kw), TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba1_decode_kernel_writes_destination(cuda, dtype):
+    """``out_conv`` and ``out_ssm`` slots of stacked leaves at mamba-130m's
+    widths: the new window and state land there and equal the plain
+    version's; the old window and state and the other slots stay as they
+    were."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(15), cuda)
+    td = DTYPES[dtype]
+    b, di, n, dtr, k = 4, 1536, 16, 48, 4
+    args = (rn(b, k - 1, di, dt=td), rn(b, di, n), rn(b, di, dt=td),
+            rn(di, k) / k ** 0.5, rn(di),
+            (rn(di, dtr + 2 * n) / di ** 0.5).to(td),
+            (rn(dtr, di) / dtr ** 0.5).to(td), rn(di) - 4.0,
+            torch.log(torch.rand((di, n), device=cuda) * 15 + 1), rn(di))
+    before = [t.clone() for t in args[:2]]
+    conv_dst = torch.full((3, b, k - 1, di), 7.0, device=cuda).to(td)
+    ssm_dst = torch.full((3, b, di, n), 7.0, device=cuda)
+    kw = dict(d_state=n, dt_rank=dtr)
+    got = dec_ops.mamba1_decode_fused(*args, **kw, out_conv=conv_dst[2],
+                                      out_ssm=ssm_dst[1])
+    torch.cuda.synchronize()
+    assert got[1].data_ptr() == conv_dst[2].data_ptr()
+    assert got[2].data_ptr() == ssm_dst[1].data_ptr()
+    want = dec_ref.mamba1_decode_fused_ref(*args, **kw)
+    _close(got, want, TOL[dtype])
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(args[0], before[0]) and torch.equal(args[1], before[1])
+    assert bool((conv_dst[:2] == 7.0).all() and (ssm_dst[0] == 7.0).all()
+                and (ssm_dst[2] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_overlap_and_cluster_size(cuda):
+    """A destination that overlaps an input, or a d_inner whose blocks
+    would need a cluster of more than 8, raises before any launch."""
+    z = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
+    k, n, r = 4, 16, 4
+
+    def decode(di, **out):
+        return dec_ops.mamba1_decode_fused(
+            z(1, k - 1, di), z(1, di, n), z(1, di), z(di, k), z(di),
+            z(di, r + 2 * n), z(r, di), z(di), z(di, n), z(di), d_state=n,
+            dt_rank=r, **out)
+    with pytest.raises(ValueError, match="cluster of more than 8"):
+        decode(2056)
+    args = [z(1, k - 1, 64), z(1, 64, n), z(1, 64), z(64, k), z(64),
+            z(64, r + 2 * n), z(r, 64), z(64), z(64, n), z(64)]
+    with pytest.raises(ValueError, match="out_ssm overlaps"):
+        dec_ops.mamba1_decode_fused(*args, d_state=n, dt_rank=r,
+                                    out_ssm=args[1])
+    x, st = z(2, 8, 64), z(2, k - 1, 64)
+    with pytest.raises(ValueError, match="out_state overlaps"):
+        conv_ops.causal_conv1d(x, z(64, k), z(64), initial_state=st,
+                               out_state=st)
+    with pytest.raises(ValueError, match="out_state overlaps"):
+        conv_ops.causal_conv1d(x, z(64, k), z(64), initial_state=st,
+                               out_state=x.view(-1)[:st.numel()].view(
+                                   st.shape))
 
 
 @pytest.mark.cuda

@@ -1,19 +1,22 @@
-"""The Mamba-2 kernels' destination writes and the SSD launch plan, on the
-CPU; and the head dims every registered config needs.
+"""The Mamba kernels' destination writes and the SSD launch plan, on the
+CPU; and the head dims and Mamba shapes every registered config needs.
 
-A Mamba-2 layer's kernels write its new SSM state (prefill and decode) and
-conv window (decode) straight into the layer's slot of the new cache:
-``_run_segments`` hands the slots over and ``_store_state`` copies only
-what is not already there.  Here reduced(mamba2-2.7b) and
-reduced(zamba2-2.7b) run a prefill chunk and a decode step on the plain
-path (whose ops copy into the slots as the kernels write them) against the
-reference, with the reference's params carried across (``from_jax``),
-in fp32 and bf16 compute on caches of that type (the conv window's type
-is the one the decode kernel writes): the old cache's state leaves stay
-as they were, the new ones equal those of the path that copies every
-state (bit for bit) and, in fp32, the reference's (1e-4 of max(1, max
-|leaf|); in bf16 the two frameworks round at different points, by up to
-~3e-2 here), and ``_store_state`` copies no leaf a kernel wrote.
+A Mamba layer's kernels write its new states straight into the layer's
+slot of the new cache: the conv kernel its conv state (prefill), the
+decode steps the conv window and the SSM state, and SSD (Mamba-2) the
+final SSM state.  ``_run_segments`` hands the slots over and
+``_store_state`` copies only what is not already there; the selective
+scan's final state (Mamba-1 prefill) is still copied.  Here
+reduced(mamba2-2.7b), reduced(zamba2-2.7b) and reduced(mamba-130m) run a
+prefill chunk and a decode step on the plain path (whose ops copy into
+the slots as the kernels write them) against the reference, with the
+reference's params carried across (``from_jax``), in fp32 and bf16
+compute on caches of that type (the conv window's type is the one the
+kernels write): the old cache's state leaves stay as they were, the new
+ones equal those of the path that copies every state (bit for bit) and,
+in fp32, the reference's (1e-4 of max(1, max |leaf|); in bf16 the two
+frameworks round at different points, by up to ~3e-2 here), and
+``_store_state`` copies no leaf a kernel wrote.
 """
 import dataclasses
 
@@ -26,20 +29,25 @@ import torch
 from repro.configs import mamba2_2p7b as J_MAMBA2
 from repro.configs import reduced as j_reduced
 from repro.configs import zamba2_2p7b as J_ZAMBA
+from repro.configs.paper_models import MAMBA1_130M as J_MAMBA1
 from repro.models import lm as jlm
 from repro_torch.configs import mamba2_2p7b as T_MAMBA2
+from repro_torch.configs import mamba_130m as T_MAMBA1
 from repro_torch.configs import reduced
 from repro_torch.configs import zamba2_2p7b as T_ZAMBA
 from repro_torch.convert import from_jax, to_numpy
 from repro_torch.core.registry import get, list_archs
+from repro_torch.kernels import build
 from repro_torch.kernels.attn_decode import ops as dec_attn_ops
 from repro_torch.kernels.decode_fused import ops as dec_ops
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models import lm
+from repro_torch.models import mamba1 as m1
 
 MODELS = {"mamba2": (J_MAMBA2, T_MAMBA2), "zamba2": (J_ZAMBA, T_ZAMBA)}
+MAMBA1 = {"mamba1": (J_MAMBA1, T_MAMBA1)}
 SMEM_PER_BLOCK = 232448     # bytes a block may hold on an H100 (227 KB)
 STATE_KEYS = ("conv", "ssm")
 
@@ -49,7 +57,7 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
 
 
 def _cfgs(model, compute_dtype):
-    jbase, tbase = MODELS[model]
+    jbase, tbase = {**MODELS, **MAMBA1}[model]
     return (dataclasses.replace(j_reduced(jbase, vocab=250),
                                 compute_dtype=compute_dtype),
             dataclasses.replace(reduced(tbase, vocab=250),
@@ -93,17 +101,31 @@ def _same_as_copying(run, new_segments, monkeypatch):
 @pytest.fixture
 def copies(monkeypatch):
     """The number of leaves each layer's ``_store_state`` call copied (its
-    nested calls for the shared block's KV dict apart)."""
-    seen = []
+    nested calls for the shared block's KV dict apart); ``copies.keys``
+    lists the copied leaves' keys per layer."""
+    seen = Copies()
     real = lm._store_state
 
     def spy(dst, src, r):
+        keys = [k for k, v in src.items() if k in STATE_KEYS
+                and v.data_ptr() != dst[k][r].data_ptr()]
         n = real(dst, src, r)
         if "ssm" in src:
             seen.append(n)
+            seen.keys.append(keys)
         return n
     monkeypatch.setattr(lm, "_store_state", spy)
     return seen
+
+
+class Copies(list):
+    def __init__(self):
+        super().__init__()
+        self.keys = []
+
+    def clear(self):
+        super().clear()
+        self.keys.clear()
 
 
 def _prefilled(jcfg, tcfg, jp, tp, cd, b=2, s=21, max_seq=40):
@@ -128,10 +150,10 @@ def _prefilled(jcfg, tcfg, jp, tp, cd, b=2, s=21, max_seq=40):
 @pytest.mark.parametrize("model", list(MODELS))
 def test_prefill_chunk_writes_ssm_state_in_place(model, cd, copies,
                                                   monkeypatch):
-    """A ragged prefill chunk on a carried cache: the SSM state lands in
-    its slot (one copy per layer left: the conv window, which the conv
-    kernel does not write in place), the old cache is unchanged, the new
-    states equal the copying path's bit for bit and the reference's."""
+    """A ragged prefill chunk on a carried cache: the SSM state and the
+    conv window land in their slots (no copy at all), the old cache is
+    unchanged, the new states equal the copying path's bit for bit and
+    the reference's."""
     jcfg, tcfg = _cfgs(model, cd)
     jp, tp = _params(jcfg)
     jc, tc = _prefilled(jcfg, tcfg, jp, tp, cd)
@@ -145,7 +167,7 @@ def test_prefill_chunk_writes_ssm_state_in_place(model, cd, copies,
                                    lengths=torch.from_numpy(lens))
     copies.clear()
     _, t_new = run()
-    assert copies == [1] * tcfg.n_layers
+    assert copies == [0] * tcfg.n_layers
     _same_as_copying(run, t_new["segments"], monkeypatch)
     for key, t in _state_leaves(tc["segments"]).items():
         assert torch.equal(t, before[key]), key
@@ -186,6 +208,69 @@ def test_decode_step_writes_states_in_place(model, cd, copies,
         assert new[key].data_ptr() != old[key].data_ptr()
 
 
+@pytest.mark.parametrize("cd", list(DTYPES))
+@pytest.mark.parametrize("model", list(MAMBA1))
+def test_mamba1_prefill_chunk_writes_conv_in_place(model, cd, copies,
+                                                   monkeypatch):
+    """reduced(mamba-130m), a ragged prefill chunk on a carried cache: the
+    conv window lands in its slot and only the scan's final state is
+    copied, one leaf per layer; the old cache is unchanged, the new
+    states equal the copying path's bit for bit and the reference's."""
+    jcfg, tcfg = _cfgs(model, cd)
+    jp, tp = _params(jcfg)
+    jc, tc = _prefilled(jcfg, tcfg, jp, tp, cd)
+    before = {k: v.clone() for k, v in _state_leaves(tc["segments"]).items()}
+    toks = np.random.default_rng(6).integers(0, tcfg.vocab_size, (2, 16))
+    toks = toks.astype(np.int32)
+    lens = np.array([16, 2], np.int32)
+
+    def run():
+        return lm.lm_prefill_chunk(tcfg, tp, torch.from_numpy(toks), tc,
+                                   lengths=torch.from_numpy(lens))
+    copies.clear()
+    _, t_new = run()
+    assert copies == [1] * tcfg.n_layers
+    assert copies.keys == [["ssm"]] * tcfg.n_layers
+    _same_as_copying(run, t_new["segments"], monkeypatch)
+    for key, t in _state_leaves(tc["segments"]).items():
+        assert torch.equal(t, before[key]), key
+    if jc is not None:
+        _, j_new = jlm.lm_prefill_chunk(
+            jcfg, jp, {"tokens": jnp.asarray(toks)}, jc,
+            lengths=jnp.asarray(lens))
+        _close_states(t_new["segments"], j_new["segments"], 1e-4)
+
+
+@pytest.mark.parametrize("cd", list(DTYPES))
+@pytest.mark.parametrize("model", list(MAMBA1))
+def test_mamba1_decode_step_writes_states_in_place(model, cd, copies,
+                                                   monkeypatch):
+    """reduced(mamba-130m), a decode step: the conv window and the SSM
+    state both land in their slots (no copy at all), the old cache is
+    unchanged, the new states equal the copying path's bit for bit and
+    the reference's."""
+    jcfg, tcfg = _cfgs(model, cd)
+    jp, tp = _params(jcfg)
+    jc, tc = _prefilled(jcfg, tcfg, jp, tp, cd)
+    before = {k: v.clone() for k, v in _state_leaves(tc["segments"]).items()}
+    tok = np.array([[3], [7]], np.int32)
+
+    def run():
+        return lm.lm_decode_step(tcfg, tp, torch.from_numpy(tok), tc)
+    copies.clear()
+    _, t_new = run()
+    assert copies == [0] * tcfg.n_layers
+    _same_as_copying(run, t_new["segments"], monkeypatch)
+    for key, t in _state_leaves(tc["segments"]).items():
+        assert torch.equal(t, before[key]), key
+    if jc is not None:
+        _, j_new = jlm.lm_decode_step(jcfg, jp, jnp.asarray(tok), jc)
+        _close_states(t_new["segments"], j_new["segments"], 1e-4)
+    new, old = _state_leaves(t_new["segments"]), _state_leaves(tc["segments"])
+    for key in new:
+        assert new[key].data_ptr() != old[key].data_ptr()
+
+
 def test_store_state_copies_only_what_is_elsewhere():
     dst = {"conv": torch.zeros(3, 2, 5), "ssm": torch.zeros(3, 2, 4),
            "attn": {"k": torch.zeros(3, 2, 8)}}
@@ -201,20 +286,22 @@ def test_store_state_copies_only_what_is_elsewhere():
     assert slots["ssm"].data_ptr() == dst["ssm"][2].data_ptr()
 
 
-@pytest.mark.parametrize("wrong", ["shape", "dtype", "strides"])
+@pytest.mark.parametrize("wrong", ["shape", "dtype", "strides", "overlap"])
 def test_destination_must_fit(wrong):
     """A destination the kernel could not write as it stands raises on the
-    kernel path: a wrong shape, type or layout."""
+    kernel path: a wrong shape, type or layout, or one that overlaps an
+    input."""
     b, h, p, n = 2, 4, 16, 16
     good = torch.zeros(b, h, p, n)
+    stacked = torch.zeros(3, b, h, p, n)
     bad = {"shape": torch.zeros(b, h, p, n + 1),
            "dtype": torch.zeros(b, h, p, n, dtype=torch.float64),
-           "strides": torch.zeros(b, h, n, p).transpose(2, 3)}[wrong]
-    assert ssd_ops._state_out(good, (b, h, p, n), good.device) is good
-    with pytest.raises(ValueError, match="out_state"):
-        ssd_ops._state_out(bad, (b, h, p, n), good.device)
+           "strides": torch.zeros(b, h, n, p).transpose(2, 3),
+           "overlap": stacked[1]}[wrong]
+    dst = stacked[2]
+    assert build.destination(dst, good, "out_ssm", (stacked[1], good)) is dst
     with pytest.raises(ValueError, match="out_ssm"):
-        dec_ops._out(bad, good, "out_ssm")
+        build.destination(bad, good, "out_ssm", (stacked[1],))
 
 
 @pytest.mark.parametrize("with_out", [False, True])
@@ -309,3 +396,32 @@ def test_registered_mamba2_shapes_are_built(arch):
     assert (s.chunk, s.headdim, s.d_state) in ssd_ops.SHAPES, arch
     assert s.d_state in dec_ops.M2_D_STATES, arch
     assert s.headdim <= dec_ops.M2_MAX_HEADDIM, arch
+
+
+@pytest.mark.parametrize("arch", [a for a in list_archs()
+                                  if get(a).ssm is not None
+                                  and get(a).ssm.variant == "mamba1"])
+def test_registered_mamba1_shapes_are_built(arch):
+    """Every Mamba-1 config the port registers fits the decode step's
+    instances and limits: d_state, the projection width, and d_inner
+    within a cluster of 8 blocks."""
+    cfg = get(arch)
+    s = cfg.ssm
+    di, r = s.d_inner(cfg.d_model), m1.dt_rank(cfg.d_model, s)
+    assert s.d_state in dec_ops.M1_D_STATES, arch
+    assert r + 2 * s.d_state <= dec_ops.M1_MAX_PROJ, arch
+    dec_ops.m1_check_width(di)
+
+
+@pytest.mark.parametrize("di,fits", [(1536, True), (1000, True),
+                                     (128, True), (2048, True),
+                                     (2049, False)])
+def test_mamba1_cluster_tiles(di, fits):
+    """A cluster of 8 blocks of at most 256 channels, one thread each,
+    takes up to 2048 channels; past that the wrapper raises, it does not
+    fall back."""
+    if fits:
+        dec_ops.m1_check_width(di)
+    else:
+        with pytest.raises(ValueError, match="cluster of more than 8"):
+            dec_ops.m1_check_width(di)

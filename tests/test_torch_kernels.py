@@ -8,6 +8,9 @@ for conv1d and the decode step, 1e-3 (relative to max |y|) for SSD in
 fp32, 2e-2 in bf16 (one bf16 rounding is worth 2^-8 of a value, and the
 two frameworks round at different points).
 
+The plain conv1d's new state with ragged valid lengths is held against
+the reference's ``masked_conv_state`` bit for bit (it is a copy).
+
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -23,6 +26,7 @@ from repro.kernels.decode_fused.ref import mamba2_decode_fused_ref as j_dec
 from repro.kernels.ssd.kernel import ssd_pallas
 from repro.kernels.ssd.ref import ssd_chunked_ref as j_ssd
 from repro.kernels.ssd.ref import ssd_sequential as j_ssd_seq
+from repro.models import mamba2 as jm2
 from repro_torch.kernels.conv1d import ops as conv_ops
 from repro_torch.kernels.decode_fused import ops as dec_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -80,6 +84,46 @@ def test_conv1d_plain_matches_reference(dtype, with_state):
     for want in (s_j, s_p):
         _close(s_t, want, 0.0)
     assert y_t.dtype == tx.dtype and s_t.dtype == tx.dtype
+
+
+@pytest.mark.parametrize("s", [16, 2])
+@pytest.mark.parametrize("with_out", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv1d_plain_lengths_match_reference(dtype, with_out, s):
+    """With ``lengths`` (0, 1, K-2, K-1 and S, clipped to S for a 2-token
+    chunk) the new state is the reference's ``masked_conv_state`` bit for
+    bit, y is the reference's conv, and ``out_state`` receives the state
+    and is returned as it; the inputs stay as they were."""
+    k, c = 4, 24
+    lens = np.minimum(np.array([0, 1, k - 2, k - 1, s], np.int32), s)
+    b = len(lens)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((b, s, c), np.float32)
+    w = rng.standard_normal((c, k), np.float32)
+    bias = rng.standard_normal((c,), np.float32)
+    st = rng.standard_normal((b, k - 1, c), np.float32)
+    jx, tx = _pair(x, dtype)
+    jst, tst = _pair(st, dtype)
+    before = (tx.clone(), tst.clone())
+    out = torch.full((b, k - 1, c), 7.0).to(tx.dtype) if with_out else None
+    y_t, s_t = conv_ops.causal_conv1d(
+        tx, torch.from_numpy(w), torch.from_numpy(bias), initial_state=tst,
+        lengths=torch.from_numpy(lens), out_state=out)
+    y_j, _ = j_conv(jx, jnp.asarray(w), jnp.asarray(bias), jst)
+    mask = np.arange(s)[None, :] < lens[:, None]
+    s_j = jm2.masked_conv_state(jst, jx, jnp.asarray(mask), k)
+    _close(y_t, y_j, 2e-2 if dtype == "bfloat16" else 1e-5)
+    _close(s_t, s_j, 0.0)
+    assert s_t.dtype == tx.dtype
+    if with_out:
+        assert s_t is out
+    assert torch.equal(tx, before[0]) and torch.equal(tst, before[1])
+    # a full row's state is the trailing window, as without lengths
+    _, s_full = conv_ops.causal_conv1d(tx, torch.from_numpy(w),
+                                       torch.from_numpy(bias),
+                                       initial_state=tst)
+    full = lens == s
+    assert torch.equal(s_t[full], s_full[full])
 
 
 # --------------------------------------------------------------------- SSD

@@ -15,7 +15,10 @@ mask is live).  Tolerances:
   itself 1.14x outside its test's budget): 1e-5 (fp32) or 2e-2 (bf16)
   of max |output|, per output; |y| reaches ~1e4 on these inputs.
 * ``mamba1_block`` (masked and unmasked) and ``mamba1_decode`` against
-  the reference's: 1e-4 (fp32) or 2e-2 (bf16) of max |output|.
+  the reference's: 1e-4 (fp32) or 2e-2 (bf16) of max |output|; with the
+  cache's slots (and the chunk's lengths handed down), bit for bit
+  against the same calls without them, the conv state bit for bit
+  against the reference's ``masked_conv_state``.
 * Model level, fp32 compute: chunked prefill against the reference's
   (bf16 conv cache on both sides, so both round the carried window at the
   same chunk boundaries), logits 1e-4 of max(1, max |logit|) and cache
@@ -54,6 +57,7 @@ from repro.kernels.scan1.kernel import selective_scan_pallas
 from repro.kernels.scan1.ref import selective_scan_ref as j_scan
 from repro.models import lm as jlm
 from repro.models import mamba1 as jm1
+from repro.models import mamba2 as jm2
 from repro.models.params import init_params as j_init_params
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
@@ -222,12 +226,15 @@ def test_mamba1_block_matches_reference(dtype, masked):
     jx, tx = _pair(rng.standard_normal((b, s, D_MODEL)).astype(np.float32),
                    dtype)
     jc, tc = _cache(b, rng, dtype)
-    mask = np.arange(s)[None, :] < np.array([13, 5, 0])[:, None]
+    lens = np.array([13, 5, 0], np.int32)
+    mask = np.arange(s)[None, :] < lens[:, None]
     j_out, j_new = jm1.mamba1_block(jp, jx, JSSM(**KW), D_MODEL, cache=jc,
                                     mask=jnp.asarray(mask) if masked else None)
     t_out, t_new = m1.mamba1_block(tp, tx, SSMConfig(**KW), D_MODEL,
                                    cache=tc,
                                    mask=torch.from_numpy(mask) if masked
+                                   else None,
+                                   lengths=torch.from_numpy(lens) if masked
                                    else None)
     assert t_out.dtype == DT[dtype][1]
     assert _rel(t_out, j_out) < BLOCK_TOL[dtype]
@@ -238,6 +245,65 @@ def test_mamba1_block_matches_reference(dtype, masked):
         assert torch.equal(t_new["conv"][2], tc["conv"][2])
         np.testing.assert_allclose(t_new["ssm"][2].numpy(),
                                    tc["ssm"][2].numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba1_block_writes_conv_slot(dtype):
+    """Ragged rows (lengths 13, 5, 0) with ``lengths`` handed down beside
+    the mask, as ``lm_prefill_chunk`` does, and the conv state's slot: the
+    conv state lands in the slot and is the reference's
+    ``masked_conv_state`` bit for bit; the outputs and states equal those
+    of the call without the slot, bit for bit; the cache is unchanged."""
+    jp, tp = _params()
+    b, s = 3, 13
+    rng = np.random.default_rng(1)
+    jx, tx = _pair(rng.standard_normal((b, s, D_MODEL)).astype(np.float32),
+                   dtype)
+    jc, tc = _cache(b, rng, dtype)
+    before = {k: v.clone() for k, v in tc.items()}
+    lens = np.array([13, 5, 0], np.int32)
+    mask = np.arange(s)[None, :] < lens[:, None]
+    slot = torch.full_like(tc["conv"], 7.0)
+    out, new = m1.mamba1_block(tp, tx, SSMConfig(**KW), D_MODEL, cache=tc,
+                               mask=torch.from_numpy(mask),
+                               lengths=torch.from_numpy(lens),
+                               slots={"conv": slot})
+    want_out, want = m1.mamba1_block(tp, tx, SSMConfig(**KW), D_MODEL,
+                                     cache=tc, mask=torch.from_numpy(mask),
+                                     lengths=torch.from_numpy(lens))
+    assert new["conv"].data_ptr() == slot.data_ptr()
+    assert torch.equal(out, want_out)
+    for key in ("conv", "ssm"):
+        assert torch.equal(new[key], want[key]), key
+        assert torch.equal(tc[key], before[key]), key
+    xi = jx @ jp["wx"].astype(jx.dtype)
+    j_conv = jm2.masked_conv_state(jc["conv"], xi, jnp.asarray(mask),
+                                   KW["conv_kernel"])
+    np.testing.assert_array_equal(_np(new["conv"]), _np(j_conv))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba1_decode_writes_slots(dtype):
+    """A decode step with the layer's slots: the new window and state land
+    there, equal the step without slots bit for bit, and the cache is
+    unchanged."""
+    jp, tp = _params()
+    b = 2
+    rng = np.random.default_rng(2)
+    _, tx = _pair(rng.standard_normal((b, 1, D_MODEL)).astype(np.float32),
+                  dtype)
+    _, tc = _cache(b, rng, dtype)
+    before = {k: v.clone() for k, v in tc.items()}
+    slots = {k: torch.full_like(v, 7.0) for k, v in tc.items()}
+    out, new = m1.mamba1_decode(tp, tx, SSMConfig(**KW), D_MODEL, cache=tc,
+                                slots=slots)
+    want_out, want = m1.mamba1_decode(tp, tx, SSMConfig(**KW), D_MODEL,
+                                      cache=tc)
+    assert torch.equal(out, want_out)
+    for key in ("conv", "ssm"):
+        assert new[key].data_ptr() == slots[key].data_ptr(), key
+        assert torch.equal(new[key], want[key]), key
+        assert torch.equal(tc[key], before[key]), key
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

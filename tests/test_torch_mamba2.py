@@ -16,6 +16,7 @@ from repro.models import mamba2 as jm2
 from repro.models.params import init_params as j_init_params
 from repro_torch.convert import from_jax, to_numpy
 from repro_torch.core.config import SSMConfig
+from repro_torch.kernels.conv1d.ref import window_at
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.norms import gated_rms_norm, rms_norm
 
@@ -78,10 +79,11 @@ def test_mamba2_block_matches_reference(dtype, masked):
     mask = np.arange(s)[None, :] < lens[:, None]
     jmask = jnp.asarray(mask) if masked else None
     tmask = torch.from_numpy(mask) if masked else None
+    tlens = torch.from_numpy(lens.astype(np.int32)) if masked else None
     j_out, j_new = jm2.mamba2_block(jp, jx, JSSM(**KW), D_MODEL, cache=jc,
                                     mask=jmask)
     t_out, t_new = m2.mamba2_block(tp, tx, SSMConfig(**KW), D_MODEL,
-                                   cache=tc, mask=tmask)
+                                   cache=tc, mask=tmask, lengths=tlens)
     _close(t_out, j_out, TOL[dtype])
     for key in ("conv", "ssm"):
         _close(t_new[key], j_new[key], TOL[dtype])
@@ -107,14 +109,17 @@ def test_mamba2_decode_matches_reference(dtype):
 
 
 def test_masked_conv_state_matches_reference():
+    """The conv state after a ragged chunk (the plain conv's ``lengths``
+    window) is the reference's ``masked_conv_state`` bit for bit."""
     rng = np.random.default_rng(3)
     init = rng.standard_normal((3, 3, 6)).astype(np.float32)
     x_in = rng.standard_normal((3, 7, 6)).astype(np.float32)
-    mask = np.arange(7)[None, :] < np.array([7, 2, 0])[:, None]
+    lens = np.array([7, 2, 0], np.int32)
+    mask = np.arange(7)[None, :] < lens[:, None]
     want = jm2.masked_conv_state(jnp.asarray(init), jnp.asarray(x_in),
                                  jnp.asarray(mask), 4)
-    got = m2.masked_conv_state(torch.from_numpy(init), torch.from_numpy(x_in),
-                               torch.from_numpy(mask), 4)
+    src = torch.cat([torch.from_numpy(init), torch.from_numpy(x_in)], dim=1)
+    got = window_at(src, torch.from_numpy(lens), 4)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
