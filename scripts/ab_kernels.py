@@ -1,7 +1,7 @@
-"""Hold the attention kernels, the SSD scan, both decode steps and causal
-conv1d of this checkout against another tree's, on one card: each tree's
-outputs within chip_smoke.py's limits, the largest difference between
-the trees, and their device times.
+"""Hold the attention kernels, the SSD scan, both decode steps, the
+selective scan and causal conv1d of this checkout against another
+tree's, on one card: each tree's outputs within chip_smoke.py's limits,
+the largest difference between the trees, and their device times.
 
     python3 scripts/ab_kernels.py OTHER_TREE [--serving-pairs N]
 
@@ -19,14 +19,17 @@ decode step (B=4) at mamba2-2.7b's and zamba2-2.7b's shapes on inputs at
 the model's scales (this checkout's ``ssd.ref.model_scale_inputs`` and
 ``chip_smoke.mamba2_decode_inputs``, so both trees get inputs drawn by
 the same code) in bf16 and fp32, the Mamba-1 decode step (B=4) at
-mamba-130m's shape on ``chip_smoke.mamba1_decode_inputs`` and causal
+mamba-130m's shape on ``chip_smoke.mamba1_decode_inputs``, the
+selective scan at mamba-130m's width (B=4, S=256 and B=1, S=16384, bf16
+and fp32, on this checkout's ``scan1.ref.model_scale_inputs``) and causal
 conv1d (B=4, S=256) at the channel counts of ``chip_smoke.conv_shapes``,
 without and (where the tree's wrapper takes them) with ragged valid
 lengths, and saves the outputs, the plain versions' outputs and the
 device times (``chip_smoke.device_ms``).
 An attention kernel's cases are those whose head_dim both trees take.
 Prints one JSON line per case: each run's worst output over chip_smoke's
-limit (1 is the limit: ``row_ratio`` per attention row; for SSD the worst
+limit (1 is the limit: ``row_ratio`` per attention row; for the scan
+``chip_smoke.scan_ratio``; for SSD the worst
 of y's and the state's whole-tensor limits and y's per-row limit; for the
 decode steps the worst output's whole-tensor limit; for conv1d y's limit
 and the new state's bit-equality), the largest difference between any
@@ -87,6 +90,7 @@ def cases(cs, torch, flash_ops, dec_ops):
             out.append((f"{label} {str(dt)[6:]}", ("attention", dt), make))
     out += mamba2_cases(cs, torch)
     out += mamba1_and_conv_cases(cs, torch)
+    out += scan1_cases(torch)
     r = cs.RING
     b, h, kvh, d, w = r["B"], r["H"], r["KVH"], r["d"], r["window"]
     for label, ring_len, sq, wraps in cs.ring_cases():
@@ -135,7 +139,7 @@ def mamba2_cases(cs, torch):
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
 
-    draws = this_ssd_ref()
+    draws = this_ref("ssd")
     out = []
     for cfg in (mamba2_2p7b, zamba2_2p7b):
         s = cfg.ssm
@@ -214,13 +218,36 @@ def mamba1_and_conv_cases(cs, torch):
     return out
 
 
-def this_ssd_ref():
-    """This checkout's ``repro_torch/kernels/ssd/ref.py`` (plain torch, no
-    imports from the package), loaded by its path whichever tree is on
-    ``sys.path``."""
-    path = os.path.join(ROOT, "src", "repro_torch", "kernels", "ssd",
+def scan1_cases(torch):
+    """The selective scan at mamba-130m's width, B=4, S=256 (a served
+    chunk) and B=1, S=16384 (long context), in bf16 and fp32, on inputs
+    at the model's scales drawn by this checkout's
+    ``scan1.ref.model_scale_inputs``."""
+    from repro_torch.configs import mamba_130m
+    from repro_torch.kernels.scan1 import ops, ref
+
+    draws = this_ref("scan1")
+    s = mamba_130m.ssm
+    c, n = s.d_inner(mamba_130m.d_model), s.d_state
+    out = []
+    for b, seq in ((4, 256), (1, 16384)):
+        for dt in (torch.bfloat16, torch.float32):
+            def make(gen, b=b, seq=seq, dt=dt):
+                args, h0 = draws.model_scale_inputs(gen, b, seq, c, n, dt)
+                return {"scan1": (
+                    lambda: ops.selective_scan(*args, initial_state=h0),
+                    lambda: ref.selective_scan_ref(*args, h0))}
+            out.append((f"{mamba_130m.name} B={b} S={seq} {str(dt)[6:]}",
+                        ("scan1", dt), make))
+    return out
+
+
+def this_ref(kernel: str):
+    """This checkout's ``repro_torch/kernels/<kernel>/ref.py`` (plain
+    torch), loaded by its path whichever tree is on ``sys.path``."""
+    path = os.path.join(ROOT, "src", "repro_torch", "kernels", kernel,
                         "ref.py")
-    spec = importlib.util.spec_from_file_location("ab_ssd_ref", path)
+    spec = importlib.util.spec_from_file_location(f"ab_{kernel}_ref", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -237,6 +264,8 @@ def worst_of_limit(cs, kernel: str, dt, got, want) -> float:
     if kernel in ("mamba2_decode", "mamba1_decode"):
         tol = cs.TOL["decode_fused"][dt]
         return max(cs.whole_ratio(g, w, tol) for g, w in zip(got, want))
+    if kernel == "scan1":
+        return cs.scan_ratio(got, want, dt)
     if kernel.startswith("conv1d"):
         # y within the limit, the new state bit for bit (a copy)
         return max(cs.whole_ratio(got[0], want[0], cs.TOL["conv1d"][dt]),
@@ -265,8 +294,12 @@ def child(out_path: str, serving_only: bool) -> int:
         runs = make(torch.Generator(device="cuda").manual_seed(0))
         for name, (fn, plain) in runs.items():
             got, want = as_list(fn()), as_list(plain())
+            # a long-context scan: fewer calls a timed replay
+            long_ = got[0].numel() > 1 << 24
             out[f"{name} {label}"] = dict(
-                o=[t.cpu() for t in got], ms=cs.device_ms(fn),
+                o=[t.cpu() for t in got],
+                ms=cs.device_ms(fn, calls=3 if long_ else 10,
+                                reps=10 if long_ else 25),
                 worst_of_limit=worst_of_limit(cs, name, dt, got, want))
     serving = {}
     from repro_torch.configs import mamba2_2p7b, mamba_130m, zamba2_2p7b

@@ -44,9 +44,13 @@ mutant's kernel (every check for the unchanged sources):
   check on inputs at the model's scales (``mamba2_decode_inputs``),
   ``old_ratio`` the same limit on unscaled normal draws; both the worst
   output's ``whole_ratio``.
+- ``scan1``: the selective scan against its plain version at mamba-130m's
+  width on inputs at the model's scales, over one tile and many
+  (``scan1_readings``); a mutant of it must fail by 10x its limit.
 
 1 is the limit.  Exits 1 if the unchanged kernels fail a check or a
-mutant passes its kernel's check.  The repository's own sources are never
+mutant passes its kernel's check (or, for ``scan1``, fails it by less
+than 10x).  The repository's own sources are never
 edited.
 """
 from __future__ import annotations
@@ -148,6 +152,20 @@ MUTANTS = {
         "return __fadd_rn(0.0f * da, upd);",
         "Mamba-2 decode: the new state drops h * exp(dt * A), "
         "h' = dt * B * x"),
+    "scan1_drop_carry": (
+        "scan1", "scan1.cu", "        if (lane == g0 + g) hc = carry;\n",
+        "        if (lane == g0 + g) hc = it + 1 < tiles ? 0.0f : carry;\n",
+        "selective scan: the state carried from one 256-step tile to the "
+        "next is zeroed (the last tile's carry, the final state, is kept)"),
+    "scan1_shuffle_off_by_one": (
+        "scan1", "scan1.cu",
+        "          const float qa = __shfl_up_sync(0xffffffffu, pa, off);\n"
+        "          const float qb = __shfl_up_sync(0xffffffffu, pb, off);\n",
+        "          const int src = off == 4 ? 5 : off;\n"
+        "          const float qa = __shfl_up_sync(0xffffffffu, pa, src);\n"
+        "          const float qb = __shfl_up_sync(0xffffffffu, pb, src);\n",
+        "selective scan: the warp scan's third level combines the lane 5 "
+        "below, not 4"),
     "flash_merge_drops_last_split": (
         "ring", "flash.cu",
         "        for (int sp = 0; sp < n_active; ++sp) {\n"
@@ -376,12 +394,49 @@ def mamba2_decode_readings(cs, torch, gen) -> dict:
     return out
 
 
+def scan1_readings(cs, torch, gen) -> dict:
+    """The selective scan at mamba-130m's width on inputs at the model's
+    scales (``scan1.ref.model_scale_inputs``): B=4, S=256 (a served
+    chunk, one tile), B=4, S=1000 and B=1, S=4133 (many tiles, the last
+    one partial).  ``ratio`` is chip_smoke.py's check (``scan_ratio``: y
+    within its limit of max |y|, the state allclose), ``old_ratio`` the
+    same on the unscaled draws of B=4, S=256 it replaced (dt =
+    softplus(normal - 2), A = -exp(normal): one tile, and a state that
+    decays within a few steps)."""
+    from repro_torch.configs import mamba_130m as cfg
+    from repro_torch.kernels.scan1 import ops, ref
+    from repro_torch.kernels.ssd.ref import softplus
+
+    c, n = cfg.ssm.d_inner(cfg.d_model), cfg.ssm.d_state
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        def rn(*shape, dtype=torch.float32):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        old = (rn(4, 256, c, dtype=dt), softplus(rn(4, 256, c) - 2.0),
+               -torch.exp(rn(c, n)), rn(4, 256, n, dtype=dt),
+               rn(4, 256, n, dtype=dt), rn(c), rn(4, c, n))
+        old_ratio = cs.scan_ratio(
+            ops.selective_scan(*old[:6], initial_state=old[6]),
+            ref.selective_scan_ref(*old), dt)
+        for b, s in ((4, 256), (4, 1000), (1, 4133)):
+            args, h0 = ref.model_scale_inputs(gen, b, s, c, n, dt)
+            got = ops.selective_scan(*args, initial_state=h0)
+            want = ref.selective_scan_ref(*args, h0)
+            out[f"scan1 B={b} S={s} {str(dt)[6:]}"] = dict(
+                ratio=cs.scan_ratio(got, want, dt), old_ratio=old_ratio,
+                max_abs_err=cs.max_err(got, want))
+    return out
+
+
 CHECKS = {"attention": attention_readings,
           "mamba1_decode": mamba1_decode_readings,
           "conv1d": conv1d_readings,
           "ring": ring_readings,
           "ssd": ssd_readings,
-          "mamba2_decode": mamba2_decode_readings}
+          "mamba2_decode": mamba2_decode_readings,
+          "scan1": scan1_readings}
+# how far past its limit a mutant of a check must land (1 where unlisted)
+MUST_FAIL_BY = {"scan1": 10.0}
 
 
 def child(checks) -> int:
@@ -446,9 +501,11 @@ def main(names) -> int:
                 if max(r["ratio"] for r in rs.values()) > 1.0:
                     failed.append(f"{name}: unchanged kernels fail the "
                                   f"{check} check")
-        elif max(r["ratio"] for r in readings[mutant[0]].values()) <= 1.0:
+        elif (max(r["ratio"] for r in readings[mutant[0]].values())
+              <= MUST_FAIL_BY.get(mutant[0], 1.0)):
             failed.append(f"{name}: the {mutant[0]} check passes this "
-                          f"mutant")
+                          f"mutant, or fails it by less than "
+                          f"{MUST_FAIL_BY.get(mutant[0], 1.0)}x")
     for line in failed:
         print("FAIL " + line)
     return 1 if failed else 0

@@ -1,6 +1,6 @@
 """Time variants of the flash kernel's, the SSD scan's, the Mamba-2 or
-Mamba-1 decode step's or causal conv1d's source against each other on
-one card.
+Mamba-1 decode step's, the selective scan's or causal conv1d's source
+against each other on one card.
 
     python3 scripts/kernel_variants.py SET [--micro] [--tree TREE]
 
@@ -29,7 +29,10 @@ step at both models' shapes, bf16 and fp32, on
 B=4, B=1 and B=16, on ``chip_smoke.mamba1_decode_inputs``; one that starts
 with ``conv1d`` causal conv1d in bf16 at B=4, S=256 and the channel
 counts of ``chip_smoke.conv_shapes``, without and (where the wrapper
-takes them) with ragged lengths. Each variant's kernels that ptxas
+takes them) with ragged lengths; one that starts with ``scan1`` the
+selective scan in bf16 at mamba-130m's width, B=4, S=256 and B=1, S=2048
+and 16384, on ``scan1.ref.model_scale_inputs`` (``chip_smoke.scan_ratio``'s
+limits). Each variant's kernels that ptxas
 reports spilling are printed. The variants run in turn, then again in
 reverse order; each case prints every variant's two times and its worst
 ratio to the check's limit (1 is the limit). An output past the limit
@@ -58,6 +61,36 @@ _M1_ONE_CLUSTER = [
      "constexpr int kHalves = 1;"],
     ["mamba1_decode.cu", "static_assert(Layout(",
      "static_assert(kHalves == 1 || Layout("]]
+
+# text of csrc/scan1.cu that the scan1 variants cut
+_SCAN1_NO_STATES = ["scan1.cu", "    for (int g0 = 0; g0 < N; g0 += G) {",
+                    "    for (int g0 = 0; g0 < 0; g0 += G) {"]
+_SCAN1_NO_EX2 = ["scan1.cu",
+                 "for (int i = 0; i < K; ++i) a[g][i] = ex2(dtv[i] * a2);",
+                 "for (int i = 0; i < K; ++i) a[g][i] = dtv[i] * a2;"]
+_SCAN1_NO_SCAN = ["scan1.cu", "for (int off = 1; off < 32; off *= 2) {",
+                  "for (int off = 32; off < 32; off *= 2) {"]
+_SCAN1_NO_B = ["scan1.cu",
+               "load_g<T, G>(brow + i * kRowW + g0 * L::kEsz / 4, bv);",
+               "for (int g = 0; g < G; ++g) bv[g] = 1.0f;"]
+_SCAN1_NO_WALK = ["scan1.cu",
+                  "        load_g<T, G>(crow + i * kRowW + g0 * L::kEsz / 4, cv);\n"
+                  "#pragma unroll\n"
+                  "        for (int g = 0; g < G; ++g) {\n"
+                  "          h[g] = fmaf(a[g][i], h[g], u[g][i]);\n"
+                  "          acc[i] = fmaf(cv[g], h[g], acc[i]);\n"
+                  "        }\n",
+                  "        for (int g = 0; g < G; ++g) acc[i] += h[g];\n"]
+_SCAN1_NO_LOADS = ["scan1.cu",
+                   "  auto stage = [&](int s, int t0) {\n",
+                   "  auto stage = [&](int s, int t0) {\n"
+                   "    if (t0 >= 0) return repro::cp_async_commit();\n"]
+_SCAN1_NO_COOK = ["scan1.cu", "      ob[o] = rb[q];\n      oc[o] = rc[q];\n",
+                  "      (void)o;\n"]
+_SCAN1_NO_OUTPUT = ["scan1.cu",
+                    "    for (int t = tid; t < rows; t += kN) {",
+                    "    for (int t = tid; t < 0; t += kN) {"]
+_SCAN1_RULE = ["../scan1/ops.py", "index = 1 if b * ldc >= 3 * SMS * 8 else 0"]
 
 SETS = {
     # K/V pipeline depth of the d=128 instance
@@ -314,7 +347,75 @@ SETS = {
              "    for (int i = 0; i < K; ++i) wk[e][i] = w[(size_t)(c + e) * K "
              "+ i];\n    bc[e] = bias[c + e];"]],
     },
+    # where the selective scan's time goes: each phase of a tile alone,
+    # and each cut from the whole
+    "scan1_breakdown": {
+        "as is": [],
+        "staging alone (no state work)": [_SCAN1_NO_STATES],
+        "ex2 alone (staging, ex2, the fold; no B, scan or second walk)": [
+            _SCAN1_NO_SCAN, _SCAN1_NO_B, _SCAN1_NO_WALK],
+        "shuffle scan alone (staging, the fold, the scan; no ex2, B or "
+        "second walk)": [_SCAN1_NO_EX2, _SCAN1_NO_B, _SCAN1_NO_WALK],
+        "no ex2": [_SCAN1_NO_EX2],
+        "no B loads": [_SCAN1_NO_B],
+        "no shuffle scan": [_SCAN1_NO_SCAN],
+        "no second walk": [_SCAN1_NO_WALK],
+    },
+    # the tile's skeleton: the loads, the B/C copy and the y rows each
+    # cut
+    "scan1_skeleton": {
+        "as is": [],
+        "no loads (shared memory as it is)": [_SCAN1_NO_LOADS],
+        "no B/C copy": [_SCAN1_NO_COOK],
+        "no y rows": [_SCAN1_NO_OUTPUT],
+    },
+    # the scan's launch plans at every shape: scan1_plan's rule against
+    # each plan everywhere, two warps a channel (each scanning half of
+    # the states), 16 steps a lane, and other state groups
+    "scan1_plans": {
+        "rule (as is)": [],
+        "4 channels a block everywhere": [_SCAN1_RULE + ["index = 0"]],
+        "8 channels a block everywhere": [_SCAN1_RULE + ["index = 1"]],
+        "16 steps a lane at B=1": [
+            ["scan1.cu", "launch<T, N, 8, 4, 2, 4>",
+             "launch<T, N, 16, 4, 2, 3>"]],
+        "groups of 4 states": [
+            ["scan1.cu", "launch<T, N, 8, 4, 2, 4>",
+             "launch<T, N, 8, 4, 4, 4>"],
+            ["scan1.cu", "launch<T, N, 8, 8, 2, 2>",
+             "launch<T, N, 8, 8, 4, 2>"]],
+    },
 }
+
+
+def scan1_child() -> int:
+    """The selective scan's check (chip_smoke's limits on y and the state,
+    worst ratio) and its time in bf16 at mamba-130m's width: B=4, S=256
+    (a served chunk), B=1, S=2048 and B=1, S=16384, on inputs at the
+    model's scales (``scan1.ref.model_scale_inputs``)."""
+    import torch
+
+    sys.path.insert(1, ROOT)
+    import chip_smoke as cs
+    from repro_torch.configs import mamba_130m as cfg
+    from repro_torch.kernels.scan1 import ops, ref
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    c, n = cfg.ssm.d_inner(cfg.d_model), cfg.ssm.d_state
+    out = {}
+    for b, s in ((4, 256), (1, 2048), (1, 16384)):
+        args, h0 = ref.model_scale_inputs(gen, b, s, c, n, bf16)
+        got = ops.selective_scan(*args, initial_state=h0)
+        want = ref.selective_scan_ref(*args, h0)
+        out[f"scan1 B={b} S={s}"] = (
+            cs.scan_ratio(got, want, bf16),
+            cs.device_ms(lambda: ops.selective_scan(*args, initial_state=h0),
+                         calls=10 if s <= 2048 else 3,
+                         reps=25 if s <= 2048 else 10))
+        del args, h0, got, want
+    print(json.dumps(out))
+    return 0
 
 
 def m1_child() -> int:
@@ -532,7 +633,8 @@ def run_variant(name: str, edits, micro: bool, kind: str, tree: str,
                 f.write(text.replace(old, new))
     env = dict(os.environ, PYTHONPATH=os.path.join(base, "src"))
     flag = {"ssd": ["--ssd"], "decode": ["--decode"], "m1": ["--m1"],
-            "conv": ["--conv"]}.get(kind, ["--micro"] if micro else [])
+            "conv": ["--conv"], "scan1": ["--scan1"]}.get(
+                kind, ["--micro"] if micro else [])
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
                           "--child"] + flag, env=env, capture_output=True,
                          text=True, timeout=900)
@@ -563,6 +665,7 @@ def main(spec: str, micro: bool, tree: str) -> int:
             variants = json.load(f)
     names = list(variants)
     kind = ("ssd" if spec.startswith("ssd") else
+            "scan1" if spec.startswith("scan1") else
             "decode" if spec.startswith("mamba2_decode") else
             "m1" if spec.startswith("mamba1_decode") else
             "conv" if spec.startswith("conv1d") else "flash")
@@ -593,7 +696,8 @@ if __name__ == "__main__":
         tree = os.path.abspath(args[i + 1])
         del args[i:i + 2]
     children = {"--ssd": ssd_child, "--decode": decode_child,
-                "--m1": m1_child, "--conv": conv_child}
+                "--m1": m1_child, "--conv": conv_child,
+                "--scan1": scan1_child}
     if args[:1] == ["--child"] and args[1:] and args[1] in children:
         sys.exit(children[args[1]]())
     if args == ["--child"]:

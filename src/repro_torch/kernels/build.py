@@ -41,7 +41,7 @@ SIGNATURES: Dict[str, Tuple] = {
                         I, I, P, P, P, I, P),
     "repro_decode_attn_fwd": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                               L, L, L, L, L, L, L, L, I, P),
-    "repro_scan1_fwd": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "repro_scan1_fwd": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     "repro_mamba1_decode_fwd": (P, P, P, P, P, P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, P),
 }
@@ -120,6 +120,11 @@ def dtype_code(dtype) -> int:
     if dtype not in codes:
         raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
     return codes[dtype]
+
+
+def dtype_size(dtype) -> int:
+    """Bytes of one element of a type the kernels take."""
+    return 4 if dtype_code(dtype) == 0 else 2
 
 
 def check(rc: int, name: str) -> None:

@@ -1,13 +1,14 @@
 """Mamba-1 selective scan: the device picks the path.
 
 A CPU tensor runs the plain ``selective_scan_ref``; a CUDA tensor launches
-the hand-written kernel (``csrc/scan1.cu``) or raises.  The softplus of
-dt and ``-exp(A_log)`` stay plain torch in the model, outside the kernel,
-as the reference keeps them outside its ``pallas_call``.
+the hand-written kernel (``csrc/scan1.cu``) as :func:`scan1_plan` says,
+or raises.  The softplus of dt and ``-exp(A_log)`` stay plain torch in
+the model, outside the kernel, as the reference keeps them outside its
+``pallas_call``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -16,29 +17,82 @@ from repro_torch.kernels.scan1 import ref as _ref
 
 # d_state values the kernel is instantiated for
 D_STATES = (8, 16)
+# the kernel's plans, by number (``csrc/scan1.cu``, launch_plan): steps a
+# lane K, channels a block CT (a warp a channel), states a group G
+PLANS = ((8, 4, 2), (8, 8, 2))
+SMS = 132          # streaming multiprocessors of an H100 SXM
+
+
+class Scan1Plan(NamedTuple):
+    """How one call is cut into blocks: ``index`` the kernel's plan
+    number; ``steps`` a lane (a tile is 32 of them), ``channels`` a block
+    (one warp each); ``ldc`` the row length the kernel reads (C rounded up
+    to 8); ``blocks``, ``threads`` a block and ``smem_bytes`` of dynamic
+    shared memory a block."""
+    index: int
+    steps: int
+    channels: int
+    ldc: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+
+
+def _smem(esz: int, n: int, k: int, ct: int) -> int:
+    """Bytes of ``csrc/scan1.cu``'s Layout: two stages of x and dt tiles
+    (32 k rows, each run of k rows followed by 16 bytes), B's and C's
+    rows as they arrive and cooked (runs of k rows and one word), and the
+    y values (runs of k rows of ct floats and one word)."""
+    wx, wd, wb = ct * esz, ct * 4, n * esz
+    stage = 32 * (k * wx + 16) + 32 * (k * wd + 16)
+    return (2 * stage + 2 * 32 * k * wb + 2 * 128 * (k * wb // 4 + 1)
+            + 128 * (k * ct + 1))
+
+
+def scan1_plan(b: int, s: int, c: int, n: int, dtype) -> Scan1Plan:
+    """The launch plan, from shapes only: blocks of 8 channels of one
+    batch row, a warp a channel, where that gives at least three blocks
+    an SM (mamba-130m's served chunk, B=4: 768 blocks); else blocks of 4
+    channels, so that B=1 at 1536 channels gives 384 blocks, not 192 on
+    132 SMs.  (Two warps a channel, each scanning half of the states, was
+    no faster at either: ``kernel_variants.py scan1_plans``.)"""
+    if n not in D_STATES:
+        raise ValueError(f"selective scan kernel built for d_state in "
+                         f"{D_STATES}, got {n}")
+    esz = build.dtype_size(dtype)
+    ldc = -(-c // 8) * 8
+    index = 1 if b * ldc >= 3 * SMS * 8 else 0
+    k, ct, _ = PLANS[index]
+    return Scan1Plan(index, k, ct, ldc, b * -(-ldc // ct), 32 * ct,
+                     _smem(esz, n, k, ct))
 
 
 def selective_scan(x, dt, A, Bm, Cm, D, *,
-                   initial_state: Optional[torch.Tensor] = None
+                   initial_state: Optional[torch.Tensor] = None,
+                   out_state: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B,S,C]; dt: [B,S,C] (post-softplus); A: [C,N]; Bm, Cm: [B,S,N];
     D: [C]; initial_state: [B,C,N].  Returns (y [B,S,C] in x's dtype,
-    final state [B,C,N] fp32)."""
+    final state [B,C,N] fp32).  ``out_state`` (a contiguous, 16-byte
+    aligned fp32 [B,C,N], e.g. a cache slot, apart from the other inputs;
+    it may be the initial state) receives the final state and is returned
+    as it."""
     if x.device.type == "cpu":
-        return _ref.selective_scan_ref(x, dt, A, Bm, Cm, D, initial_state)
+        return _ref.selective_scan_ref(x, dt, A, Bm, Cm, D, initial_state,
+                                       out_state=out_state)
     return selective_scan_cuda(x, dt, A, Bm, Cm, D,
-                               initial_state=initial_state)
+                               initial_state=initial_state,
+                               out_state=out_state)
 
 
-def selective_scan_cuda(x, dt, A, Bm, Cm, D, *, initial_state=None):
+def selective_scan_cuda(x, dt, A, Bm, Cm, D, *, initial_state=None,
+                        out_state=None):
     if x.device.type != "cuda":
         raise ValueError(f"selective scan kernel needs a CUDA tensor, got "
                          f"{x.device}")
     b, s, c = x.shape
     n = A.shape[-1]
-    if n not in D_STATES:
-        raise ValueError(f"selective scan kernel built for d_state in "
-                         f"{D_STATES}, got {n}")
+    plan = scan1_plan(b, s, c, n, x.dtype)
     if (dt.shape != (b, s, c) or A.shape != (c, n) or D.shape != (c,)
             or Bm.shape != (b, s, n) or Cm.shape != (b, s, n)
             or b == 0 or s == 0 or c == 0):
@@ -61,15 +115,25 @@ def selective_scan_cuda(x, dt, A, Bm, Cm, D, *, initial_state=None):
            initial_state.float().contiguous()]
     if any(t.device != x.device for t in ins):
         raise ValueError("all selective scan inputs must be on one device")
-    y = torch.empty_like(ins[0])
-    final = torch.empty((b, c, n), dtype=torch.float32, device=x.device)
+    # the kernel stages x, dt, B and C in 8- and 16-byte pieces, x and dt
+    # in rows ldc long
+    pad = plan.ldc - c
+    for i in (0, 1, 3, 4):
+        if i < 2 and pad:
+            ins[i] = torch.nn.functional.pad(ins[i], (0, pad))
+        elif ins[i].data_ptr() % 16:
+            ins[i] = ins[i].clone()
+    y = torch.empty((b, s, plan.ldc), dtype=x.dtype, device=x.device)
+    # each warp reads its own states of initial_state before it writes
+    # them, and every block reads the other inputs
+    final = build.destination(out_state, ins[6], "out_state", ins[:6])
     lib = build.library()
     rc = lib.repro_scan1_fwd(*[t.data_ptr() for t in ins], y.data_ptr(),
-                             final.data_ptr(), b, s, c, n, code,
-                             build.stream_ptr(x.device))
+                             final.data_ptr(), b, s, c, plan.ldc, n,
+                             plan.index, code, build.stream_ptr(x.device))
     build.check(rc, "repro_scan1_fwd")
     selective_scan.launches += 1
-    return y, final
+    return (y[..., :c].contiguous() if pad else y), final
 
 
 selective_scan.launches = 0

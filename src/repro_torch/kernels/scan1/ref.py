@@ -9,15 +9,21 @@ the kernel's comparison on the card.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.ssd.ref import into, softplus
+
 
 def selective_scan_ref(x, dt, A, Bm, Cm, D,
-                       initial_state: Optional[torch.Tensor] = None
+                       initial_state: Optional[torch.Tensor] = None, *,
+                       out_state: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y [B,S,C] in x's dtype, final h [B,C,N] fp32)."""
+    """Returns (y [B,S,C] in x's dtype, final h [B,C,N] fp32); ``out_state``,
+    when given, receives a copy of the final state and is returned in its
+    place, as the kernel writes its destination."""
     b, s, c = x.shape
     n = A.shape[-1]
     xf, dtf, Af = x.float(), dt.float(), A.float()
@@ -30,4 +36,37 @@ def selective_scan_ref(x, dt, A, Bm, Cm, D,
         h = h * da + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
         ys[:, t] = torch.einsum("bcn,bn->bc", h, Cf[:, t])
     y = ys + xf * D.float()[None, None]
-    return y.to(x.dtype), h
+    return y.to(x.dtype), into(out_state, h)
+
+
+def model_scale_inputs(gen: torch.Generator, b: int, s: int, c: int, n: int,
+                       dtype, warmup: int = 128):
+    """Scan inputs ((x, dt, A, B, C, D), initial state) at a Mamba-1
+    model's scales, drawn from ``gen`` on its device: dt = softplus(dt_bias
+    + 0.1 * noise) with dt_bias the inverse softplus of dt log-uniform in
+    [1e-3, 1e-1] per channel, A = -(uniform in [1, 16]) per (channel,
+    state) (the model's inits, ``models/params.py``), x, B and C standard
+    normal in ``dtype`` and D standard normal, and the initial state the
+    plain version's final state after ``warmup`` such steps from zero, the
+    size a served state has.  With these, exp(dt * A) lies in [0.2, 1)
+    and a state carries over hundreds of steps, so a carry lost between
+    the kernel's tiles shows; draws of dt ~ softplus(normal) and A ~
+    -exp(normal) decay it within a few steps."""
+    dev = gen.device
+
+    def rn(*shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    u = torch.rand((c,), generator=gen, device=dev)
+    dt0 = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    A = -(torch.rand((c, n), generator=gen, device=dev) * 15.0 + 1.0)
+    D = rn(c)
+
+    def draw(s_):
+        return (rn(b, s_, c, dt=dtype), softplus(dt_bias + 0.1 * rn(b, s_, c)),
+                rn(b, s_, n, dt=dtype), rn(b, s_, n, dt=dtype))
+    wx, wdt, wB, wC = draw(warmup)
+    _, h0 = selective_scan_ref(wx, wdt, A, wB, wC, D)
+    x, dts, Bm, Cm = draw(s)
+    return (x, dts, A, Bm, Cm, D), h0

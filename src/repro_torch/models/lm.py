@@ -18,7 +18,7 @@ layers stands in for ``lax.scan``.
 How a call updates the cache: **KV leaves are written in place**, where
 the reference returns new arrays; every other leaf (the small conv and
 SSM states) is returned as a new tensor and the input's is left as it
-was (a Mamba-2 layer's kernels write their new states straight into the
+was (a Mamba layer's kernels write their new states straight into the
 new tensor's slot).  ``kv_bucket`` slices the KV leaves to their first
 ``kv_bucket`` rows; the slices are views, so the writes land in the full
 cache and need no write-back, and the returned cache holds the full

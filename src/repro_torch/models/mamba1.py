@@ -65,9 +65,9 @@ def mamba1_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
     left-aligned prefix per row of ``lengths`` tokens ([B] int32, given
     with the mask): invalid tokens are inert (their dt is
     softplus(-30), so the scan state passes through) and the conv state
-    ends at the last valid input.  ``slots`` ({"conv", ...}, the layer's
-    slots in a new cache) take the final conv state in place where its
-    type allows."""
+    ends at the last valid input.  ``slots`` ({"conv", "ssm"}, the
+    layer's slots in a new cache) take the final conv state and the
+    scan's final state in place where their types allow."""
     dtr = dt_rank(d_model, s)
     dt_ = x.dtype
     xi = x @ p["wx"].to(dt_)
@@ -89,7 +89,9 @@ def mamba1_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
     A = -torch.exp(p["A_log"].float())
     init_ssm = cache["ssm"] if cache is not None else None
     y, ssm_state = selective_scan(xi, dt, A, bm, cm, p["D"].float(),
-                                  initial_state=init_ssm)
+                                  initial_state=init_ssm,
+                                  out_state=state_slot(slots, "ssm",
+                                                       torch.float32))
     y = y * silu(z.float()).to(dt_)
     out = y @ p["out_proj"].to(dt_)
     new_cache = None

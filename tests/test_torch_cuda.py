@@ -508,6 +508,78 @@ def test_selective_scan_kernel(cuda, dtype, with_state, n, b, s, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c", [(1, 4133, 1536), (1, 16384, 1536),
+                                   (4, 256, 1536), (3, 777, 1000)],
+                         ids=["off-tile", "long", "served", "narrow"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_selective_scan_kernel_model_scales(cuda, dtype, b, s, c):
+    """Inputs at the model's scales (``scan1.ref.model_scale_inputs``: dt
+    from the model's dt init, A in [-16, -1], a warmed-up state), where a
+    state lives for hundreds of steps: S over many 256-step tiles and off
+    them, mamba-130m's served chunk (blocks of 8 channels), and a width
+    off the 8-channel blocks (B=3, C=1000: 750 blocks of 4 channels).  y
+    within the scan tolerance of max |y|, the state within 1e-3."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    args, h0 = scan_ref.model_scale_inputs(gen, b, s, c, 16, DTYPES[dtype])
+    y, h = scan_ops.selective_scan(*args, initial_state=h0)
+    torch.cuda.synchronize()
+    wy, wh = scan_ref.selective_scan_ref(*args, h0)
+    err = float((y.float() - wy.float()).abs().max())
+    assert err <= SCAN_TOL[dtype] * float(wy.float().abs().max())
+    torch.testing.assert_close(h, wh, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1536, 1003])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_selective_scan_kernel_writes_destination(cuda, dtype, c):
+    """``out_state`` a slot of a stacked [n_rep, B, C, N] leaf (C = 1003:
+    rows the wrapper pads to 1008 channels): the final state lands there
+    and equals the plain version's, the other slots and the inputs stay
+    as they were; ``out_state`` may also be the initial state itself."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    args, h0 = scan_ref.model_scale_inputs(gen, 2, 300, c, 16, DTYPES[dtype])
+    before = [t.clone() for t in args] + [h0.clone()]
+    stacked = torch.full((3, 2, c, 16), 7.0, device=cuda)
+    y, fin = scan_ops.selective_scan(*args, initial_state=h0,
+                                     out_state=stacked[1])
+    torch.cuda.synchronize()
+    assert fin.data_ptr() == stacked[1].data_ptr()
+    wy, wh = scan_ref.selective_scan_ref(*args, h0)
+    err = float((y.float() - wy.float()).abs().max())
+    assert err <= SCAN_TOL[dtype] * float(wy.float().abs().max())
+    torch.testing.assert_close(fin, wh, rtol=1e-3, atol=1e-3)
+    assert bool((stacked[0] == 7.0).all() and (stacked[2] == 7.0).all())
+    for t, t0 in zip(list(args) + [h0], before):
+        assert torch.equal(t, t0)
+    y2, fin2 = scan_ops.selective_scan(*args, initial_state=h0,
+                                       out_state=h0)
+    torch.cuda.synchronize()
+    assert fin2.data_ptr() == h0.data_ptr()
+    assert torch.equal(y2, y) and torch.equal(fin2, fin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrong", ["shape", "dtype", "strides", "overlap"])
+def test_selective_scan_destination_must_fit(cuda, wrong):
+    """A final-state destination the kernel could not write as it stands
+    raises before any launch: a wrong shape, type or layout, or one that
+    overlaps an input other than the initial state."""
+    z = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
+    b, s, c, n = 2, 32, 64, 16
+    x, dt = z(b, s, c), z(b, s, c)
+    bad = {"shape": z(b, c, n + 1), "dtype": z(b, c, n).double(),
+           "strides": z(b, n, c).transpose(1, 2),
+           "overlap": dt.view(-1)[:b * c * n].view(b, c, n)}[wrong]
+    n0 = scan_ops.selective_scan.launches
+    with pytest.raises(ValueError, match="out_state"):
+        scan_ops.selective_scan(x, dt, z(c, n), z(b, s, n), z(b, s, n),
+                                z(c), initial_state=z(b, c, n),
+                                out_state=bad)
+    assert scan_ops.selective_scan.launches == n0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("di,n,dtr", [(1536, 16, 48), (128, 16, 4),
                                       (1000, 8, 6)],
                          ids=["mamba-130m", "reduced", "off-tile"])

@@ -6,7 +6,7 @@ slot of the new cache: the conv kernel its conv state (prefill), the
 decode steps the conv window and the SSM state, and SSD (Mamba-2) the
 final SSM state.  ``_run_segments`` hands the slots over and
 ``_store_state`` copies only what is not already there; the selective
-scan's final state (Mamba-1 prefill) is still copied.  Here
+scan writes its final state (Mamba-1 prefill) into its slot too.  Here
 reduced(mamba2-2.7b), reduced(zamba2-2.7b) and reduced(mamba-130m) run a
 prefill chunk and a decode step on the plain path (whose ops copy into
 the slots as the kernels write them) against the reference, with the
@@ -41,6 +41,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.attn_decode import ops as dec_attn_ops
 from repro_torch.kernels.decode_fused import ops as dec_ops
 from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.scan1 import ops as scan_ops
+from repro_torch.kernels.scan1 import ref as scan_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models import lm
@@ -49,6 +51,7 @@ from repro_torch.models import mamba1 as m1
 MODELS = {"mamba2": (J_MAMBA2, T_MAMBA2), "zamba2": (J_ZAMBA, T_ZAMBA)}
 MAMBA1 = {"mamba1": (J_MAMBA1, T_MAMBA1)}
 SMEM_PER_BLOCK = 232448     # bytes a block may hold on an H100 (227 KB)
+SMEM_PER_SM = 233472        # an SM's shared memory (228 KB), 1 KB a block
 STATE_KEYS = ("conv", "ssm")
 
 
@@ -213,9 +216,9 @@ def test_decode_step_writes_states_in_place(model, cd, copies,
 def test_mamba1_prefill_chunk_writes_conv_in_place(model, cd, copies,
                                                    monkeypatch):
     """reduced(mamba-130m), a ragged prefill chunk on a carried cache: the
-    conv window lands in its slot and only the scan's final state is
-    copied, one leaf per layer; the old cache is unchanged, the new
-    states equal the copying path's bit for bit and the reference's."""
+    conv window and the scan's final state both land in their slots (no
+    Mamba-1 leaf is copied), the old cache is unchanged, the new states
+    equal the copying path's bit for bit and the reference's."""
     jcfg, tcfg = _cfgs(model, cd)
     jp, tp = _params(jcfg)
     jc, tc = _prefilled(jcfg, tcfg, jp, tp, cd)
@@ -229,8 +232,8 @@ def test_mamba1_prefill_chunk_writes_conv_in_place(model, cd, copies,
                                    lengths=torch.from_numpy(lens))
     copies.clear()
     _, t_new = run()
-    assert copies == [1] * tcfg.n_layers
-    assert copies.keys == [["ssm"]] * tcfg.n_layers
+    assert copies == [0] * tcfg.n_layers
+    assert copies.keys == [[]] * tcfg.n_layers
     _same_as_copying(run, t_new["segments"], monkeypatch)
     for key, t in _state_leaves(tc["segments"]).items():
         assert torch.equal(t, before[key]), key
@@ -239,6 +242,9 @@ def test_mamba1_prefill_chunk_writes_conv_in_place(model, cd, copies,
             jcfg, jp, {"tokens": jnp.asarray(toks)}, jc,
             lengths=jnp.asarray(lens))
         _close_states(t_new["segments"], j_new["segments"], 1e-4)
+    new, old = _state_leaves(t_new["segments"]), _state_leaves(tc["segments"])
+    for key in new:
+        assert new[key].data_ptr() != old[key].data_ptr()
 
 
 @pytest.mark.parametrize("cd", list(DTYPES))
@@ -325,7 +331,75 @@ def test_plain_ssd_fills_destination(with_out):
         assert got[1] is out
 
 
+@pytest.mark.parametrize("with_out", [False, True])
+def test_plain_scan_fills_destination(with_out):
+    """The plain selective scan hands its final state over in
+    ``out_state`` exactly as it returns it without one, also when the
+    destination is the initial state itself."""
+    rng = np.random.default_rng(8)
+    b, s, c, n = 2, 40, 24, 16
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    args = (t(b, s, c), scan_ref.softplus(t(b, s, c)), -torch.exp(t(c, n)),
+            t(b, s, n), t(b, s, n), t(c))
+    h0 = t(b, c, n)
+    want = scan_ref.selective_scan_ref(*args, h0)
+    out = torch.empty(b, c, n) if with_out else None
+    got = scan_ops.selective_scan(*args, initial_state=h0, out_state=out)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if with_out:
+        assert got[1] is out
+    got = scan_ops.selective_scan(*args, initial_state=h0, out_state=h0)
+    assert got[1] is h0 and torch.equal(h0, want[1])
+
+
 # ----------------------------------------------------------- launch plan
+
+@pytest.mark.parametrize("b,s,c,n,dtype,plan,blocks", [
+    (4, 256, 1536, 16, torch.bfloat16, 1, 768),     # mamba-130m's chunk
+    (1, 16384, 1536, 16, torch.bfloat16, 0, 384),   # long context, B=1
+    (2, 256, 1536, 16, torch.float32, 0, 768),
+    (3, 200, 1000, 8, torch.bfloat16, 0, 750),
+    (4, 200, 1000, 8, torch.bfloat16, 1, 500),
+    (1, 7, 1003, 16, torch.float32, 0, 252)])       # C padded to 1008
+def test_scan1_plan(b, s, c, n, dtype, plan, blocks):
+    """Blocks of 8 channels of one batch row, a warp a channel, where
+    that gives three blocks an SM, else of 4; the block's shared memory
+    fits 4 blocks of 4 channels an SM in bf16 (2 blocks of 8, and 2 of 4
+    in fp32), and the rows read are C rounded up to 8."""
+    p = scan_ops.scan1_plan(b, s, c, n, dtype)
+    assert (p.index, p.blocks) == (plan, blocks)
+    assert p.ldc == -(-c // 8) * 8 and p.ldc % 8 == 0
+    assert p.threads == 32 * p.channels
+    assert p.blocks == b * (p.ldc // p.channels)
+    per_sm = 4 if dtype == torch.bfloat16 and p.channels == 4 else 2
+    assert per_sm * (p.smem_bytes + 1024) <= SMEM_PER_SM
+    assert p.smem_bytes <= SMEM_PER_BLOCK
+
+
+def test_scan1_plan_smem_matches_layout():
+    """The plan's shared-memory bytes, worked out by hand from
+    ``csrc/scan1.cu``'s Layout at mamba-130m's bf16 chunk (8 steps a
+    lane, 8 channels a block): two stages of x (32 runs of 8 rows of 16
+    bytes, each run followed by 16 bytes) and dt (rows of 32 bytes), B's
+    and C's raw rows (256 of 32 bytes each) and cooked (32 runs of 64
+    words and one), and the y values (32 runs of 8 rows of 8 floats and
+    one word)."""
+    stage = 32 * (8 * 16 + 16) + 32 * (8 * 32 + 16)
+    want = 2 * stage + 2 * 256 * 32 + 2 * 4 * 32 * 65 + 4 * 32 * 65
+    assert scan_ops.scan1_plan(4, 256, 1536, 16,
+                               torch.bfloat16).smem_bytes == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_scan1_plan_unbuilt(dtype):
+    """A d_state or type the scan kernel is not built for raises."""
+    with pytest.raises(ValueError, match="d_state"):
+        scan_ops.scan1_plan(1, 8, 64, 32, torch.bfloat16)
+    with pytest.raises(TypeError):
+        scan_ops.scan1_plan(1, 8, 64, 16, dtype)
+
 
 @pytest.mark.parametrize("b,h", [(4, 80), (1, 80), (1, 24), (2, 33),
                                  (2, 34)])

@@ -68,6 +68,7 @@ from repro_torch.convert import from_jax, to_numpy
 from repro_torch.core.config import SSMConfig
 from repro_torch.kernels.decode_fused import ops as dec_ops
 from repro_torch.kernels.scan1 import ops as scan_ops
+from repro_torch.kernels.scan1 import ref as scan_ref
 from repro_torch.kernels.ssd.ref import softplus
 from repro_torch.models import lm
 from repro_torch.models import mamba1 as m1
@@ -132,6 +133,45 @@ def test_selective_scan_plain_matches_reference(dtype, with_state, s):
                                   torch.from_numpy(D), initial_state=th0)
     assert got[0].dtype == DT[dtype][1] and got[1].dtype == torch.float32
     jargs = (jx, jnp.asarray(dt), jnp.asarray(A), jb, jc, jnp.asarray(D))
+    wants = {
+        "oracle": j_scan(*jargs, initial_state=jh0),
+        "pallas": selective_scan_pallas(
+            *jargs, initial_state=jh0, block_seq=16 if s % 16 == 0 else s,
+            block_ch=128, interpret=True),
+        "associative": jm1.selective_scan(*jargs, initial_state=jh0,
+                                          chunk=16),
+    }
+    for name, (wy, wh) in wants.items():
+        assert _rel(got[0], wy) < SCAN_TOL[dtype], name
+        np.testing.assert_allclose(_np(got[1]), _np(wh), rtol=1e-3,
+                                   atol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("s", [64, 37])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_scale_scan_inputs_match_reference(dtype, s):
+    """``scan1.ref.model_scale_inputs`` (the draws the card's checks use
+    to see a dropped carry), handed to both sides as numpy: the plain
+    scan against the reference's oracle, its Pallas kernel in interpret
+    mode (block_seq 16, or the whole sequence where 16 does not divide
+    it) and its associative in-model scan, at the scan tolerances.  The
+    draws are at the model's scales: exp(dt * A) within [0.1, 1), so a
+    state outlives many steps, and a warmed-up initial state."""
+    b, c, n = 2, 128, 16
+    td = DT[dtype][1]
+    gen = torch.Generator().manual_seed(s)
+    (x, dt, A, Bm, Cm, D), h0 = scan_ref.model_scale_inputs(gen, b, s, c, n,
+                                                            td)
+    da = torch.exp(dt[..., None] * A)
+    assert float(da.min()) > 0.1 and float(da.max()) < 1.0
+    assert x.dtype == Bm.dtype == Cm.dtype == td
+    assert float(h0.abs().mean()) > 1e-3
+    got = scan_ops.selective_scan(x, dt, A, Bm, Cm, D, initial_state=h0)
+    j = {k: jnp.asarray(_np(v)).astype(DT[dtype][0] if k in "xBC"
+                                        else jnp.float32)
+         for k, v in dict(x=x, dt=dt, A=A, B=Bm, C=Cm, D=D).items()}
+    jargs = (j["x"], j["dt"], j["A"], j["B"], j["C"], j["D"])
+    jh0 = jnp.asarray(h0.numpy())
     wants = {
         "oracle": j_scan(*jargs, initial_state=jh0),
         "pallas": selective_scan_pallas(
