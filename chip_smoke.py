@@ -42,7 +42,13 @@ Phases (each prints its lines and is fatal on failure):
      read just after, each run must launch exactly the kernels of its
      layer kinds, each exactly once per layer and prefill chunk (flash,
      ring flash, conv1d, SSD or the scan) or token step (decode
-     attention, the decode steps); a profiled prefill chunk counts the
+     attention, the decode steps); every decode burst runs through the
+     engine's CUDA graphs (``serving/graphs.py``: the first burst at a
+     key eagerly, then captured; every later one a replay); steady
+     8-token bursts run both ways, eager ``decode_tokens`` then the
+     graph runner, with their times, profiles and memory, and the graph
+     bursts are held bit for bit to eager bursts from cloned caches
+     (``phase_steady_bursts``); a profiled prefill chunk counts the
      state leaves copied into the new cache (none: every Mamba kernel
      writes its slot);
   5. the kernel path against the plain path on the card (one prompt,
@@ -145,25 +151,46 @@ def device_busy(fn, names=()) -> dict:
     time, the union of kernel intervals on the card, kernel launches, and
     the device-side memory copies (``copy_`` of one tensor into another
     of its type, as a cache leaf is stored, runs as a memcpy, not a
-    kernel) with their summed time; for each of ``names``, the summed
-    time of the kernels whose name holds it and its share of all kernel
-    time.  The trace is kept in ``build/repro_torch/`` (listed in
-    .gitignore)."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel) with their summed time and their count by direction; for each
+    of ``names``, the summed time of the kernels whose name holds it and
+    its share of all kernel time.  Where the idle time lies: the device
+    span (first device operation's start to the last one's end) and the
+    idle share inside it (the gaps between operations), the first device
+    operation's and the first kernel's offsets from the start of ``fn``,
+    and the host time in ``cudaGraphLaunch``.  One small operation runs
+    before ``fn``, so the tracer is live when ``fn`` starts; only the
+    device operations of the calls ``fn`` made are read.  The trace is
+    kept in ``build/repro_torch/`` (listed in .gitignore)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        fn()
+        torch.ones(1, device="cuda").sum()
         torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
+        with record_function("device_busy_fn"):
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "repro_torch", "decode_trace.json")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     prof.export_chrome_trace(out)
     with open(out) as f:
         events = json.load(f).get("traceEvents", [])
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    mark = next(e for e in events if e.get("name") == "device_busy_fn"
+                and e.get("cat") == "user_annotation")
+    host0, host1 = mark["ts"], mark["ts"] + mark["dur"]
+    # the device operations of the CUDA API calls ``fn`` made, matched by
+    # correlation id (the card's and the host's clocks may disagree by
+    # more than the gap between a call and its work)
+    calls = [e for e in events
+             if str(e.get("cat", "")).startswith("cuda_")
+             and host0 <= e["ts"] <= host1]
+    ids = {e.get("args", {}).get("correlation") for e in calls} - {None}
+    ops = [e for e in events if "dur" in e
+           and e.get("args", {}).get("correlation") in ids]
+    kernels = [e for e in ops if e.get("cat") == "kernel"]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
     total = sum(e["dur"] for e in kernels)
     by_name = {}
@@ -171,8 +198,15 @@ def device_busy(fn, names=()) -> dict:
         us = sum(e["dur"] for e in kernels if name in e.get("name", ""))
         by_name[name] = dict(kernel_ms=us / 1e3,
                              share=us / total if total else None)
-    copies = [e["dur"] for e in events
-              if e.get("cat") == "gpu_memcpy" and "dur" in e]
+    copies = [e for e in ops if e.get("cat") == "gpu_memcpy"]
+    by_kind = {}
+    for e in copies:
+        kind = e.get("name", "").split(" ")[1:2] or ["?"]
+        by_kind[kind[0]] = by_kind.get(kind[0], 0) + 1
+    device_ops = sorted((e["ts"], e["ts"] + e["dur"])
+                        for e in kernels + copies)
+    graph_launch_us = sum(e["dur"] for e in calls
+                          if e.get("name") == "cudaGraphLaunch")
     busy, end = 0.0, None
     for a, b in spans:
         if end is None or a > end:
@@ -181,10 +215,20 @@ def device_busy(fn, names=()) -> dict:
         elif b > end:
             busy += b - end
             end = b
+    span_us = (device_ops[-1][1] - device_ops[0][0]) if device_ops else 0
     return dict(wall_ms=wall_us / 1e3, kernel_busy_ms=busy / 1e3,
                 kernels=len(spans), memcpys=len(copies),
-                memcpy_ms=sum(copies) / 1e3,
+                memcpy_ms=sum(e["dur"] for e in copies) / 1e3,
+                memcpys_by_kind=by_kind,
                 idle_share=(1 - busy / wall_us) if spans else None,
+                device_span_ms=span_us / 1e3,
+                idle_share_in_span=(1 - busy / span_us) if spans else None,
+                first_device_op_ms=(
+                    (device_ops[0][0] - host0) / 1e3 if device_ops
+                    else None),
+                first_kernel_ms=(spans[0][0] - host0) / 1e3 if spans
+                else None,
+                graph_launch_ms=graph_launch_us / 1e3,
                 **({"by_name": by_name} if names else {}))
 
 
@@ -919,24 +963,12 @@ def phase_ring(gen):
     return rows
 
 
-# the launch counters: name -> (wrapper, attribute)
+# the launch counters: name -> (wrapper, attribute); the ring mode's
+# counter is the flash kernel's ``ring_launches``
 def counters():
-    from repro_torch.kernels.attn_decode.ops import decode_attention
-    from repro_torch.kernels.conv1d.ops import causal_conv1d
-    from repro_torch.kernels.decode_fused.ops import (mamba1_decode_fused,
-                                                      mamba2_decode_fused)
-    from repro_torch.kernels.flash.ops import flash_attention
-    from repro_torch.kernels.scan1.ops import selective_scan
-    from repro_torch.kernels.ssd.ops import ssd_chunked
-    fns = {"causal_conv1d": causal_conv1d, "ssd_chunked": ssd_chunked,
-           "mamba2_decode_fused": mamba2_decode_fused,
-           "flash_attention": flash_attention,
-           "decode_attention": decode_attention,
-           "selective_scan": selective_scan,
-           "mamba1_decode_fused": mamba1_decode_fused}
-    out = {k: (f, "launches") for k, f in fns.items()}
-    out["flash_attention_ring"] = (flash_attention, "ring_launches")
-    return out
+    from repro_torch.serving.graphs import LAUNCH_COUNTERS
+    return {fn.__name__ + ("_ring" if attr == "ring_launches" else ""):
+            (fn, attr) for fn, attr in LAUNCH_COUNTERS}
 
 
 def reset_counters():
@@ -1010,8 +1042,8 @@ def state_copies():
 def phase_serving(cfg, gen):
     """Serve 4 ragged requests at full width and depth."""
     import numpy as np
-    from repro_torch.models.lm import init_lm_params
-    from repro_torch.serving import engine as engine_mod
+    from repro_torch.models.lm import init_lm_params, lm_prefill_chunk
+    from repro_torch.serving.bucketing import clamped_bucket
     from repro_torch.serving.engine import Request, ServingEngine
 
     params = init_lm_params(cfg, gen, device="cuda")
@@ -1036,32 +1068,37 @@ def phase_serving(cfg, gen):
     eng = engine()
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n),
                     max_new=max_new) for i, n in enumerate(lens)]
-    # token steps the engine's decode bursts run (every slot steps at once)
-    token_steps = [0]
-    real_decode = engine_mod.decode_tokens
+    # token steps the engine's decode bursts run (every slot steps at once),
+    # counted at the engine's burst call (a CUDA graph replay after the
+    # first burst at each key)
+    token_steps, bursts = [0], [0]
+    real_decode = eng._decode_n
 
-    def counted_decode(cfg_, params_, cache, first, n, **kw):
+    def counted_decode(params_, cache, first, n, *a, **kw):
         token_steps[0] += n
-        return real_decode(cfg_, params_, cache, first, n, **kw)
+        bursts[0] += 1
+        return real_decode(params_, cache, first, n, *a, **kw)
 
     reset_counters()
     t0 = time.monotonic()
-    with mock.patch.object(engine_mod, "decode_tokens", counted_decode):
-        for r in reqs:
-            eng.submit(r)
-        decode_tok, decode_s = 0, 0.0
-        while True:
-            chunks = eng.stats["prefill_chunks"]
-            toks = eng.stats["decode_tokens"]
-            ts = time.monotonic()
-            left = eng.step()
-            torch.cuda.synchronize()
-            if eng.stats["prefill_chunks"] == chunks:   # a decode-only step
-                decode_tok += eng.stats["decode_tokens"] - toks
-                decode_s += time.monotonic() - ts
-            if not (left or eng.queue or eng._pending):
-                break
+    eng._decode_n = counted_decode
+    for r in reqs:
+        eng.submit(r)
+    decode_tok, decode_s = 0, 0.0
+    while True:
+        chunks = eng.stats["prefill_chunks"]
+        toks = eng.stats["decode_tokens"]
+        ts = time.monotonic()
+        left = eng.step()
+        torch.cuda.synchronize()
+        if eng.stats["prefill_chunks"] == chunks:   # a decode-only step
+            decode_tok += eng.stats["decode_tokens"] - toks
+            decode_s += time.monotonic() - ts
+        if not (left or eng.queue or eng._pending):
+            break
     wall = time.monotonic() - t0
+    served_peak = torch.cuda.max_memory_allocated()
+    eng._decode_n = real_decode
     launches = read_counters()
     for r in reqs:
         if r.status != "ok" or len(r.out) != max_new:
@@ -1081,30 +1118,20 @@ def phase_serving(cfg, gen):
         raise AssertionError(f"{cfg.name}: launches {got}, "
                              f"expected {want} ({eng.stats['prefill_chunks']} "
                              f"chunks, {token_steps[0]} token steps)")
-    # steady decode with all 4 slots live: bursts of 8 on the served cache,
-    # under the KV bucket the engine would pick
-    from repro_torch.models.lm import decode_tokens, lm_prefill_chunk
-    from repro_torch.serving.bucketing import clamped_bucket
-    first = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
-    pos = [int(p) for p in eng.cache["pos"].tolist()]
-
-    def burst():
-        nonlocal pos
-        bucket = clamped_bucket(max(pos) + 8, eng.kv_extent)
-        toks, eng.cache = decode_tokens(cfg, eng.params, eng.cache, first, 8,
-                                        kv_bucket=bucket,
-                                        rope_len=eng.rope_len)
-        toks.cpu()
-        pos = [p + 8 for p in pos]
-
-    bursts = []
-    for _ in range(4):
-        ts = time.monotonic()
-        burst()
-        bursts.append(time.monotonic() - ts)
-    burst_s = statistics.median(bursts[1:])
-    busy = device_busy(burst)
+    # every burst ran through the graphs: the first at each key eagerly
+    # (then captured), every later one as a replay
+    runner = real_decode
+    served_graphs = dict(bursts=bursts[0], captures=runner.captures,
+                         replays=runner.replays,
+                         keys=[list(k) for k in runner.keys],
+                         capture_ms=list(runner.capture_ms.values()))
+    if (runner.captures != len(runner.keys) or runner.replays == 0
+            or runner.captures + runner.replays != bursts[0]):
+        raise AssertionError(f"{cfg.name}: served bursts not replayed: "
+                             f"{served_graphs}")
+    steady = phase_steady_bursts(cfg, eng, gen)
     # one prefill chunk of 4 x 256 tokens, as the engine runs it
+    pos = steady.pop("pos")
     chunk = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
                           device="cuda")
     with state_copies() as copied:
@@ -1117,15 +1144,133 @@ def phase_serving(cfg, gen):
     return dict(ttft_ms=ttft, wall_s=wall,
                 serve_decode_only_tokens_per_s=(
                     decode_tok / decode_s if decode_s else None),
-                decode_only_tokens=decode_tok,
-                steady_b4_burst8_ms=burst_s * 1e3,
-                steady_b4_tokens_per_s=4 * 8 / burst_s,
-                profiled_decode_burst8_b4=busy,
+                decode_only_tokens=decode_tok, served_graphs=served_graphs,
+                **steady,
                 profiled_prefill_chunk_b4_s256=chunk_busy,
                 prefill_chunks=eng.stats["prefill_chunks"],
                 decode_token_steps=token_steps[0],
-                max_memory_allocated=torch.cuda.max_memory_allocated()), \
-        launches
+                max_memory_allocated=served_peak), launches
+
+
+def clone_cache(cache):
+    from repro_torch.models.params import tree_map
+    return {"segments": tree_map(torch.clone, cache["segments"]),
+            "pos": cache["pos"].clone()}
+
+
+def graph_pool_bytes(runner) -> int:
+    """Bytes of the CUDA caching allocator's segments in ``runner``'s graph
+    memory pool."""
+    pool = tuple(runner._pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def phase_steady_bursts(cfg, eng, gen):
+    """Steady 8-token bursts with all 4 slots live on the served cache,
+    under the KV bucket the engine would pick, both ways: eager
+    ``decode_tokens`` with the engine's spare state set, then the engine's
+    graph runner (``decode_n``), each taking its tokens and positions from
+    the host and handing its tokens back, as the engine's step does.  The
+    positions stay where the served run left them, so every burst runs at
+    one key (it rewrites the same 8 KV rows; the states move on).  Burst
+    ms (median of 3 after one more), tokens/s, a profiled burst each way
+    (idle share, kernels, memcpys; the graph's no more than eager's; the
+    fullest of three profiles), the
+    idle share of the profiled kernel time against the unprofiled burst,
+    the state leaves the eager burst copies (none: even bursts end in the
+    cache's own leaves); then the graph bursts against eager bursts from
+    cloned caches, without and with the sentinel: tokens, ``ok`` and every
+    cache leaf bit for bit; the keys captured, each capture's ms, the
+    spare state set's and the graph pool's bytes and the peak memory."""
+    from repro_torch.models.lm import decode_tokens
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.bucketing import clamped_bucket
+    runner, spare = eng._decode_n, eng._spare
+    pos = [int(p) for p in eng.cache["pos"].tolist()]
+    pos_h = torch.tensor(pos, dtype=torch.int32)
+    first_h = torch.randint(0, cfg.vocab_size, (4, 1), dtype=torch.int32)
+    bucket = clamped_bucket(max(pos) + 8, eng.kv_extent)
+    kw = dict(kv_bucket=bucket, rope_len=eng.rope_len)
+
+    def eager():
+        toks, eng.cache = decode_tokens(
+            cfg, eng.params, dict(eng.cache, pos=pos_h.to("cuda")),
+            first_h.to("cuda"), 8, _spare_states=spare, **kw)
+        toks.cpu()
+
+    def graph():
+        toks, eng.cache = runner(eng.params, dict(eng.cache, pos=pos_h),
+                                 first_h, 8, spare=spare, **kw)
+        toks.cpu()
+
+    out = {"pos": pos}
+    captures0 = runner.captures
+    torch.cuda.reset_peak_memory_stats()
+    for name, burst in (("eager", eager), ("graph", graph)):
+        times = []
+        for _ in range(4):
+            ts = time.monotonic()
+            burst()
+            times.append(time.monotonic() - ts)
+        burst_s = statistics.median(times[1:])
+        if name == "eager":
+            with state_copies() as copied:
+                burst()
+        out[f"steady_b4_burst8_{name}_ms"] = burst_s * 1e3
+        out[f"steady_b4_{name}_tokens_per_s"] = 4 * 8 / burst_s
+        # the tracer drops a few records of a long eager trace in some
+        # runs (never adds any): the fullest of three profiles is kept
+        busy = out[f"profiled_decode_burst8_b4_{name}"] = max(
+            (device_busy(burst) for _ in range(3)),
+            key=lambda p: (p["kernels"], p["memcpys"]))
+        # the profiled kernel time over the unprofiled burst: the tracer
+        # slows the host (most of all a graph launch of ~15k nodes)
+        out[f"idle_share_vs_unprofiled_burst_{name}"] = (
+            1 - busy["kernel_busy_ms"] / (burst_s * 1e3))
+    out["eager_burst_state_leaves_copied"] = copied[0]
+    if copied[0]:
+        raise AssertionError(f"{cfg.name}: an 8-step burst copied "
+                             f"{copied[0]} state leaves")
+    prof = {k: out[f"profiled_decode_burst8_b4_{k}"]
+            for k in ("eager", "graph")}
+    for what in ("kernels", "memcpys"):
+        if prof["graph"][what] > prof["eager"][what]:
+            raise AssertionError(f"{cfg.name}: graph burst {what} "
+                                 f"{prof['graph'][what]} > eager "
+                                 f"{prof['eager'][what]}")
+    # bit-identity: the sentinel key is captured first, so both checks
+    # below are replays
+    runner(eng.params, dict(eng.cache, pos=pos_h), first_h, 8,
+           with_sentinel=True, spare=spare, **kw)
+    for sentinel in (False, True):
+        want = decode_tokens(cfg, eng.params,
+                             clone_cache(dict(eng.cache,
+                                              pos=pos_h.to("cuda"))),
+                             first_h.to("cuda"), 8, with_sentinel=sentinel,
+                             **kw)
+        replays = runner.replays
+        got = runner(eng.params, dict(eng.cache, pos=pos_h), first_h, 8,
+                     with_sentinel=sentinel, spare=spare, **kw)
+        eng.cache = got[1]
+        if runner.replays != replays + 1:
+            raise AssertionError(f"{cfg.name}: the checked burst was not "
+                                 "a replay")
+        pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+        if len(tree_leaves(got)) != len(tree_leaves(want)) or not all(
+                a.shape == b.shape and torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{cfg.name}: graph burst (sentinel "
+                                 f"{sentinel}) differs from the eager burst")
+        if sentinel and not bool(got[2].all()):
+            raise AssertionError(f"{cfg.name}: sentinel flags a row")
+    out["graph_vs_eager_bit_identical"] = True
+    out["steady_keys_captured"] = runner.captures - captures0
+    out["graph_keys"] = [list(k) for k in runner.keys]
+    out["capture_ms_per_key"] = list(runner.capture_ms.values())
+    out["steady_peak_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["spare_state_bytes"] = nbytes(*tree_leaves(spare))
+    out["graph_pool_bytes"] = graph_pool_bytes(runner)
+    return out
 
 
 def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16",

@@ -38,8 +38,9 @@ zamba2-2.7b and mamba-130m as phase 4 of chip_smoke.py does
 (``chip_smoke.phase_serving``: full width and depth, 4 ragged requests,
 the profiled decode burst and prefill chunk), and one JSON line per model
 gives each run's TTFTs, decode rate, and the burst's and the chunk's
-kernels, device memcpys and kernel-busy time.  Exits 1 if any run passes
-its limit.
+kernels, device memcpys and kernel-busy time; the burst is the engine's
+(a CUDA graph replay), so both trees need the graph runner
+(``ServingEngine._decode_n``).  Exits 1 if any run passes its limit.
 
 With ``--serving-pairs N`` only the serving runs are made, N rounds of
 other, this, this, other (2N runs a tree), since host-bound rates move
@@ -308,7 +309,8 @@ def child(out_path: str, serving_only: bool) -> int:
         res, _ = cs.phase_serving(cfg, gen)
         torch.cuda.empty_cache()
         serving[cfg.name] = {k: res[k] for k in (
-            "ttft_ms", "steady_b4_tokens_per_s", "profiled_decode_burst8_b4",
+            "ttft_ms", "steady_b4_graph_tokens_per_s",
+            "profiled_decode_burst8_b4_graph",
             "profiled_prefill_chunk_b4_s256")}
     torch.save({"kernels": out, "serving": serving}, out_path)
     return 0
@@ -382,13 +384,13 @@ def main_serving(other: str, pairs: int) -> int:
             res = [r[model] for r in rs]
             print(json.dumps({
                 "serving": model, "tree": name,
-                "steady_b4_tokens_per_s": spread(
-                    r["steady_b4_tokens_per_s"] for r in res),
+                "steady_b4_graph_tokens_per_s": spread(
+                    r["steady_b4_graph_tokens_per_s"] for r in res),
                 "ttft_ms": {k: spread(r["ttft_ms"][k] for r in res)
                             for k in res[0]["ttft_ms"]},
-                "burst_memcpys": sorted({r["profiled_decode_burst8_b4"][
+                "burst_memcpys": sorted({r["profiled_decode_burst8_b4_graph"][
                     "memcpys"] for r in res}),
-                "burst_kernels": sorted({r["profiled_decode_burst8_b4"][
+                "burst_kernels": sorted({r["profiled_decode_burst8_b4_graph"][
                     "kernels"] for r in res}),
                 "chunk_memcpys": sorted({r["profiled_prefill_chunk_b4_s256"][
                     "memcpys"] for r in res}),

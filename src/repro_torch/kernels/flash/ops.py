@@ -110,6 +110,9 @@ def key_split(n_tiles: int, splits: int, s: int) -> Tuple[int, int]:
 
 
 _TICKETS = {}
+# counters replaced by larger ones: kept, since a captured CUDA graph reads
+# the counters it was captured with
+_RETIRED_TICKETS = []
 
 
 def ticket_counters(device, n: int) -> torch.Tensor:
@@ -117,10 +120,12 @@ def ticket_counters(device, n: int) -> torch.Tensor:
     made.  A split kernel (flash or decode attention) draws one ticket per
     split block, and the block that draws the last writes the counter back
     to zero, so the same counters serve every later call and every replay
-    of a captured CUDA graph.  Kernels on one stream only: two calls in
-    flight at once would share them."""
+    of a captured CUDA graph (none is ever freed).  Kernels on one stream
+    only: two calls in flight at once would share them."""
     have = _TICKETS.get(device)
     if have is None or have.numel() < n:
+        if have is not None:
+            _RETIRED_TICKETS.append(have)
         have = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _TICKETS[device] = have
     return have

@@ -48,6 +48,8 @@ Entry points:
 * :func:`lm_decode_step` — one token for all rows.
 * :func:`decode_tokens` — ``n`` greedy steps with the token selected on
   the device; the caller reads the whole burst with one host transfer.
+  On the card the serving layer runs it as one captured CUDA graph per
+  burst shape (``repro_torch.serving.graphs``).
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ from repro_torch.models import mamba1, mamba2
 from repro_torch.models.mlp import MLP_KEYS
 from repro_torch.models.norms import rms_norm
 from repro_torch.models.params import (ParamDef, init_params, stack_defs,
-                                       tree_map)
+                                       tree_leaves, tree_map)
 from repro_torch.models.rope import LOCAL_ROPE_THETA, rope_at, rope_tables
 
 KV_KEYS = ("k", "v")
@@ -196,7 +198,8 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
         logits = x @ params["lm_head"].to(x.dtype)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
-        logits = logits.masked_fill(pad, NEG_INF)
+        # in place on the product's own output: no clone (a device copy)
+        logits.masked_fill_(pad, NEG_INF)
     return logits
 
 
@@ -277,6 +280,34 @@ def _store_state(dst, src, r: int) -> int:
     return copies
 
 
+def _state_leaves(cache):
+    """The cache's state leaves (every leaf but KV; all at a layer's top
+    level), in its segments' layout."""
+    return [tuple({k: v for k, v in layer.items()
+                   if not isinstance(v, dict) and k not in KV_KEYS}
+                  for layer in seg)
+            for seg in cache["segments"]]
+
+
+def init_spare_states(cache):
+    """One spare set of a cache's state leaves, in :func:`_state_leaves`'s
+    layout: a decode burst's steps write their new states into it and the
+    cache's own leaves in turn (:func:`decode_tokens`).  Its values are
+    never read before they are written."""
+    return tree_map(torch.empty_like, _state_leaves(cache))
+
+
+def _new_layer(layer, out_states: Optional[Dict]):
+    """One layer's new cache dict: its KV leaves (written in place), and new
+    state leaves, ``out_states``'s where given, else fresh."""
+    if out_states is None:
+        return _map_cache(lambda t: t, torch.empty_like, layer)
+    return {k: (_map_cache(lambda t: t, torch.empty_like, v)
+                if isinstance(v, dict)
+                else v if k in KV_KEYS else out_states[k])
+            for k, v in layer.items()}
+
+
 def _decode_valid_lens(pos: torch.Tensor):
     """A decode step's attended rows for a KV extent, ``min(pos + 1,
     extent)`` as the reference clamps them per layer; computed once per
@@ -292,12 +323,15 @@ def _decode_valid_lens(pos: torch.Tensor):
 
 def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
                   pos=None, chunk_mask=None, chunk_lengths=None,
-                  rope=(None, None), kv_bucket=None, valid_lens=None):
+                  rope=(None, None), kv_bucket=None, valid_lens=None,
+                  out_states=None):
     """Every layer in order.  Each layer gets views of its cache: state
     leaves at its repeat, KV leaves cut to their first ``kv_bucket`` rows
     (None: all), so its KV writes land in the full cache; and its state
     leaves' slots in the new cache, which its kernels may write in place
-    (the old cache's state leaves stay as they were).  ``chunk_mask``
+    (the old cache's state leaves stay as they were).  The new state
+    leaves are ``out_states``'s (:func:`init_spare_states`'s layout; apart
+    from the cache's) where given, else new tensors.  ``chunk_mask``
     and ``chunk_lengths`` mark a prefill chunk's valid tokens.  ``rope``
     is the (global, local) pair of :func:`_rope_for`; ``valid_lens`` (a
     decode step) maps a layer's KV extent to its attended rows.  Returns
@@ -307,8 +341,11 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
     for si, (unit, n_rep) in enumerate(cfg.segments()):
         seg_p = params["segments"][si]
         seg_c = cache["segments"][si] if cache is not None else None
-        new_seg = (tuple(_map_cache(lambda t: t, torch.empty_like, c)
-                         for c in seg_c) if seg_c is not None else None)
+        new_seg = None
+        if seg_c is not None:
+            dst = (out_states[si] if out_states is not None
+                   else (None,) * len(seg_c))
+            new_seg = tuple(_new_layer(c, d) for c, d in zip(seg_c, dst))
         for r in range(n_rep):
             for li, kind in enumerate(unit):
                 p = tree_map(lambda t: t[r], seg_p[li])
@@ -397,10 +434,12 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
 
 def lm_decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
                    kv_bucket: Optional[int] = None,
-                   rope_len: Optional[int] = None
-                   ) -> Tuple[torch.Tensor, Any]:
+                   rope_len: Optional[int] = None,
+                   _out_states=None) -> Tuple[torch.Tensor, Any]:
     """One token step. token: [B, 1]; ``cache["pos"]`` is a [B] vector.
-    ``kv_bucket`` and ``rope_len`` as in :func:`decode_tokens`."""
+    ``kv_bucket`` and ``rope_len`` as in :func:`decode_tokens`.
+    ``_out_states`` (private; :func:`init_spare_states`'s layout, apart
+    from the cache's state leaves) receives the new state leaves."""
     _check_kv_bucket(kv_bucket)
     pos = cache["pos"]
     x = _embed(cfg, params, token)
@@ -408,13 +447,15 @@ def lm_decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
     rope = _rope_for(cfg, max(rows or 1, rope_len or 0), pos, 1, x.device)
     x, new_segs = _run_segments(cfg, params, x, cache=cache, pos=pos,
                                 rope=rope, kv_bucket=kv_bucket,
-                                valid_lens=_decode_valid_lens(pos))
+                                valid_lens=_decode_valid_lens(pos),
+                                out_states=_out_states)
     return _head(cfg, params, x), {"segments": new_segs, "pos": pos + 1}
 
 
 def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
                   n: int, *, kv_bucket: Optional[int] = None,
-                  rope_len: Optional[int] = None):
+                  rope_len: Optional[int] = None, with_sentinel: bool = False,
+                  _spare_states=None):
     """``n`` greedy steps: ``first_token`` ([B,1]) feeds the first step and
     each next input is the argmax (first maximal index) taken on the
     device, so the burst needs no host sync.  Returns (tokens [B,n] int32
@@ -425,15 +466,44 @@ def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
     the KV leaves' first ``kv_bucket`` rows, bit-identically; a retired
     row whose ``pos`` is past the bucket writes nothing.  ``rope_len``
     (None, or the serving layer's ``max_seq``) extends the rope tables
-    past the KV rows."""
+    past the KV rows.
+
+    ``with_sentinel`` adds the reference's divergence sentinel: ``ok``
+    ([B] bool, on the device) is True where every step's logits over the
+    vocab were finite for that row, and the call returns (tokens, cache,
+    ok).
+
+    ``_spare_states`` (private; :func:`init_spare_states` of this cache)
+    makes the burst update the cache's state leaves where they are: the
+    steps write their new states into the spare set and the cache's own
+    leaves in turn, so for even ``n`` the last step writes the cache's
+    own and no state leaf is copied; for odd ``n`` the spare set is
+    copied back once, after the last step.  The input cache's state
+    leaves then hold the burst's final states, and a captured graph of
+    the burst reads and writes the same buffers on every replay.
+    Without it the input cache's state leaves are left as they were."""
     _check_kv_bucket(kv_bucket)
+    own = _state_leaves(cache) if _spare_states is not None else None
     tok = first_token.to(torch.int32)
+    ok = (torch.ones((tok.shape[0],), dtype=torch.bool, device=tok.device)
+          if with_sentinel else None)
     out = []
-    for _ in range(n):
+    for i in range(n):
+        dst = None if own is None else (_spare_states, own)[i % 2]
         logits, cache = lm_decode_step(cfg, params, tok, cache,
                                        kv_bucket=kv_bucket,
-                                       rope_len=rope_len)
-        tok = torch.argmax(logits[:, 0, :cfg.vocab_size], dim=-1
-                           ).to(torch.int32)[:, None]
+                                       rope_len=rope_len, _out_states=dst)
+        lg = logits[:, 0, :cfg.vocab_size]
+        if with_sentinel:
+            ok = ok & torch.isfinite(lg).all(-1)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
         out.append(tok)
-    return torch.cat(out, dim=1), cache
+    if own is not None and n % 2:
+        for a, s in zip(tree_leaves(own), tree_leaves(_spare_states)):
+            a.copy_(s)
+        cache = {"segments": [tuple(_new_layer(c, a)
+                                    for c, a in zip(seg, seg_a))
+                              for seg, seg_a in zip(cache["segments"], own)],
+                 "pos": cache["pos"]}
+    toks = torch.cat(out, dim=1)
+    return (toks, cache, ok) if with_sentinel else (toks, cache)

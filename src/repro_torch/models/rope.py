@@ -3,7 +3,9 @@
 ``rope_tables`` builds fp32 ``(sin, cos)`` tables once per ``(length,
 head_dim, theta, device)`` and keeps them: every decode step and prefill
 chunk reuses the same tensors instead of rebuilding them.  The cached
-tensors are shared by all callers and must not be written to.
+tensors are shared by all callers and must not be written to, and are
+never evicted: a captured CUDA graph of a decode burst reads them by
+address.
 ``rope_at`` takes one call's rows of them, once for all its layers.
 Sliding-window (``local``) layers rotate with their own table at
 ``LOCAL_ROPE_THETA``, the value the reference's ``_rope_for`` fixes.
@@ -18,7 +20,7 @@ import torch
 LOCAL_ROPE_THETA = 10_000.0
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _tables(seq_len: int, head_dim: int, theta: float,
             device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     half = head_dim // 2

@@ -3,14 +3,18 @@
 The engine keeps a fixed batch of decode slots.  Each :meth:`step` runs
 one admission move — one chunk of the in-flight mixed-length prefill group
 (:mod:`repro_torch.serving.prefill`) — then advances every live slot by
-``decode_block`` tokens with :func:`repro_torch.models.lm.decode_tokens`,
-which selects tokens on the device; the burst's tokens reach the host in
-one transfer.  The cache carries a per-slot ``pos`` vector, so slots
-admitted at different times decode at their own offsets.  Admission is
-fifo, in submit order, which is what the reference's default scheduler
-does.
+``decode_block`` tokens through ``make_decode_tokens``'s burst, which
+selects tokens on the device; on the card it runs as one captured CUDA
+graph per (batch, burst, bucket) key (:mod:`repro_torch.serving.graphs`),
+and the burst's tokens reach the host in one transfer.  The engine keeps
+one spare set of the cache's state leaves, made with the cache, so a
+burst updates the cache's state leaves where they are.  The cache
+carries a per-slot ``pos`` vector, so slots admitted at different times
+decode at their own offsets.  Admission is fifo, in submit order, which
+is what the reference's default scheduler does.
 
-Not ported yet (ROADMAP.md): preemption and offload/restore, sentinels,
+Not ported yet (ROADMAP.md): preemption and offload/restore, the
+engine's divergence sentinel flag (the burst has ``with_sentinel``),
 checkpoints, deadlines, the watchdog, telemetry, metrics, the profiler,
 the durable store and the other scheduler policies.
 """
@@ -25,11 +29,12 @@ import torch
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.models.lm import (decode_tokens, init_lm_cache, lm_prefill,
-                                   prepare_params)
+from repro_torch.models.lm import (init_lm_cache, init_spare_states,
+                                   lm_prefill, prepare_params)
 from repro_torch.models.params import tree_leaves
 from repro_torch.serving.bucketing import (clamped_bucket, kv_cache_extent,
                                            rope_len_for)
+from repro_torch.serving.graphs import make_decode_tokens
 from repro_torch.serving.prefill import ChunkedPrefill, supports_chunked_prefill
 
 
@@ -44,7 +49,8 @@ def greedy_generate(cfg: ModelConfig, params, inputs: Dict[str, torch.Tensor],
                     max_seq: int, gen_len: int, *,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> Tuple[torch.Tensor, Any]:
-    """Prefill + greedy decode.  Returns (tokens [B, gen_len], cache)."""
+    """Prefill + greedy decode, the decode as one ``make_decode_tokens``
+    burst.  Returns (tokens [B, gen_len], cache)."""
     dev = resolve_device(device)
     _on_device(params, dev)
     params = prepare_params(cfg, params)
@@ -54,8 +60,9 @@ def greedy_generate(cfg: ModelConfig, params, inputs: Dict[str, torch.Tensor],
     first = torch.argmax(logits[..., :cfg.vocab_size], -1).to(torch.int32)
     if gen_len <= 1:
         return first, cache
-    rest, cache = decode_tokens(cfg, params, cache, first, gen_len - 1,
-                                rope_len=rope_len_for(cfg, max_seq))
+    rest, cache = make_decode_tokens(cfg)(params, cache, first, gen_len - 1,
+                                          rope_len=rope_len_for(cfg, max_seq),
+                                          spare=init_spare_states(cache))
     return torch.cat([first, rest], dim=1), cache
 
 
@@ -110,6 +117,8 @@ class ServingEngine:
         self.kv_extent = kv_cache_extent(cfg, max_seq)
         self.rope_len = rope_len_for(cfg, max_seq)
         self.cache = init_lm_cache(cfg, slots, max_seq, device=self.device)
+        self._spare = init_spare_states(self.cache)
+        self._decode_n = make_decode_tokens(cfg)
         self._prefill = ChunkedPrefill(cfg, self.params, max_seq=max_seq,
                                        chunk_size=self.chunk_size)
         # slots reserved for the in-flight prefill group: row i of the
@@ -191,12 +200,12 @@ class ServingEngine:
         live_pos = [int(self.pos[b]) for b, r in enumerate(self.live)
                     if r is not None]
         kv_bucket = clamped_bucket(max(live_pos) + kblk, self.kv_extent)
-        self.cache = dict(self.cache, pos=torch.from_numpy(
-            self.pos.astype(np.int32)).to(self.device))
-        toks_d, self.cache = decode_tokens(
-            self.cfg, self.params, self.cache,
-            torch.from_numpy(self.tokens).to(self.device), kblk,
-            kv_bucket=kv_bucket, rope_len=self.rope_len)
+        # host tokens and positions: the burst copies them into its inputs
+        toks_d, self.cache = self._decode_n(
+            self.params,
+            dict(self.cache, pos=torch.from_numpy(self.pos.astype(np.int32))),
+            torch.from_numpy(self.tokens), kblk, kv_bucket=kv_bucket,
+            rope_len=self.rope_len, spare=self._spare)
         toks = toks_d.cpu().numpy()      # the burst's one host sync
         now = self._clock()
         n_live = 0

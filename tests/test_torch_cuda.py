@@ -695,3 +695,233 @@ def test_mamba1_wrappers_raise_on_shapes_not_built(cuda):
         decode(32, 4)
     with pytest.raises(ValueError, match="bad mamba1 decode shapes"):
         decode(16, 100)
+
+
+# --------------------------------------------- the decode burst as a graph
+# reduced (two units of each layer pattern, d_model 64, head_dim 16,
+# d_state 16), bf16 compute and caches, as the engine serves them
+GRAPH_ARCHS = ("mamba2-2.7b", "zamba2-2.7b", "mamba-130m", "llama3-8b",
+               "gemma3-1b")
+
+
+def _graph_model(name, dev):
+    from repro_torch.configs import reduced
+    from repro_torch.core.registry import get
+    from repro_torch.models import lm
+    cfg = reduced(get(name))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, lm.prepare_params(cfg, lm.init_lm_params(cfg, gen,
+                                                         device=dev))
+
+
+def _prefilled_cache(cfg, params, dev, b=4, prompt=20, max_seq=64):
+    from repro_torch.models import lm
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                         device=dev)
+    _, cache = lm.lm_prefill(cfg, params, toks,
+                             lm.init_lm_cache(cfg, b, max_seq, device=dev))
+    return cache
+
+
+def _clone_cache(cache):
+    from repro_torch.models.params import tree_map
+    return {"segments": tree_map(torch.clone, cache["segments"]),
+            "pos": cache["pos"].clone()}
+
+
+def _assert_same_burst(got, want):
+    from repro_torch.models.params import tree_leaves
+    assert len(got) == len(want)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def _launches():
+    from repro_torch.serving.graphs import LAUNCH_COUNTERS
+    return [getattr(fn, attr) for fn, attr in LAUNCH_COUNTERS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_decode_graph_replays_match_eager_burst(cuda, arch):
+    """Three 8-step bursts at one key (the first eager, then capture; two
+    replays), each against an eager ``decode_tokens`` from a clone of the
+    same cache: tokens, ``ok``, ``pos`` and every cache leaf bit for bit;
+    the state leaves stay at the cache's addresses."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.graphs import make_decode_tokens
+    cfg, params = _graph_model(arch, cuda)
+    cache = _prefilled_cache(cfg, params, cuda)
+    own = [t.data_ptr() for t in tree_leaves(cache["segments"])]
+    spare = lm.init_spare_states(cache)
+    decode_n = make_decode_tokens(cfg)
+    first = torch.randint(0, cfg.vocab_size, (4, 1), dtype=torch.int32,
+                          device=cuda)
+    for _ in range(3):
+        want = lm.decode_tokens(cfg, params, _clone_cache(cache), first, 8,
+                                kv_bucket=48, rope_len=64,
+                                with_sentinel=True)
+        got = decode_n(params, cache, first, 8, kv_bucket=48, rope_len=64,
+                       with_sentinel=True, spare=spare)
+        torch.cuda.synchronize()
+        _assert_same_burst(got, want)
+        assert bool(got[2].all())
+        cache, first = got[1], got[0][:, -1:].clone()
+        assert [t.data_ptr() for t in tree_leaves(cache["segments"])] == own
+    assert (decode_n.captures, decode_n.replays) == (1, 2)
+    assert decode_n.keys == [(4, 8, 48, 64, True)]
+
+
+def _checked_engine(cfg, params, dev, seen):
+    """An engine whose every burst is also run eagerly from a clone of its
+    cache and held to it bit for bit; ``seen`` collects the buckets."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, slots=2, max_seq=256, decode_block=4,
+                        chunk_size=32, device=dev)
+    real = eng._decode_n
+
+    def checked(params_, cache, first, n, kv_bucket=None, rope_len=None,
+                with_sentinel=False, *, spare=None):
+        ref = _clone_cache(dict(cache, pos=cache["pos"].to(dev)))
+        want = lm.decode_tokens(cfg, params_, ref, first.to(dev), n,
+                                kv_bucket=kv_bucket, rope_len=rope_len,
+                                with_sentinel=with_sentinel)
+        got = real(params_, cache, first, n, kv_bucket, rope_len,
+                   with_sentinel, spare=spare)
+        _assert_same_burst(got, want)
+        seen.append(kv_bucket)
+        return got
+    eng._decode_n = checked
+    return eng, real
+
+
+def _serve(eng, cfg):
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(3)
+    for i, n in enumerate((9, 120, 17, 140, 23)):
+        eng.submit(Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, n),
+                           max_new=12))
+    done = eng.run()
+    assert [r.status for r in done] == ["ok"] * 5
+    return {r.rid: r.out for r in done}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_engine_graph_bursts_match_eager_across_buckets(cuda, arch):
+    """5 ragged requests through 2 slots, 4-token bursts: requests are
+    admitted mid-flight (their prefill groups scattered into the slots
+    between bursts) and the KV bucket climbs past its 128-row rung; every
+    burst equals an eager burst from a clone of the cache, and every burst
+    after the first at its key is a replay."""
+    cfg, params = _graph_model(arch, cuda)
+    seen = []
+    eng, runner = _checked_engine(cfg, params, cuda, seen)
+    _serve(eng, cfg)
+    keys = set(runner.keys)
+    assert runner.captures == len(keys)
+    assert runner.replays == len(seen) - len(keys) > 0
+    if cfg.attn is not None or cfg.shared_attn is not None:
+        assert len(set(seen)) >= 2
+
+
+@pytest.mark.cuda
+def test_second_engine_gets_its_own_graphs(cuda):
+    """Two engines in one process on the same params: each captures its
+    own graphs over its own cache, and their streams are equal."""
+    cfg, params = _graph_model("zamba2-2.7b", cuda)
+    from repro_torch.serving.engine import ServingEngine
+    outs, runners = [], []
+    for _ in range(2):
+        eng = ServingEngine(cfg, params, slots=2, max_seq=256,
+                            decode_block=4, chunk_size=32, device=cuda)
+        outs.append(_serve(eng, cfg))
+        runners.append(eng._decode_n)
+    assert outs[0] == outs[1]
+    assert runners[0] is not runners[1]
+    assert runners[0].captures > 0 and runners[1].captures > 0
+    assert runners[0].replays > 0 and runners[1].replays > 0
+    assert not set(runners[0]._bursts) & set(runners[1]._bursts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graph_launch_counts_equal_eager(cuda, arch):
+    """The wrappers' launch counters: an eager burst adds its launches;
+    the runner's first call (eager, then a capture that is not counted)
+    and each replay add the same."""
+    from repro_torch.models import lm
+    from repro_torch.serving.graphs import make_decode_tokens
+    cfg, params = _graph_model(arch, cuda)
+    cache = _prefilled_cache(cfg, params, cuda)
+    first = torch.zeros((4, 1), dtype=torch.int32, device=cuda)
+    before = _launches()
+    lm.decode_tokens(cfg, params, _clone_cache(cache), first, 8,
+                     kv_bucket=48, rope_len=64)
+    eager = [a - b for a, b in zip(_launches(), before)]
+    assert sum(eager) > 0
+    decode_n = make_decode_tokens(cfg)
+    spare = lm.init_spare_states(cache)
+    for _ in range(3):
+        before = _launches()
+        decode_n(params, cache, first, 8, kv_bucket=48, rope_len=64,
+                 spare=spare)
+        assert [a - b for a, b in zip(_launches(), before)] == eager
+    assert decode_n.replays == 2
+
+
+@pytest.mark.cuda
+def test_graph_burst_needs_the_spare_set(cuda):
+    """On the card the runner refuses a burst without the spare state set
+    (its graphs would write new state buffers on every call) and launches
+    nothing."""
+    from repro_torch.serving.graphs import make_decode_tokens
+    cfg, params = _graph_model("mamba2-2.7b", cuda)
+    cache = _prefilled_cache(cfg, params, cuda)
+    before = _launches()
+    with pytest.raises(ValueError, match="spare state set"):
+        make_decode_tokens(cfg)(params, cache, torch.zeros(
+            (4, 1), dtype=torch.int32, device=cuda), 8)
+    assert _launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "gemma3-1b"])
+def test_capture_creates_no_cached_tensor(cuda, arch, monkeypatch):
+    """Inside the capture no rope table and no ticket counter is made: the
+    eager call before it at the same key made them all (a tensor first
+    made inside a capture holds garbage until a replay)."""
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.models import lm, rope
+    from repro_torch.serving import graphs
+    cfg, params = _graph_model(arch, cuda)
+    cache = _prefilled_cache(cfg, params, cuda)
+    rope._tables.cache_clear()
+    real, during = graphs.decode_tokens, []
+
+    def state():
+        info = rope._tables.cache_info()
+        return (info.currsize, info.misses,
+                {d: t.data_ptr() for d, t in flash_ops._TICKETS.items()},
+                len(flash_ops._RETIRED_TICKETS))
+
+    def spy(*a, **kw):
+        capturing = torch.cuda.is_current_stream_capturing()
+        s0 = state()
+        out = real(*a, **kw)
+        during.append((capturing, s0, state()))
+        return out
+    monkeypatch.setattr(graphs, "decode_tokens", spy)
+    decode_n = graphs.make_decode_tokens(cfg)
+    first = torch.zeros((4, 1), dtype=torch.int32, device=cuda)
+    decode_n(params, cache, first, 8, kv_bucket=48, rope_len=64,
+             spare=lm.init_spare_states(cache))
+    assert [c for c, _, _ in during] == [False, True]
+    eager, capture = during
+    assert eager[2][1] > eager[1][1]          # the eager call made tables
+    assert capture[1] == capture[2] == eager[2]
