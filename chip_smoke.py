@@ -12,14 +12,16 @@ Phases (each prints its lines and is fatal on failure):
      mamba-130m, also with valid lengths 0, 1, 2, K-1, 200 and S across
      rows (the new state held bit for bit) and timed once with L2
      flushed before each call;
-     the Mamba-2 kernels at mamba2-2.7b's and zamba2-2.7b's shapes (SSD
-     also on a 16-chunk sequence, and the decode step again, with dt, A
-     and the states drawn at the model's scales; each (token, head) row
-     of SSD's y held to a limit of its own), the attention kernels at
-     zamba2-2.7b's (d=80), llama3-8b's (d=128, GQA 4:1), qwen2.5-0.5b's
-     (d=64, GQA 7:1) and phi-3-mini's (d=96) shapes and a decode whose
-     valid lengths fall on tile and split edges, each attention query row
-     held to a limit of its own;
+     the Mamba-2 kernels at mamba2-2.7b's, zamba2-2.7b's and
+     falcon-h1-0.5b's shapes (SSD also on a 16-chunk sequence, and the
+     decode step again, with dt, A and the states drawn at the model's
+     scales; each (token, head) row of SSD's y held to a limit of its
+     own), the attention kernels at zamba2-2.7b's (d=80), llama3-8b's
+     (d=128, GQA 4:1), qwen2.5-0.5b's (d=64, GQA 7:1), phi-3-mini's
+     (d=96), falcon-h1-0.5b's (d=128, GQA 2:1) and glm4-9b's (d=128, 16
+     query heads per KV head) shapes and a decode whose valid lengths fall
+     on tile and split edges, each attention query row held to a limit of
+     its own;
      the Mamba-1 kernels (selective scan, fused decode step) at
      mamba-130m's shapes, the step also at B=1 and B=16, and off their
      tiles (the decode step's inputs drawn at the model's scales; the
@@ -37,8 +39,9 @@ Phases (each prints its lines and is fatal on failure):
   4. full-width, full-depth serving through ``ServingEngine`` (4 ragged
      requests, 32 new tokens each), random weights from a seed:
      mamba2-2.7b (64 layers), zamba2-2.7b (54 layers), mamba-130m
-     (24 Mamba-1 layers), then gemma3-1b (26 layers: 22 ring layers, 4
-     global); the launch counters are reset just before each run and
+     (24 Mamba-1 layers), gemma3-1b (26 layers: 22 ring layers, 4
+     global), then falcon-h1-0.5b (18 ``hybrid_par`` layers: attention
+     and Mamba-2 side by side); the launch counters are reset just before each run and
      read just after, each run must launch exactly the kernels of its
      layer kinds, each exactly once per layer and prefill chunk (flash,
      ring flash, conv1d, SSD or the scan) or token step (decode
@@ -59,13 +62,19 @@ Phases (each prints its lines and is fatal on failure):
      the window, so its rings wrap in prefill and again in decode), and
      qwen2.5-0.5b (d=64) and phi-3-mini (d=96) at full width and 4
      layers, in bf16 and, for all but the first three, again in fp32
-     (where only the order of sums differs); the plain run must launch
-     no kernel;
-  6. mamba-130m at full width and depth prefills one 16384-token prompt
-     at B=1 in bf16 through ``lm_prefill``: wall time, kernel time and
-     the scan's share of it, and its last logits against the same prompt
-     in 64 chunks of 256 through ``lm_prefill_chunk`` within phase 5's
-     bf16 limit;
+     (where only the order of sums differs); then falcon-h1-0.5b at its
+     18 layers, hymba-1.5b at its 24 (both ``hybrid_par``) in bf16 and
+     fp32, smollm-135m at its 30 in bf16, and glm4-9b (16 query heads per
+     KV head) at 4 layers in bf16 and fp32; the plain run must launch no
+     kernel;
+  6. mamba-130m, then falcon-h1-0.5b, at full width and depth prefill one
+     16384-token prompt at B=1 in bf16 through ``lm_prefill``: wall time,
+     kernel time and the shares of it of the scan (mamba-130m) or of
+     flash, SSD and conv1d (falcon-h1-0.5b), exact launches, and its last
+     logits against the same prompt in 64 chunks of 256 through
+     ``lm_prefill_chunk`` within phase 5's bf16 limit; falcon-h1-0.5b then
+     decodes 32 tokens at that context through the graph burst (ms per
+     token step);
 then a ``kernels`` JSON line (the five Mamba-2 and attention kernels at
 zamba2-2.7b's shapes, the two Mamba-1 kernels at mamba-130m's and the
 flash kernel's ring mode at gemma3-1b's, each with the launches of its
@@ -492,9 +501,10 @@ def conv_row(gen, at, c, k):
 def conv_shapes():
     """(model, conv channels) of the served Mamba models: d_inner + 2 G N
     for Mamba-2, d_inner for Mamba-1."""
-    from repro_torch.configs import mamba2_2p7b, mamba_130m, zamba2_2p7b
+    from repro_torch.configs import (falcon_h1_05b, mamba2_2p7b, mamba_130m,
+                                     zamba2_2p7b)
     out = []
-    for cfg in (mamba2_2p7b, zamba2_2p7b, mamba_130m):
+    for cfg in (mamba2_2p7b, zamba2_2p7b, mamba_130m, falcon_h1_05b):
         s = cfg.ssm
         c = s.d_inner(cfg.d_model)
         if s.variant != "mamba1":
@@ -699,15 +709,19 @@ def phase_mamba1_kernels(cfg, gen):
 def attention_cases():
     """(label, H, KVH, d, bucket, q_offset, valid_len) at B=4: zamba2-2.7b's
     shared attention, llama3-8b's GQA, gemma3-1b's global layers,
-    qwen2.5-0.5b's d=64 GQA 7:1 and phi-3-mini's d=96; a flash chunk of
-    256 queries, and decode rows of the serving run's lengths."""
+    qwen2.5-0.5b's d=64 GQA 7:1, phi-3-mini's d=96, falcon-h1-0.5b's
+    attention half (GQA 2:1) and glm4-9b's 16 query heads per KV head; a
+    flash chunk of 256 queries, and decode rows of the serving run's
+    lengths."""
     offs = [0, 512, 1024, 1792]
     lens = [301, 701, 1001, 2048]
     return [("zamba2-2.7b", 32, 32, 80, 2048, offs, lens),
             ("llama3-8b", 32, 8, 128, 2048, offs, lens),
             ("gemma3-1b", 4, 1, 256, 2048, offs, lens),
             ("qwen2.5-0.5b", 14, 2, 64, 2048, offs, lens),
-            ("phi-3-mini", 32, 32, 96, 2048, offs, lens)]
+            ("phi-3-mini", 32, 32, 96, 2048, offs, lens),
+            ("falcon-h1-0.5b", 8, 4, 128, 2048, offs, lens),
+            ("glm4-9b", 32, 2, 128, 2048, offs, lens)]
 
 
 B_ATTN, SQ_ATTN, MAX_SEQ_ATTN = 4, 256, 4096
@@ -985,11 +999,11 @@ def path_kernels(cfg):
     every other kernel must stay at 0."""
     kinds = set(cfg.layer_kinds)
     names = set()
-    if kinds & {"mamba2", "mamba2+shared"}:
+    if kinds & {"mamba2", "mamba2+shared", "hybrid_par"}:
         names |= {"causal_conv1d", "ssd_chunked", "mamba2_decode_fused"}
     if "mamba1" in kinds:
         names |= {"causal_conv1d", "selective_scan", "mamba1_decode_fused"}
-    if kinds & {"dense", "mamba2+shared"}:
+    if kinds & {"dense", "mamba2+shared", "hybrid_par"}:
         names |= {"flash_attention", "decode_attention"}
     if "local" in kinds:
         names |= {"flash_attention_ring", "decode_attention"}
@@ -1001,11 +1015,14 @@ def exact_launches(cfg, chunks: int, steps: int) -> dict:
     chunks and ``steps`` decode token steps: per layer and chunk one flash
     launch (ring layers in ring mode), one conv1d and one SSD or scan
     launch; per layer and token step one decode attention or decode step
-    launch."""
+    launch.  A ``hybrid_par`` layer counts both halves: one flash, one
+    conv1d and one SSD launch a chunk, one decode attention and one
+    Mamba-2 decode step launch a token step."""
     kinds = cfg.layer_kinds
+    n_par = kinds.count("hybrid_par")
     n_ring = kinds.count("local")
-    n_plain = kinds.count("dense") + kinds.count("mamba2+shared")
-    n_m2 = kinds.count("mamba2") + kinds.count("mamba2+shared")
+    n_plain = kinds.count("dense") + kinds.count("mamba2+shared") + n_par
+    n_m2 = kinds.count("mamba2") + kinds.count("mamba2+shared") + n_par
     n_m1 = kinds.count("mamba1")
     return {"flash_attention": n_plain * chunks,
             "flash_attention_ring": n_ring * chunks,
@@ -1379,47 +1396,69 @@ def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16",
                 steps_agree=int(agree.sum()))
 
 
-def phase_long_prefill(cfg, gen, seq: int = 16384, chunk: int = 256):
+def phase_long_prefill(cfg, gen, names, seq: int = 16384, chunk: int = 256,
+                       decode: int = 0, burst: int = 8):
     """One ``seq``-token prompt at B=1 through ``lm_prefill`` at ``cfg``'s
     full width and depth in bf16, random weights from ``gen``: its wall
     time (host clock to a synchronise, after one warm-up call), its
-    kernel time and the selective scan's share of it (one profiled call),
-    and its last logits against the same prompt prefilled in ``chunk``-
-    token chunks through ``lm_prefill_chunk``, both on the kernel path,
-    within phase 5's bf16 limit (5% of max |logit|): two splits of the
-    sequence carry the state through every layer differently."""
-    from repro_torch.models.lm import (init_lm_cache, init_lm_params,
+    kernel time and the share of it of each kernel in ``names`` (one
+    profiled call, whose launches must be exactly one per layer and
+    kernel, as one chunk's), and its last logits against the same prompt
+    in ``chunk``-token chunks through ``lm_prefill_chunk`` under the
+    serving buckets, both on the kernel path, within phase 5's bf16
+    limit (5% of max |logit|): two splits of the sequence carry the
+    state through every layer differently.  With ``decode`` > 0, then
+    ``decode`` greedy tokens at that context through the serving layer's
+    graph burst (``make_decode_tokens``, ``burst`` steps a call, the
+    spare state set): the first burst at the key runs eagerly and is
+    captured, untimed; the next ``decode / burst`` are replays, timed
+    together (host clock to a synchronise): ms per token step."""
+    from repro_torch.models.lm import (cache_kv_extent, init_lm_cache,
+                                       init_lm_params, init_spare_states,
                                        lm_prefill, lm_prefill_chunk,
                                        prepare_params)
-    from repro_torch.kernels.scan1.ops import selective_scan
+    from repro_torch.serving.bucketing import clamped_bucket
+    from repro_torch.serving.graphs import make_decode_tokens
 
     cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
     params = prepare_params(cfg, init_lm_params(cfg, gen, device="cuda"))
     prompt = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
                            device="cuda")
+    # KV rows for the prompt and the decoded tokens
+    rows = seq + (decode + burst if decode else 0)
 
     def cache():
-        return init_lm_cache(cfg, 1, seq, dtype=torch.bfloat16,
+        return init_lm_cache(cfg, 1, rows, dtype=torch.bfloat16,
                              device="cuda")
 
     def one_shot():
-        return lm_prefill(cfg, params, prompt, cache())[0]
+        return lm_prefill(cfg, params, prompt, cache())
 
     one_shot()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    whole = one_shot()[:, 0, :cfg.vocab_size].float()
+    whole, full = one_shot()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = selective_scan.launches
-    busy = device_busy(one_shot, names=("scan1_kernel",))
-    launches = selective_scan.launches - launches
+    first = whole[:, 0, :cfg.vocab_size].argmax(-1, keepdim=True).to(
+        torch.int32)
+    whole = whole[:, 0, :cfg.vocab_size].float()
+    reset_counters()
+    busy = device_busy(one_shot, names=names)
+    launched = {k: n for k, n in read_counters().items() if n}
+    want = {k: n for k, n in exact_launches(cfg, 1, 0).items() if n}
+    if launched != want:
+        raise AssertionError(f"one prefill launched {launched}, expected "
+                             f"{want}")
     c = cache()
+    extent = cache_kv_extent(c)
     t0 = time.monotonic()
     for i in range(0, seq, chunk):
-        lg, c = lm_prefill_chunk(cfg, params, prompt[:, i:i + chunk], c)
+        lg, c = lm_prefill_chunk(cfg, params, prompt[:, i:i + chunk], c,
+                                 kv_bucket=clamped_bucket(i + chunk, extent))
     torch.cuda.synchronize()
     chunked_wall = time.monotonic() - t0
+    del c
     lg = lg[:, 0, :cfg.vocab_size].float()
     if not (torch.isfinite(whole).all() and torch.isfinite(lg).all()):
         raise AssertionError("non-finite logits")
@@ -1428,15 +1467,43 @@ def phase_long_prefill(cfg, gen, seq: int = 16384, chunk: int = 256):
     if err > tol:
         raise AssertionError(f"one-shot and chunked logits differ by {err} "
                              f"> {tol}")
-    if launches != cfg.layer_kinds.count("mamba1"):
-        raise AssertionError(f"{launches} scan launches in one prefill")
-    scan = busy["by_name"]["scan1_kernel"]
-    return dict(wall_ms=wall * 1e3, kernel_busy_ms=busy["kernel_busy_ms"],
-                kernels=busy["kernels"], scan_kernel_ms=scan["kernel_ms"],
-                scan_share_of_kernel_time=scan["share"],
-                scan_launches=launches, chunked_wall_ms=chunked_wall * 1e3,
-                chunks=seq // chunk, max_abs_logit_err=err, tol=tol,
-                argmax_agree=bool((whole.argmax(-1) == lg.argmax(-1)).all()))
+    out = dict(wall_ms=wall * 1e3, kernel_busy_ms=busy["kernel_busy_ms"],
+               kernels=busy["kernels"], by_kernel=busy["by_name"],
+               launches=launched, chunked_wall_ms=chunked_wall * 1e3,
+               chunks=seq // chunk, max_abs_logit_err=err, tol=tol,
+               argmax_agree=bool((whole.argmax(-1) == lg.argmax(-1)).all()))
+    if not decode:
+        return out
+    runner = make_decode_tokens(cfg)
+    spare = init_spare_states(full)
+    extent = cache_kv_extent(full)
+
+    def step(tok, cache_):
+        pos = int(cache_["pos"].max())
+        return runner(params, cache_, tok, burst, spare=spare,
+                      kv_bucket=clamped_bucket(pos + burst, extent))
+
+    toks, full = step(first, full)          # eager, then captured
+    torch.cuda.synchronize()
+    out_toks = []
+    replays = runner.replays
+    t0 = time.monotonic()
+    for _ in range(decode // burst):
+        toks, full = step(toks[:, -1:], full)
+        out_toks.append(toks.clone())     # the graph's buffer: rewritten
+    torch.cuda.synchronize()
+    dec_s = time.monotonic() - t0
+    toks = torch.cat(out_toks, 1)
+    if runner.replays - replays != decode // burst:
+        raise AssertionError("the long-context decode bursts were not "
+                             "replays")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("a decoded token outside the vocab")
+    out.update(decode_tokens=int(toks.numel()), decode_burst=burst,
+               decode_ms_per_token_step=dec_s * 1e3 / toks.shape[1],
+               decode_kv_bucket=runner.keys[-1][2] if runner.keys else None,
+               decode_captures=runner.captures)
+    return out
 
 
 def main() -> int:
@@ -1445,8 +1512,9 @@ def main() -> int:
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
-    from repro_torch.configs import (gemma3_1b, llama3_8b, mamba2_2p7b,
-                                     mamba_130m, zamba2_2p7b)
+    from repro_torch.configs import (falcon_h1_05b, gemma3_1b, glm4_9b,
+                                     hymba_15b, llama3_8b, mamba2_2p7b,
+                                     mamba_130m, smollm_135m, zamba2_2p7b)
     from repro_torch.configs.paper_models import PHI3_MINI, QWEN25_05B
     from repro_torch.kernels import build
 
@@ -1464,7 +1532,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for cfg in (mamba2_2p7b, zamba2_2p7b):
+    for cfg in (mamba2_2p7b, zamba2_2p7b, falcon_h1_05b):
         for r in phase_kernels(cfg, gen):
             rows.append(dict(r, at=cfg.name))
     rows += phase_attention(gen)
@@ -1484,7 +1552,8 @@ def main() -> int:
     rows.append(dict(ring_rows[0], at=gemma3_1b.name))
 
     launches = {}
-    for cfg in (mamba2_2p7b, zamba2_2p7b, mamba_130m, gemma3_1b):
+    for cfg in (mamba2_2p7b, zamba2_2p7b, mamba_130m, gemma3_1b,
+                falcon_h1_05b):
         t0 = time.perf_counter()
         serving, launches[cfg.name] = phase_serving(cfg, gen)
         torch.cuda.empty_cache()
@@ -1507,21 +1576,39 @@ def main() -> int:
                              (QWEN25_05B, 4, "bfloat16", 512),
                              (QWEN25_05B, 4, "float32", 512),
                              (PHI3_MINI, 4, "bfloat16", 512),
-                             (PHI3_MINI, 4, "float32", 512)):
+                             (PHI3_MINI, 4, "float32", 512),
+                             (falcon_h1_05b, falcon_h1_05b.n_layers,
+                              "bfloat16", 512),
+                             (falcon_h1_05b, falcon_h1_05b.n_layers,
+                              "float32", 512),
+                             (hymba_15b, hymba_15b.n_layers, "bfloat16",
+                              512),
+                             (hymba_15b, hymba_15b.n_layers, "float32", 512),
+                             (smollm_135m, smollm_135m.n_layers, "bfloat16",
+                              512),
+                             (glm4_9b, 4, "bfloat16", 512),
+                             (glm4_9b, 4, "float32", 512)):
         paths = phase_paths(cfg, gen, n, cd, plen)
         torch.cuda.empty_cache()
         print(f"phase 5 kernel path vs plain path, {cfg.name} at {n} "
               f"layers, {cd}, {plen}-token prompt: " + json.dumps(paths),
               flush=True)
 
-    t0 = time.perf_counter()
-    long_prefill = phase_long_prefill(mamba_130m, gen)
-    torch.cuda.empty_cache()
-    print(f"phase 6 long-context prefill, {mamba_130m.name} "
-          f"({mamba_130m.n_layers} layers), one 16384-token prompt, B=1, "
-          f"bf16, one-shot against 64 chunks of 256 "
-          f"({time.perf_counter() - t0:.1f} s): " + json.dumps(long_prefill),
-          flush=True)
+    for cfg, names, decode in (
+            (mamba_130m, ("scan1_kernel",), 0),
+            # cuBLAS's Hopper products run as "nvjet" or "gemm" kernels
+            (falcon_h1_05b, ("flash_wgmma_kernel", "ssd_tc_kernel",
+                             "conv1d_kernel", "nvjet", "gemm"), 32)):
+        t0 = time.perf_counter()
+        long_prefill = phase_long_prefill(cfg, gen, names, decode=decode)
+        torch.cuda.empty_cache()
+        then = (f", then {decode} tokens through the graph burst"
+                if decode else "")
+        print(f"phase 6 long-context prefill, {cfg.name} "
+              f"({cfg.n_layers} layers), one 16384-token prompt, B=1, "
+              f"bf16, one-shot against 64 chunks of 256{then} "
+              f"({time.perf_counter() - t0:.1f} s): "
+              + json.dumps(long_prefill), flush=True)
 
     for r in rows:
         r["launches"] = launches[r["at"]][r["name"]]

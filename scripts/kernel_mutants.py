@@ -11,9 +11,10 @@ mutant's kernel (every check for the unchanged sources):
 
 - ``attention``: the flash and decode kernels against their plain
   versions at every shape of ``chip_smoke.attention_cases``
-  (qwen2.5-0.5b, zamba2-2.7b, phi-3-mini, llama3-8b and gemma3-1b on the
-  ``wgmma`` flash at d=64, 80, 96, 128 and 256 with its key splits;
-  decode with up to 16 splits), the inputs of
+  (qwen2.5-0.5b, zamba2-2.7b, phi-3-mini, llama3-8b, gemma3-1b,
+  falcon-h1-0.5b and glm4-9b on the ``wgmma`` flash at d=64, 80, 96, 128
+  and 256 with its key splits; decode with up to 16 splits and up to 16
+  query heads a KV head), the inputs of
   ``chip_smoke.phase_attention``, and decode over gemma3-1b's local ring
   (``chip_smoke.LOCAL_DECODE``).  ``ratio`` is the per-row check that
   chip_smoke.py applies (``row_ratio``), ``old_ratio`` the whole-tensor
@@ -86,6 +87,12 @@ MUTANTS = {
         "attention", "attn_decode.cu", "  return key < hi;\n",
         "  return key < hi && (key < 1536 || key >= 1540);\n",
         "decode: rows with more than 1536 valid keys lose keys 1536-1539"),
+    "decode_second_tile_reads_first_queries": (
+        "attention", "attn_decode.cu",
+        "    const int g = j * kGTile + gr;\n",
+        "    const int g = gr;\n",
+        "decode (bf16, groups past 8): the second N tile scores the first "
+        "tile's queries, so heads 8-15 of each KV head repeat heads 0-7"),
     "decode_merge_drops_last_split": (
         "attention", "attn_decode.cu",
         "      if (s < nlive) {\n        o.x",

@@ -7,11 +7,14 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core.config import ModelConfig
-from repro_torch.configs.gemma3_1b import CONFIG as gemma3_1b  # noqa: F401
-from repro_torch.configs.llama3_8b import CONFIG as llama3_8b  # noqa: F401
-from repro_torch.configs.mamba2_2p7b import CONFIG as mamba2_2p7b  # noqa: F401
 from repro_torch.configs.zamba2_2p7b import CONFIG as zamba2_2p7b  # noqa: F401
+from repro_torch.configs.glm4_9b import CONFIG as glm4_9b  # noqa: F401
+from repro_torch.configs.llama3_8b import CONFIG as llama3_8b  # noqa: F401
+from repro_torch.configs.gemma3_1b import CONFIG as gemma3_1b  # noqa: F401
+from repro_torch.configs.smollm_135m import CONFIG as smollm_135m  # noqa: F401
+from repro_torch.configs.mamba2_2p7b import CONFIG as mamba2_2p7b  # noqa: F401
 from repro_torch.configs.paper_models import (  # noqa: F401
+    FALCON_H1_05B as falcon_h1_05b, HYMBA_15B as hymba_15b,
     MAMBA1_130M as mamba_130m)
 
 

@@ -1,7 +1,7 @@
-"""The paper's own model suite (Table II), as far as the port serves its
-layer kinds: the ``dense``, ``mamba1``, ``mamba2`` and ``mamba2+shared``
-entries of the reference's ``configs/paper_models.py``, field for field.
-The ``hybrid_par`` entries (Falcon-H1, Hymba) wait for that kind.
+"""The paper's own model suite (Table II): the entries of the reference's
+``configs/paper_models.py``, field for field.  Falcon-H1-0.5B and
+Hymba-1.5B are ``hybrid_par`` models: attention and a Mamba-2 mixer side
+by side in every layer, both reading one normed input.
 
 mamba-130m is the only Mamba-1 model: 24 ``mamba1`` layers, d_model 768
 (d_inner 1536), d_state 16, dt_rank ceil(768/16) = 48, conv kernel 4,
@@ -61,6 +61,26 @@ MAMBA2_780M = register(ModelConfig(
     ssm=SSMConfig(d_state=128, headdim=64, expand=2, n_groups=1, chunk=128),
     layer_pattern=("mamba2",), tie_embeddings=True,
 ), tags=("paper", "ssm"))
+
+# Falcon-H1-0.5B: parallel hybrid heads (attention + Mamba-2 side by side
+# in every layer — the real Falcon-H1 topology via the hybrid_par block).
+FALCON_H1_05B = register(ModelConfig(
+    name="falcon-h1-0.5b", family="hybrid", n_layers=18, d_model=1024,
+    d_ff=4096, vocab_size=32784,
+    attn=AttnConfig(n_heads=8, n_kv_heads=4, head_dim=128),
+    ssm=SSMConfig(d_state=128, headdim=64, expand=2, n_groups=1, chunk=128),
+    layer_pattern=("hybrid_par",), tie_embeddings=True,
+), tags=("paper", "hybrid"))
+
+# Hymba-1.5B proxy: also a parallel hybrid-head design (attention + SSM
+# heads in the same layer).
+HYMBA_15B = register(ModelConfig(
+    name="hymba-1.5b", family="hybrid", n_layers=24, d_model=1536,
+    d_ff=5504, vocab_size=32001,
+    attn=AttnConfig(n_heads=12, n_kv_heads=2, head_dim=128),
+    ssm=SSMConfig(d_state=128, headdim=64, expand=2, n_groups=1, chunk=128),
+    layer_pattern=("hybrid_par",), tie_embeddings=True,
+), tags=("paper", "hybrid"))
 
 # Zamba2-1.2B (Fig. 8a): mamba2 backbone + shared attention, no GQA.
 ZAMBA2_12B = register(ModelConfig(

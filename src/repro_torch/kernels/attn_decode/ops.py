@@ -16,7 +16,9 @@ is empty.  At the four shapes the served models decode (B=4):
 zamba2-2.7b (32 KV heads, a 2048-row bucket) 3 splits of 704 keys, 384
 blocks; llama3-8b (8 KV heads) 8 of 256, 256 blocks; gemma3-1b's global
 layers (1 KV head) 16 of 128, 64 blocks; its local layers' 512-slot
-ring 8 of 64, 32 blocks.  Splits that start at or past a row's
+ring 8 of 64, 32 blocks.  A block holds its KV head's whole query group
+(up to 16 heads), so the split rule does not depend on the group.  Splits
+that start at or past a row's
 ``valid_len`` return at once; the kernel merges the live ones itself (one
 launch per call), through a per-(row, KV head) ticket counter that it
 leaves at zero.  The result is the same for every split count up to
@@ -37,7 +39,9 @@ from repro_torch.kernels.flash.ops import (check_strided, row_vector,
 # llama3.2-1b's (64), zamba2-2.7b's (80), phi-3-mini's (96), llama3-8b's
 # (128), gemma3-1b's (256) and the reduced test sizes
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
-MAX_GROUP = 8           # query heads per KV head
+# query heads per KV head: one N tile of 8 queries up to 8, two up to 16
+# (glm4-9b's 32 heads on 2 KV heads)
+MAX_GROUP = 16
 SMS = 132               # H100 SXM
 TILE = 64               # keys per split tile
 MAX_SPLIT = 16          # splits the kernel merges

@@ -13,7 +13,7 @@
 //
 // Design: the TPU walks a split's KV blocks along a sequential grid axis.
 // Here one block owns one (batch row, KV head, split) and the whole query
-// group (G <= 8 heads).  The split rule (ops.py) gives about two waves of
+// group (G <= 16 heads).  The split rule (ops.py) gives about two waves of
 // blocks over the 132 SMs, down to one 64-key tile per split; at gemma3-1b's
 // single KV head even its ring decode (512 slots) reads one tile a block,
 // so a block keeps the group rather than owning one head: more blocks would
@@ -22,7 +22,12 @@
 //
 // bf16: tensor cores with no padding waste at G <= 8.  The keys sit on the
 // M side of mma.sync m16n8k16 and the group's queries on N = 8:
-// S^T = K Q^T, then O^T = V^T P^T with head_dim on M.  Each of the four
+// S^T = K Q^T, then O^T = V^T P^T with head_dim on M.  A group of 9 to 16
+// (glm4-9b: 32 query heads on 2 KV heads) takes a second N = 8 tile of
+// queries in the same block (NT = 2): each K and V fragment loaded from
+// shared memory feeds both tiles' products, so K and V are still read
+// once per KV head, and each tile keeps its own softmax state.  G <= 8
+// runs the NT = 1 instance, the same code as before the second tile.  Each of the four
 // warps takes 16 keys of every 64-key tile and keeps its own (m, l, O^T)
 // in registers; P is rounded to bf16 for the second product (as the flash
 // kernel does) and moved from the accumulator layout to the B operand's
@@ -30,7 +35,8 @@
 // tiles load while one is scored; rows at or past the split's end are
 // zero-filled, so stale cache rows (NaN included) never reach P.V.
 // fp32: CUDA cores, as before (TF32 would break fp32's 2e-4 limit): lane j
-// scores key j of a warp's 32-key tile.
+// scores key j of a warp's 32-key tile; GM (8 or 16) sizes the per-query
+// registers and shared arrays.
 //
 // The merge: the block first merges its warps through shared memory.  With
 // one live split it writes the output.  Otherwise it writes its unnormalised
@@ -61,7 +67,8 @@ using repro::movmatrix_trans;
 using repro::pack_bf16;
 
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxG = 8;       // query heads per KV head
+constexpr int kGTile = 8;      // queries per N tile of mma.sync m16n8k16
+constexpr int kMaxG = 16;      // query heads per KV head: two N tiles
 constexpr int kSplitTile = 64; // split_len is a multiple of this
 constexpr int kMaxSplit = 16;  // splits per (row, KV head)
 
@@ -89,7 +96,7 @@ struct DecodeParams {
 // columns a thread, every split's partial loaded before the first is
 // summed, so the merge costs one round trip to L2 rather than one per
 // split.
-template <typename T, int D>
+template <typename T, int D, int GM>
 __device__ void finish_split(const DecodeParams& p, const float* ml,
                              const float* acc, int b, int kvh, int sp,
                              int nlive) {
@@ -112,7 +119,7 @@ __device__ void finish_split(const DecodeParams& p, const float* ml,
   __threadfence();
   __syncthreads();
   __shared__ int last;
-  __shared__ float w[kMaxSplit][kMaxG];
+  __shared__ float w[kMaxSplit][GM];
   if (tid == 0) last = atomicAdd(&p.tickets[bk], 1) == nlive - 1;
   __syncthreads();
   if (!last) return;
@@ -173,22 +180,22 @@ __device__ __forceinline__ int live_splits(const DecodeParams& p, int valid) {
   return max(1, min(p.nsplit, (valid + p.split_len - 1) / p.split_len));
 }
 
-// merge W warps' (m, l, acc) held in shared memory as wml [W][kMaxG][2]
-// and wacc [W][kMaxG][D] into ml [G][2] and acc [G][D]
-template <int D, int W>
+// merge W warps' (m, l, acc) held in shared memory as wml [W][GM][2]
+// and wacc [W][GM][D] into ml [G][2] and acc [G][D]
+template <int D, int W, int GM>
 __device__ void merge_warps(const float* wml, const float* wacc, float* ml,
                             float* acc, int G) {
   for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
     const int g = e / D, d = e % D;
     float mall = kNegInf;
 #pragma unroll
-    for (int w = 0; w < W; ++w) mall = fmaxf(mall, wml[(w * kMaxG + g) * 2]);
+    for (int w = 0; w < W; ++w) mall = fmaxf(mall, wml[(w * GM + g) * 2]);
     float lsum = 0.0f, a = 0.0f;
 #pragma unroll
     for (int w = 0; w < W; ++w) {
-      const float alpha = expf(wml[(w * kMaxG + g) * 2] - mall);
-      lsum += wml[(w * kMaxG + g) * 2 + 1] * alpha;
-      a += wacc[(w * kMaxG + g) * D + d] * alpha;
+      const float alpha = expf(wml[(w * GM + g) * 2] - mall);
+      lsum += wml[(w * GM + g) * 2 + 1] * alpha;
+      a += wacc[(w * GM + g) * D + d] * alpha;
     }
     acc[e] = a;
     if (d == 0) {
@@ -204,12 +211,13 @@ constexpr int kTile = 64;      // keys per pipeline stage, 16 per warp
 constexpr int kWarps = 4;
 constexpr int kStages = 3;
 
-template <int D>
+template <int D, int NT>
 struct Bf16Smem {
   static constexpr int DP = D + 8;   // padded row: ldmatrix hits 8 banks
+  static constexpr int GM = NT * kGTile;
   static constexpr size_t kStageBytes = (size_t)2 * kTile * DP * 2;
   static constexpr size_t kMergeBytes =
-      (size_t)(kWarps + 1) * kMaxG * (D + 2) * sizeof(float);
+      (size_t)(kWarps + 1) * GM * (D + 2) * sizeof(float);
   static constexpr size_t kBytes =
       kStages * kStageBytes > kMergeBytes ? kStages * kStageBytes
                                           : kMergeBytes;
@@ -224,7 +232,7 @@ __device__ __forceinline__ void load_stage(__nv_bfloat16* ks,
                                            const __nv_bfloat16* vg,
                                            const DecodeParams& p, int r0,
                                            int hi, int tid) {
-  constexpr int DP = Bf16Smem<D>::DP, V = D / 8;
+  constexpr int DP = Bf16Smem<D, 1>::DP, V = D / 8;
   for (int e = tid; e < kTile * V; e += kWarps * 32) {
     const int r = e / V, c = e % V;
     const bool ok = r0 + r < hi;
@@ -237,11 +245,12 @@ __device__ __forceinline__ void load_stage(__nv_bfloat16* ks,
   }
 }
 
-template <int D>
+template <int D, int NT>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_bf16_kernel(DecodeParams p) {
-  using L = Bf16Smem<D>;
+  using L = Bf16Smem<D, NT>;
   constexpr int DP = L::DP;
+  constexpr int GM = L::GM;
   constexpr int KD = D / 16;     // k-steps of S^T = K Q^T; m-tiles of O^T
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
 
@@ -274,27 +283,39 @@ decode_bf16_kernel(DecodeParams p) {
 
   const int gr = lane >> 2, gc = (lane & 3) * 2;
   const int G = p.G;
-  // Q^T as the B operand of S^T = K Q^T: query gr, dims 16kk + gc (+1, +8,
-  // +9); queries past the group are zeros
-  uint32_t qb[KD][2];
-  {
+  // Q^T as the B operand of S^T = K Q^T, one N tile of 8 queries each:
+  // query 8j + gr of tile j, dims 16kk + gc (+1, +8, +9); queries past the
+  // group are zeros
+  uint32_t qb[NT][KD][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int g = j * kGTile + gr;
     const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
-                              b * p.q_sb + (long long)(kvh * G + gr) * p.q_sh;
+                              b * p.q_sb + (long long)(kvh * G + g) * p.q_sh;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      qb[kk][0] = gr < G ? *reinterpret_cast<const uint32_t*>(
-                               qg + kk * 16 + gc) : 0u;
-      qb[kk][1] = gr < G ? *reinterpret_cast<const uint32_t*>(
-                               qg + kk * 16 + gc + 8) : 0u;
+      qb[j][kk][0] = g < G ? *reinterpret_cast<const uint32_t*>(
+                                 qg + kk * 16 + gc) : 0u;
+      qb[j][kk][1] = g < G ? *reinterpret_cast<const uint32_t*>(
+                                 qg + kk * 16 + gc + 8) : 0u;
     }
   }
 
-  // O^T [d][g]: m-tile kk holds dims 16kk + gr (+8), queries gc, gc + 1
-  float acc[KD][4];
+  // O^T [d][g] of tile j: m-tile kk holds dims 16kk + gr (+8), queries
+  // 8j + gc, 8j + gc + 1
+  float acc[NT][KD][4];
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    acc[kk][0] = acc[kk][1] = acc[kk][2] = acc[kk][3] = 0.0f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;   // queries gc, gc+1
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      acc[j][kk][0] = acc[j][kk][1] = acc[j][kk][2] = acc[j][kk][3] = 0.0f;
+  // queries 8j + gc and 8j + gc + 1
+  float m0[NT], m1[NT], l0[NT], l1[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    m0[j] = m1[j] = kNegInf;
+    l0[j] = l1[j] = 0.0f;
+  }
 
   // ldmatrix row addresses: K (A of S^T, row-major keys x dims) and V
   // (A of O^T = V^T, read transposed)
@@ -313,50 +334,63 @@ decode_bf16_kernel(DecodeParams p) {
     const __nv_bfloat16* kt = kstage(i % kStages);
     const __nv_bfloat16* vt = vstage(i % kStages);
 
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
       uint32_t ka[4];
       ldmatrix_x4(ka, kt + krow * DP + kk * 16 + kcol);
-      mma_bf16(s, ka, qb[kk][0], qb[kk][1]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_bf16(s[j], ka, qb[j][kk][0], qb[j][kk][1]);
     }
     // keys k0 + gr and k0 + gr + 8 of this warp's 16
     const int k0 = lo + i * kTile + warp * 16;
     const bool live0 = key_live(k0 + gr, hi);
     const bool live1 = key_live(k0 + gr + 8, hi);
-    s[0] = live0 ? s[0] * p.scale : kNegInf;
-    s[1] = live0 ? s[1] * p.scale : kNegInf;
-    s[2] = live1 ? s[2] * p.scale : kNegInf;
-    s[3] = live1 ? s[3] * p.scale : kNegInf;
-    float mx0 = fmaxf(s[0], s[2]), mx1 = fmaxf(s[1], s[3]);
+    float c0[NT], c1[NT];
+    uint32_t pb0[NT], pb1[NT];
 #pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    for (int j = 0; j < NT; ++j) {
+      s[j][0] = live0 ? s[j][0] * p.scale : kNegInf;
+      s[j][1] = live0 ? s[j][1] * p.scale : kNegInf;
+      s[j][2] = live1 ? s[j][2] * p.scale : kNegInf;
+      s[j][3] = live1 ? s[j][3] * p.scale : kNegInf;
+      float mx0 = fmaxf(s[j][0], s[j][2]), mx1 = fmaxf(s[j][1], s[j][3]);
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0[j], mx0), mn1 = fmaxf(m1[j], mx1);
+      c0[j] = expf(m0[j] - mn0);
+      c1[j] = expf(m1[j] - mn1);
+      m0[j] = mn0;
+      m1[j] = mn1;
+      s[j][0] = expf(s[j][0] - mn0);
+      s[j][1] = expf(s[j][1] - mn1);
+      s[j][2] = expf(s[j][2] - mn0);
+      s[j][3] = expf(s[j][3] - mn1);
+      // this thread's keys; summed over the warp at the end
+      l0[j] = l0[j] * c0[j] + s[j][0] + s[j][2];
+      l1[j] = l1[j] * c1[j] + s[j][1] + s[j][3];
+      // P^T as the B operand of O^T = V^T P^T: keys 2(t%4) (+1, +8, +9)
+      // of query t/4, the transposes of the accumulator's two 8x8 blocks
+      pb0[j] = movmatrix_trans(pack_bf16(s[j][0], s[j][1]));
+      pb1[j] = movmatrix_trans(pack_bf16(s[j][2], s[j][3]));
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    s[0] = expf(s[0] - mn0);
-    s[1] = expf(s[1] - mn1);
-    s[2] = expf(s[2] - mn0);
-    s[3] = expf(s[3] - mn1);
-    l0 = l0 * c0 + s[0] + s[2];   // this thread's keys; summed at the end
-    l1 = l1 * c1 + s[1] + s[3];
-    // P^T as the B operand of O^T = V^T P^T: keys 2(t%4) (+1, +8, +9) of
-    // query t/4, the transposes of the accumulator's two 8x8 blocks
-    const uint32_t pb0 = movmatrix_trans(pack_bf16(s[0], s[1]));
-    const uint32_t pb1 = movmatrix_trans(pack_bf16(s[2], s[3]));
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      acc[kk][0] *= c0;
-      acc[kk][1] *= c1;
-      acc[kk][2] *= c0;
-      acc[kk][3] *= c1;
       uint32_t va[4];
       ldmatrix_x4_trans(va, vt + vrow * DP + kk * 16 + vcol);
-      mma_bf16(acc[kk], va, pb0, pb1);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[j][kk][0] *= c0[j];
+        acc[j][kk][1] *= c1[j];
+        acc[j][kk][2] *= c0[j];
+        acc[j][kk][3] *= c1[j];
+        mma_bf16(acc[j][kk], va, pb0[j], pb1[j]);
+      }
     }
     __syncthreads();   // this stage is consumed before it is refilled
   }
@@ -364,41 +398,45 @@ decode_bf16_kernel(DecodeParams p) {
   __syncthreads();
 
   // the four warps' partials through shared memory (reusing the stages)
+  float* wml = reinterpret_cast<float*>(smem_raw);   // [W][GM][2]
+  float* wacc = wml + kWarps * GM * 2;               // [W][GM][D]
 #pragma unroll
-  for (int off = 4; off < 32; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  float* wml = reinterpret_cast<float*>(smem_raw);   // [W][kMaxG][2]
-  float* wacc = wml + kWarps * kMaxG * 2;            // [W][kMaxG][D]
-  if (gr == 0) {
-    if (gc < G) {
-      wml[(warp * kMaxG + gc) * 2] = m0;
-      wml[(warp * kMaxG + gc) * 2 + 1] = l0;
-    }
-    if (gc + 1 < G) {
-      wml[(warp * kMaxG + gc + 1) * 2] = m1;
-      wml[(warp * kMaxG + gc + 1) * 2 + 1] = l1;
-    }
-  }
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int d = kk * 16 + gr;
-    if (gc < G) {
-      wacc[(warp * kMaxG + gc) * D + d] = acc[kk][0];
-      wacc[(warp * kMaxG + gc) * D + d + 8] = acc[kk][2];
+    for (int off = 4; off < 32; off <<= 1) {
+      l0[j] += __shfl_xor_sync(0xffffffffu, l0[j], off);
+      l1[j] += __shfl_xor_sync(0xffffffffu, l1[j], off);
     }
-    if (gc + 1 < G) {
-      wacc[(warp * kMaxG + gc + 1) * D + d] = acc[kk][1];
-      wacc[(warp * kMaxG + gc + 1) * D + d + 8] = acc[kk][3];
+    const int g0 = j * kGTile + gc, g1 = g0 + 1;
+    if (gr == 0) {
+      if (g0 < G) {
+        wml[(warp * GM + g0) * 2] = m0[j];
+        wml[(warp * GM + g0) * 2 + 1] = l0[j];
+      }
+      if (g1 < G) {
+        wml[(warp * GM + g1) * 2] = m1[j];
+        wml[(warp * GM + g1) * 2 + 1] = l1[j];
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const int d = kk * 16 + gr;
+      if (g0 < G) {
+        wacc[(warp * GM + g0) * D + d] = acc[j][kk][0];
+        wacc[(warp * GM + g0) * D + d + 8] = acc[j][kk][2];
+      }
+      if (g1 < G) {
+        wacc[(warp * GM + g1) * D + d] = acc[j][kk][1];
+        wacc[(warp * GM + g1) * D + d + 8] = acc[j][kk][3];
+      }
     }
   }
   __syncthreads();
-  float* ml = wacc + kWarps * kMaxG * D;             // [G][2]
-  float* bacc = ml + kMaxG * 2;                      // [G][D]
-  merge_warps<D, kWarps>(wml, wacc, ml, bacc, G);
+  float* ml = wacc + kWarps * GM * D;                // [G][2]
+  float* bacc = ml + GM * 2;                         // [G][D]
+  merge_warps<D, kWarps, GM>(wml, wacc, ml, bacc, G);
   __syncthreads();
-  finish_split<__nv_bfloat16, D>(p, ml, bacc, b, kvh, sp, nlive);
+  finish_split<__nv_bfloat16, D, GM>(p, ml, bacc, b, kvh, sp, nlive);
 }
 
 // ------------------------------------------------------- fp32, CUDA cores
@@ -406,7 +444,7 @@ decode_bf16_kernel(DecodeParams p) {
 constexpr int kFTile = 32;      // keys per warp tile, one per lane
 constexpr int kLoadBatch = 10;  // 16-byte loads per lane in flight, K and V
 
-template <int D>
+template <int D, int GM>
 struct F32Smem {
   // two warps at d=256, where four warps' staged tiles (4 x 64 KB) would
   // pass the 227 KB a block may hold
@@ -414,18 +452,18 @@ struct F32Smem {
   static constexpr int KST = D + 1;   // odd key rows: lane j hits bank j
   static constexpr size_t kWarpBytes =
       ((size_t)kFTile * KST + (size_t)kFTile * D) * sizeof(float);
-  static constexpr size_t kQBytes = (size_t)kMaxG * D * sizeof(float);
+  static constexpr size_t kQBytes = (size_t)GM * D * sizeof(float);
   static constexpr size_t kMergeBytes =
-      ((size_t)kWarps * kMaxG * (D + 2) + kMaxG * (D + 2)) * sizeof(float);
+      ((size_t)kWarps * GM * (D + 2) + GM * (D + 2)) * sizeof(float);
   static constexpr size_t kTileBytes = kQBytes + kWarps * kWarpBytes;
   static constexpr size_t kBytes =
       kTileBytes > kMergeBytes ? kTileBytes : kMergeBytes;
 };
 
-template <int D>
-__global__ void __launch_bounds__(F32Smem<D>::kWarps * 32)
+template <int D, int GM>
+__global__ void __launch_bounds__(F32Smem<D, GM>::kWarps * 32)
 decode_f32_kernel(DecodeParams p) {
-  using L = F32Smem<D>;
+  using L = F32Smem<D, GM>;
   constexpr int kW = L::kWarps;
   constexpr int KST = L::KST;
   constexpr int NV = D / 4;                  // 16-byte loads per row
@@ -459,9 +497,9 @@ decode_f32_kernel(DecodeParams p) {
                     kvh * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb +
                     kvh * p.v_sh;
-  float m[kMaxG], l[kMaxG], acc[kMaxG][NC];
+  float m[GM], l[GM], acc[GM][NC];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
+  for (int g = 0; g < GM; ++g) {
     m[g] = kNegInf;
     l[g] = 0.0f;
 #pragma unroll
@@ -501,7 +539,7 @@ decode_f32_kernel(DecodeParams p) {
     __syncwarp();
     const bool live = key_live(k0 + lane, hi);
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
+    for (int g = 0; g < GM; ++g) {
       if (g >= G) break;
       float s = 0.0f;
 #pragma unroll 8
@@ -536,42 +574,43 @@ decode_f32_kernel(DecodeParams p) {
   }
 
   __syncthreads();
-  float* wml = reinterpret_cast<float*>(smem_raw);   // [W][kMaxG][2]
-  float* wacc = wml + kW * kMaxG * 2;                // [W][kMaxG][D]
+  float* wml = reinterpret_cast<float*>(smem_raw);   // [W][GM][2]
+  float* wacc = wml + kW * GM * 2;                   // [W][GM][D]
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
+  for (int g = 0; g < GM; ++g) {
     if (g >= G) break;
     if (lane == 0) {
-      wml[(warp * kMaxG + g) * 2] = m[g];
-      wml[(warp * kMaxG + g) * 2 + 1] = l[g];
+      wml[(warp * GM + g) * 2] = m[g];
+      wml[(warp * GM + g) * 2 + 1] = l[g];
     }
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) wacc[(warp * kMaxG + g) * D + d] = acc[g][c];
+      if (d < D) wacc[(warp * GM + g) * D + d] = acc[g][c];
     }
   }
   __syncthreads();
-  float* ml = wacc + kW * kMaxG * D;                 // [G][2]
-  float* bacc = ml + kMaxG * 2;                      // [G][D]
-  merge_warps<D, kW>(wml, wacc, ml, bacc, G);
+  float* ml = wacc + kW * GM * D;                    // [G][2]
+  float* bacc = ml + GM * 2;                         // [G][D]
+  merge_warps<D, kW, GM>(wml, wacc, ml, bacc, G);
   __syncthreads();
-  finish_split<float, D>(p, ml, bacc, b, kvh, sp, nlive);
+  finish_split<float, D, GM>(p, ml, bacc, b, kvh, sp, nlive);
 }
 
-template <typename T, int D>
+// NT N tiles of 8 queries: 1 for G <= 8, 2 for G <= 16
+template <typename T, int D, int NT>
 cudaError_t launch(const DecodeParams& p, int B, cudaStream_t st) {
   void (*kern)(DecodeParams);
   size_t bytes;
   int threads;
   if constexpr (sizeof(T) == 2) {
-    kern = decode_bf16_kernel<D>;
-    bytes = Bf16Smem<D>::kBytes;
+    kern = decode_bf16_kernel<D, NT>;
+    bytes = Bf16Smem<D, NT>::kBytes;
     threads = kWarps * 32;
   } else {
-    kern = decode_f32_kernel<D>;
-    bytes = F32Smem<D>::kBytes;
-    threads = F32Smem<D>::kWarps * 32;
+    kern = decode_f32_kernel<D, NT * kGTile>;
+    bytes = F32Smem<D, NT * kGTile>::kBytes;
+    threads = F32Smem<D, NT * kGTile>::kWarps * 32;
   }
   // once per instantiation, so a launch inside CUDA-graph capture makes no
   // configuration call
@@ -582,18 +621,24 @@ cudaError_t launch(const DecodeParams& p, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const DecodeParams& p, int B, int D, cudaStream_t st) {
+template <typename T, int NT>
+cudaError_t dispatch_d(const DecodeParams& p, int B, int D, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(p, B, st);
-    case 32: return launch<T, 32>(p, B, st);
-    case 64: return launch<T, 64>(p, B, st);
-    case 80: return launch<T, 80>(p, B, st);
-    case 96: return launch<T, 96>(p, B, st);
-    case 128: return launch<T, 128>(p, B, st);
-    case 256: return launch<T, 256>(p, B, st);
+    case 16: return launch<T, 16, NT>(p, B, st);
+    case 32: return launch<T, 32, NT>(p, B, st);
+    case 64: return launch<T, 64, NT>(p, B, st);
+    case 80: return launch<T, 80, NT>(p, B, st);
+    case 96: return launch<T, 96, NT>(p, B, st);
+    case 128: return launch<T, 128, NT>(p, B, st);
+    case 256: return launch<T, 256, NT>(p, B, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t dispatch(const DecodeParams& p, int B, int D, cudaStream_t st) {
+  return p.G > kGTile ? dispatch_d<T, 2>(p, B, D, st)
+                      : dispatch_d<T, 1>(p, B, D, st);
 }
 
 }  // namespace

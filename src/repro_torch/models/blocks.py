@@ -2,11 +2,15 @@
 
 The port serves the ``mamba2``, ``mamba2+shared`` (Zamba2: a Mamba-2
 layer followed by the one shared attention+MLP block), ``mamba1``
-(selective scan), ``dense`` and ``local`` kinds.  A ``local`` layer is a
-``dense`` one with a sliding window: the same params, a ring cache of
-``sliding_window`` slots, and the local rope table (theta 1e4) where the
-model has one.  Every other kind raises and names the ROADMAP item that
-ports it.
+(selective scan), ``dense``, ``local`` and ``hybrid_par`` kinds.  A
+``local`` layer is a ``dense`` one with a sliding window: the same
+params, a ring cache of ``sliding_window`` slots, and the local rope
+table (theta 1e4) where the model has one.  A ``hybrid_par`` layer
+(Falcon-H1, Hymba) runs attention and a Mamba-2 mixer side by side on
+one normed input and adds both to the residual before its MLP; its cache
+is one flat dict of the Mamba-2 leaves ``conv``, ``ssm`` and the KV
+leaves ``k``, ``v``.  Every other kind raises and names the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
@@ -24,7 +28,6 @@ from repro_torch.models.norms import rms_norm
 from repro_torch.models.params import ParamDef
 
 _NOT_PORTED = {
-    "hybrid_par": "the hybrid_par (Falcon-H1) item",
     "moe": "the MoE item",
     "dense_moe": "the MoE item",
     "encoder": "the encoder and frontends item",
@@ -45,6 +48,14 @@ def layer_param_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
         return {
             "ln1": ParamDef((D,), ("embed",), init="zeros"),
             "attn": attn_param_defs(D, cfg.attn),
+            "ln2": ParamDef((D,), ("embed",), init="zeros"),
+            "mlp": mlp_param_defs(D, cfg.d_ff),
+        }
+    if kind == "hybrid_par":
+        return {
+            "ln1": ParamDef((D,), ("embed",), init="zeros"),
+            "attn": attn_param_defs(D, cfg.attn),
+            "mamba": m2.mamba2_param_defs(D, cfg.ssm),
             "ln2": ParamDef((D,), ("embed",), init="zeros"),
             "mlp": mlp_param_defs(D, cfg.d_ff),
         }
@@ -79,6 +90,11 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
         window = cfg.attn.sliding_window if kind == "local" else None
         return init_attn_cache(cfg.attn, batch, max_seq, window=window,
                                dtype=dtype, device=device)
+    if kind == "hybrid_par":
+        c = m2.init_mamba2_cache(cfg.d_model, cfg.ssm, batch, dtype, device)
+        c.update(init_attn_cache(cfg.attn, batch, max_seq, dtype=dtype,
+                                 device=device))
+        return c
     if kind in ("mamba2", "mamba2+shared"):
         c = m2.init_mamba2_cache(cfg.d_model, cfg.ssm, batch, dtype, device)
         if kind == "mamba2+shared":
@@ -103,6 +119,54 @@ def _attn_mlp(cfg: ModelConfig, p: Dict, a, x: torch.Tensor, *, rope, cache,
     x = x + a_out
     h = rms_norm(x, p["ln2"], eps)
     return x + mlp(p["mlp"], h, cfg.act), new_cache
+
+
+def _mamba(cfg: ModelConfig, kind: str, p: Dict, h: torch.Tensor, *, cache,
+           pos, chunk_mask, chunk_lengths, slots
+           ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The Mamba mixer of a ``kind`` layer on the normed input ``h``, with
+    the ``conv`` and ``ssm`` leaves of the layer's cache: a decode step
+    for a one-token call with a cache and ``pos``, else a block."""
+    mcache = None
+    if cache is not None:
+        mcache = {"conv": cache["conv"], "ssm": cache["ssm"]}
+    is_decode = cache is not None and h.shape[1] == 1 and pos is not None
+    if kind == "mamba1":
+        block, decode = m1.mamba1_block, m1.mamba1_decode
+    else:
+        block, decode = m2.mamba2_block, m2.mamba2_decode
+    if is_decode:
+        return decode(p, h, cfg.ssm, cfg.d_model, cache=mcache,
+                      eps=cfg.norm_eps, slots=slots)
+    return block(p, h, cfg.ssm, cfg.d_model, cache=mcache, eps=cfg.norm_eps,
+                 mask=chunk_mask, lengths=chunk_lengths, slots=slots)
+
+
+def _hybrid_par(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, rope, cache,
+                pos, valid_len, chunk_mask, chunk_lengths, slots
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Falcon-H1-style parallel heads: attention (KV leaves written in
+    place) and Mamba-2 (new states into ``slots``) read the same normed
+    input, and both outputs join the residual in the reference's order,
+    ``x + a_out + m_out``; then the pre-norm MLP."""
+    eps = cfg.norm_eps
+    h = rms_norm(x, p["ln1"], eps)
+    a_out, new_attn = attention(
+        p["attn"], h, cfg.attn, rope=rope,
+        cache=({"k": cache["k"], "v": cache["v"]} if cache is not None
+               else None),
+        pos=pos, valid_len=valid_len, chunk_mask=chunk_mask, eps=eps)
+    m_out, new_m = _mamba(cfg, "hybrid_par", p["mamba"], h, cache=cache,
+                          pos=pos, chunk_mask=chunk_mask,
+                          chunk_lengths=chunk_lengths, slots=slots)
+    x = x + a_out + m_out
+    h = rms_norm(x, p["ln2"], eps)
+    x = x + mlp(p["mlp"], h, cfg.act)
+    new_cache = None
+    if cache is not None:
+        new_cache = dict(new_m)
+        new_cache.update(new_attn)
+    return x, new_cache
 
 
 def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
@@ -134,25 +198,17 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
             rope=rope_local if local and rope_local is not None else rope,
             cache=cache, pos=pos, valid_len=valid_len, chunk_mask=chunk_mask,
             window=cfg.attn.sliding_window if local else None)
+    if kind == "hybrid_par":
+        return _hybrid_par(cfg, p, x, rope=rope, cache=cache, pos=pos,
+                           valid_len=valid_len, chunk_mask=chunk_mask,
+                           chunk_lengths=chunk_lengths, slots=slots)
     if kind not in ("mamba2", "mamba2+shared", "mamba1"):
         raise _unported(kind)
     eps = cfg.norm_eps
     h = rms_norm(x, p["ln"], eps)
-    mcache = None
-    if cache is not None:
-        mcache = {"conv": cache["conv"], "ssm": cache["ssm"]}
-    is_decode = cache is not None and x.shape[1] == 1 and pos is not None
-    if kind == "mamba1":
-        block, decode = m1.mamba1_block, m1.mamba1_decode
-    else:
-        block, decode = m2.mamba2_block, m2.mamba2_decode
-    if is_decode:
-        out, new_cache = decode(p["mamba"], h, cfg.ssm, cfg.d_model,
-                                cache=mcache, eps=eps, slots=slots)
-    else:
-        out, new_cache = block(p["mamba"], h, cfg.ssm, cfg.d_model,
-                               cache=mcache, eps=eps, mask=chunk_mask,
-                               lengths=chunk_lengths, slots=slots)
+    out, new_cache = _mamba(cfg, kind, p["mamba"], h, cache=cache, pos=pos,
+                            chunk_mask=chunk_mask,
+                            chunk_lengths=chunk_lengths, slots=slots)
     x = x + out
     if kind == "mamba2+shared":
         if shared is None:

@@ -1,19 +1,22 @@
 """Language model: embedding -> layer segments -> head.
 
 The port of the reference's ``repro.models.lm`` for the kinds it serves
-(``mamba2``, ``mamba2+shared``, ``mamba1``, ``dense``, ``local``).  Params and caches
-keep the reference's layouts: params are the same nested dict, with
-``segments`` a list of per-unit tuples whose leaves are stacked
-``[n_rep, ...]`` and, for Zamba2-style models, one ``shared``
-attention+MLP block; a cache is ``{"segments": [...], "pos": [B] int32}``
-with mamba2 leaves ``conv: [n_rep,B,K-1,C]`` (bf16) and
-``ssm: [n_rep,B,H,P,N]`` (fp32), mamba1 leaves ``conv: [n_rep,B,K-1,di]``
-(bf16) and ``ssm: [n_rep,B,di,N]`` (fp32), and KV leaves ``k``,
-``v: [n_rep,B,max_seq,KV,hd]`` (bf16) — at the top of a ``dense``
-layer's cache, nested under ``attn`` in a ``mamba2+shared`` layer's —
-or ``[n_rep,B,window,KV,hd]`` rings at the top of a ``local`` layer's
-(``repro_torch.models.attention``).  A Python loop over the stacked
-layers stands in for ``lax.scan``.
+(``mamba2``, ``mamba2+shared``, ``mamba1``, ``dense``, ``local``,
+``hybrid_par``).  Params and caches keep the reference's layouts: params
+are the same nested dict, with ``segments`` a list of per-unit tuples
+whose leaves are stacked ``[n_rep, ...]`` and, for Zamba2-style models,
+one ``shared`` attention+MLP block; a cache is ``{"segments": [...],
+"pos": [B] int32}`` with mamba2 leaves ``conv: [n_rep,B,K-1,C]`` (bf16)
+and ``ssm: [n_rep,B,H,P,N]`` (fp32), mamba1 leaves ``conv:
+[n_rep,B,K-1,di]`` (bf16) and ``ssm: [n_rep,B,di,N]`` (fp32), and KV
+leaves ``k``, ``v: [n_rep,B,max_seq,KV,hd]`` (bf16) — at the top of a
+``dense`` layer's cache, nested under ``attn`` in a ``mamba2+shared``
+layer's — or ``[n_rep,B,window,KV,hd]`` rings at the top of a ``local``
+layer's (``repro_torch.models.attention``).  A ``hybrid_par`` layer's
+cache holds both at its top level: the mamba2 ``conv`` and ``ssm``
+leaves (state leaves, into the new cache's slots) beside ``k`` and ``v``
+(KV leaves, written in place).  A Python loop over the stacked layers
+stands in for ``lax.scan``.
 
 How a call updates the cache: **KV leaves are written in place**, where
 the reference returns new arrays; every other leaf (the small conv and
@@ -130,6 +133,7 @@ def _cast_attn_mlp(block, cd):
 # per layer kind, the keys of its "mamba" params that are matmul weights
 _MAMBA_PROJ_KEYS = {"mamba2": mamba2.PROJ_KEYS,
                     "mamba2+shared": mamba2.PROJ_KEYS,
+                    "hybrid_par": mamba2.PROJ_KEYS,
                     "mamba1": mamba1.PROJ_KEYS}
 
 

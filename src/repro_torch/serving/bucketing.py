@@ -3,10 +3,11 @@
 The port's copy of the reference's ladder rules.  Before a chunk or decode
 burst the caller picks the smallest power-of-two KV extent covering
 ``max(pos) + chunk``, capped at the model's largest KV-cache extent.  The
-ported kinds that hold KV caches are ``dense`` layers, the shared
-attention of ``mamba2+shared`` (Zamba2) layers and the ``window``-slot
-rings of ``local`` layers; a model with none (pure SSM stacks such as
-mamba2) gets ``None``: no bucketing.  A ring cut to a bucket below its
+ported kinds that hold KV caches are ``dense`` layers, the attention
+half of ``hybrid_par`` (Falcon-H1, Hymba) layers, the shared attention of
+``mamba2+shared`` (Zamba2) layers and the ``window``-slot rings of
+``local`` layers; a model with none (pure SSM stacks such as mamba2)
+gets ``None``: no bucketing.  A ring cut to a bucket below its
 window has not wrapped: the bucket covers ``max(pos) + chunk``.
 """
 from __future__ import annotations

@@ -337,7 +337,6 @@ def test_unported_attention_paths_raise():
         flash_ops.flash_attention(z, z, z, kv_wrap=torch.zeros(1),
                                   ring_len=8)
     cfg = reduced(zamba2_2p7b)
-    for kind, item in (("hybrid_par", "Falcon"), ("moe", "MoE"),
-                       ("encoder", "encoder")):
+    for kind, item in (("moe", "MoE"), ("encoder", "encoder")):
         with pytest.raises(NotImplementedError, match=item):
             blocks.layer_param_defs(cfg, kind)

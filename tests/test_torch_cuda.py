@@ -7,7 +7,9 @@ card and no JAX it runs on its own:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 Shapes are the reduced config's and widths off each kernel's tiles,
-gemma3-1b's head_dim 256, qwen2.5-0.5b's 64 and phi-3-mini's 96, and the
+gemma3-1b's head_dim 256, qwen2.5-0.5b's 64 and phi-3-mini's 96, decode
+attention at glm4-9b's 16 query heads per KV head (and 10 at d=64, off
+the tiles), and the
 SSD scan at both served Mamba-2 models' (P, N) on 2 and 16 chunks at the
 model's scales, SSD, conv1d (with ragged valid lengths) and both decode
 steps writing into slots of stacked cache leaves, and the wrappers'
@@ -315,14 +317,17 @@ def test_flash_kernel_ring(cuda, dtype, d, h, kvh, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,h,kvh", [(80, 32, 32), (128, 32, 8), (16, 4, 2),
                                      (64, 4, 1), (256, 4, 1), (64, 14, 2),
-                                     (96, 4, 4)])
+                                     (96, 4, 4), (128, 32, 2), (128, 12, 2),
+                                     (128, 8, 4), (64, 9, 3)])
 @pytest.mark.parametrize("split_k", [None, 1, 3, 8])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel(cuda, dtype, split_k, d, h, kvh):
     """GQA groups of 1, 4, 2, 4, 4 (gemma3-1b's head_dim 256, whose fp32
-    instance runs two warps a block), 7 (qwen2.5-0.5b, d=64) and 1
-    (phi-3-mini, d=96); valid_len of 1, on a tile edge (32, 64), one past
-    it, and the whole cache; every split count gives the plain result."""
+    instance runs two warps a block), 7 (qwen2.5-0.5b, d=64), 1
+    (phi-3-mini, d=96), 16 (glm4-9b: two N tiles of queries), 6
+    (hymba-1.5b), 2 (falcon-h1-0.5b) and 3 (smollm-135m, d=64); valid_len
+    of 1, on a tile edge (32, 64), one past it, and the whole cache; every
+    split count gives the plain result."""
     rn = _rn(torch.Generator(device=cuda).manual_seed(4), cuda)
     td = DTYPES[dtype]
     b, s = 6, 300
@@ -362,7 +367,8 @@ def test_decode_attention_ring_cache(cuda, dtype, d, h, kvh):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,h,kvh", [(128, 8, 2), (256, 4, 1), (80, 4, 4)])
+@pytest.mark.parametrize("d,h,kvh", [(128, 8, 2), (256, 4, 1), (80, 4, 4),
+                                     (128, 32, 2), (64, 20, 2)])
 @pytest.mark.parametrize("split_k", [None, 12, 16])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_many_splits(cuda, dtype, split_k, d, h, kvh):
@@ -701,7 +707,7 @@ def test_mamba1_wrappers_raise_on_shapes_not_built(cuda):
 # reduced (two units of each layer pattern, d_model 64, head_dim 16,
 # d_state 16), bf16 compute and caches, as the engine serves them
 GRAPH_ARCHS = ("mamba2-2.7b", "zamba2-2.7b", "mamba-130m", "llama3-8b",
-               "gemma3-1b")
+               "gemma3-1b", "falcon-h1-0.5b")
 
 
 def _graph_model(name, dev):

@@ -460,6 +460,22 @@ def test_registered_head_dims_are_built(arch):
         assert d in dec_attn_ops.HEAD_DIMS, (arch, d)
 
 
+@pytest.mark.parametrize("arch", list_archs())
+def test_registered_groups_are_built(arch):
+    """Every attention of every config the port registers has a query
+    group (query heads per KV head) the decode-attention kernel takes,
+    up to glm4-9b's 16, and a flash launch plan in bf16."""
+    cfg = get(arch)
+    for a in (cfg.attn, cfg.shared_attn):
+        if a is None:
+            continue
+        assert a.n_heads % a.n_kv_heads == 0, arch
+        assert a.n_heads // a.n_kv_heads <= dec_attn_ops.MAX_GROUP, arch
+        plan = flash_ops.flash_plan(4, a.n_heads, a.n_kv_heads, 256, 2048,
+                                    a.head_dim, torch.bfloat16)
+        assert (a.n_heads // a.n_kv_heads) % plan.heads_packed == 0, arch
+
+
 @pytest.mark.parametrize("arch", [a for a in list_archs()
                                   if get(a).ssm is not None
                                   and get(a).ssm.variant != "mamba1"])

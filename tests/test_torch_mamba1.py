@@ -599,10 +599,10 @@ def test_served_paper_configs_are_registered():
     serves is registered in the port."""
     from repro.core.registry import get as j_get
     from repro.core.registry import list_archs as j_list
-    served = {"dense", "mamba1", "mamba2", "mamba2+shared"}
+    served = {"dense", "mamba1", "mamba2", "mamba2+shared", "hybrid_par"}
     want = {a for a in j_list("paper")
             if set(j_get(a).layer_kinds) <= served}
     assert want == {"qwen2.5-0.5b", "qwen2.5-1.5b", "llama3.2-1b",
                     "phi-3-mini", "mamba-130m", "mamba2-130m", "mamba2-780m",
-                    "zamba2-1.2b"}
+                    "zamba2-1.2b", "falcon-h1-0.5b", "hymba-1.5b"}
     assert want <= set(_port_archs())
