@@ -75,6 +75,29 @@ Phases (each prints its lines and is fatal on failure):
      ``lm_prefill_chunk`` within phase 5's bf16 limit; falcon-h1-0.5b then
      decodes 32 tokens at that context through the graph burst (ms per
      token step);
+  7. the engine's control layer at full width and depth
+     (``phase_control``: slots 4, max_seq 4096, chunks of 256, bursts of
+     8, strict tiers, the engine's defaults: the sentinel and a
+     checkpoint every 8 iterations).  zamba2-2.7b: run U serves 4
+     class-0 requests (prompts 1100/1300/1500/1700, 48 new); run P adds
+     2 class-1 requests (1200, 1600; 16 new) once all 4 are live, which
+     preempt class-0 slots to the host; P's class-0 streams must equal
+     U's bit for bit, every victim be restored, no graph key or capture
+     be added and no state leaf copied, every burst at the 2048 rung.
+     Then U's traffic with a NaN poked into slot 1 once all are live
+     (one replay from its checkpoint, every stream U's) and P's with the
+     first victim's preemption blob bit-flipped (only it fails, with
+     ``CacheCorruption``).  gemma3-1b: prompts 600-900 past its
+     512-slot rings, every burst at the 1024 rung: run P against U
+     across the ring wrap, then U's traffic killed two iterations after
+     all are live, with a ``CheckpointStore`` under
+     ``build/repro_torch/``, and a fresh engine over the store finishing
+     every stream bit for bit.  Each run prints its wall, checkpoints
+     and their share of the wall against the reference's 5% budget,
+     captures and keys, the steady burst's ms a step beside
+     ``telemetry.estimate("decode", rung)``; each model's run U the
+     offload and restore ms and MB of one slot, and the crc32's ms in
+     each;
 then a ``kernels`` JSON line (the five Mamba-2 and attention kernels at
 zamba2-2.7b's shapes, the two Mamba-1 kernels at mamba-130m's and the
 flash kernel's ring mode at gemma3-1b's, each with the launches of its
@@ -165,12 +188,15 @@ def device_busy(fn, names=()) -> dict:
     its share of all kernel time.  Where the idle time lies: the device
     span (first device operation's start to the last one's end) and the
     idle share inside it (the gaps between operations), the first device
-    operation's and the first kernel's offsets from the start of ``fn``,
-    and the host time in ``cudaGraphLaunch``.  One small operation runs
-    before ``fn``, so the tracer is live when ``fn`` starts; only the
-    device operations of the calls ``fn`` made are read.  The trace is
+    operation's and the first kernel's offsets, both on the card's clock,
+    from the end of a one-element fill launched right before ``fn`` (the
+    card's and the host's clocks are not one clock), and the host time in
+    ``cudaGraphLaunch``.  One small operation runs before ``fn``, so the
+    tracer is live when ``fn`` starts; only the device operations of the
+    calls ``fn`` made are read.  The trace is
     kept in ``build/repro_torch/`` (listed in .gitignore)."""
     from torch.profiler import ProfilerActivity, profile, record_function
+    marker = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -178,6 +204,8 @@ def device_busy(fn, names=()) -> dict:
         torch.cuda.synchronize()
         with record_function("device_busy_fn"):
             t0 = time.monotonic()
+            with record_function("device_busy_marker"):
+                marker.fill_(1.0)
             fn()
             torch.cuda.synchronize()
             wall_us = (time.monotonic() - t0) * 1e6
@@ -187,16 +215,31 @@ def device_busy(fn, names=()) -> dict:
     prof.export_chrome_trace(out)
     with open(out) as f:
         events = json.load(f).get("traceEvents", [])
-    mark = next(e for e in events if e.get("name") == "device_busy_fn"
-                and e.get("cat") == "user_annotation")
-    host0, host1 = mark["ts"], mark["ts"] + mark["dur"]
+    def annotation(name):
+        mark = next(e for e in events if e.get("name") == name
+                    and e.get("cat") == "user_annotation")
+        return mark["ts"], mark["ts"] + mark["dur"]
+
+    def cuda_calls(lo, hi):
+        return [e for e in events
+                if str(e.get("cat", "")).startswith("cuda_")
+                and lo <= e["ts"] <= hi]
+
+    def correlations(calls):
+        return {e.get("args", {}).get("correlation") for e in calls} - {None}
+
+    host0, host1 = annotation("device_busy_fn")
     # the device operations of the CUDA API calls ``fn`` made, matched by
     # correlation id (the card's and the host's clocks may disagree by
-    # more than the gap between a call and its work)
-    calls = [e for e in events
-             if str(e.get("cat", "")).startswith("cuda_")
-             and host0 <= e["ts"] <= host1]
-    ids = {e.get("args", {}).get("correlation") for e in calls} - {None}
+    # more than the gap between a call and its work); the marker's fill
+    # is the card-clock origin of the offsets below
+    calls = cuda_calls(host0, host1)
+    marker_ids = correlations(cuda_calls(*annotation("device_busy_marker")))
+    ids = correlations(calls) - marker_ids
+    marks = [e for e in events if "dur" in e
+             and e.get("args", {}).get("correlation") in marker_ids
+             and e.get("cat") in ("kernel", "gpu_memset")]
+    dev0 = max(e["ts"] + e["dur"] for e in marks) if marks else None
     ops = [e for e in events if "dur" in e
            and e.get("args", {}).get("correlation") in ids]
     kernels = [e for e in ops if e.get("cat") == "kernel"]
@@ -233,10 +276,10 @@ def device_busy(fn, names=()) -> dict:
                 device_span_ms=span_us / 1e3,
                 idle_share_in_span=(1 - busy / span_us) if spans else None,
                 first_device_op_ms=(
-                    (device_ops[0][0] - host0) / 1e3 if device_ops
-                    else None),
-                first_kernel_ms=(spans[0][0] - host0) / 1e3 if spans
-                else None,
+                    (device_ops[0][0] - dev0) / 1e3
+                    if device_ops and dev0 is not None else None),
+                first_kernel_ms=(spans[0][0] - dev0) / 1e3
+                if spans and dev0 is not None else None,
                 graph_launch_ms=graph_launch_us / 1e3,
                 **({"by_name": by_name} if names else {}))
 
@@ -1159,6 +1202,11 @@ def phase_serving(cfg, gen):
     chunk_busy["state_leaves_copied"] = copied[0]
     ttft = {r.rid: (r.first_t - r.submit_t) * 1e3 for r in reqs}
     return dict(ttft_ms=ttft, wall_s=wall,
+                checkpoints=eng.stats["checkpoints"],
+                ckpt_ms=eng.stats["ckpt_ms"],
+                ckpt_share_of_wall=eng.stats["ckpt_ms"] / (wall * 1e3),
+                checkpoint_bytes=eng.metrics.counter(
+                    "repro_checkpoint_bytes_total").value,
                 serve_decode_only_tokens_per_s=(
                     decode_tok / decode_s if decode_s else None),
                 decode_only_tokens=decode_tok, served_graphs=served_graphs,
@@ -1506,6 +1554,281 @@ def phase_long_prefill(cfg, gen, names, seq: int = 16384, chunk: int = 256,
     return out
 
 
+# ------------------------------------------------- phase 7: engine control
+
+def control_requests(cfg, spec, seed):
+    """Requests from ``(rid, prompt_len, max_new, priority)`` tuples, their
+    prompts drawn from ``seed``: every run of a phase-7 traffic gets the
+    same prompts."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed)
+    prompts = {rid: rng.integers(0, cfg.vocab_size, n)
+               for rid, n, _, _ in spec}
+    return lambda: [Request(rid=rid, prompt=prompts[rid], max_new=m,
+                            priority=p) for rid, _, m, p in spec]
+
+
+def serve_control(cfg, params, first, later=(), **kw):
+    """One phase-7 run: ``ServingEngine(slots=4, max_seq=4096,
+    chunk_size=256, decode_block=8)`` under ``strict_tiers`` with the
+    engine's defaults (sentinel, a checkpoint every 8 iterations) unless
+    ``kw`` says otherwise; ``first`` is submitted, and ``later`` once every
+    request of ``first`` is live.  Each burst is timed (synchronized) and
+    marked when it was the first at its key (an eager run and a capture).
+    Returns (engine, its graph runner, the bursts' (ms, first), wall s,
+    the iteration count when all of ``first`` were live); a
+    ``SimulatedCrash`` escapes with the engine on ``.engine``."""
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, slots=4, max_seq=4096, chunk_size=256,
+                        decode_block=8, device="cuda",
+                        sched_policy="strict_tiers", **kw)
+    runner, times = eng._decode_n, []
+    eng._runner = runner
+
+    def timed(*a, **k):
+        caps = runner.captures
+        t0 = time.perf_counter()
+        out = runner(*a, **k)
+        torch.cuda.synchronize()
+        times.append(((time.perf_counter() - t0) * 1e3,
+                      runner.captures > caps))
+        return out
+    eng._decode_n = timed
+    t0 = time.monotonic()
+    for r in first:
+        eng.submit(r)
+    all_live = None
+    try:
+        while True:
+            left = eng.step()
+            if all_live is None and sum(
+                    r is not None for r in eng.live) == len(first):
+                all_live = eng.stats["iters"]
+                for r in later:
+                    eng.submit(r)
+            if not (left or eng.queue or eng._open_pending()):
+                break
+    except Exception as e:
+        e.engine = eng
+        raise
+    torch.cuda.synchronize()
+    return eng, runner, times, time.monotonic() - t0, all_live
+
+
+def control_summary(eng, runner, times, wall, bucket):
+    """What each phase-7 run prints."""
+    steady = sorted(ms for ms, first in times if not first)
+    st = eng.stats
+    return dict(
+        wall_s=wall, iters=st["iters"], prefill_chunks=st["prefill_chunks"],
+        bursts=len(times), preemptions=st["preemptions"],
+        restores=st["restores"], divergences=st["divergences"],
+        replays=st["replays"], failures=st["failures"],
+        checkpoints=st["checkpoints"], ckpt_ms=st["ckpt_ms"],
+        ckpt_share_of_wall=st["ckpt_ms"] / (wall * 1e3),
+        ckpt_within_5pct_budget=st["ckpt_ms"] < 0.05 * wall * 1e3,
+        checkpoint_bytes=eng.metrics.counter(
+            "repro_checkpoint_bytes_total").value,
+        captures=runner.captures, replays_of_graphs=runner.replays,
+        keys=[list(k) for k in runner.keys],
+        capture_bursts_ms=[ms for ms, first in times if first],
+        steady_burst_ms_per_step=(
+            statistics.median(steady) / 8 if steady else None),
+        telemetry_decode_estimate_ms=eng.telemetry.estimate("decode",
+                                                            bucket))
+
+
+def slot_transfer(eng, reps: int = 3) -> dict:
+    """Offload slot 0 of the engine's cache to the host and restore it in
+    place, ``reps`` times (the first also allocates the pinned buffers):
+    MB, and ms of each (synchronized), the last ``reps - 1`` medians, and
+    of each the ms spent in the host's crc32 (``cache._payload_crc``)."""
+    from repro_torch.serving import cache as cache_mod
+    real_crc, crc_s = cache_mod._payload_crc, [0.0]
+
+    def timed_crc(a):
+        t0 = time.perf_counter()
+        try:
+            return real_crc(a)
+        finally:
+            crc_s[0] += time.perf_counter() - t0
+    off, back, off_crc, back_crc = [], [], [], []
+    with mock.patch.object(cache_mod, "_payload_crc", timed_crc):
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            crc_s[0] = 0.0
+            t0 = time.perf_counter()
+            blob = cache_mod.offload_slot(eng._host_pos_cache(), 0)
+            t1 = time.perf_counter()
+            off_crc.append(crc_s[0] * 1e3)
+            crc_s[0] = 0.0
+            cache_mod.restore_slot(eng.cache, blob, 0)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            back_crc.append(crc_s[0] * 1e3)
+            off.append((t1 - t0) * 1e3)
+            back.append((t2 - t1) * 1e3)
+    return dict(slot_mb=cache_mod.blob_nbytes(blob) / 1e6, offload_ms=off,
+                restore_ms=back, offload_crc_ms=off_crc,
+                restore_crc_ms=back_crc,
+                offload_ms_warm=statistics.median(off[1:]),
+                restore_ms_warm=statistics.median(back[1:]))
+
+
+def check_preemption(name, u, p, bucket):
+    """Run P against run U (phase 7 (a), (c)): every class-0 stream bit for
+    bit, at least one preemption and every victim restored, every request
+    ok, no graph key beyond U's and every burst at one rung."""
+    eng_u, run_u = u[0], u[1]
+    eng_p, run_p = p[0], p[1]
+    out_u = {r.rid: r.out for r in eng_u.finished}
+    bad = [r.rid for r in eng_p.finished if r.status != "ok"]
+    if bad or len(eng_p.finished) != len(eng_u.finished) + 2:
+        raise AssertionError(f"{name}: run P requests not ok: {bad}")
+    for r in eng_p.finished:
+        if r.priority == 0 and r.out != out_u[r.rid]:
+            raise AssertionError(f"{name}: rid={r.rid} resumed stream "
+                                 "differs from the uninterrupted run")
+    st = eng_p.stats
+    if st["preemptions"] < 1 or st["restores"] != st["preemptions"]:
+        raise AssertionError(f"{name}: {st['preemptions']} preemptions, "
+                             f"{st['restores']} restores")
+    if not set(run_p.keys) <= set(run_u.keys) or \
+            run_p.captures != run_u.captures or \
+            run_p.captures != len(run_p.keys):
+        raise AssertionError(f"{name}: graph keys {run_p.keys} "
+                             f"({run_p.captures} captures) against "
+                             f"{run_u.keys} ({run_u.captures})")
+    if {k[2] for k in run_u.keys + run_p.keys} != {bucket}:
+        raise AssertionError(f"{name}: bursts off the {bucket} rung: "
+                             f"{run_u.keys + run_p.keys}")
+
+
+def first_preempted(eng):
+    """The rid of the request the engine preempted first."""
+    when = {}
+    for span in eng.telemetry.finished_spans:
+        ts = [e["t"] for e in span["events"] if e["kind"] == "preempt"]
+        if ts:
+            when[span["rid"]] = min(ts)
+    return min(when, key=when.get)
+
+
+def phase_control(gen):
+    """Phase 7: the engine's control layer on the card (module docstring)."""
+    import shutil
+    from repro_torch.configs import gemma3_1b, zamba2_2p7b
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.serving.fault_inject import FaultPlan, SimulatedCrash
+    from repro_torch.serving.faults import CacheCorruption
+    from repro_torch.serving.store import CheckpointStore
+    out = {}
+
+    def release(*runs):
+        """Free the runs' caches, templates and graphs."""
+        for run in runs:
+            eng, runner = run[0], run[1]
+            runner._bursts.clear()
+            runner._pool = None
+            eng.cache = eng._spare = eng._chunked_prefill = None
+            eng._decode_n = None
+        torch.cuda.empty_cache()
+
+    # (a), (b): zamba2-2.7b, every burst at the 2048 rung
+    cfg = zamba2_2p7b
+    params = init_lm_params(cfg, gen, device="cuda")
+    first = control_requests(cfg, [(i, n, 48, 0) for i, n in
+                                   enumerate((1100, 1300, 1500, 1700))], 7)
+    later = control_requests(cfg, [(4, 1200, 16, 1), (5, 1600, 16, 1)], 8)
+    u = serve_control(cfg, params, first())
+    out["a_run_U"] = dict(control_summary(*u[:4], 2048),
+                          one_slot=slot_transfer(u[0]))
+    with state_copies() as copied:
+        p = serve_control(cfg, params, first(), later())
+    check_preemption(cfg.name, u, p, 2048)
+    if copied[0]:
+        raise AssertionError(f"{cfg.name}: run P copied {copied[0]} state "
+                             "leaves")
+    out["a_run_P"] = dict(control_summary(*p[:4], 2048),
+                          state_leaves_copied=copied[0],
+                          class0_bit_identical_to_U=True)
+    victim = first_preempted(p[0])
+    out_u = {r.rid: r.out for r in u[0].finished}
+    out_p = {r.rid: r.out for r in p[0].finished}
+    release(p)
+    # (b) a NaN poked into slot 1 once all four are live (each has its
+    # first checkpoint), then a corrupt preemption blob
+    n = serve_control(cfg, params, first(),
+                      fault_plan=FaultPlan.from_spec(
+                          f"nan_decode@iter={u[4]}:slot=1"))
+    got = {r.rid: (r.status, r.out) for r in n[0].finished}
+    if n[0].stats["divergences"] != 1 or n[0].stats["replays"] != 1 or \
+            got != {rid: ("ok", o) for rid, o in out_u.items()}:
+        raise AssertionError(f"{cfg.name}: NaN replay: {n[0].stats}")
+    out["b_nan_replay"] = control_summary(*n[:4], 2048)
+    release(n, u)
+    c = serve_control(cfg, params, first(), later(), checkpoint_every=0,
+                      fault_plan=FaultPlan.from_spec(
+                          f"corrupt_blob@rid=r{victim}", seed=5))
+    for r in c[0].finished:
+        want = (("failed", CacheCorruption) if r.rid == victim
+                else ("ok", type(None)))
+        if (r.status, type(r.error)) != want or \
+                (r.status == "ok" and r.out != out_p[r.rid]):
+            raise AssertionError(f"{cfg.name}: corrupt blob of rid="
+                                 f"{victim}: rid={r.rid} {r.status} "
+                                 f"{r.error}")
+    out["b_corrupt_blob"] = dict(control_summary(*c[:4], 2048),
+                                 victim=victim,
+                                 error=str(next(r.error for r in c[0].finished
+                                                if r.rid == victim)))
+    release(c)
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) gemma3-1b: 600-900-token prompts past the 512-slot rings, every
+    # burst at the 1024 rung; preemption across the wrap, then a kill
+    cfg = gemma3_1b
+    params = init_lm_params(cfg, gen, device="cuda")
+    first = control_requests(cfg, [(i, n, 48, 0) for i, n in
+                                   enumerate((600, 700, 800, 900))], 9)
+    later = control_requests(cfg, [(4, 650, 16, 1), (5, 850, 16, 1)], 10)
+    u = serve_control(cfg, params, first())
+    out["c_run_U"] = dict(control_summary(*u[:4], 1024),
+                          one_slot=slot_transfer(u[0]))
+    p = serve_control(cfg, params, first(), later())
+    check_preemption(cfg.name, u, p, 1024)
+    out["c_run_P"] = control_summary(*p[:4], 1024)
+    out_u = {r.rid: r.out for r in u[0].finished}
+    release(p, u)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "repro_torch", "control_store")
+    shutil.rmtree(root, ignore_errors=True)
+    kill_at = u[4] + 2
+    try:
+        serve_control(cfg, params, first(), store=CheckpointStore(root),
+                      fault_plan=FaultPlan.from_spec(f"kill@iter={kill_at}"))
+        raise AssertionError(f"{cfg.name}: the kill at iteration {kill_at} "
+                             "did not fire")
+    except SimulatedCrash as e:
+        crashed = e.engine
+    done_before = {r.rid: r.out for r in crashed.finished}
+    release((crashed, crashed._runner))
+    r2 = serve_control(cfg, params, [], store=CheckpointStore(root))
+    got = dict(done_before)
+    got.update({r.rid: r.out for r in r2[0].finished})
+    if got != out_u or any(r.status != "ok" for r in r2[0].finished):
+        raise AssertionError(f"{cfg.name}: streams after the kill differ")
+    out["c_kill_and_resume"] = dict(control_summary(*r2[:4], 1024),
+                                    kill_at_iter=kill_at,
+                                    recovery=r2[0].recovery,
+                                    bit_identical_to_U=True)
+    release(r2)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1609,6 +1932,14 @@ def main() -> int:
               f"bf16, one-shot against 64 chunks of 256{then} "
               f"({time.perf_counter() - t0:.1f} s): "
               + json.dumps(long_prefill), flush=True)
+
+    t0 = time.perf_counter()
+    control = phase_control(gen)
+    torch.cuda.empty_cache()
+    print(f"phase 7 engine control on the card, strict tiers, slots 4, "
+          f"max_seq 4096, chunks of 256, bursts of 8 "
+          f"({time.perf_counter() - t0:.1f} s): " + json.dumps(control),
+          flush=True)
 
     for r in rows:
         r["launches"] = launches[r["at"]][r["name"]]

@@ -402,7 +402,8 @@ def lm_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache
 def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
                      *, lengths: Optional[torch.Tensor] = None,
                      kv_bucket: Optional[int] = None,
-                     rope_len: Optional[int] = None):
+                     rope_len: Optional[int] = None,
+                     with_sentinel: bool = False):
     """One state-carrying prefill chunk of ``S`` tokens per row, starting at
     each row's running offset ``cache["pos"]``.  ``lengths`` ([B] int32,
     default all-S) counts each row's valid leading tokens; the rest are
@@ -414,7 +415,12 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
     to the unbucketed call.  ``rope_len`` (None, or the serving layer's
     ``max_seq``) extends the rope tables past the KV rows.  Returns
     (logits of each row's last valid token [B,1,V], cache with ``pos``
-    advanced by ``lengths``)."""
+    advanced by ``lengths``).
+
+    ``with_sentinel`` adds the reference's divergence sentinel and returns
+    (logits, cache, ok): ``ok`` ([B] bool, on the device) is True where the
+    final hidden states of the row's valid tokens and its logits over the
+    vocab are all finite; a row with no valid token passes."""
     _check_kv_bucket(kv_bucket)
     x = _embed(cfg, params, tokens)
     b, s = x.shape[0], x.shape[1]
@@ -433,7 +439,14 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
     last = torch.clamp(lengths - 1, 0, s - 1).long()
     x_last = torch.gather(x, 1, last[:, None, None].expand(b, 1, x.shape[2]))
     logits = _head(cfg, params, x_last)
-    return logits, {"segments": new_segs, "pos": pos + lengths}
+    new_cache = {"segments": new_segs, "pos": pos + lengths}
+    if not with_sentinel:
+        return logits, new_cache
+    ok = torch.where(chunk_mask[:, :, None], torch.isfinite(x),
+                     True).all(-1).all(-1)
+    ok &= torch.isfinite(logits[:, 0, :cfg.vocab_size]).all(-1)
+    ok |= lengths == 0
+    return logits, new_cache, ok
 
 
 def lm_decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,

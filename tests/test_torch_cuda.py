@@ -931,3 +931,116 @@ def test_capture_creates_no_cached_tensor(cuda, arch, monkeypatch):
     eager, capture = during
     assert eager[2][1] > eager[1][1]          # the eager call made tables
     assert capture[1] == capture[2] == eager[2]
+
+
+# ------------------------------------ the engine's control layer on the card
+
+def _leaf_ptrs(cache):
+    from repro_torch.models.params import tree_leaves
+    return [t.data_ptr() for t in tree_leaves(cache)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "gemma3-1b",
+                                  "falcon-h1-0.5b"])
+def test_restore_into_another_slot_in_place(cuda, arch):
+    """Slot 1 offloaded to the host (pinned) and restored into slot 3:
+    every leaf keeps its address, slot 3 holds slot 1's rows bit for bit
+    and ``pos``, the other slots are untouched."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.cache import offload_slots, restore_slot
+    cfg, params = _graph_model(arch, cuda)
+    cache = _prefilled_cache(cfg, params, cuda)
+    cache["pos"].copy_(torch.tensor([20, 13, 20, 7], dtype=torch.int32))
+    before = _clone_cache(cache)
+    ptrs = _leaf_ptrs(cache)
+    blob = offload_slots(cache, [1, 2])[1]
+    assert all(v.device.type == "cpu" for k, v in blob.items()
+               if k != "__meta__")
+    assert restore_slot(cache, blob, 3, rid=0) is cache
+    torch.cuda.synchronize()
+    assert _leaf_ptrs(cache) == ptrs
+    for now, old in zip(tree_leaves(cache["segments"]),
+                        tree_leaves(before["segments"])):
+        assert torch.equal(now[:, 3], old[:, 1])
+        assert torch.equal(now[:, :3], old[:, :3])
+    assert cache["pos"].tolist() == [20, 13, 20, 13]
+
+
+@pytest.mark.cuda
+def test_poison_slot_one_row_on_the_card(cuda):
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.fault_inject import poison_slot
+    cfg, params = _graph_model("zamba2-2.7b", cuda)
+    cache = _prefilled_cache(cfg, params, cuda)
+    ptrs = _leaf_ptrs(cache)
+    poison_slot(cache, 2)
+    assert _leaf_ptrs(cache) == ptrs
+    for leaf in tree_leaves(cache["segments"]):
+        assert bool(torch.isnan(leaf[:, 2].float()).all())
+        for b in (0, 1, 3):
+            assert bool(torch.isfinite(leaf[:, b].float()).all())
+
+
+@pytest.mark.cuda
+def test_sentinel_burst_key_and_one_transfer(cuda, monkeypatch):
+    """The engine's bursts run at sentinel keys; a decode-only step moves
+    its tokens and flags to the host in one ``.cpu()``; a NaN poked into
+    one slot trips only that row, which is replayed from its checkpoint
+    and finishes with the stream of a clean run."""
+    import numpy as np
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.fault_inject import FaultPlan
+    cfg, params = _graph_model("zamba2-2.7b", cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(2, cfg.vocab_size, n) for n in (9, 17)]
+
+    def serve(spec):
+        eng = ServingEngine(cfg, params, slots=2, max_seq=256,
+                            decode_block=4, chunk_size=32, device=cuda,
+                            checkpoint_every=2,
+                            fault_plan=FaultPlan.from_spec(spec))
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new=16))
+        while eng._chunked_prefill.active or eng.queue:
+            eng.step()
+        calls = []
+        real = torch.Tensor.cpu
+        monkeypatch.setattr(torch.Tensor, "cpu",
+                            lambda t, *a, **k: (calls.append(1),
+                                                real(t, *a, **k))[1])
+        eng.step()
+        monkeypatch.setattr(torch.Tensor, "cpu", real)
+        assert len(calls) == 1
+        eng.run()
+        return eng
+    clean = serve("")
+    assert all(k[4] for k in clean._decode_n.keys)
+    faulted = serve("nan_decode@iter=2:slot=1")
+    assert faulted.stats["divergences"] == faulted.stats["replays"] == 1
+    assert {r.rid: r.out for r in faulted.finished} == \
+        {r.rid: r.out for r in clean.finished}
+    assert set(faulted._decode_n.keys) == set(clean._decode_n.keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "gemma3-1b"])
+def test_bf16_blob_roundtrip_through_the_file(cuda, arch):
+    """A bf16 slot blob written by ``dump_blob`` and read by ``parse_blob``
+    validates, names its dtypes as the reference does and restores the
+    slot bit for bit."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.cache import (offload_slot, restore_slot,
+                                           slot_schema, validate_blob)
+    from repro_torch.serving.store import dump_blob, parse_blob
+    cfg, params = _graph_model(arch, cuda)
+    cache = _prefilled_cache(cfg, params, cuda)
+    blob = offload_slot(cache, 0, tags={"rid": 5})
+    back = parse_blob(dump_blob(blob))
+    validate_blob(back, list(slot_schema(cache)), rid=5)
+    assert "bfloat16" in {v[1] for v in slot_schema(cache).values()}
+    before = _clone_cache(cache)
+    restore_slot(cache, back, 2, expect_tags={"rid": 5})
+    for now, old in zip(tree_leaves(cache["segments"]),
+                        tree_leaves(before["segments"])):
+        assert torch.equal(now[:, 2], old[:, 0])

@@ -290,7 +290,7 @@ def _group(ch, prompts, cfg, params):
     first = {}
     done = False
     while not done:
-        emitted, done = ch.step()
+        emitted, done, _ = ch.step()
         for row, tok, _ in emitted:
             first[row] = tok
     cache = ch.group_cache
