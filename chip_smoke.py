@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Phases (each prints its lines and is fatal on failure):
-  1. the card's name and power limit (``nvidia-smi``); no CUDA -> exit 1;
+  1. the card's name and power limit (``nvidia-smi``), and its draw while
+     idle before any work (the median of five reads, ``H100_SXM.idle_w``);
+     no CUDA -> exit 1;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. each kernel against its plain PyTorch version on the card, in bf16
      and fp32 with non-zero initial states, with its device time, the
@@ -72,9 +74,10 @@ Phases (each prints its lines and is fatal on failure):
      kernel time and the shares of it of the scan (mamba-130m) or of
      flash, SSD and conv1d (falcon-h1-0.5b), exact launches, and its last
      logits against the same prompt in 64 chunks of 256 through
-     ``lm_prefill_chunk`` within phase 5's bf16 limit; falcon-h1-0.5b then
-     decodes 32 tokens at that context through the graph burst (ms per
-     token step);
+     ``lm_prefill_chunk`` within phase 5's bf16 limit, and the same call
+     in a phase-8 trace window (the paper's long-context breakdown by
+     operator class); falcon-h1-0.5b then decodes 32 tokens at that
+     context through the graph burst (ms per token step);
   7. the engine's control layer at full width and depth
      (``phase_control``: slots 4, max_seq 4096, chunks of 256, bursts of
      8, strict tiers, the engine's defaults: the sentinel and a
@@ -98,6 +101,23 @@ Phases (each prints its lines and is fatal on failure):
      ``telemetry.estimate("decode", rung)``; each model's run U the
      offload and restore ms and MB of one slot, and the crc32's ms in
      each;
+  8. operator classes (``serving/profiler.py``), run right after each
+     model's phase 4 on its engine and params (``phase_profile``): trace
+     windows over one eager 4 x 256 prefill chunk, one eager 8-step burst
+     and one replay of that burst's CUDA graph, each printing its device
+     ms and share by class (gemm, ssm, norm, arith, memory, other), its
+     unattributed ms, ``degraded``, its kernel count, and the same
+     program's modeled ms by class on ``H100_SXM`` (the static walk on
+     ``meta``, ``core/roofline.op_class_times``); each window is held to
+     (a) attributed plus unattributed ms equal to the window's kernel,
+     memcpy and memset time read from its own trace as ``device_busy``
+     reads one, within 1%, (b) unattributed under 2% and not degraded,
+     (c) ``ssm`` at least the hand-written SSM kernels' time by name and
+     ``other`` at least the attention kernels'; then phase 4's requests
+     again with a coarse profiler: (d) ``profile_snapshot()``'s
+     dispatches equal the engine's and each key's shares sum to 1, (e)
+     the profiler's overhead under 3% of the decode wall, (f) streams and
+     launches equal phase 4's (profiler off);
 then a ``kernels`` JSON line (the five Mamba-2 and attention kernels at
 zamba2-2.7b's shapes, the two Mamba-1 kernels at mamba-130m's and the
 flash kernel's ring mode at gemma3-1b's, each with the launches of its
@@ -132,6 +152,20 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+
+
+def idle_power_w(reads: int = 5) -> float:
+    """The card's power draw (W) while idle: the median of ``reads``
+    ``nvidia-smi`` reads 0.2 s apart."""
+    draws = []
+    for _ in range(reads):
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.draw",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout
+        draws.append(float(out.split()[0]))
+        time.sleep(0.2)
+    return statistics.median(draws)
 
 
 def device_ms(fn, calls: int = 10, reps: int = 25) -> float:
@@ -1100,7 +1134,9 @@ def state_copies():
 
 
 def phase_serving(cfg, gen):
-    """Serve 4 ragged requests at full width and depth."""
+    """Serve 4 ragged requests at full width and depth.  Returns (the
+    results, the launches, what phase 8 reuses: the engine, its params,
+    the requests and the steady bursts' positions)."""
     import numpy as np
     from repro_torch.models.lm import init_lm_params, lm_prefill_chunk
     from repro_torch.serving.bucketing import clamped_bucket
@@ -1201,6 +1237,7 @@ def phase_serving(cfg, gen):
             rope_len=eng.rope_len)[0].cpu())
     chunk_busy["state_leaves_copied"] = copied[0]
     ttft = {r.rid: (r.first_t - r.submit_t) * 1e3 for r in reqs}
+    reuse = dict(eng=eng, params=params, reqs=reqs, pos=pos)
     return dict(ttft_ms=ttft, wall_s=wall,
                 checkpoints=eng.stats["checkpoints"],
                 ckpt_ms=eng.stats["ckpt_ms"],
@@ -1214,7 +1251,7 @@ def phase_serving(cfg, gen):
                 profiled_prefill_chunk_b4_s256=chunk_busy,
                 prefill_chunks=eng.stats["prefill_chunks"],
                 decode_token_steps=token_steps[0],
-                max_memory_allocated=served_peak), launches
+                max_memory_allocated=served_peak), launches, reuse
 
 
 def clone_cache(cache):
@@ -1461,12 +1498,14 @@ def phase_long_prefill(cfg, gen, names, seq: int = 16384, chunk: int = 256,
     spare state set): the first burst at the key runs eagerly and is
     captured, untimed; the next ``decode / burst`` are replays, timed
     together (host clock to a synchronise): ms per token step."""
+    from repro_torch.core.op_analysis import analyze, meta_like
     from repro_torch.models.lm import (cache_kv_extent, init_lm_cache,
                                        init_lm_params, init_spare_states,
                                        lm_prefill, lm_prefill_chunk,
                                        prepare_params)
     from repro_torch.serving.bucketing import clamped_bucket
     from repro_torch.serving.graphs import make_decode_tokens
+    from repro_torch.serving.profiler import Profiler
 
     cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
     params = prepare_params(cfg, init_lm_params(cfg, gen, device="cuda"))
@@ -1498,6 +1537,13 @@ def phase_long_prefill(cfg, gen, names, seq: int = 16384, chunk: int = 256,
     if launched != want:
         raise AssertionError(f"one prefill launched {launched}, expected "
                              f"{want}")
+    # phase 8's window over the same call: the long-context breakdown
+    profile = profiled_window(
+        "prefill_16k", Profiler(mode="trace", trace_dir=PROFILE_DIR),
+        one_shot, analyze(lm_prefill, cfg, meta_like(params),
+                          prompt.to("meta"),
+                          init_lm_cache(cfg, 1, rows, dtype=torch.bfloat16,
+                                        device="meta")))
     c = cache()
     extent = cache_kv_extent(c)
     t0 = time.monotonic()
@@ -1519,7 +1565,8 @@ def phase_long_prefill(cfg, gen, names, seq: int = 16384, chunk: int = 256,
                kernels=busy["kernels"], by_kernel=busy["by_name"],
                launches=launched, chunked_wall_ms=chunked_wall * 1e3,
                chunks=seq // chunk, max_abs_logit_err=err, tol=tol,
-               argmax_agree=bool((whole.argmax(-1) == lg.argmax(-1)).all()))
+               argmax_agree=bool((whole.argmax(-1) == lg.argmax(-1)).all()),
+               phase8_profile=profile)
     if not decode:
         return out
     runner = make_decode_tokens(cfg)
@@ -1551,6 +1598,220 @@ def phase_long_prefill(cfg, gen, names, seq: int = 16384, chunk: int = 256,
                decode_ms_per_token_step=dec_s * 1e3 / toks.shape[1],
                decode_kv_bucket=runner.keys[-1][2] if runner.keys else None,
                decode_captures=runner.captures)
+    return out
+
+
+# --------------------------------------------- phase 8: operator classes
+
+PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "repro_torch", "profile")
+# the hand-written kernels by their function names in a trace
+SSM_KERNELS = ("conv1d_kernel", "m1_decode_kernel", "m2_decode_kernel",
+               "scan1_kernel", "ssd_kernel", "ssd_tc_kernel")
+ATTN_KERNELS = ("flash_wgmma_kernel", "flash_f32_kernel",
+                "decode_bf16_kernel", "decode_f32_kernel")
+
+
+def kernel_short_name(name: str):
+    """A hand-written kernel's function name in a trace's kernel name
+    (``void (anonymous namespace)::ssd_tc_kernel<...>(...)``), else
+    None."""
+    import re
+    m = re.search(r"\b([a-z0-9_]+_kernel)[<(]", name)
+    return m.group(1) if m and m.group(1) in SSM_KERNELS + ATTN_KERNELS \
+        else None
+
+
+def window_device_ops(path):
+    """As ``device_busy`` reads a trace: the device operations (kernels,
+    memcpys, memsets) of the CUDA API calls made inside the profiler's
+    window annotation, matched by correlation id."""
+    from repro_torch.serving.profiler import WINDOW
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    win = next(e for e in events if e.get("name") == WINDOW
+               and e.get("cat") == "user_annotation")
+    lo, hi = win["ts"], win["ts"] + win["dur"]
+    ids = {e.get("args", {}).get("correlation") for e in events
+           if str(e.get("cat", "")).startswith("cuda_")
+           and lo <= e["ts"] <= hi} - {None}
+    return [e for e in events if "dur" in e
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and e.get("args", {}).get("correlation") in ids]
+
+
+def profiled_window(name, prof, fn, static):
+    """Run ``fn`` once in a trace window of ``prof`` and hold its
+    attribution to checks (a)-(c) against its own trace, read as
+    ``device_busy`` reads one: (a) attributed plus unattributed ms equal
+    the window's summed kernel, memcpy and memset time within 1%; (b) the
+    unattributed time under 2% of it and the window not degraded; (c)
+    ``ssm`` at least the hand-written SSM kernels' time by name, and
+    ``other`` at least the flash and decode attention kernels'.  Returns
+    the class ms and shares, ``unattributed_ms``, ``degraded``, the
+    kernel count and the same program's modeled ms by class on
+    ``H100_SXM`` (``static``: its walk on ``meta``)."""
+    from repro_torch.core.config import H100_SXM
+    from repro_torch.core.roofline import op_class_times
+    with prof.window(name) as ft:
+        fn()
+        torch.cuda.synchronize()
+    ops = window_device_ops(prof.last_trace)
+    os.remove(prof.last_trace)
+    total = sum(e["dur"] for e in ops) / 1e3
+    got = sum(ft.ms.values()) + ft.unattributed_ms
+    by = {}
+    for e in ops:
+        k = kernel_short_name(e.get("name", "")) if e["cat"] == "kernel" \
+            else None
+        if k:
+            by[k] = by.get(k, 0.0) + e["dur"] / 1e3
+    ssm_named = sum(v for k, v in by.items() if k in SSM_KERNELS)
+    attn_named = sum(v for k, v in by.items() if k in ATTN_KERNELS)
+    if abs(got - total) > 0.01 * total:
+        raise AssertionError(f"{name}: attributed {got} ms against the "
+                             f"trace's {total} ms")
+    if ft.unattributed_ms >= 0.02 * total or ft.degraded:
+        # the lengths of the learned sequences, to tell a dropped record
+        # from another program
+        learned = {g: len(s) for g, s in prof._graphs.items()}
+        raise AssertionError(f"{name}: {ft.unattributed_ms} ms "
+                             f"unattributed of {total}, degraded "
+                             f"{ft.degraded}; operations in the window "
+                             f"{len(ops)}, learned graphs {learned}")
+    if ft.ms.get("ssm", 0.0) < ssm_named * (1 - 1e-9) or \
+            ft.ms.get("other", 0.0) < attn_named * (1 - 1e-9):
+        raise AssertionError(f"{name}: ssm {ft.ms.get('ssm')} ms < SSM "
+                             f"kernels {ssm_named} or other "
+                             f"{ft.ms.get('other')} < attention kernels "
+                             f"{attn_named}")
+    modeled = {k: v * 1e3 for k, v in sorted(
+        op_class_times(static, H100_SXM).items())}
+    return dict(class_ms=dict(sorted(ft.ms.items())), shares=ft.shares(),
+                unattributed_ms=ft.unattributed_ms, degraded=ft.degraded,
+                device_ms=total, kernels=len(ops), wall_ms=ft.wall_ms,
+                hand_written_ms=dict(sorted(by.items())),
+                modeled_h100_ms=modeled,
+                modeled_h100_total_ms=sum(modeled.values()))
+
+
+def phase_profile(cfg, gen, eng, params, reqs, pos, launches):
+    """Phase 8 at ``cfg``'s full width and depth, on phase 4's engine: trace
+    windows (``serving/profiler.py``) over one eager 4 x 256 prefill chunk,
+    one eager 8-step burst and one replay of that burst's CUDA graph
+    (learned at its first call by a runner of its own), each held to
+    :func:`profiled_window`'s checks; then phase 4's requests again on a
+    fresh engine with a coarse profiler: (d) ``profile_snapshot()`` counts
+    as many ``decode`` and ``prefill`` dispatches as the engine ran, each
+    key's shares sum to 1; (e) ``overhead_ms`` under 3% of the decode
+    wall; (f) the streams and every kernel's launches equal phase 4's (its
+    profiler off)."""
+    from repro_torch.core.op_analysis import analyze, meta_like
+    from repro_torch.models.lm import (decode_tokens, init_spare_states,
+                                       lm_prefill_chunk)
+    from repro_torch.serving.bucketing import clamped_bucket
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.graphs import make_decode_tokens
+    from repro_torch.serving.profiler import Profiler
+
+    prof = Profiler(mode="trace", trace_dir=PROFILE_DIR)
+    out = {}
+    chunk = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
+                          device="cuda")
+    ckw = dict(kv_bucket=clamped_bucket(max(pos) + 256, eng.kv_extent),
+               rope_len=eng.rope_len)
+    meta_params, meta_cache = meta_like(eng.params), meta_like(eng.cache)
+    out["eager_prefill_chunk_b4_s256"] = profiled_window(
+        "prefill", prof,
+        lambda: lm_prefill_chunk(cfg, eng.params, chunk, eng.cache,
+                                 **ckw)[0].cpu(),
+        analyze(lm_prefill_chunk, cfg, meta_params,
+                torch.zeros((4, 256), dtype=torch.long, device="meta"),
+                meta_cache, **ckw))
+    pos_d = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    first = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    bkw = dict(kv_bucket=clamped_bucket(max(pos) + 8, eng.kv_extent),
+               rope_len=eng.rope_len)
+    burst_static = analyze(
+        decode_tokens, cfg, meta_params, dict(meta_cache), first.to("meta"),
+        8, _spare_states=init_spare_states(meta_cache), **bkw)
+
+    def eager():
+        toks, eng.cache = decode_tokens(
+            cfg, eng.params, dict(eng.cache, pos=pos_d), first, 8,
+            _spare_states=eng._spare, **bkw)
+        toks.cpu()
+    out["eager_burst8_b4"] = profiled_window("decode", prof, eager,
+                                             burst_static)
+    runner = make_decode_tokens(cfg, prof)
+
+    def graph():
+        toks, eng.cache = runner(eng.params, dict(eng.cache, pos=pos_d),
+                                 first, 8, spare=eng._spare, **bkw)
+        toks.cpu()
+    graph()                       # learned and captured, outside a window
+    replays = runner.replays
+    out["graph_replay_burst8_b4"] = profiled_window("decode", prof, graph,
+                                                    burst_static)
+    if runner.replays != replays + 1:
+        raise AssertionError(f"{cfg.name}: the profiled burst was not a "
+                             "replay")
+    del runner
+    torch.cuda.empty_cache()
+
+    coarse = Profiler(mode="coarse")
+    ceng = ServingEngine(cfg, params, slots=4, max_seq=4096, chunk_size=256,
+                         decode_block=8, device="cuda", profiler=coarse)
+    creqs = [Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new)
+             for r in reqs]
+    bursts = [0]
+    real = ceng._decode_n
+
+    def counted(*a, **kw):
+        bursts[0] += 1
+        return real(*a, **kw)
+    ceng._decode_n = counted
+    reset_counters()
+    for r in creqs:
+        ceng.submit(r)
+    ceng.run()
+    torch.cuda.synchronize()
+    got_launches = read_counters()
+    ceng._decode_n = real
+    t0 = time.perf_counter()
+    snap = ceng.profile_snapshot()
+    walk_s = time.perf_counter() - t0
+    streams = [list(r.out) for r in creqs]
+    if streams != [list(r.out) for r in reqs]:
+        raise AssertionError(f"{cfg.name}: streams with a coarse profiler "
+                             "differ from phase 4's")
+    if got_launches != launches:
+        raise AssertionError(f"{cfg.name}: launches {got_launches} with a "
+                             f"coarse profiler, phase 4 {launches}")
+    c = snap["coarse"]
+    want = {"decode": bursts[0], "prefill": ceng.stats["prefill_chunks"]}
+    if {k: c[k]["dispatches"] for k in want} != want:
+        raise AssertionError(f"{cfg.name}: snapshot dispatches "
+                             f"{ {k: c[k]['dispatches'] for k in c} }, "
+                             f"engine {want}")
+    for k in want:
+        if abs(sum(c[k]["shares"].values()) - 1.0) > 1e-9:
+            raise AssertionError(f"{cfg.name}: {k} shares {c[k]['shares']}")
+    if snap["overhead_ms"] >= 0.03 * c["decode"]["wall_ms"]:
+        raise AssertionError(f"{cfg.name}: profiler overhead "
+                             f"{snap['overhead_ms']} ms of "
+                             f"{c['decode']['wall_ms']} ms decode wall")
+    out["coarse_snapshot"] = dict(
+        dispatches=want, decode_wall_ms=c["decode"]["wall_ms"],
+        prefill_wall_ms=c["prefill"]["wall_ms"],
+        decode_shares=c["decode"]["shares"],
+        prefill_shares=c["prefill"]["shares"],
+        overhead_ms=snap["overhead_ms"],
+        overhead_share_of_decode_wall=(snap["overhead_ms"]
+                                       / c["decode"]["wall_ms"]),
+        registration_walks_s=walk_s, streams_equal_phase4=True,
+        launches_equal_phase4=True)
     return out
 
 
@@ -1843,6 +2104,7 @@ def main() -> int:
 
     card = card_line()
     print(f"phase 1 card: {card}", flush=True)
+    print(f"phase 1 idle power draw: {idle_power_w()} W", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"phase 1 reference comparisons with allow_tf32 = False "
@@ -1878,12 +2140,22 @@ def main() -> int:
     for cfg in (mamba2_2p7b, zamba2_2p7b, mamba_130m, gemma3_1b,
                 falcon_h1_05b):
         t0 = time.perf_counter()
-        serving, launches[cfg.name] = phase_serving(cfg, gen)
+        serving, launches[cfg.name], reuse = phase_serving(cfg, gen)
         torch.cuda.empty_cache()
         print(f"phase 4 serving {cfg.name} ({cfg.n_layers} layers, slots 4, "
               f"prompts 300/700/1000/2048, 32 new; "
               f"{time.perf_counter() - t0:.1f} s): " + json.dumps(serving)
               + " launches " + json.dumps(launches[cfg.name]), flush=True)
+        # phase 8 on the same engine and params, before they are freed
+        t0 = time.perf_counter()
+        prof = phase_profile(cfg, gen, launches=launches[cfg.name], **reuse)
+        del reuse
+        torch.cuda.empty_cache()
+        print(f"phase 8 operator classes, {cfg.name} ({cfg.n_layers} "
+              f"layers; {time.perf_counter() - t0:.1f} s):", flush=True)
+        for window, res in prof.items():
+            print(f"phase 8 {cfg.name} {window}: " + json.dumps(res),
+                  flush=True)
 
     for cfg, n, cd, plen in ((mamba2_2p7b, 8, "bfloat16", 512),
                              (zamba2_2p7b, 12, "bfloat16", 512),

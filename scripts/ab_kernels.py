@@ -4,6 +4,7 @@ tree's, on one card: each tree's outputs within chip_smoke.py's limits,
 the largest difference between the trees, and their device times.
 
     python3 scripts/ab_kernels.py OTHER_TREE [--serving-pairs N]
+    python3 scripts/ab_kernels.py OTHER_TREE --chunk-pairs N
 
 OTHER_TREE is the root of another checkout of the repository (for
 example the parent commit unpacked with ``git archive`` into a directory
@@ -46,6 +47,15 @@ With ``--serving-pairs N`` only the serving runs are made, N rounds of
 other, this, this, other (2N runs a tree), since host-bound rates move
 from run to run: one JSON line per model and tree gives each run's
 decode rate and TTFTs with their median, least and greatest.
+
+With ``--chunk-pairs N`` only the eager prefill chunk is timed, N rounds
+of other, this, this, other: each child builds falcon-h1-0.5b at full
+width and depth (seeded weights, a 4 x 4096 cache at positions 300, 700,
+1000 and 1792), runs one 4 x 256 ``lm_prefill_chunk`` (KV bucket 2048,
+rope length 4096) three times, then times 20 more, each by the host
+clock to the logits' transfer; one JSON line per tree gives the
+median, least and greatest wall.  The chunk is bound by the host, so
+this is where a change to the host's cost a call shows.
 """
 from __future__ import annotations
 
@@ -306,13 +316,67 @@ def child(out_path: str, serving_only: bool) -> int:
     from repro_torch.configs import mamba2_2p7b, mamba_130m, zamba2_2p7b
     gen = torch.Generator(device="cuda").manual_seed(0)
     for cfg in (mamba2_2p7b, zamba2_2p7b, mamba_130m):
-        res, _ = cs.phase_serving(cfg, gen)
+        res = cs.phase_serving(cfg, gen)[0]
         torch.cuda.empty_cache()
         serving[cfg.name] = {k: res[k] for k in (
             "ttft_ms", "steady_b4_graph_tokens_per_s",
             "profiled_decode_burst8_b4_graph",
             "profiled_prefill_chunk_b4_s256")}
     torch.save({"kernels": out, "serving": serving}, out_path)
+    return 0
+
+
+def chunk_child(out_path: str, reps: int = 20) -> int:
+    import time
+
+    import torch
+    from repro_torch.configs import falcon_h1_05b as cfg
+    from repro_torch.models.lm import (init_lm_cache, init_lm_params,
+                                       lm_prefill_chunk, prepare_params)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = prepare_params(cfg, init_lm_params(cfg, gen, device="cuda"))
+    cache = init_lm_cache(cfg, 4, 4096, device="cuda")
+    cache["pos"] = torch.tensor([300, 700, 1000, 1792], dtype=torch.int32,
+                                device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
+                           device="cuda")
+    lengths = torch.full((4,), 256, dtype=torch.int32)
+
+    def chunk():
+        lm_prefill_chunk(cfg, params, tokens, cache, lengths=lengths,
+                         kv_bucket=2048, rope_len=4096)[0].cpu()
+    for _ in range(3):
+        chunk()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        chunk()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.save({"chunk_wall_ms": walls}, out_path)
+    return 0
+
+
+def main_chunk(other: str, pairs: int) -> int:
+    import torch
+
+    trees = [("other", os.path.abspath(other)), ("this", ROOT),
+             ("this", ROOT), ("other", os.path.abspath(other))] * pairs
+    walls = {"other": [], "this": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, tree) in enumerate(trees):
+            out = os.path.join(tmp, f"{i}.pt")
+            env = dict(os.environ, PYTHONPATH=os.path.join(tree, "src"))
+            res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--chunk-child", out], env=env,
+                                 capture_output=True, text=True, timeout=900)
+            if res.returncode:
+                raise RuntimeError(f"{tree}: child failed\n{res.stdout}\n"
+                                   f"{res.stderr}")
+            walls[name] += torch.load(out)["chunk_wall_ms"]
+    for name, ws in walls.items():
+        print(json.dumps({"eager_prefill_chunk_b4_s256": "falcon-h1-0.5b",
+                          "tree": name, "wall_ms": spread(ws)}))
     return 0
 
 
@@ -402,6 +466,10 @@ def main_serving(other: str, pairs: int) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         sys.exit(child(sys.argv[2], "--serving-only" in sys.argv[3:]))
+    if sys.argv[1:2] == ["--chunk-child"]:
+        sys.exit(chunk_child(sys.argv[2]))
+    if len(sys.argv) == 4 and sys.argv[2] == "--chunk-pairs":
+        sys.exit(main_chunk(sys.argv[1], int(sys.argv[3])))
     if len(sys.argv) == 4 and sys.argv[2] == "--serving-pairs":
         sys.exit(main_serving(sys.argv[1], int(sys.argv[3])))
     if len(sys.argv) != 2:

@@ -90,7 +90,7 @@ _SCAN1_NO_COOK = ["scan1.cu", "      ob[o] = rb[q];\n      oc[o] = rc[q];\n",
 _SCAN1_NO_OUTPUT = ["scan1.cu",
                     "    for (int t = tid; t < rows; t += kN) {",
                     "    for (int t = tid; t < 0; t += kN) {"]
-_SCAN1_RULE = ["../scan1/ops.py", "index = 1 if b * ldc >= 3 * SMS * 8 else 0"]
+_SCAN1_RULE = ["../scan1/ops.py", "index = 1 if b * ldc >= 3 * sms * 8 else 0"]
 
 SETS = {
     # K/V pipeline depth of the d=128 instance

@@ -7,7 +7,9 @@ describes the same network and the same parameter / cache layout.
 layers (``sliding_window`` is the local layers' window) and of the
 shared block of ``mamba2+shared`` layers; ``MoEConfig`` is kept only
 as far as ``ModelConfig`` needs its fields, since no MoE layer is ported
-yet.
+yet.  ``WorkloadConfig`` / ``SHAPES`` and ``HardwareSpec`` / ``HARDWARE``
+are the reference's too, with one more device, :data:`H100_SXM`, the card
+the port runs on.
 """
 from __future__ import annotations
 
@@ -107,3 +109,69 @@ class ModelConfig:
         if rem:
             segs.append((tuple(kinds[-rem:]), 1))
         return tuple(segs)
+
+
+@dataclass(frozen=True)
+class WorkloadConfig:
+    """One characterization cell: what step is modeled at which shape."""
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+    gen_len: int = 1     # decode: number of generated tokens modeled
+    dtype: str = "bfloat16"
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+# The reference's four canonical shapes.
+TRAIN_4K = WorkloadConfig("train_4k", "train", seq_len=4096, global_batch=256)
+PREFILL_32K = WorkloadConfig("prefill_32k", "prefill", seq_len=32768,
+                             global_batch=32)
+DECODE_32K = WorkloadConfig("decode_32k", "decode", seq_len=32768,
+                            global_batch=128)
+LONG_500K = WorkloadConfig("long_500k", "decode", seq_len=524288,
+                           global_batch=1)
+SHAPES = {w.name: w for w in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+@dataclass(frozen=True)
+class HardwareSpec:
+    """Per-chip capability used by the roofline and energy models."""
+    name: str
+    peak_flops: float          # FLOP/s at the benchmark dtype
+    hbm_bw: float              # bytes/s
+    hbm_bytes: float           # capacity
+    link_bw: float = 0.0       # bytes/s per ICI/NVLink link
+    power_w: float = 0.0       # sustained board power for the energy model
+    idle_w: float = 0.0
+
+    def time_compute(self, flops: float) -> float:
+        return flops / self.peak_flops
+
+    def time_memory(self, bytes_: float) -> float:
+        return bytes_ / self.hbm_bw
+
+
+TPU_V5E = HardwareSpec("tpu_v5e", peak_flops=197e12, hbm_bw=819e9,
+                       hbm_bytes=16e9, link_bw=50e9, power_w=170.0,
+                       idle_w=60.0)
+RTX_4090 = HardwareSpec("rtx4090", peak_flops=165e12, hbm_bw=1008e9,
+                        hbm_bytes=24e9, link_bw=32e9, power_w=450.0,
+                        idle_w=30.0)
+JETSON_ORIN_NANO = HardwareSpec("jetson_orin_nano", peak_flops=20e12,
+                                hbm_bw=68e9, hbm_bytes=8e9, link_bw=0.0,
+                                power_w=15.0, idle_w=5.0)
+# NVIDIA H100 SXM (the card "NVIDIA H100 80GB HBM3" at its 700 W power
+# limit, as nvidia-smi reports it): dense bf16 tensor-core peak and HBM3
+# rate from NVIDIA's data sheet, 80 GB of HBM, one NVLink 4 link's rate in
+# one direction (18 links carry 900 GB/s both ways), board power at the
+# power limit, and the draw of the idle card (``power.draw``, as
+# chip_smoke.py's phase 1 reads it; PERF.md section 2).
+H100_SXM = HardwareSpec("h100_sxm", peak_flops=989e12, hbm_bw=3.35e12,
+                        hbm_bytes=80e9, link_bw=25e9, power_w=700.0,
+                        idle_w=71.22)
+HARDWARE = {h.name: h for h in (TPU_V5E, RTX_4090, JETSON_ORIN_NANO,
+                                H100_SXM)}

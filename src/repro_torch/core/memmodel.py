@@ -11,8 +11,9 @@ The port's copy of the reference's ``core/memmodel.py``, arithmetic on
 It computes what the reference computes, its two known gaps included
 (ROADMAP.md §3): :func:`kv_cache_bytes` and :func:`ssm_state_bytes`
 count no ``hybrid_par`` layer, and SSM states are counted at 4 bytes
-(``p_state``).  The reference's ``ModelConfig.param_count`` method is
-:func:`param_count` here.
+(``p_state``).  The reference's ``ModelConfig.param_count`` and
+``active_param_count`` methods are :func:`param_count` and
+:func:`active_param_count` here.
 """
 from __future__ import annotations
 
@@ -83,6 +84,17 @@ def param_count(cfg: ModelConfig) -> int:
         total += (D * (q + 2 * kv) + q * D + 3 * D * cfg.shared_attn_d_ff
                   + 2 * D)
     return total
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: only the routed experts)."""
+    total = param_count(cfg)
+    m = cfg.moe
+    if m is None:
+        return total
+    n_moe_layers = sum(1 for k in cfg.layer_kinds if k == "moe")
+    dead = (m.n_experts - m.experts_per_token) * 3 * cfg.d_model * m.d_ff_expert
+    return total - n_moe_layers * dead
 
 
 def weight_bytes(cfg: ModelConfig, p: int = 2) -> int:

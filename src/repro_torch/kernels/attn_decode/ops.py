@@ -2,12 +2,15 @@
 
 A CPU tensor runs the plain ``decode_attention_ref``; a CUDA tensor
 launches the hand-written split-K kernel (``csrc/attn_decode.cu``) or
-raises.  k and v are read through their strides (unit stride along
+raises; a ``meta`` tensor (the static walk,
+:mod:`repro_torch.core.op_analysis`) records one kernel and returns an
+empty output.  It runs in the ``attn_core`` scope.  k and v are read through their strides (unit stride along
 ``d``), so a caller may pass ``cache.transpose(1, 2)`` of a bucket slice
 of a ``[B, S, KV, d]`` cache and no copy is made.
 
-The split count is chosen here for the H100 (132 SMs):
-``split_k = min(16, ceil(S / 64), ceil(264 / (B * KVH)))``, at least 1
+The split count is chosen here for the card's SMs (132 on an H100 SXM,
+``build.sm_count``):
+``split_k = min(16, ceil(S / 64), ceil(2 * SMs / (B * KVH)))``, at least 1
 — about two waves of blocks over the SMs, down to one 64-key tile per
 split, and at most 16 splits, since the block that merges them loads
 every split's partial at once.  Each split covers ``ceil(S / split_k)``
@@ -30,6 +33,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.op_analysis import kernel_cost
+from repro_torch.core.scope import scope
 from repro_torch.kernels import build
 from repro_torch.kernels.attn_decode import ref as _ref
 from repro_torch.kernels.flash.ops import (check_strided, row_vector,
@@ -42,7 +47,6 @@ HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 # query heads per KV head: one N tile of 8 queries up to 8, two up to 16
 # (glm4-9b's 32 heads on 2 KV heads)
 MAX_GROUP = 16
-SMS = 132               # H100 SXM
 TILE = 64               # keys per split tile
 MAX_SPLIT = 16          # splits the kernel merges
 
@@ -53,7 +57,7 @@ def split_layout(batch: int, kv_heads: int, seq: int,
     when None (module docstring), each a whole number of 64-key tiles."""
     if split_k is None:
         split_k = max(1, min(MAX_SPLIT, -(-seq // TILE),
-                             -(-2 * SMS // (batch * kv_heads))))
+                             -(-2 * build.sm_count() // (batch * kv_heads))))
     if not 1 <= split_k <= MAX_SPLIT:
         raise ValueError(f"split_k must be in [1, {MAX_SPLIT}], got "
                          f"{split_k}")
@@ -66,10 +70,18 @@ def decode_attention(q, k, v, *, valid_len,
                      split_k: Optional[int] = None) -> torch.Tensor:
     """q: [B, H, d]; k, v: [B, KVH, S, d]; valid_len: a scalar or [B].
     ``split_k`` None takes the H100 rule (:func:`split_layout`)."""
-    if q.device.type == "cpu":
-        return _ref.decode_attention_ref(q, k, v, valid_len=valid_len)
-    return decode_attention_cuda(q, k, v, valid_len=valid_len,
-                                 split_k=split_k)
+    with scope("attn_core"):
+        if q.device.type == "cpu":
+            return _ref.decode_attention_ref(q, k, v, valid_len=valid_len)
+        if q.device.type == "meta":
+            o = torch.empty_like(q)
+            # q.k and p.v over every key of the cache: 4 d FLOPs a key
+            b, h, d = q.shape
+            kernel_cost("decode_attention", 4.0 * b * h * d * k.shape[2],
+                        (q, k, v), (o,))
+            return o
+        return decode_attention_cuda(q, k, v, valid_len=valid_len,
+                                     split_k=split_k)
 
 
 def decode_attention_cuda(q, k, v, *, valid_len,

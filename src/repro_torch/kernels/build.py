@@ -168,5 +168,16 @@ def destination(out, like: torch.Tensor, name: str, inputs=(),
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count() -> int:
+    """Streaming multiprocessors of the card the kernels launch on (the
+    current CUDA device), read once; 132, an H100 SXM's, where there is no
+    card, so launch plans worked out on the CPU are the H100's."""
+    if not torch.cuda.is_available():
+        return 132
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+
+
 def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream

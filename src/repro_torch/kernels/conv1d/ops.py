@@ -1,7 +1,9 @@
 """Causal depthwise conv1d: the device picks the path.
 
 A CPU tensor runs the plain version (:mod:`.ref`); a CUDA tensor launches
-the hand-written kernel (``csrc/conv1d.cu``) or raises.  Both also give
+the hand-written kernel (``csrc/conv1d.cu``) or raises; a ``meta`` tensor
+(the static walk, :mod:`repro_torch.core.op_analysis`) records one kernel
+and returns empty outputs.  It runs in the ``conv1d`` scope.  Both also give
 the new conv state: the ``K-1`` inputs that end each row's valid prefix
 (``lengths``), which the kernel writes into ``out_state`` when given.
 """
@@ -11,6 +13,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.op_analysis import kernel_cost
+from repro_torch.core.scope import scope
 from repro_torch.kernels import build
 from repro_torch.kernels.conv1d import ref as _ref
 
@@ -30,12 +34,23 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     ``out_state`` (a contiguous tensor of that shape and type, e.g. a slot
     of a new cache, apart from x and initial_state) receives the new
     state and is returned as it."""
-    if x.device.type == "cpu":
-        return _ref.causal_conv1d_ref(x, w, b, initial_state, activation,
-                                      lengths=lengths, out_state=out_state)
-    return causal_conv1d_cuda(x, w, b, initial_state=initial_state,
-                              activation=activation, lengths=lengths,
-                              out_state=out_state)
+    with scope("conv1d"):
+        if x.device.type == "cpu":
+            return _ref.causal_conv1d_ref(x, w, b, initial_state, activation,
+                                          lengths=lengths,
+                                          out_state=out_state)
+        if x.device.type == "meta":
+            bsz, s, c = x.shape
+            k = w.shape[-1]
+            y = torch.empty_like(x)
+            state = out_state if out_state is not None else torch.empty(
+                (bsz, k - 1, c), dtype=x.dtype, device=x.device)
+            kernel_cost("causal_conv1d", 2.0 * k * bsz * s * c,
+                        (x, w, b, initial_state, lengths), (y, state))
+            return y, state
+        return causal_conv1d_cuda(x, w, b, initial_state=initial_state,
+                                  activation=activation, lengths=lengths,
+                                  out_state=out_state)
 
 
 def causal_conv1d_cuda(x, w, b, *, initial_state=None, activation="silu",

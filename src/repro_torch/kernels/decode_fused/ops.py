@@ -5,7 +5,9 @@ step, SiLU, (Mamba-1: the x_proj and dt_proj projections,) softplus(dt),
 the state update ``h' = h*exp(dt*A) + dt*B*x`` and the readout
 ``y = C.h' + D*x``.  A CPU tensor runs the plain version; a CUDA tensor
 launches ``csrc/decode_fused.cu`` (Mamba-2) or ``csrc/mamba1_decode.cu``
-(Mamba-1), or raises.
+(Mamba-1), or raises; a ``meta`` tensor (the static walk,
+:mod:`repro_torch.core.op_analysis`) records one kernel and returns empty
+outputs.  Both run in the ``decode_fused`` scope.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.op_analysis import kernel_cost
+from repro_torch.core.scope import scope
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_fused import ref as _ref
 
@@ -34,15 +38,35 @@ def mamba2_decode_fused(conv_state, ssm_state, xbc_t, conv_w, conv_b,
     tensors of those shapes and types, e.g. slots of a new cache, apart
     from the inputs) receive the new window and state, and are returned
     as them."""
-    if xbc_t.device.type == "cpu":
-        return _ref.mamba2_decode_fused_ref(
+    with scope("decode_fused"):
+        if xbc_t.device.type == "cpu":
+            return _ref.mamba2_decode_fused_ref(
+                conv_state, ssm_state, xbc_t, conv_w, conv_b, dt_raw,
+                dt_bias, A_log, D, n_groups=n_groups, d_state=d_state,
+                headdim=headdim, out_conv=out_conv, out_ssm=out_ssm)
+        if xbc_t.device.type == "meta":
+            b = xbc_t.shape[0]
+            h = dt_raw.shape[1]
+            y = torch.empty((b, h, headdim), dtype=xbc_t.dtype,
+                            device=xbc_t.device)
+            nconv = _meta_out(out_conv, conv_state)
+            nssm = _meta_out(out_ssm, ssm_state, torch.float32)
+            # per state: dA*h, + dt*B*x (2), C.h (2), and the exponential
+            kernel_cost("mamba2_decode_fused", 6.0 * b * h * headdim * d_state,
+                        (conv_state, ssm_state, xbc_t, conv_w, conv_b,
+                         dt_raw, dt_bias, A_log, D), (y, nconv, nssm))
+            return y, nconv, nssm
+        return mamba2_decode_fused_cuda(
             conv_state, ssm_state, xbc_t, conv_w, conv_b, dt_raw, dt_bias,
             A_log, D, n_groups=n_groups, d_state=d_state, headdim=headdim,
             out_conv=out_conv, out_ssm=out_ssm)
-    return mamba2_decode_fused_cuda(
-        conv_state, ssm_state, xbc_t, conv_w, conv_b, dt_raw, dt_bias,
-        A_log, D, n_groups=n_groups, d_state=d_state, headdim=headdim,
-        out_conv=out_conv, out_ssm=out_ssm)
+
+
+def _meta_out(out, like, dtype=None):
+    """A meta branch's destination: ``out`` where given, else an empty
+    tensor like ``like``."""
+    return out if out is not None else torch.empty_like(
+        like, dtype=dtype or like.dtype)
 
 
 def mamba2_decode_fused_cuda(conv_state, ssm_state, xbc_t, conv_w, conv_b,
@@ -130,15 +154,30 @@ def mamba1_decode_fused(conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj,
     ``out_conv`` and ``out_ssm`` (contiguous tensors of those shapes and
     types, e.g. slots of a new cache, apart from the inputs) receive the
     new window and state, and are returned as them."""
-    if xi_t.device.type == "cpu":
-        return _ref.mamba1_decode_fused_ref(
+    with scope("decode_fused"):
+        if xi_t.device.type == "cpu":
+            return _ref.mamba1_decode_fused_ref(
+                conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj,
+                dt_proj, dt_bias, A_log, D, d_state=d_state,
+                dt_rank=dt_rank, out_conv=out_conv, out_ssm=out_ssm)
+        if xi_t.device.type == "meta":
+            b, k, c = conv_state.shape[0], conv_w.shape[1], xi_t.shape[1]
+            f = dt_rank + 2 * d_state
+            y = torch.empty((b, c), dtype=torch.float32, device=xi_t.device)
+            nconv = _meta_out(out_conv, conv_state)
+            nssm = _meta_out(out_ssm, ssm_state, torch.float32)
+            # conv, x_proj, dt_proj; per state: exp(A_log), dt*A, exp,
+            # h*dA + (dt*x)*B (3), C.h (2)
+            flops = b * (2.0 * k * c + 2.0 * c * f + 2.0 * dt_rank * c
+                         + 8.0 * c * d_state)
+            kernel_cost("mamba1_decode_fused", flops,
+                        (conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj,
+                         dt_proj, dt_bias, A_log, D), (y, nconv, nssm))
+            return y, nconv, nssm
+        return mamba1_decode_fused_cuda(
             conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj, dt_proj,
             dt_bias, A_log, D, d_state=d_state, dt_rank=dt_rank,
             out_conv=out_conv, out_ssm=out_ssm)
-    return mamba1_decode_fused_cuda(
-        conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj, dt_proj,
-        dt_bias, A_log, D, d_state=d_state, dt_rank=dt_rank,
-        out_conv=out_conv, out_ssm=out_ssm)
 
 
 def mamba1_decode_fused_cuda(conv_state, ssm_state, xi_t, conv_w, conv_b,

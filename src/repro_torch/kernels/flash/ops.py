@@ -1,7 +1,9 @@
 """Prefill attention: the device picks the path.
 
 A CPU tensor runs the plain ``attention_ref``; a CUDA tensor launches the
-hand-written kernel (``csrc/flash.cu``) or raises.  The kernel reads q, k
+hand-written kernel (``csrc/flash.cu``) or raises; a ``meta`` tensor (the
+static walk, :mod:`repro_torch.core.op_analysis`) records one kernel and
+returns an empty output.  It runs in the ``attn_core`` scope.  The kernel reads q, k
 and v through their strides (unit stride along ``d``), so a caller may
 pass ``cache.transpose(1, 2)`` of a bucket slice of a ``[B, S, KV, d]``
 cache and no copy is made.
@@ -17,7 +19,8 @@ launches are counted apart from plain ones:
 Each launch follows :func:`flash_plan`, from shapes only: bf16 runs the
 ``wgmma`` + TMA kernel (head_dim padded to 64, 128 or 256 columns) with a
 GQA group's query heads packed into one block's 128 rows and, when that
-leaves fewer blocks than the H100's 132 SMs, each query tile's keys split
+leaves fewer blocks than the card's SMs (132 on an H100 SXM,
+``build.sm_count``), each query tile's keys split
 across blocks (gemma3-1b's chunk: 32 tiles x 4 splits); fp32 runs on CUDA
 cores.  Either way one call is one launch.
 """
@@ -27,6 +30,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.op_analysis import kernel_cost
+from repro_torch.core.scope import scope
 from repro_torch.kernels import build
 from repro_torch.kernels.flash import ref as _ref
 
@@ -34,7 +39,6 @@ from repro_torch.kernels.flash import ref as _ref
 # llama3.2-1b's (64), zamba2-2.7b's (80), phi-3-mini's (96), llama3-8b's
 # (128), gemma3-1b's (256) and the reduced test sizes
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
-SMS = 132                      # H100 SXM
 BLOCK_ROWS = 128               # query rows a wgmma block
 KEY_TILE = 64                  # keys a tile
 MAX_SPLIT = 8                  # key splits of a query tile
@@ -66,7 +70,8 @@ def flash_plan(b: int, h: int, kvh: int, sq: int, skv: int, d: int,
     tiles number fewer than the 132 SMs, the keys of each are split into
     ``min(8, 132 // tiles, ceil(Skv / 64))`` ranges of whole 64-key tiles,
     of which the kernel uses as many as the masks leave two tiles each
-    (:func:`key_split`), merged exactly by the block that finishes last.
+    (:func:`key_split`), merged exactly by the block that finishes last
+    (``SMS`` is ``build.sm_count()``: 132 on an H100 SXM).
     In fp32 a block is 16 rows of one head.  ``heads_packed`` and
     ``splits`` force the wgmma route's choices (the card tests do); they
     must divide G and 128, and lie in [1, 8]."""
@@ -79,10 +84,11 @@ def flash_plan(b: int, h: int, kvh: int, sq: int, skv: int, d: int,
         npos = BLOCK_ROWS // hp
         qt = -(-sq // npos)
         tiles = qt * (h // hp) * b
+        sms = build.sm_count()
         if splits is None:
             splits = 1
-            if tiles < SMS:
-                splits = max(1, min(MAX_SPLIT, SMS // tiles,
+            if tiles < sms:
+                splits = max(1, min(MAX_SPLIT, sms // tiles,
                                     -(-skv // KEY_TILE)))
         if not 1 <= splits <= MAX_SPLIT:
             raise ValueError(f"splits must be in [1, {MAX_SPLIT}], got "
@@ -140,14 +146,35 @@ def flash_attention(q, k, v, *, causal: bool = True,
     absolute position ``q_offset[b] + i``.  ``kv_wrap`` (a scalar or [B])
     and ``ring_len`` select the ring layout."""
     check_ring(causal, window, kv_wrap, ring_len, k.shape[2])
-    if q.device.type == "cpu":
-        return _ref.attention_ref(q, k, v, causal=causal, window=window,
-                                  q_offset=0 if q_offset is None
-                                  else q_offset, kv_wrap=kv_wrap,
-                                  ring_len=ring_len)
-    return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                q_offset=q_offset, kv_wrap=kv_wrap,
-                                ring_len=ring_len)
+    with scope("attn_core"):
+        if q.device.type == "cpu":
+            return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                      q_offset=0 if q_offset is None
+                                      else q_offset, kv_wrap=kv_wrap,
+                                      ring_len=ring_len)
+        if q.device.type == "meta":
+            return _flash_meta(q, k, v, causal, window, q_offset, ring_len)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, kv_wrap=kv_wrap,
+                                    ring_len=ring_len)
+
+
+def _flash_meta(q, k, v, causal, window, q_offset, ring_len):
+    """One kernel in the static walk: q.k and p.v, 4 d FLOPs for each key a
+    query sees.  Shapes alone give the keys: a one-shot causal prompt's
+    query i sees i + 1 of them; with offsets (their values are data) or
+    a ring, every key of the call, at most ``window``."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if causal and q_offset is None and ring_len is None and sq == skv:
+        seen = sum(min(i + 1, window or skv) for i in range(sq))
+    else:
+        seen = sq * min(skv, window or skv)
+    o = torch.empty((b, sq, h, d), dtype=q.dtype,
+                    device=q.device).transpose(1, 2)
+    name = "flash_attention" if ring_len is None else "flash_attention_ring"
+    kernel_cost(name, 4.0 * b * h * d * seen, (q, k, v), (o,))
+    return o
 
 
 def check_ring(causal: bool, window: Optional[int], kv_wrap,

@@ -2,7 +2,9 @@
 
 A CPU tensor runs the plain ``selective_scan_ref``; a CUDA tensor launches
 the hand-written kernel (``csrc/scan1.cu``) as :func:`scan1_plan` says,
-or raises.  The softplus of dt and ``-exp(A_log)`` stay plain torch in
+or raises; a ``meta`` tensor (the static walk,
+:mod:`repro_torch.core.op_analysis`) records one kernel and returns empty
+outputs.  It runs in the ``ssm_core`` scope.  The softplus of dt and ``-exp(A_log)`` stay plain torch in
 the model, outside the kernel, as the reference keeps them outside its
 ``pallas_call``.
 """
@@ -12,6 +14,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.op_analysis import kernel_cost
+from repro_torch.core.scope import scope
 from repro_torch.kernels import build
 from repro_torch.kernels.scan1 import ref as _ref
 
@@ -20,7 +24,6 @@ D_STATES = (8, 16)
 # the kernel's plans, by number (``csrc/scan1.cu``, launch_plan): steps a
 # lane K, channels a block CT (a warp a channel), states a group G
 PLANS = ((8, 4, 2), (8, 8, 2))
-SMS = 132          # streaming multiprocessors of an H100 SXM
 
 
 class Scan1Plan(NamedTuple):
@@ -61,7 +64,8 @@ def scan1_plan(b: int, s: int, c: int, n: int, dtype) -> Scan1Plan:
                          f"{D_STATES}, got {n}")
     esz = build.dtype_size(dtype)
     ldc = -(-c // 8) * 8
-    index = 1 if b * ldc >= 3 * SMS * 8 else 0
+    sms = build.sm_count()
+    index = 1 if b * ldc >= 3 * sms * 8 else 0
     k, ct, _ = PLANS[index]
     return Scan1Plan(index, k, ct, ldc, b * -(-ldc // ct), 32 * ct,
                      _smem(esz, n, k, ct))
@@ -77,12 +81,25 @@ def selective_scan(x, dt, A, Bm, Cm, D, *,
     aligned fp32 [B,C,N], e.g. a cache slot, apart from the other inputs;
     it may be the initial state) receives the final state and is returned
     as it."""
-    if x.device.type == "cpu":
-        return _ref.selective_scan_ref(x, dt, A, Bm, Cm, D, initial_state,
-                                       out_state=out_state)
-    return selective_scan_cuda(x, dt, A, Bm, Cm, D,
-                               initial_state=initial_state,
-                               out_state=out_state)
+    with scope("ssm_core"):
+        if x.device.type == "cpu":
+            return _ref.selective_scan_ref(x, dt, A, Bm, Cm, D,
+                                           initial_state,
+                                           out_state=out_state)
+        if x.device.type == "meta":
+            b, s, c = x.shape
+            n = A.shape[-1]
+            y = torch.empty_like(x)
+            final = out_state if out_state is not None else torch.empty(
+                (b, c, n), dtype=torch.float32, device=x.device)
+            # per state and step: the exponential, dt*A, h*dA + (dt*x)*B,
+            # C.h (7); per step dt*x, D*x, their sum (3)
+            kernel_cost("selective_scan", 7.0 * b * s * c * n + 3.0 * b * s * c,
+                        (x, dt, A, Bm, Cm, D, initial_state), (y, final))
+            return y, final
+        return selective_scan_cuda(x, dt, A, Bm, Cm, D,
+                                   initial_state=initial_state,
+                                   out_state=out_state)
 
 
 def selective_scan_cuda(x, dt, A, Bm, Cm, D, *, initial_state=None,

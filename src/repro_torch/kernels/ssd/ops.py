@@ -1,7 +1,10 @@
 """Chunked SSD scan: the device picks the path.
 
 A CPU tensor runs the plain ``ssd_chunked_ref``; a CUDA tensor launches
-the hand-written kernel (``csrc/ssd.cu``) or raises.  The ``softplus`` and
+the hand-written kernel (``csrc/ssd.cu``) or raises; a ``meta`` tensor
+(the static walk, :mod:`repro_torch.core.op_analysis`) records one kernel
+and returns empty outputs.  Both entry points run in the ``ssd_core``
+scope, as the reference's do.  The ``softplus`` and
 ``-exp(A_log)`` preprocessing stays plain torch here, outside the kernel,
 as the reference keeps it outside its ``pallas_call``.
 """
@@ -11,6 +14,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.op_analysis import kernel_cost
+from repro_torch.core.scope import scope
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ref as _ref
 
@@ -57,12 +62,33 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
     ``out_state`` (a contiguous, 16-byte aligned fp32 [B,H,P,N], e.g. a
     cache slot, apart from the other inputs) receives the final state, and
     is returned as it."""
-    if x.device.type == "cpu":
-        return _ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk,
-                                    initial_state=initial_state,
-                                    out_state=out_state)
-    return ssd_chunked_cuda(x, dt, A, Bm, Cm, D, chunk=chunk,
-                            initial_state=initial_state, out_state=out_state)
+    with scope("ssd_core"):
+        if x.device.type == "cpu":
+            return _ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                        initial_state=initial_state,
+                                        out_state=out_state)
+        if x.device.type == "meta":
+            return _ssd_meta(x, dt, A, Bm, Cm, D, chunk, initial_state,
+                             out_state)
+        return ssd_chunked_cuda(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                initial_state=initial_state,
+                                out_state=out_state)
+
+
+def _ssd_meta(x, dt, A, Bm, Cm, D, chunk, initial_state, out_state):
+    """One kernel in the static walk: per chunk and head the score and
+    output products and the state's read and update, 2 FLOPs a
+    multiply-add."""
+    b, s, h, p = x.shape
+    n = Bm.shape[3]
+    y = torch.empty_like(x)
+    final = out_state if out_state is not None else torch.empty(
+        (b, h, p, n), dtype=torch.float32, device=x.device)
+    q = chunk
+    flops = 2.0 * b * h * (s // q) * (q * q * n + q * q * p + 2 * q * p * n)
+    kernel_cost("ssd_chunked", flops, (x, dt, A, Bm, Cm, D, initial_state),
+                (y, final))
+    return y, final
 
 
 def ssd_chunked_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
@@ -119,6 +145,7 @@ def ssd_chunked_raw(x, dt_raw, dt_bias, A_log, Bm, Cm, D, *,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Raw-dt entry point: softplus(dt_raw + dt_bias) and -exp(A_log) in
     plain torch, then the scan."""
-    dt, A = _ref.preprocess_dt_A(dt_raw, dt_bias, A_log)
+    with scope("ssd_core"):
+        dt, A = _ref.preprocess_dt_A(dt_raw, dt_bias, A_log)
     return ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
                        initial_state=initial_state, out_state=out_state)

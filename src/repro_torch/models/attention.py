@@ -55,6 +55,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.config import AttnConfig
+from repro_torch.core.scope import scope
 from repro_torch.kernels.attn_decode.ops import decode_attention
 from repro_torch.kernels.flash.ops import flash_attention
 from repro_torch.models.norms import rms_norm
@@ -178,9 +179,10 @@ def attention(p: Dict, x: torch.Tensor, a: AttnConfig, *,
     causal mask and ``valid_len``.  Returns (y [B,S,D], the cache it wrote
     or None)."""
     b, s, _ = x.shape
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
+    with scope("qkv_proj"):
+        q = _proj(x, p["wq"])
+        k = _proj(x, p["wk"])
+        v = _proj(x, p["wv"])
     if a.qk_norm:
         # the reference's head_rms_norm: rms_norm over head_dim
         q = rms_norm(q, p["q_norm"], eps)
@@ -240,5 +242,6 @@ def attention(p: Dict, x: torch.Tensor, a: AttnConfig, *,
                              cache["v"].to(x.dtype).transpose(1, 2),
                              valid_len=valid_len)[:, :, None]  # [B,H,1,hd]
     o = o.transpose(1, 2).reshape(b, s, a.n_heads * a.head_dim)
-    y = o @ p["wo"].to(x.dtype).reshape(a.n_heads * a.head_dim, -1)
+    with scope("o_proj"):
+        y = o @ p["wo"].to(x.dtype).reshape(a.n_heads * a.head_dim, -1)
     return y, cache

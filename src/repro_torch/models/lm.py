@@ -62,6 +62,7 @@ import torch
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.core.scope import scope
 from repro_torch.models import blocks
 from repro_torch.models.attention import ATTN_KEYS
 from repro_torch.models import mamba1, mamba2
@@ -191,19 +192,23 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 # --------------------------------------------------------------------------
 
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(_dtype(cfg.compute_dtype))
+    with scope("embed"):
+        return params["embed"][tokens.long()].to(_dtype(cfg.compute_dtype))
 
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(x.dtype).T
-    else:
-        logits = x @ params["lm_head"].to(x.dtype)
-    if cfg.padded_vocab != cfg.vocab_size:
-        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
-        # in place on the product's own output: no clone (a device copy)
-        logits.masked_fill_(pad, NEG_INF)
+    with scope("lm_head"):
+        if cfg.tie_embeddings:
+            logits = x @ params["embed"].to(x.dtype).T
+        else:
+            logits = x @ params["lm_head"].to(x.dtype)
+        if cfg.padded_vocab != cfg.vocab_size:
+            pad = (torch.arange(cfg.padded_vocab, device=x.device)
+                   >= cfg.vocab_size)
+            # in place on the product's own output: no clone (a device
+            # copy)
+            logits.masked_fill_(pad, NEG_INF)
     return logits
 
 

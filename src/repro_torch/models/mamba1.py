@@ -16,6 +16,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.config import SSMConfig
+from repro_torch.core.scope import scope
 from repro_torch.kernels.conv1d.ops import causal_conv1d
 from repro_torch.kernels.conv1d.ref import silu
 from repro_torch.kernels.decode_fused.ops import mamba1_decode_fused
@@ -70,30 +71,35 @@ def mamba1_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
     scan's final state in place where their types allow."""
     dtr = dt_rank(d_model, s)
     dt_ = x.dtype
-    xi = x @ p["wx"].to(dt_)
-    z = x @ p["wz"].to(dt_)
+    with scope("ssm_in_proj"):
+        xi = x @ p["wx"].to(dt_)
+        z = x @ p["wz"].to(dt_)
     init_conv = cache["conv"] if cache is not None else None
     xi, conv_state = causal_conv1d(
         xi, p["conv_w"], p["conv_b"], initial_state=init_conv,
         lengths=conv_lengths(mask, lengths),
         out_state=state_slot(slots, "conv", dt_))
-    proj = xi @ p["x_proj"].to(dt_)
-    dt_low = proj[..., :dtr]
-    bm = proj[..., dtr:dtr + s.d_state]
-    cm = proj[..., dtr + s.d_state:]
-    dt_pre = (dt_low @ p["dt_proj"].to(dt_)).float() + p["dt_bias"].float()
-    if mask is not None:
-        dt_pre = torch.where(mask[:, :, None], dt_pre,
-                             torch.full((), INERT_DT, device=x.device))
-    dt = softplus(dt_pre)
+    with scope("ssm_in_proj"):
+        proj = xi @ p["x_proj"].to(dt_)
+        dt_low = proj[..., :dtr]
+        bm = proj[..., dtr:dtr + s.d_state]
+        cm = proj[..., dtr + s.d_state:]
+        dt_pre = ((dt_low @ p["dt_proj"].to(dt_)).float()
+                  + p["dt_bias"].float())
+        if mask is not None:
+            dt_pre = torch.where(mask[:, :, None], dt_pre,
+                                 torch.full((), INERT_DT, device=x.device))
+        dt = softplus(dt_pre)
     A = -torch.exp(p["A_log"].float())
     init_ssm = cache["ssm"] if cache is not None else None
     y, ssm_state = selective_scan(xi, dt, A, bm, cm, p["D"].float(),
                                   initial_state=init_ssm,
                                   out_state=state_slot(slots, "ssm",
                                                        torch.float32))
-    y = y * silu(z.float()).to(dt_)
-    out = y @ p["out_proj"].to(dt_)
+    with scope("ssm_gate"):
+        y = y * silu(z.float()).to(dt_)
+    with scope("ssm_out_proj"):
+        out = y @ p["out_proj"].to(dt_)
     new_cache = None
     if cache is not None:
         new_cache = {"conv": conv_state.to(cache["conv"].dtype),
@@ -112,16 +118,19 @@ def mamba1_decode(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
     cache's dtype."""
     dt_ = x.dtype
     xt = x[:, 0]
-    xi = xt @ p["wx"].to(dt_)
-    z = xt @ p["wz"].to(dt_)
+    with scope("ssm_in_proj"):
+        xi = xt @ p["wx"].to(dt_)
+        z = xt @ p["wz"].to(dt_)
     y, conv_state, h = mamba1_decode_fused(
         cache["conv"], cache["ssm"], xi, p["conv_w"], p["conv_b"],
         p["x_proj"], p["dt_proj"], p["dt_bias"], p["A_log"], p["D"],
         d_state=s.d_state, dt_rank=dt_rank(d_model, s),
         out_conv=state_slot(slots, "conv", dt_),
         out_ssm=state_slot(slots, "ssm", torch.float32))
-    y = y * silu(z.float())
-    out = (y.to(dt_) @ p["out_proj"].to(dt_))[:, None, :]
+    with scope("ssm_gate"):
+        y = y * silu(z.float())
+    with scope("ssm_out_proj"):
+        out = (y.to(dt_) @ p["out_proj"].to(dt_))[:, None, :]
     return out, {"conv": conv_state.to(cache["conv"].dtype), "ssm": h}
 
 

@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.config import SSMConfig
+from repro_torch.core.scope import scope
 from repro_torch.kernels.conv1d.ops import causal_conv1d
 from repro_torch.kernels.decode_fused.ops import mamba2_decode_fused
 from repro_torch.kernels.ssd.ops import ssd_chunked_raw
@@ -89,9 +90,10 @@ def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
     di = s.d_inner(d_model)
     nh = s.n_ssm_heads(d_model)
     dt_ = x.dtype
-    z = x @ p["wz"].to(dt_)
-    xbc = x @ p["wxBC"].to(dt_)
-    dt_raw = x @ p["wdt"].to(dt_)
+    with scope("ssm_in_proj"):
+        z = x @ p["wz"].to(dt_)
+        xbc = x @ p["wxBC"].to(dt_)
+        dt_raw = x @ p["wdt"].to(dt_)
     if mask is not None:
         dt_raw = torch.where(mask[:, :, None], dt_raw,
                              torch.full((), INERT_DT, dtype=dt_,
@@ -120,7 +122,8 @@ def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
                                                    torch.float32))
     y = y[:, :seq].reshape(b, seq, di)
     y = gated_rms_norm(y, z, p["norm_scale"], eps)
-    out = y @ p["out_proj"].to(dt_)
+    with scope("ssm_out_proj"):
+        out = y @ p["out_proj"].to(dt_)
     new_cache = None
     if cache is not None:
         new_cache = {"conv": conv_state.to(cache["conv"].dtype),
@@ -149,9 +152,10 @@ def mamba2_decode(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
     di = s.d_inner(d_model)
     dt_ = x.dtype
     xt = x[:, 0]
-    z = xt @ p["wz"].to(dt_)
-    xbc = xt @ p["wxBC"].to(dt_)
-    dt_raw = xt @ p["wdt"].to(dt_)
+    with scope("ssm_in_proj"):
+        z = xt @ p["wz"].to(dt_)
+        xbc = xt @ p["wxBC"].to(dt_)
+        dt_raw = xt @ p["wdt"].to(dt_)
     y, conv_state, ssm_state = mamba2_decode_fused(
         cache["conv"], cache["ssm"], xbc, p["conv_w"], p["conv_b"],
         dt_raw, p["dt_bias"], p["A_log"], p["D"],
@@ -160,7 +164,8 @@ def mamba2_decode(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
         out_ssm=state_slot(slots, "ssm", torch.float32))
     y = y.reshape(b, di)
     y = gated_rms_norm(y, z, p["norm_scale"], eps)
-    out = (y @ p["out_proj"].to(dt_))[:, None, :]
+    with scope("ssm_out_proj"):
+        out = (y @ p["out_proj"].to(dt_))[:, None, :]
     return out, {"conv": conv_state.to(cache["conv"].dtype),
                  "ssm": ssm_state.to(cache["ssm"].dtype)}
 

@@ -11,6 +11,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.scope import scope
 from repro_torch.models.params import ParamDef
 
 # the matmul weights the compute dtype reads (cast once at load)
@@ -27,9 +28,10 @@ def mlp_param_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
 
 
 def mlp(p: Dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    dt = x.dtype
-    h = x @ p["wi"].to(dt)
-    g = x @ p["wg"].to(dt)
-    # jax.nn.gelu's default is the tanh approximation
-    a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return (a * h) @ p["wo"].to(dt)
+    with scope("mlp"):
+        dt = x.dtype
+        h = x @ p["wi"].to(dt)
+        g = x @ p["wg"].to(dt)
+        # jax.nn.gelu's default is the tanh approximation
+        a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+        return (a * h) @ p["wo"].to(dt)

@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.scope import scope
+
 LOCAL_ROPE_THETA = 10_000.0
 
 
@@ -59,11 +61,12 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
     """x: [B, S, H, hd]; sin/cos: [S, hd//2] (or [B, S, hd//2] gathered at
     per-row positions).  The tables are cast to ``x.dtype`` before the
     multiply, as in the reference (a no-op for :func:`rope_at`'s)."""
-    half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
-    if sin.dim() == 2:
-        s, c = sin[None, :, None, :], cos[None, :, None, :]
-    else:
-        s, c = sin[:, :, None, :], cos[:, :, None, :]
-    s, c = s.to(x.dtype), c.to(x.dtype)
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    with scope("rope"):
+        half = x.shape[-1] // 2
+        x1, x2 = x[..., :half], x[..., half:]
+        if sin.dim() == 2:
+            s, c = sin[None, :, None, :], cos[None, :, None, :]
+        else:
+            s, c = sin[:, :, None, :], cos[:, :, None, :]
+        s, c = s.to(x.dtype), c.to(x.dtype)
+        return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)

@@ -41,13 +41,17 @@ The control layer is the reference's, method for method:
   ``CheckpointStore``, checkpoints, preemption blobs and request records
   persist under an atomically committed manifest, and a fresh engine
   over the store resumes every request bit-identically.
+* **Profiling** (:mod:`repro_torch.serving.profiler`): the engine hands
+  each prefill chunk's and decode burst's wall time to its ``profiler``
+  (off by default), which in trace mode also learns every decode graph;
+  :meth:`ServingEngine.profile_snapshot` gives the time by operator
+  class.
 
 On the card every write into the engine's cache (restore, quarantine,
 the NaN poke, the admission scatter) copies into the existing leaves, so
 the decode graphs' keys, which hold the leaves' addresses, stay the same.
 
-Not ported yet (ROADMAP.md): ``profile_snapshot`` and the profiler, and
-the reference's sharding ``plan=``.
+Not ported yet (ROADMAP.md): the reference's sharding ``plan=``.
 """
 from __future__ import annotations
 
@@ -62,9 +66,10 @@ import torch
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.core.op_analysis import analyze, meta_like
 from repro_torch.models.lm import (decode_tokens, init_lm_cache,
                                    init_spare_states, lm_prefill,
-                                   prepare_params)
+                                   lm_prefill_chunk, prepare_params)
 from repro_torch.models.params import tree_leaves
 from repro_torch.serving.bucketing import (clamped_bucket, kv_cache_extent,
                                            rope_len_for)
@@ -80,6 +85,7 @@ from repro_torch.serving.faults import (CacheCorruption, DeadlineExceeded,
 from repro_torch.serving.graphs import make_decode_tokens
 from repro_torch.serving.metrics import MetricsRegistry
 from repro_torch.serving.prefill import ChunkedPrefill, supports_chunked_prefill
+from repro_torch.serving.profiler import Profiler
 from repro_torch.serving.scheduler import (Scheduler, VictimCandidate,
                                            make_scheduler)
 from repro_torch.serving.store import CheckpointStore, layout_fingerprint
@@ -170,8 +176,9 @@ class ServingEngine:
     ``stall_after`` (the watchdog), ``sentinel``, ``fault_plan``,
     ``clock`` (every engine timing reads it), ``telemetry`` /
     ``trace_path`` / ``warmstart_path``, ``metrics``, ``scheduler`` or
-    ``sched_policy`` / ``sched_weights`` / ``starve_ms``, and ``store`` or
-    ``store_dir``.
+    ``sched_policy`` / ``sched_weights`` / ``starve_ms``, ``store`` or
+    ``store_dir``, and ``profiler`` (a
+    :class:`~repro_torch.serving.profiler.Profiler`; default off).
 
     Co-batch isolation: rows are independent across the batch in every
     kernel, quarantine restores full slot rows, and a failed slot is
@@ -194,6 +201,7 @@ class ServingEngine:
                  starve_ms: Optional[float] = None,
                  store: Optional[CheckpointStore] = None,
                  store_dir: Optional[str] = None,
+                 profiler: Optional[Profiler] = None,
                  device: Optional[Union[str, torch.device]] = None):
         if not supports_chunked_prefill(cfg):
             raise ValueError(
@@ -220,13 +228,15 @@ class ServingEngine:
             warmstart_path=warmstart_path)
         self.metrics = metrics if metrics is not None else MetricsRegistry(
             clock=self._clock)
+        self.profiler = profiler if profiler is not None else Profiler(
+            mode="off", clock=self._clock)
         self._init_metrics()
         self.kv_extent = kv_cache_extent(cfg, max_seq)
         self.kv_buckets = self.kv_extent is not None
         self.rope_len = rope_len_for(cfg, max_seq)
         self.cache = init_lm_cache(cfg, slots, max_seq, device=self.device)
         self._spare = init_spare_states(self.cache)
-        self._decode_n = make_decode_tokens(cfg)
+        self._decode_n = make_decode_tokens(cfg, self.profiler)
         self._chunked_prefill = ChunkedPrefill(
             cfg, self.params, max_seq=max_seq, chunk_size=self.chunk_size,
             sentinel=self.sentinel, fault_plan=self.faults,
@@ -255,6 +265,8 @@ class ServingEngine:
         # decode bucket keys already dispatched: the first burst at a key
         # (on the card an eager run plus a capture) is a compile sample
         self._decode_seen: set = set()
+        # (group batch, KV bucket) of every prefill chunk dispatched
+        self._prefill_seen: set = set()
         self._max_bucket = -1     # deepest decode rung seen (climb counter)
         if store is None and store_dir:
             store = CheckpointStore(store_dir)
@@ -676,6 +688,9 @@ class ServingEngine:
                 self._m_tps.labels(phase="prefill").set(1e3 / tok_ms)
             self._m_tokens.labels(phase="prefill").inc(info["valid_tokens"])
         self._m_prefill_ms.observe(dt_ms)
+        self.profiler.observe("prefill", dt_ms)
+        self._prefill_seen.add((ch.group_cache["pos"].shape[0],
+                                info["bucket"]))
         for row, (b, req) in enumerate(self._pending):
             if not req.done and info["valid_per_row"][row]:
                 tokens = int(info["valid_per_row"][row])
@@ -930,6 +945,7 @@ class ServingEngine:
         self.telemetry.record_latency("decode", kv_bucket, dt_ms / kblk,
                                       compiled=fresh_compile)
         self._m_decode_ms.observe(dt_ms)
+        self.profiler.observe("decode", dt_ms)
         if not fresh_compile and dt_ms > 0:
             self._m_tps.labels(phase="decode").set(kblk * 1e3 / dt_ms)
         n_live = 0
@@ -999,6 +1015,46 @@ class ServingEngine:
             if self.store is not None:
                 self.store.commit()
         return self.finished
+
+    def profile_snapshot(self) -> Dict[str, Any]:
+        """The profiler's per-kernel-family attribution.  In coarse mode
+        the representative programs are registered lazily here, so the
+        walk's cost lands on the caller asking for shares, never on the
+        serving loop: ``decode``, one burst of ``decode_block`` steps at
+        the deepest KV bucket the loop ran, as the reference registers
+        it; and ``prefill``, one chunk at the largest (group batch, KV
+        bucket) dispatched, which the reference leaves unregistered (its
+        prefill wall stays unattributed).  Each is the static walk
+        (:mod:`repro_torch.core.op_analysis`) on ``meta`` copies of the
+        engine's params and cache: the card's program, each hand-written
+        kernel one op, nothing allocated."""
+        prof = self.profiler
+        if prof.mode == "coarse":
+            if not prof.registered("decode") and self._decode_seen:
+                kv_bucket = max((b for b in self._decode_seen
+                                 if b is not None), default=None)
+                cache = meta_like(self.cache)
+                prof.register("decode", analyze(
+                    decode_tokens, self.cfg, meta_like(self.params), cache,
+                    torch.zeros((self.slots, 1), dtype=torch.int32,
+                                device="meta"), self.decode_block,
+                    kv_bucket=kv_bucket, rope_len=self.rope_len,
+                    with_sentinel=self.sentinel,
+                    _spare_states=init_spare_states(cache)))
+            if not prof.registered("prefill") and self._prefill_seen:
+                batch, kv_bucket = max(self._prefill_seen,
+                                       key=lambda s: (s[0], s[1] or 0))
+                cache = init_lm_cache(self.cfg, batch, self.max_seq,
+                                      device="meta")
+                prof.register("prefill", analyze(
+                    lm_prefill_chunk, self.cfg, meta_like(self.params),
+                    torch.zeros((batch, self.chunk_size), dtype=torch.long,
+                                device="meta"), cache,
+                    lengths=torch.full((batch,), self.chunk_size,
+                                       dtype=torch.int32, device="meta"),
+                    kv_bucket=kv_bucket, rope_len=self.rope_len,
+                    with_sentinel=self.sentinel))
+        return prof.snapshot()
 
     def _abort_inflight(self, status: str, err: RequestError) -> None:
         for req in self.queue:

@@ -29,6 +29,12 @@ their addresses; KV rows are written in place as on the eager path.
 * The kernels' launch counters (``.launches`` on each wrapper) count
   Python calls.  Capture is not a launch: the counters are put back as
   they were after it, and each replay adds the launches the capture saw.
+* With a profiler in trace mode (:mod:`repro_torch.serving.profiler`),
+  the eager first call at a key is traced on its own and teaches the
+  profiler the graph's sequence of device operations and their families;
+  each replay is tagged with the graph's id, so a trace window attributes
+  the replay's kernels position by position.  Operator scopes are
+  suspended during capture: nothing a scope does may be captured.
 
 A capture or replay error raises; there is no eager fallback on the card.
 A CPU cache runs :func:`decode_tokens` itself (the plain path).
@@ -40,6 +46,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core import scope as _scope
 from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.attn_decode.ops import decode_attention
 from repro_torch.kernels.conv1d.ops import causal_conv1d
@@ -50,6 +57,7 @@ from repro_torch.kernels.scan1.ops import selective_scan
 from repro_torch.kernels.ssd.ops import ssd_chunked
 from repro_torch.models.lm import decode_tokens
 from repro_torch.models.params import tree_leaves
+from repro_torch.serving.profiler import Profiler
 
 # every kernel wrapper's launch counter: (wrapper, attribute)
 LAUNCH_COUNTERS = ((causal_conv1d, "launches"), (ssd_chunked, "launches"),
@@ -81,15 +89,18 @@ class _Burst:
         self.out = None
         self.launches: list = []
         self.keep = ()
+        self.gid: Optional[str] = None    # the profiler's id of the graph
 
 
 class DecodeGraphs:
     """``make_decode_tokens``'s ``decode_n``: see the module docstring.
     ``captures`` and ``replays`` count graphs captured and replayed,
-    ``capture_ms`` the host time of each capture by key."""
+    ``capture_ms`` the host time of each capture by key; ``profiler``
+    (default: one that is off) learns each graph in trace mode."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, profiler: Optional[Profiler] = None):
         self.cfg = cfg
+        self.profiler = profiler if profiler is not None else Profiler()
         self._bursts: Dict[tuple, _Burst] = {}
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
@@ -123,7 +134,8 @@ class DecodeGraphs:
         burst.tok.copy_(first_token)
         burst.pos.copy_(cache["pos"])
         if not fresh:
-            burst.graph.replay()
+            with self.profiler.replay(burst.gid):
+                burst.graph.replay()
             self.replays += 1
             for (fn, attr), k in zip(LAUNCH_COUNTERS, burst.launches):
                 setattr(fn, attr, getattr(fn, attr) + k)
@@ -135,7 +147,9 @@ class DecodeGraphs:
                                  kv_bucket=kv_bucket, rope_len=rope_len,
                                  with_sentinel=with_sentinel,
                                  _spare_states=spare)
-        result = run()
+        with self.profiler.learn() as gid:
+            result = run()
+        burst.gid = gid
         t0 = time.perf_counter()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -143,8 +157,8 @@ class DecodeGraphs:
         before = _read_counters()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream):
+            with _scope.suspended(), torch.cuda.graph(
+                    graph, pool=self._pool, stream=self._stream):
                 out = run()
         finally:
             after = _read_counters()
@@ -165,9 +179,11 @@ class DecodeGraphs:
         return [k[:5] for k in self._bursts]
 
 
-def make_decode_tokens(cfg: ModelConfig) -> DecodeGraphs:
+def make_decode_tokens(cfg: ModelConfig,
+                       profiler: Optional[Profiler] = None) -> DecodeGraphs:
     """The reference's builder of the fused decode burst, less its sharding
     plan: ``decode_n(params, cache, first_token, n, kv_bucket=None,
     rope_len=None, with_sentinel=False)``, a CUDA graph per key on the
-    card and :func:`decode_tokens` on the CPU."""
-    return DecodeGraphs(cfg)
+    card and :func:`decode_tokens` on the CPU; ``profiler`` learns each
+    graph in trace mode."""
+    return DecodeGraphs(cfg, profiler)

@@ -1,9 +1,8 @@
 """Structured serving telemetry: the per-(arch, phase, KV-bucket) latency
 model and per-request span traces.
 
-The port's copy of the reference's ``serving/telemetry.py``, less
-``operator_costs`` (static attribution over a compiled XLA program; its
-torch counterpart comes with the profiler, ROADMAP.md).  Two layers:
+The port's copy of the reference's ``serving/telemetry.py``.  Three
+layers:
 
 * **Latency table** — :class:`TelemetryTable`, one
   :class:`PhaseBucketStats` per ``(arch, phase, kv_bucket)`` key (arch =
@@ -22,6 +21,10 @@ torch counterpart comes with the profiler, ROADMAP.md).  Two layers:
   coalesce.  With ``trace_path`` each finished span is appended as one
   JSON line carrying ``version`` and ``arch``; :func:`read_trace`
   rejects lines of another schema.
+* **Operator attribution** — :func:`operator_costs` runs one call under
+  the static walk (:mod:`repro_torch.core.op_analysis`; the reference
+  walks a compiled XLA program) and gives its FLOPs and bytes by the
+  paper's operator classes.
 
 All timestamps come from the injected ``clock``.
 """
@@ -405,3 +408,23 @@ def read_trace(path: str) -> List[Dict[str, Any]]:
                     f"expected {TRACE_SCHEMA_VERSION} — stale trace file?")
             spans.append(span)
     return spans
+
+
+def operator_costs(fn, *args, **kwargs) -> Dict[str, Any]:
+    """Static operator-level attribution for one call ``fn(*args,
+    **kwargs)``: ``{"flops", "bytes", "by_class": {family: {flops, bytes,
+    flop_share, byte_share}}}`` over the paper's operator taxonomy (gemm /
+    ssm / norm / memory / arith / collective / other).  The tensors passed
+    pick the path: CPU tensors walk the plain path, ``meta`` tensors the
+    card's (each hand-written kernel one op), allocating nothing
+    (:mod:`repro_torch.core.op_analysis`)."""
+    from repro_torch.core.op_analysis import analyze
+    summary = analyze(fn, *args, **kwargs)
+    tf, tb = summary.flops, summary.bytes
+    out: Dict[str, Any] = {"flops": tf, "bytes": tb, "by_class": {}}
+    for clazz, c in sorted(summary.by_class().items()):
+        out["by_class"][clazz] = {
+            "flops": c["flops"], "bytes": c["bytes"],
+            "flop_share": c["flops"] / tf if tf else 0.0,
+            "byte_share": c["bytes"] / tb if tb else 0.0}
+    return out

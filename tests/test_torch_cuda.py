@@ -1044,3 +1044,73 @@ def test_bf16_blob_roundtrip_through_the_file(cuda, arch):
     for now, old in zip(tree_leaves(cache["segments"]),
                         tree_leaves(before["segments"])):
         assert torch.equal(now[:, 2], old[:, 0])
+
+
+# ------------------------------------------------- the measured profiler
+
+def _window_ops(path):
+    """The device operations of the CUDA calls made inside the profiler's
+    window, read from its trace by correlation id."""
+    import json
+    from repro_torch.serving.profiler import WINDOW
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    win = next(e for e in events if e.get("name") == WINDOW
+               and e.get("cat") == "user_annotation")
+    lo, hi = win["ts"], win["ts"] + win["dur"]
+    ids = {e.get("args", {}).get("correlation") for e in events
+           if str(e.get("cat", "")).startswith("cuda_")
+           and lo <= e["ts"] <= hi} - {None}
+    return [e for e in events if "dur" in e
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and e.get("args", {}).get("correlation") in ids]
+
+
+@pytest.mark.cuda
+def test_profiler_trace_windows_attribute_every_kernel(cuda, tmp_path):
+    """Reduced falcon-h1-0.5b (attention and Mamba-2 in each layer): trace
+    windows over an eager prefill chunk, an eager 8-step burst and a
+    replay of that burst's graph (learned at its first call), each held
+    to (a) attributed plus unattributed ms equal to the trace's summed
+    device time of the window's calls within 1%, (b) nothing
+    unattributed and not degraded, (c) ``ssm`` at least the SSM kernels'
+    time by name and ``other`` at least the attention kernels'."""
+    from repro_torch.models import lm
+    from repro_torch.serving.graphs import make_decode_tokens
+    from repro_torch.serving.profiler import Profiler
+    cfg, params = _graph_model("falcon-h1-0.5b", cuda)
+    cache = _prefilled_cache(cfg, params, cuda)
+    spare = lm.init_spare_states(cache)
+    prof = Profiler(mode="trace", trace_dir=str(tmp_path))
+    runner = make_decode_tokens(cfg, prof)
+    first = torch.zeros((4, 1), dtype=torch.int32, device=cuda)
+    chunk = torch.ones((4, 16), dtype=torch.long, device=cuda)
+
+    def burst():
+        runner(params, cache, first, 8, spare=spare)[0].cpu()
+    burst()                                  # learned, then captured
+    calls = {
+        "chunk": lambda: lm.lm_prefill_chunk(cfg, params, chunk,
+                                             cache)[0].cpu(),
+        "eager": lambda: lm.decode_tokens(cfg, params, cache, first, 8,
+                                          _spare_states=spare)[0].cpu(),
+        "replay": burst}
+    for name, fn in calls.items():
+        with prof.window(name) as ft:
+            fn()
+        ops = _window_ops(prof.last_trace)
+        total = sum(e["dur"] for e in ops) / 1e3
+        assert total > 0
+        got = sum(ft.ms.values()) + ft.unattributed_ms
+        assert abs(got - total) <= 0.01 * total, name
+        assert ft.unattributed_ms == 0 and not ft.degraded, name
+        by = lambda *ks: sum(e["dur"] for e in ops if e["cat"] == "kernel"
+                             and any(k in e["name"] for k in ks)) / 1e3
+        ssm = by("conv1d_kernel", "m2_decode_kernel", "ssd_kernel",
+                 "ssd_tc_kernel")
+        attn = by("flash_wgmma_kernel", "flash_f32_kernel",
+                  "decode_bf16_kernel", "decode_f32_kernel")
+        assert ssm > 0 and attn > 0, name
+        assert ft.ms["ssm"] >= ssm * (1 - 1e-9), name
+        assert ft.ms["other"] >= attn * (1 - 1e-9), name
+    assert runner.replays == 1 and runner.captures == 1

@@ -4,8 +4,10 @@
   or the reference package ``repro``, and the port reads no ``REPRO_*``
   environment variable.
 * Entry points default to the card and raise where there is none.
-* A kernel op on a CPU tensor runs its plain version; on any other tensor
-  it goes to the kernel and never to the plain version.
+* A kernel op on a CPU tensor runs its plain version; on a ``meta`` tensor
+  (the static walk's stand-in for the card) it returns empty outputs of
+  the plain version's shapes and types, launches nothing and never calls
+  the plain version; its kernel path takes only CUDA tensors.
 """
 import ast
 import pathlib
@@ -105,20 +107,24 @@ def _ops():
     from repro_torch.kernels.ssd import ops as ssd_ops
     return {
         "scan1": (scan_ops.selective_scan, scan_ops._ref,
-                  "selective_scan_ref"),
+                  "selective_scan_ref", scan_ops.selective_scan_cuda),
         "mamba1_decode": (dec_ops.mamba1_decode_fused, dec_ops._ref,
-                          "mamba1_decode_fused_ref"),
+                          "mamba1_decode_fused_ref",
+                          dec_ops.mamba1_decode_fused_cuda),
         "flash": (flash_ops.flash_attention, flash_ops._ref,
-                  "attention_ref"),
+                  "attention_ref", flash_ops.flash_attention_cuda),
         "flash_ring": (flash_ops.flash_attention, flash_ops._ref,
-                       "attention_ref"),
+                       "attention_ref", flash_ops.flash_attention_cuda),
         "attn_decode": (attn_dec_ops.decode_attention, attn_dec_ops._ref,
-                        "decode_attention_ref"),
+                        "decode_attention_ref",
+                        attn_dec_ops.decode_attention_cuda),
         "conv1d": (conv_ops.causal_conv1d, conv_ops._ref,
-                   "causal_conv1d_ref"),
-        "ssd": (ssd_ops.ssd_chunked, ssd_ops._ref, "ssd_chunked_ref"),
+                   "causal_conv1d_ref", conv_ops.causal_conv1d_cuda),
+        "ssd": (ssd_ops.ssd_chunked, ssd_ops._ref, "ssd_chunked_ref",
+                ssd_ops.ssd_chunked_cuda),
         "decode": (dec_ops.mamba2_decode_fused, dec_ops._ref,
-                   "mamba2_decode_fused_ref"),
+                   "mamba2_decode_fused_ref",
+                   dec_ops.mamba2_decode_fused_cuda),
     }
 
 
@@ -126,7 +132,7 @@ def _ops():
                                   "flash_ring", "attn_decode", "scan1",
                                   "mamba1_decode"])
 def test_device_picks_the_path(name, monkeypatch):
-    op, ref_mod, ref_name = _ops()[name]
+    op, ref_mod, ref_name, kernel_path = _ops()[name]
     args, kw = _op_inputs("cpu")[name]
     before = op.launches
     plain = getattr(ref_mod, ref_name)(*args, **kw)
@@ -142,8 +148,13 @@ def test_device_picks_the_path(name, monkeypatch):
         raise AssertionError("plain version called for a device tensor")
     monkeypatch.setattr(ref_mod, ref_name, refuse)
     args, kw = _op_inputs("meta")[name]
+    meta = op(*args, **kw)
+    if isinstance(meta, torch.Tensor):
+        meta = [meta]
+    assert [(m.device.type, m.shape, m.dtype) for m in meta] == \
+        [("meta", p.shape, p.dtype) for p in plain]
     with pytest.raises(ValueError, match="CUDA tensor"):
-        op(*args, **kw)
+        kernel_path(*args, **kw)
     assert op.launches == before
     assert getattr(op, "ring_launches", None) == ring
 
