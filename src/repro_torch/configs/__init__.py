@@ -1,6 +1,8 @@
 """Configs the port serves, plus ``reduced`` for CPU-sized copies.
 
-Importing this package registers every config with the model registry.
+Importing this package registers every config with the model registry:
+the reference's ten assigned architectures (``ASSIGNED``) and the
+paper's own suite (``paper_models``).
 """
 from __future__ import annotations
 
@@ -8,14 +10,27 @@ import dataclasses
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.configs.zamba2_2p7b import CONFIG as zamba2_2p7b  # noqa: F401
+from repro_torch.configs.hubert_xlarge import CONFIG as hubert_xlarge  # noqa: F401
+from repro_torch.configs.qwen3_moe_235b import (  # noqa: F401
+    CONFIG as qwen3_moe_235b)
+from repro_torch.configs.llama4_maverick import (  # noqa: F401
+    CONFIG as llama4_maverick)
 from repro_torch.configs.glm4_9b import CONFIG as glm4_9b  # noqa: F401
 from repro_torch.configs.llama3_8b import CONFIG as llama3_8b  # noqa: F401
 from repro_torch.configs.gemma3_1b import CONFIG as gemma3_1b  # noqa: F401
 from repro_torch.configs.smollm_135m import CONFIG as smollm_135m  # noqa: F401
 from repro_torch.configs.mamba2_2p7b import CONFIG as mamba2_2p7b  # noqa: F401
+from repro_torch.configs.llava_next_mistral_7b import (  # noqa: F401
+    CONFIG as llava_next)
 from repro_torch.configs.paper_models import (  # noqa: F401
     FALCON_H1_05B as falcon_h1_05b, HYMBA_15B as hymba_15b,
     MAMBA1_130M as mamba_130m)
+
+ASSIGNED = (
+    "zamba2-2.7b", "hubert-xlarge", "qwen3-moe-235b-a22b",
+    "llama4-maverick-400b-a17b", "glm4-9b", "llama3-8b", "gemma3-1b",
+    "smollm-135m", "mamba2-2.7b", "llava-next-mistral-7b",
+)
 
 
 def reduced(cfg: ModelConfig, *, d_model: int = 64, vocab: int = 256,

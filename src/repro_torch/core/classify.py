@@ -39,7 +39,8 @@ KNOWN_SCOPES = SSM_SCOPES + NORM_SCOPES + (
 
 GEMM_OPS = frozenset({
     "mm", "addmm", "bmm", "baddbmm", "addbmm", "matmul", "linear", "mv",
-    "addmv", "dot", "convolution", "_convolution", "conv1d", "conv2d"})
+    "addmv", "dot", "convolution", "_convolution", "conv1d", "conv2d",
+    "_grouped_mm"})
 
 MEMORY_OPS = frozenset({
     "copy", "clone", "contiguous", "cat", "stack", "index", "index_select",

@@ -3,11 +3,14 @@
 Field names, defaults and the derived ``padded_vocab`` / ``layer_kinds`` /
 ``segments`` rules are the reference's, so a config built on either side
 describes the same network and the same parameter / cache layout.
-``AttnConfig`` describes the attention of the ``dense`` and ``local``
-layers (``sliding_window`` is the local layers' window) and of the
-shared block of ``mamba2+shared`` layers; ``MoEConfig`` is kept only
-as far as ``ModelConfig`` needs its fields, since no MoE layer is ported
-yet.  ``WorkloadConfig`` / ``SHAPES`` and ``HardwareSpec`` / ``HARDWARE``
+``AttnConfig`` describes the attention of every attention layer kind
+(``sliding_window`` is the ``local`` layers' window, ``causal`` False
+for ``encoder`` layers) and of the shared block of ``mamba2+shared``
+layers; ``MoEConfig`` the feed-forward of ``moe`` layers
+(``repro_torch.models.moe``: ``impl`` picks the ``gshard`` or the
+``ragged`` dispatch).  The reference's sharding fields (``scan_layers``,
+``remat``, ``fsdp``) are not copied: the port has no mesh and no
+training step.  ``WorkloadConfig`` / ``SHAPES`` and ``HardwareSpec`` / ``HARDWARE``
 are the reference's too, with one more device, :data:`H100_SXM`, the card
 the port runs on.
 """

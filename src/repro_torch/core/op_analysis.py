@@ -7,7 +7,9 @@ here: :func:`analyze` runs the function once under a
 :class:`KernelCost`, classed by :func:`repro_torch.core.classify.classify`
 over the scopes open at that op (:mod:`repro_torch.core.scope`):
 
-* products: 2·M·N·K FLOPs (a convolution 2·out·K·C_in/groups);
+* products: 2·M·N·K FLOPs (a convolution 2·out·K·C_in/groups; a
+  grouped product, the ragged MoE's, 2·rows·N·K: each row meets one
+  group's weight);
   elementwise ops and reductions one FLOP per output element; the rest
   none;
 * bytes: operands plus results; a gather reads only what it gathers
@@ -124,7 +126,7 @@ def _gemm_flops(name: str, args: Sequence[Any], outs) -> float:
         return 2.0 * out.numel() * k * int(w.shape[1])
     # the contracted length: the last dim of the left product operand
     left = {"mm": 0, "bmm": 0, "matmul": 0, "mv": 0, "dot": 0,
-            "linear": 0}.get(name, 1)
+            "linear": 0, "_grouped_mm": 0}.get(name, 1)
     a = args[left]
     return 2.0 * out.numel() * int(a.shape[-1])
 

@@ -4,7 +4,9 @@
 ``with scope("norm"): ...`` marks the ops inside as one operator of the
 model, under the reference's scope names (``norm``, ``mlp``, ``rope``,
 ``qkv_proj``, ``attn_core``, ``o_proj``, ``ssm_in_proj``, ``ssm_gate``,
-``ssm_out_proj``, ``embed``, ``lm_head``, and around the kernel wrappers
+``ssm_out_proj``, ``embed``, ``lm_head``, the MoE's ``moe_route``,
+``moe_dispatch``, ``moe_expert``, ``moe_combine`` and
+``moe_shared_expert``, and around the kernel wrappers
 ``ssd_core``, ``conv1d``, ``decode_fused``, ``ssm_core`` and
 ``attn_core``), which the taxonomy (:mod:`repro_torch.core.classify`)
 reads.

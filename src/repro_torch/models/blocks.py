@@ -1,16 +1,26 @@
 """Per-layer block composition: param defs, cache init, and application.
 
-The port serves the ``mamba2``, ``mamba2+shared`` (Zamba2: a Mamba-2
-layer followed by the one shared attention+MLP block), ``mamba1``
-(selective scan), ``dense``, ``local`` and ``hybrid_par`` kinds.  A
-``local`` layer is a ``dense`` one with a sliding window: the same
-params, a ring cache of ``sliding_window`` slots, and the local rope
-table (theta 1e4) where the model has one.  A ``hybrid_par`` layer
-(Falcon-H1, Hymba) runs attention and a Mamba-2 mixer side by side on
-one normed input and adds both to the residual before its MLP; its cache
-is one flat dict of the Mamba-2 leaves ``conv``, ``ssm`` and the KV
-leaves ``k``, ``v``.  Every other kind raises and names the ROADMAP item
-that ports it.
+Every layer kind of the reference is served:
+
+* ``dense``, ``local``, ``dense_moe``, ``moe`` and ``encoder``: pre-norm
+  attention, then a pre-norm feed-forward, each added to the residual.
+  A ``local`` layer is a ``dense`` one with a sliding window: the same
+  params, a ring cache of ``sliding_window`` slots, and the local rope
+  table (theta 1e4) where the model has one.  A ``dense_moe`` layer is a
+  ``dense`` layer at the MoE interleave positions (llama4).  A ``moe``
+  layer's feed-forward is the mixture of experts
+  (:mod:`repro_torch.models.moe`, over one dispatch group: the
+  reference's ``plan.moe_groups`` is 1 without a sharding plan).
+  An ``encoder`` layer attends bidirectionally (``AttnConfig.causal``
+  False) with no cache, and its cache is empty.
+* ``mamba2``, ``mamba2+shared`` (Zamba2: a Mamba-2 layer followed by the
+  one shared attention+MLP block) and ``mamba1`` (selective scan).
+* ``hybrid_par`` (Falcon-H1, Hymba): attention and a Mamba-2 mixer side
+  by side on one normed input, both added to the residual before its
+  MLP; its cache is one flat dict of the Mamba-2 leaves ``conv``,
+  ``ssm`` and the KV leaves ``k``, ``v``.
+
+An unknown kind raises ``ValueError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -24,32 +34,30 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models.attention import (attention, attn_param_defs,
                                           init_attn_cache)
 from repro_torch.models.mlp import mlp, mlp_param_defs
+from repro_torch.models.moe import moe, moe_param_defs
 from repro_torch.models.norms import rms_norm
 from repro_torch.models.params import ParamDef
 
-_NOT_PORTED = {
-    "moe": "the MoE item",
-    "dense_moe": "the MoE item",
-    "encoder": "the encoder and frontends item",
-}
 
-
-def _unported(kind: str) -> NotImplementedError:
-    where = _NOT_PORTED.get(kind)
-    if where is None:
-        return NotImplementedError(f"unknown layer kind {kind!r}")
-    return NotImplementedError(
-        f"layer kind {kind!r} is not ported yet; ROADMAP.md: {where}")
+def _unknown(kind: str) -> ValueError:
+    return ValueError(f"unknown layer kind {kind!r}")
 
 
 def layer_param_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     D = cfg.d_model
-    if kind in ("dense", "local"):
+    if kind in ("dense", "local", "encoder", "dense_moe"):
         return {
             "ln1": ParamDef((D,), ("embed",), init="zeros"),
             "attn": attn_param_defs(D, cfg.attn),
             "ln2": ParamDef((D,), ("embed",), init="zeros"),
             "mlp": mlp_param_defs(D, cfg.d_ff),
+        }
+    if kind == "moe":
+        return {
+            "ln1": ParamDef((D,), ("embed",), init="zeros"),
+            "attn": attn_param_defs(D, cfg.attn),
+            "ln2": ParamDef((D,), ("embed",), init="zeros"),
+            "moe": moe_param_defs(D, cfg.moe),
         }
     if kind == "hybrid_par":
         return {
@@ -69,7 +77,7 @@ def layer_param_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
             "ln": ParamDef((D,), ("embed",), init="zeros"),
             "mamba": m1.mamba1_param_defs(D, cfg.ssm),
         }
-    raise _unported(kind)
+    raise _unknown(kind)
 
 
 def shared_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -86,7 +94,9 @@ def shared_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      *, dtype: torch.dtype, device: torch.device) -> Dict:
-    if kind in ("dense", "local"):
+    if kind == "encoder":
+        return {}
+    if kind in ("dense", "local", "moe", "dense_moe"):
         window = cfg.attn.sliding_window if kind == "local" else None
         return init_attn_cache(cfg.attn, batch, max_seq, window=window,
                                dtype=dtype, device=device)
@@ -104,13 +114,15 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
     if kind == "mamba1":
         return m1.init_mamba1_cache(cfg.d_model, cfg.ssm, batch, dtype,
                                     device)
-    raise _unported(kind)
+    raise _unknown(kind)
 
 
-def _attn_mlp(cfg: ModelConfig, p: Dict, a, x: torch.Tensor, *, rope, cache,
-              pos, valid_len, chunk_mask=None, window=None
-              ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Pre-norm attention then pre-norm MLP, each added to the residual."""
+def _attn_ff(cfg: ModelConfig, p: Dict, a, x: torch.Tensor, *, rope, cache,
+             pos, valid_len, chunk_mask=None, window=None
+             ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Pre-norm attention then the pre-norm feed-forward (the MLP, or the
+    mixture of experts where ``p`` holds ``moe``), each added to the
+    residual."""
     eps = cfg.norm_eps
     h = rms_norm(x, p["ln1"], eps)
     a_out, new_cache = attention(p["attn"], h, a, rope=rope, window=window,
@@ -118,6 +130,8 @@ def _attn_mlp(cfg: ModelConfig, p: Dict, a, x: torch.Tensor, *, rope, cache,
                                  chunk_mask=chunk_mask, eps=eps)
     x = x + a_out
     h = rms_norm(x, p["ln2"], eps)
+    if "moe" in p:
+        return x + moe(p["moe"], h, cfg.moe, 1, cfg.act), new_cache
     return x + mlp(p["mlp"], h, cfg.act), new_cache
 
 
@@ -190,10 +204,15 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
     ``cache`` are written in place (see
     :mod:`repro_torch.models.attention`); a Mamba layer's kernels write
     its new states into ``slots`` (the layer's slots in the new cache:
-    {"conv", "ssm"}) where they can, and return them."""
-    if kind in ("dense", "local"):
+    {"conv", "ssm"}) where they can, and return them.  An ``encoder``
+    layer attends with no cache and returns an empty one."""
+    if kind == "encoder":
+        x, _ = _attn_ff(cfg, p, cfg.attn, x, rope=rope, cache=None, pos=None,
+                        valid_len=None)
+        return x, {}
+    if kind in ("dense", "local", "moe", "dense_moe"):
         local = kind == "local"
-        return _attn_mlp(
+        return _attn_ff(
             cfg, p, cfg.attn, x,
             rope=rope_local if local and rope_local is not None else rope,
             cache=cache, pos=pos, valid_len=valid_len, chunk_mask=chunk_mask,
@@ -203,7 +222,7 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
                            valid_len=valid_len, chunk_mask=chunk_mask,
                            chunk_lengths=chunk_lengths, slots=slots)
     if kind not in ("mamba2", "mamba2+shared", "mamba1"):
-        raise _unported(kind)
+        raise _unknown(kind)
     eps = cfg.norm_eps
     h = rms_norm(x, p["ln"], eps)
     out, new_cache = _mamba(cfg, kind, p["mamba"], h, cache=cache, pos=pos,
@@ -214,10 +233,10 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
         if shared is None:
             raise ValueError("mamba2+shared layers need the shared block's "
                              "params")
-        x, new_attn = _attn_mlp(cfg, shared, cfg.shared_attn, x, rope=rope,
-                                cache=(cache["attn"] if cache is not None
-                                       else None),
-                                pos=pos, valid_len=valid_len)
+        x, new_attn = _attn_ff(cfg, shared, cfg.shared_attn, x, rope=rope,
+                               cache=(cache["attn"] if cache is not None
+                                      else None),
+                               pos=pos, valid_len=valid_len)
         if new_cache is not None:
             new_cache["attn"] = new_attn
     return x, new_cache

@@ -1,22 +1,31 @@
 """Language model: embedding -> layer segments -> head.
 
-The port of the reference's ``repro.models.lm`` for the kinds it serves
-(``mamba2``, ``mamba2+shared``, ``mamba1``, ``dense``, ``local``,
-``hybrid_par``).  Params and caches keep the reference's layouts: params
-are the same nested dict, with ``segments`` a list of per-unit tuples
-whose leaves are stacked ``[n_rep, ...]`` and, for Zamba2-style models,
-one ``shared`` attention+MLP block; a cache is ``{"segments": [...],
-"pos": [B] int32}`` with mamba2 leaves ``conv: [n_rep,B,K-1,C]`` (bf16)
-and ``ssm: [n_rep,B,H,P,N]`` (fp32), mamba1 leaves ``conv:
-[n_rep,B,K-1,di]`` (bf16) and ``ssm: [n_rep,B,di,N]`` (fp32), and KV
+The port of the reference's ``repro.models.lm``, every layer kind
+(:mod:`repro_torch.models.blocks`) and both frontends.  Params and
+caches keep the reference's layouts: params are the same nested dict,
+with ``segments`` a list of per-unit tuples whose leaves are stacked
+``[n_rep, ...]``, for Zamba2-style models one ``shared`` attention+MLP
+block, and for models with a frontend ``frontend_proj`` ([F, D]); a
+``moe`` layer's params hold ``moe`` (``router``, the experts' ``wi``,
+``wg``, ``wo``, and the shared expert's where the model has one); a
+cache is ``{"segments": [...], "pos": [B] int32}`` with mamba2 leaves
+``conv: [n_rep,B,K-1,C]`` (bf16) and ``ssm: [n_rep,B,H,P,N]`` (fp32),
+mamba1 leaves ``conv: [n_rep,B,K-1,di]`` (bf16) and ``ssm:
+[n_rep,B,di,N]`` (fp32), and KV
 leaves ``k``, ``v: [n_rep,B,max_seq,KV,hd]`` (bf16) — at the top of a
 ``dense`` layer's cache, nested under ``attn`` in a ``mamba2+shared``
 layer's — or ``[n_rep,B,window,KV,hd]`` rings at the top of a ``local``
 layer's (``repro_torch.models.attention``).  A ``hybrid_par`` layer's
 cache holds both at its top level: the mamba2 ``conv`` and ``ssm``
 leaves (state leaves, into the new cache's slots) beside ``k`` and ``v``
-(KV leaves, written in place).  A Python loop over the stacked layers
-stands in for ``lax.scan``.
+(KV leaves, written in place).  An ``encoder`` layer's cache is empty.
+A Python loop over the stacked layers stands in for ``lax.scan``.
+
+Frontends, as in the reference's ``_embed``: an ``audio`` model embeds
+precomputed frame features [B, S, F] through ``frontend_proj`` in place
+of tokens; a ``vision`` model projects patch features [B, N, F] the same
+way and puts them before the token embeddings, so a prompt of T tokens
+fills N + T positions.  The entry points take them as ``features=``.
 
 How a call updates the cache: **KV leaves are written in place**, where
 the reference returns new arrays; every other leaf (the small conv and
@@ -45,6 +54,8 @@ sliding windows builds a second, local pair at theta 1e4 for its
 
 Entry points:
 
+* :func:`lm_forward` — full-sequence logits with no cache (encoder
+  inference; the training step is not ported).
 * :func:`lm_prefill` — process the prompt, fill the cache.
 * :func:`lm_prefill_chunk` — one state-carrying chunk of a chunked
   prefill, with per-row valid ``lengths``.
@@ -67,6 +78,7 @@ from repro_torch.models import blocks
 from repro_torch.models.attention import ATTN_KEYS
 from repro_torch.models import mamba1, mamba2
 from repro_torch.models.mlp import MLP_KEYS
+from repro_torch.models.moe import EXPERT_KEYS
 from repro_torch.models.norms import rms_norm
 from repro_torch.models.params import (ParamDef, init_params, stack_defs,
                                        tree_leaves, tree_map)
@@ -86,10 +98,6 @@ def _dtype(name: str) -> torch.dtype:
 # --------------------------------------------------------------------------
 
 def model_param_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            "frontends are not ported yet; ROADMAP.md: the encoder and "
-            "frontends item")
     D, V = cfg.d_model, cfg.padded_vocab
     defs: Dict[str, Any] = {
         "embed": ParamDef((V, D), ("vocab", "embed"), fan_in=1, scale=0.02),
@@ -103,6 +111,10 @@ def model_param_defs(cfg: ModelConfig) -> Dict[str, Any]:
         for unit, n_rep in cfg.segments()]
     if "mamba2+shared" in cfg.layer_kinds:
         defs["shared"] = blocks.shared_block_defs(cfg)
+    if cfg.frontend != "none":
+        defs["frontend_proj"] = ParamDef((cfg.frontend_feature_dim, D),
+                                         (None, "embed"),
+                                         fan_in=cfg.frontend_feature_dim)
     return defs
 
 
@@ -120,7 +132,9 @@ def init_lm_params(cfg: ModelConfig,
                        dtype or _dtype(cfg.param_dtype), dev)
 
 
-def _cast_attn_mlp(block, cd):
+def _cast_block(block, cd):
+    """One layer's (or the shared block's) attention, MLP and expert
+    weights in ``cd``; the rest as it was."""
     out = dict(block)
     if "attn" in block:
         out["attn"] = {k: (v.to(cd) if k in ATTN_KEYS else v)
@@ -128,6 +142,9 @@ def _cast_attn_mlp(block, cd):
     if "mlp" in block:
         out["mlp"] = {k: (v.to(cd) if k in MLP_KEYS else v)
                       for k, v in block["mlp"].items()}
+    if "moe" in block:
+        out["moe"] = {k: (v.to(cd) if k in EXPERT_KEYS else v)
+                      for k, v in block["moe"].items()}
     return out
 
 
@@ -139,25 +156,27 @@ _MAMBA_PROJ_KEYS = {"mamba2": mamba2.PROJ_KEYS,
 
 
 def prepare_params(cfg: ModelConfig, params):
-    """Cast the matmul weights (embedding, head, the mamba projections of
-    each layer's kind, the attention and MLP weights, the shared block's
-    included) to the compute dtype once.  The reference casts them on
-    every use (``.astype(dt_)``); casting once gives the same bits and
-    saves reading the fp32 weights on every decode step.  Norm scales,
-    conv and SSM parameters stay as they are: their consumers read them
-    in fp32."""
+    """Cast the matmul weights (embedding, head, frontend projection, the
+    mamba projections of each layer's kind, the attention, MLP and expert
+    weights, the shared block's and the shared expert's included) to the
+    compute dtype once.  The reference casts them on every use
+    (``.astype(dt_)``); casting once gives the same bits and saves
+    reading the fp32 weights on every decode step.  Norm scales, conv and
+    SSM parameters and the MoE router stay as they are: their consumers
+    read them in fp32."""
     cd = _dtype(cfg.compute_dtype)
     out = dict(params)
     out["embed"] = params["embed"].to(cd)
-    if "lm_head" in params:
-        out["lm_head"] = params["lm_head"].to(cd)
+    for key in ("lm_head", "frontend_proj"):
+        if key in params:
+            out[key] = params[key].to(cd)
     if "shared" in params:
-        out["shared"] = _cast_attn_mlp(params["shared"], cd)
+        out["shared"] = _cast_block(params["shared"], cd)
     segs = []
     for (kinds, _), seg in zip(cfg.segments(), params["segments"]):
         unit = []
         for kind, layer in zip(kinds, seg):
-            layer = _cast_attn_mlp(layer, cd)
+            layer = _cast_block(layer, cd)
             if "mamba" in layer:
                 keys = _MAMBA_PROJ_KEYS[kind]
                 layer["mamba"] = {k: (v.to(cd) if k in keys else v)
@@ -191,9 +210,23 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 # forward passes
 # --------------------------------------------------------------------------
 
-def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, params, tokens: Optional[torch.Tensor],
+           features: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings in the compute dtype; an audio model's projected
+    frame features [B, S, F] instead, a vision model's projected patch
+    features [B, N, F] (where given) before its token embeddings."""
+    cd = _dtype(cfg.compute_dtype)
     with scope("embed"):
-        return params["embed"][tokens.long()].to(_dtype(cfg.compute_dtype))
+        if cfg.frontend == "audio":
+            if features is None:
+                raise ValueError(f"{cfg.name}: an audio model embeds "
+                                 "features=, not tokens")
+            return features.to(cd) @ params["frontend_proj"].to(cd)
+        x = params["embed"][tokens.long()].to(cd)
+        if cfg.frontend == "vision" and features is not None:
+            feats = features.to(cd) @ params["frontend_proj"].to(cd)
+            x = torch.cat([feats, x], dim=1)
+        return x
 
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -377,9 +410,15 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
     return x, new_segs
 
 
-def _check_kv_bucket(kv_bucket: Optional[int]) -> None:
-    if kv_bucket is not None and kv_bucket < 1:
+def _check_kv_bucket(cfg: ModelConfig, kv_bucket: Optional[int]) -> None:
+    if kv_bucket is None:
+        return
+    if kv_bucket < 1:
         raise ValueError(f"kv_bucket must be >= 1, got {kv_bucket}")
+    if "encoder" in cfg.layer_kinds:
+        raise ValueError(
+            "kv_bucket requires causal KV caches; encoder (bidirectional) "
+            "layers cannot be prefix-sliced")
 
 
 def _kv_rows(cache, kv_bucket: Optional[int]) -> Optional[int]:
@@ -389,11 +428,28 @@ def _kv_rows(cache, kv_bucket: Optional[int]) -> Optional[int]:
     return ext if ext is None or kv_bucket is None else min(ext, kv_bucket)
 
 
-def lm_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache
+def lm_forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
+               *, features: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward with no cache: logits [B, S, V] of every
+    position.  ``tokens`` [B, S], and ``features`` as :func:`_embed` takes
+    them (an audio model's frames alone).  The reference's with
+    ``train=False`` (encoder inference); its training mode, which differs
+    only by rematerialisation, belongs to the training step, not
+    ported."""
+    x = _embed(cfg, params, tokens, features)
+    s = x.shape[1]
+    rope = _rope_for(cfg, s, None, s, x.device)
+    x, _ = _run_segments(cfg, params, x, rope=rope)
+    return _head(cfg, params, x)
+
+
+def lm_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *,
+               features: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Any]:
-    """Process the prompt [B,S], fill the cache.  Returns (last-token
-    logits [B,1,V], cache)."""
-    x = _embed(cfg, params, tokens)
+    """Process the prompt [B,S] (a vision model's ``features`` [B,N,F]
+    before it: N + S positions), fill the cache.  Returns (last-token
+    logits [B,1,V], cache with ``pos`` at the positions filled)."""
+    x = _embed(cfg, params, tokens, features)
     b, seq = x.shape[0], x.shape[1]
     rope = _rope_for(cfg, max(seq, cache_kv_extent(cache) or seq), None, seq,
                      x.device)
@@ -426,7 +482,7 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
     (logits, cache, ok): ``ok`` ([B] bool, on the device) is True where the
     final hidden states of the row's valid tokens and its logits over the
     vocab are all finite; a row with no valid token passes."""
-    _check_kv_bucket(kv_bucket)
+    _check_kv_bucket(cfg, kv_bucket)
     x = _embed(cfg, params, tokens)
     b, s = x.shape[0], x.shape[1]
     pos = cache["pos"].to(torch.int32).expand(b)
@@ -456,13 +512,12 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
 
 def lm_decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
                    kv_bucket: Optional[int] = None,
-                   rope_len: Optional[int] = None,
-                   _out_states=None) -> Tuple[torch.Tensor, Any]:
+                   rope_len: Optional[int] = None, _out_states=None) -> Tuple[torch.Tensor, Any]:
     """One token step. token: [B, 1]; ``cache["pos"]`` is a [B] vector.
     ``kv_bucket`` and ``rope_len`` as in :func:`decode_tokens`.
     ``_out_states`` (private; :func:`init_spare_states`'s layout, apart
     from the cache's state leaves) receives the new state leaves."""
-    _check_kv_bucket(kv_bucket)
+    _check_kv_bucket(cfg, kv_bucket)
     pos = cache["pos"]
     x = _embed(cfg, params, token)
     rows = _kv_rows(cache, kv_bucket)
@@ -504,7 +559,7 @@ def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
     leaves then hold the burst's final states, and a captured graph of
     the burst reads and writes the same buffers on every replay.
     Without it the input cache's state leaves are left as they were."""
-    _check_kv_bucket(kv_bucket)
+    _check_kv_bucket(cfg, kv_bucket)
     own = _state_leaves(cache) if _spare_states is not None else None
     tok = first_token.to(torch.int32)
     ok = (torch.ones((tok.shape[0],), dtype=torch.bool, device=tok.device)
@@ -514,7 +569,8 @@ def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
         dst = None if own is None else (_spare_states, own)[i % 2]
         logits, cache = lm_decode_step(cfg, params, tok, cache,
                                        kv_bucket=kv_bucket,
-                                       rope_len=rope_len, _out_states=dst)
+                                       rope_len=rope_len,
+                                       _out_states=dst)
         lg = logits[:, 0, :cfg.vocab_size]
         if with_sentinel:
             ok = ok & torch.isfinite(lg).all(-1)

@@ -27,11 +27,24 @@ def mlp_param_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
     }
 
 
+def activation(act: str):
+    """The gate's activation: SiLU, or GELU by the tanh approximation,
+    ``jax.nn.gelu``'s default."""
+    if act == "silu":
+        return F.silu
+    return lambda t: F.gelu(t, approximate="tanh")
+
+
+def gated(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
+          wo: torch.Tensor, act: str) -> torch.Tensor:
+    """``act(x @ wg) * (x @ wi) @ wo`` in ``x``'s dtype, with no scope (the
+    caller opens its own: ``mlp``, or the MoE's ``moe_shared_expert``)."""
+    dt = x.dtype
+    h = x @ wi.to(dt)
+    g = x @ wg.to(dt)
+    return (activation(act)(g) * h) @ wo.to(dt)
+
+
 def mlp(p: Dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     with scope("mlp"):
-        dt = x.dtype
-        h = x @ p["wi"].to(dt)
-        g = x @ p["wg"].to(dt)
-        # jax.nn.gelu's default is the tanh approximation
-        a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-        return (a * h) @ p["wo"].to(dt)
+        return gated(x, p["wi"], p["wg"], p["wo"], act)

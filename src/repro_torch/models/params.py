@@ -47,6 +47,23 @@ def stack_defs(defs, n: int, axis_name: str = "layers"):
                                        d.init, d.fan_in, d.scale), defs)
 
 
+# a normal leaf of more elements than this (8 GiB in fp32: the stacked
+# experts of a MoE model) is drawn piece by piece along its leading axes
+# into its own dtype, so the fp32 draw never holds more than this; every
+# smaller leaf is one draw, as before
+DRAW_LIMIT = 1 << 31
+
+
+def _normal_into(out: torch.Tensor, gen: torch.Generator,
+                 std: float) -> None:
+    if out.numel() <= DRAW_LIMIT:
+        out.copy_(torch.randn(out.shape, generator=gen, dtype=torch.float32,
+                              device=out.device) * std)
+        return
+    for piece in out:
+        _normal_into(piece, gen, std)
+
+
 def _init_leaf(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
     f32 = dict(dtype=torch.float32, device=device)
@@ -70,6 +87,10 @@ def _init_leaf(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
         std = d.scale / math.sqrt(max(fan_in, 1))
         if d.init == "normal_out":
             std = std / 2.0
+        if math.prod(d.shape) > DRAW_LIMIT:
+            out = torch.empty(d.shape, dtype=dtype, device=device)
+            _normal_into(out, gen, std)
+            return out
         return (torch.randn(d.shape, generator=gen, **f32) * std).to(dtype)
     raise ValueError(f"unknown init {d.init!r}")
 

@@ -51,6 +51,12 @@ On the card every write into the engine's cache (restore, quarantine,
 the NaN poke, the admission scatter) copies into the existing leaves, so
 the decode graphs' keys, which hold the leaves' addresses, stay the same.
 
+Encoder-only and audio models have no autoregressive path: the engine
+refuses them, as the reference's does, and :func:`make_encode_step`
+serves them (one full forward).  A vision model is served token-only;
+:func:`greedy_generate` takes its patch features.  MoE models run with
+one dispatch group, as the reference's do without a sharding plan.
+
 Not ported yet (ROADMAP.md): the reference's sharding ``plan=``.
 """
 from __future__ import annotations
@@ -68,7 +74,7 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.op_analysis import analyze, meta_like
 from repro_torch.models.lm import (decode_tokens, init_lm_cache,
-                                   init_spare_states, lm_prefill,
+                                   init_spare_states, lm_forward, lm_prefill,
                                    lm_prefill_chunk, prepare_params)
 from repro_torch.models.params import tree_leaves
 from repro_torch.serving.bucketing import (clamped_bucket, kv_cache_extent,
@@ -101,19 +107,45 @@ def _on_device(params, dev: torch.device) -> None:
         raise ValueError(f"params live on {sorted(bad)}, not {dev}")
 
 
+def make_encode_step(cfg: ModelConfig, *,
+                     device: Optional[Union[str, torch.device]] = None):
+    """The serve step of an encoder-only model (hubert): one full forward,
+    :func:`~repro_torch.models.lm.lm_forward` with no cache.  The step
+    takes (params, inputs): ``inputs`` holds ``features`` (an audio
+    model's frames [B, S, F]) and/or ``tokens``, and is moved to the
+    device; params from :func:`~repro_torch.models.lm.prepare_params`
+    are read as they are, raw ones are cast on every use.  Returns the
+    logits [B, S, V]."""
+    dev = resolve_device(device)
+
+    def encode_step(params, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        _on_device(params, dev)
+        tokens, feats = inputs.get("tokens"), inputs.get("features")
+        return lm_forward(cfg, params,
+                          None if tokens is None else tokens.to(dev),
+                          features=None if feats is None else feats.to(dev))
+
+    return encode_step
+
+
 def greedy_generate(cfg: ModelConfig, params, inputs: Dict[str, torch.Tensor],
                     max_seq: int, gen_len: int, *,
+                    features: Optional[torch.Tensor] = None,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> Tuple[torch.Tensor, Any]:
     """Prefill + greedy decode, the decode as one :func:`decode_tokens`
     burst with a spare state set (nothing is captured: a single burst
-    would never replay a graph).  Returns (tokens [B, gen_len], cache)."""
+    would never replay a graph).  A vision model's ``features`` [B, N, F]
+    go before the prompt, so decoding starts at position N + T.  Returns
+    (tokens [B, gen_len], cache)."""
     dev = resolve_device(device)
     _on_device(params, dev)
     params = prepare_params(cfg, params)
     tokens = inputs["tokens"].to(dev)
     cache = init_lm_cache(cfg, tokens.shape[0], max_seq, device=dev)
-    logits, cache = lm_prefill(cfg, params, tokens, cache)
+    logits, cache = lm_prefill(
+        cfg, params, tokens, cache,
+        features=None if features is None else features.to(dev))
     first = torch.argmax(logits[..., :cfg.vocab_size], -1).to(torch.int32)
     if gen_len <= 1:
         return first, cache
@@ -206,7 +238,8 @@ class ServingEngine:
         if not supports_chunked_prefill(cfg):
             raise ValueError(
                 f"{cfg.name}: no autoregressive serving path (encoder / "
-                "audio-frontend architecture)")
+                "audio-frontend architectures serve through "
+                "make_encode_step, not the slot engine)")
         self.device = resolve_device(device)
         _on_device(params, self.device)
         self.cfg = cfg

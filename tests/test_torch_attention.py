@@ -330,13 +330,19 @@ def test_attention_module_bf16_matches_pallas_semantics(mode):
 
 
 def test_unported_attention_paths_raise():
-    """The layer kinds still unported raise and name their ROADMAP item;
-    a ring without a window breaks the Pallas contract and raises."""
+    """Every layer kind of the reference is ported, so an unknown kind
+    raises ``ValueError`` as in the reference, from the param defs, the
+    cache and the layer alike; a ring without a window breaks the Pallas
+    contract and raises."""
     z = torch.zeros(1, 2, 8, 16)
     with pytest.raises(ValueError, match="ring KV layout requires"):
         flash_ops.flash_attention(z, z, z, kv_wrap=torch.zeros(1),
                                   ring_len=8)
     cfg = reduced(zamba2_2p7b)
-    for kind, item in (("moe", "MoE"), ("encoder", "encoder")):
-        with pytest.raises(NotImplementedError, match=item):
-            blocks.layer_param_defs(cfg, kind)
+    with pytest.raises(ValueError, match="unknown layer kind 'conv'"):
+        blocks.layer_param_defs(cfg, "conv")
+    with pytest.raises(ValueError, match="unknown layer kind 'conv'"):
+        blocks.init_layer_cache(cfg, "conv", 1, 8, dtype=torch.float32,
+                                device="cpu")
+    with pytest.raises(ValueError, match="unknown layer kind 'conv'"):
+        blocks.apply_layer(cfg, "conv", {}, torch.zeros(1, 2, 64))

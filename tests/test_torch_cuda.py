@@ -7,6 +7,11 @@ card and no JAX it runs on its own:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 Shapes are the reduced config's and widths off each kernel's tiles,
+the flash kernel non-causal at hubert-xlarge's encoder shape (B=4, 16
+heads of 80, 1500 frames), the MoE layer's gshard and ragged paths at
+qwen3-moe-235b-a22b's expert shapes with 8 experts (against the CPU and
+a plain per-expert loop), the decode burst's graph replays of reduced
+qwen3-moe (both dispatch paths) and llama4-maverick,
 gemma3-1b's head_dim 256, qwen2.5-0.5b's 64 and phi-3-mini's 96, decode
 attention at glm4-9b's 16 query heads per KV head (and 10 at d=64, off
 the tiles), and the
@@ -28,6 +33,7 @@ their K and V as
 ``transpose(1, 2)`` views of a ``[B, S, KV, d]`` cache, as the model
 hands them over.
 """
+import dataclasses
 import math
 
 import pytest
@@ -275,6 +281,26 @@ def test_flash_kernel(cuda, dtype, mode, d, h, kvh):
     want = flash_ref.attention_ref(q, k, v, **{**kw, "q_offset": kw.get(
         "q_offset", 0)})
     _close_rows(got, want, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_encoder_shape(cuda, dtype):
+    """Non-causal attention at hubert-xlarge's encoder shape: B=4, 16 heads
+    of 80 on 16 KV heads, 1500 frames (30 s of audio at 50 frames/s), off
+    the 64-key and 128-row tiles; one launch."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(31), cuda)
+    td = DTYPES[dtype]
+    b, h, s, d = 4, 16, 1500, 80
+    q = rn(b, s, h, d, dt=td).transpose(1, 2)
+    k = _cache_view(rn, b, s, h, d, td)
+    v = _cache_view(rn, b, s, h, d, td)
+    n0 = flash_ops.flash_attention.launches
+    got = flash_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == n0 + 1
+    _close_rows(got, flash_ref.attention_ref(q, k, v, causal=False),
+                TOL[dtype])
 
 
 # (window, ring_len, Sq, cursors): a full ring with cursors before, at and
@@ -707,14 +733,21 @@ def test_mamba1_wrappers_raise_on_shapes_not_built(cuda):
 # reduced (two units of each layer pattern, d_model 64, head_dim 16,
 # d_state 16), bf16 compute and caches, as the engine serves them
 GRAPH_ARCHS = ("mamba2-2.7b", "zamba2-2.7b", "mamba-130m", "llama3-8b",
-               "gemma3-1b", "falcon-h1-0.5b")
+               "gemma3-1b", "falcon-h1-0.5b", "qwen3-moe-235b-a22b",
+               "llama4-maverick-400b-a17b", "qwen3-moe-235b-a22b:ragged")
 
 
 def _graph_model(name, dev):
+    """A reduced registered config; ``name:ragged`` with the ragged MoE
+    dispatch."""
     from repro_torch.configs import reduced
     from repro_torch.core.registry import get
     from repro_torch.models import lm
+    name, _, impl = name.partition(":")
     cfg = reduced(get(name))
+    if impl:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               impl=impl))
     gen = torch.Generator(device=dev).manual_seed(0)
     return cfg, lm.prepare_params(cfg, lm.init_lm_params(cfg, gen,
                                                          device=dev))
@@ -1114,3 +1147,94 @@ def test_profiler_trace_windows_attribute_every_kernel(cuda, tmp_path):
         assert ft.ms["ssm"] >= ssm * (1 - 1e-9), name
         assert ft.ms["other"] >= attn * (1 - 1e-9), name
     assert runner.replays == 1 and runner.captures == 1
+
+
+# --------------------------------------------------------- the MoE layer
+# qwen3-moe-235b-a22b's expert shapes (d_model 4096, expert d_ff 1536)
+# with 8 experts, top 2: 4 x 64 tokens
+
+
+def _moe_case(cf, impl="gshard"):
+    from repro_torch.core.config import MoEConfig
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    m = MoEConfig(n_experts=8, experts_per_token=2, d_ff_expert=1536,
+                  capacity_factor=cf, impl=impl)
+    gen = torch.Generator().manual_seed(40)
+    p = init_params(moe.moe_param_defs(4096, m), gen, torch.float32,
+                    torch.device("cpu"))
+    x = torch.randn((4, 64, 4096), generator=gen)
+    return m, p, x
+
+
+def _to(p, x, dev, dt):
+    """The layer's params and input on ``dev``, the experts and x in
+    ``dt`` (the router stays fp32, as ``prepare_params`` leaves it)."""
+    cast = {k: (v if k == "router" else v.to(dt)) for k, v in p.items()}
+    return ({k: v.to(dev) for k, v in cast.items()}, x.to(dt).to(dev))
+
+
+def _moe_plain(p, x, m):
+    """Every token's top-k experts applied one by one, gate-weighted, in
+    fp32 on the CPU: the function both dispatch paths compute where
+    nothing drops."""
+    import torch.nn.functional as F
+    xf = x.float().reshape(-1, x.shape[-1])
+    gates, idx = torch.topk(xf @ p["router"].float(), m.experts_per_token,
+                            dim=-1)
+    gates = torch.softmax(gates, -1)
+    y = torch.zeros_like(xf)
+    for e in range(m.n_experts):
+        rows, slot = torch.nonzero(idx == e, as_tuple=True)
+        if rows.numel():
+            h = xf[rows] @ p["wi"][e].float()
+            g = xf[rows] @ p["wg"][e].float()
+            y[rows] += gates[rows, slot, None] * (
+                (F.silu(g) * h) @ p["wo"][e].float())
+    return y.reshape(x.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gshard_on_card_matches_cpu(cuda, dtype):
+    """The gshard path on the card against the same function on the CPU
+    from the same (rounded) inputs, at the default capacity factor 1.25,
+    where choices drop."""
+    from repro_torch.models import moe
+    m, p, x = _moe_case(1.25)
+    td = DTYPES[dtype]
+    pc, xc = _to(p, x, "cpu", td)
+    pd, xd = _to(p, x, cuda, td)
+    want = moe.moe_gshard(pc, xc, m, 1)
+    got = moe.moe_gshard(pd, xd, m, 1)
+    torch.cuda.synchronize()
+    _close([got.cpu()], [want], TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["gshard", "ragged"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_on_card_matches_plain(cuda, dtype, impl):
+    """Both paths on the card at a capacity where nothing drops, against
+    the plain per-expert loop in fp32 on the CPU from the same rounded
+    inputs (in bf16: one rounding of each product)."""
+    from repro_torch.models import moe
+    m, p, x = _moe_case(8.0, impl)
+    td = DTYPES[dtype]
+    pd, xd = _to(p, x, cuda, td)
+    pc, xc = _to(p, x, "cpu", td)
+    got = moe.moe(pd, xd, m)
+    torch.cuda.synchronize()
+    _close([got.cpu().float()], [_moe_plain(pc, xc, m)], TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_moe_ragged_equals_gshard_without_drops(cuda):
+    """bf16 on the card, capacity factor 8: the two paths agree."""
+    from repro_torch.models import moe
+    m, p, x = _moe_case(8.0)
+    pd, xd = _to(p, x, cuda, torch.bfloat16)
+    a = moe.moe_gshard(pd, xd, m, 1)
+    b = moe.moe_ragged(pd, xd, m)
+    torch.cuda.synchronize()
+    _close([a.float()], [b.float()], TOL["bfloat16"])
