@@ -145,16 +145,40 @@ Phases (each prints its lines and is fatal on failure):
      prompt: first logits kernel path against plain path, decoding from
      position 1088, then 32 tokens through ``greedy_generate`` with exact
      launches (``phase_vision``); each phase prints its seconds;
+ 10. training (``phase_backward_kernels``, ``phase_train_paths``,
+     ``phase_train_full``): (a) the three backward kernels (flash, SSD,
+     conv1d) against their plain backwards at zamba2-2.7b's shapes (SSD,
+     conv1d at C=5248, the shared block's flash: 32 heads of 80) and
+     smollm-135m's flash (9 query heads on 3, d=64), B=4, S=512, bf16
+     and fp32, within 1e-4 (fp32) or 3% (bf16) of each gradient's max
+     |g|, two calls bit for bit, then at the training shape (B=4 x
+     S=2048; B=8 for smollm) in bf16 held the same way and timed beside
+     the plain versions, autograd of the library calls and the bounds; (b) a training loss and
+     gradient through the kernels against autograd through the plain
+     versions: zamba2-2.7b at one unit (6 layers) and smollm-135m at 4
+     layers in fp32 and bf16, and zamba2-2.7b at its 54 layers in bf16
+     (the shared block's 9 positions), with exact launches (each unit's
+     forward kernels twice under remat, each backward kernel once);
+     (c) zamba2-2.7b at full width and depth through ``Trainer`` (fp32
+     masters, bf16 compute, ``OptConfig()``, B=4 x S=2048), 8 steps with
+     a checkpoint at step 4, and a fresh ``Trainer`` restored there
+     replaying steps 5-8 within rtol 1e-5; (d) smollm-135m at full size,
+     B=8 x S=2048, 8 steps; both print the median step ms, tokens/s, the
+     model-FLOPs share of 989 TFLOP/s, peak memory and a traced step's
+     backward-kernel time against its forward kernels';
 then a ``kernels`` JSON line (the five Mamba-2 and attention kernels at
 zamba2-2.7b's shapes, the two Mamba-1 kernels at mamba-130m's and the
 flash kernel's ring mode at gemma3-1b's, each with the launches of its
-own config's serving run), the card line, and the result line last.
+own config's serving run, and the three backward kernels at zamba2-2.7b's
+training shape with the launches of its 8 training steps), the card
+line, and the result line last.
 Imports nothing of JAX nor of the reference package.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -239,6 +263,13 @@ def device_ms_cold(fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
+# launches that open every trace of ``device_busy``: unprimed, the tracer
+# lost the kernel records of up to 29 of a trace's first launches in one
+# run of this script (more the longer the process had run), eager and
+# graph alike (``scripts/tracer_start_drops.py``)
+TRACER_PRIMER = 256
+
+
 def device_busy(fn, names=()) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and read the trace: wall
     time, the union of kernel intervals on the card, kernel launches, and
@@ -252,17 +283,23 @@ def device_busy(fn, names=()) -> dict:
     operation's and the first kernel's offsets, both on the card's clock,
     from the end of a one-element fill launched right before ``fn`` (the
     card's and the host's clocks are not one clock), and the host time in
-    ``cudaGraphLaunch``.  One small operation runs before ``fn``, so the
-    tracer is live when ``fn`` starts; only the device operations of the
+    ``cudaGraphLaunch``.  The tracer loses the device records of the
+    first launches of a trace (none early in the process, dozens late
+    in it; the launches' own host records stay), so
+    ``TRACER_PRIMER`` small launches, each waited for, come first, and a
+    trace that lost the marker's record is refused: the count of kernels
+    is then exact, not a lower bound.  Only the device operations of the
     calls ``fn`` made are read.  The trace is
     kept in ``build/repro_torch/`` (listed in .gitignore)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     marker = torch.zeros(1, device="cuda")
+    primer = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.ones(1, device="cuda").sum()
-        torch.cuda.synchronize()
+        for _ in range(TRACER_PRIMER):
+            primer.add_(1.0)
+            torch.cuda.synchronize()
         with record_function("device_busy_fn"):
             t0 = time.monotonic()
             with record_function("device_busy_marker"):
@@ -300,7 +337,11 @@ def device_busy(fn, names=()) -> dict:
     marks = [e for e in events if "dur" in e
              and e.get("args", {}).get("correlation") in marker_ids
              and e.get("cat") in ("kernel", "gpu_memset")]
-    dev0 = max(e["ts"] + e["dur"] for e in marks) if marks else None
+    if not marks:
+        raise AssertionError("device_busy: the tracer lost the marker's "
+                             "record, so the trace's first launches are "
+                             "missing; raise TRACER_PRIMER")
+    dev0 = max(e["ts"] + e["dur"] for e in marks)
     ops = [e for e in events if "dur" in e
            and e.get("args", {}).get("correlation") in ids]
     kernels = [e for e in ops if e.get("cat") == "kernel"]
@@ -337,10 +378,9 @@ def device_busy(fn, names=()) -> dict:
                 device_span_ms=span_us / 1e3,
                 idle_share_in_span=(1 - busy / span_us) if spans else None,
                 first_device_op_ms=(
-                    (device_ops[0][0] - dev0) / 1e3
-                    if device_ops and dev0 is not None else None),
+                    (device_ops[0][0] - dev0) / 1e3 if device_ops else None),
                 first_kernel_ms=(spans[0][0] - dev0) / 1e3
-                if spans and dev0 is not None else None,
+                if spans else None,
                 graph_launch_ms=graph_launch_us / 1e3,
                 **({"by_name": by_name} if names else {}))
 
@@ -1316,8 +1356,7 @@ def phase_steady_bursts(cfg, eng, gen):
     positions stay where the served run left them, so every burst runs at
     one key (it rewrites the same 8 KV rows; the states move on).  Burst
     ms (median of 3 after one more), tokens/s, a profiled burst each way
-    (idle share, kernels, memcpys; the graph's no more than eager's; the
-    fullest of three profiles), the
+    (idle share, kernels, memcpys; the graph's no more than eager's), the
     idle share of the profiled kernel time against the unprofiled burst,
     the state leaves the eager burst copies (none: even bursts end in the
     cache's own leaves); then the graph bursts against eager bursts from
@@ -1360,11 +1399,7 @@ def phase_steady_bursts(cfg, eng, gen):
                 burst()
         out[f"steady_b4_burst8_{name}_ms"] = burst_s * 1e3
         out[f"steady_b4_{name}_tokens_per_s"] = 4 * 8 / burst_s
-        # the tracer drops a few records of a long eager trace in some
-        # runs (never adds any): the fullest of three profiles is kept
-        busy = out[f"profiled_decode_burst8_b4_{name}"] = max(
-            (device_busy(burst) for _ in range(3)),
-            key=lambda p: (p["kernels"], p["memcpys"]))
+        busy = out[f"profiled_decode_burst8_b4_{name}"] = device_busy(burst)
         # the profiled kernel time over the unprofiled burst: the tracer
         # slows the host (most of all a graph launch of ~15k nodes)
         out[f"idle_share_vs_unprofiled_burst_{name}"] = (
@@ -2492,6 +2527,493 @@ def phase_control(gen):
     return out
 
 
+# ------------------------------------------------------------ phase 10
+
+# the backward kernels' limits: fp32 within 1e-4 of each gradient's max
+# |g| (sums in another order), bf16 within 3% (each output one bf16
+# rounding, the inputs the same bf16 values on both sides)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def bwd_counters():
+    """The backward kernels' launch counters, by row name."""
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return {"flash_bwd": flash_ops.flash_attention_bwd_cuda,
+            "ssd_bwd": ssd_ops.ssd_chunked_bwd_cuda,
+            "conv1d_bwd": conv_ops.causal_conv1d_bwd_cuda}
+
+
+def reset_train_counters():
+    reset_counters()
+    for fn in bwd_counters().values():
+        fn.launches = 0
+
+
+def read_train_counters():
+    out = {k: v for k, v in read_counters().items() if v}
+    out.update({k: fn.launches for k, fn in bwd_counters().items()})
+    return out
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Device time of one ``fn()`` between CUDA events, after one warm-up
+    call; median over ``reps`` (for calls a CUDA graph cannot hold, such
+    as an autograd backward)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def hold_bwd(name, dt, got, again, want) -> float:
+    """Each gradient within ``BWD_TOL`` of its own max |g|, and a second
+    call bit for bit; returns the largest ratio to the limit."""
+    worst = 0.0
+    for i, (a, a2, b) in enumerate(zip(got, again, want)):
+        if a.shape != b.shape:
+            raise AssertionError(f"{name} {dt} output {i}: {a.shape} != "
+                                 f"{b.shape}")
+        if not torch.equal(a, a2):
+            raise AssertionError(f"{name} {dt} output {i}: two calls differ")
+        r = whole_ratio(a, b, BWD_TOL[dt], floor=torch.finfo(
+            torch.float32).tiny)
+        if not r <= 1.0:
+            raise AssertionError(f"{name} {dt} output {i}: error {r} x its "
+                                 f"limit ({BWD_TOL[dt]} of max |g|)")
+        worst = max(worst, r)
+    return worst
+
+
+def bwd_cases(gen, dt, b: int, s: int):
+    """The three backward kernels' calls and plain versions at zamba2-2.7b's
+    shapes (SSD, conv1d, the shared block's flash: 32 heads of 80) and
+    smollm-135m's flash (9 query heads on 3, d=64), B=``b``, S=``s``, in
+    ``dt``: name -> (kernel call, plain call, inputs, FLOPs, library call
+    or None).  The FLOPs are the products the function needs: flash's
+    five (S, dP, dV, dK, dQ) over the causal half, 10 d a (query, key)
+    pair; SSD's per chunk and head C B^T, dy x^T, and the three products
+    with them over the causal half, and the four with the states (B dh'^T,
+    x^T dh', dy h, dy^T C); conv1d's 6 K + 7 an element."""
+    from repro_torch.configs import smollm_135m, zamba2_2p7b
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.kernels.conv1d import ref as conv_ref
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    import torch.nn.functional as F
+
+    def rn(*shape, dtype=dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    z, sm = zamba2_2p7b, smollm_135m
+    sc = z.ssm
+    H, P, N, G, K, Q = (sc.n_ssm_heads(z.d_model), sc.headdim, sc.d_state,
+                        sc.n_groups, sc.conv_kernel, sc.chunk)
+    C = sc.d_inner(z.d_model) + 2 * G * N
+    cases = {}
+    (x, dts, A, Bm, Cm, D), _ = ssd_ref.model_scale_inputs(gen, b, s, H, P,
+                                                           N, dt)
+    dy = rn(b, s, H, P)
+    _, _, st = ssd_ops.ssd_chunked_cuda(x, dts, A, Bm, Cm, D, chunk=Q,
+                                        chunk_states=True)
+    qh, nc = Q * (Q + 1) // 2, s // Q
+    ssd_in = (x, dts, A, Bm, Cm, D, dy, st)
+    cases["ssd_bwd"] = (
+        lambda: ssd_ops.ssd_chunked_bwd_cuda(*ssd_in, chunk=Q),
+        lambda: ssd_ref.ssd_chunked_bwd_ref(*ssd_in, chunk=Q), ssd_in,
+        2.0 * b * H * nc * (qh * (3 * N + 2 * P) + 4 * Q * P * N), None)
+
+    xc, dyc = rn(b, s, C), rn(b, s, C)
+    w, bias = 0.5 * rn(C, K, dtype=torch.float32), 0.1 * rn(
+        C, dtype=torch.float32)
+    conv_in = (xc, w, bias, dyc)
+    xl = xc.detach().transpose(1, 2).contiguous().requires_grad_()
+    wl = w[:, None, :].detach().requires_grad_()
+    bl = bias.detach().requires_grad_()
+    yl = F.silu(F.conv1d(xl, wl.to(dt), bl.to(dt), padding=K - 1,
+                         groups=C)[..., :s])
+    dyl = dyc.transpose(1, 2).contiguous()
+    cases["conv1d_bwd"] = (
+        lambda: conv_ops.causal_conv1d_bwd_cuda(*conv_in),
+        lambda: conv_ref.causal_conv1d_bwd_ref(*conv_in), conv_in,
+        (6.0 * K + 7.0) * b * s * C,
+        lambda: torch.autograd.grad(yl, (xl, wl, bl), dyl,
+                                    retain_graph=True))
+
+    for name, a in (("flash_bwd", z.shared_attn), ("flash_bwd_smollm",
+                                                   sm.attn)):
+        q = rn(b, a.n_heads, s, a.head_dim)
+        k, v = (rn(b, a.n_kv_heads, s, a.head_dim) for _ in range(2))
+        o, lse = flash_ops.flash_attention_cuda(q, k, v, causal=True,
+                                                lse=True)
+        do = rn(b, a.n_heads, s, a.head_dim)
+        fin = (q, k, v, o, do, lse)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        g = a.n_heads // a.n_kv_heads
+        ol = F.scaled_dot_product_attention(
+            ql, kl.repeat_interleave(g, 1), vl.repeat_interleave(g, 1),
+            is_causal=True)
+        cases[name] = (
+            lambda fin=fin: flash_ops.flash_attention_bwd_cuda(*fin),
+            lambda fin=fin: flash_ref.flash_bwd_ref(*fin), fin,
+            10.0 * a.head_dim * b * a.n_heads * s * (s + 1) / 2,
+            lambda ol=ol, do=do, ins=(ql, kl, vl): torch.autograd.grad(
+                ol, ins, do, retain_graph=True))
+    return cases
+
+
+def phase_backward_kernels(gen):
+    """(a) Each backward kernel against its plain backward at B=4, S=512 in
+    bf16 and fp32, repeated bit for bit; then in bf16 at the training shape
+    (zamba2-2.7b's B=4, S=2048; smollm-135m's flash at its B=8) held the
+    same way and timed: ms, the plain version's, autograd of the library
+    call's (SDPA causal; F.conv1d with groups=C then SiLU; none for SSD)
+    and the bound.  Returns the kernels line's rows (without launches) and
+    the checks at B=4, S=512."""
+    checks = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for name, (kern, plain, *_rest) in bwd_cases(gen, dt, 4, 512).items():
+            got, again, want = kern(), kern(), plain()
+            checks[f"{name} {dt}"] = dict(
+                max_abs_err=max_err(got, want),
+                of_limit=hold_bwd(name, dt, got, again, want))
+            del got, again, want
+        torch.cuda.empty_cache()
+    rows = {}
+    sources = {"flash_bwd": ("flash_bwd.cu",
+                             "src/repro/kernels/flash/kernel.py:124"),
+               "ssd_bwd": ("ssd_bwd.cu", "src/repro/kernels/ssd/kernel.py:68"),
+               "conv1d_bwd": ("conv1d_bwd.cu",
+                              "src/repro/kernels/conv1d/kernel.py:37")}
+    for b, names in ((4, ("ssd_bwd", "conv1d_bwd", "flash_bwd")),
+                     (8, ("flash_bwd_smollm",))):
+        cases = bwd_cases(gen, torch.bfloat16, b, 2048)
+        for name in names:
+            kern, plain, ins, flops, lib = cases[name]
+            got, again, want = kern(), kern(), plain()
+            of_limit = hold_bwd(name, torch.bfloat16, got, again, want)
+            del again
+            bms, by = bound(nbytes(*ins) + nbytes(*got), flops,
+                            torch.bfloat16)
+            key = "flash_bwd" if name.startswith("flash") else name
+            row = dict(
+                name=name, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{sources[key][0]}",
+                replaces=sources[key][1], shape=f"B={b}, S=2048",
+                max_abs_err=max_err(got, want), of_limit=of_limit,
+                ms=device_ms(kern, 2, 5),
+                plain_ms=event_ms(plain, 3), bound_ms=bms, bound_by=by,
+                library_ms=None if lib is None else event_ms(lib, 5))
+            rows[name] = row
+            del got, want
+        del cases
+        torch.cuda.empty_cache()
+    return rows, checks
+
+
+def plain_training():
+    """The training path's kernels swapped for their plain versions, which
+    autograd differentiates (no kernel launches)."""
+    from repro_torch.kernels.conv1d import ref as conv_ref
+    from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.models import attention as attn
+    from repro_torch.models import mamba2 as m2
+
+    def ssd(x, dt_raw, dt_bias, A_log, Bm, Cm, D, *, chunk, initial_state,
+            out_state=None):
+        dt, A = ssd_ref.preprocess_dt_A(dt_raw, dt_bias, A_log)
+        return ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk)
+
+    def conv(x, w, b, *, initial_state=None, activation="silu", lengths=None,
+             out_state=None):
+        return conv_ref.causal_conv1d_ref(x, w, b)
+
+    def flash(q, k, v, *, causal=True, window=None, **_):
+        return flash_ref.attention_ref(q, k, v, causal=causal, window=window)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(m2, "ssd_chunked_raw", ssd))
+    stack.enter_context(mock.patch.object(m2, "causal_conv1d", conv))
+    stack.enter_context(mock.patch.object(attn, "flash_attention", flash))
+    return stack
+
+
+def train_launches(cfg) -> dict:
+    """Exact launches of one training step of ``cfg`` under remat: each
+    unit's forward kernels twice (the forward, then its recomputation in
+    the backward), each backward kernel once, per layer."""
+    fwd = {"causal_conv1d": 0, "ssd_chunked": 0, "flash_attention": 0}
+    for kind in cfg.layer_kinds:
+        if kind in ("mamba2", "mamba2+shared"):
+            fwd["causal_conv1d"] += 1
+            fwd["ssd_chunked"] += 1
+        if kind in ("dense", "mamba2+shared"):
+            fwd["flash_attention"] += 1
+    out = {k: 2 * n for k, n in fwd.items() if n}
+    for k, bk in (("causal_conv1d", "conv1d_bwd"), ("ssd_chunked", "ssd_bwd"),
+                  ("flash_attention", "flash_bwd")):
+        out[bk] = fwd[k]
+    return out
+
+
+def phase_train_paths(cfg, gen, n_layers: int, compute_dtype: str,
+                      b: int = 2, s: int = 512) -> dict:
+    """(b) One ``make_train_step`` loss and gradient of ``cfg`` cut to
+    ``n_layers`` (fp32 masters, ``compute_dtype``), B=``b``, S=``s``,
+    through the kernels against autograd through the plain versions on the
+    card, from the same params and tokens.  fp32: loss within 1e-4
+    relative, each leaf's gradient within 1e-3 of its max |g|; bf16: loss
+    within 2%, the global gradient norm within 5%, each leaf's cosine >=
+    0.99 (at full depth: the shared block's and the embedding's, the
+    leaves used more than once).  The kernel run launches exactly
+    ``train_launches``; the plain
+    run none.  Then the step itself (AdamW) through the kernels: finite
+    loss and grad norm."""
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_loss_fn, make_train_step
+    cfg_n = dataclasses.replace(cfg, n_layers=n_layers,
+                                compute_dtype=compute_dtype)
+    params = init_lm_params(cfg_n, gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    loss_fn = make_loss_fn(cfg_n)
+
+    def grads():
+        live = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        loss = loss_fn(tree_unflatten(params, live), batch)
+        return loss.detach(), torch.autograd.grad(loss, live)
+
+    reset_train_counters()
+    loss_k, g_k = grads()
+    torch.cuda.synchronize()
+    launched = read_train_counters()
+    want = train_launches(cfg_n)
+    if launched != want:
+        raise AssertionError(f"{cfg.name}: launches {launched} != {want}")
+    reset_train_counters()
+    with plain_training():
+        loss_p, g_p = grads()
+    torch.cuda.synchronize()
+    plain_launched = {k: v for k, v in read_train_counters().items() if v}
+    if plain_launched:
+        raise AssertionError(f"the plain path launched {plain_launched}")
+    lk, lp = float(loss_k), float(loss_p)
+    gn_k = float(torch.sqrt(sum(g.float().square().sum() for g in g_k)))
+    gn_p = float(torch.sqrt(sum(g.float().square().sum() for g in g_p)))
+    worst, worst_cos = 0.0, 1.0
+    for a, p in zip(g_k, g_p):
+        a, p = a.float(), p.float()
+        top = float(p.abs().max())
+        worst = max(worst, float((a - p).abs().max()) / max(top, 1e-30))
+        den = float(a.norm() * p.norm())
+        worst_cos = min(worst_cos, float((a * p).sum()) / den if den else 1.0)
+    out = dict(loss=lk, plain_loss=lp, grad_norm=gn_k, plain_grad_norm=gn_p,
+               worst_leaf_err_of_max=worst, worst_leaf_cosine=worst_cos,
+               launches=launched, leaves=len(g_k))
+    # the leaves used more than once: the shared block (at each
+    # mamba2+shared position) and a tied embedding (lookup and head)
+    at = {id(t): i for i, t in enumerate(tree_leaves(params))}
+    multi = {"embed": [params["embed"]]}
+    if "shared" in params:
+        multi["shared"] = tree_leaves(params["shared"])
+    for key, leaves in multi.items():
+        i = [at[id(t)] for t in leaves]
+        a = torch.cat([g_k[j].float().ravel() for j in i])
+        p = torch.cat([g_p[j].float().ravel() for j in i])
+        out[f"{key}_grad_cosine"] = float((a * p).sum() / (a.norm() * p.norm()))
+        out[f"{key}_grad_norm_ratio"] = float(a.norm() / p.norm())
+    if not (math.isfinite(lk) and math.isfinite(gn_k)):
+        raise AssertionError(f"{cfg.name}: non-finite loss or grad norm")
+    # the cosines held: every leaf's at the cut depths (one unit, four
+    # layers); at full depth (54 bf16 layers) those of the leaves used
+    # more than once (the shared block at its 9 positions, the
+    # embedding), whose sums the case is there to show
+    cosines = ([worst_cos] if n_layers < cfg.n_layers else
+               [v for k, v in out.items() if k.endswith("_grad_cosine")])
+    if compute_dtype == "float32":
+        if abs(lk - lp) > 1e-4 * abs(lp) or worst > 1e-3:
+            raise AssertionError(f"{cfg.name} fp32: loss {lk} vs {lp}, "
+                                 f"worst leaf {worst} of its max")
+    elif (abs(lk - lp) > 0.02 * abs(lp) or abs(gn_k - gn_p) > 0.05 * gn_p
+          or min(cosines) < 0.99):
+        raise AssertionError(f"{cfg.name} bf16: loss {lk} vs {lp}, grad "
+                             f"norm {gn_k} vs {gn_p}, cosines {cosines}")
+    del g_k, g_p
+    opt = OptConfig()
+    _, _, m = make_train_step(cfg_n, opt)(params, init_opt_state(params, opt),
+                                          batch)
+    if not (math.isfinite(float(m["loss"]))
+            and math.isfinite(float(m["grad_norm"]))):
+        raise AssertionError(f"{cfg.name}: the step's loss or norm is not "
+                             "finite")
+    return out
+
+
+def model_flops(cfg, b: int, s: int) -> float:
+    """A training step's model FLOPs: 6 N per token, N counting each
+    weight once per application (the shared block at every
+    ``mamba2+shared`` position), plus attention's products over the causal
+    half, 12 d per (query, key) pair and head (forward and backward)."""
+    from repro_torch.core.memmodel import param_count
+    heads = [cfg.shared_attn if kind == "mamba2+shared" else cfg.attn
+             for kind in cfg.layer_kinds if kind in ("mamba2+shared",
+                                                     "dense")]
+    n_shared = cfg.layer_kinds.count("mamba2+shared")
+    n = param_count(cfg)
+    if n_shared:   # param_count holds the shared block once
+        a, d = cfg.shared_attn, cfg.d_model
+        q, kv = a.n_heads * a.head_dim, a.n_kv_heads * a.head_dim
+        n += (n_shared - 1) * (d * (q + 2 * kv) + q * d
+                               + 3 * d * cfg.shared_attn_d_ff)
+    attn = sum(12.0 * a.head_dim * a.n_heads * b * s * (s + 1) / 2
+               for a in heads)
+    return 6.0 * n * b * s + attn
+
+
+FWD_KERNELS = ("flash_wgmma_kernel", "ssd_tc_kernel", "conv1d_kernel")
+BWD_KERNELS = ("flash_bwd", "ssd_bwd", "conv1d_bwd")
+
+
+def phase_train_full(cfg, gen, b: int, s: int, steps: int = 8,
+                     restart_at=None) -> dict:
+    """(c), (d) ``cfg`` at full width and depth through ``Trainer``: fp32
+    masters, bf16 compute, ``OptConfig()``, ``steps`` steps of B=``b`` x
+    S=``s`` of the synthetic needle stream.  With ``restart_at`` the run
+    checkpoints at that step (``ckpt_every`` 0: the one checkpoint is the
+    end of a run of ``restart_at`` steps, in a temporary directory under
+    ``build/``), goes on to ``steps``, and a fresh ``Trainer`` restored
+    from it replays the rest: its losses equal the first run's within
+    rtol 1e-5 (the reference's rule).  Every loss and gradient norm is
+    finite and the params change.  Prints the median step ms (host clock
+    around each step, which ends in reading the loss), tokens/s, the
+    model-FLOPs share of 989 TFLOP/s, peak memory (the most any step
+    allocated) beside the params and moments at rest, the launches of the
+    run, and one more step traced: the backward kernels' time against the
+    forward kernels'."""
+    import shutil
+    import tempfile
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp_root = os.path.join(here, "build", "repro_torch")
+    os.makedirs(tmp_root, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_", dir=tmp_root)
+    first = restart_at or steps
+    metrics = []
+
+    def recording(trainer):
+        step = trainer._step_fn
+
+        def fn(params, opt_state, batch):
+            torch.cuda.reset_peak_memory_stats()
+            out = step(params, opt_state, batch)
+            metrics.append(dict({k: float(v) for k, v in out[2].items()},
+                                peak=torch.cuda.max_memory_allocated()))
+            return out
+        trainer._step_fn = fn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # what earlier phases still hold (1.17 GB read before zamba2-2.7b's
+    # run on an H100 80GB HBM3): its 48 GB peak needs the rest of the card
+    held = torch.cuda.memory_allocated()
+    if held > 8 << 30:
+        raise AssertionError(f"{cfg.name}: {held} B of device memory still "
+                             "held before training at full size")
+    try:
+        t1 = Trainer(cfg, OptConfig(), TrainerConfig(
+            steps=first, ckpt_every=0, log_every=10 ** 9,
+            ckpt_dir=ckpt_dir if restart_at else None),
+            seq_len=s, global_batch=b)
+        at_rest = torch.cuda.memory_allocated()
+        recording(t1)
+        probe = [t.detach().float().sum() for t in tree_leaves(t1.params)]
+        reset_train_counters()
+        t1.run(log=lambda *_: None)
+        if restart_at:
+            t1.ckpt = None
+            t1.tcfg = dataclasses.replace(t1.tcfg, steps=steps)
+            t1.run(log=lambda *_: None)
+        torch.cuda.synchronize()
+        launched = read_train_counters()
+        want = {k: steps * n for k, n in train_launches(cfg).items()}
+        if launched != want:
+            raise AssertionError(f"{cfg.name}: {steps} steps launched "
+                                 f"{launched}, not {want}")
+        peak = max(m["peak"] for m in metrics)
+        changed = sum(int(bool(t.detach().float().sum() != p0))
+                      for t, p0 in zip(tree_leaves(t1.params), probe))
+        losses = list(t1.state.losses)
+        times = list(t1.state.step_times)
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in t1.batch_fn(steps).items()}
+        names = FWD_KERNELS + BWD_KERNELS
+        busy = device_busy(lambda: t1._step_fn(t1.params, t1.opt_state,
+                                               batch), names)
+        del t1, probe, batch
+        torch.cuda.empty_cache()
+        replay = None
+        if restart_at:
+            t2 = Trainer(cfg, OptConfig(), TrainerConfig(
+                steps=steps, ckpt_every=0, log_every=10 ** 9,
+                ckpt_dir=ckpt_dir), seq_len=s, global_batch=b)
+            if not t2.maybe_restore() or t2.state.step != restart_at:
+                raise AssertionError(f"{cfg.name}: no checkpoint at step "
+                                     f"{restart_at}")
+            t2.ckpt = None
+            t2.run(log=lambda *_: None)
+            replay = list(t2.state.losses)
+            del t2
+            torch.cuda.empty_cache()
+            want = losses[restart_at:]
+            if len(replay) != len(want) or any(
+                    abs(x - y) > 1e-5 * abs(y) for x, y in zip(replay, want)):
+                raise AssertionError(f"{cfg.name}: the restored run's losses "
+                                     f"{replay} != {want}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in metrics):
+        raise AssertionError(f"{cfg.name}: non-finite loss or grad norm")
+    if not changed:
+        raise AssertionError(f"{cfg.name}: no param changed")
+    med = statistics.median(times)
+    fwd_ms = sum(busy["by_name"][n]["kernel_ms"] for n in FWD_KERNELS)
+    bwd_ms = sum(busy["by_name"][n]["kernel_ms"] for n in BWD_KERNELS)
+    return dict(
+        batch=b, seq=s, steps=steps, losses=losses, replayed=replay,
+        grad_norms=[m["grad_norm"] for m in metrics[:steps]],
+        step_ms=[t * 1e3 for t in times], median_step_ms=med * 1e3,
+        tokens_per_s=b * s / med,
+        model_flops_per_step=model_flops(cfg, b, s),
+        model_flops_share=model_flops(cfg, b, s) / med / 989e12,
+        peak_memory_allocated=peak, held_before_bytes=held,
+        params_and_moments_bytes=at_rest - held,
+        params_changed=changed,
+        launches=launched, traced_step=dict(
+            wall_ms=busy["wall_ms"], kernel_busy_ms=busy["kernel_busy_ms"],
+            kernels=busy["kernels"], idle_share=busy["idle_share"],
+            by_name=busy["by_name"], backward_kernel_ms=bwd_ms,
+            forward_kernel_ms=fwd_ms,
+            backward_over_forward=bwd_ms / fwd_ms if fwd_ms else None))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2665,11 +3187,60 @@ def main() -> int:
           f"32 new through greedy_generate ({time.perf_counter() - t0:.1f} "
           f"s): " + json.dumps(vis), flush=True)
 
+    # earlier phases' engines hold device tensors in reference cycles
+    # (closures over themselves); collect them before the full-size
+    # training needs the card
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 10 device memory allocated at the start: {before} B, "
+          f"{torch.cuda.memory_allocated()} B after collecting garbage",
+          flush=True)
+    t0 = time.perf_counter()
+    bwd_rows, bwd_checks = phase_backward_kernels(gen)
+    torch.cuda.empty_cache()
+    print(f"phase 10 backward kernels against their plain backwards at "
+          f"zamba2-2.7b's SSD, conv1d and flash and smollm-135m's flash, "
+          f"B=4, S=512, bf16 and fp32, each twice bit for bit "
+          f"({time.perf_counter() - t0:.1f} s): " + json.dumps(bwd_checks),
+          flush=True)
+    for name, r in bwd_rows.items():
+        print(f"phase 10 kernel {name} ({r['shape']}, bf16): "
+              + json.dumps(r), flush=True)
+    for cfg, n, cd, b, s in ((zamba2_2p7b, 6, "float32", 2, 512),
+                             (zamba2_2p7b, 6, "bfloat16", 2, 512),
+                             (smollm_135m, 4, "float32", 2, 512),
+                             (smollm_135m, 4, "bfloat16", 2, 512),
+                             # all 9 shared-block positions
+                             (zamba2_2p7b, zamba2_2p7b.n_layers, "bfloat16",
+                              1, 512)):
+        t0 = time.perf_counter()
+        res = phase_train_paths(cfg, gen, n, cd, b, s)
+        torch.cuda.empty_cache()
+        print(f"phase 10 train step, kernel path vs plain path, {cfg.name} "
+              f"at {n} layers, {cd}, B={b}, S={s} "
+              f"({time.perf_counter() - t0:.1f} s): " + json.dumps(res),
+              flush=True)
+    train = {}
+    for cfg, b, restart in ((zamba2_2p7b, 4, 4), (smollm_135m, 8, None)):
+        t0 = time.perf_counter()
+        train[cfg.name] = phase_train_full(cfg, gen, b, 2048, 8, restart)
+        torch.cuda.empty_cache()
+        again = (f", restored at step {restart} and replayed"
+                 if restart else "")
+        print(f"phase 10 training {cfg.name} ({cfg.n_layers} layers, full "
+              f"width), fp32 masters, bf16 compute, OptConfig(), B={b} x "
+              f"S=2048, 8 steps{again} ({time.perf_counter() - t0:.1f} s): "
+              + json.dumps(train[cfg.name]), flush=True)
+
     for r in rows:
         r["launches"] = launches[r["at"]][r["name"]]
         # the exponentials are operations on the special-function units
         if r["bound_by"] == "exponentials":
             r["bound_by"] = "operations"
+    for name in ("flash_bwd", "ssd_bwd", "conv1d_bwd"):
+        rows.append(dict(bwd_rows[name], launches=train[
+            zamba2_2p7b.name]["launches"][name]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

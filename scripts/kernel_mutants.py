@@ -48,6 +48,10 @@ mutant's kernel (every check for the unchanged sources):
 - ``scan1``: the selective scan against its plain version at mamba-130m's
   width on inputs at the model's scales, over one tile and many
   (``scan1_readings``); a mutant of it must fail by 10x its limit.
+- ``backward``: the three backward kernels (flash, SSD, conv1d) against
+  their plain backwards at zamba2-2.7b's and smollm-135m's shapes
+  (``chip_smoke.bwd_cases``, B=4, S=512), each gradient within
+  ``chip_smoke.BWD_TOL`` of its own max |g| and two calls bit for bit.
 
 1 is the limit.  Exits 1 if the unchanged kernels fail a check or a
 mutant passes its kernel's check (or, for ``scan1``, fails it by less
@@ -182,6 +186,24 @@ MUTANTS = {
         "          const float* ml = w.part_ml + (tile0 + sp) * kWRows * 2;\n"
         "          const float* px",
         "flash (wgmma, key splits): the merge leaves out the last split"),
+    "flash_bwd_drops_last_group_head": (
+        "backward", "flash_bwd.cu", "  for (int g = 0; g < G; ++g) {\n",
+        "  for (int g = 0; g < G - (G > 1); ++g) {\n",
+        "flash backward: dK and dV of a KV head leave out the last query "
+        "head of its group (GQA only)"),
+    "ssd_bwd_drops_state_carry": (
+        "backward", "ssd_bwd.cu",
+        "          acc[r][c] = elast * dh[(ty + 16 * r) * N + tx + 16 * c];\n",
+        "          acc[r][c] = 0.0f * dh[(ty + 16 * r) * N + tx + 16 * c];\n",
+        "SSD backward: the state gradient carried into the chunk before "
+        "drops e^cum_last dh'"),
+    "conv1d_bwd_drops_tap_0": (
+        "backward", "conv1d_bwd.cu",
+        "      for (int i = 0; i < K; ++i) acc = fmaf(dzw[K - 1 - i], wk[i], "
+        "acc);\n",
+        "      for (int i = 1; i < K; ++i) acc = fmaf(dzw[K - 1 - i], wk[i], "
+        "acc);\n",
+        "conv1d backward: dx leaves out tap 0"),
 }
 
 
@@ -435,13 +457,36 @@ def scan1_readings(cs, torch, gen) -> dict:
     return out
 
 
+def backward_readings(cs, torch, gen) -> dict:
+    """The three backward kernels against their plain backwards at
+    ``chip_smoke.bwd_cases`` (zamba2-2.7b's SSD, conv1d and flash,
+    smollm-135m's flash; B=4, S=512), bf16 and fp32: ``ratio`` is
+    chip_smoke.py's check, the worst gradient's ``whole_ratio`` to
+    ``BWD_TOL`` of its own max |g| (inf when two calls differ);
+    ``old_ratio`` the same (no check preceded it)."""
+    tiny = torch.finfo(torch.float32).tiny
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for name, (kern, plain, *_) in cs.bwd_cases(gen, dt, 4, 512).items():
+            got, again, want = kern(), kern(), plain()
+            ratio = max(cs.whole_ratio(g, w, cs.BWD_TOL[dt], floor=tiny)
+                        for g, w in zip(got, want))
+            if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+                ratio = float("inf")
+            out[f"{name} {str(dt)[6:]}"] = dict(
+                ratio=ratio, old_ratio=ratio,
+                max_abs_err=cs.max_err(got, want))
+    return out
+
+
 CHECKS = {"attention": attention_readings,
           "mamba1_decode": mamba1_decode_readings,
           "conv1d": conv1d_readings,
           "ring": ring_readings,
           "ssd": ssd_readings,
           "mamba2_decode": mamba2_decode_readings,
-          "scan1": scan1_readings}
+          "scan1": scan1_readings,
+          "backward": backward_readings}
 # how far past its limit a mutant of a check must land (1 where unlisted)
 MUST_FAIL_BY = {"scan1": 10.0}
 

@@ -8,9 +8,11 @@ describes the same network and the same parameter / cache layout.
 for ``encoder`` layers) and of the shared block of ``mamba2+shared``
 layers; ``MoEConfig`` the feed-forward of ``moe`` layers
 (``repro_torch.models.moe``: ``impl`` picks the ``gshard`` or the
-``ragged`` dispatch).  The reference's sharding fields (``scan_layers``,
-``remat``, ``fsdp``) are not copied: the port has no mesh and no
-training step.  ``WorkloadConfig`` / ``SHAPES`` and ``HardwareSpec`` / ``HARDWARE``
+``ragged`` dispatch).  ``remat`` is the reference's: ``"block"``
+rematerialises each layer unit in the backward of a training forward
+(``lm_forward(..., train=True)``), ``"none"`` keeps its activations.  The
+reference's sharding fields (``scan_layers``, ``fsdp``) are not copied:
+the port has no mesh.  ``WorkloadConfig`` / ``SHAPES`` and ``HardwareSpec`` / ``HARDWARE``
 are the reference's too, with one more device, :data:`H100_SXM`, the card
 the port runs on.
 """
@@ -90,6 +92,7 @@ class ModelConfig:
     vocab_pad_multiple: int = 256
     shared_attn: Optional[AttnConfig] = None
     shared_attn_d_ff: int = 0
+    remat: str = "block"         # "none" | "block" (remat each layer unit)
 
     @property
     def padded_vocab(self) -> int:

@@ -39,6 +39,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.attn_decode import ref as _ref
 from repro_torch.kernels.flash.ops import (check_strided, row_vector,
                                           ticket_counters)
+from repro_torch.kernels.grad import needs_grad, no_backward
 
 # head_dim values the kernel is instantiated for: qwen2.5-0.5b's and
 # llama3.2-1b's (64), zamba2-2.7b's (80), phi-3-mini's (96), llama3-8b's
@@ -80,6 +81,8 @@ def decode_attention(q, k, v, *, valid_len,
             kernel_cost("decode_attention", 4.0 * b * h * d * k.shape[2],
                         (q, k, v), (o,))
             return o
+        if needs_grad(q, k, v):
+            raise no_backward("decode_attention", "decode attention")
         return decode_attention_cuda(q, k, v, valid_len=valid_len,
                                      split_k=split_k)
 

@@ -3,9 +3,16 @@
 A CPU tensor runs the plain version (:mod:`.ref`); a CUDA tensor launches
 the hand-written kernel (``csrc/conv1d.cu``) or raises; a ``meta`` tensor
 (the static walk, :mod:`repro_torch.core.op_analysis`) records one kernel
-and returns empty outputs.  It runs in the ``conv1d`` scope.  Both also give
-the new conv state: the ``K-1`` inputs that end each row's valid prefix
-(``lengths``), which the kernel writes into ``out_state`` when given.
+and returns empty outputs.  It runs in the ``conv1d`` scope.  Both also
+give the new conv state: the ``K-1`` inputs that end each row's valid
+prefix (``lengths``), which the kernel writes into ``out_state`` when
+given.
+
+A call that needs a gradient (:mod:`repro_torch.kernels.grad`) with SiLU
+and no initial state, lengths or ``out_state`` (training's) runs
+:class:`Conv1dFn`: the forward and backward kernels
+(``csrc/conv1d_bwd.cu``) on the card, the plain versions on the CPU; any
+other such call raises on the card.
 """
 from __future__ import annotations
 
@@ -17,8 +24,10 @@ from repro_torch.core.op_analysis import kernel_cost
 from repro_torch.core.scope import scope
 from repro_torch.kernels import build
 from repro_torch.kernels.conv1d import ref as _ref
+from repro_torch.kernels.grad import needs_grad, no_backward
 
 MAX_K = 4   # the kernel's register window is instantiated for K = 2 .. 4
+BWD_TILE = 64   # steps a thread of the backward kernel walks
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
@@ -35,6 +44,19 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     of a new cache, apart from x and initial_state) receives the new
     state and is returned as it."""
     with scope("conv1d"):
+        if needs_grad(x, w, b, initial_state) and x.device.type != "meta":
+            if (initial_state is None and lengths is None
+                    and out_state is None and activation == "silu"):
+                k = w.shape[-1]
+                y = Conv1dFn.apply(x, w, b)
+                # the new conv state, which training does not read
+                state = torch.cat([x.new_zeros((x.shape[0], k - 1,
+                                                x.shape[2])), x.detach()],
+                                  dim=1)[:, x.shape[1]:]
+                return y, state
+            if x.device.type == "cuda":
+                raise no_backward("causal_conv1d", "an initial state, valid "
+                                  "lengths or a state destination")
         if x.device.type == "cpu":
             return _ref.causal_conv1d_ref(x, w, b, initial_state, activation,
                                           lengths=lengths,
@@ -98,3 +120,58 @@ def causal_conv1d_cuda(x, w, b, *, initial_state=None, activation="silu",
 
 
 causal_conv1d.launches = 0
+
+
+class Conv1dFn(torch.autograd.Function):
+    """conv1d with SiLU from zeros, ``y = silu(conv(x, w) + b)``, with its
+    backward: the kernels on the card, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        if x.device.type == "cpu":
+            return _ref.causal_conv1d_ref(x, w, b)[0]
+        return causal_conv1d_cuda(x, w, b)[0]
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        if x.device.type == "cpu":
+            dx, dw, db = _ref.causal_conv1d_bwd_ref(x, w, b, dy)
+        else:
+            dx, dw, db = causal_conv1d_bwd_cuda(x, w, b, dy)
+        return dx, dw.to(w.dtype), db.to(b.dtype)
+
+
+def causal_conv1d_bwd_cuda(x, w, b, dy):
+    """The backward kernel (``csrc/conv1d_bwd.cu``): (dx in x's dtype, dw
+    [C,K] fp32, db [C] fp32) for SiLU and no initial state."""
+    if x.device.type != "cuda":
+        raise ValueError(f"conv1d backward kernel needs a CUDA tensor, got "
+                         f"{x.device}")
+    bsz, s, c = x.shape
+    k = w.shape[-1]
+    if (w.shape != (c, k) or b.shape != (c,) or dy.shape != x.shape
+            or not 2 <= k <= MAX_K):
+        raise ValueError(f"bad conv backward shapes x{tuple(x.shape)} "
+                         f"w{tuple(w.shape)} dy{tuple(dy.shape)}")
+    code = build.dtype_code(x.dtype)
+    x = x.contiguous()
+    dy = dy.to(x.dtype).contiguous()
+    w32, b32 = w.float().contiguous(), b.float().contiguous()
+    dx = torch.empty_like(x)
+    dw = torch.empty((c, k), dtype=torch.float32, device=x.device)
+    db = torch.empty((c,), dtype=torch.float32, device=x.device)
+    tiles = -(-s // BWD_TILE)
+    part = torch.empty((bsz * tiles, c, k + 1), dtype=torch.float32,
+                       device=x.device)
+    rc = build.library().repro_conv1d_bwd(
+        x.data_ptr(), w32.data_ptr(), b32.data_ptr(), dy.data_ptr(),
+        dx.data_ptr(), dw.data_ptr(), db.data_ptr(), part.data_ptr(), bsz, s,
+        c, k, code, build.stream_ptr(x.device))
+    build.check(rc, "repro_conv1d_bwd")
+    causal_conv1d_bwd_cuda.launches += 1
+    return dx, dw, db
+
+
+causal_conv1d_bwd_cuda.launches = 0

@@ -67,3 +67,30 @@ def conv1d_decode_ref(state: torch.Tensor, x_t: torch.Tensor,
     if activation == "silu":
         y = silu(y)
     return y.to(x_t.dtype), window[:, 1:, :]
+
+
+def causal_conv1d_bwd_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                          dy: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of ``causal_conv1d_ref`` with SiLU and no initial state
+    (training's case), as ``csrc/conv1d_bwd.cu`` computes it, in fp32:
+    dz = dy * silu'(z); dx[s] = sum_i dz[s + K - 1 - i] w_i; dw_i = sum over
+    batch and steps of dz[t] x[t - K + 1 + i]; db = sum of dz.  Returns
+    (dx in x's dtype, dw [C,K] fp32, db [C] fp32)."""
+    bsz, s, c = x.shape
+    k = w.shape[-1]
+    xp = torch.cat([x.new_zeros((bsz, k - 1, c)), x], dim=1).float()
+    wf = w.float()
+    z = torch.zeros((bsz, s, c), dtype=torch.float32, device=x.device)
+    for i in range(k):
+        z = z + xp[:, i:i + s, :] * wf[:, i]
+    z = z + b.float()
+    sg = torch.sigmoid(z)
+    dz = dy.float() * sg * (1.0 + z * (1.0 - sg))
+    dzp = torch.cat([dz, dz.new_zeros((bsz, k - 1, c))], dim=1)
+    dx = torch.zeros_like(dz)
+    for i in range(k):
+        dx = dx + dzp[:, k - 1 - i:k - 1 - i + s, :] * wf[:, i]
+    dw = torch.stack([(dz * xp[:, i:i + s, :]).sum((0, 1)) for i in range(k)],
+                     dim=1)
+    return dx.to(x.dtype), dw, dz.sum((0, 1))

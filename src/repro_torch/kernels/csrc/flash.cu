@@ -106,6 +106,7 @@ struct FlashParams {
   int causal, window;   // window <= 0: none
   int ring_len;         // > 0: ring layout, <= 0: plain
   float scale;
+  float* lse;           // [B,H,Sq] natural log-sum-exp of each row, or null
 };
 
 // a mod m in [0, m)
@@ -546,6 +547,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           }
         }
         if (threadIdx.x == 0) w.tickets[ti] = 0;
+        m0 = ma0;
+        m1 = ma1;
       }
     }
     if (write) {
@@ -554,6 +557,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int h0 = hg * w.hp + (w.rows_pos_major ? r0 % w.hp : r0 / w.npos);
       const int h1 = hg * w.hp + (w.rows_pos_major ? r1 % w.hp : r1 / w.npos);
       __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb;
+      if (p.lse != nullptr && (lane & 3) == 0) {
+        // scores ran in base 2 times scale: ln(sum) = (m + log2 l) ln 2
+        float* lb = p.lse + (size_t)b * p.H * p.Sq;
+        if (pos0 < p.Sq)
+          lb[(size_t)h0 * p.Sq + pos0] = (m0 + log2f(l0)) * 0.6931471805599453f;
+        if (pos1 < p.Sq)
+          lb[(size_t)h1 * p.Sq + pos1] = (m1 + log2f(l1)) * 0.6931471805599453f;
+      }
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         const int col = n * 8 + gc;
@@ -690,6 +701,8 @@ flash_f32_kernel(FlashParams p) {
     const int r = q0 + warp * kFRows + i;
     if (r >= p.Sq) continue;
     const float inv = 1.0f / fmaxf(l[i], 1e-37f);
+    if (p.lse != nullptr && lane == 0)
+      p.lse[((size_t)b * p.H + h) * p.Sq + r] = m[i] + logf(l[i]);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;
@@ -832,7 +845,9 @@ cudaError_t launch_layout(const FlashParams& p, const WgmmaPlan& w,
 // part_acc [tiles, nsplit, 128, D] and part_ml [tiles, nsplit, 128, 2]
 // fp32 scratch and tickets [tiles] int32, zero before and after, when
 // nsplit > 1, tiles = B * H / heads_packed * ceil(Sq * heads_packed /
-// 128)); fp32 takes heads_packed = nsplit = 1.
+// 128)); fp32 takes heads_packed = nsplit = 1.  lse: null, or [B,H,Sq]
+// fp32, which receives each query row's log-sum-exp of its scaled scores
+// (natural log; the backward's input, when training).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, const void* qoff,
                                const void* kv_wrap, int B, int H,
@@ -843,8 +858,8 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                long long o_sb, long long o_sh, long long o_ss,
                                int causal, int window, int ring_len,
                                int heads_packed, int nsplit, void* part_acc,
-                               void* part_ml, void* tickets, int dtype,
-                               void* stream) {
+                               void* part_ml, void* tickets, void* lse,
+                               int dtype, void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH || Sq <= 0 || Skv <= 0 ||
       B > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -864,7 +879,8 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                 H, KVH, Sq, Skv,
                 q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                 o_sb, o_sh, o_ss, causal, window, ring_len,
-                (float)(1.0 / sqrt((double)D))};   // the reference's scale
+                (float)(1.0 / sqrt((double)D)),    // the reference's scale
+                static_cast<float*>(lse)};
   const int npos = kWRows / hp;
   WgmmaPlan w{B, hp, npos, (Sq + npos - 1) / npos, H / hp, nsplit, 1,
               0, 0, 0, static_cast<float*>(part_acc),

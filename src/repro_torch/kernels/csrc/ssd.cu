@@ -73,7 +73,8 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ A, const T* __restrict__ Bm,
            const T* __restrict__ Cm, const float* __restrict__ Dv,
            const float* __restrict__ init, T* __restrict__ y,
-           float* __restrict__ final_state, int S, int H, int G) {
+           float* __restrict__ final_state, float* __restrict__ chunk_states,
+           int S, int H, int G) {
   using L = Smem<Q, P, N>;
   constexpr int RB = L::kRB, ST = L::kStride, SS = L::kSStride;
   constexpr int YR = Q / 16, YC = P / 16;   // y tile: rows x columns
@@ -109,6 +110,12 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int ci = 0; ci < nc; ++ci) {
     const int t0 = ci * Q;
     __syncthreads();   // previous chunk's readers of xs/bs/cs/st are done
+    if (chunk_states != nullptr) {
+      // the state entering the chunk, for the backward (training)
+      float* cst = chunk_states + ((size_t)bh * nc + ci) * P * N;
+      for (int e = tid; e < P * N; e += kThreads)
+        cst[e] = st[(e / N) * ST + (e % N)];
+    }
     for (int e = tid; e < Q * P; e += kThreads) {
       const int i = e / P, p = e % P;
       xs[e] = repro::to_f32(x[(((size_t)b * S + t0 + i) * H + h) * P + p]);
@@ -280,8 +287,8 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 template <typename T, int Q, int P, int N>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* Bm, const void* Cm, const void* D,
-                   const void* init, void* y, void* fin, int B, int S, int H,
-                   int G, cudaStream_t stream) {
+                   const void* init, void* y, void* fin, void* cst, int B,
+                   int S, int H, int G, cudaStream_t stream) {
   auto kern = ssd_kernel<T, Q, P, N>;
   const size_t bytes = Smem<Q, P, N>::kBytes;
   // once per instantiation (the port drives one card per process), so a
@@ -294,7 +301,7 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
       static_cast<const float*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(D),
       static_cast<const float*>(init), static_cast<T*>(y),
-      static_cast<float*>(fin), S, H, G);
+      static_cast<float*>(fin), static_cast<float*>(cst), S, H, G);
   return cudaGetLastError();
 }
 
@@ -336,7 +343,7 @@ ssd_tc_kernel(const __nv_bfloat16* __restrict__ x,
               const __nv_bfloat16* __restrict__ Cm,
               const float* __restrict__ Dv, const float* __restrict__ init,
               __nv_bfloat16* __restrict__ y, float* __restrict__ final_state,
-              int S, int H, int G) {
+              float* __restrict__ chunk_states, int S, int H, int G) {
   using L = TcSmem<P, N>;
   constexpr int Q = kTQ, XS = L::XS, BS = L::BS;
   constexpr int NK = N / 16;          // k-steps over the state's columns
@@ -437,6 +444,18 @@ ssd_tc_kernel(const __nv_bfloat16* __restrict__ x,
 
   for (int ci = 0; ci < nc; ++ci) {
     const int st = ci & 1;
+    if (chunk_states != nullptr) {
+      // the state entering the chunk, for the backward (training)
+      float* cst = chunk_states + ((size_t)bh * nc + ci) * P * N;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const int n = (nb + t) * 8 + gc;
+        *reinterpret_cast<float2*>(cst + (size_t)(pm + gr) * N + n) =
+            make_float2(sacc[t][0], sacc[t][1]);
+        *reinterpret_cast<float2*>(cst + (size_t)(pm + gr + 8) * N + n) =
+            make_float2(sacc[t][2], sacc[t][3]);
+      }
+    }
     if (ci + 1 < nc) load_chunk(ci + 1, st ^ 1);
     repro::cp_async_commit();
     repro::cp_async_wait<1>();
@@ -641,8 +660,8 @@ ssd_tc_kernel(const __nv_bfloat16* __restrict__ x,
 template <int P, int N>
 cudaError_t launch_tc(const void* x, const void* dt, const void* A,
                       const void* Bm, const void* Cm, const void* D,
-                      const void* init, void* y, void* fin, int B, int S,
-                      int H, int G, cudaStream_t stream) {
+                      const void* init, void* y, void* fin, void* cst,
+                      int B, int S, int H, int G, cudaStream_t stream) {
   auto kern = ssd_tc_kernel<P, N>;
   const size_t bytes = TcSmem<P, N>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -653,7 +672,7 @@ cudaError_t launch_tc(const void* x, const void* dt, const void* A,
       static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(Bm),
       static_cast<const __nv_bfloat16*>(Cm), static_cast<const float*>(D),
       static_cast<const float*>(init), static_cast<__nv_bfloat16*>(y),
-      static_cast<float*>(fin), S, H, G);
+      static_cast<float*>(fin), static_cast<float*>(cst), S, H, G);
   return cudaGetLastError();
 }
 
@@ -662,18 +681,19 @@ cudaError_t launch_tc(const void* x, const void* dt, const void* A,
 template <typename T>
 cudaError_t dispatch(const void* x, const void* dt, const void* A,
                      const void* Bm, const void* Cm, const void* D,
-                     const void* init, void* y, void* fin, int B, int S,
-                     int H, int P, int G, int N, int Q, cudaStream_t st) {
+                     const void* init, void* y, void* fin, void* cst, int B,
+                     int S, int H, int P, int G, int N, int Q,
+                     cudaStream_t st) {
   if constexpr (sizeof(T) == 4) {
     if (Q == 128 && P == 64 && N == 128)
-      return launch<T, 128, 64, 128>(x, dt, A, Bm, Cm, D, init, y, fin, B, S,
+      return launch<T, 128, 64, 128>(x, dt, A, Bm, Cm, D, init, y, fin, cst, B, S,
                                      H, G, st);
     if (Q == 128 && P == 64 && N == 64)
-      return launch<T, 128, 64, 64>(x, dt, A, Bm, Cm, D, init, y, fin, B, S,
+      return launch<T, 128, 64, 64>(x, dt, A, Bm, Cm, D, init, y, fin, cst, B, S,
                                     H, G, st);
   }
   if (Q == 16 && P == 16 && N == 16)
-    return launch<T, 16, 16, 16>(x, dt, A, Bm, Cm, D, init, y, fin, B, S, H,
+    return launch<T, 16, 16, 16>(x, dt, A, Bm, Cm, D, init, y, fin, cst, B, S, H,
                                  G, st);
   return cudaErrorInvalidValue;
 }
@@ -681,27 +701,31 @@ cudaError_t dispatch(const void* x, const void* dt, const void* A,
 }  // namespace
 
 // x, y: [B,S,H,P]; B, C: [B,S,G,N] (dtype 0 = float32, 1 = bfloat16, shared
-// by x, B, C and y); dt: [B,S,H], A, D: [H], init, final: [B,H,P,N] fp32.
+// by x, B, C and y); dt: [B,S,H], A, D: [H], init, final: [B,H,P,N] fp32;
+// chunk_states: null, or [B,H,S/Q,P,N] fp32, which receives the state
+// entering each chunk (the backward's input, when training).
 // The tensor-core instances (bf16 at Q = 128, P = 64, N = 128 or 64) need
 // x, B and C 16-byte aligned.
 extern "C" int repro_ssd_fwd(const void* x, const void* dt, const void* A,
                              const void* Bm, const void* Cm, const void* D,
-                             const void* init, void* y, void* fin, int B,
-                             int S, int H, int P, int G, int N, int Q,
-                             int dtype, void* stream) {
+                             const void* init, void* y, void* fin,
+                             void* chunk_states, int B, int S, int H, int P,
+                             int G, int N, int Q, int dtype, void* stream) {
+  void* cst = chunk_states;
   if (B <= 0 || S <= 0 || Q <= 0 || S % Q || G <= 0 || H % G)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && Q == kTQ && P == 64 && (N == 128 || N == 64))
     return N == 128 ? (int)launch_tc<64, 128>(x, dt, A, Bm, Cm, D, init, y,
-                                              fin, B, S, H, G, st)
+                                              fin, cst, B, S, H, G, st)
                     : (int)launch_tc<64, 64>(x, dt, A, Bm, Cm, D, init, y,
-                                             fin, B, S, H, G, st);
+                                             fin, cst, B, S, H, G, st);
   cudaError_t err =
-      dtype == 0 ? dispatch<float>(x, dt, A, Bm, Cm, D, init, y, fin, B, S, H,
+      dtype == 0 ? dispatch<float>(x, dt, A, Bm, Cm, D, init, y, fin, cst, B, S, H,
                                    P, G, N, Q, st)
       : dtype == 1 ? dispatch<__nv_bfloat16>(x, dt, A, Bm, Cm, D, init, y,
-                                             fin, B, S, H, P, G, N, Q, st)
+                                             fin, cst, B, S, H, P, G, N,
+                                             Q, st)
                    : cudaErrorInvalidValue;
   return (int)err;
 }

@@ -19,6 +19,7 @@ from repro_torch.core.op_analysis import kernel_cost
 from repro_torch.core.scope import scope
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_fused import ref as _ref
+from repro_torch.kernels.grad import needs_grad, no_backward
 
 
 # d_state values the Mamba-2 kernel is instantiated for, and its most
@@ -56,6 +57,10 @@ def mamba2_decode_fused(conv_state, ssm_state, xbc_t, conv_w, conv_b,
                         (conv_state, ssm_state, xbc_t, conv_w, conv_b,
                          dt_raw, dt_bias, A_log, D), (y, nconv, nssm))
             return y, nconv, nssm
+        if needs_grad(conv_state, ssm_state, xbc_t, conv_w, conv_b,
+                      dt_raw, dt_bias, A_log, D):
+            raise no_backward("mamba2_decode_fused", "the Mamba-2 decode "
+                              "step")
         return mamba2_decode_fused_cuda(
             conv_state, ssm_state, xbc_t, conv_w, conv_b, dt_raw, dt_bias,
             A_log, D, n_groups=n_groups, d_state=d_state, headdim=headdim,
@@ -174,6 +179,10 @@ def mamba1_decode_fused(conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj,
                         (conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj,
                          dt_proj, dt_bias, A_log, D), (y, nconv, nssm))
             return y, nconv, nssm
+        if needs_grad(conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj,
+                      dt_proj, dt_bias, A_log, D):
+            raise no_backward("mamba1_decode_fused", "the Mamba-1 decode "
+                              "step")
         return mamba1_decode_fused_cuda(
             conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj, dt_proj,
             dt_bias, A_log, D, d_state=d_state, dt_rank=dt_rank,

@@ -23,6 +23,13 @@ leaves fewer blocks than the card's SMs (132 on an H100 SXM,
 ``build.sm_count``), each query tile's keys split
 across blocks (gemma3-1b's chunk: 32 tiles x 4 splits); fp32 runs on CUDA
 cores.  Either way one call is one launch.
+
+A call that needs a gradient (:mod:`repro_torch.kernels.grad`) in the
+causal mode over a full sequence (no window, offsets or ring; Sq = Skv;
+a head_dim in ``BWD_HEAD_DIMS`` on the card) runs :class:`FlashFn`: the
+forward kernel, which also writes each row's log-sum-exp, and the
+backward kernels (``csrc/flash_bwd.cu``, one call) on the card; the plain
+versions on the CPU.  Any other such call raises on the card.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from repro_torch.core.op_analysis import kernel_cost
 from repro_torch.core.scope import scope
 from repro_torch.kernels import build
 from repro_torch.kernels.flash import ref as _ref
+from repro_torch.kernels.grad import needs_grad, no_backward
 
 # head_dim values the kernel is instantiated for: qwen2.5-0.5b's and
 # llama3.2-1b's (64), zamba2-2.7b's (80), phi-3-mini's (96), llama3-8b's
@@ -43,6 +51,7 @@ BLOCK_ROWS = 128               # query rows a wgmma block
 KEY_TILE = 64                  # keys a tile
 MAX_SPLIT = 8                  # key splits of a query tile
 MIN_SPLIT_TILES = 2            # KV tiles an active key split takes
+BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128)   # the backward's instances
 
 
 class FlashPlan(NamedTuple):
@@ -147,6 +156,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
     and ``ring_len`` select the ring layout."""
     check_ring(causal, window, kv_wrap, ring_len, k.shape[2])
     with scope("attn_core"):
+        if needs_grad(q, k, v) and q.device.type != "meta":
+            if (causal and window is None and q_offset is None
+                    and ring_len is None and q.shape[2] == k.shape[2]
+                    and (q.device.type == "cpu"
+                         or q.shape[3] in BWD_HEAD_DIMS)):
+                return FlashFn.apply(q, k, v)
+            if q.device.type == "cuda":
+                raise no_backward("flash_attention", "its window, ring, "
+                                  "offset or non-causal modes (or head_dim "
+                                  f"{q.shape[3]})")
         if q.device.type == "cpu":
             return _ref.attention_ref(q, k, v, causal=causal, window=window,
                                       q_offset=0 if q_offset is None
@@ -215,9 +234,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None, q_offset=None,
                          kv_wrap=None, ring_len: Optional[int] = None,
                          heads_packed: Optional[int] = None,
-                         splits: Optional[int] = None):
+                         splits: Optional[int] = None, lse: bool = False):
     """The kernel; ``heads_packed`` and ``splits`` override the plan's
-    choices (:func:`flash_plan`)."""
+    choices (:func:`flash_plan`).  ``lse`` returns (o, each query row's
+    log-sum-exp of its scaled scores, fp32 [B, H, Sq])."""
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel needs a CUDA tensor, got {q.device}")
     b, h, sq, d = q.shape
@@ -255,6 +275,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         part_ml = torch.empty((tiles, plan.splits, BLOCK_ROWS, 2),
                               dtype=torch.float32, device=q.device)
         tickets = ticket_counters(q.device, tiles)
+    lse_t = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+             if lse else None)
     lib = build.library()
     rc = lib.repro_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -265,15 +287,74 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         plan.heads_packed, plan.splits,
         0 if part_acc is None else part_acc.data_ptr(),
         0 if part_ml is None else part_ml.data_ptr(),
-        0 if tickets is None else tickets.data_ptr(), code,
+        0 if tickets is None else tickets.data_ptr(),
+        0 if lse_t is None else lse_t.data_ptr(), code,
         build.stream_ptr(q.device))
     build.check(rc, "repro_flash_fwd")
     if wrap is None:
         flash_attention.launches += 1
     else:
         flash_attention.ring_launches += 1
-    return o
+    return (o, lse_t) if lse else o
 
 
 flash_attention.launches = 0
 flash_attention.ring_launches = 0
+
+
+class FlashFn(torch.autograd.Function):
+    """Causal attention over a full sequence with its backward: the
+    kernels on the card, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if q.device.type == "cpu":
+            o, lse = _ref.attention_lse_ref(q, k, v)
+        else:
+            o, lse = flash_attention_cuda(q, k, v, causal=True, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            return _ref.flash_bwd_ref(q, k, v, o, do, lse)
+        return flash_attention_bwd_cuda(q, k, v, o, do, lse)
+
+
+def flash_attention_bwd_cuda(q, k, v, o, do, lse):
+    """The backward kernels (``csrc/flash_bwd.cu``) of causal attention over
+    a full sequence: (dq [B,H,S,d], dk, dv [B,KVH,S,d]) in q's dtype, from
+    the forward's output ``o`` and log-sum-exp ``lse`` ([B,H,S] fp32).
+    The operands are made contiguous first (a copy of a strided view)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash backward kernel needs a CUDA tensor, got "
+                         f"{q.device}")
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash backward built for head_dim in "
+                         f"{BWD_HEAD_DIMS}, got {d}")
+    if (k.shape != (b, kvh, s, d) or v.shape != k.shape or h % kvh
+            or o.shape != q.shape or do.shape != q.shape
+            or lse.shape != (b, h, s)):
+        raise ValueError(f"bad flash backward shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)}")
+    code = build.dtype_code(q.dtype)
+    q, k, v, o = (t.contiguous() for t in (q, k, v, o))
+    do = do.to(q.dtype).contiguous()
+    lse = lse.float().contiguous()
+    dr = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    rc = build.library().repro_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dr.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, kvh, s, d, code,
+        build.stream_ptr(q.device))
+    build.check(rc, "repro_flash_bwd")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0

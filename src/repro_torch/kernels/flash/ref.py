@@ -76,3 +76,49 @@ def attention_ref(q, k, v, *, causal: bool = True,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+def attention_lse_ref(q, k, v):
+    """Causal attention over a full sequence (query i at position i) as
+    ``attention_ref`` computes it, and each query row's log-sum-exp of its
+    scaled, masked scores (fp32 [B, H, Sq]): what the forward saves for
+    the backward."""
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, sq, d).float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * (1.0 / math.sqrt(d))
+    mask = (torch.arange(sq, device=q.device)[:, None]
+            >= torch.arange(skv, device=q.device)[None, :])
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    lse = torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+    return o.reshape(b, h, sq, d).to(q.dtype), lse
+
+
+def flash_bwd_ref(q, k, v, o, do, lse):
+    """Backward of causal attention over a full sequence, as
+    ``csrc/flash_bwd.cu`` computes it, in fp32: P = exp(scale q.k - lse)
+    under the mask, Dr = rowsum(dO o), dV = P^T dO, dS = P (dO V^T - Dr),
+    dQ = scale dS K, dK = scale dS^T Q, dK and dV summed over each KV
+    head's query heads.  Returns (dq, dk, dv) in q's dtype."""
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(d)
+    qf = q.reshape(b, kvh, g, sq, d).float()
+    dof = do.reshape(b, kvh, g, sq, d).float()
+    of = o.reshape(b, kvh, g, sq, d).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    mask = (torch.arange(sq, device=q.device)[:, None]
+            >= torch.arange(skv, device=q.device)[None, :])
+    p = torch.where(mask, torch.exp(s - lse.reshape(b, kvh, g, sq, 1)
+                                    .float()), torch.zeros((), device=q.device))
+    dr = (dof * of).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dof, vf) - dr)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))

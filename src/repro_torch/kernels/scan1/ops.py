@@ -17,6 +17,7 @@ import torch
 from repro_torch.core.op_analysis import kernel_cost
 from repro_torch.core.scope import scope
 from repro_torch.kernels import build
+from repro_torch.kernels.grad import needs_grad, no_backward
 from repro_torch.kernels.scan1 import ref as _ref
 
 # d_state values the kernel is instantiated for
@@ -97,6 +98,8 @@ def selective_scan(x, dt, A, Bm, Cm, D, *,
             kernel_cost("selective_scan", 7.0 * b * s * c * n + 3.0 * b * s * c,
                         (x, dt, A, Bm, Cm, D, initial_state), (y, final))
             return y, final
+        if needs_grad(x, dt, A, Bm, Cm, D, initial_state):
+            raise no_backward("selective_scan", "the Mamba-1 scan")
         return selective_scan_cuda(x, dt, A, Bm, Cm, D,
                                    initial_state=initial_state,
                                    out_state=out_state)

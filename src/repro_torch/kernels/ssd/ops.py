@@ -6,7 +6,15 @@ the hand-written kernel (``csrc/ssd.cu``) or raises; a ``meta`` tensor
 and returns empty outputs.  Both entry points run in the ``ssd_core``
 scope, as the reference's do.  The ``softplus`` and
 ``-exp(A_log)`` preprocessing stays plain torch here, outside the kernel,
-as the reference keeps it outside its ``pallas_call``.
+as the reference keeps it outside its ``pallas_call`` (autograd carries it
+in training).
+
+A call that needs a gradient (:mod:`repro_torch.kernels.grad`) with no
+initial state and no ``out_state`` (training's) runs :class:`SsdFn`: the
+forward kernel, which also saves each chunk's start state, and the
+backward kernel (``csrc/ssd_bwd.cu``) on the card; the plain versions on
+the CPU.  The final state it returns carries no gradient.  Any other such
+call raises on the card.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import torch
 from repro_torch.core.op_analysis import kernel_cost
 from repro_torch.core.scope import scope
 from repro_torch.kernels import build
+from repro_torch.kernels.grad import needs_grad, no_backward
 from repro_torch.kernels.ssd import ref as _ref
 
 # (chunk, headdim, d_state) the kernel is instantiated for: mamba2-2.7b's,
@@ -63,6 +72,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
     cache slot, apart from the other inputs) receives the final state, and
     is returned as it."""
     with scope("ssd_core"):
+        if (needs_grad(x, dt, A, Bm, Cm, D, initial_state)
+                and x.device.type != "meta"):
+            if initial_state is None and out_state is None:
+                return SsdFn.apply(x, dt, A, Bm, Cm, D, chunk)
+            if x.device.type == "cuda":
+                raise no_backward("ssd_chunked", "an initial state or a "
+                                  "state destination")
         if x.device.type == "cpu":
             return _ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk,
                                         initial_state=initial_state,
@@ -92,8 +108,11 @@ def _ssd_meta(x, dt, A, Bm, Cm, D, chunk, initial_state, out_state):
 
 
 def ssd_chunked_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
-                     initial_state=None, out_state=None):
-    """The kernel, launched as :func:`ssd_plan` says."""
+                     initial_state=None, out_state=None,
+                     chunk_states: bool = False):
+    """The kernel, launched as :func:`ssd_plan` says.  ``chunk_states``
+    adds a third output, the state entering each chunk (fp32 [B, H,
+    S / chunk, P, N]), for the backward."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd kernel needs a CUDA tensor, got {x.device}")
     b, s, h, p = x.shape
@@ -126,16 +145,100 @@ def ssd_chunked_cuda(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
     # each block reads its own rows of initial_state before it writes them,
     # and every block reads the other inputs
     final = build.destination(out_state, ins[6], "out_state", ins[:6])
+    states = (torch.empty((b, h, s // chunk, p, n), dtype=torch.float32,
+                          device=x.device) if chunk_states else None)
     lib = build.library()
     rc = lib.repro_ssd_fwd(*[t.data_ptr() for t in ins], y.data_ptr(),
-                           final.data_ptr(), b, s, h, p, g, n, chunk, code,
+                           final.data_ptr(),
+                           None if states is None else states.data_ptr(),
+                           b, s, h, p, g, n, chunk, code,
                            build.stream_ptr(x.device))
     build.check(rc, "repro_ssd_fwd")
     ssd_chunked.launches += 1
-    return y, final
+    return (y, final, states) if chunk_states else (y, final)
 
 
 ssd_chunked.launches = 0
+
+
+class SsdFn(torch.autograd.Function):
+    """The chunked scan from a zero state with its backward: returns (y,
+    final state), the final state without a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, chunk):
+        if x.device.type == "cpu":
+            y, final, states = _ref.ssd_chunked_states_ref(
+                x, dt, A, Bm, Cm, D, chunk=chunk)
+        else:
+            y, final, states = ssd_chunked_cuda(x, dt, A, Bm, Cm, D,
+                                                chunk=chunk,
+                                                chunk_states=True)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D, states)
+        ctx.mark_non_differentiable(final)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, _dfinal):
+        x, dt, A, Bm, Cm, D, states = ctx.saved_tensors
+        if x.device.type == "cpu":
+            grads = _ref.ssd_chunked_bwd_ref(x, dt, A, Bm, Cm, D, dy, states,
+                                             chunk=ctx.chunk)
+        else:
+            grads = ssd_chunked_bwd_cuda(x, dt, A, Bm, Cm, D, dy, states,
+                                         chunk=ctx.chunk)
+        dx, ddt, dA, dB, dC, dD = grads
+        return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB.to(Bm.dtype),
+                dC.to(Cm.dtype), dD.to(D.dtype), None)
+
+
+def ssd_chunked_bwd_cuda(x, dt, A, Bm, Cm, D, dy, states, *,
+                         chunk: int = 128):
+    """The backward kernel (``csrc/ssd_bwd.cu``), from a zero initial state
+    with no gradient into the final state: (dx, ddt, dA, dB, dC, dD), dx,
+    dB and dC in x's dtype, the rest fp32.  ``states`` are the forward's
+    chunk start states."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd backward kernel needs a CUDA tensor, got "
+                         f"{x.device}")
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    ssd_plan(b, h, chunk, p, n, x.dtype)
+    if s % chunk or h % g:
+        raise ValueError(f"seq {s} must be a multiple of chunk {chunk} and "
+                         f"heads {h} of groups {g}")
+    if (dt.shape != (b, s, h) or Bm.shape != (b, s, g, n)
+            or Cm.shape != Bm.shape or dy.shape != x.shape
+            or states.shape != (b, h, s // chunk, p, n)):
+        raise ValueError("bad ssd backward shapes")
+    code = build.dtype_code(x.dtype)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ins = [x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
+           Bm.to(x.dtype).contiguous(), Cm.to(x.dtype).contiguous(),
+           D.float().contiguous(), dy.to(x.dtype).contiguous(),
+           states.float().contiguous()]
+    dx = torch.empty_like(ins[0])
+    dB, dC = torch.empty_like(ins[3]), torch.empty_like(ins[4])
+    ddt = torch.empty((b, s, h), **f32)
+    dA, dD = torch.empty((h,), **f32), torch.empty((h,), **f32)
+    scratch = [torch.empty((b, s, h, p), **f32),
+               torch.empty((b, s, h, n), **f32),
+               torch.empty((b, s, h, n), **f32),
+               torch.empty((b, h), **f32), torch.empty((b, h), **f32),
+               torch.empty((b, h, p, n), **f32),
+               torch.empty((b, h, p, n), **f32)]
+    rc = build.library().repro_ssd_bwd(
+        *[t.data_ptr() for t in ins],
+        *[t.data_ptr() for t in (dx, ddt, dA, dB, dC, dD)],
+        *[t.data_ptr() for t in scratch], b, s, h, p, g, n, chunk, code,
+        build.stream_ptr(x.device))
+    build.check(rc, "repro_ssd_bwd")
+    ssd_chunked_bwd_cuda.launches += 1
+    return dx, ddt, dA, dB, dC, dD
+
+
+ssd_chunked_bwd_cuda.launches = 0
 
 
 def ssd_chunked_raw(x, dt_raw, dt_bias, A_log, Bm, Cm, D, *,

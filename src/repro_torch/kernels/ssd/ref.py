@@ -81,6 +81,16 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk: int = 128,
     """Chunked SSD (matmul dual form), numerically matching ssd_sequential.
     ``out_state``, when given, receives a copy of the final state and is
     returned in its place, as the kernel writes its destination."""
+    y, final, _ = ssd_chunked_states_ref(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                         initial_state=initial_state)
+    return y, into(out_state, final)
+
+
+def ssd_chunked_states_ref(x, dt, A, Bm, Cm, D, chunk: int = 128,
+                           initial_state: Optional[torch.Tensor] = None):
+    """``ssd_chunked_ref``'s (y, final state), and the state entering each
+    chunk, fp32 [B, H, S / chunk, P, N]: what the forward saves for the
+    backward."""
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     if s % chunk:
@@ -113,7 +123,78 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk: int = 128,
     y_off = torch.einsum("bcqhn,bchpn,bchq->bcqhp", Ch, h_in, torch.exp(cum))
     y = (y_diag + y_off).reshape(b, s, h, p)
     y = y + x.float() * D.float()[None, None, :, None]
-    return y.to(x.dtype), into(out_state, hprev)
+    return y.to(x.dtype), hprev, h_in.permute(0, 2, 1, 3, 4)
+
+
+def ssd_chunked_bwd_ref(x, dt, A, Bm, Cm, D, dy, states, chunk: int = 128):
+    """Backward of the chunked scan from a zero initial state, with no
+    gradient into the final state (training's case), as
+    ``csrc/ssd_bwd.cu`` computes it, in fp32.  ``states`` are the chunk
+    start states ([B, H, S / chunk, P, N], :func:`ssd_chunked_states_ref`).
+    Per chunk, with w_j = dt_j e^(cum_last - cum_j), L_ij =
+    e^(cum_i - cum_j) (j <= i), M = (C B^T) L dt_j and dM = dy x^T:
+    dx = D dy + w (dh' B) + M^T dy; dB = w (x dh') + (dM L dt_j)^T C;
+    dC = e^cum (dy h) + (dM L dt_j) B; the state gradient dh' of the chunk
+    after is e^cum_last dh'' + sum_i e^cum_i dy_i C_i^T; the gradient of
+    each cum is summed back over the prefix sum into ddt and dA.  Returns
+    (dx, dB, dC in x's dtype; ddt [B,S,H], dA [H], dD [H] fp32)."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    nc, q = s // chunk, chunk
+    f32 = torch.float32
+    Bh = _expand_groups(Bm, h).to(f32).reshape(b, nc, q, h, n)
+    Ch = _expand_groups(Cm, h).to(f32).reshape(b, nc, q, h, n)
+    xf = x.to(f32).reshape(b, nc, q, h, p)
+    dyf = dy.to(f32).reshape(b, nc, q, h, p)
+    dtf = dt.to(f32).reshape(b, nc, q, h).permute(0, 1, 3, 2)   # [b,c,h,q]
+    Af = A.to(f32)
+    hin = states.to(f32).permute(0, 2, 1, 3, 4)                  # [b,c,h,p,n]
+    da_t = dtf * Af[:, None]                                     # [b,c,h,q]
+    cum = torch.cumsum(da_t, dim=-1)
+    last = cum[..., -1:]
+    ecum, elast = torch.exp(cum), torch.exp(last)
+    wend = dtf * torch.exp(last - cum)
+    # the state gradient leaving each chunk, walked back from zero
+    local = torch.einsum("bchq,bcqhp,bcqhn->bchpn", ecum, dyf, Ch)
+    dh_out = torch.zeros_like(hin)
+    carry = torch.zeros_like(hin[:, 0])
+    for c in range(nc - 1, -1, -1):
+        dh_out[:, c] = carry
+        carry = elast[:, c, :, :, None] * carry + local[:, c]
+    # the state terms
+    t1 = torch.einsum("bcjhn,bchpn->bcjhp", Bh, dh_out)
+    wq = wend.permute(0, 1, 3, 2)[..., None]                     # [b,c,q,h,1]
+    dx = D.to(f32)[:, None] * dyf + wq * t1
+    dw = (xf * t1).sum(-1).permute(0, 1, 3, 2)                   # [b,c,h,q]
+    dB = wq * torch.einsum("bcjhp,bchpn->bcjhn", xf, dh_out)
+    u = torch.einsum("bcihp,bchpn->bcihn", dyf, hin)
+    dC = ecum.permute(0, 1, 3, 2)[..., None] * u
+    dcum = (Ch * dC).sum(-1).permute(0, 1, 3, 2)
+    ddt = torch.exp(last - cum) * dw
+    dcum = dcum - wend * dw
+    dcum_last = (elast[..., 0] * (dh_out * hin).sum((-1, -2))
+                 + (wend * dw).sum(-1))
+    # the intra-chunk terms
+    G = torch.einsum("bcihn,bcjhn->bchij", Ch, Bh)
+    dM = torch.einsum("bcihp,bcjhp->bchij", dyf, xf)
+    L = torch.exp(_segsum(da_t))                                 # 0 above
+    M = G * L * dtf[..., None, :]
+    dG = dM * L * dtf[..., None, :]
+    E = G * L * dM
+    dcum = dcum + (M * dM).sum(-1) - dtf * E.sum(-2)
+    ddt = ddt + E.sum(-2)
+    dx = dx + torch.einsum("bchij,bcihp->bcjhp", M, dyf)
+    dB = dB + torch.einsum("bchij,bcihn->bcjhn", dG, Ch)
+    dC = dC + torch.einsum("bchij,bcjhn->bcihn", dG, Bh)
+    dcum[..., -1] += dcum_last
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+    ddt = ddt + Af[:, None] * da
+    dA = (dtf * da).sum((0, 1, 3))
+    dD = (dyf * xf).sum((0, 1, 2, 4))
+    dB = dB.reshape(b, s, g, h // g, n).sum(3)
+    dC = dC.reshape(b, s, g, h // g, n).sum(3)
+    return (dx.reshape(b, s, h, p).to(x.dtype), ddt.permute(0, 1, 3, 2)
+            .reshape(b, s, h), dA, dB.to(x.dtype), dC.to(x.dtype), dD)
 
 
 def into(out: Optional[torch.Tensor], t: torch.Tensor) -> torch.Tensor:

@@ -54,8 +54,10 @@ sliding windows builds a second, local pair at theta 1e4 for its
 
 Entry points:
 
-* :func:`lm_forward` — full-sequence logits with no cache (encoder
-  inference; the training step is not ported).
+* :func:`lm_forward` — full-sequence logits with no cache: encoder
+  inference, and the training forward (``train=True``, the reference's
+  default), which rematerialises each layer unit in the backward when
+  ``cfg.remat == "block"`` (``torch.utils.checkpoint``).
 * :func:`lm_prefill` — process the prompt, fill the cache.
 * :func:`lm_prefill_chunk` — one state-carrying chunk of a chunked
   prefill, with per-row valid ``lengths``.
@@ -70,6 +72,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
@@ -366,7 +369,7 @@ def _decode_valid_lens(pos: torch.Tensor):
 def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
                   pos=None, chunk_mask=None, chunk_lengths=None,
                   rope=(None, None), kv_bucket=None, valid_lens=None,
-                  out_states=None):
+                  out_states=None, remat: bool = False):
     """Every layer in order.  Each layer gets views of its cache: state
     leaves at its repeat, KV leaves cut to their first ``kv_bucket`` rows
     (None: all), so its KV writes land in the full cache; and its state
@@ -376,8 +379,12 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
     from the cache's) where given, else new tensors.  ``chunk_mask``
     and ``chunk_lengths`` mark a prefill chunk's valid tokens.  ``rope``
     is the (global, local) pair of :func:`_rope_for`; ``valid_lens`` (a
-    decode step) maps a layer's KV extent to its attended rows.  Returns
-    (x, the new segments: new state leaves, the cache's own KV leaves)."""
+    decode step) maps a layer's KV extent to its attended rows.  ``remat``
+    (no cache) runs each unit, one repeat of a segment's layers, under
+    ``torch.utils.checkpoint``: its activations are dropped after the
+    forward and recomputed in the backward, as the reference's
+    ``jax.checkpoint`` of its scanned unit.  Returns (x, the new segments:
+    new state leaves, the cache's own KV leaves)."""
     shared = params.get("shared")
     new_segs = []
     for si, (unit, n_rep) in enumerate(cfg.segments()):
@@ -388,7 +395,8 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
             dst = (out_states[si] if out_states is not None
                    else (None,) * len(seg_c))
             new_seg = tuple(_new_layer(c, d) for c, d in zip(seg_c, dst))
-        for r in range(n_rep):
+        def run_unit(x, r, unit=unit, seg_p=seg_p, seg_c=seg_c,
+                     new_seg=new_seg):
             for li, kind in enumerate(unit):
                 p = tree_map(lambda t: t[r], seg_p[li])
                 c = (_map_cache(lambda t: t[r, :, :kv_bucket],
@@ -406,6 +414,11 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
                            if new_seg is not None else None))
                 if new_seg is not None:
                     _store_state(new_seg[li], nc, r)
+            return x
+
+        for r in range(n_rep):
+            x = (checkpoint(run_unit, x, r, use_reentrant=False) if remat
+                 else run_unit(x, r))
         new_segs.append(new_seg)
     return x, new_segs
 
@@ -429,17 +442,21 @@ def _kv_rows(cache, kv_bucket: Optional[int]) -> Optional[int]:
 
 
 def lm_forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
-               *, features: Optional[torch.Tensor] = None) -> torch.Tensor:
+               *, features: Optional[torch.Tensor] = None,
+               train: bool = True) -> torch.Tensor:
     """Full-sequence forward with no cache: logits [B, S, V] of every
     position.  ``tokens`` [B, S], and ``features`` as :func:`_embed` takes
-    them (an audio model's frames alone).  The reference's with
-    ``train=False`` (encoder inference); its training mode, which differs
-    only by rematerialisation, belongs to the training step, not
-    ported."""
+    them (an audio model's frames alone).  ``train`` (the reference's
+    default) rematerialises each layer unit in the backward when
+    ``cfg.remat == "block"`` and autograd records the call; the values are
+    the same either way.  The training loss runs it on the raw params cast
+    to the compute dtype (``repro_torch.train.train_step``); encoder
+    inference passes ``train=False``."""
     x = _embed(cfg, params, tokens, features)
     s = x.shape[1]
     rope = _rope_for(cfg, s, None, s, x.device)
-    x, _ = _run_segments(cfg, params, x, rope=rope)
+    remat = train and cfg.remat == "block" and torch.is_grad_enabled()
+    x, _ = _run_segments(cfg, params, x, rope=rope, remat=remat)
     return _head(cfg, params, x)
 
 

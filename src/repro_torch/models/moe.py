@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core.config import MoEConfig
 from repro_torch.core.scope import scope
+from repro_torch.kernels.grad import needs_grad
 from repro_torch.models.mlp import activation, gated
 from repro_torch.models.params import ParamDef
 
@@ -188,6 +189,13 @@ def moe_ragged(p: Dict, x: torch.Tensor, m: MoEConfig,
 
 def moe(p: Dict, x: torch.Tensor, m: MoEConfig, n_groups: int = 1,
         act: str = "silu") -> torch.Tensor:
+    """The MoE feed-forward by ``m.impl``.  On the card a call that needs a
+    gradient raises: training the MoE kinds waits for their own slice
+    (on the CPU autograd runs through the plain ops)."""
+    if x.device.type == "cuda" and needs_grad(x, *p.values()):
+        raise NotImplementedError(
+            "moe: training the MoE layers on the card waits for a later "
+            "slice of the port")
     if m.impl == "ragged":
         return moe_ragged(p, x, m, act)
     return moe_gshard(p, x, m, n_groups, act)

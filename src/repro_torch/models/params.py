@@ -41,6 +41,22 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(like, leaves):
+    """``leaves`` (in :func:`tree_leaves` order) in the layout of
+    ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def cast_tree(params, dtype: torch.dtype):
+    """Every floating-point leaf in ``dtype``, the rest as they are: the
+    training loss casts the fp32 masters to the compute dtype once a step,
+    so their gradients land on the fp32 leaves (the reference's
+    ``cast_tree``)."""
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                    params)
+
+
 def stack_defs(defs, n: int, axis_name: str = "layers"):
     """Add a leading stacked-layers dim to every ParamDef in the tree."""
     return tree_map(lambda d: ParamDef((n,) + d.shape, (axis_name,) + d.axes,

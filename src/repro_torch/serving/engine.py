@@ -123,7 +123,8 @@ def make_encode_step(cfg: ModelConfig, *,
         tokens, feats = inputs.get("tokens"), inputs.get("features")
         return lm_forward(cfg, params,
                           None if tokens is None else tokens.to(dev),
-                          features=None if feats is None else feats.to(dev))
+                          features=None if feats is None else feats.to(dev),
+                          train=False)
 
     return encode_step
 

@@ -21,7 +21,11 @@ steps writing into slots of stacked cache leaves, and the wrappers'
 refusals (unbuilt shapes, a destination that overlaps an input, a
 Mamba-1 d_inner past a cluster of 8 blocks); the full mamba2-2.7b,
 zamba2-2.7b, mamba-130m and gemma3-1b shapes are held by
-``chip_smoke.py``.
+``chip_smoke.py``.  The training path: each backward kernel (conv1d,
+SSD at the reduced and zamba2-2.7b's (P, N), flash at d=16 GQA 3:1 and
+smollm-135m's d=64 GQA 3:1) against its plain backward and repeated bit
+for bit, the refusal of kernels with no backward under grad, and a tiny
+train step through the kernels against autograd through the plain path.
 Tolerances: 1e-4 in fp32 (sums in another order), 2e-2 in bf16 (one bf16
 rounding; the flash kernel also rounds its probabilities to bf16 for the
 P.V product), of max(1, max |reference|) for the Mamba kernels and of
@@ -1238,3 +1242,147 @@ def test_moe_ragged_equals_gshard_without_drops(cuda):
     b = moe.moe_ragged(pd, xd, m)
     torch.cuda.synchronize()
     _close([a.float()], [b.float()], TOL["bfloat16"])
+
+
+# ------------------------------------------------------------ training
+
+
+def _bwd_case(kind, rn, td):
+    """Inputs of one backward kernel and its plain version."""
+    if kind == "conv1d":
+        x, dy = rn(2, 100, 48, dt=td), rn(2, 100, 48, dt=td)
+        w, b = 0.5 * rn(48, 4), 0.1 * rn(48)
+        return (lambda: conv_ops.causal_conv1d_bwd_cuda(x, w, b, dy),
+                lambda: conv_ref.causal_conv1d_bwd_ref(x, w, b, dy))
+    if kind.startswith("ssd"):
+        b, s, h, p, g, n, q = ((2, 64, 4, 16, 2, 16, 16) if kind == "ssd16"
+                               else (2, 256, 4, 64, 1, 64, 128))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        (x, dt, A, _, _, D), _ = ssd_ref.model_scale_inputs(gen, b, s, h, p,
+                                                            n, td)
+        Bm, Cm = rn(b, s, g, n, dt=td), rn(b, s, g, n, dt=td)
+        dy = rn(b, s, h, p, dt=td)
+        _, _, st = ssd_ref.ssd_chunked_states_ref(x, dt, A, Bm, Cm, D,
+                                                  chunk=q)
+        return (lambda: ssd_ops.ssd_chunked_bwd_cuda(x, dt, A, Bm, Cm, D, dy,
+                                                     st, chunk=q),
+                lambda: ssd_ref.ssd_chunked_bwd_ref(x, dt, A, Bm, Cm, D, dy,
+                                                    st, chunk=q))
+    bh, kvh, s, d = ((6, 2, 100, 16) if kind == "flash16"
+                     else (9, 3, 130, 64))
+    q, k, v = rn(2, bh, s, d, dt=td), rn(2, kvh, s, d, dt=td), rn(
+        2, kvh, s, d, dt=td)
+    do = rn(2, bh, s, d, dt=td)
+    o, lse = flash_ref.attention_lse_ref(q, k, v)
+    return (lambda: flash_ops.flash_attention_bwd_cuda(q, k, v, o, do, lse),
+            lambda: flash_ref.flash_bwd_ref(q, k, v, o, do, lse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["conv1d", "ssd16", "ssd128", "flash16",
+                                  "flash64"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_match_plain_and_repeat(cuda, dtype, kind):
+    """Each backward kernel against its plain backward: every gradient
+    within 1e-4 (fp32) or 3e-2 (bf16) of its own max |g|; and two calls
+    give the same bits (no atomics)."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(0), cuda)
+    kern, plain = _bwd_case(kind, rn, DTYPES[dtype])
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    for a, a2, b in zip(got, again, want):
+        assert a.shape == b.shape
+        assert torch.equal(a, a2)
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), (kind, err)
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_raise_under_grad(cuda):
+    """The Mamba-1 scan (and the other kernels with no backward kernel)
+    raise on the card when a gradient is asked for, instead of returning
+    an output autograd cannot see through; without one they launch."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(0), cuda)
+    b, s, c, n = 1, 16, 32, 16
+    x = rn(b, s, c).requires_grad_()
+    args = (x, rn(b, s, c).abs(), -rn(c, n).abs(), rn(b, s, n), rn(b, s, n),
+            rn(c))
+    with pytest.raises(NotImplementedError, match="selective_scan"):
+        scan_ops.selective_scan(*args)
+    q = rn(1, 2, 64, 16).requires_grad_()
+    with pytest.raises(NotImplementedError, match="flash_attention"):
+        flash_ops.flash_attention(q, rn(1, 2, 64, 16), rn(1, 2, 64, 16),
+                                  window=8)
+    with torch.no_grad():
+        y, _ = scan_ops.selective_scan(*args)
+    assert y.grad_fn is None
+
+
+def _plain_kernels():
+    """The training path's kernels swapped for their plain versions
+    (autograd runs through them)."""
+    import contextlib
+    from unittest import mock
+    from repro_torch.kernels.ssd.ref import preprocess_dt_A
+    from repro_torch.models import attention, mamba2
+
+    def ssd(x, dt_raw, dt_bias, A_log, Bm, Cm, D, *, chunk, initial_state,
+            out_state=None):
+        dt, A = preprocess_dt_A(dt_raw, dt_bias, A_log)
+        return ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk)
+
+    def conv(x, w, b, *, initial_state=None, activation="silu",
+             lengths=None, out_state=None):
+        return conv_ref.causal_conv1d_ref(x, w, b)
+
+    def flash(q, k, v, *, causal=True, window=None, **_):
+        return flash_ref.attention_ref(q, k, v, causal=causal, window=window)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(mamba2, "ssd_chunked_raw", ssd))
+    stack.enter_context(mock.patch.object(mamba2, "causal_conv1d", conv))
+    stack.enter_context(mock.patch.object(attention, "flash_attention",
+                                          flash))
+    return stack
+
+
+@pytest.mark.cuda
+def test_train_step_kernel_path_matches_plain_path(cuda):
+    """One step of a tiny zamba2-style hybrid (the reference's system-test
+    config) in fp32 on the card: loss within 1e-5 relative and every
+    gradient within 1e-4 of its leaf's max through the kernels against
+    autograd through the plain versions; each backward kernel ran."""
+    from repro_torch.core.config import AttnConfig, ModelConfig, SSMConfig
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.train.train_step import make_loss_fn
+    cfg = ModelConfig(
+        name="sys-hybrid", family="hybrid", n_layers=4, d_model=64, d_ff=0,
+        vocab_size=64, ssm=SSMConfig(d_state=16, headdim=16, chunk=16),
+        shared_attn=AttnConfig(n_heads=4, n_kv_heads=4, head_dim=16),
+        shared_attn_d_ff=128, layer_pattern=("mamba2", "mamba2+shared"),
+        vocab_pad_multiple=16, compute_dtype="float32")
+    params = init_lm_params(cfg, device=cuda)
+    toks = torch.randint(0, 64, (2, 64), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    batch = {"tokens": toks, "labels": toks}
+    loss_fn = make_loss_fn(cfg)
+
+    def grads():
+        live = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        loss = loss_fn(tree_unflatten(params, live), batch)
+        return loss, torch.autograd.grad(loss, live)
+
+    counts = (flash_ops.flash_attention_bwd_cuda, ssd_ops.ssd_chunked_bwd_cuda,
+              conv_ops.causal_conv1d_bwd_cuda)
+    n0 = [f.launches for f in counts]
+    loss_k, g_k = grads()
+    assert all(f.launches > n for f, n in zip(counts, n0))
+    with _plain_kernels():
+        loss_p, g_p = grads()
+    torch.cuda.synchronize()
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    for a, b in zip(g_k, g_p):
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * max(float(b.abs().max()), 1e-30)

@@ -370,11 +370,14 @@ def _fields(cfg):
 
 @pytest.mark.parametrize("arch", NEW)
 def test_config_matches_reference_field_for_field(arch):
-    """Every field of the port's config equals the reference's (whose
-    extra fields, ``scan_layers``, ``remat`` and ``fsdp``, are sharding
-    and training knobs); the registry tags too."""
+    """Every field of the port's config equals the reference's, ``remat``
+    (the training step's rematerialisation) included; the reference's
+    only extra fields are the sharding knobs ``scan_layers`` and
+    ``fsdp``.  The registry tags too."""
     got = _fields(tregistry.get(arch))
     want = _fields(jregistry.get(arch))
+    assert set(want) - set(got) == {"scan_layers", "fsdp"}
+    assert got["remat"] == want["remat"]
     for key, val in got.items():
         if isinstance(val, dict):
             assert val == {k: want[key][k] for k in val}, key

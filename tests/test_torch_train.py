@@ -1,0 +1,530 @@
+"""The port's training path against the reference, on the CPU.
+
+* The plain backwards of the three kernels on the training path (causal
+  flash attention with GQA, the SSD scan, conv1d) against ``jax.vjp`` of
+  the reference's plain versions, directly and through the wrappers'
+  ``autograd.Function``s: fp32, within 1e-4 of each gradient's max |g|.
+* AdamW, the global norm, clipping and the warmup against the reference's
+  on random trees (fp32 math on both sides: within 1e-6 relative).
+* ``SyntheticLM`` batches and the tokenizer, bit for bit.
+* One ``make_train_step`` at microbatches 1 and 2 on the reference's tiny
+  hybrid (``tests/test_system.py``) and reduced smollm-135m, from the
+  reference's params carried over (``from_jax``), against the reference's
+  jitted step (gradients accumulated in the compute dtype).  fp32: loss
+  within 1e-5 relative, grad norm within 1e-4,
+  lr exact, each first moment (0.1 x the clipped gradient) within 1e-4 of
+  its leaf's max, and the new params within 1e-5 where the gradient is
+  above 1e-3 of its leaf's max (AdamW's first step moves a weight by
+  lr x sign(g); where g is at the level of the two sides' rounding its
+  sign may differ, so there they are held within 2.2 lr).  bf16 (the two
+  frameworks round at other points): loss within 1e-2 relative, grad norm
+  within 5e-2, each moment leaf's cosine to the reference's >= 0.98.
+* ``lm_forward(train=True)`` with remat against without: values and
+  gradients bit-identical.
+* Checkpoints written by one package and restored by the other;
+  corruption, retention, structure mismatch and ``AsyncCheckpointer``.
+* ``Trainer``: a restart resumes identically (the reference's test), and
+  10 steps' losses against the reference's ``Trainer`` in fp32 within
+  1e-4 relative.
+"""
+import dataclasses
+import functools
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import ckpt as jckpt
+from repro.configs import reduced as j_reduced
+from repro.configs import smollm_135m as J_SMOLLM
+from repro.core import config as jc
+from repro.data import synthetic as jsyn
+from repro.data import tokenizer as jtok
+from repro.kernels.conv1d import ref as jconv
+from repro.kernels.flash import ref as jflash
+from repro.kernels.ssd import ref as jssd
+from repro.models import lm as jlm
+from repro.train import optimizer as jopt
+from repro.train import train_step as jts
+from repro.train import trainer as jtrainer
+from repro_torch.checkpoint import ckpt as tckpt
+from repro_torch.configs import reduced
+from repro_torch.configs import smollm_135m as T_SMOLLM
+from repro_torch.convert import from_jax, opt_state_from_jax, to_numpy
+from repro_torch.core import config as tc
+from repro_torch.data import synthetic as tsyn
+from repro_torch.data import tokenizer as ttok
+from repro_torch.kernels.conv1d import ops as conv_ops
+from repro_torch.kernels.conv1d import ref as tconv
+from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.flash import ref as tflash
+from repro_torch.kernels.grad import needs_grad
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as tssd
+from repro_torch.models import lm as tlm
+from repro_torch.models.params import tree_leaves, tree_unflatten
+from repro_torch.train import optimizer as topt
+from repro_torch.train import train_step as tts
+from repro_torch.train import trainer as ttrainer
+
+GRAD_TOL = 1e-4
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+def _hold(got, want, tol=GRAD_TOL, name=""):
+    got, want = to_numpy(got), _np(want)
+    assert got.shape == want.shape, name
+    err = float(np.abs(got - want).max())
+    assert err <= tol * max(float(np.abs(want).max()), 1e-30), (name, err)
+
+
+# --------------------------------------------------- plain backwards
+
+
+def _conv_case(rng):
+    x = rng.standard_normal((2, 37, 12)).astype(np.float32)
+    w = (0.5 * rng.standard_normal((12, 4))).astype(np.float32)
+    b = (0.1 * rng.standard_normal(12)).astype(np.float32)
+    dy = rng.standard_normal((2, 37, 12)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, w, b: jconv.causal_conv1d_ref(x, w, b)[0],
+                     x, w, b)
+    return (x, w, b), dy, vjp(dy)
+
+
+def _ssd_case(rng):
+    b, s, h, p, g, n, q = 2, 48, 4, 16, 2, 16, 16
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = (0.01 + 0.5 * rng.random((b, s, h))).astype(np.float32)
+    A = -(0.5 + 3 * rng.random(h)).astype(np.float32)
+    Bm = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    Cm = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    D = rng.standard_normal(h).astype(np.float32)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda *a: jssd.ssd_chunked_ref(*a, chunk=q)[0], x, dt, A, Bm, Cm, D)
+    return (x, dt, A, Bm, Cm, D), dy, vjp(dy)
+
+
+def _flash_case(rng):
+    q = rng.standard_normal((2, 6, 40, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 2, 40, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 2, 40, 16)).astype(np.float32)
+    do = rng.standard_normal((2, 6, 40, 16)).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jflash.attention_ref(q, k, v,
+                                                          causal=True),
+                     q, k, v)
+    return (q, k, v), do, vjp(do)
+
+
+def _plain_bwd(kind, ins, dy):
+    t = [torch.from_numpy(a) for a in ins]
+    d = torch.from_numpy(dy)
+    if kind == "conv1d":
+        return tconv.causal_conv1d_bwd_ref(*t, d)
+    if kind == "ssd":
+        _, _, states = tssd.ssd_chunked_states_ref(*t, chunk=16)
+        dx, ddt, dA, dB, dC, dD = tssd.ssd_chunked_bwd_ref(*t, d, states,
+                                                          chunk=16)
+        return dx, ddt, dA, dB, dC, dD
+    o, lse = tflash.attention_lse_ref(*t)
+    return tflash.flash_bwd_ref(*t, o, d, lse)
+
+
+def _wrapper_bwd(kind, ins, dy):
+    t = [torch.from_numpy(a).requires_grad_() for a in ins]
+    if kind == "conv1d":
+        y, _ = conv_ops.causal_conv1d(*t)
+    elif kind == "ssd":
+        y, _ = ssd_ops.ssd_chunked(*t, chunk=16)
+    else:
+        y = flash_ops.flash_attention(*t)
+    assert y.grad_fn is not None and "Fn" in type(y.grad_fn).__name__
+    return torch.autograd.grad(y, t, torch.from_numpy(dy))
+
+
+CASES = {"conv1d": _conv_case, "ssd": _ssd_case, "flash": _flash_case}
+
+
+@functools.lru_cache(maxsize=None)
+def _case(kind):
+    """One draw and its ``jax.vjp`` a kind, shared by both routes."""
+    return CASES[kind](np.random.default_rng(0))
+
+
+@pytest.mark.parametrize("via", ["plain", "wrapper"])
+@pytest.mark.parametrize("kind", sorted(CASES))
+def test_backward_against_jax_vjp(kind, via):
+    ins, dy, want = _case(kind)
+    got = (_plain_bwd if via == "plain" else _wrapper_bwd)(kind, ins, dy)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _hold(g, w, name=f"{kind} grad {i}")
+
+
+def test_grad_check_decides_the_route():
+    x = torch.zeros(2, 3)
+    xg = torch.zeros(2, 3, requires_grad=True)
+    assert not needs_grad(x, None)
+    assert needs_grad(x, None, xg)
+    with torch.no_grad():
+        assert not needs_grad(xg)
+    with torch.inference_mode():
+        assert not needs_grad(xg)
+    # without a gradient the wrappers run their plain versions as before
+    # (no autograd Function)
+    w, b = torch.zeros(3, 4), torch.zeros(3)
+    with torch.no_grad():
+        y, _ = conv_ops.causal_conv1d(xg[None], w.requires_grad_(), b)
+    assert y.grad_fn is None
+
+
+# --------------------------------------------------- optimizer, data
+
+
+def _random_tree(rng, scale=1.0):
+    """Keys in sorted order, as JAX flattens a dict."""
+    return {"b": (scale * rng.standard_normal(5)).astype(np.float32),
+            "seg": [((scale * rng.standard_normal((2, 4, 3)))
+                     .astype(np.float32),
+                     (scale * rng.standard_normal(7)).astype(np.float32))],
+            "w": (scale * rng.standard_normal((6, 5))).astype(np.float32)}
+
+
+@pytest.mark.parametrize("grad_scale", [0.01, 10.0])
+def test_adamw_against_reference(grad_scale):
+    """Three steps of AdamW from warmup (clipping live at grad_scale 10)."""
+    rng = np.random.default_rng(1)
+    params = _random_tree(rng)
+    kw = dict(lr=1e-2, warmup_steps=4)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    js = jopt.init_opt_state(jp, jopt.OptConfig(**kw))
+    tp = from_jax(params, "cpu")
+    ts = topt.init_opt_state(tp, topt.OptConfig(**kw))
+    for _ in range(3):
+        g = _random_tree(rng, grad_scale)
+        np.testing.assert_allclose(
+            float(topt.global_norm(from_jax(g, "cpu"))),
+            float(jopt.global_norm(jax.tree_util.tree_map(jnp.asarray, g))),
+            rtol=1e-6)
+        jp, js, jm = jopt.adamw_update(
+            jp, jax.tree_util.tree_map(jnp.asarray, g), js,
+            jopt.OptConfig(**kw))
+        tp, ts, tm = topt.adamw_update(tp, from_jax(g, "cpu"), ts,
+                                       topt.OptConfig(**kw))
+        assert float(tm["lr"]) == float(jm["lr"])
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-6)
+        for got, want in zip(tree_leaves(tp) + tree_leaves(ts["m"])
+                             + tree_leaves(ts["v"]),
+                             jax.tree_util.tree_leaves(jp)
+                             + jax.tree_util.tree_leaves(js["m"])
+                             + jax.tree_util.tree_leaves(js["v"])):
+            np.testing.assert_allclose(to_numpy(got), _np(want), rtol=1e-5,
+                                       atol=1e-7)
+        assert int(ts["step"]) == int(js["step"])
+
+
+def test_schedule_and_clip_against_reference():
+    for step in (0, 1, 5, 99, 100, 250):
+        for warm in (0, 1, 100):
+            cfg = dict(lr=3e-4, warmup_steps=warm)
+            assert float(topt._schedule(topt.OptConfig(**cfg),
+                                        torch.tensor(step, dtype=torch.int32))
+                         ) == float(jopt._schedule(jopt.OptConfig(**cfg),
+                                                   jnp.int32(step)))
+
+
+def test_data_and_tokenizer_bit_for_bit():
+    for seq, nl in ((64, 8), (16, 8), (2048, 8)):
+        c = dict(vocab_size=1000, seq_len=seq, global_batch=3, seed=5,
+                 needle_len=nl)
+        jd = jsyn.SyntheticLM(jsyn.DataConfig(**c))
+        td = tsyn.SyntheticLM(tsyn.DataConfig(**c))
+        for step in (0, 1, 17):
+            a, b = jd.batch(step), td.batch(step)
+            assert a.keys() == b.keys()
+            for k in a:
+                assert a[k].dtype == b[k].dtype
+                np.testing.assert_array_equal(a[k], b[k])
+        pred = np.random.default_rng(0).integers(0, 1000, (3, seq))
+        assert tsyn.needle_accuracy(pred, b, td.cfg) == \
+            jsyn.needle_accuracy(pred, b, jd.cfg)
+    ja = jsyn.SyntheticAudio(jsyn.DataConfig(50, 12, 2, 3), feat_dim=8)
+    ta = tsyn.SyntheticAudio(tsyn.DataConfig(50, 12, 2, 3), feat_dim=8)
+    for k, v in ja.batch(4).items():
+        np.testing.assert_array_equal(v, ta.batch(4)[k])
+    for text in ("hello", "héllo wörld", ""):
+        np.testing.assert_array_equal(ttok.encode(text, eos=True),
+                                      jtok.encode(text, eos=True))
+        assert ttok.decode(ttok.encode(text)) == jtok.decode(
+            jtok.encode(text))
+    np.testing.assert_array_equal(ttok.batch_encode(["ab", "abcdef"],
+                                                    pad_to=4),
+                                  jtok.batch_encode(["ab", "abcdef"],
+                                                    pad_to=4))
+
+
+# --------------------------------------------------- the train step
+
+
+def _tiny_hybrid(pkg, **kw):
+    """The reference's ``tests/test_system.py::_tiny_hybrid``."""
+    return pkg.ModelConfig(
+        name="sys-hybrid", family="hybrid", n_layers=4, d_model=64, d_ff=0,
+        vocab_size=64, ssm=pkg.SSMConfig(d_state=16, headdim=16, chunk=16),
+        shared_attn=pkg.AttnConfig(n_heads=4, n_kv_heads=4, head_dim=16),
+        shared_attn_d_ff=128, layer_pattern=("mamba2", "mamba2+shared"),
+        vocab_pad_multiple=16, **kw)
+
+
+def _cfg_pair(model, compute_dtype):
+    if model == "hybrid":
+        return (_tiny_hybrid(jc, compute_dtype=compute_dtype),
+                _tiny_hybrid(tc, compute_dtype=compute_dtype))
+    return (dataclasses.replace(j_reduced(J_SMOLLM),
+                                compute_dtype=compute_dtype),
+            dataclasses.replace(reduced(T_SMOLLM),
+                                compute_dtype=compute_dtype))
+
+
+def _cosine(a, b):
+    a, b = a.ravel().astype(np.float64), b.ravel().astype(np.float64)
+    den = np.linalg.norm(a) * np.linalg.norm(b)
+    return 1.0 if den == 0 else float(a @ b / den)
+
+
+@pytest.mark.parametrize("model,compute_dtype,mb", [
+    ("hybrid", "float32", 1), ("hybrid", "bfloat16", 2),
+    ("smollm", "float32", 2), ("smollm", "bfloat16", 1)])
+def test_train_step_against_reference(model, compute_dtype, mb):
+    jcfg, tcfg = _cfg_pair(model, compute_dtype)
+    # fp32 compute also accumulates the gradients in fp32: a bf16
+    # accumulation rounds each to 2^-8 of itself, where two sides whose
+    # fp32 sums differ in the last bits may round apart
+    kw = dict(lr=1e-3, warmup_steps=3, grad_dtype=compute_dtype)
+    jp = jlm.init_lm_params(jcfg, jax.random.PRNGKey(0))
+    js = jopt.init_opt_state(jp, jopt.OptConfig(**kw))
+    tp = from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    ts = opt_state_from_jax(jax.tree_util.tree_map(np.asarray, js), "cpu")
+    toks = np.random.default_rng(0).integers(
+        0, jcfg.vocab_size, (4, 32)).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    jstep = jax.jit(jts.make_train_step(jcfg, jopt.OptConfig(**kw),
+                                        microbatches=mb))
+    jp2, js2, jm = jstep(jp, js, {k: jnp.asarray(v) for k, v in
+                                  batch.items()})
+    tstep = tts.make_train_step(tcfg, topt.OptConfig(**kw), microbatches=mb)
+    tp2, ts2, tm = tstep(tp, ts, {k: torch.as_tensor(v)
+                                  for k, v in batch.items()})
+    assert float(tm["lr"]) == float(jm["lr"])
+    m_got = [to_numpy(m) for m in tree_leaves(ts2["m"])]
+    m_want = [_np(m) for m in jax.tree_util.tree_leaves(js2["m"])]
+    assert len(m_got) == len(m_want)
+    if compute_dtype == "float32":
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-4)
+        lr = float(jm["lr"])
+        for g, w, p_got, p_want in zip(
+                m_got, m_want, tree_leaves(tp2),
+                jax.tree_util.tree_leaves(jp2)):
+            top = max(float(np.abs(w).max()), 1e-30)
+            assert float(np.abs(g - w).max()) <= 1e-4 * top
+            dp = np.abs(to_numpy(p_got) - _np(p_want))
+            live = np.abs(w) > 1e-3 * top
+            assert float(dp.max()) <= 2.2 * lr
+            assert float(dp[live].max(initial=0.0)) <= 1e-5
+    else:
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=1e-2)
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=5e-2)
+        for g, w in zip(m_got, m_want):
+            assert _cosine(g, w) >= 0.98
+    assert int(ts2["step"]) == int(js2["step"]) == 1
+
+
+def test_remat_is_bit_identical():
+    cfg = _tiny_hybrid(tc, compute_dtype="float32")
+    params = tlm.init_lm_params(cfg, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, 64, (2, 32)))
+    outs = []
+    for remat, train in (("block", True), ("none", True), ("block", False)):
+        c = dataclasses.replace(cfg, remat=remat)
+        live = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        logits = tlm.lm_forward(c, tree_unflatten(params, live), toks,
+                                train=train)
+        grads = torch.autograd.grad(logits.square().mean(), live)
+        outs.append((logits.detach(), grads))
+    for logits, grads in outs[1:]:
+        assert torch.equal(logits, outs[0][0])
+        for a, b in zip(grads, outs[0][1]):
+            assert torch.equal(a, b)
+
+
+# --------------------------------------------------- checkpoints
+
+
+def _train_trees(jcfg):
+    jp = jlm.init_lm_params(jcfg, jax.random.PRNGKey(2))
+    js = jopt.init_opt_state(jp, jopt.OptConfig())
+    js = dict(js, step=jnp.int32(7))
+    jtree = {"params": jp, "opt": js}
+    ttree = {"params": from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                "cpu"),
+             "opt": opt_state_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                              js), "cpu")}
+    return jtree, ttree
+
+
+def _same_tree(got_port, want_jax):
+    """Leaf by leaf, matched by path: same dtype, same bits."""
+    g = dict(tckpt._paths(got_port))
+    w = dict(tckpt._paths(jax.tree_util.tree_map(np.asarray, want_jax)))
+    assert g.keys() == w.keys()
+    for key, a in g.items():
+        b = w[key]
+        assert a.dtype == {np.dtype(np.float32): torch.float32,
+                           np.dtype(np.int32): torch.int32}[b.dtype], key
+        np.testing.assert_array_equal(to_numpy(a), b)
+
+
+def test_checkpoints_cross_packages(tmp_path):
+    jtree, ttree = _train_trees(_tiny_hybrid(jc))
+    jckpt.save(str(tmp_path / "j"), 3, jtree)
+    _same_tree(tckpt.restore(str(tmp_path / "j"), ttree), jtree)
+    tckpt.save(str(tmp_path / "t"), 4, ttree)
+    with open(tmp_path / "t" / "step_00000004" / "manifest.json") as f:
+        got = f.read()
+    with open(tmp_path / "j" / "step_00000003" / "manifest.json") as f:
+        want = f.read()
+    assert got.replace('"step": 4', '"step": 3') == want
+    back = jckpt.restore(str(tmp_path / "t"), jtree)
+    _same_tree(ttree, back)
+    # a bf16 leaf goes through float32 and comes back as it was
+    t16 = {"a": torch.randn(3, 5).to(torch.bfloat16)}
+    tckpt.save(str(tmp_path / "b"), 1, t16)
+    assert torch.equal(tckpt.restore(str(tmp_path / "b"), t16)["a"],
+                       t16["a"])
+
+
+def test_checkpoint_corruption_retention_mismatch_async(tmp_path):
+    tree = {"a": torch.randn(4, 8),
+            "b": {"c": torch.arange(10, dtype=torch.int32),
+                  "d": torch.tensor(3.5)}}
+    d = tckpt.save(str(tmp_path / "c"), 1, tree)
+    npz = os.path.join(d, "arrays.npz")
+    data = dict(np.load(npz))
+    data["a"] = data["a"] + 1.0
+    np.savez(npz, **data)
+    with pytest.raises(IOError, match="corruption"):
+        tckpt.restore(str(tmp_path / "c"), tree)
+    for s in range(6):
+        tckpt.save(str(tmp_path / "r"), s, tree, keep=2)
+    assert sorted(x for x in os.listdir(tmp_path / "r")) == [
+        "step_00000004", "step_00000005"]
+    with pytest.raises(ValueError, match="mismatch"):
+        tckpt.restore(str(tmp_path / "r"), {"a": tree["a"],
+                                            "zz": torch.zeros(3)})
+    ck = tckpt.AsyncCheckpointer(str(tmp_path / "a"), keep=2)
+    for s in (1, 2, 3):
+        ck.save(s, tree)
+    ck.wait()
+    assert tckpt.latest_step(str(tmp_path / "a")) == 3
+    out = tckpt.restore(str(tmp_path / "a"), tree, step=3)
+    assert torch.equal(out["b"]["c"], tree["b"]["c"])
+    assert sorted(os.listdir(tmp_path / "a")) == ["step_00000002",
+                                                  "step_00000003"]
+
+
+def test_async_checkpoint_is_a_snapshot(tmp_path):
+    """The tree is changed in place, as ``adamw_update`` does, before the
+    background write ends: the checkpoint holds the tree at save time."""
+    torch.manual_seed(0)
+    tree = {"p": torch.randn(256, 256), "m": [torch.randn(64)],
+            "h": torch.randn(8, 8).to(torch.bfloat16),
+            "n": np.arange(5, dtype=np.int32)}
+    want = {"p": tree["p"].clone(), "m": [tree["m"][0].clone()],
+            "h": tree["h"].clone(), "n": tree["n"].copy()}
+    ck = tckpt.AsyncCheckpointer(str(tmp_path / "s"), keep=1)
+    ck.save(1, tree)
+    tree["p"].add_(1.0)
+    tree["m"][0].mul_(-2.0)
+    tree["h"].add_(1.0)
+    tree["n"] += 7
+    ck.wait()
+    out = tckpt.restore(str(tmp_path / "s"), want)
+    assert torch.equal(out["p"], want["p"])
+    assert torch.equal(out["m"][0], want["m"][0])
+    assert torch.equal(out["h"], want["h"])
+    np.testing.assert_array_equal(to_numpy(out["n"]), want["n"])
+
+
+# --------------------------------------------------- the trainer
+
+
+def test_trainer_restart_resumes_identically(tmp_path):
+    """The reference's ``test_restart_resumes_identically`` on the port:
+    10 steps with a checkpoint at 5; a fresh trainer restored at 5
+    reproduces steps 6-10."""
+    cfg = _tiny_hybrid(tc)
+    kw = dict(seq_len=32, global_batch=4, device="cpu")
+    t1 = ttrainer.Trainer(cfg, topt.OptConfig(lr=1e-3),
+                          ttrainer.TrainerConfig(steps=10, ckpt_every=5,
+                                                 log_every=100,
+                                                 ckpt_dir=str(tmp_path)),
+                          **kw)
+    s1 = t1.run(log=lambda *_: None)
+    t2 = ttrainer.Trainer(cfg, topt.OptConfig(lr=1e-3),
+                          ttrainer.TrainerConfig(steps=10, ckpt_every=100,
+                                                 log_every=100,
+                                                 ckpt_dir=str(tmp_path)),
+                          **kw)
+    assert t2.maybe_restore() and t2.state.step == 10
+    r = tckpt.restore(str(tmp_path), {"params": t2.params,
+                                      "opt": t2.opt_state}, step=5)
+    t2.params, t2.opt_state = r["params"], r["opt"]
+    t2.state.step = 5
+    s2 = t2.run(log=lambda *_: None)
+    np.testing.assert_allclose(s1.losses[5:], s2.losses, rtol=1e-5)
+    assert all(np.isfinite(s1.losses))
+
+
+def test_trainer_against_reference():
+    """10 steps in fp32 from the same params and data: the losses agree
+    within 1e-4 relative."""
+    jcfg = _tiny_hybrid(jc, compute_dtype="float32")
+    tcfg = _tiny_hybrid(tc, compute_dtype="float32")
+    kw = dict(seq_len=32, global_batch=4)
+    tcf = dict(steps=10, ckpt_every=0, log_every=100)
+    jt = jtrainer.Trainer(jcfg, jopt.OptConfig(lr=1e-3),
+                          jtrainer.TrainerConfig(**tcf), **kw)
+    tt = ttrainer.Trainer(tcfg, topt.OptConfig(lr=1e-3),
+                          ttrainer.TrainerConfig(**tcf), device="cpu", **kw)
+    tt.params = from_jax(jax.tree_util.tree_map(np.asarray, jt.params),
+                         "cpu")
+    tt.opt_state = topt.init_opt_state(tt.params, topt.OptConfig(lr=1e-3))
+    js = jt.run(log=lambda *_: None)
+    ts = tt.run(log=lambda *_: None)
+    np.testing.assert_allclose(ts.losses, js.losses, rtol=1e-4)
+
+
+def test_training_entry_points_need_cuda_by_default(monkeypatch):
+    """``Trainer`` and the launcher default to the card and raise without
+    one; ``device="cpu"`` (``--device cpu``) runs the plain path."""
+    from repro_torch.launch import train as launch_train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _tiny_hybrid(tc)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttrainer.Trainer(cfg, topt.OptConfig(), ttrainer.TrainerConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.main(["--arch", "smollm-135m", "--steps", "1"])
+    launch_train.main(["--arch", "smollm-135m", "--steps", "2", "--seq",
+                       "32", "--batch", "2", "--device", "cpu"])
