@@ -153,7 +153,9 @@ Phases (each prints its lines and is fatal on failure):
      and fp32, within 1e-4 (fp32) or 3% (bf16) of each gradient's max
      |g|, two calls bit for bit, then at the training shape (B=4 x
      S=2048; B=8 for smollm) in bf16 held the same way and timed beside
-     the plain versions, autograd of the library calls and the bounds; (b) a training loss and
+     the plain versions, autograd of the library calls and the bounds,
+     each with its plan's route (flash on wgmma, SSD on mma.sync), share
+     of the bound and ratio to the library call; (b) a training loss and
      gradient through the kernels against autograd through the plain
      versions: zamba2-2.7b at one unit (6 layers) and smollm-135m at 4
      layers in fp32 and bf16, and zamba2-2.7b at its 54 layers in bf16
@@ -165,7 +167,9 @@ Phases (each prints its lines and is fatal on failure):
      replaying steps 5-8 within rtol 1e-5; (d) smollm-135m at full size,
      B=8 x S=2048, 8 steps; both print the median step ms, tokens/s, the
      model-FLOPs share of 989 TFLOP/s, peak memory and a traced step's
-     backward-kernel time against its forward kernels';
+     backward-kernel time against its forward kernels', every kernel of
+     each backward route found in the trace by a name that sums into
+     its own row;
 then a ``kernels`` JSON line (the five Mamba-2 and attention kernels at
 zamba2-2.7b's shapes, the two Mamba-1 kernels at mamba-130m's and the
 flash kernel's ring mode at gemma3-1b's, each with the launches of its
@@ -277,7 +281,8 @@ def device_busy(fn, names=()) -> dict:
     of its type, as a cache leaf is stored, runs as a memcpy, not a
     kernel) with their summed time and their count by direction; for each
     of ``names``, the summed time of the kernels whose name holds it and
-    its share of all kernel time.  Where the idle time lies: the device
+    its share of all kernel time, and then the names of every kernel
+    traced.  Where the idle time lies: the device
     span (first device operation's start to the last one's end) and the
     idle share inside it (the gaps between operations), the first device
     operation's and the first kernel's offsets, both on the card's clock,
@@ -352,6 +357,7 @@ def device_busy(fn, names=()) -> dict:
         us = sum(e["dur"] for e in kernels if name in e.get("name", ""))
         by_name[name] = dict(kernel_ms=us / 1e3,
                              share=us / total if total else None)
+    kernel_names = sorted({e.get("name", "") for e in kernels})
     copies = [e for e in ops if e.get("cat") == "gpu_memcpy"]
     by_kind = {}
     for e in copies:
@@ -382,7 +388,8 @@ def device_busy(fn, names=()) -> dict:
                 first_kernel_ms=(spans[0][0] - dev0) / 1e3
                 if spans else None,
                 graph_launch_ms=graph_launch_us / 1e3,
-                **({"by_name": by_name} if names else {}))
+                **({"by_name": by_name, "kernel_names": kernel_names}
+                   if names else {}))
 
 
 def nbytes(*ts) -> int:
@@ -2673,14 +2680,34 @@ def bwd_cases(gen, dt, b: int, s: int):
     return cases
 
 
+def bwd_route(key, ins):
+    """The route a backward kernel's plan takes for the inputs of
+    ``bwd_cases`` (wgmma, mma or cuda_cores; conv1d has one)."""
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    if key == "flash_bwd":
+        q, k = ins[0], ins[1]
+        return flash_ops.flash_bwd_plan(q.shape[0], q.shape[1], k.shape[1],
+                                        q.shape[2], q.shape[3],
+                                        q.dtype).route
+    if key == "ssd_bwd":
+        x, bm = ins[0], ins[3]
+        b, s, h, p = x.shape
+        chunk = s // ins[7].shape[2]
+        return ssd_ops.ssd_bwd_plan(b, s, h, chunk, p, bm.shape[2],
+                                    bm.shape[3], x.dtype).route
+    return "cuda_cores"
+
+
 def phase_backward_kernels(gen):
     """(a) Each backward kernel against its plain backward at B=4, S=512 in
     bf16 and fp32, repeated bit for bit; then in bf16 at the training shape
     (zamba2-2.7b's B=4, S=2048; smollm-135m's flash at its B=8) held the
     same way and timed: ms, the plain version's, autograd of the library
     call's (SDPA causal; F.conv1d with groups=C then SiLU; none for SSD)
-    and the bound.  Returns the kernels line's rows (without launches) and
-    the checks at B=4, S=512."""
+    and the bound; each row also says the plan's route, its share of the
+    bound and its ratio to the library call.  Returns the kernels line's
+    rows (without launches) and the checks at B=4, S=512."""
     checks = {}
     for dt in (torch.bfloat16, torch.float32):
         for name, (kern, plain, *_rest) in bwd_cases(gen, dt, 4, 512).items():
@@ -2711,10 +2738,14 @@ def phase_backward_kernels(gen):
                 name=name, route="cuda",
                 source=f"src/repro_torch/kernels/csrc/{sources[key][0]}",
                 replaces=sources[key][1], shape=f"B={b}, S=2048",
+                kernel_route=bwd_route(key, ins),
                 max_abs_err=max_err(got, want), of_limit=of_limit,
                 ms=device_ms(kern, 2, 5),
                 plain_ms=event_ms(plain, 3), bound_ms=bms, bound_by=by,
                 library_ms=None if lib is None else event_ms(lib, 5))
+            row["of_bound"] = bms / row["ms"]
+            row["over_library"] = (None if lib is None
+                                   else row["ms"] / row["library_ms"])
             rows[name] = row
             del got, want
         del cases
@@ -2887,6 +2918,33 @@ def model_flops(cfg, b: int, s: int) -> float:
 
 FWD_KERNELS = ("flash_wgmma_kernel", "ssd_tc_kernel", "conv1d_kernel")
 BWD_KERNELS = ("flash_bwd", "ssd_bwd", "conv1d_bwd")
+# the CUDA kernels of each backward row's bf16 route at the training shapes
+BWD_ROUTE_KERNELS = {
+    "flash_bwd": ("flash_bwd_stats", "flash_bwd_dkdv_wgmma",
+                  "flash_bwd_dq_wgmma"),
+    "ssd_bwd": ("ssd_bwd_local", "ssd_bwd_state", "ssd_bwd_chunk",
+                "ssd_bwd_finish_tc"),
+    "conv1d_bwd": ("conv1d_bwd",)}
+
+
+def check_trace_names(cfg, names, launched) -> list:
+    """Each traced kernel's name holds at most one of FWD_KERNELS and
+    BWD_KERNELS (so ``by_name`` sums it into one row), and every kernel of
+    each launched backward's route was traced.  Returns the backward
+    kernels' names."""
+    for kname in names:
+        held = [n for n in FWD_KERNELS + BWD_KERNELS if n in kname]
+        if len(held) > 1:
+            raise AssertionError(f"{cfg.name}: traced kernel {kname} holds "
+                                 f"{held}, summed into more than one row")
+    for row, kerns in BWD_ROUTE_KERNELS.items():
+        if not launched.get(row):
+            continue
+        for k in kerns:
+            if not any(k in kname for kname in names):
+                raise AssertionError(f"{cfg.name}: {row}'s kernel {k} is "
+                                     "not in the traced step")
+    return [k for k in names if any(n in k for n in BWD_KERNELS)]
 
 
 def phase_train_full(cfg, gen, b: int, s: int, steps: int = 8,
@@ -2904,7 +2962,8 @@ def phase_train_full(cfg, gen, b: int, s: int, steps: int = 8,
     model-FLOPs share of 989 TFLOP/s, peak memory (the most any step
     allocated) beside the params and moments at rest, the launches of the
     run, and one more step traced: the backward kernels' time against the
-    forward kernels'."""
+    forward kernels', each backward route's kernels found in the trace by
+    name (``check_trace_names``)."""
     import shutil
     import tempfile
     from repro_torch.models.params import tree_leaves
@@ -2966,6 +3025,7 @@ def phase_train_full(cfg, gen, b: int, s: int, steps: int = 8,
         names = FWD_KERNELS + BWD_KERNELS
         busy = device_busy(lambda: t1._step_fn(t1.params, t1.opt_state,
                                                batch), names)
+        bwd_names = check_trace_names(cfg, busy["kernel_names"], launched)
         del t1, probe, batch
         torch.cuda.empty_cache()
         replay = None
@@ -3009,7 +3069,8 @@ def phase_train_full(cfg, gen, b: int, s: int, steps: int = 8,
         launches=launched, traced_step=dict(
             wall_ms=busy["wall_ms"], kernel_busy_ms=busy["kernel_busy_ms"],
             kernels=busy["kernels"], idle_share=busy["idle_share"],
-            by_name=busy["by_name"], backward_kernel_ms=bwd_ms,
+            by_name=busy["by_name"], backward_kernels=bwd_names,
+            backward_kernel_ms=bwd_ms,
             forward_kernel_ms=fwd_ms,
             backward_over_forward=bwd_ms / fwd_ms if fwd_ms else None))
 
@@ -3205,8 +3266,11 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s): " + json.dumps(bwd_checks),
           flush=True)
     for name, r in bwd_rows.items():
-        print(f"phase 10 kernel {name} ({r['shape']}, bf16): "
-              + json.dumps(r), flush=True)
+        lib = ("" if r["over_library"] is None
+               else f", {r['over_library']:.3f}x the library call")
+        print(f"phase 10 kernel {name} ({r['shape']}, bf16), route "
+              f"{r['kernel_route']}, {100 * r['of_bound']:.2f}% of its "
+              f"bound{lib}: " + json.dumps(r), flush=True)
     for cfg, n, cd, b, s in ((zamba2_2p7b, 6, "float32", 2, 512),
                              (zamba2_2p7b, 6, "bfloat16", 2, 512),
                              (smollm_135m, 4, "float32", 2, 512),

@@ -51,7 +51,10 @@ mutant's kernel (every check for the unchanged sources):
 - ``backward``: the three backward kernels (flash, SSD, conv1d) against
   their plain backwards at zamba2-2.7b's and smollm-135m's shapes
   (``chip_smoke.bwd_cases``, B=4, S=512), each gradient within
-  ``chip_smoke.BWD_TOL`` of its own max |g| and two calls bit for bit.
+  ``chip_smoke.BWD_TOL`` of its own max |g| and two calls bit for bit;
+  bf16 takes the tensor-core routes (flash on wgmma, SSD's chunk-parallel
+  passes on mma.sync), fp32 the CUDA-core kernels, and each route has
+  its planted fault.
 
 1 is the limit.  Exits 1 if the unchanged kernels fail a check or a
 mutant passes its kernel's check (or, for ``scan1``, fails it by less
@@ -189,14 +192,24 @@ MUTANTS = {
     "flash_bwd_drops_last_group_head": (
         "backward", "flash_bwd.cu", "  for (int g = 0; g < G; ++g) {\n",
         "  for (int g = 0; g < G - (G > 1); ++g) {\n",
-        "flash backward: dK and dV of a KV head leave out the last query "
-        "head of its group (GQA only)"),
+        "flash backward (CUDA cores: fp32): dK and dV of a KV head leave "
+        "out the last query head of its group (GQA only)"),
+    "flash_bwd_wgmma_drops_last_group_head": (
+        "backward", "flash_bwd.cu", "  const int n_tiles = G * nq;",
+        "  const int n_tiles = (G - (G > 1)) * nq;",
+        "flash backward (wgmma: bf16): the dK/dV kernel's walk leaves out "
+        "the last query head of its group (GQA only)"),
     "ssd_bwd_drops_state_carry": (
         "backward", "ssd_bwd.cu",
         "          acc[r][c] = elast * dh[(ty + 16 * r) * N + tx + 16 * c];\n",
         "          acc[r][c] = 0.0f * dh[(ty + 16 * r) * N + tx + 16 * c];\n",
-        "SSD backward: the state gradient carried into the chunk before "
-        "drops e^cum_last dh'"),
+        "SSD backward (CUDA cores: fp32): the state gradient carried into "
+        "the chunk before drops e^cum_last dh'"),
+    "ssd_bwd_state_pass_drops_carry": (
+        "backward", "ssd_bwd.cu", "      const float e = el[c0 + r];\n",
+        "      const float e = 0.0f * el[c0 + r];\n",
+        "SSD backward (tensor cores: bf16): the state pass drops the carry "
+        "e^cum_last dh', so dh'(c-1) = U(c)"),
     "conv1d_bwd_drops_tap_0": (
         "backward", "conv1d_bwd.cu",
         "      for (int i = 0; i < K; ++i) acc = fmaf(dzw[K - 1 - i], wk[i], "

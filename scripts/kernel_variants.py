@@ -32,7 +32,10 @@ counts of ``chip_smoke.conv_shapes``, without and (where the wrapper
 takes them) with ragged lengths; one that starts with ``scan1`` the
 selective scan in bf16 at mamba-130m's width, B=4, S=256 and B=1, S=2048
 and 16384, on ``scan1.ref.model_scale_inputs`` (``chip_smoke.scan_ratio``'s
-limits). Each variant's kernels that ptxas
+limits); one that starts with ``bwd_flash`` or ``bwd_ssd`` that backward
+kernel in bf16 at ``chip_smoke.bwd_cases`` (checked at B=4, S=512 and
+the training shapes, timed at the training shapes; ``BWD_TOL``'s
+limits, a second call bit for bit). Each variant's kernels that ptxas
 reports spilling are printed. The variants run in turn, then again in
 reverse order; each case prints every variant's two times and its worst
 ratio to the check's limit (1 is the limit). An output past the limit
@@ -92,7 +95,165 @@ _SCAN1_NO_OUTPUT = ["scan1.cu",
                     "    for (int t = tid; t < 0; t += kN) {"]
 _SCAN1_RULE = ["../scan1/ops.py", "index = 1 if b * ldc >= 3 * sms * 8 else 0"]
 
+# the tensor-core SSD backward's fp32 operands split back into hi + lo
+# bf16 terms (the source rounds each to one term): e^cum dy in the local
+# pass, the states h_c and dh'_c, the masked and decayed score blocks
+_SSD_BWD_SPLIT_EDY = [
+    ["ssd_bwd.cu", "      uint32_t yr[4], a[4];",
+     "      uint32_t yr[4], a[4], alo[4];"],
+    ["ssd_bwd.cu",
+     "        a[q] = repro::pack_bf16(yv.x * ecum[j], yv.y * ecum[j + 1]);",
+     "        repro::split_bf16(yv.x * ecum[j], yv.y * ecum[j + 1], a[q], "
+     "alo[q]);"],
+    ["ssd_bwd.cu",
+     "        mma_bf16(acc[t], a, r[0], r[1]);\n"
+     "        mma_bf16(acc[t + 1], a, r[2], r[3]);\n",
+     "        mma_bf16(acc[t], a, r[0], r[1]);\n"
+     "        mma_bf16(acc[t], alo, r[0], r[1]);\n"
+     "        mma_bf16(acc[t + 1], a, r[2], r[3]);\n"
+     "        mma_bf16(acc[t + 1], alo, r[2], r[3]);\n"]]
+_SSD_BWD_SPLIT_STATES = [
+    ["ssd_bwd.cu", "2 * (size_t)P * BS) *", "4 * (size_t)P * BS) *"],
+    ["ssd_bwd.cu",
+     "  bf16* hb = dhb + P * BS;                        // [P][BS] h_c\n"
+     "  float* dts = reinterpret_cast<float*>(hb + P * BS);",
+     "  bf16* dhl = dhb + P * BS;\n  bf16* hb = dhl + P * BS;\n"
+     "  bf16* hl = hb + P * BS;\n"
+     "  float* dts = reinterpret_cast<float*>(hl + P * BS);"],
+    ["ssd_bwd.cu",
+     "        *reinterpret_cast<uint2*>(hb + off) = make_uint2(\n"
+     "            repro::pack_bf16(hv.x, hv.y), repro::pack_bf16(hv.z, hv.w));"
+     "\n        *reinterpret_cast<uint2*>(dhb + off) = make_uint2(\n"
+     "            repro::pack_bf16(dv.x, dv.y), repro::pack_bf16(dv.z, dv.w));",
+     "        uint32_t h0_, l0_, h1_, l1_;\n"
+     "        repro::split_bf16(hv.x, hv.y, h0_, l0_);\n"
+     "        repro::split_bf16(hv.z, hv.w, h1_, l1_);\n"
+     "        *reinterpret_cast<uint2*>(hb + off) = make_uint2(h0_, h1_);\n"
+     "        *reinterpret_cast<uint2*>(hl + off) = make_uint2(l0_, l1_);\n"
+     "        repro::split_bf16(dv.x, dv.y, h0_, l0_);\n"
+     "        repro::split_bf16(dv.z, dv.w, h1_, l1_);\n"
+     "        *reinterpret_cast<uint2*>(dhb + off) = make_uint2(h0_, h1_);\n"
+     "        *reinterpret_cast<uint2*>(dhl + off) = make_uint2(l0_, l1_);"],
+    ["ssd_bwd.cu", "                                             const bf16* st,"
+     " int n0,",
+     "                                             const bf16* st, "
+     "const bf16* slo, int n0,"],
+    ["ssd_bwd.cu",
+     "      repro::ldmatrix_x4_trans(r, st + off + t * 8);\n"
+     "      repro::mma_bf16(acc[t], af, r[0], r[1]);\n"
+     "      repro::mma_bf16(acc[t + 1], af, r[2], r[3]);\n",
+     "      repro::ldmatrix_x4_trans(r, st + off + t * 8);\n"
+     "      repro::mma_bf16(acc[t], af, r[0], r[1]);\n"
+     "      repro::mma_bf16(acc[t + 1], af, r[2], r[3]);\n"
+     "      repro::ldmatrix_x4_trans(r, slo + off + t * 8);\n"
+     "      repro::mma_bf16(acc[t], af, r[0], r[1]);\n"
+     "      repro::mma_bf16(acc[t + 1], af, r[2], r[3]);\n"],
+    ["ssd_bwd.cu", "(t2, xs, r0, dhb, nh * 64, lane)",
+     "(t2, xs, r0, dhb, dhl, nh * 64, lane)"],
+    ["ssd_bwd.cu", "(t2, dys, r0, hb, nh * 64, lane)",
+     "(t2, dys, r0, hb, hl, nh * 64, lane)"],
+    ["ssd_bwd.cu",
+     "        repro::ldmatrix_x4(r, dhb + off);\n"
+     "        repro::mma_bf16(dxa[2 * pp], af, r[0], r[1]);\n"
+     "        repro::mma_bf16(dxa[2 * pp + 1], af, r[2], r[3]);\n",
+     "        repro::ldmatrix_x4(r, dhb + off);\n"
+     "        repro::mma_bf16(dxa[2 * pp], af, r[0], r[1]);\n"
+     "        repro::mma_bf16(dxa[2 * pp + 1], af, r[2], r[3]);\n"
+     "        repro::ldmatrix_x4(r, dhl + off);\n"
+     "        repro::mma_bf16(dxa[2 * pp], af, r[0], r[1]);\n"
+     "        repro::mma_bf16(dxa[2 * pp + 1], af, r[2], r[3]);\n"]]
+_SSD_BWD_SPLIT_SCORES = [
+    ["ssd_bwd.cu",
+     "                                       uint32_t (&a)[4]) {\n"
+     "  a[0] = repro::pack_bf16(x[0][0], x[0][1]);\n"
+     "  a[1] = repro::pack_bf16(x[0][2], x[0][3]);\n"
+     "  a[2] = repro::pack_bf16(x[1][0], x[1][1]);\n"
+     "  a[3] = repro::pack_bf16(x[1][2], x[1][3]);\n",
+     "                                       uint32_t (&a)[4], "
+     "uint32_t (&lo)[4]) {\n"
+     "  repro::split_bf16(x[0][0], x[0][1], a[0], lo[0]);\n"
+     "  repro::split_bf16(x[0][2], x[0][3], a[1], lo[1]);\n"
+     "  repro::split_bf16(x[1][0], x[1][1], a[2], lo[2]);\n"
+     "  repro::split_bf16(x[1][2], x[1][3], a[3], lo[3]);\n"],
+    ["ssd_bwd.cu",
+     "                                         const uint32_t (&a)[4],\n",
+     "                                         const uint32_t (&a)[4],\n"
+     "                                         const uint32_t (&lo)[4],\n"],
+    ["ssd_bwd.cu",
+     "    repro::mma_bf16(acc[t], a, r[0], r[1]);\n"
+     "    repro::mma_bf16(acc[t + 1], a, r[2], r[3]);\n",
+     "    repro::mma_bf16(acc[t], a, r[0], r[1]);\n"
+     "    repro::mma_bf16(acc[t], lo, r[0], r[1]);\n"
+     "    repro::mma_bf16(acc[t + 1], a, r[2], r[3]);\n"
+     "    repro::mma_bf16(acc[t + 1], lo, r[2], r[3]);\n"],
+    ["ssd_bwd.cu",
+     "      uint32_t ga[4];\n      pack_a(gs, ga);\n"
+     "      a_x_rows<NT, BS>(dCa, ga, bs, cb * 16, lane);",
+     "      uint32_t ga[4], gl[4];\n      pack_a(gs, ga, gl);\n"
+     "      a_x_rows<NT, BS>(dCa, ga, gl, bs, cb * 16, lane);"],
+    ["ssd_bwd.cu",
+     "      uint32_t ma[4], ga[4];\n      pack_a(gt, ma);\n"
+     "      pack_a(dmt, ga);\n"
+     "      a_x_rows<PT, XS>(dxa, ma, dys, ib_ * 16, lane);\n"
+     "      a_x_rows<NT, BS>(dBa, ga, cs, ib_ * 16, lane);",
+     "      uint32_t ma[4], ml[4], ga[4], gl[4];\n"
+     "      pack_a(gt, ma, ml);\n      pack_a(dmt, ga, gl);\n"
+     "      a_x_rows<PT, XS>(dxa, ma, ml, dys, ib_ * 16, lane);\n"
+     "      a_x_rows<NT, BS>(dBa, ga, gl, cs, ib_ * 16, lane);"]]
+_FLASH_BWD_SCORES = [
+    ["flash_bwd.cu", "scores64<D / 16>(" + call, "scores64<DP / 16>(" + call]
+    for call in ("s, k_addr, kWKeys, q_addr);",
+                 "dp, v_addr, kWKeys, do_addr);",
+                 "s, q_addr, kWQRows, k_addr);",
+                 "dp, do_addr, kWQRows, v_addr);")]
+
 SETS = {
+    # the tensor-core SSD backward's fp32 operands split back into hi + lo
+    # bf16 terms, one kind at a time and all at once: what each split buys
+    # in error and costs in time
+    "bwd_ssd_operands": {
+        "one term (as is)": [],
+        "split e^cum dy": _SSD_BWD_SPLIT_EDY,
+        "split states": _SSD_BWD_SPLIT_STATES,
+        "split scores": _SSD_BWD_SPLIT_SCORES,
+        "split everywhere": (_SSD_BWD_SPLIT_EDY + _SSD_BWD_SPLIT_STATES
+                             + _SSD_BWD_SPLIT_SCORES),
+    },
+    # each launch of the tensor-core SSD backward left out (wrong on
+    # purpose): what each pass costs
+    "bwd_ssd_breakdown": {
+        "as is": [],
+        "no local": [["ssd_bwd.cu", "  ssd_bwd_local<P, N><<<",
+                      "  if (0) ssd_bwd_local<P, N><<<"]],
+        "no state": [["ssd_bwd.cu", "  ssd_bwd_state<<<",
+                      "  if (0) ssd_bwd_state<<<"]],
+        "no chunk": [["ssd_bwd.cu", "  ssd_bwd_chunk<P, N><<<",
+                      "  if (0) ssd_bwd_chunk<P, N><<<"]],
+        "no finish": [["ssd_bwd.cu", "  ssd_bwd_finish_tc<<<",
+                       "  if (0) ssd_bwd_finish_tc<<<"]],
+    },
+    # each launch of the wgmma flash backward left out (wrong on purpose):
+    # what each costs, and so what folding dQ into the dK/dV kernel (FA3's
+    # deterministic form) could save at most
+    "bwd_flash_breakdown": {
+        "as is": [],
+        "no stats": [["flash_bwd.cu", "  flash_bwd_stats<<<",
+                      "  if (0) flash_bwd_stats<<<"]],
+        "no dK/dV": [["flash_bwd.cu", "  flash_bwd_dkdv_wgmma<D>\n",
+                      "  if (0) flash_bwd_dkdv_wgmma<D>\n"]],
+        "no dQ": [["flash_bwd.cu", "  flash_bwd_dq_wgmma<D>\n",
+                   "  if (0) flash_bwd_dq_wgmma<D>\n"]],
+    },
+    # the flash backward's score products over the padded d (d = 80: 8
+    # k-steps instead of 5), and the depth of its ring
+    "bwd_flash": {
+        "as is": [],
+        "padded k-steps": _FLASH_BWD_SCORES,
+        "2 stages": [["flash_bwd.cu", "constexpr int kWStages = 4;",
+                      "constexpr int kWStages = 2;"]],
+        "3 stages": [["flash_bwd.cu", "constexpr int kWStages = 4;",
+                      "constexpr int kWStages = 3;"]],
+    },
     # K/V pipeline depth of the d=128 instance
     "stages": {
         "3 stages": [],
@@ -106,7 +267,7 @@ SETS = {
         "no S": [["flash.cu", "        repro::wgmma_ss_n64(s, da, db, 1);",
                   "        (void)da; (void)db;"]],
         "no PV": [["flash.cu",
-                   "        wgmma_pv<DP>(o, pa[kk],\n"
+                   "        repro::wgmma_rs<DP>(o, pa[kk],\n"
                    "                    repro::wgmma_desc(v_addr + kk * 2048,"
                    " kWK * 128, 1024));",
                    "        (void)pa[kk];"]],
@@ -566,6 +727,39 @@ def ssd_child() -> int:
     return 0
 
 
+def bwd_child(which: str) -> int:
+    """The flash (``which`` "flash") or SSD backward's check at
+    ``chip_smoke.bwd_cases`` (B=4, S=512, bf16: the worst gradient's ratio
+    to ``BWD_TOL`` of its max |g|, inf if two calls differ) and its time
+    at the training shapes (zamba2-2.7b's B=4, S=2048; smollm-135m's flash
+    at B=8)."""
+    import torch
+
+    sys.path.insert(1, ROOT)
+    import chip_smoke as cs
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for b, s in ((4, 512), (4, 2048), (8, 2048)):
+        for name, (kern, plain, *_r) in cs.bwd_cases(gen, bf16, b,
+                                                     s).items():
+            if not name.startswith(which + "_bwd") or (
+                    b == 8 and name != "flash_bwd_smollm"):
+                continue
+            got, again, want = kern(), kern(), plain()
+            ratio = max(cs.whole_ratio(g, w, cs.BWD_TOL[bf16],
+                                       floor=torch.finfo(torch.float32).tiny)
+                        for g, w in zip(got, want))
+            if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+                ratio = float("inf")
+            del got, again, want
+            out[f"{name} B={b}, S={s}"] = (ratio, cs.device_ms(kern, 2, 5))
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
 def child(micro: bool) -> int:
     import torch
 
@@ -633,7 +827,8 @@ def run_variant(name: str, edits, micro: bool, kind: str, tree: str,
                 f.write(text.replace(old, new))
     env = dict(os.environ, PYTHONPATH=os.path.join(base, "src"))
     flag = {"ssd": ["--ssd"], "decode": ["--decode"], "m1": ["--m1"],
-            "conv": ["--conv"], "scan1": ["--scan1"]}.get(
+            "conv": ["--conv"], "scan1": ["--scan1"],
+            "bwd_flash": ["--bwd", "flash"], "bwd_ssd": ["--bwd", "ssd"]}.get(
                 kind, ["--micro"] if micro else [])
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
                           "--child"] + flag, env=env, capture_output=True,
@@ -664,7 +859,9 @@ def main(spec: str, micro: bool, tree: str) -> int:
         with open(spec) as f:
             variants = json.load(f)
     names = list(variants)
-    kind = ("ssd" if spec.startswith("ssd") else
+    kind = ("bwd_ssd" if spec.startswith("bwd_ssd") else
+            "bwd_flash" if spec.startswith("bwd_flash") else
+            "ssd" if spec.startswith("ssd") else
             "scan1" if spec.startswith("scan1") else
             "decode" if spec.startswith("mamba2_decode") else
             "m1" if spec.startswith("mamba1_decode") else
@@ -698,6 +895,8 @@ if __name__ == "__main__":
     children = {"--ssd": ssd_child, "--decode": decode_child,
                 "--m1": m1_child, "--conv": conv_child,
                 "--scan1": scan1_child}
+    if args[:2] == ["--child", "--bwd"]:
+        sys.exit(bwd_child(args[2]))
     if args[:1] == ["--child"] and args[1:] and args[1] in children:
         sys.exit(children[args[1]]())
     if args == ["--child"]:

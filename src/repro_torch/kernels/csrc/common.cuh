@@ -32,4 +32,12 @@ __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
 }
 
+// 2^x in one instruction (MUFU.EX2, ~2^-22 relative; flushes to 0 below
+// 2^-126; 2^-inf = 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 }  // namespace repro

@@ -89,7 +89,9 @@
 
 namespace {
 
+using repro::make_map;
 using repro::pack_bf16;
+using repro::tma_tile;
 
 constexpr float kNegInf = -1e30f;
 
@@ -242,30 +244,8 @@ __device__ __forceinline__ int active_splits(int n, int ns) {
   return max(1, min(ns, n / kMinSplitTiles));
 }
 
-__device__ __forceinline__ int pick(int i, int a0, int a1, int a2, int a3) {
-  return i == 0 ? a0 : i == 1 ? a1 : i == 2 ? a2 : a3;
-}
-
-__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int perm, int d,
-                                         int head, int row, int b) {
-  repro::tma_load_4d(dst, map, bar, pick(perm & 255, d, head, row, b),
-                     pick((perm >> 8) & 255, d, head, row, b),
-                     pick((perm >> 16) & 255, d, head, row, b),
-                     pick(perm >> 24, d, head, row, b));
-}
-
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 64) repro::wgmma_rs_n64(o, a, db);
-  else if constexpr (D == 128) repro::wgmma_rs_n128(o, a, db);
-  else repro::wgmma_rs_n256(o, a, db);
 }
 
 template <int D, bool kRing>
@@ -471,7 +451,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       repro::reg_fence(o);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<DP>(o, pa[kk],
+        repro::wgmma_rs<DP>(o, pa[kk],
                     repro::wgmma_desc(v_addr + kk * 2048, kWK * 128, 1024));
       repro::wgmma_commit();
       repro::reg_fence(o);
@@ -709,72 +689,6 @@ flash_f32_kernel(FlashParams p) {
       if (d < D) og[(long long)r * p.o_ss + d] = acc[i][c] * inv;
     }
   }
-}
-
-// cuTensorMapEncodeTiled from libcuda, looked up at run time so that the
-// library links against the CUDA runtime alone
-typedef CUresult (*EncodeTiledFn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiledFn>(f) : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-d bf16 tensor map of a strided [batch, head, row, d] tensor (unit
-// stride along d), 128-byte swizzle, boxes of 64 along d and `box_head`,
-// `box_row` along heads and rows.  The three outer dims go into the map
-// in ascending order of stride; `perm` receives the logical index of each
-// map dim, one byte each.  A dim of extent 1 takes a stride past the
-// others'.
-bool make_map(CUtensorMap* map, const void* ptr, int D, int n_head,
-              long long s_head, int n_row, long long s_row, int n_b,
-              long long s_b, int box_head, int box_row, int* perm) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  long long n[4] = {D, n_head, n_row, n_b};
-  long long st[4] = {1, s_head, s_row, s_b};
-  const int box[4] = {kPanel, box_head, box_row, 1};
-  long long span = 0;
-  for (int i = 1; i < 4; ++i) span = max(span, n[i] * st[i]);
-  for (int i = 1; i < 4; ++i)
-    if (n[i] == 1) st[i] = span;
-  int order[4] = {0, 1, 2, 3};
-  for (int i = 1; i < 4; ++i)
-    for (int j = i + 1; j < 4; ++j)
-      if (st[order[j]] < st[order[i]]) {
-        const int t = order[i];
-        order[i] = order[j];
-        order[j] = t;
-      }
-  cuuint64_t dims[4], strides[3];
-  cuuint32_t boxes[4], es[4] = {1, 1, 1, 1};
-  *perm = 0;
-  for (int i = 0; i < 4; ++i) {
-    dims[i] = (cuuint64_t)n[order[i]];
-    boxes[i] = (cuuint32_t)box[order[i]];
-    if (i > 0) strides[i - 1] = (cuuint64_t)st[order[i]] * 2;
-    *perm |= order[i] << (8 * i);
-  }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, boxes, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D, bool kRing>

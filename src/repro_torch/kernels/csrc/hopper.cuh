@@ -1,9 +1,11 @@
 // Hopper building blocks for the port's kernels (sm_90a): mbarriers, TMA
-// tile loads, wgmma descriptors and instructions, register rebalancing.
-// Only the flash kernel's bf16 instances use them.
+// tile and bulk loads and the host side of TMA's tensor maps, wgmma
+// descriptors and instructions, register rebalancing.  The flash kernels'
+// bf16 instances (forward and backward) use them.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace repro {
@@ -59,6 +61,100 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// the logical coordinate (d, head, row, batch)[i], i in 0..3
+__device__ __forceinline__ int pick(int i, int a0, int a1, int a2, int a3) {
+  return i == 0 ? a0 : i == 1 ? a1 : i == 2 ? a2 : a3;
+}
+
+// a tile of a map made by make_map below at logical coordinates (d, head,
+// row, batch); perm is the map's coordinate order
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int perm, int d,
+                                         int head, int row, int b) {
+  tma_load_4d(dst, map, bar, pick(perm & 255, d, head, row, b),
+              pick((perm >> 8) & 255, d, head, row, b),
+              pick((perm >> 16) & 255, d, head, row, b),
+              pick(perm >> 24, d, head, row, b));
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) into shared memory; completion is counted on `bar` in bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled from libcuda, looked up at run time so that the
+// library links against the CUDA runtime alone
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-d bf16 tensor map of a strided [batch, head, row, d] tensor (unit
+// stride along d), 128-byte swizzle, boxes of 64 along d (one swizzle
+// panel) and `box_head`, `box_row` along heads and rows.  The three outer
+// dims go into the map in ascending order of stride; `perm` receives the
+// logical index of each map dim, one byte each.  A dim of extent 1 takes a
+// stride past the others'.
+inline bool make_map(CUtensorMap* map, const void* ptr, int D, int n_head,
+                     long long s_head, int n_row, long long s_row, int n_b,
+                     long long s_b, int box_head, int box_row, int* perm) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  long long n[4] = {D, n_head, n_row, n_b};
+  long long st[4] = {1, s_head, s_row, s_b};
+  const int box[4] = {64, box_head, box_row, 1};
+  long long span = 0;
+  for (int i = 1; i < 4; ++i) span = span > n[i] * st[i] ? span : n[i] * st[i];
+  for (int i = 1; i < 4; ++i)
+    if (n[i] == 1) st[i] = span;
+  int order[4] = {0, 1, 2, 3};
+  for (int i = 1; i < 4; ++i)
+    for (int j = i + 1; j < 4; ++j)
+      if (st[order[j]] < st[order[i]]) {
+        const int t = order[i];
+        order[i] = order[j];
+        order[j] = t;
+      }
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t boxes[4], es[4] = {1, 1, 1, 1};
+  *perm = 0;
+  for (int i = 0; i < 4; ++i) {
+    dims[i] = (cuuint64_t)n[order[i]];
+    boxes[i] = (cuuint32_t)box[order[i]];
+    if (i > 0) strides[i - 1] = (cuuint64_t)st[order[i]] * 2;
+    *perm |= order[i] << (8 * i);
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, boxes, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ----------------------------------------------------------------- wgmma
@@ -221,6 +317,17 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
         "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N] for N = 64, 128 or 256, A from
+// registers, B from shared memory (N-major, 128-byte swizzle)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
 }
 
 }  // namespace repro

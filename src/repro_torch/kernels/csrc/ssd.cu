@@ -327,13 +327,7 @@ struct TcSmem {
       (2 * kStage + 2 * kState) * 2 + 6 * (size_t)kTQ * 4;
 };
 
-// 2^x in one instruction (MUFU.EX2, ~2^-22 relative; flushes to 0 below
-// 2^-126)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using repro::exp2_approx;
 
 template <int P, int N>
 __global__ void __launch_bounds__(kTThreads, 1)

@@ -28,8 +28,10 @@ A call that needs a gradient (:mod:`repro_torch.kernels.grad`) in the
 causal mode over a full sequence (no window, offsets or ring; Sq = Skv;
 a head_dim in ``BWD_HEAD_DIMS`` on the card) runs :class:`FlashFn`: the
 forward kernel, which also writes each row's log-sum-exp, and the
-backward kernels (``csrc/flash_bwd.cu``, one call) on the card; the plain
-versions on the CPU.  Any other such call raises on the card.
+backward kernels (``csrc/flash_bwd.cu``, one call of three launches as
+:func:`flash_bwd_plan` says: wgmma in bf16 at the trained head dims,
+CUDA cores otherwise) on the card; the plain versions on the CPU.  Any
+other such call raises on the card.
 """
 from __future__ import annotations
 
@@ -52,6 +54,8 @@ KEY_TILE = 64                  # keys a tile
 MAX_SPLIT = 8                  # key splits of a query tile
 MIN_SPLIT_TILES = 2            # KV tiles an active key split takes
 BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128)   # the backward's instances
+BWD_WGMMA_HEAD_DIMS = (64, 80, 96, 128)      # its wgmma instances (bf16)
+BWD_STAGES = 4                 # depth of the backward's streamed ring
 
 
 class FlashPlan(NamedTuple):
@@ -110,6 +114,49 @@ def flash_plan(b: int, h: int, kvh: int, sq: int, skv: int, d: int,
     rows = 16
     qt = -(-sq // rows)
     return FlashPlan("fp32", 1, rows, qt, h, 1, qt * h * b)
+
+
+class FlashBwdPlan(NamedTuple):
+    """How one backward call is cut: ``route`` "wgmma" (bf16 at a head dim
+    of ``BWD_WGMMA_HEAD_DIMS``) or "cuda_cores"; ``blocks`` and
+    ``smem_bytes`` (dynamic shared memory a block) of its three launches,
+    in order (the row stats, dK/dV, dQ); ``scratch``, the shape of its
+    one fp32 scratch (the stats: (lse log2 e, Dr) of each row, rows padded
+    to a multiple of 128, on the wgmma route; Dr on CUDA cores)."""
+    route: str
+    blocks: Tuple[int, int, int]
+    smem_bytes: Tuple[int, int, int]
+    scratch: Tuple[int, ...]
+
+
+def flash_bwd_plan(b: int, h: int, kvh: int, s: int, d: int,
+                   dtype) -> FlashBwdPlan:
+    """The backward's launch plan, from shapes only.  On the wgmma route
+    (``csrc/flash_bwd.cu``, WBwdSmem) the row stats take a warp a padded
+    row; a dK/dV block owns 128 keys of one KV head (K and V, 128 rows of
+    d padded to 64 or 128 columns, in bf16, and a ring of ``BWD_STAGES``
+    stages of 64 rows of Q and dO), a dQ block 128 rows of one head (Q
+    and dO, and a ring of 64 keys of K and V); 1024 bytes align the
+    tiles.  On CUDA cores a block owns a 64-row tile, staged as fp32 rows
+    padded by one element (BwdSmem)."""
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash backward built for head_dim in "
+                         f"{BWD_HEAD_DIMS}, got {d}")
+    if h % kvh:
+        raise ValueError(f"heads {h} must be a multiple of KV heads {kvh}")
+    tiles = -(-s // 128)
+    if dtype == torch.bfloat16 and d in BWD_WGMMA_HEAD_DIMS:
+        dp = -(-d // 64) * 64
+        spad = tiles * 128
+        smem = 2 * 128 * dp * 2 + BWD_STAGES * 2 * 64 * dp * 2 + 1024
+        return FlashBwdPlan("wgmma", (-(-b * h * spad // 8), tiles * kvh * b,
+                                      tiles * h * b), (0, smem, smem),
+                            (b, h, spad, 2))
+    tiles = -(-s // 64)
+    smem = 4 * (4 * 64 * (d + 1) + 2 * 64 * 65 + 2 * 64)
+    return FlashBwdPlan("cuda_cores", (-(-b * h * s // 8), tiles * kvh * b,
+                                       tiles * h * b), (0, smem, smem),
+                        (b, h, s))
 
 
 def key_split(n_tiles: int, splits: int, s: int) -> Tuple[int, int]:
@@ -324,32 +371,31 @@ class FlashFn(torch.autograd.Function):
 
 
 def flash_attention_bwd_cuda(q, k, v, o, do, lse):
-    """The backward kernels (``csrc/flash_bwd.cu``) of causal attention over
-    a full sequence: (dq [B,H,S,d], dk, dv [B,KVH,S,d]) in q's dtype, from
-    the forward's output ``o`` and log-sum-exp ``lse`` ([B,H,S] fp32).
-    The operands are made contiguous first (a copy of a strided view)."""
+    """The backward kernels (``csrc/flash_bwd.cu``, launched as
+    :func:`flash_bwd_plan` says) of causal attention over a full
+    sequence: (dq [B,H,S,d], dk, dv [B,KVH,S,d]) in q's dtype, from the
+    forward's output ``o`` and log-sum-exp ``lse`` ([B,H,S] fp32).  The
+    operands are made contiguous first (a copy of a strided view)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash backward kernel needs a CUDA tensor, got "
                          f"{q.device}")
     b, h, s, d = q.shape
     kvh = k.shape[1]
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash backward built for head_dim in "
-                         f"{BWD_HEAD_DIMS}, got {d}")
     if (k.shape != (b, kvh, s, d) or v.shape != k.shape or h % kvh
             or o.shape != q.shape or do.shape != q.shape
             or lse.shape != (b, h, s)):
         raise ValueError(f"bad flash backward shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)}")
+    plan = flash_bwd_plan(b, h, kvh, s, d, q.dtype)
     code = build.dtype_code(q.dtype)
     q, k, v, o = (t.contiguous() for t in (q, k, v, o))
     do = do.to(q.dtype).contiguous()
     lse = lse.float().contiguous()
-    dr = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     rc = build.library().repro_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dr.data_ptr(), dq.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, kvh, s, d, code,
         build.stream_ptr(q.device))
     build.check(rc, "repro_flash_bwd")

@@ -12,9 +12,11 @@ in training).
 A call that needs a gradient (:mod:`repro_torch.kernels.grad`) with no
 initial state and no ``out_state`` (training's) runs :class:`SsdFn`: the
 forward kernel, which also saves each chunk's start state, and the
-backward kernel (``csrc/ssd_bwd.cu``) on the card; the plain versions on
-the CPU.  The final state it returns carries no gradient.  Any other such
-call raises on the card.
+backward kernel (``csrc/ssd_bwd.cu``, one call of the launches
+:func:`ssd_bwd_plan` says: chunk-parallel passes on tensor cores in bf16
+at the served shapes, a walk over the chunks on CUDA cores otherwise) on
+the card; the plain versions on the CPU.  The final state it returns
+carries no gradient.  Any other such call raises on the card.
 """
 from __future__ import annotations
 
@@ -61,6 +63,70 @@ def ssd_plan(b: int, h: int, chunk: int, p: int, n: int, dtype) -> SsdPlan:
     floats = (p * (n + 1) + 2 * chunk * (n + 1) + chunk * p
               + rb * (chunk + 16) + 3 * chunk)
     return SsdPlan("cuda_cores", b * h, 4 * floats)
+
+
+MAX_SLICE = 8     # heads a block of the backward's local and chunk passes
+
+
+class SsdBwdPlan(NamedTuple):
+    """How one backward call is cut: ``route`` "mma" (bf16 at a
+    ``TC_SHAPES`` shape) or "cuda_cores"; ``blocks`` and ``smem_bytes``
+    (dynamic shared memory a block) of each launch in order (tensor
+    cores: local, state, chunk, finish; CUDA cores: the walk, finish);
+    ``heads_per_block`` (a slice of one group's heads on tensor cores);
+    ``scratch``, the fp32 scratch shapes in the C entry point's order
+    (dxf, dBf, dCf, dAp, dDp, dh, dhT; an empty shape is not passed)."""
+    route: str
+    blocks: Tuple[int, ...]
+    smem_bytes: Tuple[int, ...]
+    heads_per_block: int
+    scratch: Tuple[Tuple[int, ...], ...]
+
+
+def slice_heads(h: int, g: int) -> int:
+    """The heads of one backward block on tensor cores: the most, up to
+    ``MAX_SLICE``, that divide a group's, so they share B and C."""
+    hg = h // g
+    return next(k for k in range(min(hg, MAX_SLICE), 0, -1) if hg % k == 0)
+
+
+def ssd_bwd_plan(b: int, s: int, h: int, chunk: int, p: int, g: int,
+                 n: int, dtype) -> SsdBwdPlan:
+    """The backward's launch plan, from shapes only (``csrc/ssd_bwd.cu``).
+    On tensor cores: the local and chunk passes take a block per (batch
+    row, chunk, slice of ``slice_heads`` heads); the local pass holds C
+    and dy in bf16 (rows padded by 8 elements) and two fp32 rows a token,
+    the chunk pass B, C, x, dy, dh' and h in bf16, nine fp32 rows a
+    token and 16 slots; the state pass a thread per four elements of each
+    (batch row, head)'s P x N, 256 a block; the finish a thread per
+    element of dB.  Scratch: the gradients of the chunks' leaving states
+    [B,H,nc,P,N], e^cum_last [B,H,nc], dB and dC partials
+    [B,S,H/slice,N], dA and dD partials [B,nc,H].  On CUDA cores a block
+    per (batch row, head) (``BwdLayout``), then a block per (batch row,
+    token)."""
+    ssd_plan(b, h, chunk, p, n, dtype)
+    if s % chunk or h % g:
+        raise ValueError(f"seq {s} must be a multiple of chunk {chunk} and "
+                         f"heads {h} of groups {g}")
+    nc, q = s // chunk, chunk
+    if dtype == torch.bfloat16 and (chunk, p, n) in TC_SHAPES:
+        hs = slice_heads(h, g)
+        units = b * nc * (h // hs)
+        local = 2 * (q * (n + 8) + q * (p + 8)) + 2 * q * 4
+        chunk_b = (2 * (2 * q * (n + 8) + 2 * q * (p + 8) + 2 * p * (n + 8))
+                   + 9 * q * 4 + 16 * 4)
+        return SsdBwdPlan(
+            "mma", (units, -(-b * h * p * n // 4 // 256), units,
+                    -(-b * s * g * n // 256)), (local, 0, chunk_b, 0), hs,
+            ((0,), (b, s, h // hs, n), (b, s, h // hs, n), (b, nc, h),
+             (b, nc, h), (b, h, nc, p, n), (b, h, nc)))
+    pad = 1 if dtype == torch.float32 else 2
+    esz = build.dtype_size(dtype)
+    ops = (2 * q * (p + pad) + 2 * q * (n + pad)) * esz
+    smem = -(-ops // 16) * 16 + (3 * 16 * (q + 1) + 7 * q + 32) * 4
+    return SsdBwdPlan("cuda_cores", (b * h, b * s), (smem, 0), 1,
+                      ((b, s, h, p), (b, s, h, n), (b, s, h, n), (b, h),
+                       (b, h), (b, h, p, n), (b, h, p, n)))
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
@@ -195,19 +261,17 @@ class SsdFn(torch.autograd.Function):
 
 def ssd_chunked_bwd_cuda(x, dt, A, Bm, Cm, D, dy, states, *,
                          chunk: int = 128):
-    """The backward kernel (``csrc/ssd_bwd.cu``), from a zero initial state
-    with no gradient into the final state: (dx, ddt, dA, dB, dC, dD), dx,
-    dB and dC in x's dtype, the rest fp32.  ``states`` are the forward's
-    chunk start states."""
+    """The backward kernel (``csrc/ssd_bwd.cu``, launched as
+    :func:`ssd_bwd_plan` says), from a zero initial state with no gradient
+    into the final state: (dx, ddt, dA, dB, dC, dD), dx, dB and dC in x's
+    dtype, the rest fp32.  ``states`` are the forward's chunk start
+    states."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd backward kernel needs a CUDA tensor, got "
                          f"{x.device}")
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
-    ssd_plan(b, h, chunk, p, n, x.dtype)
-    if s % chunk or h % g:
-        raise ValueError(f"seq {s} must be a multiple of chunk {chunk} and "
-                         f"heads {h} of groups {g}")
+    plan = ssd_bwd_plan(b, s, h, chunk, p, g, n, x.dtype)
     if (dt.shape != (b, s, h) or Bm.shape != (b, s, g, n)
             or Cm.shape != Bm.shape or dy.shape != x.shape
             or states.shape != (b, h, s // chunk, p, n)):
@@ -218,21 +282,20 @@ def ssd_chunked_bwd_cuda(x, dt, A, Bm, Cm, D, dy, states, *,
            Bm.to(x.dtype).contiguous(), Cm.to(x.dtype).contiguous(),
            D.float().contiguous(), dy.to(x.dtype).contiguous(),
            states.float().contiguous()]
+    # the tensor-core passes read x, B, C, dy and the states in 16 bytes
+    for i in (0, 3, 4, 6, 7):
+        if ins[i].data_ptr() % 16:
+            ins[i] = ins[i].clone()
     dx = torch.empty_like(ins[0])
     dB, dC = torch.empty_like(ins[3]), torch.empty_like(ins[4])
     ddt = torch.empty((b, s, h), **f32)
     dA, dD = torch.empty((h,), **f32), torch.empty((h,), **f32)
-    scratch = [torch.empty((b, s, h, p), **f32),
-               torch.empty((b, s, h, n), **f32),
-               torch.empty((b, s, h, n), **f32),
-               torch.empty((b, h), **f32), torch.empty((b, h), **f32),
-               torch.empty((b, h, p, n), **f32),
-               torch.empty((b, h, p, n), **f32)]
+    scratch = [torch.empty(shape, **f32) for shape in plan.scratch]
     rc = build.library().repro_ssd_bwd(
         *[t.data_ptr() for t in ins],
         *[t.data_ptr() for t in (dx, ddt, dA, dB, dC, dD)],
-        *[t.data_ptr() for t in scratch], b, s, h, p, g, n, chunk, code,
-        build.stream_ptr(x.device))
+        *[t.data_ptr() if t.numel() else None for t in scratch],
+        b, s, h, p, g, n, chunk, code, build.stream_ptr(x.device))
     build.check(rc, "repro_ssd_bwd")
     ssd_chunked_bwd_cuda.launches += 1
     return dx, ddt, dA, dB, dC, dD

@@ -1255,8 +1255,13 @@ def _bwd_case(kind, rn, td):
         return (lambda: conv_ops.causal_conv1d_bwd_cuda(x, w, b, dy),
                 lambda: conv_ref.causal_conv1d_bwd_ref(x, w, b, dy))
     if kind.startswith("ssd"):
-        b, s, h, p, g, n, q = ((2, 64, 4, 16, 2, 16, 16) if kind == "ssd16"
-                               else (2, 256, 4, 64, 1, 64, 128))
+        # ssd16 the CUDA-core route in both types; the rest tensor cores
+        # in bf16: 4 chunks at S=512 carry the state pass, and 32 heads
+        # on 2 groups give each group two slices of 8 heads to sum
+        b, s, h, p, g, n, q = {"ssd16": (2, 64, 4, 16, 2, 16, 16),
+                               "ssd128": (2, 256, 4, 64, 1, 64, 128),
+                               "ssd_n64": (2, 512, 32, 64, 2, 64, 128),
+                               "ssd_n128": (2, 512, 8, 64, 1, 128, 128)}[kind]
         gen = torch.Generator(device="cuda").manual_seed(1)
         (x, dt, A, _, _, D), _ = ssd_ref.model_scale_inputs(gen, b, s, h, p,
                                                             n, td)
@@ -1268,8 +1273,11 @@ def _bwd_case(kind, rn, td):
                                                      st, chunk=q),
                 lambda: ssd_ref.ssd_chunked_bwd_ref(x, dt, A, Bm, Cm, D, dy,
                                                     st, chunk=q))
-    bh, kvh, s, d = ((6, 2, 100, 16) if kind == "flash16"
-                     else (9, 3, 130, 64))
+    # flash16 the CUDA-core route in both types; the rest wgmma in bf16
+    # (d=80 and 128 padded to 128 columns), S not a multiple of a tile
+    bh, kvh, s, d = {"flash16": (6, 2, 100, 16), "flash64": (9, 3, 130, 64),
+                     "flash80": (32, 32, 300, 80),
+                     "flash128": (8, 2, 130, 128)}[kind]
     q, k, v = rn(2, bh, s, d, dt=td), rn(2, kvh, s, d, dt=td), rn(
         2, kvh, s, d, dt=td)
     do = rn(2, bh, s, d, dt=td)
@@ -1279,8 +1287,9 @@ def _bwd_case(kind, rn, td):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["conv1d", "ssd16", "ssd128", "flash16",
-                                  "flash64"])
+@pytest.mark.parametrize("kind", ["conv1d", "ssd16", "ssd128", "ssd_n64",
+                                  "ssd_n128", "flash16", "flash64",
+                                  "flash80", "flash128"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_kernels_match_plain_and_repeat(cuda, dtype, kind):
     """Each backward kernel against its plain backward: every gradient

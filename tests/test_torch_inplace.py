@@ -488,6 +488,72 @@ def test_registered_mamba2_shapes_are_built(arch):
     assert s.headdim <= dec_ops.M2_MAX_HEADDIM, arch
 
 
+# the layer kinds the port trains on the card (flash, SSD and conv1d
+# backward kernels)
+TRAINED_KINDS = {"dense", "mamba2", "mamba2+shared"}
+
+
+@pytest.mark.parametrize("arch", [a for a in list_archs()
+                                  if set(get(a).layer_kinds)
+                                  <= TRAINED_KINDS])
+def test_registered_backward_shapes_take_tensor_cores(arch):
+    """Every config the port trains on the card runs its flash and SSD
+    backwards on tensor cores in bf16 (at B=4, S=2048 and at S=300, not a
+    multiple of a tile), each launch within a block's 227 KB of shared
+    memory, the scratch as the plan sizes it."""
+    cfg = get(arch)
+    for s in (2048, 300):
+        for a in (cfg.attn, cfg.shared_attn):
+            if a is None:
+                continue
+            plan = flash_ops.flash_bwd_plan(4, a.n_heads, a.n_kv_heads, s,
+                                            a.head_dim, torch.bfloat16)
+            assert plan.route == "wgmma", (arch, a.head_dim)
+            assert max(plan.smem_bytes) <= SMEM_PER_BLOCK, arch
+            assert plan.scratch == (4, a.n_heads, -(-s // 128) * 128, 2)
+            assert plan.blocks[1:] == (-(-s // 128) * a.n_kv_heads * 4,
+                                       -(-s // 128) * a.n_heads * 4)
+    sc = cfg.ssm
+    if sc is None:
+        return
+    h, g = sc.n_ssm_heads(cfg.d_model), sc.n_groups
+    plan = ssd_ops.ssd_bwd_plan(4, 2048, h, sc.chunk, sc.headdim, g,
+                                sc.d_state, torch.bfloat16)
+    assert plan.route == "mma", arch
+    assert max(plan.smem_bytes) <= SMEM_PER_BLOCK, arch
+    hs = plan.heads_per_block
+    assert (h // g) % hs == 0 and 1 <= hs <= ssd_ops.MAX_SLICE, arch
+    nc = 2048 // sc.chunk
+    assert plan.blocks[0] == plan.blocks[2] == 4 * nc * (h // hs)
+    assert plan.scratch[5] == (4, h, nc, sc.headdim, sc.d_state)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_plans_cuda_cores(dtype):
+    """fp32 at the trained shapes and both types at the reduced test
+    shapes keep the CUDA-core backwards and their scratch."""
+    plan = flash_ops.flash_bwd_plan(2, 6, 2, 100, 16, dtype)
+    assert plan.route == "cuda_cores" and plan.scratch == (2, 6, 100)
+    plan = ssd_ops.ssd_bwd_plan(2, 64, 4, 16, 16, 2, 16, dtype)
+    assert plan.route == "cuda_cores" and plan.blocks == (8, 128)
+    assert plan.scratch[0] == (2, 64, 4, 16)
+    if dtype == torch.float32:
+        plan = flash_ops.flash_bwd_plan(4, 32, 32, 2048, 80, dtype)
+        assert plan.route == "cuda_cores"
+        plan = ssd_ops.ssd_bwd_plan(4, 2048, 80, 128, 64, 1, 64, dtype)
+        assert plan.route == "cuda_cores"
+        assert max(plan.smem_bytes) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("h,g,hs", [(80, 1, 8), (4, 1, 4), (32, 2, 8),
+                                    (24, 1, 8), (12, 2, 6), (14, 1, 7),
+                                    (10, 10, 1)])
+def test_ssd_backward_slices(h, g, hs):
+    """The heads of a tensor-core backward block: the most, up to 8, that
+    divide a group's heads."""
+    assert ssd_ops.slice_heads(h, g) == hs
+
+
 @pytest.mark.parametrize("arch", [a for a in list_archs()
                                   if get(a).ssm is not None
                                   and get(a).ssm.variant == "mamba1"])

@@ -167,6 +167,94 @@ def test_backward_against_jax_vjp(kind, via):
         _hold(g, w, name=f"{kind} grad {i}")
 
 
+def _ssd_three_pass(x, dt, A, Bm, Cm, D, dy, states, chunk, hs):
+    """The tensor-core backward's split (``csrc/ssd_bwd.cu``) in plain
+    float64: (1) each chunk's local U_c = sum_i e^cum_i dy_i^T C_i; (2) the
+    state pass, dh'_{nc-1} = 0 and dh'_{c-1} = e^cum_last,c dh'_c + U_c;
+    (3) every gradient of a chunk from h_c and dh'_c alone, dB and dC
+    summed over slices of ``hs`` heads and then over a group's slices,
+    dA and dD over (batch row, chunk) partials."""
+    f = torch.float64
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    nc, q = s // chunk, chunk
+    xf = x.to(f).reshape(b, nc, q, h, p)
+    dyf = dy.to(f).reshape(b, nc, q, h, p)
+    Bh = Bm.to(f).repeat_interleave(h // g, 2).reshape(b, nc, q, h, n)
+    Ch = Cm.to(f).repeat_interleave(h // g, 2).reshape(b, nc, q, h, n)
+    dtf = dt.to(f).reshape(b, nc, q, h)
+    Af, Df = A.to(f), D.to(f)
+    cum = torch.cumsum(dtf * Af, 2)                       # [b,c,q,h]
+    last = cum[:, :, -1:]
+    ecum, elast = cum.exp(), last[:, :, 0].exp()          # elast [b,c,h]
+    # (1) local
+    U = torch.einsum("bcih,bcihp,bcihn->bchpn", ecum, dyf, Ch)
+    # (2) the state pass
+    dh = torch.zeros_like(U)
+    carry = torch.zeros_like(U[:, 0])
+    for c in reversed(range(nc)):
+        dh[:, c] = carry
+        carry = elast[:, c, :, None, None] * carry + U[:, c]
+    # (3) the chunk pass
+    hc = states.to(f).permute(0, 2, 1, 3, 4)              # [b,c,h,p,n]
+    e2 = (last - cum).exp()
+    w = dtf * e2
+    dBs = w[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", xf, dh)
+    dCs = ecum[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyf, hc)
+    dcum = (Ch * dCs).sum(-1)
+    t1 = torch.einsum("bcjhn,bchpn->bcjhp", Bh, dh)
+    dw = (xf * t1).sum(-1)
+    dx = Df[:, None] * dyf + w[..., None] * t1
+    lmat = (cum[:, :, :, None] - cum[:, :, None]).exp()   # [b,c,i,j,h]
+    lmat = lmat * torch.ones(q, q, dtype=f).tril()[:, :, None]
+    gm = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh)
+    dm = torch.einsum("bcihp,bcjhp->bcijh", dyf, xf)
+    m = gm * lmat * dtf[:, :, None]
+    dg = dm * lmat * dtf[:, :, None]
+    ecol = (gm * lmat * dm).sum(2)                         # over i: [b,c,j,h]
+    dcum = dcum + (m * dm).sum(3) - dtf * ecol - w * dw
+    ddt = e2 * dw + ecol
+    dcum[:, :, -1] += elast * (dh * hc).sum((-1, -2)) + (w * dw).sum(2)
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = ddt + Af * da
+    dx = dx + torch.einsum("bcijh,bcihp->bcjhp", m, dyf)
+    dBs = dBs + torch.einsum("bcijh,bcihn->bcjhn", dg, Ch)
+    dCs = dCs + torch.einsum("bcijh,bcjhn->bcihn", dg, Bh)
+
+    def by_group(t):
+        part = t.reshape(b, nc, q, h // hs, hs, n).sum(4)
+        return part.reshape(b, nc, q, g, h // g // hs, n).sum(4).reshape(
+            b, s, g, n)
+    return (dx.reshape(b, s, h, p), ddt.reshape(b, s, h),
+            (dtf * da).sum(2).sum((0, 1)), by_group(dBs), by_group(dCs),
+            (dyf * xf).sum((2, 4)).sum((0, 1)))
+
+
+def test_ssd_backward_three_passes():
+    """The split of the tensor-core SSD backward (local U, the state pass,
+    the chunk pass with per-slice partials) in float64 against the plain
+    backward, at 4 chunks and two slices of 8 heads in each of 2 groups:
+    every gradient within 1e-4 of its max |g|."""
+    rng = np.random.default_rng(3)
+    b, s, h, p, g, n, q = 2, 64, 32, 8, 2, 8, 16
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = (0.01 + 0.5 * rng.random((b, s, h))).astype(np.float32)
+    A = -(0.5 + 3 * rng.random(h)).astype(np.float32)
+    Bm = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    Cm = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    D = rng.standard_normal(h).astype(np.float32)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, D)]
+    d = torch.from_numpy(dy)
+    _, _, states = tssd.ssd_chunked_states_ref(*t, chunk=q)
+    hs = ssd_ops.slice_heads(h, g)
+    assert hs == 8
+    got = _ssd_three_pass(*t, d, states, q, hs)
+    want = tssd.ssd_chunked_bwd_ref(*t, d, states, chunk=q)
+    for i, (a, w) in enumerate(zip(got, want)):
+        _hold(a, w, name=f"ssd three-pass grad {i}")
+
+
 def test_grad_check_decides_the_route():
     x = torch.zeros(2, 3)
     xg = torch.zeros(2, 3, requires_grad=True)
