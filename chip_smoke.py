@@ -1898,7 +1898,9 @@ def encoder_flash(gen):
     encoder shape (B=4, 16 heads of 80 on 16 KV heads, 1500 frames):
     each query row against the plain version in bf16 and fp32, then
     bf16 times beside the bound (q, k, v read and o written once; every
-    query meets every key, 4d operations each) and SDPA, non-causal."""
+    query meets every key, 4d operations each) and SDPA, non-causal; the
+    row's share of its bound (``of_bound``) and its ratio to SDPA
+    (``over_library``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash import ref as flash_ref
@@ -1913,7 +1915,7 @@ def encoder_flash(gen):
         check_close(f"flash hubert-xlarge non-causal {dt}", [got], [want],
                     tol, ratio=row_ratio)
     bms, by = bound(4 * nbytes(q), 4.0 * d * h * s * s * b, dt)
-    return dict(
+    row = dict(
         name="flash_attention", route="cuda", at="hubert-xlarge",
         source="src/repro_torch/kernels/csrc/flash.cu",
         replaces="src/repro/kernels/flash/kernel.py:124", causal=False,
@@ -1929,6 +1931,9 @@ def encoder_flash(gen):
         bound_ms=bms, bound_by=by,
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v)))
+    row["of_bound"] = bms / row["ms"]
+    row["over_library"] = row["ms"] / row["library_ms"]
+    return row
 
 
 def phase_encoder(cfg, gen, b: int = 4, frames: int = 1500):

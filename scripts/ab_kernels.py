@@ -25,7 +25,11 @@ selective scan at mamba-130m's width (B=4, S=256 and B=1, S=16384, bf16
 and fp32, on this checkout's ``scan1.ref.model_scale_inputs``) and causal
 conv1d (B=4, S=256) at the channel counts of ``chip_smoke.conv_shapes``,
 without and (where the tree's wrapper takes them) with ragged valid
-lengths, and saves the outputs, the plain versions' outputs and the
+lengths, the flash kernel non-causal at hubert-xlarge's encoder shape
+(B=4, 16 heads of 80, 1500 frames; bf16 and fp32), and the conv1d
+backward at zamba2-2.7b's channels (bf16 at B=4, S=2048; fp32 at S=512,
+each gradient within ``chip_smoke.BWD_TOL`` of its max |g|), and saves
+the outputs, the plain versions' outputs and the
 device times (``chip_smoke.device_ms``).
 An attention kernel's cases are those whose head_dim both trees take.
 Prints one JSON line per case: each run's worst output over chip_smoke's
@@ -120,6 +124,17 @@ def cases(cs, torch, flash_ops, dec_ops):
                 lambda: flash_ref.attention_ref(q, k, v, **kw))}
         out.append((f"gemma3-1b {label} bfloat16",
                     ("attention", torch.bfloat16), make))
+    for dt in (torch.bfloat16, torch.float32):
+        def make(gen, dt=dt):
+            q, k, v = (torch.randn((4, 1500, 16, 80), generator=gen,
+                                   device="cuda").to(dt).transpose(1, 2)
+                       for _ in range(3))
+            return {"flash": (
+                lambda: flash_ops.flash_attention(q, k, v, causal=False),
+                lambda: flash_ref.attention_ref(q, k, v, causal=False))}
+        out.append((f"hubert-xlarge encoder, non-causal {str(dt)[6:]}",
+                    ("attention", dt), make))
+    out += conv_bwd_cases(torch)
     loc = cs.LOCAL_DECODE
     for dt in (torch.bfloat16, torch.float32):
         def make(gen, dt=dt):
@@ -229,6 +244,28 @@ def mamba1_and_conv_cases(cs, torch):
     return out
 
 
+def conv_bwd_cases(torch):
+    """The conv1d backward at zamba2-2.7b's channels (C=5248, K=4) from
+    zeros: bf16 at its training shape (B=4, S=2048), fp32 at S=512."""
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    ref = this_ref("conv1d")
+    out = []
+    for dt, s in ((torch.bfloat16, 2048), (torch.float32, 512)):
+        def make(gen, dt=dt, s=s):
+            def rn(*shape, dtype=dt):
+                return torch.randn(shape, generator=gen,
+                                   device="cuda").to(dtype)
+            x, dy = rn(4, s, 5248), rn(4, s, 5248)
+            w, b = 0.5 * rn(5248, 4, dtype=torch.float32), 0.1 * rn(
+                5248, dtype=torch.float32)
+            return {"conv1d_bwd": (
+                lambda: conv_ops.causal_conv1d_bwd_cuda(x, w, b, dy),
+                lambda: ref.causal_conv1d_bwd_ref(x, w, b, dy))}
+        out.append((f"zamba2-2.7b B=4, S={s} {str(dt)[6:]}",
+                    ("conv1d_bwd", dt), make))
+    return out
+
+
 def scan1_cases(torch):
     """The selective scan at mamba-130m's width, B=4, S=256 (a served
     chunk) and B=1, S=16384 (long context), in bf16 and fp32, on inputs
@@ -277,6 +314,10 @@ def worst_of_limit(cs, kernel: str, dt, got, want) -> float:
         return max(cs.whole_ratio(g, w, tol) for g, w in zip(got, want))
     if kernel == "scan1":
         return cs.scan_ratio(got, want, dt)
+    if kernel == "conv1d_bwd":
+        return max(cs.whole_ratio(g, w, cs.BWD_TOL[dt],
+                                  floor=1.1754943508222875e-38)
+                   for g, w in zip(got, want))
     if kernel.startswith("conv1d"):
         # y within the limit, the new state bit for bit (a copy)
         return max(cs.whole_ratio(got[0], want[0], cs.TOL["conv1d"][dt]),

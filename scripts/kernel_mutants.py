@@ -212,11 +212,17 @@ MUTANTS = {
         "e^cum_last dh', so dh'(c-1) = U(c)"),
     "conv1d_bwd_drops_tap_0": (
         "backward", "conv1d_bwd.cu",
-        "      for (int i = 0; i < K; ++i) acc = fmaf(dzw[K - 1 - i], wk[i], "
-        "acc);\n",
-        "      for (int i = 1; i < K; ++i) acc = fmaf(dzw[K - 1 - i], wk[i], "
-        "acc);\n",
+        "            float acc = dz[e] * wk[e][0];\n",
+        "            float acc = 0.0f * wk[e][0];\n",
         "conv1d backward: dx leaves out tap 0"),
+    "flash_qk_one_kstep_short": (
+        "attention", "flash.cu",
+        "      for (int kk = 0; kk < D / 16; ++kk) {\n"
+        "        const uint64_t da = repro::wgmma_desc(\n            q_addr",
+        "      for (int kk = 0; kk < D / 16 - 1; ++kk) {\n"
+        "        const uint64_t da = repro::wgmma_desc(\n            q_addr",
+        "flash (wgmma): Q K^T walks one k-step short of d / 16 (d = 80: "
+        "dims 64-79 left out)"),
 }
 
 

@@ -207,6 +207,45 @@ _FLASH_BWD_SCORES = [
                  "s, q_addr, kWQRows, k_addr);",
                  "dp, do_addr, kWQRows, v_addr);")]
 
+# flash.cu's forward: its ring at three stages; Q K^T over the padded
+# d's k-steps; no turns between the consumer warpgroups; 128-key tiles
+# (three stages, and the plan's split rule on 128-key tiles)
+_FLASH_3_STAGES = ["flash.cu",
+                   "static constexpr int kStages = kDP > 128 ? 2 : 4;",
+                   "static constexpr int kStages = kDP > 128 ? 2 : 3;"]
+_FLASH_PADDED_KSTEPS = ["flash.cu",
+                        "      for (int kk = 0; kk < D / 16; ++kk) {\n"
+                        "        const uint64_t da = repro::wgmma_desc(\n"
+                        "            q_addr",
+                        "      for (int kk = 0; kk < DP / 16; ++kk) {\n"
+                        "        const uint64_t da = repro::wgmma_desc(\n"
+                        "            q_addr"]
+_FLASH_NO_TURNS = ["flash.cu", "constexpr bool kTurns = true;",
+                   "constexpr bool kTurns = false;"]
+_FLASH_128_KEYS = [["flash.cu", "constexpr int kWK = 64;          // keys a "
+                    "tile", "constexpr int kWK = 128;         // keys a tile"],
+                   _FLASH_3_STAGES,
+                   ["../flash/ops.py", "KEY_TILE = 64 ", "KEY_TILE = 128 "]]
+# flash.cu's forward with a part of each tile left out (wrong on purpose)
+_FLASH_NO_S = ["flash.cu", "        repro::wgmma_ss<kWK>(s, da, db, kk > 0);",
+               "        (void)da; (void)db;"]
+_FLASH_NO_PV = ["flash.cu",
+                "      for (int kk = 0; kk < kWK / 16; ++kk) {\n"
+                "        if constexpr (L::kNarrowV)",
+                "      for (int kk = 0; kk < 0; ++kk) {\n"
+                "        if constexpr (L::kNarrowV)"]
+_FLASH_NO_EXP = [["flash.cu",
+                  "          s[4 * n + e] = repro::exp2_approx(fmaf(s[4 * n "
+                  "+ e], scale2, -mn0));",
+                  "          s[4 * n + e] = fmaf(s[4 * n + e], scale2, "
+                  "-mn0);"],
+                 ["flash.cu",
+                  "              repro::exp2_approx(fmaf(s[4 * n + 2 + e], "
+                  "scale2, -mn1));",
+                  "              fmaf(s[4 * n + 2 + e], scale2, -mn1);"]]
+# the conv1d backward plan's vector bytes (ops.py)
+_CONV_BWD_VEC = ["../conv1d/ops.py", "BWD_VEC_BYTES = 8"]
+
 SETS = {
     # the tensor-core SSD backward's fp32 operands split back into hi + lo
     # bf16 terms, one kind at a time and all at once: what each split buys
@@ -254,29 +293,69 @@ SETS = {
         "3 stages": [["flash_bwd.cu", "constexpr int kWStages = 4;",
                       "constexpr int kWStages = 3;"]],
     },
-    # K/V pipeline depth of the d=128 instance
+    # K/V pipeline depth of the d <= 128 instances
     "stages": {
-        "3 stages": [],
-        "4 stages": [["flash.cu",
-                      "static constexpr int kStages = kDP > 128 ? 2 : 3;",
-                      "static constexpr int kStages = kDP > 128 ? 2 : 4;"]],
+        "4 stages": [],
+        "3 stages": [_FLASH_3_STAGES],
+    },
+    # each step of the forward's route at d = 80 and 96: Q K^T over the
+    # padded d's k-steps, P V at the padded N (V in 64-column panels), no
+    # overlap of a tile's softmax with the last tile's P V, no turns
+    # between the consumer warpgroups, 128-row blocks (two consumer
+    # warpgroups) where the plan takes 192, 128-key tiles (three stages
+    # then fit), three stages; and what each part costs (a product or the
+    # exponentials left out: wrong on purpose)
+    "fwd_flash_d80": {
+        "as is": [],
+        "k-steps over the padded d": [_FLASH_PADDED_KSTEPS],
+        "P V at the padded N": [["flash.cu",
+                                 "  static constexpr bool kNarrowV = D > "
+                                 "kPanel && D % kPanel != 0;",
+                                 "  static constexpr bool kNarrowV = false;"]],
+        "no overlap": [["flash.cu", "        repro::wgmma_wait<1>();",
+                        "        repro::wgmma_wait0();"]],
+        "no turns": [_FLASH_NO_TURNS],
+        "128-row blocks": [["../flash/ops.py", "                rows = "
+                            "WIDE_ROWS", "                rows = BLOCK_ROWS"]],
+        "128-key tiles": _FLASH_128_KEYS,
+        "3 stages": [_FLASH_3_STAGES],
+        "no S (wrong)": [_FLASH_NO_S],
+        "no P V (wrong)": [_FLASH_NO_PV],
+        "no exponentials (wrong)": _FLASH_NO_EXP,
+    },
+    # the conv1d backward: the plan's vector width (16, 8 or 4 bytes), the
+    # rows a thread walks (its halo costs K - 1 recomputed rows), the
+    # partials (four warps a block: twice as many), the rows whose loads
+    # go together, and no register cap (one block an SM)
+    "conv1d_bwd_design": {
+        "as is": [],
+        "16-byte vectors": [_CONV_BWD_VEC + ["BWD_VEC_BYTES = 16"]],
+        "4-byte vectors": [_CONV_BWD_VEC + ["BWD_VEC_BYTES = 4"]],
+        "32 rows a thread": [
+            ["conv1d_bwd.cu", "constexpr int kRows = 16;",
+             "constexpr int kRows = 32;"],
+            ["../conv1d/ops.py", "BWD_ROWS = 16", "BWD_ROWS = 32"]],
+        "8 rows a thread": [
+            ["conv1d_bwd.cu", "constexpr int kRows = 16;",
+             "constexpr int kRows = 8;"],
+            ["../conv1d/ops.py", "BWD_ROWS = 16", "BWD_ROWS = 8"]],
+        "4 warps a block (twice the partials)": [
+            ["conv1d_bwd.cu", "constexpr int kRowGroups = 8;",
+             "constexpr int kRowGroups = 4;"],
+            ["../conv1d/ops.py", "BWD_ROW_GROUPS = 8", "BWD_ROW_GROUPS = 4"]],
+        "loads in batches of 8 rows": [
+            ["conv1d_bwd.cu", "constexpr int kBatch = 4;",
+             "constexpr int kBatch = 8;"]],
+        "no register cap": [
+            ["conv1d_bwd.cu", "constexpr int kMinBlocks = 2;",
+             "constexpr int kMinBlocks = 1;"]],
     },
     # what each part of a tile costs: drop a product or the exponentials
     "breakdown": {
         "as is": [],
-        "no S": [["flash.cu", "        repro::wgmma_ss_n64(s, da, db, 1);",
-                  "        (void)da; (void)db;"]],
-        "no PV": [["flash.cu",
-                   "        repro::wgmma_rs<DP>(o, pa[kk],\n"
-                   "                    repro::wgmma_desc(v_addr + kk * 2048,"
-                   " kWK * 128, 1024));",
-                   "        (void)pa[kk];"]],
-        "no exp": [["flash.cu",
-                    "          s[4 * n + e] = exp2f(s[4 * n + e] - mn0);\n"
-                    "          s[4 * n + 2 + e] = exp2f(s[4 * n + 2 + e] - "
-                    "mn1);",
-                    "          s[4 * n + e] = s[4 * n + e] - mn0;\n"
-                    "          s[4 * n + 2 + e] = s[4 * n + 2 + e] - mn1;"]],
+        "no S": [_FLASH_NO_S],
+        "no PV": [_FLASH_NO_PV],
+        "no exp": _FLASH_NO_EXP,
     },
     # the SSD kernel's fp32 operands each as one bf16 term instead of two
     # (hi + lo): what each split buys in error and costs in time
@@ -760,6 +839,75 @@ def bwd_child(which: str) -> int:
     return 0
 
 
+def fwd_child() -> int:
+    """The flash forward at d = 80 and 96 in bf16: non-causal at
+    hubert-xlarge's encoder shape (B=4, 16 heads on 16, 1500 frames) and
+    at d = 96, and the causal chunks of ``chip_smoke.attention_cases`` at
+    zamba2-2.7b's and phi-3-mini's head dims; each query row against the
+    plain version (``row_ratio``), and its time."""
+    import torch
+
+    sys.path.insert(1, ROOT)
+    import chip_smoke as cs
+    from repro_torch.kernels.flash import ops, ref
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    calls = {}
+    for d in (80, 96):
+        q, k, v = (torch.randn((4, 1500, 16, d), generator=gen,
+                               device="cuda").to(bf16).transpose(1, 2)
+                   for _ in range(3))
+        calls[f"non-causal d={d}, 4 x 16 heads x 1500"] = (
+            q, k, v, dict(causal=False))
+    for label, h, kvh, d, bucket, offs, _ in cs.attention_cases():
+        if d in (80, 96):
+            q, k, v, _ = cs.attention_inputs(gen, h, kvh, d, bucket, bf16)
+            off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+            calls[f"flash {label}"] = (q, k, v, dict(q_offset=off))
+    out = {}
+    for key, (q, k, v, kw) in calls.items():
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.attention_ref(q, k, v, **kw)
+        out[key] = (cs.row_ratio(got, want, cs.TOL["attention"][bf16]),
+                    cs.device_ms(lambda: ops.flash_attention(q, k, v, **kw)))
+    print(json.dumps(out))
+    return 0
+
+
+def conv_bwd_child() -> int:
+    """The conv1d backward at zamba2-2.7b's training shape (B=4, S=2048,
+    C=5248, K=4) in bf16 and fp32: the worst gradient's ratio to
+    ``chip_smoke.BWD_TOL`` of its max |g| (inf if two calls differ), and
+    its time."""
+    import torch
+
+    sys.path.insert(1, ROOT)
+    import chip_smoke as cs
+    from repro_torch.kernels.conv1d import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x, dy = (torch.randn((4, 2048, 5248), generator=gen,
+                             device="cuda").to(dt) for _ in range(2))
+        w = 0.5 * torch.randn((5248, 4), generator=gen, device="cuda")
+        b = 0.1 * torch.randn((5248,), generator=gen, device="cuda")
+        got = ops.causal_conv1d_bwd_cuda(x, w, b, dy)
+        again = ops.causal_conv1d_bwd_cuda(x, w, b, dy)
+        want = ref.causal_conv1d_bwd_ref(x, w, b, dy)
+        ratio = max(cs.whole_ratio(g, r, cs.BWD_TOL[dt],
+                                   floor=torch.finfo(torch.float32).tiny)
+                    for g, r in zip(got, want))
+        if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+            ratio = float("inf")
+        out[f"conv1d_bwd zamba2-2.7b B=4, S=2048 {str(dt)[6:]}"] = (
+            ratio, cs.device_ms(
+                lambda: ops.causal_conv1d_bwd_cuda(x, w, b, dy), 2, 10))
+    print(json.dumps(out))
+    return 0
+
+
 def child(micro: bool) -> int:
     import torch
 
@@ -827,7 +975,8 @@ def run_variant(name: str, edits, micro: bool, kind: str, tree: str,
                 f.write(text.replace(old, new))
     env = dict(os.environ, PYTHONPATH=os.path.join(base, "src"))
     flag = {"ssd": ["--ssd"], "decode": ["--decode"], "m1": ["--m1"],
-            "conv": ["--conv"], "scan1": ["--scan1"],
+            "conv": ["--conv"], "scan1": ["--scan1"], "fwd": ["--fwd"],
+            "conv_bwd": ["--conv-bwd"],
             "bwd_flash": ["--bwd", "flash"], "bwd_ssd": ["--bwd", "ssd"]}.get(
                 kind, ["--micro"] if micro else [])
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -865,6 +1014,8 @@ def main(spec: str, micro: bool, tree: str) -> int:
             "scan1" if spec.startswith("scan1") else
             "decode" if spec.startswith("mamba2_decode") else
             "m1" if spec.startswith("mamba1_decode") else
+            "fwd" if spec.startswith("fwd_flash") else
+            "conv_bwd" if spec.startswith("conv1d_bwd") else
             "conv" if spec.startswith("conv1d") else "flash")
     times, ratios = {}, {}
     for i, name in enumerate(names + names[::-1]):
@@ -894,7 +1045,8 @@ if __name__ == "__main__":
         del args[i:i + 2]
     children = {"--ssd": ssd_child, "--decode": decode_child,
                 "--m1": m1_child, "--conv": conv_child,
-                "--scan1": scan1_child}
+                "--scan1": scan1_child, "--fwd": fwd_child,
+                "--conv-bwd": conv_bwd_child}
     if args[:2] == ["--child", "--bwd"]:
         sys.exit(bwd_child(args[2]))
     if args[:1] == ["--child"] and args[1:] and args[1] in children:

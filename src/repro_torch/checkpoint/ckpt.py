@@ -4,7 +4,9 @@ The port of the reference's ``repro.checkpoint.ckpt``: a checkpoint of
 step k is ``step_%08d/arrays.npz`` (one array a leaf, named by its path
 in the tree: dict keys and list or tuple indices joined by ``/``) and
 ``step_%08d/manifest.json`` (step, keys, shapes, dtypes and each leaf's
-crc32), so each package restores the other's float32 and int32 trees.
+crc32), so each package restores the other's float32 and int32 trees,
+and the port restores the reference's bfloat16 leaves too (numpy holds
+them as 2-byte void, read back bit for bit through an int16 view).
 
 * Atomic step directories (written to ``.tmp``, then renamed): a crash
   mid-save never corrupts the latest checkpoint.
@@ -131,11 +133,25 @@ def restore(path: str, target: Any, *, step: Optional[int] = None,
         arr = data[key]
         if verify and zlib.crc32(arr.tobytes()) != manifest["crc"][key]:
             raise IOError(f"checkpoint corruption detected in leaf {key}")
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = _leaf_tensor(key, arr, manifest["dtypes"][key])
         if isinstance(like, torch.Tensor):
             t = t.to(device=like.device, dtype=like.dtype)
         leaves[key] = t
     return _rebuild(target, leaves)
+
+
+def _leaf_tensor(key: str, arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A stored array as a tensor.  numpy has no bfloat16: the reference's
+    bf16 leaves come back from ``np.load`` as 2-byte void, which become
+    bf16 through an int16 view, bit for bit.  Any other void leaf
+    raises."""
+    if arr.dtype.kind == "V":
+        if arr.dtype.itemsize != 2 or dtype != "bfloat16":
+            raise ValueError(f"checkpoint leaf {key}: cannot read a "
+                             f"{arr.dtype} array saved as {dtype}")
+        arr = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(arr).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(arr))
 
 
 def _rebuild(tree, leaves: Dict[str, torch.Tensor], prefix: str = ""):

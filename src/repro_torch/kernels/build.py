@@ -32,7 +32,7 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # cudaGetLastError().
 SIGNATURES: Dict[str, Tuple] = {
     "repro_conv1d_fwd": (P, P, P, P, P, P, P, I, I, I, I, I, P),
-    "repro_conv1d_bwd": (P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "repro_conv1d_bwd": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     "repro_ssd_fwd": (P, P, P, P, P, P, P, P, P, P,
                       I, I, I, I, I, I, I, I, P),
     "repro_ssd_bwd": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
@@ -41,7 +41,7 @@ SIGNATURES: Dict[str, Tuple] = {
                                 I, I, I, I, I, I, I, P),
     "repro_flash_fwd": (P, P, P, P, P, P, I, I, I, I, I, I,
                         L, L, L, L, L, L, L, L, L, L, L, L, I, I, I,
-                        I, I, P, P, P, P, I, P),
+                        I, I, I, P, P, P, P, I, P),
     "repro_flash_bwd": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
     "repro_decode_attn_fwd": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                               L, L, L, L, L, L, L, L, I, P),

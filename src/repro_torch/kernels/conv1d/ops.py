@@ -16,7 +16,7 @@ other such call raises on the card.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,7 +27,43 @@ from repro_torch.kernels.conv1d import ref as _ref
 from repro_torch.kernels.grad import needs_grad, no_backward
 
 MAX_K = 4   # the kernel's register window is instantiated for K = 2 .. 4
-BWD_TILE = 64   # steps a thread of the backward kernel walks
+# the backward kernel's blocks (csrc/conv1d_bwd.cu): one warp across 32
+# vectors of channels, BWD_ROW_GROUPS warps down the rows, BWD_ROWS rows a
+# thread; vectors of at most BWD_VEC_BYTES
+BWD_ROWS = 16
+BWD_ROW_GROUPS = 8
+BWD_CHANNEL_THREADS = 32
+BWD_VEC_BYTES = 8
+
+
+class ConvBwdPlan(NamedTuple):
+    """How one backward call is cut: ``vec`` channels a thread, ``rows``
+    rows a thread, ``row_groups`` warps of a block down the rows; the
+    ``grid`` (channel blocks, row tiles, batch rows); ``partials``, the
+    shape of the fp32 scratch of per-block (dw, db) sums: one partial a
+    block, (B x row tiles, C, K + 1)."""
+    vec: int
+    rows: int
+    row_groups: int
+    grid: Tuple[int, int, int]
+    partials: Tuple[int, int, int]
+
+
+def conv1d_bwd_plan(b: int, s: int, c: int, k: int, dtype,
+                    align: int = 16) -> ConvBwdPlan:
+    """The backward's launch plan, from shapes only: the widest vector of
+    at most ``BWD_VEC_BYTES`` that divides C and ``align`` (the
+    alignment in bytes common to x, dy and dx), as the forward picks
+    its own; a block covers 32 vectors of channels and
+    ``BWD_ROW_GROUPS * BWD_ROWS`` rows of one batch row."""
+    es = torch.empty((), dtype=dtype).element_size()
+    vec = max(1, BWD_VEC_BYTES // es)
+    while vec > 1 and (c % vec or align % (vec * es)):
+        vec //= 2
+    tiles = -(-s // (BWD_ROW_GROUPS * BWD_ROWS))
+    return ConvBwdPlan(vec, BWD_ROWS, BWD_ROW_GROUPS,
+                       (-(-c // (BWD_CHANNEL_THREADS * vec)), tiles, b),
+                       (b * tiles, c, k + 1))
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
@@ -144,8 +180,10 @@ class Conv1dFn(torch.autograd.Function):
 
 
 def causal_conv1d_bwd_cuda(x, w, b, dy):
-    """The backward kernel (``csrc/conv1d_bwd.cu``): (dx in x's dtype, dw
-    [C,K] fp32, db [C] fp32) for SiLU and no initial state."""
+    """The backward kernel (``csrc/conv1d_bwd.cu``, cut as
+    :func:`conv1d_bwd_plan` says; two launches: the walk, then the fixed-
+    order sum of its partials): (dx in x's dtype, dw [C,K] fp32, db [C]
+    fp32) for SiLU and no initial state."""
     if x.device.type != "cuda":
         raise ValueError(f"conv1d backward kernel needs a CUDA tensor, got "
                          f"{x.device}")
@@ -162,13 +200,14 @@ def causal_conv1d_bwd_cuda(x, w, b, dy):
     dx = torch.empty_like(x)
     dw = torch.empty((c, k), dtype=torch.float32, device=x.device)
     db = torch.empty((c,), dtype=torch.float32, device=x.device)
-    tiles = -(-s // BWD_TILE)
-    part = torch.empty((bsz * tiles, c, k + 1), dtype=torch.float32,
-                       device=x.device)
+    addrs = x.data_ptr() | dy.data_ptr() | dx.data_ptr()
+    plan = conv1d_bwd_plan(bsz, s, c, k, x.dtype, align=addrs & -addrs
+                           if addrs % 16 else 16)
+    part = torch.empty(plan.partials, dtype=torch.float32, device=x.device)
     rc = build.library().repro_conv1d_bwd(
         x.data_ptr(), w32.data_ptr(), b32.data_ptr(), dy.data_ptr(),
         dx.data_ptr(), dw.data_ptr(), db.data_ptr(), part.data_ptr(), bsz, s,
-        c, k, code, build.stream_ptr(x.device))
+        c, k, plan.vec, plan.rows, code, build.stream_ptr(x.device))
     build.check(rc, "repro_conv1d_bwd")
     causal_conv1d_bwd_cuda.launches += 1
     return dx, dw, db

@@ -50,32 +50,45 @@
 // stays inside the bf16 tolerance, 2e-2 of each query row's own max |o|.
 //
 // bf16 at every head_dim (16 and 32 for the tests, 64 for qwen2.5-0.5b
-// and llama3.2-1b, 80 zamba2-2.7b, 96 phi-3-mini, 128 llama3-8b, 256
-// gemma3-1b): wgmma and TMA.  d runs padded to 64, 128 or 256 columns,
-// TMA filling the columns past d with zeros (80 and 96 were both faster
-// padded to 128 on wgmma than on an mma.sync kernel: PERF.md).  A block
-// holds 128 query rows: the query heads of one KV head packed together
-// (rows pos * G + g for a group of G = 1, 2, 4 or 8; one head otherwise),
-// so each K/V tile is loaded once for the group.  One producer thread
-// keeps TMA loads of K and V tiles (128-byte swizzle, 64-column panels) in
-// flight into a ring of 2 (d=256) or 3 (d <= 128) stages tracked by
-// mbarriers, after Q, which TMA brings once.  Two consumer warpgroups own
-// 64 rows each: wgmma m64n64k16 gives S = Q K^T from shared memory, the
-// online softmax runs in registers, and wgmma m64n{padded d}k16 adds P V
-// with P from registers.  setmaxnreg gives the consumers 232 registers and the
-// producer warpgroup 40 (the d=256 accumulator alone is 128 a thread).
-// When the query tiles are fewer than the 132 SMs (gemma3-1b's four heads
-// and one KV head), each tile's keys are split across blocks as
-// flash/ops.py plans: the tiles the masks leave a query tile go to as many
-// of its splits as get two tiles each, and the rest return at once.  Each
-// split writes its unnormalised (acc, m, l); the block that draws the last
-// ticket of the tile merges them exactly, in split order whichever block
-// that is, and resets the ticket.  Blocks start with the batch rows of the
-// largest q_offset and the last query tiles, which see the most keys.
-// Measured (scripts/kernel_variants.py): a deeper K/V ring at d=128 and
-// turns between the two warpgroups (so one's softmax meets the other's
-// products) changed nothing; at 128 query rows a block, re-reading K/V
-// from L2 for every query tile bounds the compute-bound case.
+// and llama3.2-1b, 80 zamba2-2.7b and hubert-xlarge, 96 phi-3-mini, 128
+// llama3-8b, 256 gemma3-1b): wgmma and TMA.  Q and K run d padded to 64,
+// 128 or 256 columns (TMA fills the columns past d with zeros), but
+// S = Q K^T walks only the d / 16 k-steps that hold data (5 at d = 80, not
+// 8).  At d = 80 and 96, V comes in 16-column panels with the 32-byte
+// swizzle (wgmma's N-major operand then comes in 16-column atoms, where
+// the 128-byte swizzle's are 64), so P V runs at N = d (m64n80k16,
+// m64n96k16) and O holds d / 2 floats a thread; elsewhere P V runs at the
+// padded width.  A block's query rows are the query heads of one KV head
+// packed together (rows pos * G + g for a group of G = 1, 2, 4 or 8; one
+// head otherwise), so each K/V tile is loaded once for the group.  One
+// producer thread keeps TMA loads of K and V tiles in flight into a ring
+// of 2 (d=256) or 4 (d <= 128) stages tracked by mbarriers, after Q, which
+// TMA brings once.  Consumer warpgroups own 64 rows each: wgmma m64n64k16
+// gives S = Q K^T from shared memory, the online softmax runs in registers
+// (the scale folded into the exponent's FMA, ex2.approx), and wgmma adds
+// P V with P from registers.  Each warpgroup issues tile j's S product
+// together with tile j-1's P V and runs tile j's softmax while that P V is
+// still on the tensor cores (FlashAttention-3's intra-warpgroup overlap;
+// it holds two stages of the ring while the others fill, so d = 256, whose
+// shared memory holds two, runs its tiles in turn), and the warpgroups
+// take turns issuing their products (named barriers), so one's softmax
+// meets another's tensor work.  A block has two consumer warpgroups (128
+// rows) or, at d = 64 to 96 in the plain layout where the plan finds that
+// no more padded, three (192 rows): every K/V tile, streamed from L2 once
+// a query tile, then serves 1.5x the rows.  At hubert-xlarge's non-causal
+// shape that stream bounds the kernel: with S, P V or the exponentials
+// left out it runs only 3-14% faster on an H100 80GB HBM3 at 700 W
+// (scripts/kernel_variants.py fwd_flash_d80, PERF.md).  setmaxnreg gives the consumers 232 registers
+// and the producer warpgroup 40 (the d=256 accumulator alone is 128 a
+// thread); with three consumers, 160 and 24.  When the query tiles are
+// fewer than the 132 SMs (gemma3-1b's four heads and one KV head), each
+// tile's keys are split across blocks as flash/ops.py plans: the tiles the
+// masks leave a query tile go to as many of its splits as get two tiles
+// each, and the rest return at once.  Each split writes its unnormalised
+// (acc, m, l); the block that draws the last ticket of the tile merges
+// them exactly, in split order whichever block that is, and resets the
+// ticket.  Blocks start with the batch rows of the largest q_offset and
+// the last query tiles, which see the most keys.
 // fp32: CUDA cores.  Each warp owns 4 query rows; lane j scores key j of a
 // 32-key tile, and each lane accumulates its own columns of the output.
 // Its tiles live in static shared memory up to d=128 and in dynamic
@@ -205,11 +218,17 @@ constexpr int kWarps = 4;   // warps of an fp32 block
 
 // ------------------------------------------------------ bf16: wgmma
 
-constexpr int kWRows = 128;      // query rows a block: two consumer warpgroups
+// A block's consumer warpgroups own 64 query rows each: WG = 2 (128 rows)
+// or 3 (192 rows, d = 64 to 96 in the plain layout, where the plan finds
+// them no more padded: each K/V tile read from L2 then serves 1.5x the
+// rows); one more warpgroup holds the producer.
 constexpr int kWK = 64;          // keys a tile
-constexpr int kWThreads = 384;   // consumer warpgroups 0, 1; producer 2
 constexpr int kPanel = 64;       // bf16 columns of one 128-byte swizzle panel
+constexpr int kVPanel = 16;      // bf16 columns of one 32-byte swizzle panel
 constexpr int kMaxFSplit = 8;    // key splits of a query tile
+// the consumer warpgroups take turns issuing their products (named
+// barriers 2, 3, ...), so one's softmax meets another's tensor work
+constexpr bool kTurns = true;
 
 // The launch plan (computed in Python from shapes, flash/ops.py) and the
 // tensor maps' coordinate order: map dim i takes the logical coordinate
@@ -218,23 +237,38 @@ struct WgmmaPlan {
   int B, hp, npos, q_tiles, HG, nsplit;
   int rows_pos_major;   // Q rows: pos * hp + g (1) or g * npos + pos (0)
   int q_perm, k_perm, v_perm;   // byte i: the logical index of map dim i
-  float* part_acc;      // [tiles][nsplit][kWRows][D] when nsplit > 1
-  float* part_ml;       // [tiles][nsplit][kWRows][2]
+  float* part_acc;      // [tiles][nsplit][rows][D] when nsplit > 1
+  float* part_ml;       // [tiles][nsplit][rows][2]
   int* tickets;         // [tiles], zero between calls
 };
 
-// d runs padded to the next multiple of the 64-column panel (16 and 32 to
-// 64, 80 and 96 to 128): TMA fills the columns past d with zeros, which
-// add nothing to Q K^T and give P V columns that are never stored
-template <int D>
+// Q and K run d padded to the next multiple of the 64-column panel (16
+// and 32 to 64, 80 and 96 to 128): TMA fills the columns past d with
+// zeros, and Q K^T walks only the d / 16 k-steps that hold data.  P V runs
+// at N = d where wgmma takes it from 16-column panels: at d = 80 and 96,
+// V is staged in panels of 16 columns (32-byte swizzle) and O holds d / 2
+// floats a thread; elsewhere V comes in 64-column panels and P V runs at
+// the padded width.
+template <int D, int WG>
 struct WSmem {
   static constexpr int kDP = (D + kPanel - 1) / kPanel * kPanel;
   static constexpr int kPanels = kDP / kPanel;
-  static constexpr int kStages = kDP > 128 ? 2 : 3;
-  static constexpr int kQBytes = kWRows * kDP * 2;
-  static constexpr int kKVBytes = kWK * kDP * 2;     // one of K, V
+  static constexpr bool kNarrowV = D > kPanel && D % kPanel != 0;
+  static constexpr int kVN = kNarrowV ? D : kDP;   // columns of P V
+  static constexpr int kStages = kDP > 128 ? 2 : 4;
+  // tile j's S issued beside tile j-1's P V holds two stages while a
+  // third fills: with two stages the tiles run one after the other
+  static constexpr bool kOverlap = kStages > 2;
+  static constexpr int kRows = 64 * WG;
+  static constexpr int kThreads = 128 * (WG + 1);
+  static constexpr int kQBytes = kRows * kDP * 2;
+  static constexpr int kKBytes = kWK * kDP * 2;
+  static constexpr int kVBytes = kWK * kVN * 2;
+  static constexpr int kStageBytes = kKBytes + kVBytes;
   // 1024 bytes of slack to align the tiles for the swizzle
-  static constexpr int kBytes = kQBytes + kStages * 2 * kKVBytes + 1024;
+  static constexpr int kBytes = kQBytes + kStages * kStageBytes + 1024;
+  static_assert(kStageBytes % 1024 == 0, "stages keep the 1024-byte "
+                "alignment of the 128-byte swizzle");
 };
 
 // the key splits of ns that share a query tile's n KV tiles: at least
@@ -244,18 +278,30 @@ __device__ __forceinline__ int active_splits(int n, int ns) {
   return max(1, min(ns, n / kMinSplitTiles));
 }
 
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+// barrier 1 over the consumer warpgroups' `n` threads
+__device__ __forceinline__ void consumer_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" :: "r"(n) : "memory");
+}
+// named barrier `id` over two consumer warpgroups: wait, or arrive only
+__device__ __forceinline__ void turn_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
 }
 
-template <int D, bool kRing>
-__global__ void __launch_bounds__(kWThreads, 1)
+template <int D, bool kRing, int WG>
+__global__ void __launch_bounds__(128 * (WG + 1), 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, FlashParams p,
                    WgmmaPlan w) {
-  using L = WSmem<D>;
-  constexpr int NP = L::kPanels, NS = L::kStages, DP = L::kDP;
+  using L = WSmem<D, WG>;
+  constexpr int NP = L::kPanels, NS = L::kStages, DP = L::kDP, VN = L::kVN;
+  constexpr int kWRows = L::kRows, kConsumers = 128 * WG;
+  // the turns go round the warpgroups: WG w waits on barrier 2 + w and
+  // passes to the next; the last starts the round
+  constexpr bool kTurn = kTurns && L::kOverlap;
   static_assert(D % 16 == 0 && (DP == 64 || DP == 128 || DP == 256),
                 "wgmma takes d padded to 64, 128 or 256 columns");
   __shared__ __align__(8) uint64_t full_bar[NS], empty_bar[NS], q_bar;
@@ -263,9 +309,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   extern __shared__ __align__(1024) unsigned char wgmma_smem[];
   unsigned char* base =
       wgmma_smem + ((1024 - (repro::smem_u32(wgmma_smem) & 1023)) & 1023);
-  // Q [NP][kWRows][64], then stages of K [NP][kWK][64] and V alike
+  // Q [NP][rows][64], then stages of K [NP][kWK][64] and V ([NP][kWK][64],
+  // or [D / 16][kWK][16] at d = 80 and 96)
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(base);
-  __nv_bfloat16* kvs = qs + kWRows * DP;
+  unsigned char* kvs = base + L::kQBytes;
 
   // the block's (batch row, head group, query tile, key split): batch rows
   // by descending q_offset and query tiles from the last, so the rows with
@@ -307,17 +354,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
       repro::mbar_init(&full_bar[s], 1);
-      repro::mbar_init(&empty_bar[s], 8);   // the consumers' eight warps
+      repro::mbar_init(&empty_bar[s], 4 * WG);   // the consumers' warps
     }
     repro::mbar_init(&q_bar, 1);
     repro::mbar_fence_init();
   }
   __syncthreads();
 
-  if (threadIdx.x >= 256) {
+  if (threadIdx.x >= kConsumers) {
     // producer: one thread keeps the TMA loads of the K/V ring in flight
-    repro::setmaxnreg_dec<40>();
-    if (threadIdx.x == 256 && n_mine > 0) {
+    repro::setmaxnreg_dec<WG == 3 ? 24 : 40>();
+    if (threadIdx.x == kConsumers && n_mine > 0) {
       repro::mbar_expect_tx(&q_bar, L::kQBytes);
 #pragma unroll
       for (int pn = 0; pn < NP; ++pn)
@@ -326,22 +373,31 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int j = 0; j < n_mine; ++j) {
         const int st = j % NS;
         repro::mbar_wait(&empty_bar[st], ((j / NS) & 1) ^ 1);
-        repro::mbar_expect_tx(&full_bar[st], 2 * L::kKVBytes);
+        repro::mbar_expect_tx(&full_bar[st], L::kStageBytes);
         const int key0 = tile_at<kRing>(tl, t_lo + j) * kWK;
-        __nv_bfloat16* ks = kvs + (size_t)st * 2 * kWK * DP;
+        __nv_bfloat16* ks =
+            reinterpret_cast<__nv_bfloat16*>(kvs + (size_t)st * L::kStageBytes);
         __nv_bfloat16* vs = ks + kWK * DP;
 #pragma unroll
-        for (int pn = 0; pn < NP; ++pn) {
+        for (int pn = 0; pn < NP; ++pn)
           tma_tile(ks + pn * kWK * kPanel, &tk, &full_bar[st], w.k_perm,
                    pn * kPanel, kvh, key0, b);
-          tma_tile(vs + pn * kWK * kPanel, &tv, &full_bar[st], w.v_perm,
-                   pn * kPanel, kvh, key0, b);
+        if constexpr (L::kNarrowV) {
+#pragma unroll
+          for (int pn = 0; pn < D / kVPanel; ++pn)
+            tma_tile(vs + pn * kWK * kVPanel, &tv, &full_bar[st], w.v_perm,
+                     pn * kVPanel, kvh, key0, b);
+        } else {
+#pragma unroll
+          for (int pn = 0; pn < NP; ++pn)
+            tma_tile(vs + pn * kWK * kPanel, &tv, &full_bar[st], w.v_perm,
+                     pn * kPanel, kvh, key0, b);
         }
       }
     }
   } else {
     // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the block
-    repro::setmaxnreg_inc<232>();
+    repro::setmaxnreg_inc<WG == 3 ? 160 : 232>();
     const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31;
     const int r0 = wg * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
@@ -350,65 +406,76 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int qpos0 = qoff + pos0, qpos1 = qoff + pos1;
     const int gc = (lane & 3) * 2;
 
-    float o[DP / 2];
+    float o[VN / 2];
 #pragma unroll
-    for (int k = 0; k < DP / 2; ++k) o[k] = 0.0f;
+    for (int k = 0; k < VN / 2; ++k) o[k] = 0.0f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
     const float scale2 = p.scale * 1.4426950408889634f;   // log2(e)
     const uint32_t q_addr = repro::smem_u32(qs) + wg * 64 * 128;
     if (n_mine > 0) repro::mbar_wait(&q_bar, 0);
 
-    for (int j = 0; j < n_mine; ++j) {
-      const int st = j % NS;
-      repro::mbar_wait(&full_bar[st], (j / NS) & 1);
+    // S = Q K^T of tile j into s: 64 rows x kWK keys, Q and K K-major in
+    // shared memory, over the d / 16 k-steps that hold data
+    float s[kWK / 2];
+    auto issue_s = [&](int j) {
       const uint32_t k_addr =
-          repro::smem_u32(kvs + (size_t)st * 2 * kWK * DP);
-      const uint32_t v_addr = k_addr + kWK * DP * 2;
-
-      // S = Q K^T: 64 rows x 64 keys, Q and K K-major in shared memory
-      float s[32];
+          repro::smem_u32(kvs + (size_t)(j % NS) * L::kStageBytes);
 #pragma unroll
-      for (int k = 0; k < 32; ++k) s[k] = 0.0f;
-      repro::wgmma_fence();
-      repro::reg_fence(s);
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
+      for (int kk = 0; kk < D / 16; ++kk) {
         const uint64_t da = repro::wgmma_desc(
             q_addr + (kk >> 2) * kWRows * 128 + (kk & 3) * 32, 16, 1024);
         const uint64_t db = repro::wgmma_desc(
             k_addr + (kk >> 2) * kWK * 128 + (kk & 3) * 32, 16, 1024);
-        repro::wgmma_ss_n64(s, da, db, 1);
+        repro::wgmma_ss<kWK>(s, da, db, kk > 0);
       }
       repro::wgmma_commit();
-      repro::reg_fence(s);
-      repro::wgmma_wait0();
-      repro::reg_fence(s);
-
-      // mask, scale, online softmax in base 2 (scores times scale *
-      // log2(e)): s[4n + e] is (r0, key 8n + gc + e), s[4n + 2 + e] is
-      // (r1, the same key).  A tile every key of which every query of the
-      // block sees skips the masks.
+    };
+    // O += P V of tile j: P in bf16 from registers (the accumulator's
+    // layout is the A operand's), V N-major in shared memory
+    uint32_t pa[kWK / 16][4];
+    auto issue_pv = [&](int j) {
+      const uint32_t v_addr =
+          repro::smem_u32(kvs + (size_t)(j % NS) * L::kStageBytes) +
+          L::kKBytes;
+#pragma unroll
+      for (int kk = 0; kk < kWK / 16; ++kk) {
+        if constexpr (L::kNarrowV)
+          repro::wgmma_rs<VN>(o, pa[kk], repro::wgmma_desc(
+              v_addr + kk * 16 * kVPanel * 2, kWK * kVPanel * 2,
+              8 * kVPanel * 2, repro::kSwizzle32));
+        else
+          repro::wgmma_rs<VN>(o, pa[kk], repro::wgmma_desc(
+              v_addr + kk * 2048, kWK * 128, 1024));
+      }
+      repro::wgmma_commit();
+    };
+    // mask tile j's scores, then the online softmax in base 2 on the
+    // scores times scale * log2(e), the scale folded into the exponent's
+    // FMA: s[4n + e] is (r0, key 8n + gc + e), s[4n + 2 + e] is (r1, the
+    // same key).  A masked score is -inf, so its P is 0 whatever the row's
+    // max (which starts finite, at kNegInf).  A tile every key of which
+    // every query of the block sees skips the masks.  s ends as P in fp32;
+    // c0, c1 rescale what O holds.
+    float c0, c1;
+    auto softmax = [&](int j) {
       const int k0 = tile_at<kRing>(tl, t_lo + j) * kWK;
-      if (tile_full<kRing>(p, wrap, k0, kWK, qoff + q0, qoff + q_last)) {
+      if (!tile_full<kRing>(p, wrap, k0, kWK, qoff + q0, qoff + q_last)) {
 #pragma unroll
-        for (int k = 0; k < 32; ++k) s[k] *= scale2;
-      } else {
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
+        for (int n = 0; n < kWK / 8; ++n) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int key = k0 + n * 8 + gc + e;
             const int kpos = key_pos<kRing>(p, wrap, key);
-            s[4 * n + e] = key_ok<kRing>(p, qpos0, key, kpos)
-                               ? s[4 * n + e] * scale2 : kNegInf;
-            s[4 * n + 2 + e] = key_ok<kRing>(p, qpos1, key, kpos)
-                                   ? s[4 * n + 2 + e] * scale2 : kNegInf;
+            if (!key_ok<kRing>(p, qpos0, key, kpos))
+              s[4 * n + e] = -INFINITY;
+            if (!key_ok<kRing>(p, qpos1, key, kpos))
+              s[4 * n + 2 + e] = -INFINITY;
           }
         }
       }
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < kWK / 8; ++n) {
         mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
         mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
       }
@@ -417,48 +484,105 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+      const float mn0 = fmaxf(m0, mx0 * scale2);
+      const float mn1 = fmaxf(m1, mx1 * scale2);
+      c0 = repro::exp2_approx(m0 - mn0);
+      c1 = repro::exp2_approx(m1 - mn1);
       m0 = mn0;
       m1 = mn1;
       float rs0 = 0.0f, rs1 = 0.0f;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < kWK / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          s[4 * n + e] = exp2f(s[4 * n + e] - mn0);
-          s[4 * n + 2 + e] = exp2f(s[4 * n + 2 + e] - mn1);
+          s[4 * n + e] = repro::exp2_approx(fmaf(s[4 * n + e], scale2, -mn0));
+          s[4 * n + 2 + e] =
+              repro::exp2_approx(fmaf(s[4 * n + 2 + e], scale2, -mn1));
           rs0 += s[4 * n + e];
           rs1 += s[4 * n + 2 + e];
         }
       }
       l0 = l0 * c0 + rs0;   // this thread's columns; the quad sums at the end
       l1 = l1 * c1 + rs1;
+    };
+    // O rescaled to the new max, and P packed for the next P V
+    auto rescale_pack = [&]() {
 #pragma unroll
-      for (int k = 0; k < DP / 2; ++k) o[k] *= (k & 2) ? c1 : c0;
-
-      // O += P V: P in bf16 from registers (the accumulator's layout is
-      // the A operand's), V N-major in shared memory
-      uint32_t pa[4][4];
+      for (int k = 0; k < VN / 2; ++k) o[k] *= (k & 2) ? c1 : c0;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < kWK / 16; ++kk) {
         pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
         pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
         pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
         pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
       }
+    };
+    auto release = [&](int j) {   // tile j's K and V are read
+      __syncwarp();
+      if (lane == 0) repro::mbar_arrive(&empty_bar[j % NS]);
+    };
+
+    // Tile 0's S alone; then step j issues tile j's S and tile j-1's P V
+    // together and runs tile j's softmax while that P V is still on the
+    // tensor cores; then the last tile's P V alone.  With two stages (d =
+    // 256) each tile runs S, softmax and P V in turn, in one loop.  Every
+    // register fence comes before a step's first wgmma, so ptxas keeps
+    // the products asynchronous.  Turns (kTurns) apply to the overlapped
+    // order: each step's issue waits for the previous warpgroup's.
+    if constexpr (!L::kOverlap) {
+      for (int j = 0; j < n_mine; ++j) {
+        repro::mbar_wait(&full_bar[j % NS], (j / NS) & 1);
+        repro::reg_fence(s);
+        repro::wgmma_fence();
+        issue_s(j);
+        repro::wgmma_wait0();
+        repro::reg_fence(s);
+        softmax(j);
+        rescale_pack();
+        repro::reg_fence(o);
+        repro::wgmma_fence();
+        issue_pv(j);
+        repro::wgmma_wait0();
+        repro::reg_fence(o);
+        release(j);
+      }
+    } else if (n_mine > 0) {
+      if (kTurn && wg == WG - 1) turn_arrive(2);
+      repro::mbar_wait(&full_bar[0], 0);
+      if (kTurn) turn_sync(2 + wg);
+      repro::reg_fence(s);
       repro::wgmma_fence();
+      issue_s(0);
+      if (kTurn) turn_arrive(2 + (wg + 1) % WG);
+      repro::wgmma_wait0();
+      repro::reg_fence(s);
+      softmax(0);
+      rescale_pack();
+      for (int j = 1; j < n_mine; ++j) {
+        repro::mbar_wait(&full_bar[j % NS], (j / NS) & 1);
+        if (kTurn) turn_sync(2 + wg);
+        repro::reg_fence(s);
+        repro::reg_fence(o);
+        repro::wgmma_fence();
+        issue_s(j);
+        issue_pv(j - 1);
+        if (kTurn) turn_arrive(2 + (wg + 1) % WG);
+        repro::wgmma_wait<1>();
+        repro::reg_fence(s);
+        softmax(j);
+        repro::wgmma_wait0();
+        repro::reg_fence(o);
+        release(j - 1);
+        rescale_pack();
+      }
+      if (kTurn) turn_sync(2 + wg);
       repro::reg_fence(o);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        repro::wgmma_rs<DP>(o, pa[kk],
-                    repro::wgmma_desc(v_addr + kk * 2048, kWK * 128, 1024));
-      repro::wgmma_commit();
-      repro::reg_fence(o);
+      repro::wgmma_fence();
+      issue_pv(n_mine - 1);
+      if (kTurn && wg != WG - 1) turn_arrive(2 + (wg + 1) % WG);
       repro::wgmma_wait0();
       repro::reg_fence(o);
-      __syncwarp();
-      if (lane == 0) repro::mbar_arrive(&empty_bar[st]);
+      release(n_mine - 1);
     }
 
 #pragma unroll
@@ -486,10 +610,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         *reinterpret_cast<float2*>(pml + r1 * 2) = make_float2(m1, l1);
       }
       __threadfence();
-      consumer_sync();
+      consumer_sync(kConsumers);
       if (threadIdx.x == 0)
         s_last = atomicAdd(&w.tickets[ti], 1) == n_active - 1;
-      consumer_sync();
+      consumer_sync(kConsumers);
       write = s_last;
       if (write) {
         // every split's partial from L2 in split order, whichever block
@@ -503,7 +627,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
         l0 = l1 = 0.0f;
 #pragma unroll
-        for (int k = 0; k < DP / 2; ++k) o[k] = 0.0f;
+        for (int k = 0; k < VN / 2; ++k) o[k] = 0.0f;
         for (int sp = 0; sp < n_active; ++sp) {
           const float* ml = w.part_ml + (tile0 + sp) * kWRows * 2;
           const float* px = w.part_acc + (tile0 + sp) * kWRows * D;
@@ -691,7 +815,7 @@ flash_f32_kernel(FlashParams p) {
   }
 }
 
-template <int D, bool kRing>
+template <int D, bool kRing, int WG>
 cudaError_t launch_wgmma(const FlashParams& p, WgmmaPlan w,
                          cudaStream_t st) {
   CUtensorMap tq, tk, tv;
@@ -700,8 +824,11 @@ cudaError_t launch_wgmma(const FlashParams& p, WgmmaPlan w,
                 npos, &w.q_perm) ||
       !make_map(&tk, p.k, D, p.KVH, p.k_sh, p.Skv, p.k_ss, w.B, p.k_sb, 1,
                 kWK, &w.k_perm) ||
-      !make_map(&tv, p.v, D, p.KVH, p.v_sh, p.Skv, p.v_ss, w.B, p.v_sb, 1,
-                kWK, &w.v_perm))
+      !(WSmem<D, WG>::kNarrowV
+            ? make_map(&tv, p.v, D, p.KVH, p.v_sh, p.Skv, p.v_ss, w.B, p.v_sb,
+                       1, kWK, &w.v_perm, kVPanel, CU_TENSOR_MAP_SWIZZLE_32B)
+            : make_map(&tv, p.v, D, p.KVH, p.v_sh, p.Skv, p.v_ss, w.B, p.v_sb,
+                       1, kWK, &w.v_perm)))
     return cudaErrorInvalidValue;
   // Q rows land head-minor when the head dim precedes the row dim in the
   // map
@@ -711,21 +838,32 @@ cudaError_t launch_wgmma(const FlashParams& p, WgmmaPlan w,
     if (((w.q_perm >> (8 * i)) & 255) == 2) row_at = i;
   }
   w.rows_pos_major = head_at < row_at;
-  auto kern = flash_wgmma_kernel<D, kRing>;
-  constexpr int bytes = WSmem<D>::kBytes;
+  auto kern = flash_wgmma_kernel<D, kRing, WG>;
+  constexpr int bytes = WSmem<D, WG>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return attr;
   const long long blocks =
       (long long)w.nsplit * w.HG * w.q_tiles * w.B;
-  kern<<<(unsigned)blocks, kWThreads, bytes, st>>>(tq, tk, tv, p, w);
+  kern<<<(unsigned)blocks, WSmem<D, WG>::kThreads, bytes, st>>>(tq, tk, tv,
+                                                                p, w);
   return cudaGetLastError();
 }
+
+// three consumer warpgroups: the plain layout at d = 64 to 96 (at d = 128
+// their 160 registers a thread would spill)
+template <int D, bool kRing>
+constexpr bool kWide = !kRing && D >= 64 && D <= 96;
 
 template <int D, bool kRing>
 cudaError_t launch(const FlashParams& p, const WgmmaPlan& w, int dtype,
                    cudaStream_t st) {
-  if (dtype == 1) return launch_wgmma<D, kRing>(p, w, st);
+  if (dtype == 1) {
+    if (w.npos * w.hp == 128) return launch_wgmma<D, kRing, 2>(p, w, st);
+    if constexpr (kWide<D, kRing>)
+      return launch_wgmma<D, kRing, 3>(p, w, st);
+    return cudaErrorInvalidValue;
+  }
   constexpr size_t bytes = F32Smem<D>::kDynamicBytes;
   auto kern = flash_f32_kernel<D, kRing>;
   if constexpr (bytes > 0) {
@@ -754,12 +892,14 @@ cudaError_t launch_layout(const FlashParams& p, const WgmmaPlan& w,
 // [B] int32 or null; window <= 0 for none; ring_len > 0 selects the ring
 // layout, which needs causal, a window and kv_wrap ([B] int32 cursors),
 // with ring_len <= Skv; dtype 0 = float32, 1 = bfloat16 (shared by q, k,
-// v and o).  bf16 runs the wgmma kernel with the
-// plan (heads_packed query heads of one KV head a block, nsplit key splits;
-// part_acc [tiles, nsplit, 128, D] and part_ml [tiles, nsplit, 128, 2]
-// fp32 scratch and tickets [tiles] int32, zero before and after, when
-// nsplit > 1, tiles = B * H / heads_packed * ceil(Sq * heads_packed /
-// 128)); fp32 takes heads_packed = nsplit = 1.  lse: null, or [B,H,Sq]
+// v and o).  bf16 runs the wgmma kernel with the plan (block_rows query
+// rows a block: 128, or 192 in the plain layout at d = 64 to 96;
+// heads_packed query heads of one KV head a block, nsplit key splits;
+// part_acc [tiles, nsplit, block_rows, D] and part_ml [tiles, nsplit,
+// block_rows, 2] fp32 scratch and tickets [tiles] int32, zero before and
+// after, when nsplit > 1, tiles = B * H / heads_packed * ceil(Sq *
+// heads_packed / block_rows)); fp32 takes heads_packed = nsplit = 1 and
+// block_rows = 128.  lse: null, or [B,H,Sq]
 // fp32, which receives each query row's log-sum-exp of its scaled scores
 // (natural log; the backward's input, when training).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
@@ -771,9 +911,9 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                long long v_sb, long long v_sh, long long v_ss,
                                long long o_sb, long long o_sh, long long o_ss,
                                int causal, int window, int ring_len,
-                               int heads_packed, int nsplit, void* part_acc,
-                               void* part_ml, void* tickets, void* lse,
-                               int dtype, void* stream) {
+                               int heads_packed, int nsplit, int block_rows,
+                               void* part_acc, void* part_ml, void* tickets,
+                               void* lse, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH || Sq <= 0 || Skv <= 0 ||
       B > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -782,11 +922,13 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const bool wgmma = dtype == 1;
   const int hp = heads_packed;
-  if (wgmma ? (hp < 1 || (H / KVH) % hp || kWRows % hp || nsplit < 1 ||
+  if (wgmma ? (hp < 1 || (H / KVH) % hp ||
+               (block_rows != 128 && block_rows != 192) || block_rows % hp ||
+               nsplit < 1 ||
                nsplit > kMaxFSplit ||
                (nsplit > 1 && (part_acc == nullptr || part_ml == nullptr ||
                                tickets == nullptr)))
-            : (hp != 1 || nsplit != 1))
+            : (hp != 1 || nsplit != 1 || block_rows != 128))
     return (int)cudaErrorInvalidValue;
   FlashParams p{q, k, v, o, static_cast<const int*>(qoff),
                 ring_len > 0 ? static_cast<const int*>(kv_wrap) : nullptr,
@@ -795,7 +937,7 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                 o_sb, o_sh, o_ss, causal, window, ring_len,
                 (float)(1.0 / sqrt((double)D)),    // the reference's scale
                 static_cast<float*>(lse)};
-  const int npos = kWRows / hp;
+  const int npos = block_rows / hp;
   WgmmaPlan w{B, hp, npos, (Sq + npos - 1) / npos, H / hp, nsplit, 1,
               0, 0, 0, static_cast<float*>(part_acc),
               static_cast<float*>(part_ml), static_cast<int*>(tickets)};

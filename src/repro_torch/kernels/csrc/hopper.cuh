@@ -117,19 +117,22 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A 4-d bf16 tensor map of a strided [batch, head, row, d] tensor (unit
-// stride along d), 128-byte swizzle, boxes of 64 along d (one swizzle
-// panel) and `box_head`, `box_row` along heads and rows.  The three outer
-// dims go into the map in ascending order of stride; `perm` receives the
-// logical index of each map dim, one byte each.  A dim of extent 1 takes a
-// stride past the others'.
+// stride along d), boxes of `box_d` along d (one swizzle panel: 64 with
+// the 128-byte swizzle, 16 with the 32-byte one) and `box_head`,
+// `box_row` along heads and rows.  The three outer dims go into the map
+// in ascending order of stride; `perm` receives the logical index of each
+// map dim, one byte each.  A dim of extent 1 takes a stride past the
+// others'.
 inline bool make_map(CUtensorMap* map, const void* ptr, int D, int n_head,
                      long long s_head, int n_row, long long s_row, int n_b,
-                     long long s_b, int box_head, int box_row, int* perm) {
+                     long long s_b, int box_head, int box_row, int* perm,
+                     int box_d = 64,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   long long n[4] = {D, n_head, n_row, n_b};
   long long st[4] = {1, s_head, s_row, s_b};
-  const int box[4] = {64, box_head, box_row, 1};
+  const int box[4] = {box_d, box_head, box_row, 1};
   long long span = 0;
   for (int i = 1; i < 4; ++i) span = span > n[i] * st[i] ? span : n[i] * st[i];
   for (int i = 1; i < 4; ++i)
@@ -152,23 +155,26 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int D, int n_head,
     *perm |= order[i] << (8 * i);
   }
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, boxes, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            dims, strides, boxes, es, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ----------------------------------------------------------------- wgmma
 
-// The shared-memory matrix descriptor of a 128-byte-swizzled operand (the
-// layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B; tiles 1024-byte
-// aligned).  K-major operands: rows of 64 bf16, 8-row groups `sbo` bytes
-// apart (lbo unused).  N-major operands: `lbo` bytes between 64-column
-// panels, `sbo` between 8-row groups along K.
+// The shared-memory matrix descriptor of a swizzled operand (the layout
+// TMA writes with the same swizzle; tiles aligned to the swizzle's
+// repeat: 1024 bytes at 128, 256 at 32).  K-major operands (128-byte
+// swizzle): rows of 64 bf16, 8-row groups `sbo` bytes apart (lbo unused).
+// N-major operands: `lbo` bytes between panels of 64 columns (128-byte
+// swizzle) or 16 (32-byte), `sbo` between 8-row groups along K.
+constexpr uint64_t kSwizzle128 = 1, kSwizzle32 = 3;
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+                                               uint32_t sbo,
+                                               uint64_t swizzle = kSwizzle128) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (swizzle << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -179,6 +185,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // keeps the compiler from moving an accumulator across the asynchronous
@@ -319,13 +330,105 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D[64 x N] += A[64 x 16] B[16 x N] for N = 64, 128 or 256, A from
-// registers, B from shared memory (N-major, 128-byte swizzle)
+// D[64 x 80] += A[64 x 16] B[16 x 80], A from registers (the m16n8k16
+// A layout per warp), B from shared memory (N-major, 32-byte swizzle: the
+// 80 columns are 5 panels of 16)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 96] += A[64 x 16] B[16 x 96], A from registers (the m16n8k16
+// A layout per warp), B from shared memory (N-major, 32-byte swizzle: the
+// 96 columns are 6 panels of 16)
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory
+// (K-major, 128-byte swizzle); scale_d 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N] for N = 64 or 128, A and B from
+// shared memory (K-major, 128-byte swizzle); scale_d 0 overwrites D
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N] for N = 64, 80, 96, 128 or 256, A
+// from registers, B from shared memory (N-major; 32-byte swizzle at N =
+// 80 and 96, 128-byte otherwise)
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 80) wgmma_rs_n80(d, a, db);
+  else if constexpr (N == 96) wgmma_rs_n96(d, a, db);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   else wgmma_rs_n256(d, a, db);
 }

@@ -17,8 +17,10 @@ launches are counted apart from plain ones:
 ``flash_attention.ring_launches`` and ``flash_attention.launches``.
 
 Each launch follows :func:`flash_plan`, from shapes only: bf16 runs the
-``wgmma`` + TMA kernel (head_dim padded to 64, 128 or 256 columns) with a
-GQA group's query heads packed into one block's 128 rows and, when that
+``wgmma`` + TMA kernel (Q and K padded to 64, 128 or 256 columns, Q K^T
+over the d / 16 k-steps that hold data, P V at N = d for d = 80 and 96)
+with a GQA group's query heads packed into one block's 128 rows (192 where
+that pads no more rows, at d = 64 to 96) and, when that
 leaves fewer blocks than the card's SMs (132 on an H100 SXM,
 ``build.sm_count``), each query tile's keys split
 across blocks (gemma3-1b's chunk: 32 tiles x 4 splits); fp32 runs on CUDA
@@ -50,6 +52,8 @@ from repro_torch.kernels.grad import needs_grad, no_backward
 # (128), gemma3-1b's (256) and the reduced test sizes
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 BLOCK_ROWS = 128               # query rows a wgmma block
+WIDE_ROWS = 192                # ... with three consumer warpgroups
+WIDE_HEAD_DIMS = (64, 80, 96)   # the head dims built with them
 KEY_TILE = 64                  # keys a tile
 MAX_SPLIT = 8                  # key splits of a query tile
 MIN_SPLIT_TILES = 2            # KV tiles an active key split takes
@@ -61,9 +65,10 @@ BWD_STAGES = 4                 # depth of the backward's streamed ring
 class FlashPlan(NamedTuple):
     """How one call is cut into blocks: ``route`` "wgmma" (bf16) or
     "fp32"; ``heads_packed``
-    query heads of one KV head share a block's rows, ``positions`` query
-    positions each; ``q_tiles`` x ``head_groups`` x B query tiles, each
-    cut into ``splits`` key splits; ``blocks`` in all."""
+    query heads of one KV head share a block's ``rows`` query rows,
+    ``positions`` query positions each; ``q_tiles`` x ``head_groups`` x B
+    query tiles, each cut into ``splits`` key splits; ``blocks`` in
+    all."""
     route: str
     heads_packed: int
     positions: int
@@ -71,11 +76,13 @@ class FlashPlan(NamedTuple):
     head_groups: int
     splits: int
     blocks: int
+    rows: int = BLOCK_ROWS
 
 
 def flash_plan(b: int, h: int, kvh: int, sq: int, skv: int, d: int,
                dtype, *, heads_packed: Optional[int] = None,
-               splits: Optional[int] = None) -> FlashPlan:
+               splits: Optional[int] = None, ring: bool = False,
+               rows: Optional[int] = None) -> FlashPlan:
     """The launch plan, from shapes only.  On the wgmma route a block
     holds 128 query rows: the G = H / KVH heads of one KV head packed
     together (G of 1, 2, 4 or 8; one head otherwise), 128 / G positions
@@ -84,20 +91,36 @@ def flash_plan(b: int, h: int, kvh: int, sq: int, skv: int, d: int,
     ``min(8, 132 // tiles, ceil(Skv / 64))`` ranges of whole 64-key tiles,
     of which the kernel uses as many as the masks leave two tiles each
     (:func:`key_split`), merged exactly by the block that finishes last
-    (``SMS`` is ``build.sm_count()``: 132 on an H100 SXM).
-    In fp32 a block is 16 rows of one head.  ``heads_packed`` and
-    ``splits`` force the wgmma route's choices (the card tests do); they
-    must divide G and 128, and lie in [1, 8]."""
+    (``SMS`` is ``build.sm_count()``: 132 on an H100 SXM).  A block
+    holds 192 rows instead (three consumer warpgroups) at a head dim of
+    ``WIDE_HEAD_DIMS`` in the plain layout when that pads no more query
+    rows than 128 would and still gives every SM a tile: each K/V tile
+    then serves 1.5x the rows (hubert-xlarge's 1500 frames: 8 tiles of
+    192, not 12 of 128).  In fp32 a block is 16 rows of one head.
+    ``heads_packed``, ``splits`` and ``rows`` force the wgmma route's
+    choices (the card tests do); they must divide G and the rows, lie in
+    [1, 8], and be 128 or 192."""
     if dtype == torch.bfloat16:
         g = h // kvh
         hp = heads_packed or (g if g in (1, 2, 4, 8) else 1)
-        if g % hp or BLOCK_ROWS % hp:
+        sms = build.sm_count()
+        if rows is None:
+            rows = BLOCK_ROWS
+            tiles_wide = -(-sq * hp // WIDE_ROWS)
+            if (d in WIDE_HEAD_DIMS and not ring and tiles_wide * WIDE_ROWS
+                    <= -(-sq * hp // BLOCK_ROWS) * BLOCK_ROWS
+                    and tiles_wide * (h // hp) * b >= sms):
+                rows = WIDE_ROWS
+        if rows not in (BLOCK_ROWS, WIDE_ROWS) or (
+                rows == WIDE_ROWS and (d not in WIDE_HEAD_DIMS or ring)):
+            raise ValueError(f"rows must be {BLOCK_ROWS}, or {WIDE_ROWS} at "
+                             f"head_dim {WIDE_HEAD_DIMS} without a ring")
+        if g % hp or rows % hp:
             raise ValueError(f"heads_packed {hp} must divide the group {g} "
-                             f"and {BLOCK_ROWS}")
-        npos = BLOCK_ROWS // hp
+                             f"and {rows}")
+        npos = rows // hp
         qt = -(-sq // npos)
         tiles = qt * (h // hp) * b
-        sms = build.sm_count()
         if splits is None:
             splits = 1
             if tiles < sms:
@@ -107,10 +130,11 @@ def flash_plan(b: int, h: int, kvh: int, sq: int, skv: int, d: int,
             raise ValueError(f"splits must be in [1, {MAX_SPLIT}], got "
                              f"{splits}")
         return FlashPlan("wgmma", hp, npos, qt, h // hp, splits,
-                         tiles * splits)
-    if heads_packed not in (None, 1) or splits not in (None, 1):
-        raise ValueError("heads_packed and splits apply to the wgmma route "
-                         "(bf16)")
+                         tiles * splits, rows)
+    if (heads_packed not in (None, 1) or splits not in (None, 1)
+            or rows not in (None, BLOCK_ROWS)):
+        raise ValueError("heads_packed, splits and rows apply to the wgmma "
+                         "route (bf16)")
     rows = 16
     qt = -(-sq // rows)
     return FlashPlan("fp32", 1, rows, qt, h, 1, qt * h * b)
@@ -281,10 +305,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None, q_offset=None,
                          kv_wrap=None, ring_len: Optional[int] = None,
                          heads_packed: Optional[int] = None,
-                         splits: Optional[int] = None, lse: bool = False):
-    """The kernel; ``heads_packed`` and ``splits`` override the plan's
-    choices (:func:`flash_plan`).  ``lse`` returns (o, each query row's
-    log-sum-exp of its scaled scores, fp32 [B, H, Sq])."""
+                         splits: Optional[int] = None,
+                         rows: Optional[int] = None, lse: bool = False):
+    """The kernel; ``heads_packed``, ``splits`` and ``rows`` override the
+    plan's choices (:func:`flash_plan`).  ``lse`` returns (o, each query
+    row's log-sum-exp of its scaled scores, fp32 [B, H, Sq])."""
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel needs a CUDA tensor, got {q.device}")
     b, h, sq, d = q.shape
@@ -313,13 +338,14 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     o = torch.empty((b, sq, h, d), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     plan = flash_plan(b, h, kvh, sq, skv, d, q.dtype,
-                      heads_packed=heads_packed, splits=splits)
+                      heads_packed=heads_packed, splits=splits,
+                      ring=ring_len is not None, rows=rows)
     part_acc = part_ml = tickets = None
     if plan.splits > 1:
         tiles = plan.blocks // plan.splits
-        part_acc = torch.empty((tiles, plan.splits, BLOCK_ROWS, d),
+        part_acc = torch.empty((tiles, plan.splits, plan.rows, d),
                                dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((tiles, plan.splits, BLOCK_ROWS, 2),
+        part_ml = torch.empty((tiles, plan.splits, plan.rows, 2),
                               dtype=torch.float32, device=q.device)
         tickets = ticket_counters(q.device, tiles)
     lse_t = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -331,7 +357,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         0 if wrap is None else wrap.data_ptr(), b, h, kvh, sq, skv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         int(causal), int(window or 0), int(ring_len or 0),
-        plan.heads_packed, plan.splits,
+        plan.heads_packed, plan.splits, plan.rows,
         0 if part_acc is None else part_acc.data_ptr(),
         0 if part_ml is None else part_ml.data_ptr(),
         0 if tickets is None else tickets.data_ptr(),

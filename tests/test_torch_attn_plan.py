@@ -269,3 +269,37 @@ def test_merge_splits_drops_empty_splits():
     w = torch.exp(m[0] - 2.0)
     torch.testing.assert_close(
         got[0], (acc[0] * w[:, None]).sum(0) / (lsum[0] * w).sum())
+
+
+@pytest.mark.parametrize("sq,d,ring,rows", [
+    (1500, 80, False, 192), (1500, 96, False, 192), (1536, 128, False, 128),
+    (1500, 80, True, 128), (1500, 256, False, 128), (1500, 32, False, 128),
+    (256, 80, False, 128), (2048, 80, False, 128), (1088, 64, False, 192)])
+def test_flash_plan_wide_blocks(sq, d, ring, rows):
+    """192-row blocks (three consumer warpgroups) at hubert-xlarge's
+    encoder shape (B=4, 16 heads on 16, 1500 frames: 8 tiles of 192, not
+    12 of 128) and wherever they pad no more query rows than 128-row
+    blocks and still give every SM a tile, at a head dim built with them
+    and without a ring; a served chunk of 256 and a training sequence of
+    2048 keep 128, and so does d = 128 (not built with them)."""
+    p = flash_ops.flash_plan(B, 16, 16, sq, sq, d, torch.bfloat16,
+                             ring=ring)
+    assert p.rows == rows
+    assert p.positions == rows and p.q_tiles == -(-sq // rows)
+    assert p.blocks == B * 16 * p.q_tiles * p.splits
+
+
+def test_flash_plan_forced_rows():
+    """Forced 192-row blocks need a head dim built with them and no ring;
+    the fp32 route takes 128 only."""
+    p = flash_ops.flash_plan(2, 8, 2, 500, 900, 80, torch.bfloat16,
+                             heads_packed=4, rows=192)
+    assert (p.rows, p.positions, p.q_tiles) == (192, 48, 11)
+    for kw in (dict(rows=256), dict(rows=192, ring=True)):
+        with pytest.raises(ValueError, match="rows"):
+            flash_ops.flash_plan(2, 8, 2, 500, 900, 80, torch.bfloat16, **kw)
+    with pytest.raises(ValueError, match="rows"):
+        flash_ops.flash_plan(2, 8, 2, 500, 900, 256, torch.bfloat16,
+                             rows=192)
+    with pytest.raises(ValueError, match="wgmma route"):
+        flash_ops.flash_plan(2, 8, 2, 500, 900, 80, torch.float32, rows=192)

@@ -307,6 +307,30 @@ def test_flash_kernel_encoder_shape(cuda, dtype):
                 TOL[dtype])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", [(1500, 1500), (333, 333), (333, 1500)])
+@pytest.mark.parametrize("d,h,kvh", [(80, 4, 4), (96, 8, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_noncausal_narrow_heads(cuda, dtype, d, h, kvh, sq,
+                                             skv):
+    """Non-causal attention at head_dim 80 and 96 (the wgmma route's P V
+    at N = d, V in 16-column panels), with the query and key counts off
+    the 64-key and 128-row tiles: 1500 frames, an odd 333, and 333
+    queries over 1500 keys; each query row within TOL, one launch."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(37), cuda)
+    td = DTYPES[dtype]
+    b = 2
+    q = rn(b, sq, h, d, dt=td).transpose(1, 2)
+    k = _cache_view(rn, b, skv, kvh, d, td)
+    v = _cache_view(rn, b, skv, kvh, d, td)
+    n0 = flash_ops.flash_attention.launches
+    got = flash_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == n0 + 1
+    _close_rows(got, flash_ref.attention_ref(q, k, v, causal=False),
+                TOL[dtype])
+
+
 # (window, ring_len, Sq, cursors): a full ring with cursors before, at and
 # after the wrap; a ring sliced below the window (cursor + Sq <= ring_len,
 # as a bucket slices it); a chunk longer than the window, which wraps
@@ -489,6 +513,41 @@ def test_flash_kernel_packing_and_splits(cuda, mode, d, h, kvh, packed,
                                          splits=splits, **kw)
     torch.cuda.synchronize()
     _close_rows(got, flash_ref.attention_ref(q, k, v, **kw), TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed,splits", FORCED)
+@pytest.mark.parametrize("d,h,kvh", [(64, 8, 2), (96, 8, 2), (80, 8, 4)])
+@pytest.mark.parametrize("mode", ["offsets", "causal", "full", "window"])
+def test_flash_kernel_wide_blocks(cuda, mode, d, h, kvh, packed, splits):
+    """bf16 blocks of 192 query rows (three consumer warpgroups) forced at
+    every head dim built with them, in the plain layout's modes, with
+    head packing and key splits forced; 500 queries (off the 192-row
+    tile) and a longer KV prefix with offsets.  A ring, another head dim
+    or another row count raises."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(13), cuda)
+    td = torch.bfloat16
+    b, sq = 2, 500
+    skv = 900 if mode == "offsets" else sq
+    kw = dict(causal=mode != "full",
+              window=100 if mode == "window" else None, q_offset=0)
+    if mode == "offsets":
+        kw["q_offset"] = torch.tensor([0, 400], dtype=torch.int32,
+                                      device=cuda)
+    hp = packed or h // kvh
+    q = rn(b, sq, h, d, dt=td).transpose(1, 2)
+    k = _cache_view(rn, b, skv, kvh, d, td)
+    v = _cache_view(rn, b, skv, kvh, d, td)
+    n0 = flash_ops.flash_attention.launches
+    got = flash_ops.flash_attention_cuda(q, k, v, heads_packed=hp,
+                                         splits=splits, rows=192, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == n0 + 1
+    _close_rows(got, flash_ref.attention_ref(q, k, v, **kw), TOL["bfloat16"])
+    for bad in (dict(rows=256), dict(rows=192, causal=True, window=64,
+                                     q_offset=0, kv_wrap=0, ring_len=64)):
+        with pytest.raises(ValueError, match="rows"):
+            flash_ops.flash_attention_cuda(q, k, v, **bad)
 
 
 @pytest.mark.cuda
@@ -1284,6 +1343,40 @@ def _bwd_case(kind, rn, td):
     o, lse = flash_ref.attention_lse_ref(q, k, v)
     return (lambda: flash_ops.flash_attention_bwd_cuda(q, k, v, o, do, lse),
             lambda: flash_ref.flash_bwd_ref(q, k, v, o, do, lse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3, 4])
+@pytest.mark.parametrize("s", [100, 2048])
+@pytest.mark.parametrize("c", [48, 5248, 52])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv1d_bwd_kernel(cuda, dtype, c, s, k):
+    """The conv1d backward on vectors of channels: C = 48, zamba2-2.7b's
+    5248 and 52 (a narrower vector in bf16: 52 = 4 x 13), S = 100 (off
+    the 128-row block) and 2048, K = 2, 3 and 4; dx, dw and db within 1e-4
+    (fp32) or 3e-2 (bf16) of their own max |g| against the plain
+    backward, two calls bit for bit, one launch a call, and the plan's
+    vector width (8 bytes: 4 bf16 or 2 fp32 channels a thread)."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(11), cuda)
+    td = DTYPES[dtype]
+    x, dy = rn(2, s, c, dt=td), rn(2, s, c, dt=td)
+    w, b = 0.5 * rn(c, k), 0.1 * rn(c)
+    n0 = conv_ops.causal_conv1d_bwd_cuda.launches
+    got = conv_ops.causal_conv1d_bwd_cuda(x, w, b, dy)
+    again = conv_ops.causal_conv1d_bwd_cuda(x, w, b, dy)
+    torch.cuda.synchronize()
+    assert conv_ops.causal_conv1d_bwd_cuda.launches == n0 + 2
+    want = conv_ref.causal_conv1d_bwd_ref(x, w, b, dy)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    for a, a2, r in zip(got, again, want):
+        assert a.shape == r.shape
+        assert torch.equal(a, a2)
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= tol * float(r.float().abs().max()), err
+    want = 8 // x.element_size()   # 8-byte vectors where C allows
+    while c % want:
+        want //= 2
+    assert conv_ops.conv1d_bwd_plan(2, s, c, k, td).vec == want
 
 
 @pytest.mark.cuda

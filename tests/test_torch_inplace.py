@@ -19,6 +19,7 @@ frameworks round at different points, by up to ~3e-2 here), and
 ``_store_state`` copies no leaf a kernel wrote.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,7 @@ from repro_torch.convert import from_jax, to_numpy
 from repro_torch.core.registry import get, list_archs
 from repro_torch.kernels import build
 from repro_torch.kernels.attn_decode import ops as dec_attn_ops
+from repro_torch.kernels.conv1d import ops as conv_ops
 from repro_torch.kernels.decode_fused import ops as dec_ops
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.scan1 import ops as scan_ops
@@ -543,6 +545,50 @@ def test_backward_plans_cuda_cores(dtype):
         plan = ssd_ops.ssd_bwd_plan(4, 2048, 80, 128, 64, 1, 64, dtype)
         assert plan.route == "cuda_cores"
         assert max(plan.smem_bytes) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", [a for a in list_archs()
+                                  if get(a).ssm is not None])
+def test_registered_conv_backward_plans(arch, dtype):
+    """Every registered Mamba-2 and Mamba-1 config's conv1d backward at
+    B=4, S=2048: the widest vector of at most 8 bytes that divides its
+    channels (xBC for Mamba-2, d_inner for Mamba-1), 16 rows a thread, 8
+    warps a block, one partial a block, and the partials a small share
+    (at most 5%) of the x, dy and dx the kernel streams."""
+    cfg = get(arch)
+    s = cfg.ssm
+    c = s.d_inner(cfg.d_model)
+    if s.variant != "mamba1":
+        c += 2 * s.n_groups * s.d_state
+    k = s.conv_kernel
+    assert 2 <= k <= conv_ops.MAX_K, arch
+    plan = conv_ops.conv1d_bwd_plan(4, 2048, c, k, dtype)
+    es = torch.empty((), dtype=dtype).element_size()
+    want = 8 // es
+    while c % want:
+        want //= 2
+    assert plan.vec == want, (arch, c)
+    assert (plan.rows, plan.row_groups) == (16, 8)
+    tiles = 2048 // (16 * 8)
+    assert plan.grid == (-(-c // (32 * plan.vec)), tiles, 4)
+    assert plan.partials == (4 * tiles, c, k + 1)
+    stream = 3 * 4 * 2048 * c * es
+    assert 4 * math.prod(plan.partials) <= 0.05 * stream, arch
+
+
+@pytest.mark.parametrize("c,dtype,align,vec", [
+    (5248, torch.bfloat16, 16, 4), (52, torch.bfloat16, 16, 4),
+    (50, torch.bfloat16, 16, 2), (49, torch.bfloat16, 16, 1),
+    (5248, torch.bfloat16, 4, 2), (5248, torch.float32, 16, 2),
+    (49, torch.float32, 16, 1), (5248, torch.float32, 4, 1)])
+def test_conv_backward_plan_narrows(c, dtype, align, vec):
+    """The vector narrows where the channels or an address (``align``
+    bytes) do not allow the full width; S=100 is one row tile."""
+    plan = conv_ops.conv1d_bwd_plan(2, 100, c, 4, dtype, align=align)
+    assert plan.vec == vec
+    assert plan.grid == (-(-c // (32 * vec)), 1, 2)
+    assert plan.partials == (2, c, 5)
 
 
 @pytest.mark.parametrize("h,g,hs", [(80, 1, 8), (4, 1, 4), (32, 2, 8),

@@ -29,6 +29,7 @@
 """
 import dataclasses
 import functools
+import json
 import os
 
 import jax
@@ -501,6 +502,53 @@ def test_checkpoints_cross_packages(tmp_path):
     tckpt.save(str(tmp_path / "b"), 1, t16)
     assert torch.equal(tckpt.restore(str(tmp_path / "b"), t16)["a"],
                        t16["a"])
+
+
+def test_checkpoint_bf16_leaves_from_the_reference(tmp_path):
+    """The reference saves bf16 leaves as bf16 (numpy reads them back as
+    2-byte void): the port restores them bit for bit beside fp32 and
+    int32 leaves, a corrupted bf16 leaf fails its crc, and a void leaf of
+    another kind raises."""
+    rng = np.random.default_rng(5)
+    a16 = rng.standard_normal((3, 7)).astype(np.float32)
+    a32 = rng.standard_normal((4,)).astype(np.float32)
+    i32 = rng.integers(-9, 9, (2, 3)).astype(np.int32)
+    jtree = {"w16": jnp.asarray(a16, dtype=jnp.bfloat16),
+             "n": {"w32": jnp.asarray(a32), "i": jnp.asarray(i32)}}
+    d = jckpt.save(str(tmp_path / "j"), 2, jtree)
+    with open(os.path.join(d, "manifest.json")) as f:
+        assert json.load(f)["dtypes"]["w16"] == "bfloat16"
+    target = {"w16": torch.zeros((3, 7), dtype=torch.bfloat16),
+              "n": {"w32": torch.zeros(4),
+                    "i": torch.zeros((2, 3), dtype=torch.int32)}}
+    got = tckpt.restore(str(tmp_path / "j"), target)
+    want16 = np.asarray(jtree["w16"]).view(np.int16)
+    assert got["w16"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got["w16"].view(torch.int16).numpy(),
+                                  want16)
+    assert got["n"]["w32"].dtype == torch.float32
+    np.testing.assert_array_equal(got["n"]["w32"].numpy(), a32)
+    assert got["n"]["i"].dtype == torch.int32
+    np.testing.assert_array_equal(got["n"]["i"].numpy(), i32)
+    # a bf16 leaf restored into an fp32 target widens exactly
+    wide = tckpt.restore(str(tmp_path / "j"),
+                         dict(target, w16=torch.zeros((3, 7))))
+    assert torch.equal(wide["w16"], got["w16"].float())
+    # one flipped bit of the bf16 leaf fails its crc
+    npz = os.path.join(d, "arrays.npz")
+    data = dict(np.load(npz))
+    assert data["w16"].dtype.kind == "V" and data["w16"].itemsize == 2
+    bits = data["w16"].view(np.uint16).copy()
+    bits[1, 2] ^= 1
+    data["w16"] = bits.view(data["w16"].dtype)
+    np.savez(npz, **data)
+    with pytest.raises(IOError, match="corruption detected in leaf w16"):
+        tckpt.restore(str(tmp_path / "j"), target)
+    # a void leaf that is not a bf16 one
+    data["w16"] = np.zeros((3, 7), dtype="V4")
+    np.savez(npz, **data)
+    with pytest.raises(ValueError, match="leaf w16.*bfloat16"):
+        tckpt.restore(str(tmp_path / "j"), target, verify=False)
 
 
 def test_checkpoint_corruption_retention_mismatch_async(tmp_path):
