@@ -146,36 +146,52 @@ Phases (each prints its lines and is fatal on failure):
      position 1088, then 32 tokens through ``greedy_generate`` with exact
      launches (``phase_vision``); each phase prints its seconds;
  10. training (``phase_backward_kernels``, ``phase_train_paths``,
-     ``phase_train_full``): (a) the three backward kernels (flash, SSD,
-     conv1d) against their plain backwards at zamba2-2.7b's shapes (SSD,
-     conv1d at C=5248, the shared block's flash: 32 heads of 80) and
-     smollm-135m's flash (9 query heads on 3, d=64), B=4, S=512, bf16
-     and fp32, within 1e-4 (fp32) or 3% (bf16) of each gradient's max
-     |g|, two calls bit for bit, then at the training shape (B=4 x
-     S=2048; B=8 for smollm) in bf16 held the same way and timed beside
-     the plain versions, autograd of the library calls and the bounds,
-     each with its plan's route (flash on wgmma, SSD on mma.sync), share
-     of the bound and ratio to the library call; (b) a training loss and
-     gradient through the kernels against autograd through the plain
-     versions: zamba2-2.7b at one unit (6 layers) and smollm-135m at 4
-     layers in fp32 and bf16, and zamba2-2.7b at its 54 layers in bf16
-     (the shared block's 9 positions), with exact launches (each unit's
-     forward kernels twice under remat, each backward kernel once);
-     (c) zamba2-2.7b at full width and depth through ``Trainer`` (fp32
+     ``phase_train_full``): (a) the backward kernels against their plain
+     backwards at ``BWD_CHECKS`` (zamba2-2.7b's SSD, conv1d at C=5248 and
+     the shared block's flash, 32 heads of 80; smollm-135m's flash, 9
+     query heads on 3, d=64; mamba-130m's selective scan, C=1536, N=16,
+     and conv1d, C=1536; gemma3-1b's flash, 4 query heads on 1, d=256,
+     in its 512-key window over S=1300 and causal; hubert-xlarge's
+     non-causal flash, 16 heads of 80, over S=500), bf16 and fp32, within
+     1e-4 (fp32) or 3% (bf16) of each gradient's max |g|, two calls bit
+     for bit, then at the training shapes (``BWD_ROWS``: B=4 x S=2048;
+     B=8 for smollm's flash and mamba-130m's; hubert's B=4 x S=1500) in
+     bf16 held the same way and timed beside the plain versions, autograd
+     of the library calls (SDPA causal, with the window as a boolean
+     mask, non-causal; F.conv1d; none for SSD and the scan) and the
+     bounds, each with its plan's route, share of the bound and ratio to
+     the library call; (b) a training loss and gradient through the
+     kernels against autograd through the plain versions, on the
+     synthetic stream's first batch: zamba2-2.7b at
+     one unit (6 layers) and smollm-135m at 4 layers in fp32 and bf16,
+     zamba2-2.7b at its 54 layers in bf16 (the shared block's 9
+     positions), gemma3-1b at one unit (S=1024, past its window),
+     hubert-xlarge at 2 layers (S=500),
+     mamba-130m at 4 and llava-next-mistral-7b at 2 (576 patch features
+     before 576 tokens) in bf16, and qwen3-moe-235b-a22b at 1 layer in
+     fp32 (its routers' choices of both paths compared), with exact
+     launches (each unit's forward kernels twice under remat, each
+     backward kernel once, the flash backward's by mode); (c)
+     zamba2-2.7b at full width and depth through ``Trainer`` (fp32
      masters, bf16 compute, ``OptConfig()``, B=4 x S=2048), 8 steps with
      a checkpoint at step 4, and a fresh ``Trainer`` restored there
-     replaying steps 5-8 within rtol 1e-5; (d) smollm-135m at full size,
-     B=8 x S=2048, 8 steps; both print the median step ms, tokens/s, the
-     model-FLOPs share of 989 TFLOP/s, peak memory and a traced step's
-     backward-kernel time against its forward kernels', every kernel of
-     each backward route found in the trace by a name that sums into
-     its own row;
+     replaying steps 5-8 within rtol 1e-5; (d) smollm-135m (B=8),
+     gemma3-1b (26 layers, B=4), hubert-xlarge (48 layers, B=4 x S=1500
+     frames), mamba-130m (24 layers, B=8) and qwen3-moe-235b-a22b (1 of
+     94 layers at full width, B=2 x S=1024) for 8 steps; each prints the
+     losses, the median step ms, tokens/s, the model-FLOPs share of 989
+     TFLOP/s, peak memory and a traced step's backward-kernel time
+     against its forward kernels', every kernel of each backward route
+     found in the trace by a name that sums into its own row;
 then a ``kernels`` JSON line (the five Mamba-2 and attention kernels at
 zamba2-2.7b's shapes, the two Mamba-1 kernels at mamba-130m's and the
 flash kernel's ring mode at gemma3-1b's, each with the launches of its
-own config's serving run, and the three backward kernels at zamba2-2.7b's
-training shape with the launches of its 8 training steps), the card
-line, and the result line last.
+own config's serving run; the three backward kernels at zamba2-2.7b's
+training shape with the launches of its 8 training steps; the selective
+scan's backward at mamba-130m's, the flash backward in its window and
+causal at d=256 at gemma3-1b's and non-causal at hubert-xlarge's, each
+with the launches of its model's 8 training steps), the card line, and
+the result line last.
 Imports nothing of JAX nor of the reference package.
 """
 from __future__ import annotations
@@ -1544,6 +1560,24 @@ def route_diff(kern_routes, plain_routes, n_moe: int, last_row: int):
     return differ / total, total, not_tie, clean
 
 
+@contextlib.contextmanager
+def recording_routes(routes: list):
+    """Each MoE router call's choices ([tokens, k]) and logits ([tokens,
+    E]) appended to ``routes``."""
+    from repro_torch.models import moe as moe_mod
+    real = moe_mod._router
+
+    def router(p, x, m):
+        gates, idx = real(p, x, m)
+        logits = torch.matmul(x.float(), p["router"].float())
+        routes.append((idx.reshape(-1, idx.shape[-1]).detach(),
+                       logits.reshape(-1, logits.shape[-1]).detach()))
+        return gates, idx
+    with mock.patch.object(moe_mod, "_router", router):
+        yield
+
+
+
 def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16",
                 prompt_len: int = 512, param_dtype=None):
     """Kernel path against plain path on the card: ``n_layers`` layers, one
@@ -1570,7 +1604,6 @@ def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16",
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.models import mamba1 as m1
     from repro_torch.models import mamba2 as m2
-    from repro_torch.models import moe as moe_mod
     from repro_torch.models.lm import (init_lm_cache, init_lm_params,
                                        lm_decode_step, prepare_params)
     from repro_torch.serving.prefill import chunked_prefill
@@ -1584,16 +1617,6 @@ def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16",
     prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen,
                            device="cuda")
     routes = {"kern": [], "plain": []}
-    real_router = moe_mod._router
-
-    def recording(which):
-        def router(p, x, m):
-            gates, idx = real_router(p, x, m)
-            logits = torch.matmul(x.float(), p["router"].float())
-            routes[which].append((idx.reshape(-1, idx.shape[-1]),
-                                  logits.reshape(-1, logits.shape[-1])))
-            return gates, idx
-        return mock.patch.object(moe_mod, "_router", router)
 
     def run(forced):
         cache = init_lm_cache(cfg8, 1, 2 * prompt_len, dtype=cache_dtype,
@@ -1609,7 +1632,7 @@ def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16",
         toks = [o.argmax(-1, keepdim=True).to(torch.int32) for o in out]
         return torch.cat(out), toks
 
-    with recording("kern"):
+    with recording_routes(routes["kern"]):
         kern, toks = run(None)
 
     def plain_ssd(x, dt_raw, dt_bias, A_log, Bm, Cm, D, *, chunk,
@@ -1639,7 +1662,7 @@ def phase_paths(cfg, gen, n_layers: int, compute_dtype: str = "bfloat16",
             mock.patch.object(m1, "selective_scan", plain_scan), \
             mock.patch.object(m1, "mamba1_decode_fused",
                               dec_ref.mamba1_decode_fused_ref), \
-            plain_attention(), recording("plain"):
+            plain_attention(), recording_routes(routes["plain"]):
         plain, _ = run(toks)
     launched = {k: n for k, n in read_counters().items() if n}
     if launched:
@@ -2551,21 +2574,34 @@ def bwd_counters():
     """The backward kernels' launch counters, by row name."""
     from repro_torch.kernels.conv1d import ops as conv_ops
     from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.scan1 import ops as scan_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     return {"flash_bwd": flash_ops.flash_attention_bwd_cuda,
             "ssd_bwd": ssd_ops.ssd_chunked_bwd_cuda,
-            "conv1d_bwd": conv_ops.causal_conv1d_bwd_cuda}
+            "conv1d_bwd": conv_ops.causal_conv1d_bwd_cuda,
+            "scan1_bwd": scan_ops.selective_scan_bwd_cuda}
+
+
+FLASH_BWD_MODES = ("causal", "window", "noncausal")
 
 
 def reset_train_counters():
     reset_counters()
     for fn in bwd_counters().values():
         fn.launches = 0
+    modes = bwd_counters()["flash_bwd"].mode_launches
+    for m in FLASH_BWD_MODES:
+        modes[m] = 0
 
 
 def read_train_counters():
+    """The forward kernels' launches (those above 0), every backward
+    kernel's, and the flash backward's by mode (``flash_bwd.window``,
+    ...)."""
     out = {k: v for k, v in read_counters().items() if v}
     out.update({k: fn.launches for k, fn in bwd_counters().items()})
+    modes = bwd_counters()["flash_bwd"].mode_launches
+    out.update({f"flash_bwd.{m}": modes[m] for m in FLASH_BWD_MODES})
     return out
 
 
@@ -2606,21 +2642,29 @@ def hold_bwd(name, dt, got, again, want) -> float:
     return worst
 
 
-def bwd_cases(gen, dt, b: int, s: int):
-    """The three backward kernels' calls and plain versions at zamba2-2.7b's
-    shapes (SSD, conv1d, the shared block's flash: 32 heads of 80) and
-    smollm-135m's flash (9 query heads on 3, d=64), B=``b``, S=``s``, in
-    ``dt``: name -> (kernel call, plain call, inputs, FLOPs, library call
-    or None).  The FLOPs are the products the function needs: flash's
-    five (S, dP, dV, dK, dQ) over the causal half, 10 d a (query, key)
-    pair; SSD's per chunk and head C B^T, dy x^T, and the three products
-    with them over the causal half, and the four with the states (B dh'^T,
-    x^T dh', dy h, dy^T C); conv1d's 6 K + 7 an element."""
-    from repro_torch.configs import smollm_135m, zamba2_2p7b
+def bwd_cases(gen, dt, b: int, s: int, names=None):
+    """The backward kernels' calls and plain versions, B=``b``, S=``s``, in
+    ``dt``: name -> (kernel call, plain call, inputs, work, library call
+    or None), only the ``names`` given (None: all).  zamba2-2.7b's SSD,
+    conv1d and the shared block's flash (32 heads of 80), smollm-135m's
+    flash (9 query heads on 3, d=64); mamba-130m's selective scan (C =
+    1536, N = 16) and conv1d (C = 1536); gemma3-1b's flash (4 query heads
+    on 1, d = 256) in its sliding window of 512 and causal; hubert-
+    xlarge's non-causal flash (16 heads of 80).  The work is the FLOPs
+    the function needs, or ("exponentials", n) for the scan: flash's five
+    products (S, dP, dV, dK, dQ), 10 d a (query, key) pair the masks
+    leave; SSD's per chunk and head C B^T, dy x^T, and the three products
+    with them over the causal half, and the four with the states (B
+    dh'^T, x^T dh', dy h, dy^T C); conv1d's 6 K + 7 an element; the
+    scan's one exponential a (step, channel, state)."""
+    from repro_torch.configs import (gemma3_1b, hubert_xlarge, mamba_130m,
+                                     smollm_135m, zamba2_2p7b)
     from repro_torch.kernels.conv1d import ops as conv_ops
     from repro_torch.kernels.conv1d import ref as conv_ref
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.kernels.scan1 import ops as scan_ops
+    from repro_torch.kernels.scan1 import ref as scan_ref
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
     import torch.nn.functional as F
@@ -2628,58 +2672,91 @@ def bwd_cases(gen, dt, b: int, s: int):
     def rn(*shape, dtype=dt):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    z, sm = zamba2_2p7b, smollm_135m
+    def want(name):
+        return names is None or name in names
+
+    z, sm, m1 = zamba2_2p7b, smollm_135m, mamba_130m
     sc = z.ssm
     H, P, N, G, K, Q = (sc.n_ssm_heads(z.d_model), sc.headdim, sc.d_state,
                         sc.n_groups, sc.conv_kernel, sc.chunk)
-    C = sc.d_inner(z.d_model) + 2 * G * N
     cases = {}
-    (x, dts, A, Bm, Cm, D), _ = ssd_ref.model_scale_inputs(gen, b, s, H, P,
-                                                           N, dt)
-    dy = rn(b, s, H, P)
-    _, _, st = ssd_ops.ssd_chunked_cuda(x, dts, A, Bm, Cm, D, chunk=Q,
-                                        chunk_states=True)
-    qh, nc = Q * (Q + 1) // 2, s // Q
-    ssd_in = (x, dts, A, Bm, Cm, D, dy, st)
-    cases["ssd_bwd"] = (
-        lambda: ssd_ops.ssd_chunked_bwd_cuda(*ssd_in, chunk=Q),
-        lambda: ssd_ref.ssd_chunked_bwd_ref(*ssd_in, chunk=Q), ssd_in,
-        2.0 * b * H * nc * (qh * (3 * N + 2 * P) + 4 * Q * P * N), None)
+    if want("ssd_bwd"):
+        (x, dts, A, Bm, Cm, D), _ = ssd_ref.model_scale_inputs(gen, b, s, H,
+                                                               P, N, dt)
+        dy = rn(b, s, H, P)
+        _, _, st = ssd_ops.ssd_chunked_cuda(x, dts, A, Bm, Cm, D, chunk=Q,
+                                            chunk_states=True)
+        qh, nc = Q * (Q + 1) // 2, s // Q
+        ssd_in = (x, dts, A, Bm, Cm, D, dy, st)
+        cases["ssd_bwd"] = (
+            lambda: ssd_ops.ssd_chunked_bwd_cuda(*ssd_in, chunk=Q),
+            lambda: ssd_ref.ssd_chunked_bwd_ref(*ssd_in, chunk=Q), ssd_in,
+            2.0 * b * H * nc * (qh * (3 * N + 2 * P) + 4 * Q * P * N), None)
 
-    xc, dyc = rn(b, s, C), rn(b, s, C)
-    w, bias = 0.5 * rn(C, K, dtype=torch.float32), 0.1 * rn(
-        C, dtype=torch.float32)
-    conv_in = (xc, w, bias, dyc)
-    xl = xc.detach().transpose(1, 2).contiguous().requires_grad_()
-    wl = w[:, None, :].detach().requires_grad_()
-    bl = bias.detach().requires_grad_()
-    yl = F.silu(F.conv1d(xl, wl.to(dt), bl.to(dt), padding=K - 1,
-                         groups=C)[..., :s])
-    dyl = dyc.transpose(1, 2).contiguous()
-    cases["conv1d_bwd"] = (
-        lambda: conv_ops.causal_conv1d_bwd_cuda(*conv_in),
-        lambda: conv_ref.causal_conv1d_bwd_ref(*conv_in), conv_in,
-        (6.0 * K + 7.0) * b * s * C,
-        lambda: torch.autograd.grad(yl, (xl, wl, bl), dyl,
-                                    retain_graph=True))
+    for name, C, k_ in (
+            ("conv1d_bwd", sc.d_inner(z.d_model) + 2 * G * N, K),
+            ("conv1d_bwd_mamba130m", m1.ssm.d_inner(m1.d_model),
+             m1.ssm.conv_kernel)):
+        if not want(name):
+            continue
+        xc, dyc = rn(b, s, C), rn(b, s, C)
+        w, bias = 0.5 * rn(C, k_, dtype=torch.float32), 0.1 * rn(
+            C, dtype=torch.float32)
+        conv_in = (xc, w, bias, dyc)
+        xl = xc.detach().transpose(1, 2).contiguous().requires_grad_()
+        wl = w[:, None, :].detach().requires_grad_()
+        bl = bias.detach().requires_grad_()
+        yl = F.silu(F.conv1d(xl, wl.to(dt), bl.to(dt), padding=k_ - 1,
+                             groups=C)[..., :s])
+        dyl = dyc.transpose(1, 2).contiguous()
+        cases[name] = (
+            lambda conv_in=conv_in: conv_ops.causal_conv1d_bwd_cuda(*conv_in),
+            lambda conv_in=conv_in: conv_ref.causal_conv1d_bwd_ref(*conv_in),
+            conv_in, (6.0 * k_ + 7.0) * b * s * C,
+            lambda yl=yl, ins=(xl, wl, bl), dyl=dyl: torch.autograd.grad(
+                yl, ins, dyl, retain_graph=True))
 
-    for name, a in (("flash_bwd", z.shared_attn), ("flash_bwd_smollm",
-                                                   sm.attn)):
+    if want("scan1_bwd"):
+        C, N1 = m1.ssm.d_inner(m1.d_model), m1.ssm.d_state
+        (x, dts, A, Bm, Cm, D), _ = scan_ref.model_scale_inputs(gen, b, s, C,
+                                                                N1, dt)
+        scan_in = (x, dts, A, Bm, Cm, D, rn(b, s, C))
+        cases["scan1_bwd"] = (
+            lambda: scan_ops.selective_scan_bwd_cuda(*scan_in),
+            lambda: scan_ref.selective_scan_bwd_ref(*scan_in), scan_in,
+            ("exponentials", b * s * C * N1), None)
+
+    g3 = gemma3_1b.attn
+    for name, a, causal, window in (
+            ("flash_bwd", z.shared_attn, True, None),
+            ("flash_bwd_smollm", sm.attn, True, None),
+            ("flash_bwd_window", g3, True, g3.sliding_window),
+            ("flash_bwd_d256", g3, True, None),
+            ("flash_bwd_noncausal", hubert_xlarge.attn, False, None)):
+        if not want(name):
+            continue
         q = rn(b, a.n_heads, s, a.head_dim)
         k, v = (rn(b, a.n_kv_heads, s, a.head_dim) for _ in range(2))
-        o, lse = flash_ops.flash_attention_cuda(q, k, v, causal=True,
-                                                lse=True)
+        o, lse = flash_ops.flash_attention_cuda(q, k, v, causal=causal,
+                                                window=window, lse=True)
         do = rn(b, a.n_heads, s, a.head_dim)
         fin = (q, k, v, o, do, lse)
+        masks = dict(causal=causal, window=window)
         ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
         g = a.n_heads // a.n_kv_heads
+        mask = (None if window is None else flash_ref.full_mask(
+            s, s, causal, window, "cuda"))
         ol = F.scaled_dot_product_attention(
             ql, kl.repeat_interleave(g, 1), vl.repeat_interleave(g, 1),
-            is_causal=True)
+            attn_mask=mask, is_causal=causal and mask is None)
+        pairs = (s * s if not causal else
+                 sum(min(i + 1, window or s) for i in range(s)))
         cases[name] = (
-            lambda fin=fin: flash_ops.flash_attention_bwd_cuda(*fin),
-            lambda fin=fin: flash_ref.flash_bwd_ref(*fin), fin,
-            10.0 * a.head_dim * b * a.n_heads * s * (s + 1) / 2,
+            lambda fin=fin, masks=masks:
+                flash_ops.flash_attention_bwd_cuda(*fin, **masks),
+            lambda fin=fin, masks=masks:
+                flash_ref.flash_bwd_ref(*fin, **masks), fin,
+            10.0 * a.head_dim * b * a.n_heads * pairs,
             lambda ol=ol, do=do, ins=(ql, kl, vl): torch.autograd.grad(
                 ol, ins, do, retain_graph=True))
     return cases
@@ -2687,10 +2764,11 @@ def bwd_cases(gen, dt, b: int, s: int):
 
 def bwd_route(key, ins):
     """The route a backward kernel's plan takes for the inputs of
-    ``bwd_cases`` (wgmma, mma or cuda_cores; conv1d has one)."""
+    ``bwd_cases`` (wgmma, mma or cuda_cores; conv1d and the scan have
+    one)."""
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
-    if key == "flash_bwd":
+    if key.startswith("flash_bwd"):
         q, k = ins[0], ins[1]
         return flash_ops.flash_bwd_plan(q.shape[0], q.shape[1], k.shape[1],
                                         q.shape[2], q.shape[3],
@@ -2704,56 +2782,86 @@ def bwd_route(key, ins):
     return "cuda_cores"
 
 
+# each backward row's source and the TPU kernel whose gradient it is
+BWD_SOURCES = {
+    "flash_bwd": ("flash_bwd.cu", "src/repro/kernels/flash/kernel.py:124"),
+    "ssd_bwd": ("ssd_bwd.cu", "src/repro/kernels/ssd/kernel.py:68"),
+    "conv1d_bwd": ("conv1d_bwd.cu", "src/repro/kernels/conv1d/kernel.py:37"),
+    "scan1_bwd": ("scan1_bwd.cu", "src/repro/kernels/scan1/kernel.py:52")}
+# the checks in both types: (name, B, S); B=4, S=512, but gemma3-1b's
+# window (512) over S=1300, so that the band's edges fall inside the
+# sequence and inside tiles, and hubert-xlarge's non-causal flash at
+# S=500, off a tile, so keys past S fall in its last tiles
+BWD_CHECKS = (("ssd_bwd", 4, 512), ("conv1d_bwd", 4, 512),
+              ("conv1d_bwd_mamba130m", 4, 512), ("scan1_bwd", 4, 512),
+              ("flash_bwd", 4, 512), ("flash_bwd_smollm", 4, 512),
+              ("flash_bwd_window", 2, 1300), ("flash_bwd_d256", 4, 512),
+              ("flash_bwd_noncausal", 4, 500))
+# the rows timed at the training shapes: (name, B, S)
+BWD_ROWS = (("ssd_bwd", 4, 2048), ("conv1d_bwd", 4, 2048),
+            ("flash_bwd", 4, 2048), ("flash_bwd_smollm", 8, 2048),
+            ("scan1_bwd", 8, 2048), ("conv1d_bwd_mamba130m", 8, 2048),
+            ("flash_bwd_window", 4, 2048), ("flash_bwd_d256", 4, 2048),
+            ("flash_bwd_noncausal", 4, 1500))
+
+
+def bwd_key(name: str) -> str:
+    """A row's kernel: flash_bwd, ssd_bwd, conv1d_bwd or scan1_bwd."""
+    return next(k for k in BWD_SOURCES if name.startswith(k))
+
+
 def phase_backward_kernels(gen):
-    """(a) Each backward kernel against its plain backward at B=4, S=512 in
-    bf16 and fp32, repeated bit for bit; then in bf16 at the training shape
-    (zamba2-2.7b's B=4, S=2048; smollm-135m's flash at its B=8) held the
-    same way and timed: ms, the plain version's, autograd of the library
-    call's (SDPA causal; F.conv1d with groups=C then SiLU; none for SSD)
-    and the bound; each row also says the plan's route, its share of the
-    bound and its ratio to the library call.  Returns the kernels line's
-    rows (without launches) and the checks at B=4, S=512."""
+    """(a) Each backward kernel against its plain backward at ``BWD_CHECKS``
+    in bf16 and fp32, repeated bit for bit; then in bf16 at the training
+    shapes (``BWD_ROWS``: zamba2-2.7b's B=4, S=2048; smollm-135m's flash,
+    mamba-130m's scan and conv1d at B=8; gemma3-1b's flash at B=4 in its
+    window and causal at d = 256; hubert-xlarge's non-causal flash at
+    B=4, S=1500) held the same way and timed: ms, the plain version's,
+    autograd of the library call's (SDPA: causal, with the window as a
+    boolean mask, non-causal; F.conv1d with groups=C then SiLU; none for
+    SSD and the scan) and the bound; each row also says the plan's
+    route, its share of the bound and its ratio to the library call.
+    Returns the kernels line's rows (without launches) and the checks."""
     checks = {}
     for dt in (torch.bfloat16, torch.float32):
-        for name, (kern, plain, *_rest) in bwd_cases(gen, dt, 4, 512).items():
+        for name, b, s in BWD_CHECKS:
+            kern, plain, *_rest = bwd_cases(gen, dt, b, s, (name,))[name]
             got, again, want = kern(), kern(), plain()
             checks[f"{name} {dt}"] = dict(
                 max_abs_err=max_err(got, want),
                 of_limit=hold_bwd(name, dt, got, again, want))
-            del got, again, want
+            del got, again, want, kern, plain, _rest
         torch.cuda.empty_cache()
     rows = {}
-    sources = {"flash_bwd": ("flash_bwd.cu",
-                             "src/repro/kernels/flash/kernel.py:124"),
-               "ssd_bwd": ("ssd_bwd.cu", "src/repro/kernels/ssd/kernel.py:68"),
-               "conv1d_bwd": ("conv1d_bwd.cu",
-                              "src/repro/kernels/conv1d/kernel.py:37")}
-    for b, names in ((4, ("ssd_bwd", "conv1d_bwd", "flash_bwd")),
-                     (8, ("flash_bwd_smollm",))):
-        cases = bwd_cases(gen, torch.bfloat16, b, 2048)
-        for name in names:
-            kern, plain, ins, flops, lib = cases[name]
-            got, again, want = kern(), kern(), plain()
-            of_limit = hold_bwd(name, torch.bfloat16, got, again, want)
-            del again
-            bms, by = bound(nbytes(*ins) + nbytes(*got), flops,
-                            torch.bfloat16)
-            key = "flash_bwd" if name.startswith("flash") else name
-            row = dict(
-                name=name, route="cuda",
-                source=f"src/repro_torch/kernels/csrc/{sources[key][0]}",
-                replaces=sources[key][1], shape=f"B={b}, S=2048",
-                kernel_route=bwd_route(key, ins),
-                max_abs_err=max_err(got, want), of_limit=of_limit,
-                ms=device_ms(kern, 2, 5),
-                plain_ms=event_ms(plain, 3), bound_ms=bms, bound_by=by,
-                library_ms=None if lib is None else event_ms(lib, 5))
-            row["of_bound"] = bms / row["ms"]
-            row["over_library"] = (None if lib is None
-                                   else row["ms"] / row["library_ms"])
-            rows[name] = row
-            del got, want
-        del cases
+    for name, b, s in BWD_ROWS:
+        kern, plain, ins, work, lib = bwd_cases(gen, torch.bfloat16, b, s,
+                                                (name,))[name]
+        got, again, want = kern(), kern(), plain()
+        of_limit = hold_bwd(name, torch.bfloat16, got, again, want)
+        del again
+        moved = nbytes(*ins) + nbytes(*got)
+        if isinstance(work, tuple):   # the scan: its exponentials
+            t_bytes = moved / HBM_BYTES_PER_S * 1e3
+            t_exp = work[1] / EX2_PER_S * 1e3
+            bms, by = max((t_bytes, "bytes"), (t_exp, "operations"))
+        else:
+            bms, by = bound(moved, work, torch.bfloat16)
+        key = bwd_key(name)
+        lib_ms = None if lib is None else event_ms(lib, 5)
+        row = dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{BWD_SOURCES[key][0]}",
+            replaces=BWD_SOURCES[key][1], shape=f"B={b}, S={s}",
+            kernel_route=bwd_route(key, ins),
+            max_abs_err=max_err(got, want), of_limit=of_limit,
+            ms=device_ms(kern, 2, 5),
+            plain_ms=event_ms(plain, 3), bound_ms=bms, bound_by=by,
+            library_ms=lib_ms)
+        row["of_bound"] = bms / row["ms"]
+        row["over_library"] = (None if lib_ms is None
+                               else row["ms"] / lib_ms)
+        rows[name] = row
+        del got, want, kern, plain, ins, lib
         torch.cuda.empty_cache()
     return rows, checks
 
@@ -2763,8 +2871,10 @@ def plain_training():
     autograd differentiates (no kernel launches)."""
     from repro_torch.kernels.conv1d import ref as conv_ref
     from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.kernels.scan1 import ref as scan_ref
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.models import attention as attn
+    from repro_torch.models import mamba1 as m1
     from repro_torch.models import mamba2 as m2
 
     def ssd(x, dt_raw, dt_bias, A_log, Bm, Cm, D, *, chunk, initial_state,
@@ -2779,44 +2889,80 @@ def plain_training():
     def flash(q, k, v, *, causal=True, window=None, **_):
         return flash_ref.attention_ref(q, k, v, causal=causal, window=window)
 
+    def scan(x, dt, A, Bm, Cm, D, *, initial_state=None, out_state=None):
+        return scan_ref.selective_scan_ref(x, dt, A, Bm, Cm, D)
+
     stack = contextlib.ExitStack()
     stack.enter_context(mock.patch.object(m2, "ssd_chunked_raw", ssd))
     stack.enter_context(mock.patch.object(m2, "causal_conv1d", conv))
+    stack.enter_context(mock.patch.object(m1, "causal_conv1d", conv))
+    stack.enter_context(mock.patch.object(m1, "selective_scan", scan))
     stack.enter_context(mock.patch.object(attn, "flash_attention", flash))
     return stack
+
+
+# the layer kinds with an attention sublayer, and the flash backward's mode
+# each trains in
+ATTN_MODES = {"dense": "causal", "mamba2+shared": "causal", "moe": "causal",
+              "dense_moe": "causal", "local": "window",
+              "encoder": "noncausal"}
 
 
 def train_launches(cfg) -> dict:
     """Exact launches of one training step of ``cfg`` under remat: each
     unit's forward kernels twice (the forward, then its recomputation in
-    the backward), each backward kernel once, per layer."""
-    fwd = {"causal_conv1d": 0, "ssd_chunked": 0, "flash_attention": 0}
+    the backward), each backward kernel once, per layer; the flash
+    backward's by mode too (a ``local`` layer's window, an ``encoder``'s
+    non-causal)."""
+    fwd = {"causal_conv1d": 0, "ssd_chunked": 0, "flash_attention": 0,
+           "selective_scan": 0}
+    modes = dict.fromkeys(FLASH_BWD_MODES, 0)
     for kind in cfg.layer_kinds:
         if kind in ("mamba2", "mamba2+shared"):
             fwd["causal_conv1d"] += 1
             fwd["ssd_chunked"] += 1
-        if kind in ("dense", "mamba2+shared"):
+        if kind == "mamba1":
+            fwd["causal_conv1d"] += 1
+            fwd["selective_scan"] += 1
+        if kind in ATTN_MODES:
             fwd["flash_attention"] += 1
+            modes[ATTN_MODES[kind]] += 1
     out = {k: 2 * n for k, n in fwd.items() if n}
     for k, bk in (("causal_conv1d", "conv1d_bwd"), ("ssd_chunked", "ssd_bwd"),
-                  ("flash_attention", "flash_bwd")):
+                  ("flash_attention", "flash_bwd"),
+                  ("selective_scan", "scan1_bwd")):
         out[bk] = fwd[k]
+    out.update({f"flash_bwd.{m}": n for m, n in modes.items()})
     return out
 
 
+# a MoE model's gradients where the two paths routed some choice apart
+# (a near tie of the router flips with the attention's rounding): each
+# leaf's cosine at least this, as the CPU tests' bf16 rule
+MOE_FLIP_COSINE = 0.98
+
+
 def phase_train_paths(cfg, gen, n_layers: int, compute_dtype: str,
-                      b: int = 2, s: int = 512) -> dict:
+                      b: int = 2, s: int = 512, step: bool = True) -> dict:
     """(b) One ``make_train_step`` loss and gradient of ``cfg`` cut to
-    ``n_layers`` (fp32 masters, ``compute_dtype``), B=``b``, S=``s``,
-    through the kernels against autograd through the plain versions on the
-    card, from the same params and tokens.  fp32: loss within 1e-4
-    relative, each leaf's gradient within 1e-3 of its max |g|; bf16: loss
-    within 2%, the global gradient norm within 5%, each leaf's cosine >=
-    0.99 (at full depth: the shared block's and the embedding's, the
-    leaves used more than once).  The kernel run launches exactly
-    ``train_launches``; the plain
-    run none.  Then the step itself (AdamW) through the kernels: finite
-    loss and grad norm."""
+    ``n_layers`` (fp32 masters, ``compute_dtype``), B=``b``, S=``s``
+    (``synthetic_for``'s first batch: the needle tokens, frame features,
+    or patch features before tokens), through the kernels against
+    autograd through the plain versions on the card, from the same
+    params and inputs.  fp32:
+    loss within 1e-4 relative, each leaf's gradient within 1e-3 of its
+    max |g|; bf16: loss within 2%, the global gradient norm within 5%,
+    each leaf's cosine >= 0.99 (at full depth: the shared block's and
+    the embedding's, the leaves used more than once).  A MoE model's
+    routers' choices are recorded in both runs: where any differs (a near
+    tie flipped by the attention's rounding), each leaf's cosine must be
+    at least ``MOE_FLIP_COSINE`` instead, and the share that differs is
+    printed.  The kernel run launches exactly ``train_launches``; the
+    plain run none.  Then, with ``step``, the step itself (AdamW) through
+    the kernels: finite loss and grad norm (qwen3-moe's step runs in (d)
+    instead: its fp32 masters, moments and gradients at once outgrow the
+    card)."""
+    from repro_torch.data.synthetic import synthetic_for
     from repro_torch.models.lm import init_lm_params
     from repro_torch.models.params import tree_leaves, tree_unflatten
     from repro_torch.train.optimizer import OptConfig, init_opt_state
@@ -2824,18 +2970,21 @@ def phase_train_paths(cfg, gen, n_layers: int, compute_dtype: str,
     cfg_n = dataclasses.replace(cfg, n_layers=n_layers,
                                 compute_dtype=compute_dtype)
     params = init_lm_params(cfg_n, gen, device="cuda")
-    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                         device="cuda", dtype=torch.int32)
-    batch = {"tokens": toks, "labels": toks}
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in synthetic_for(cfg, s, b).batch(0).items()}
     loss_fn = make_loss_fn(cfg_n)
+    routes = {"kern": [], "plain": []}
 
-    def grads():
+    def grads(which):
         live = [t.detach().requires_grad_() for t in tree_leaves(params)]
-        loss = loss_fn(tree_unflatten(params, live), batch)
-        return loss.detach(), torch.autograd.grad(loss, live)
+        with recording_routes(routes[which]):
+            loss = loss_fn(tree_unflatten(params, live), batch)
+            got = torch.autograd.grad(loss, live, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(t) if g is None else g
+                               for t, g in zip(live, got)]
 
     reset_train_counters()
-    loss_k, g_k = grads()
+    loss_k, g_k = grads("kern")
     torch.cuda.synchronize()
     launched = read_train_counters()
     want = train_launches(cfg_n)
@@ -2843,7 +2992,7 @@ def phase_train_paths(cfg, gen, n_layers: int, compute_dtype: str,
         raise AssertionError(f"{cfg.name}: launches {launched} != {want}")
     reset_train_counters()
     with plain_training():
-        loss_p, g_p = grads()
+        loss_p, g_p = grads("plain")
     torch.cuda.synchronize()
     plain_launched = {k: v for k, v in read_train_counters().items() if v}
     if plain_launched:
@@ -2861,27 +3010,48 @@ def phase_train_paths(cfg, gen, n_layers: int, compute_dtype: str,
     out = dict(loss=lk, plain_loss=lp, grad_norm=gn_k, plain_grad_norm=gn_p,
                worst_leaf_err_of_max=worst, worst_leaf_cosine=worst_cos,
                launches=launched, leaves=len(g_k))
+    flipped = 0
+    if cfg.moe is not None:
+        if len(routes["kern"]) != len(routes["plain"]):
+            raise AssertionError(f"{cfg.name}: the paths made different "
+                                 "router calls")
+        total = 0
+        for (a, _), (p, _) in zip(routes["kern"], routes["plain"]):
+            miss = ~(a[:, :, None] == p[:, None, :]).any(-1)
+            flipped += int(miss.sum())
+            total += miss.numel()
+        out.update(routed_choices=total, choices_differ=flipped,
+                   choices_differ_share=flipped / total)
+    del routes
     # the leaves used more than once: the shared block (at each
     # mamba2+shared position) and a tied embedding (lookup and head)
     at = {id(t): i for i, t in enumerate(tree_leaves(params))}
-    multi = {"embed": [params["embed"]]}
+    multi = {"embed": [params["embed"]]} if "embed" in params else {}
     if "shared" in params:
         multi["shared"] = tree_leaves(params["shared"])
     for key, leaves in multi.items():
         i = [at[id(t)] for t in leaves]
         a = torch.cat([g_k[j].float().ravel() for j in i])
         p = torch.cat([g_p[j].float().ravel() for j in i])
-        out[f"{key}_grad_cosine"] = float((a * p).sum() / (a.norm() * p.norm()))
-        out[f"{key}_grad_norm_ratio"] = float(a.norm() / p.norm())
+        den = float(a.norm() * p.norm())
+        out[f"{key}_grad_cosine"] = float((a * p).sum()) / den if den else 1.0
+        out[f"{key}_grad_norm_ratio"] = (float(a.norm() / p.norm())
+                                         if float(p.norm()) else 1.0)
     if not (math.isfinite(lk) and math.isfinite(gn_k)):
         raise AssertionError(f"{cfg.name}: non-finite loss or grad norm")
-    # the cosines held: every leaf's at the cut depths (one unit, four
-    # layers); at full depth (54 bf16 layers) those of the leaves used
-    # more than once (the shared block at its 9 positions, the
-    # embedding), whose sums the case is there to show
+    # the cosines held: every leaf's at the cut depths; at full depth
+    # (54 bf16 layers) those of the leaves used more than once (the
+    # shared block at its 9 positions, the embedding), whose sums the
+    # case is there to show
     cosines = ([worst_cos] if n_layers < cfg.n_layers else
                [v for k, v in out.items() if k.endswith("_grad_cosine")])
-    if compute_dtype == "float32":
+    if flipped:
+        if worst_cos < MOE_FLIP_COSINE or abs(lk - lp) > 0.02 * abs(lp):
+            raise AssertionError(f"{cfg.name} {compute_dtype}: "
+                                 f"{flipped} routed choices differ; loss "
+                                 f"{lk} vs {lp}, worst leaf cosine "
+                                 f"{worst_cos}")
+    elif compute_dtype == "float32":
         if abs(lk - lp) > 1e-4 * abs(lp) or worst > 1e-3:
             raise AssertionError(f"{cfg.name} fp32: loss {lk} vs {lp}, "
                                  f"worst leaf {worst} of its max")
@@ -2890,6 +3060,8 @@ def phase_train_paths(cfg, gen, n_layers: int, compute_dtype: str,
         raise AssertionError(f"{cfg.name} bf16: loss {lk} vs {lp}, grad "
                              f"norm {gn_k} vs {gn_p}, cosines {cosines}")
     del g_k, g_p
+    if not step:
+        return out
     opt = OptConfig()
     _, _, m = make_train_step(cfg_n, opt)(params, init_opt_state(params, opt),
                                           batch)
@@ -2903,33 +3075,61 @@ def phase_train_paths(cfg, gen, n_layers: int, compute_dtype: str,
 def model_flops(cfg, b: int, s: int) -> float:
     """A training step's model FLOPs: 6 N per token, N counting each
     weight once per application (the shared block at every
-    ``mamba2+shared`` position), plus attention's products over the causal
-    half, 12 d per (query, key) pair and head (forward and backward)."""
-    from repro_torch.core.memmodel import param_count
-    heads = [cfg.shared_attn if kind == "mamba2+shared" else cfg.attn
-             for kind in cfg.layer_kinds if kind in ("mamba2+shared",
-                                                     "dense")]
+    ``mamba2+shared`` position; a MoE layer's routed experts only,
+    ``active_param_count``), plus attention's products over the (query,
+    key) pairs its masks leave (the causal half, a ``local`` layer's
+    window, an encoder's every pair), 12 d a pair and head (forward and
+    backward)."""
+    from repro_torch.core.memmodel import active_param_count
     n_shared = cfg.layer_kinds.count("mamba2+shared")
-    n = param_count(cfg)
+    n = active_param_count(cfg)
     if n_shared:   # param_count holds the shared block once
         a, d = cfg.shared_attn, cfg.d_model
         q, kv = a.n_heads * a.head_dim, a.n_kv_heads * a.head_dim
         n += (n_shared - 1) * (d * (q + 2 * kv) + q * d
                                + 3 * d * cfg.shared_attn_d_ff)
-    attn = sum(12.0 * a.head_dim * a.n_heads * b * s * (s + 1) / 2
-               for a in heads)
+    attn = 0.0
+    for kind in cfg.layer_kinds:
+        if kind not in ATTN_MODES:
+            continue
+        a = cfg.shared_attn if kind == "mamba2+shared" else cfg.attn
+        mode = ATTN_MODES[kind]
+        if mode == "noncausal":
+            pairs = s * s
+        elif mode == "window" and a.sliding_window:
+            w = a.sliding_window
+            pairs = min(w, s) * (min(w, s) + 1) / 2 + max(0, s - w) * w
+        else:
+            pairs = s * (s + 1) / 2
+        attn += 12.0 * a.head_dim * a.n_heads * b * pairs
     return 6.0 * n * b * s + attn
 
 
-FWD_KERNELS = ("flash_wgmma_kernel", "ssd_tc_kernel", "conv1d_kernel")
-BWD_KERNELS = ("flash_bwd", "ssd_bwd", "conv1d_bwd")
-# the CUDA kernels of each backward row's bf16 route at the training shapes
-BWD_ROUTE_KERNELS = {
-    "flash_bwd": ("flash_bwd_stats", "flash_bwd_dkdv_wgmma",
-                  "flash_bwd_dq_wgmma"),
-    "ssd_bwd": ("ssd_bwd_local", "ssd_bwd_state", "ssd_bwd_chunk",
-                "ssd_bwd_finish_tc"),
-    "conv1d_bwd": ("conv1d_bwd",)}
+FWD_KERNELS = ("flash_wgmma_kernel", "ssd_tc_kernel", "conv1d_kernel",
+               "scan1_kernel")
+BWD_KERNELS = ("flash_bwd", "ssd_bwd", "conv1d_bwd", "scan1_bwd")
+
+
+def bwd_route_kernels(cfg) -> dict:
+    """The CUDA kernels of each backward row's bf16 route in a training
+    step of ``cfg``: flash's wgmma kernels at head dims 64 to 128 and its
+    CUDA-core ones at 256, SSD's tensor-core passes, conv1d's one, the
+    scan's two."""
+    from repro_torch.kernels.flash import ops as flash_ops
+    heads = {cfg.shared_attn.head_dim if kind == "mamba2+shared"
+             else cfg.attn.head_dim
+             for kind in cfg.layer_kinds if kind in ATTN_MODES}
+    flash = set()
+    for d in heads:
+        flash |= ({"flash_bwd_stats", "flash_bwd_dkdv_wgmma",
+                   "flash_bwd_dq_wgmma"}
+                  if d in flash_ops.BWD_WGMMA_HEAD_DIMS else
+                  {"flash_bwd_rowdot", "flash_bwd_dkdv", "flash_bwd_dq"})
+    return {"flash_bwd": sorted(flash),
+            "ssd_bwd": ["ssd_bwd_local", "ssd_bwd_state", "ssd_bwd_chunk",
+                        "ssd_bwd_finish_tc"],
+            "conv1d_bwd": ["conv1d_bwd"],
+            "scan1_bwd": ["scan1_bwd_kernel", "scan1_bwd_finish"]}
 
 
 def check_trace_names(cfg, names, launched) -> list:
@@ -2942,7 +3142,7 @@ def check_trace_names(cfg, names, launched) -> list:
         if len(held) > 1:
             raise AssertionError(f"{cfg.name}: traced kernel {kname} holds "
                                  f"{held}, summed into more than one row")
-    for row, kerns in BWD_ROUTE_KERNELS.items():
+    for row, kerns in bwd_route_kernels(cfg).items():
         if not launched.get(row):
             continue
         for k in kerns:
@@ -2968,7 +3168,10 @@ def phase_train_full(cfg, gen, b: int, s: int, steps: int = 8,
     allocated) beside the params and moments at rest, the launches of the
     run, and one more step traced: the backward kernels' time against the
     forward kernels', each backward route's kernels found in the trace by
-    name (``check_trace_names``)."""
+    name (``check_trace_names``).  The first step's batch is evaluated
+    (no gradient) before the first step and after the last: its loss
+    must fall (each step's own loss moves with its batch more than with
+    8 steps at the warmup's learning rate, at most 2.4e-5)."""
     import shutil
     import tempfile
     from repro_torch.models.params import tree_leaves
@@ -3000,12 +3203,21 @@ def phase_train_full(cfg, gen, b: int, s: int, steps: int = 8,
     if held > 8 << 30:
         raise AssertionError(f"{cfg.name}: {held} B of device memory still "
                              "held before training at full size")
+    from repro_torch.train.train_step import make_loss_fn
+    loss_fn = make_loss_fn(cfg)
+
+    def batch_loss(trainer, batch) -> float:
+        with torch.no_grad():
+            return float(loss_fn(trainer.params, batch))
     try:
         t1 = Trainer(cfg, OptConfig(), TrainerConfig(
             steps=first, ckpt_every=0, log_every=10 ** 9,
             ckpt_dir=ckpt_dir if restart_at else None),
             seq_len=s, global_batch=b)
         at_rest = torch.cuda.memory_allocated()
+        batch0 = {k: torch.as_tensor(v, device="cuda")
+                  for k, v in t1.batch_fn(0).items()}
+        loss0_before = batch_loss(t1, batch0)
         recording(t1)
         probe = [t.detach().float().sum() for t in tree_leaves(t1.params)]
         reset_train_counters()
@@ -3020,6 +3232,8 @@ def phase_train_full(cfg, gen, b: int, s: int, steps: int = 8,
         if launched != want:
             raise AssertionError(f"{cfg.name}: {steps} steps launched "
                                  f"{launched}, not {want}")
+        loss0_after = batch_loss(t1, batch0)
+        del batch0
         peak = max(m["peak"] for m in metrics)
         changed = sum(int(bool(t.detach().float().sum() != p0))
                       for t, p0 in zip(tree_leaves(t1.params), probe))
@@ -3058,11 +3272,16 @@ def phase_train_full(cfg, gen, b: int, s: int, steps: int = 8,
         raise AssertionError(f"{cfg.name}: non-finite loss or grad norm")
     if not changed:
         raise AssertionError(f"{cfg.name}: no param changed")
+    if not loss0_after < loss0_before:
+        raise AssertionError(f"{cfg.name}: the first batch's loss did not "
+                             f"fall over {steps} steps: {loss0_before} -> "
+                             f"{loss0_after}")
     med = statistics.median(times)
     fwd_ms = sum(busy["by_name"][n]["kernel_ms"] for n in FWD_KERNELS)
     bwd_ms = sum(busy["by_name"][n]["kernel_ms"] for n in BWD_KERNELS)
     return dict(
-        batch=b, seq=s, steps=steps, losses=losses, replayed=replay,
+        batch=b, seq=s, steps=steps, losses=losses,
+        first_batch_loss=[loss0_before, loss0_after], replayed=replay,
         grad_norms=[m["grad_norm"] for m in metrics[:steps]],
         step_ms=[t * 1e3 for t in times], median_step_ms=med * 1e3,
         tokens_per_s=b * s / med,
@@ -3084,6 +3303,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
     from repro_torch.configs import (falcon_h1_05b, gemma3_1b, glm4_9b,
@@ -3266,8 +3486,10 @@ def main() -> int:
     bwd_rows, bwd_checks = phase_backward_kernels(gen)
     torch.cuda.empty_cache()
     print(f"phase 10 backward kernels against their plain backwards at "
-          f"zamba2-2.7b's SSD, conv1d and flash and smollm-135m's flash, "
-          f"B=4, S=512, bf16 and fp32, each twice bit for bit "
+          f"zamba2-2.7b's SSD, conv1d and flash, smollm-135m's flash, "
+          f"mamba-130m's scan and conv1d, gemma3-1b's flash (window 512 "
+          f"and causal, d=256) and hubert-xlarge's (non-causal) at "
+          f"BWD_CHECKS' shapes, bf16 and fp32, each twice bit for bit "
           f"({time.perf_counter() - t0:.1f} s): " + json.dumps(bwd_checks),
           flush=True)
     for name, r in bwd_rows.items():
@@ -3282,24 +3504,48 @@ def main() -> int:
                              (smollm_135m, 4, "bfloat16", 2, 512),
                              # all 9 shared-block positions
                              (zamba2_2p7b, zamba2_2p7b.n_layers, "bfloat16",
-                              1, 512)):
+                              1, 512),
+                             # one unit: 5 local layers and a global one,
+                             # S past the 512-key window
+                             (gemma3_1b, 6, "bfloat16", 2, 1024),
+                             # S off the tiles
+                             (hubert_xlarge, 2, "bfloat16", 2, 500),
+                             (mamba_130m, 4, "bfloat16", 2, 512),
+                             # one layer at full width: 3.73 B parameters
+                             # (its AdamW step runs in (d))
+                             (qwen3_moe_235b, 1, "float32", 2, 512),
+                             # 576 patch features, then 576 tokens
+                             (llava_next, 2, "bfloat16", 2, 1152)):
         t0 = time.perf_counter()
-        res = phase_train_paths(cfg, gen, n, cd, b, s)
+        res = phase_train_paths(cfg, gen, n, cd, b, s,
+                                step=cfg is not qwen3_moe_235b)
         torch.cuda.empty_cache()
         print(f"phase 10 train step, kernel path vs plain path, {cfg.name} "
               f"at {n} layers, {cd}, B={b}, S={s} "
               f"({time.perf_counter() - t0:.1f} s): " + json.dumps(res),
               flush=True)
     train = {}
-    for cfg, b, restart in ((zamba2_2p7b, 4, 4), (smollm_135m, 8, None)):
+    # qwen3-moe-235b-a22b at 1 of its 94 layers: 3.73 B parameters, fp32
+    # masters and moments 44.8 GB; B x S cut to 2 x 1024 so that its
+    # gshard buffers and 151936-word logits fit beside them
+    qwen3_1 = dataclasses.replace(qwen3_moe_235b, n_layers=1)
+    for cfg, b, s, restart in ((zamba2_2p7b, 4, 2048, 4),
+                               (smollm_135m, 8, 2048, None),
+                               (gemma3_1b, 4, 2048, None),
+                               (hubert_xlarge, 4, 1500, None),
+                               (mamba_130m, 8, 2048, None),
+                               (qwen3_1, 2, 1024, None)):
         t0 = time.perf_counter()
-        train[cfg.name] = phase_train_full(cfg, gen, b, 2048, 8, restart)
+        train[cfg.name] = phase_train_full(cfg, gen, b, s, 8, restart)
         torch.cuda.empty_cache()
         again = (f", restored at step {restart} and replayed"
                  if restart else "")
-        print(f"phase 10 training {cfg.name} ({cfg.n_layers} layers, full "
-              f"width), fp32 masters, bf16 compute, OptConfig(), B={b} x "
-              f"S=2048, 8 steps{again} ({time.perf_counter() - t0:.1f} s): "
+        cut = (f" of {qwen3_moe_235b.n_layers}"
+               if cfg.n_layers < qwen3_moe_235b.n_layers and cfg.moe else "")
+        print(f"phase 10 training {cfg.name} ({cfg.n_layers}{cut} layers, "
+              f"full width), fp32 masters, bf16 compute, OptConfig(), "
+              f"B={b} x S={s}, 8 steps{again} "
+              f"({time.perf_counter() - t0:.1f} s): "
               + json.dumps(train[cfg.name]), flush=True)
 
     for r in rows:
@@ -3310,6 +3556,16 @@ def main() -> int:
     for name in ("flash_bwd", "ssd_bwd", "conv1d_bwd"):
         rows.append(dict(bwd_rows[name], launches=train[
             zamba2_2p7b.name]["launches"][name]))
+    # the new backward rows, each with its own model's 8 training steps
+    for name, cfg, key in (
+            ("scan1_bwd", mamba_130m, "scan1_bwd"),
+            ("flash_bwd_window", gemma3_1b, "flash_bwd.window"),
+            ("flash_bwd_d256", gemma3_1b, "flash_bwd.causal"),
+            ("flash_bwd_noncausal", hubert_xlarge, "flash_bwd.noncausal")):
+        rows.append(dict(bwd_rows[name],
+                         launches=train[cfg.name]["launches"][key]))
+    print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} "
+          f"s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

@@ -54,11 +54,13 @@ mutant's kernel (every check for the unchanged sources):
   ``chip_smoke.BWD_TOL`` of its own max |g| and two calls bit for bit;
   bf16 takes the tensor-core routes (flash on wgmma, SSD's chunk-parallel
   passes on mma.sync), fp32 the CUDA-core kernels, and each route has
-  its planted fault.
+  its planted fault; the selective-scan backward, the flash backward's
+  window and non-causal modes have theirs.
 
 1 is the limit.  Exits 1 if the unchanged kernels fail a check or a
 mutant passes its kernel's check (or, for ``scan1``, fails it by less
-than 10x).  The repository's own sources are never
+than 10x), or if a mutant of ``EXPECT_EQUAL`` (a fault no input can
+show) reads other than the unchanged kernels.  The repository's own sources are never
 edited.
 """
 from __future__ import annotations
@@ -210,6 +212,29 @@ MUTANTS = {
         "      const float e = 0.0f * el[c0 + r];\n",
         "SSD backward (tensor cores: bf16): the state pass drops the carry "
         "e^cum_last dh', so dh'(c-1) = U(c)"),
+    "scan1_bwd_drops_chunk_dA": (
+        "backward", "scan1_bwd.cu",
+        "      da_acc = fmaf(d, ga, da_acc);\n",
+        "      if (ch != 1) da_acc = fmaf(d, ga, da_acc);\n",
+        "selective-scan backward: dA leaves out the second chunk's "
+        "partial (steps 32-63)"),
+    "flash_bwd_window_off_by_one": (
+        "backward", "flash_bwd.cu",
+        "           (window <= 0 || i - j < window);\n",
+        "           (window <= 0 || i - j <= window);\n",
+        "flash backward, window: the band takes one key too many, i - j = "
+        "window"),
+    "flash_bwd_noncausal_no_key_mask": (
+        "backward", "flash_bwd.cu",
+        "    return i < S && j < S && (!causal || j <= i) &&\n",
+        "    return i < S && (causal || j < S) && (!causal || j <= i) &&\n",
+        "flash backward, non-causal: keys past S are not masked"),
+    "flash_bwd_noncausal_drops_last_key_tile": (
+        "backward", "flash_bwd.cu",
+        "    hi = causal ? min(n, (q0 + qn - 1) / tr + 1) : n;\n",
+        "    hi = causal ? min(n, (q0 + qn - 1) / tr + 1) : n - 1;\n",
+        "flash backward, non-causal: dQ's walk leaves out the last key "
+        "tile"),
     "conv1d_bwd_drops_tap_0": (
         "backward", "conv1d_bwd.cu",
         "            float acc = dz[e] * wk[e][0];\n",
@@ -477,16 +502,19 @@ def scan1_readings(cs, torch, gen) -> dict:
 
 
 def backward_readings(cs, torch, gen) -> dict:
-    """The three backward kernels against their plain backwards at
-    ``chip_smoke.bwd_cases`` (zamba2-2.7b's SSD, conv1d and flash,
-    smollm-135m's flash; B=4, S=512), bf16 and fp32: ``ratio`` is
-    chip_smoke.py's check, the worst gradient's ``whole_ratio`` to
-    ``BWD_TOL`` of its own max |g| (inf when two calls differ);
-    ``old_ratio`` the same (no check preceded it)."""
+    """The backward kernels against their plain backwards at
+    ``chip_smoke.BWD_CHECKS`` (zamba2-2.7b's SSD, conv1d and flash,
+    smollm-135m's flash, mamba-130m's scan and conv1d, gemma3-1b's flash
+    in its window and causal at d = 256, hubert-xlarge's non-causal
+    flash), bf16 and fp32: ``ratio`` is chip_smoke.py's check, the worst
+    gradient's ``whole_ratio`` to ``BWD_TOL`` of its own max |g| (inf
+    when two calls differ); ``old_ratio`` the same (no check preceded
+    it)."""
     tiny = torch.finfo(torch.float32).tiny
     out = {}
     for dt in (torch.bfloat16, torch.float32):
-        for name, (kern, plain, *_) in cs.bwd_cases(gen, dt, 4, 512).items():
+        for name, b, s in cs.BWD_CHECKS:
+            kern, plain, *_ = cs.bwd_cases(gen, dt, b, s, (name,))[name]
             got, again, want = kern(), kern(), plain()
             ratio = max(cs.whole_ratio(g, w, cs.BWD_TOL[dt], floor=tiny)
                         for g, w in zip(got, want))
@@ -508,6 +536,13 @@ CHECKS = {"attention": attention_readings,
           "backward": backward_readings}
 # how far past its limit a mutant of a check must land (1 where unlisted)
 MUST_FAIL_BY = {"scan1": 10.0}
+# mutants whose fault no input can show, kept to hold why: their
+# readings must equal the unchanged kernels' exactly
+EXPECT_EQUAL = {
+    "flash_bwd_noncausal_no_key_mask":
+        "TMA and the CUDA-core loads fill the K and V rows past S with "
+        "zeros, so a stray P there multiplies zeros in dQ and only feeds "
+        "the dK, dV rows past S, which are never written"}
 
 
 def child(checks) -> int:
@@ -568,10 +603,15 @@ def main(names) -> int:
         what = "no edit" if mutant is None else mutant[4]
         print(f"{name} ({what}): {json.dumps(readings)}", flush=True)
         if mutant is None:
+            unchanged = readings
             for check, rs in readings.items():
                 if max(r["ratio"] for r in rs.values()) > 1.0:
                     failed.append(f"{name}: unchanged kernels fail the "
                                   f"{check} check")
+        elif name in EXPECT_EQUAL:
+            if readings[mutant[0]] != unchanged[mutant[0]]:
+                failed.append(f"{name}: its readings differ from the "
+                              f"unchanged kernels' ({EXPECT_EQUAL[name]})")
         elif (max(r["ratio"] for r in readings[mutant[0]].values())
               <= MUST_FAIL_BY.get(mutant[0], 1.0)):
             failed.append(f"{name}: the {mutant[0]} check passes this "

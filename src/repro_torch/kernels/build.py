@@ -42,10 +42,13 @@ SIGNATURES: Dict[str, Tuple] = {
     "repro_flash_fwd": (P, P, P, P, P, P, I, I, I, I, I, I,
                         L, L, L, L, L, L, L, L, L, L, L, L, I, I, I,
                         I, I, I, P, P, P, P, I, P),
-    "repro_flash_bwd": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "repro_flash_bwd": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                        P),
     "repro_decode_attn_fwd": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                               L, L, L, L, L, L, L, L, I, P),
     "repro_scan1_fwd": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
+    "repro_scan1_bwd": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
+                        I, I, P),
     "repro_mamba1_decode_fwd": (P, P, P, P, P, P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, P),
 }

@@ -26,14 +26,16 @@ leaves fewer blocks than the card's SMs (132 on an H100 SXM,
 across blocks (gemma3-1b's chunk: 32 tiles x 4 splits); fp32 runs on CUDA
 cores.  Either way one call is one launch.
 
-A call that needs a gradient (:mod:`repro_torch.kernels.grad`) in the
-causal mode over a full sequence (no window, offsets or ring; Sq = Skv;
-a head_dim in ``BWD_HEAD_DIMS`` on the card) runs :class:`FlashFn`: the
-forward kernel, which also writes each row's log-sum-exp, and the
-backward kernels (``csrc/flash_bwd.cu``, one call of three launches as
-:func:`flash_bwd_plan` says: wgmma in bf16 at the trained head dims,
-CUDA cores otherwise) on the card; the plain versions on the CPU.  Any
-other such call raises on the card.
+A call that needs a gradient (:mod:`repro_torch.kernels.grad`) over a
+full sequence (no offsets or ring; Sq = Skv; a head_dim in
+``BWD_HEAD_DIMS`` on the card), causal, causal in a window or non-causal
+without one, runs :class:`FlashFn`: the forward kernel, which also
+writes each row's log-sum-exp, and the backward kernels
+(``csrc/flash_bwd.cu``, one call of three launches as
+:func:`flash_bwd_plan` says: wgmma in bf16 at head dims 64 to 256, CUDA
+cores otherwise) on the card; the plain versions on the CPU.  Any other
+such call (the ring and offset modes of chunked serving, a non-causal
+window) raises on the card.
 """
 from __future__ import annotations
 
@@ -57,8 +59,8 @@ WIDE_HEAD_DIMS = (64, 80, 96)   # the head dims built with them
 KEY_TILE = 64                  # keys a tile
 MAX_SPLIT = 8                  # key splits of a query tile
 MIN_SPLIT_TILES = 2            # KV tiles an active key split takes
-BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128)   # the backward's instances
-BWD_WGMMA_HEAD_DIMS = (64, 80, 96, 128)      # its wgmma instances (bf16)
+BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)   # the backward's instances
+BWD_WGMMA_HEAD_DIMS = (64, 80, 96, 128, 256)   # its wgmma instances (bf16)
 BWD_STAGES = 4                 # depth of the backward's streamed ring
 
 
@@ -161,23 +163,29 @@ def flash_bwd_plan(b: int, h: int, kvh: int, s: int, d: int,
     d padded to 64 or 128 columns, in bf16, and a ring of ``BWD_STAGES``
     stages of 64 rows of Q and dO), a dQ block 128 rows of one head (Q
     and dO, and a ring of 64 keys of K and V); 1024 bytes align the
-    tiles.  On CUDA cores a block owns a 64-row tile, staged as fp32 rows
-    padded by one element (BwdSmem)."""
+    tiles.  At d = 256 a block owns 64 keys (rows), its two warpgroups
+    each accumulate half of the columns, and the ring is 2 stages deep.
+    On CUDA cores (fp32, and d = 16 and 32) a block owns a 64-row tile
+    (32 at d = 256), staged as fp32 rows padded by one element
+    (BwdSmem).  The masks (causal, window, non-causal) change which tiles
+    a block walks, not the plan."""
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"flash backward built for head_dim in "
                          f"{BWD_HEAD_DIMS}, got {d}")
     if h % kvh:
         raise ValueError(f"heads {h} must be a multiple of KV heads {kvh}")
-    tiles = -(-s // 128)
     if dtype == torch.bfloat16 and d in BWD_WGMMA_HEAD_DIMS:
         dp = -(-d // 64) * 64
-        spad = tiles * 128
-        smem = 2 * 128 * dp * 2 + BWD_STAGES * 2 * 64 * dp * 2 + 1024
+        rows, stages = (64, 2) if d > 128 else (128, BWD_STAGES)
+        tiles = -(-s // rows)
+        spad = -(-s // 128) * 128
+        smem = 2 * rows * dp * 2 + stages * 2 * 64 * dp * 2 + 1024
         return FlashBwdPlan("wgmma", (-(-b * h * spad // 8), tiles * kvh * b,
                                       tiles * h * b), (0, smem, smem),
                             (b, h, spad, 2))
-    tiles = -(-s // 64)
-    smem = 4 * (4 * 64 * (d + 1) + 2 * 64 * 65 + 2 * 64)
+    tr = 32 if d > 128 else 64
+    tiles = -(-s // tr)
+    smem = 4 * (4 * tr * (d + 1) + 2 * tr * (tr + 1) + 2 * tr)
     return FlashBwdPlan("cuda_cores", (-(-b * h * s // 8), tiles * kvh * b,
                                        tiles * h * b), (0, smem, smem),
                         (b, h, s))
@@ -228,15 +236,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
     check_ring(causal, window, kv_wrap, ring_len, k.shape[2])
     with scope("attn_core"):
         if needs_grad(q, k, v) and q.device.type != "meta":
-            if (causal and window is None and q_offset is None
-                    and ring_len is None and q.shape[2] == k.shape[2]
+            if (q_offset is None and ring_len is None
+                    and q.shape[2] == k.shape[2]
+                    and (causal or window is None)
                     and (q.device.type == "cpu"
                          or q.shape[3] in BWD_HEAD_DIMS)):
-                return FlashFn.apply(q, k, v)
+                return FlashFn.apply(q, k, v, causal, window)
             if q.device.type == "cuda":
-                raise no_backward("flash_attention", "its window, ring, "
-                                  "offset or non-causal modes (or head_dim "
-                                  f"{q.shape[3]})")
+                raise no_backward("flash_attention", "its ring and offset "
+                                  "modes or a non-causal window (or "
+                                  f"head_dim {q.shape[3]})")
         if q.device.type == "cpu":
             return _ref.attention_ref(q, k, v, causal=causal, window=window,
                                       q_offset=0 if q_offset is None
@@ -376,32 +385,41 @@ flash_attention.ring_launches = 0
 
 
 class FlashFn(torch.autograd.Function):
-    """Causal attention over a full sequence with its backward: the
-    kernels on the card, the plain versions on the CPU."""
+    """Attention over a full sequence (causal, causal in a window, or
+    non-causal) with its backward: the kernels on the card, the plain
+    versions on the CPU."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, causal, window):
         if q.device.type == "cpu":
-            o, lse = _ref.attention_lse_ref(q, k, v)
+            o, lse = _ref.attention_lse_ref(q, k, v, causal=causal,
+                                            window=window)
         else:
-            o, lse = flash_attention_cuda(q, k, v, causal=True, lse=True)
+            o, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window, lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
+        ctx.masks = dict(causal=causal, window=window)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         if q.device.type == "cpu":
-            return _ref.flash_bwd_ref(q, k, v, o, do, lse)
-        return flash_attention_bwd_cuda(q, k, v, o, do, lse)
+            grads = _ref.flash_bwd_ref(q, k, v, o, do, lse, **ctx.masks)
+        else:
+            grads = flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                             **ctx.masks)
+        return (*grads, None, None)
 
 
-def flash_attention_bwd_cuda(q, k, v, o, do, lse):
+def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
+                             window: Optional[int] = None):
     """The backward kernels (``csrc/flash_bwd.cu``, launched as
-    :func:`flash_bwd_plan` says) of causal attention over a full
-    sequence: (dq [B,H,S,d], dk, dv [B,KVH,S,d]) in q's dtype, from the
-    forward's output ``o`` and log-sum-exp ``lse`` ([B,H,S] fp32).  The
-    operands are made contiguous first (a copy of a strided view)."""
+    :func:`flash_bwd_plan` says) of attention over a full sequence, causal
+    (in a ``window`` when given) or not: (dq [B,H,S,d], dk, dv
+    [B,KVH,S,d]) in q's dtype, from the forward's output ``o`` and
+    log-sum-exp ``lse`` ([B,H,S] fp32).  The operands are made contiguous
+    first (a copy of a strided view)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash backward kernel needs a CUDA tensor, got "
                          f"{q.device}")
@@ -412,6 +430,9 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse):
             or lse.shape != (b, h, s)):
         raise ValueError(f"bad flash backward shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)}")
+    if window is not None and (window < 1 or not causal):
+        raise ValueError(f"the backward takes a window >= 1 with causal "
+                         f"attention, got window {window}, causal {causal}")
     plan = flash_bwd_plan(b, h, kvh, s, d, q.dtype)
     code = build.dtype_code(q.dtype)
     q, k, v, o = (t.contiguous() for t in (q, k, v, o))
@@ -422,11 +443,17 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse):
     rc = build.library().repro_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, kvh, s, d, code,
-        build.stream_ptr(q.device))
+        dk.data_ptr(), dv.data_ptr(), b, h, kvh, s, d, int(causal),
+        int(window or 0), code, build.stream_ptr(q.device))
     build.check(rc, "repro_flash_bwd")
     flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.mode_launches[
+        "window" if window is not None
+        else "causal" if causal else "noncausal"] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0
+# the launches by mode, counted with ``launches``
+flash_attention_bwd_cuda.mode_launches = dict.fromkeys(
+    ("causal", "window", "noncausal"), 0)

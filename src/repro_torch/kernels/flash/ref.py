@@ -78,8 +78,24 @@ def attention_ref(q, k, v, *, causal: bool = True,
     return o.reshape(b, h, sq, d).to(q.dtype)
 
 
-def attention_lse_ref(q, k, v):
-    """Causal attention over a full sequence (query i at position i) as
+def full_mask(sq: int, skv: int, causal: bool, window: Optional[int],
+              device) -> torch.Tensor:
+    """[Sq, Skv] bool: key j seen by query i of a full sequence (query i
+    at position i): ``j <= i`` when causal, ``i - j < window`` with a
+    window, every key otherwise."""
+    i = torch.arange(sq, device=device)[:, None]
+    j = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (i >= j)
+    if window is not None:
+        mask = mask & ((i - j) < window)
+    return mask
+
+
+def attention_lse_ref(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None):
+    """Attention over a full sequence (query i at position i) as
     ``attention_ref`` computes it, and each query row's log-sum-exp of its
     scaled, masked scores (fp32 [B, H, Sq]): what the forward saves for
     the backward."""
@@ -87,8 +103,7 @@ def attention_lse_ref(q, k, v):
     kvh, skv = k.shape[1], k.shape[2]
     qg = q.reshape(b, kvh, h // kvh, sq, d).float()
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * (1.0 / math.sqrt(d))
-    mask = (torch.arange(sq, device=q.device)[:, None]
-            >= torch.arange(skv, device=q.device)[None, :])
+    mask = full_mask(sq, skv, causal, window, q.device)
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
@@ -96,11 +111,12 @@ def attention_lse_ref(q, k, v):
     return o.reshape(b, h, sq, d).to(q.dtype), lse
 
 
-def flash_bwd_ref(q, k, v, o, do, lse):
-    """Backward of causal attention over a full sequence, as
-    ``csrc/flash_bwd.cu`` computes it, in fp32: P = exp(scale q.k - lse)
-    under the mask, Dr = rowsum(dO o), dV = P^T dO, dS = P (dO V^T - Dr),
-    dQ = scale dS K, dK = scale dS^T Q, dK and dV summed over each KV
+def flash_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
+                  window: Optional[int] = None):
+    """Backward of attention over a full sequence, as ``csrc/flash_bwd.cu``
+    computes it, in fp32: P = exp(scale q.k - lse) under the mask
+    (:func:`full_mask`), Dr = rowsum(dO o), dV = P^T dO, dS = P (dO V^T -
+    Dr), dQ = scale dS K, dK = scale dS^T Q, dK and dV summed over each KV
     head's query heads.  Returns (dq, dk, dv) in q's dtype."""
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
@@ -111,8 +127,7 @@ def flash_bwd_ref(q, k, v, o, do, lse):
     of = o.reshape(b, kvh, g, sq, d).float()
     kf, vf = k.float(), v.float()
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
-    mask = (torch.arange(sq, device=q.device)[:, None]
-            >= torch.arange(skv, device=q.device)[None, :])
+    mask = full_mask(sq, skv, causal, window, q.device)
     p = torch.where(mask, torch.exp(s - lse.reshape(b, kvh, g, sq, 1)
                                     .float()), torch.zeros((), device=q.device))
     dr = (dof * of).sum(-1, keepdim=True)

@@ -7,6 +7,13 @@ or raises; a ``meta`` tensor (the static walk,
 outputs.  It runs in the ``ssm_core`` scope.  The softplus of dt and ``-exp(A_log)`` stay plain torch in
 the model, outside the kernel, as the reference keeps them outside its
 ``pallas_call``.
+
+A call that needs a gradient (:mod:`repro_torch.kernels.grad`) from a
+zero initial state and without ``out_state`` (a training forward) runs
+:class:`ScanFn`: the forward kernel and the backward kernel
+(``csrc/scan1_bwd.cu``, :func:`scan1_bwd_plan`) on the card, the plain
+versions on the CPU.  One with an initial state or a destination raises
+on the card.
 """
 from __future__ import annotations
 
@@ -84,6 +91,9 @@ def selective_scan(x, dt, A, Bm, Cm, D, *,
     as it."""
     with scope("ssm_core"):
         if x.device.type == "cpu":
+            if (needs_grad(x, dt, A, Bm, Cm, D) and initial_state is None
+                    and out_state is None):
+                return ScanFn.apply(x, dt, A, Bm, Cm, D)
             return _ref.selective_scan_ref(x, dt, A, Bm, Cm, D,
                                            initial_state,
                                            out_state=out_state)
@@ -99,7 +109,10 @@ def selective_scan(x, dt, A, Bm, Cm, D, *,
                         (x, dt, A, Bm, Cm, D, initial_state), (y, final))
             return y, final
         if needs_grad(x, dt, A, Bm, Cm, D, initial_state):
-            raise no_backward("selective_scan", "the Mamba-1 scan")
+            if initial_state is None and out_state is None:
+                return ScanFn.apply(x, dt, A, Bm, Cm, D)
+            raise no_backward("selective_scan", "an initial state or a "
+                              "destination")
         return selective_scan_cuda(x, dt, A, Bm, Cm, D,
                                    initial_state=initial_state,
                                    out_state=out_state)
@@ -157,3 +170,104 @@ def selective_scan_cuda(x, dt, A, Bm, Cm, D, *, initial_state=None,
 
 
 selective_scan.launches = 0
+
+
+class ScanFn(torch.autograd.Function):
+    """The selective scan from a zero initial state with its backward:
+    the kernels on the card, the plain versions on the CPU.  Returns (y,
+    final state); both take a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D):
+        if x.device.type == "cpu":
+            y, final = _ref.selective_scan_ref(x, dt, A, Bm, Cm, D)
+        else:
+            y, final = selective_scan_cuda(x, dt, A, Bm, Cm, D)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, Bm, Cm, D = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if x.device.type == "cpu":
+            return _ref.selective_scan_bwd_ref(x, dt, A, Bm, Cm, D, dy,
+                                               dfinal)
+        return selective_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy, dfinal)
+
+
+CHUNK_BWD = 32        # steps a chunk of the backward (csrc/scan1_bwd.cu)
+BWD_THREADS = 256     # (channel, state) lanes a block
+
+
+class Scan1BwdPlan(NamedTuple):
+    """How one backward call is cut: ``channels`` a block (256 / N, one
+    batch row), ``blocks`` (channel blocks x B) of the main kernel,
+    ``chunks`` of 32 steps (h is kept at each one's start), and
+    ``scratch``, the elements of its one fp32 scratch: h at the chunks'
+    starts [B, chunks, C, N], dA and dD partials a batch row [B, C, N]
+    and [B, C], and dB and dC partials a (step, channel block) [B, S,
+    channel blocks, N] each."""
+    channels: int
+    blocks: int
+    chunks: int
+    scratch: int
+
+
+def scan1_bwd_plan(b: int, s: int, c: int, n: int) -> Scan1BwdPlan:
+    if n not in D_STATES:
+        raise ValueError(f"selective scan backward built for d_state in "
+                         f"{D_STATES}, got {n}")
+    cb = BWD_THREADS // n
+    nblk = -(-c // cb)
+    nch = -(-s // CHUNK_BWD)
+    return Scan1BwdPlan(cb, nblk * b, nch,
+                        b * (nch * c * n + c * n + c + 2 * s * nblk * n))
+
+
+def selective_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy, dfinal=None):
+    """The backward kernel (``csrc/scan1_bwd.cu``) of the selective scan
+    from a zero initial state: (dx, ddt, dA, dB, dC, dD), each in its
+    input's dtype, from the forward's inputs, ``dy`` [B,S,C] and the
+    final state's gradient ``dfinal`` ([B,C,N] or None).  Two launches
+    (the scan, then the fixed-order sums of the partials), one call."""
+    if x.device.type != "cuda":
+        raise ValueError(f"selective scan backward kernel needs a CUDA "
+                         f"tensor, got {x.device}")
+    b, s, c = x.shape
+    n = A.shape[-1]
+    if (dt.shape != (b, s, c) or A.shape != (c, n) or D.shape != (c,)
+            or Bm.shape != (b, s, n) or Cm.shape != (b, s, n)
+            or dy.shape != (b, s, c)
+            or (dfinal is not None and dfinal.shape != (b, c, n))):
+        raise ValueError(f"bad selective scan backward shapes "
+                         f"x{tuple(x.shape)} A{tuple(A.shape)}")
+    if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError("x, B and C must share one dtype")
+    code = build.dtype_code(x.dtype)
+    plan = scan1_bwd_plan(b, s, c, n)
+    xc, bc, cc = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    dyc = dy.to(x.dtype).contiguous()
+    dtf, Af, Df = (t.float().contiguous() for t in (dt, A, D))
+    dff = None if dfinal is None else dfinal.float().contiguous()
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(xc)
+    ddt = torch.empty_like(dtf)
+    dA, dD = torch.empty_like(Af), torch.empty_like(Df)
+    dB, dC = torch.empty_like(bc), torch.empty_like(cc)
+    rc = build.library().repro_scan1_bwd(
+        xc.data_ptr(), dtf.data_ptr(), Af.data_ptr(), bc.data_ptr(),
+        cc.data_ptr(), Df.data_ptr(), dyc.data_ptr(),
+        0 if dff is None else dff.data_ptr(), scratch.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), dD.data_ptr(), b, s, c, n, code,
+        build.stream_ptr(x.device))
+    build.check(rc, "repro_scan1_bwd")
+    selective_scan_bwd_cuda.launches += 1
+    return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB.to(Bm.dtype),
+            dC.to(Cm.dtype), dD.to(D.dtype))
+
+
+selective_scan_bwd_cuda.launches = 0

@@ -39,6 +39,50 @@ def selective_scan_ref(x, dt, A, Bm, Cm, D,
     return y.to(x.dtype), into(out_state, h)
 
 
+def selective_scan_bwd_ref(x, dt, A, Bm, Cm, D, dy,
+                           dfinal: Optional[torch.Tensor] = None):
+    """Backward of :func:`selective_scan_ref` from a zero initial state, as
+    ``csrc/scan1_bwd.cu`` computes it, in fp32: with a_t = exp(dt_t A) and
+    g_t the gradient of h_t (g_t = C_t dy_t + a_{t+1} g_{t+1}, plus
+    ``dfinal`` [B,C,N] at the last step), walking time in reverse:
+    dx_t = dt_t sum_n B_t g_t + D dy_t, ddt_t = sum_n (x_t B_t + A a_t
+    h_{t-1}) g_t, dA = sum_{b,t} dt_t a_t h_{t-1} g_t, dB_t = sum_c dt_t x_t
+    g_t, dC_t = sum_c h_t dy_t, dD = sum_{b,t} x_t dy_t.  Returns (dx, ddt,
+    dA, dB, dC, dD), each in its input's dtype."""
+    b, s, c = x.shape
+    n = A.shape[-1]
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf, Cf, dyf = Bm.float(), Cm.float(), dy.float()
+    hs = torch.empty((b, s + 1, c, n), dtype=torch.float32, device=x.device)
+    hs[:, 0] = 0.0
+    h = hs[:, 0]
+    for t in range(s):
+        da = torch.exp(dtf[:, t, :, None] * Af[None])
+        h = h * da + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        hs[:, t + 1] = h
+    g = (torch.zeros((b, c, n), dtype=torch.float32, device=x.device)
+         if dfinal is None else dfinal.float().clone())
+    dx = torch.empty((b, s, c), dtype=torch.float32, device=x.device)
+    ddt = torch.empty_like(dx)
+    dB = torch.empty((b, s, n), dtype=torch.float32, device=x.device)
+    dC = torch.empty_like(dB)
+    dA = torch.zeros((c, n), dtype=torch.float32, device=x.device)
+    for t in reversed(range(s)):
+        g = g + Cf[:, t, None, :] * dyf[:, t, :, None]            # [b,c,n]
+        da = torch.exp(dtf[:, t, :, None] * Af[None])
+        ga = da * hs[:, t] * g
+        u = (Bf[:, t, None, :] * g).sum(-1)                       # [b,c]
+        dx[:, t] = dtf[:, t] * u + D.float() * dyf[:, t]
+        ddt[:, t] = xf[:, t] * u + (Af[None] * ga).sum(-1)
+        dA += (dtf[:, t, :, None] * ga).sum(0)
+        dB[:, t] = ((dtf[:, t] * xf[:, t])[..., None] * g).sum(1)
+        dC[:, t] = (hs[:, t + 1] * dyf[:, t, :, None]).sum(1)
+        g = da * g
+    dD = (xf * dyf).sum((0, 1))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            dB.to(Bm.dtype), dC.to(Cm.dtype), dD.to(D.dtype))
+
+
 def model_scale_inputs(gen: torch.Generator, b: int, s: int, c: int, n: int,
                        dtype, warmup: int = 128):
     """Scan inputs ((x, dt, A, B, C, D), initial state) at a Mamba-1

@@ -5,7 +5,10 @@
 
 The reference's flags.  Without ``--full-size`` the config is reduced
 (``repro_torch.configs.reduced``); it runs on the card unless
-``--device cpu`` is given."""
+``--device cpu`` is given.  Every registered architecture trains: the
+``Trainer`` feeds an audio model (hubert-xlarge) frame features and a
+vision model (llava-next-mistral-7b) patch features before its tokens,
+``--seq`` positions in all."""
 from __future__ import annotations
 
 import argparse

@@ -25,6 +25,15 @@ from a ``searchsorted`` on the device, and the grouped product is
 token's ``k`` rows in a fixed order (no atomic ``index_add_``), so a
 graph replay is bit-identical to the eager call.
 
+Both train on the card and on the CPU alike: autograd differentiates
+their torch ops (gshard's products, the ragged path's
+``torch._grouped_mm``).  The ragged path's gathers and scatters are
+permutations (``order``) or a fixed-order sum, so their backwards sum in
+one order too: a token's rows are gathered as its ``k`` (token, choice)
+copies, whose gradients are summed over ``k`` like the combine.  The
+gradient reaching each grouped product is made contiguous first (its
+backward rejects a broadcast gradient, stride 0, such as a ``.sum()``'s).
+
 The router runs in fp32 in the ``moe_route`` scope; its weight stays
 fp32 (``repro_torch.models.lm.prepare_params`` casts only the expert
 weights).  The reference's ``constrain`` calls are sharding annotations,
@@ -39,7 +48,6 @@ import torch
 
 from repro_torch.core.config import MoEConfig
 from repro_torch.core.scope import scope
-from repro_torch.kernels.grad import needs_grad
 from repro_torch.models.mlp import activation, gated
 from repro_torch.models.params import ParamDef
 
@@ -149,6 +157,23 @@ def moe_gshard(p: Dict, x: torch.Tensor, m: MoEConfig, n_groups: int,
     return y
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _grouped_mm(a: torch.Tensor, w: torch.Tensor,
+                offs: torch.Tensor) -> torch.Tensor:
+    return _ContiguousGrad.apply(torch._grouped_mm(a, w, offs=offs))
+
+
 def moe_ragged(p: Dict, x: torch.Tensor, m: MoEConfig,
                act: str = "silu") -> torch.Tensor:
     """Sort-based MoE: flatten, sort by expert, grouped products, unsort.
@@ -161,18 +186,18 @@ def moe_ragged(p: Dict, x: torch.Tensor, m: MoEConfig,
     k, e = m.experts_per_token, m.n_experts
     flat_idx = idx.reshape(-1)                               # [t*k]
     sorted_idx, order = torch.sort(flat_idx, stable=True)
-    tok_of = order // k
-    xs = xf[tok_of]                                          # [t*k, d]
+    # each token's k (token, choice) rows, then permuted: the gathered
+    # rows are those of order // k
+    xs = xf[:, None].expand(t, k, d).reshape(t * k, d)[order]  # [t*k, d]
     # each expert's end row among the sorted rows, on the device
     offs = torch.searchsorted(
         sorted_idx, torch.arange(e, device=x.device), right=True).to(
         torch.int32)
     with scope("moe_expert"):
         dt = x.dtype
-        h = torch._grouped_mm(xs, p["wi"].to(dt), offs=offs)
-        hg = torch._grouped_mm(xs, p["wg"].to(dt), offs=offs)
-        o = torch._grouped_mm(activation(act)(hg) * h, p["wo"].to(dt),
-                              offs=offs)
+        h = _grouped_mm(xs, p["wi"].to(dt), offs)
+        hg = _grouped_mm(xs, p["wg"].to(dt), offs)
+        o = _grouped_mm(activation(act)(hg) * h, p["wo"].to(dt), offs)
     with scope("moe_combine"):
         wsorted = gates.reshape(-1)[order]
         o = o * wsorted[:, None].to(o.dtype)
@@ -189,13 +214,7 @@ def moe_ragged(p: Dict, x: torch.Tensor, m: MoEConfig,
 
 def moe(p: Dict, x: torch.Tensor, m: MoEConfig, n_groups: int = 1,
         act: str = "silu") -> torch.Tensor:
-    """The MoE feed-forward by ``m.impl``.  On the card a call that needs a
-    gradient raises: training the MoE kinds waits for their own slice
-    (on the CPU autograd runs through the plain ops)."""
-    if x.device.type == "cuda" and needs_grad(x, *p.values()):
-        raise NotImplementedError(
-            "moe: training the MoE layers on the card waits for a later "
-            "slice of the port")
+    """The MoE feed-forward by ``m.impl``."""
     if m.impl == "ragged":
         return moe_ragged(p, x, m, act)
     return moe_gshard(p, x, m, n_groups, act)

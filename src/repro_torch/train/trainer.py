@@ -8,6 +8,10 @@ The port of the reference's ``repro.train.trainer`` on one device:
   * straggler watchdog: a step slower than ``straggler_factor`` times the
     running median of the last 20 is logged and counted;
   * overlap: checkpoint files are written on a background thread.
+The data is the synthetic stream of the model's inputs
+(:func:`repro_torch.data.synthetic.synthetic_for`: the needle tokens,
+an audio model's frame features, a vision model's patch features before
+tokens) unless ``data`` or ``batch_fn`` is given.
 Params come from the port's seeded :func:`init_lm_params` on ``device``
 (None: the card); a test may replace ``params`` and ``opt_state`` with
 trees carried over from the reference (:mod:`repro_torch.convert`).
@@ -24,7 +28,7 @@ import torch
 from repro_torch.checkpoint.ckpt import AsyncCheckpointer, latest_step, restore
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.data.synthetic import SyntheticLM, synthetic_for
 from repro_torch.models.lm import init_lm_params
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.train.train_step import make_train_step
@@ -57,9 +61,8 @@ class Trainer:
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg, self.opt, self.tcfg, self.plan = cfg, opt, tcfg, plan
         self.device = resolve_device(device)
-        self.data = data or SyntheticLM(DataConfig(
-            vocab_size=cfg.vocab_size, seq_len=seq_len,
-            global_batch=global_batch, seed=tcfg.seed))
+        self.data = data or synthetic_for(cfg, seq_len, global_batch,
+                                          tcfg.seed)
         self.batch_fn = batch_fn or self.data.batch
         self.state = TrainerState()
         self.ckpt = (AsyncCheckpointer(tcfg.ckpt_dir)

@@ -23,9 +23,13 @@ Mamba-1 d_inner past a cluster of 8 blocks); the full mamba2-2.7b,
 zamba2-2.7b, mamba-130m and gemma3-1b shapes are held by
 ``chip_smoke.py``.  The training path: each backward kernel (conv1d,
 SSD at the reduced and zamba2-2.7b's (P, N), flash at d=16 GQA 3:1 and
-smollm-135m's d=64 GQA 3:1) against its plain backward and repeated bit
-for bit, the refusal of kernels with no backward under grad, and a tiny
-train step through the kernels against autograd through the plain path.
+smollm-135m's d=64 GQA 3:1, at d=256, in a window shorter than S and
+non-causal off a tile on both routes, the selective scan at N = 16 and
+8) against its plain backward and repeated bit for bit, the wrappers'
+``ScanFn`` and ``FlashFn`` under grad, the MoE layer's gradients by both
+dispatch paths against the CPU's, the refusal of calls with no backward
+under grad, and a tiny train step through the kernels against autograd
+through the plain path.
 Tolerances: 1e-4 in fp32 (sums in another order), 2e-2 in bf16 (one bf16
 rounding; the flash kernel also rounds its probabilities to bf16 for the
 P.V product), of max(1, max |reference|) for the Mamba kernels and of
@@ -1332,17 +1336,44 @@ def _bwd_case(kind, rn, td):
                                                      st, chunk=q),
                 lambda: ssd_ref.ssd_chunked_bwd_ref(x, dt, A, Bm, Cm, D, dy,
                                                     st, chunk=q))
-    # flash16 the CUDA-core route in both types; the rest wgmma in bf16
-    # (d=80 and 128 padded to 128 columns), S not a multiple of a tile
-    bh, kvh, s, d = {"flash16": (6, 2, 100, 16), "flash64": (9, 3, 130, 64),
-                     "flash80": (32, 32, 300, 80),
-                     "flash128": (8, 2, 130, 128)}[kind]
+    if kind.startswith("scan1"):
+        # the Mamba-1 scan's backward over 5 chunks of 32 steps and a
+        # ragged last one, channels off the block (N = 16: 16 a block;
+        # N = 8: 32), with the final state's gradient
+        b, s, c, n = {"scan1": (2, 150, 40, 16),
+                      "scan1_n8": (3, 70, 50, 8)}[kind]
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        (x, dt, A, Bm, Cm, D), _ = scan_ref.model_scale_inputs(gen, b, s, c,
+                                                               n, td)
+        dy, dfin = rn(b, s, c, dt=td), rn(b, c, n)
+        ins = (x, dt, A, Bm, Cm, D, dy, dfin)
+        return (lambda: scan_ops.selective_scan_bwd_cuda(*ins),
+                lambda: scan_ref.selective_scan_bwd_ref(*ins))
+    # flash16 the CUDA-core route in both types; flash64 to flash128 wgmma
+    # in bf16 (d=80 and 128 padded to 128 columns); flash256 CUDA cores in
+    # both (32-row tiles); S not a multiple of a tile; the window (shorter
+    # than S, its band's edges inside tiles) and the non-causal mode on
+    # both routes
+    bh, kvh, s, d, causal, window = {
+        "flash16": (6, 2, 100, 16, True, None),
+        "flash64": (9, 3, 130, 64, True, None),
+        "flash80": (32, 32, 300, 80, True, None),
+        "flash128": (8, 2, 130, 128, True, None),
+        "flash256": (4, 1, 100, 256, True, None),
+        "flash_window16": (6, 2, 200, 16, True, 37),
+        "flash_window64": (4, 1, 300, 64, True, 77),
+        "flash_window256": (4, 1, 200, 256, True, 45),
+        "flash_noncausal16": (6, 2, 100, 16, False, None),
+        "flash_noncausal80": (16, 16, 300, 80, False, None)}[kind]
     q, k, v = rn(2, bh, s, d, dt=td), rn(2, kvh, s, d, dt=td), rn(
         2, kvh, s, d, dt=td)
     do = rn(2, bh, s, d, dt=td)
-    o, lse = flash_ref.attention_lse_ref(q, k, v)
-    return (lambda: flash_ops.flash_attention_bwd_cuda(q, k, v, o, do, lse),
-            lambda: flash_ref.flash_bwd_ref(q, k, v, o, do, lse))
+    o, lse = flash_ref.attention_lse_ref(q, k, v, causal=causal,
+                                         window=window)
+    return (lambda: flash_ops.flash_attention_bwd_cuda(
+                q, k, v, o, do, lse, causal=causal, window=window),
+            lambda: flash_ref.flash_bwd_ref(q, k, v, o, do, lse,
+                                            causal=causal, window=window))
 
 
 @pytest.mark.cuda
@@ -1382,7 +1413,10 @@ def test_conv1d_bwd_kernel(cuda, dtype, c, s, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["conv1d", "ssd16", "ssd128", "ssd_n64",
                                   "ssd_n128", "flash16", "flash64",
-                                  "flash80", "flash128"])
+                                  "flash80", "flash128", "flash256",
+                                  "flash_window16", "flash_window64",
+                                  "flash_window256", "flash_noncausal16",
+                                  "flash_noncausal80", "scan1", "scan1_n8"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_kernels_match_plain_and_repeat(cuda, dtype, kind):
     """Each backward kernel against its plain backward: every gradient
@@ -1402,23 +1436,114 @@ def test_backward_kernels_match_plain_and_repeat(cuda, dtype, kind):
 
 @pytest.mark.cuda
 def test_kernels_without_backward_raise_under_grad(cuda):
-    """The Mamba-1 scan (and the other kernels with no backward kernel)
-    raise on the card when a gradient is asked for, instead of returning
-    an output autograd cannot see through; without one they launch."""
+    """The calls with no backward kernel (the Mamba-1 scan from a state,
+    flash attention at a query offset) raise on the card when a gradient
+    is asked for, instead of returning an output autograd cannot see
+    through; without one they launch."""
     rn = _rn(torch.Generator(device=cuda).manual_seed(0), cuda)
     b, s, c, n = 1, 16, 32, 16
     x = rn(b, s, c).requires_grad_()
     args = (x, rn(b, s, c).abs(), -rn(c, n).abs(), rn(b, s, n), rn(b, s, n),
             rn(c))
     with pytest.raises(NotImplementedError, match="selective_scan"):
-        scan_ops.selective_scan(*args)
+        scan_ops.selective_scan(*args, initial_state=rn(b, c, n))
     q = rn(1, 2, 64, 16).requires_grad_()
     with pytest.raises(NotImplementedError, match="flash_attention"):
         flash_ops.flash_attention(q, rn(1, 2, 64, 16), rn(1, 2, 64, 16),
-                                  window=8)
+                                  q_offset=4)
     with torch.no_grad():
         y, _ = scan_ops.selective_scan(*args)
     assert y.grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["scan1", "window", "noncausal", "d256"])
+def test_new_backward_modes_run_their_functions(cuda, mode):
+    """Under grad the wrappers run ``ScanFn`` (the scan from a zero
+    state) and ``FlashFn`` (a window over a full sequence, non-causal,
+    head_dim 256): the forward and backward kernels launch once each, the
+    gradients equal the backward kernel's own on the forward's saved
+    outputs, and they agree with the plain backward on the plain
+    forward's outputs (so the forward's log-sum-exp in each mode is
+    right): within 3e-2 of each gradient's max |g| in bf16."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(4), cuda)
+    bf = torch.bfloat16
+    if mode == "scan1":
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        (x, dt, A, Bm, Cm, D), _ = scan_ref.model_scale_inputs(
+            gen, 2, 96, 48, 16, bf)
+        ins = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+        fwd, bwd = scan_ops.selective_scan, scan_ops.selective_scan_bwd_cuda
+        n0 = (fwd.launches, bwd.launches)
+        y, _ = fwd(*ins)
+        name = "ScanFn"
+    else:
+        h, kvh, s, d, causal, window = {
+            "window": (4, 1, 200, 64, True, 50),
+            "noncausal": (16, 16, 150, 80, False, None),
+            "d256": (4, 1, 100, 256, True, None)}[mode]
+        ins = [rn(2, n_, s, d, dt=bf).requires_grad_()
+               for n_ in (h, kvh, kvh)]
+        fwd = flash_ops.flash_attention
+        bwd = flash_ops.flash_attention_bwd_cuda
+        n0 = (fwd.launches, bwd.launches)
+        y = fwd(*ins, causal=causal, window=window)
+        name = "FlashFn"
+    assert type(y.grad_fn).__name__.startswith(name)
+    dy = rn(*y.shape, dt=y.dtype)
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    if mode == "scan1":
+        want = bwd(*[t.detach() for t in ins], dy)
+        plain = scan_ref.selective_scan_bwd_ref(*[t.detach() for t in ins],
+                                                dy)
+    else:
+        q, k, v = (t.detach() for t in ins)
+        o, lse = flash_ops.flash_attention_cuda(q, k, v, causal=causal,
+                                                window=window, lse=True)
+        want = bwd(q, k, v, o, dy, lse, causal=causal, window=window)
+        o, lse = flash_ref.attention_lse_ref(q, k, v, causal=causal,
+                                             window=window)
+        plain = flash_ref.flash_bwd_ref(q, k, v, o, dy, lse, causal=causal,
+                                        window=window)
+    for a, b, c in zip(got, want, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+        err = float((a.float() - c.float()).abs().max())
+        assert err <= 3e-2 * float(c.float().abs().max()), (mode, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["gshard", "ragged"])
+def test_moe_gradients_on_the_card(cuda, impl):
+    """The MoE layer trains on the card: the gradients of a ``.sum()``
+    (a broadcast, stride-0 upstream gradient) through both dispatch
+    paths at 8 experts of qwen3-moe's expert shapes, top 2, a shared
+    expert, against the same layer's gradients on the CPU (fp32, within
+    1e-4 of each leaf's max |g|), and two backward passes bit for bit."""
+    from repro_torch.core.config import MoEConfig
+    from repro_torch.models import moe
+    m = MoEConfig(n_experts=8, experts_per_token=2, d_ff_expert=1536,
+                  capacity_factor=4.0, shared_expert=True, impl=impl)
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    d = 512
+    p = {k: (torch.randn(v.shape, generator=gen) / v.shape[-2] ** 0.5
+             if len(v.shape) > 1 else torch.randn(v.shape, generator=gen))
+         for k, v in moe.moe_param_defs(d, m).items()}
+    x = torch.randn(2, 64, d, generator=gen)
+
+    def grads(dev):
+        pd = {k: v.to(dev).requires_grad_() for k, v in p.items()}
+        xd = x.to(dev).requires_grad_()
+        y = moe.moe(pd, xd, m, 1)
+        return torch.autograd.grad(y.sum(), [xd, *pd.values()])
+    got, again = grads(cuda), grads(cuda)
+    want = grads("cpu")
+    torch.cuda.synchronize()
+    for a, a2, b in zip(got, again, want):
+        assert torch.equal(a, a2)
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-4 * max(float(b.abs().max()), 1e-30), err
 
 
 def _plain_kernels():

@@ -1,16 +1,23 @@
 """The port's training path against the reference, on the CPU.
 
-* The plain backwards of the three kernels on the training path (causal
-  flash attention with GQA, the SSD scan, conv1d) against ``jax.vjp`` of
-  the reference's plain versions, directly and through the wrappers'
-  ``autograd.Function``s: fp32, within 1e-4 of each gradient's max |g|.
+* The plain backwards of the kernels on the training path (flash
+  attention with GQA: causal, in a window shorter than S, non-causal off
+  a tile, causal at head_dim 256; the SSD scan; conv1d; the Mamba-1
+  selective scan, with its final state's gradient) against ``jax.vjp``
+  of the reference's plain versions, directly and through the wrappers'
+  ``autograd.Function``s (each case asserts its ``...Fn``): fp32,
+  within 1e-4 of each gradient's max |g|.  The new backwards' launch
+  plans at gemma3-1b's, hubert-xlarge's and mamba-130m's shapes.
 * AdamW, the global norm, clipping and the warmup against the reference's
   on random trees (fp32 math on both sides: within 1e-6 relative).
 * ``SyntheticLM`` batches and the tokenizer, bit for bit.
 * One ``make_train_step`` at microbatches 1 and 2 on the reference's tiny
-  hybrid (``tests/test_system.py``) and reduced smollm-135m, from the
-  reference's params carried over (``from_jax``), against the reference's
-  jitted step (gradients accumulated in the compute dtype).  fp32: loss
+  hybrid (``tests/test_system.py``) and reduced smollm-135m, gemma3-1b
+  (one unit: local and global layers), hubert-xlarge (frame features),
+  qwen3-moe (gshard and ragged), llama4-maverick (one unit), mamba-130m
+  and llava-next (patch features), from the reference's params carried
+  over (``from_jax``), against the reference's jitted step (gradients
+  accumulated in the compute dtype).  fp32: loss
   within 1e-5 relative, grad norm within 1e-4,
   lr exact, each first moment (0.1 x the clipped gradient) within 1e-4 of
   its leaf's max, and the new params within 1e-5 where the gradient is
@@ -25,7 +32,7 @@
   corruption, retention, structure mismatch and ``AsyncCheckpointer``.
 * ``Trainer``: a restart resumes identically (the reference's test), and
   10 steps' losses against the reference's ``Trainer`` in fp32 within
-  1e-4 relative.
+  1e-4 relative; the launcher feeds each frontend its synthetic stream.
 """
 import dataclasses
 import functools
@@ -46,6 +53,7 @@ from repro.data import synthetic as jsyn
 from repro.data import tokenizer as jtok
 from repro.kernels.conv1d import ref as jconv
 from repro.kernels.flash import ref as jflash
+from repro.kernels.scan1 import ref as jscan
 from repro.kernels.ssd import ref as jssd
 from repro.models import lm as jlm
 from repro.train import optimizer as jopt
@@ -63,6 +71,8 @@ from repro_torch.kernels.conv1d import ref as tconv
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.flash import ref as tflash
 from repro_torch.kernels.grad import needs_grad
+from repro_torch.kernels.scan1 import ops as scan_ops
+from repro_torch.kernels.scan1 import ref as tscan
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as tssd
 from repro_torch.models import lm as tlm
@@ -112,20 +122,50 @@ def _ssd_case(rng):
     return (x, dt, A, Bm, Cm, D), dy, vjp(dy)
 
 
-def _flash_case(rng):
-    q = rng.standard_normal((2, 6, 40, 16)).astype(np.float32)
-    k = rng.standard_normal((2, 2, 40, 16)).astype(np.float32)
-    v = rng.standard_normal((2, 2, 40, 16)).astype(np.float32)
-    do = rng.standard_normal((2, 6, 40, 16)).astype(np.float32)
-    _, vjp = jax.vjp(lambda q, k, v: jflash.attention_ref(q, k, v,
-                                                          causal=True),
-                     q, k, v)
+# the flash cases' masks: (causal, window)
+FLASH_MODES = {"flash": (True, None), "flash_window": (True, 11),
+               "flash_noncausal": (False, None), "flash_d256": (True, None)}
+
+
+def _flash_case(rng, kind="flash"):
+    """GQA 3:1 at d = 16 over 40 positions; the window (11) shorter than
+    S; non-causal over 37 positions (not a multiple of 16); d = 256 over
+    a short S, causal, GQA 4:1 (gemma3-1b's head)."""
+    h, kvh, s, d = {"flash": (6, 2, 40, 16), "flash_window": (6, 2, 40, 16),
+                    "flash_noncausal": (4, 2, 37, 16),
+                    "flash_d256": (4, 1, 24, 256)}[kind]
+    causal, window = FLASH_MODES[kind]
+    q = rng.standard_normal((2, h, s, d)).astype(np.float32)
+    k = rng.standard_normal((2, kvh, s, d)).astype(np.float32)
+    v = rng.standard_normal((2, kvh, s, d)).astype(np.float32)
+    do = rng.standard_normal((2, h, s, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jflash.attention_ref(
+        q, k, v, causal=causal, window=window), q, k, v)
     return (q, k, v), do, vjp(do)
+
+
+def _scan1_case(rng):
+    """The Mamba-1 scan from a zero state, 2 x 29 steps x 12 channels x
+    16 states, against the reference's oracle (``kernels/scan1/ref.py``),
+    the gradients of y and of the final state."""
+    b, s, c, n = 2, 29, 12, 16
+    x = rng.standard_normal((b, s, c)).astype(np.float32)
+    dt = (0.01 + 0.5 * rng.random((b, s, c))).astype(np.float32)
+    A = -(0.5 + 3 * rng.random((c, n))).astype(np.float32)
+    Bm = rng.standard_normal((b, s, n)).astype(np.float32)
+    Cm = rng.standard_normal((b, s, n)).astype(np.float32)
+    D = rng.standard_normal(c).astype(np.float32)
+    dy = rng.standard_normal((b, s, c)).astype(np.float32)
+    dfin = rng.standard_normal((b, c, n)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jscan.selective_scan_ref(*a),
+                     x, dt, A, Bm, Cm, D)
+    return (x, dt, A, Bm, Cm, D), (dy, dfin), vjp((dy, dfin))
 
 
 def _plain_bwd(kind, ins, dy):
     t = [torch.from_numpy(a) for a in ins]
-    d = torch.from_numpy(dy)
+    d = (tuple(torch.from_numpy(a) for a in dy) if isinstance(dy, tuple)
+         else torch.from_numpy(dy))
     if kind == "conv1d":
         return tconv.causal_conv1d_bwd_ref(*t, d)
     if kind == "ssd":
@@ -133,23 +173,37 @@ def _plain_bwd(kind, ins, dy):
         dx, ddt, dA, dB, dC, dD = tssd.ssd_chunked_bwd_ref(*t, d, states,
                                                           chunk=16)
         return dx, ddt, dA, dB, dC, dD
-    o, lse = tflash.attention_lse_ref(*t)
-    return tflash.flash_bwd_ref(*t, o, d, lse)
+    if kind == "scan1":
+        return tscan.selective_scan_bwd_ref(*t, *d)
+    masks = dict(zip(("causal", "window"), FLASH_MODES[kind]))
+    o, lse = tflash.attention_lse_ref(*t, **masks)
+    return tflash.flash_bwd_ref(*t, o, d, lse, **masks)
 
 
 def _wrapper_bwd(kind, ins, dy):
     t = [torch.from_numpy(a).requires_grad_() for a in ins]
+    fn = {"conv1d": "Conv1dFn", "ssd": "SsdFn", "scan1": "ScanFn"}.get(
+        kind, "FlashFn")
     if kind == "conv1d":
         y, _ = conv_ops.causal_conv1d(*t)
     elif kind == "ssd":
         y, _ = ssd_ops.ssd_chunked(*t, chunk=16)
+    elif kind == "scan1":
+        y, final = scan_ops.selective_scan(*t)
+        assert type(final.grad_fn).__name__.startswith(fn)
+        y = (y, final)
     else:
-        y = flash_ops.flash_attention(*t)
-    assert y.grad_fn is not None and "Fn" in type(y.grad_fn).__name__
-    return torch.autograd.grad(y, t, torch.from_numpy(dy))
+        causal, window = FLASH_MODES[kind]
+        y = flash_ops.flash_attention(*t, causal=causal, window=window)
+    out = y[0] if isinstance(y, tuple) else y
+    assert type(out.grad_fn).__name__.startswith(fn)
+    dy = (tuple(torch.from_numpy(a) for a in dy) if isinstance(dy, tuple)
+          else torch.from_numpy(dy))
+    return torch.autograd.grad(y, t, dy)
 
 
-CASES = {"conv1d": _conv_case, "ssd": _ssd_case, "flash": _flash_case}
+CASES = {"conv1d": _conv_case, "ssd": _ssd_case, "scan1": _scan1_case,
+         **{k: functools.partial(_flash_case, kind=k) for k in FLASH_MODES}}
 
 
 @functools.lru_cache(maxsize=None)
@@ -254,6 +308,48 @@ def test_ssd_backward_three_passes():
     want = tssd.ssd_chunked_bwd_ref(*t, d, states, chunk=q)
     for i, (a, w) in enumerate(zip(got, want)):
         _hold(a, w, name=f"ssd three-pass grad {i}")
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "hubert-xlarge",
+                                  "mamba-130m"])
+def test_new_backward_plans(arch):
+    """The launch plans of the backwards this slice trains through, at
+    B=4, S=2048 and S=1500 (off a tile) in bf16: gemma3-1b's head_dim 256
+    on wgmma in 64-key and 64-row blocks (within a block's 227 KB of
+    shared memory; its fp32 on CUDA cores in 32-row tiles),
+    hubert-xlarge's non-causal d = 80 on wgmma, and mamba-130m's
+    selective-scan backward: 16 channels a block, chunks of 32 steps, its
+    scratch as the kernel lays it out (h at the chunks' starts, dA and dD
+    a batch row, dB and dC a channel block)."""
+    from repro_torch.core.registry import get
+    cfg = get(arch)
+    for s in (2048, 1500):
+        if cfg.attn is not None:
+            a = cfg.attn
+            plan = flash_ops.flash_bwd_plan(4, a.n_heads, a.n_kv_heads, s,
+                                            a.head_dim, torch.bfloat16)
+            assert plan.route == "wgmma"
+            rows = 64 if a.head_dim == 256 else 128
+            assert plan.blocks[1:] == (-(-s // rows) * a.n_kv_heads * 4,
+                                       -(-s // rows) * a.n_heads * 4)
+            assert plan.scratch == (4, a.n_heads, -(-s // 128) * 128, 2)
+            assert max(plan.smem_bytes) <= 227 * 1024
+            if a.head_dim == 256:
+                plan = flash_ops.flash_bwd_plan(4, a.n_heads, a.n_kv_heads,
+                                                s, 256, torch.float32)
+                tiles = -(-s // 32)
+                assert plan.route == "cuda_cores"
+                assert plan.blocks[1:] == (tiles * a.n_kv_heads * 4,
+                                           tiles * a.n_heads * 4)
+                assert max(plan.smem_bytes) <= 227 * 1024
+        if cfg.ssm is not None:
+            c, n = cfg.ssm.d_inner(cfg.d_model), cfg.ssm.d_state
+            plan = scan_ops.scan1_bwd_plan(4, s, c, n)
+            nblk, nch = -(-c // 16), -(-s // 32)
+            assert (plan.channels, plan.blocks, plan.chunks) == (16, 4 * nblk,
+                                                                 nch)
+            assert plan.scratch == 4 * (nch * c * n + c * n + c
+                                        + 2 * s * nblk * n)
 
 
 def test_grad_check_decides_the_route():
@@ -372,14 +468,68 @@ def _tiny_hybrid(pkg, **kw):
         vocab_pad_multiple=16, **kw)
 
 
+# the reduced registered configs the train step is held on, by name, as
+# (reference config, port config, reduce keywords, replaced fields):
+# smollm-135m; gemma3-1b at one unit (5 local layers, window 8 < S, and a
+# global one); hubert-xlarge (encoder, frame features); qwen3-moe by both
+# dispatch paths; llama4 at one unit (top-1 dense_moe and moe with the
+# shared expert); mamba-130m (mamba1); llava-next (patch features before
+# the tokens)
+REDUCED = {
+    "smollm": ("smollm_135m", "smollm_135m", {}, {}),
+    "gemma3": ("gemma3_1b", "gemma3_1b", {"n_units": 1}, {}),
+    "hubert": ("hubert_xlarge", "hubert_xlarge", {}, {}),
+    "moe_gshard": ("qwen3_moe_235b", "qwen3_moe_235b", {}, {}),
+    "moe_ragged": ("qwen3_moe_235b", "qwen3_moe_235b", {},
+                   {"impl": "ragged"}),
+    "llama4": ("llama4_maverick", "llama4_maverick", {"n_units": 1}, {}),
+    "mamba1": ("paper_models.MAMBA1_130M", "mamba_130m", {}, {}),
+    "llava": ("llava_next", "llava_next", {}, {}),
+}
+
+
+def _reduced_pair(model, compute_dtype):
+    import repro.configs as jconfigs
+    import repro_torch.configs as tconfigs
+    jname, tname, kw, moe_kw = REDUCED[model]
+    jcfg = functools.reduce(getattr, jname.split("."), jconfigs)
+    out = []
+    for red, cfg in ((j_reduced, jcfg), (reduced, getattr(tconfigs, tname))):
+        c = red(cfg, **kw)
+        if moe_kw:
+            c = dataclasses.replace(c, moe=dataclasses.replace(c.moe,
+                                                               **moe_kw))
+        out.append(dataclasses.replace(c, compute_dtype=compute_dtype))
+    return tuple(out)
+
+
 def _cfg_pair(model, compute_dtype):
     if model == "hybrid":
         return (_tiny_hybrid(jc, compute_dtype=compute_dtype),
                 _tiny_hybrid(tc, compute_dtype=compute_dtype))
-    return (dataclasses.replace(j_reduced(J_SMOLLM),
-                                compute_dtype=compute_dtype),
-            dataclasses.replace(reduced(T_SMOLLM),
-                                compute_dtype=compute_dtype))
+    return _reduced_pair(model, compute_dtype)
+
+
+def _train_batch(cfg, rng):
+    """4 rows of 32 positions: tokens; an audio model's frame features
+    (labels a frame); a vision model's 8 patch features before 24 tokens,
+    with labels over all 32 positions, as the reference's loss takes
+    them."""
+    b, s = 4, 32
+    if cfg.frontend == "audio":
+        return {"features": rng.standard_normal(
+                    (b, s, cfg.frontend_feature_dim)).astype(np.float32),
+                "labels": rng.integers(0, cfg.vocab_size,
+                                       (b, s)).astype(np.int32)}
+    if cfg.frontend == "vision":
+        return {"tokens": rng.integers(0, cfg.vocab_size,
+                                       (b, s - 8)).astype(np.int32),
+                "features": rng.standard_normal(
+                    (b, 8, cfg.frontend_feature_dim)).astype(np.float32),
+                "labels": rng.integers(0, cfg.vocab_size,
+                                       (b, s)).astype(np.int32)}
+    toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    return {"tokens": toks, "labels": toks}
 
 
 def _cosine(a, b):
@@ -390,7 +540,14 @@ def _cosine(a, b):
 
 @pytest.mark.parametrize("model,compute_dtype,mb", [
     ("hybrid", "float32", 1), ("hybrid", "bfloat16", 2),
-    ("smollm", "float32", 2), ("smollm", "bfloat16", 1)])
+    ("smollm", "float32", 2), ("smollm", "bfloat16", 1),
+    ("gemma3", "float32", 1), ("gemma3", "bfloat16", 1),
+    ("hubert", "float32", 1), ("hubert", "bfloat16", 2),
+    ("moe_gshard", "float32", 1), ("moe_gshard", "bfloat16", 1),
+    ("moe_ragged", "float32", 2), ("moe_ragged", "bfloat16", 1),
+    ("llama4", "float32", 1), ("llama4", "bfloat16", 1),
+    ("mamba1", "float32", 1), ("mamba1", "bfloat16", 1),
+    ("llava", "float32", 1), ("llava", "bfloat16", 1)])
 def test_train_step_against_reference(model, compute_dtype, mb):
     jcfg, tcfg = _cfg_pair(model, compute_dtype)
     # fp32 compute also accumulates the gradients in fp32: a bf16
@@ -401,9 +558,7 @@ def test_train_step_against_reference(model, compute_dtype, mb):
     js = jopt.init_opt_state(jp, jopt.OptConfig(**kw))
     tp = from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     ts = opt_state_from_jax(jax.tree_util.tree_map(np.asarray, js), "cpu")
-    toks = np.random.default_rng(0).integers(
-        0, jcfg.vocab_size, (4, 32)).astype(np.int32)
-    batch = {"tokens": toks, "labels": toks}
+    batch = _train_batch(jcfg, np.random.default_rng(0))
     jstep = jax.jit(jts.make_train_step(jcfg, jopt.OptConfig(**kw),
                                         microbatches=mb))
     jp2, js2, jm = jstep(jp, js, {k: jnp.asarray(v) for k, v in
@@ -664,3 +819,33 @@ def test_training_entry_points_need_cuda_by_default(monkeypatch):
         launch_train.main(["--arch", "smollm-135m", "--steps", "1"])
     launch_train.main(["--arch", "smollm-135m", "--steps", "2", "--seq",
                        "32", "--batch", "2", "--device", "cpu"])
+
+
+def test_launcher_feeds_each_frontend(capsys):
+    """``launch.train`` trains an audio model on frame features and a
+    vision model on patch features before its tokens (labels over the
+    whole sequence, 0 at the patches); a token model's stream is the
+    needle stream as before."""
+    from repro_torch.core.registry import get
+    from repro_torch.launch import train as launch_train
+    hub, lla = reduced(get("hubert-xlarge")), reduced(
+        get("llava-next-mistral-7b"))
+    a = tsyn.synthetic_for(hub, 32, 2).batch(3)
+    assert a["features"].shape == (2, 32, hub.frontend_feature_dim)
+    assert a["labels"].shape == (2, 32)
+    v = tsyn.synthetic_for(lla, 32, 2).batch(3)
+    assert v["features"].shape == (2, 16, lla.frontend_feature_dim)
+    assert v["tokens"].shape == (2, 16) and v["labels"].shape == (2, 32)
+    assert (v["labels"][:, :16] == 0).all()
+    np.testing.assert_array_equal(v["labels"][:, 16:], v["tokens"])
+    sm = reduced(T_SMOLLM)
+    t = tsyn.synthetic_for(sm, 32, 2, seed=4).batch(5)
+    want = tsyn.SyntheticLM(tsyn.DataConfig(sm.vocab_size, 32, 2,
+                                            seed=4)).batch(5)
+    for k in want:
+        np.testing.assert_array_equal(t[k], want[k])
+    for arch in ("hubert-xlarge", "llava-next-mistral-7b"):
+        launch_train.main(["--arch", arch, "--steps", "2", "--seq", "32",
+                           "--batch", "2", "--device", "cpu"])
+        out = capsys.readouterr().out
+        assert "done: 2 steps" in out and "nan" not in out
