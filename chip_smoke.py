@@ -2648,7 +2648,8 @@ def bwd_cases(gen, dt, b: int, s: int, names=None):
     or None), only the ``names`` given (None: all).  zamba2-2.7b's SSD,
     conv1d and the shared block's flash (32 heads of 80), smollm-135m's
     flash (9 query heads on 3, d=64); mamba-130m's selective scan (C =
-    1536, N = 16) and conv1d (C = 1536); gemma3-1b's flash (4 query heads
+    1536, N = 16; ``scan1_bwd_tiles`` with the final state's gradient)
+    and conv1d (C = 1536); gemma3-1b's flash (4 query heads
     on 1, d = 256) in its sliding window of 512 and causal; hubert-
     xlarge's non-causal flash (16 heads of 80).  The work is the FLOPs
     the function needs, or ("exponentials", n) for the scan: flash's five
@@ -2716,14 +2717,20 @@ def bwd_cases(gen, dt, b: int, s: int, names=None):
             lambda yl=yl, ins=(xl, wl, bl), dyl=dyl: torch.autograd.grad(
                 yl, ins, dyl, retain_graph=True))
 
-    if want("scan1_bwd"):
+    for name, with_final in (("scan1_bwd", False), ("scan1_bwd_tiles", True)):
+        if not want(name):
+            continue
         C, N1 = m1.ssm.d_inner(m1.d_model), m1.ssm.d_state
         (x, dts, A, Bm, Cm, D), _ = scan_ref.model_scale_inputs(gen, b, s, C,
                                                                 N1, dt)
         scan_in = (x, dts, A, Bm, Cm, D, rn(b, s, C))
-        cases["scan1_bwd"] = (
-            lambda: scan_ops.selective_scan_bwd_cuda(*scan_in),
-            lambda: scan_ref.selective_scan_bwd_ref(*scan_in), scan_in,
+        if with_final:
+            scan_in += (rn(b, C, N1, dtype=torch.float32),)
+        cases[name] = (
+            lambda scan_in=scan_in:
+                scan_ops.selective_scan_bwd_cuda(*scan_in),
+            lambda scan_in=scan_in:
+                scan_ref.selective_scan_bwd_ref(*scan_in), scan_in,
             ("exponentials", b * s * C * N1), None)
 
     g3 = gemma3_1b.attn
@@ -2790,10 +2797,13 @@ BWD_SOURCES = {
     "scan1_bwd": ("scan1_bwd.cu", "src/repro/kernels/scan1/kernel.py:52")}
 # the checks in both types: (name, B, S); B=4, S=512, but gemma3-1b's
 # window (512) over S=1300, so that the band's edges fall inside the
-# sequence and inside tiles, and hubert-xlarge's non-causal flash at
-# S=500, off a tile, so keys past S fall in its last tiles
+# sequence and inside tiles, hubert-xlarge's non-causal flash at S=500,
+# off a tile, so keys past S fall in its last tiles, and the scan's
+# backward also over S=700 (three 256-step tiles, the last ragged) with
+# the final state's gradient
 BWD_CHECKS = (("ssd_bwd", 4, 512), ("conv1d_bwd", 4, 512),
               ("conv1d_bwd_mamba130m", 4, 512), ("scan1_bwd", 4, 512),
+              ("scan1_bwd_tiles", 2, 700),
               ("flash_bwd", 4, 512), ("flash_bwd_smollm", 4, 512),
               ("flash_bwd_window", 2, 1300), ("flash_bwd_d256", 4, 512),
               ("flash_bwd_noncausal", 4, 500))
@@ -3114,7 +3124,7 @@ def bwd_route_kernels(cfg) -> dict:
     """The CUDA kernels of each backward row's bf16 route in a training
     step of ``cfg``: flash's wgmma kernels at head dims 64 to 128 and its
     CUDA-core ones at 256, SSD's tensor-core passes, conv1d's one, the
-    scan's two."""
+    scan's three."""
     from repro_torch.kernels.flash import ops as flash_ops
     heads = {cfg.shared_attn.head_dim if kind == "mamba2+shared"
              else cfg.attn.head_dim
@@ -3129,7 +3139,8 @@ def bwd_route_kernels(cfg) -> dict:
             "ssd_bwd": ["ssd_bwd_local", "ssd_bwd_state", "ssd_bwd_chunk",
                         "ssd_bwd_finish_tc"],
             "conv1d_bwd": ["conv1d_bwd"],
-            "scan1_bwd": ["scan1_bwd_kernel", "scan1_bwd_finish"]}
+            "scan1_bwd": ["scan1_bwd_states", "scan1_bwd_kernel",
+                          "scan1_bwd_finish"]}
 
 
 def check_trace_names(cfg, names, launched) -> list:

@@ -54,7 +54,10 @@ mutant's kernel (every check for the unchanged sources):
   ``chip_smoke.BWD_TOL`` of its own max |g| and two calls bit for bit;
   bf16 takes the tensor-core routes (flash on wgmma, SSD's chunk-parallel
   passes on mma.sync), fp32 the CUDA-core kernels, and each route has
-  its planted fault; the selective-scan backward, the flash backward's
+  its planted fault; the selective-scan backward (in each type: dA
+  without one tile's share, the gradient's carry between tiles zeroed,
+  one warp's channel left out of a block's dB / dC sum), the flash
+  backward's
   window and non-causal modes have theirs.
 
 1 is the limit.  Exits 1 if the unchanged kernels fail a check or a
@@ -214,10 +217,22 @@ MUTANTS = {
         "e^cum_last dh', so dh'(c-1) = U(c)"),
     "scan1_bwd_drops_chunk_dA": (
         "backward", "scan1_bwd.cu",
-        "      da_acc = fmaf(d, ga, da_acc);\n",
-        "      if (ch != 1) da_acc = fmaf(d, ga, da_acc);\n",
-        "selective-scan backward: dA leaves out the second chunk's "
-        "partial (steps 32-63)"),
+        "          dprev[g] = fmaf(dtv[i], w, dprev[g]);\n",
+        "          if (it != 1) dprev[g] = fmaf(dtv[i], w, dprev[g]);\n",
+        "selective-scan backward: dA leaves out the second tile's share "
+        "(steps 256-511)"),
+    "scan1_bwd_drops_tile_carry": (
+        "backward", "scan1_bwd.cu",
+        "        if (lane == g0 + g) gc = out;\n",
+        "        if (lane == g0 + g) gc = 0.0f * out;\n",
+        "selective-scan backward: the gradient's carry into each tile from "
+        "the one above is zeroed"),
+    "scan1_bwd_drops_warp_share": (
+        "backward", "scan1_bwd.cu",
+        "        for (int i = 0; i < kH; ++i) sum[i] = red[at + i];\n",
+        "        for (int i = 0; i < kH; ++i) sum[i] = 0.0f * red[at + i];\n",
+        "selective-scan backward: the block's dB / dC sum leaves out its "
+        "first warp's channel"),
     "flash_bwd_window_off_by_one": (
         "backward", "flash_bwd.cu",
         "           (window <= 0 || i - j < window);\n",
@@ -536,6 +551,10 @@ CHECKS = {"attention": attention_readings,
           "backward": backward_readings}
 # how far past its limit a mutant of a check must land (1 where unlisted)
 MUST_FAIL_BY = {"scan1": 10.0}
+# mutants of a kernel whose one route serves both types: each type's
+# readings must fail on their own
+BOTH_TYPES = {"scan1_bwd_drops_chunk_dA", "scan1_bwd_drops_tile_carry",
+              "scan1_bwd_drops_warp_share"}
 # mutants whose fault no input can show, kept to hold why: their
 # readings must equal the unchanged kernels' exactly
 EXPECT_EQUAL = {
@@ -612,11 +631,17 @@ def main(names) -> int:
             if readings[mutant[0]] != unchanged[mutant[0]]:
                 failed.append(f"{name}: its readings differ from the "
                               f"unchanged kernels' ({EXPECT_EQUAL[name]})")
-        elif (max(r["ratio"] for r in readings[mutant[0]].values())
-              <= MUST_FAIL_BY.get(mutant[0], 1.0)):
-            failed.append(f"{name}: the {mutant[0]} check passes this "
-                          f"mutant, or fails it by less than "
-                          f"{MUST_FAIL_BY.get(mutant[0], 1.0)}x")
+        else:
+            rs = readings[mutant[0]]
+            groups = ([[r for k, r in rs.items() if k.endswith(t)]
+                       for t in ("bfloat16", "float32")]
+                      if name in BOTH_TYPES else [list(rs.values())])
+            if any(max(r["ratio"] for r in g) <= MUST_FAIL_BY.get(
+                    mutant[0], 1.0) for g in groups):
+                failed.append(f"{name}: the {mutant[0]} check passes this "
+                              f"mutant (in one type, where both must "
+                              f"fail), or fails it by less than "
+                              f"{MUST_FAIL_BY.get(mutant[0], 1.0)}x")
     for line in failed:
         print("FAIL " + line)
     return 1 if failed else 0

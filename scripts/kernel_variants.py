@@ -32,10 +32,10 @@ counts of ``chip_smoke.conv_shapes``, without and (where the wrapper
 takes them) with ragged lengths; one that starts with ``scan1`` the
 selective scan in bf16 at mamba-130m's width, B=4, S=256 and B=1, S=2048
 and 16384, on ``scan1.ref.model_scale_inputs`` (``chip_smoke.scan_ratio``'s
-limits); one that starts with ``bwd_flash`` or ``bwd_ssd`` that backward
-kernel in bf16 at ``chip_smoke.bwd_cases`` (checked at B=4, S=512 and
-the training shapes, timed at the training shapes; ``BWD_TOL``'s
-limits, a second call bit for bit). Each variant's kernels that ptxas
+limits); one that starts with ``bwd_flash``, ``bwd_ssd`` or
+``bwd_scan1`` that backward kernel in bf16 at ``chip_smoke.bwd_cases``
+(checked at B=4, S=512 and the training shapes, timed at the training
+shapes; ``BWD_TOL``'s limits, a second call bit for bit). Each variant's kernels that ptxas
 reports spilling are printed. The variants run in turn, then again in
 reverse order; each case prints every variant's two times and its worst
 ratio to the check's limit (1 is the limit). An output past the limit
@@ -246,6 +246,23 @@ _FLASH_NO_EXP = [["flash.cu",
 # the conv1d backward plan's vector bytes (ops.py)
 _CONV_BWD_VEC = ["../conv1d/ops.py", "BWD_VEC_BYTES = 8"]
 
+# the selective-scan backward's launches, each cut
+_SCAN1_BWD_NO_A = ["scan1_bwd.cu", "  states<<<", "  if (0) states<<<"]
+_SCAN1_BWD_NO_B = ["scan1_bwd.cu", "  bwd<<<", "  if (0) bwd<<<"]
+_SCAN1_BWD_NO_FINISH = ["scan1_bwd.cu", "  scan1_bwd_finish<T, N><<<",
+                        "  if (0) scan1_bwd_finish<T, N><<<"]
+_SCAN1_BWD_NO_SUMS = [
+    ["scan1_bwd.cu",
+     "          rw[(0 * G + g) * L::kRedRow + i] = dtx[i] * gv;   // dB\n"
+     "          rw[(1 * G + g) * L::kRedRow + i] = h[g] * dyv[i];  // dC\n",
+     ""],
+    ["scan1_bwd.cu", "          for (int i = 0; i < kH; i += 4)\n",
+     "          for (int i = 0; i < 0; i += 4)\n"],
+    ["scan1_bwd.cu", "          for (int i = 0; i < kH; ++i)\n"
+     "            if (t0 + stp + i < S) dst[i] = sum[i];",
+     "          for (int i = 0; i < 0; ++i)\n"
+     "            if (t0 + stp + i < S) dst[i] = sum[i];"]]
+
 SETS = {
     # the tensor-core SSD backward's fp32 operands split back into hi + lo
     # bf16 terms, one kind at a time and all at once: what each split buys
@@ -282,6 +299,41 @@ SETS = {
                       "  if (0) flash_bwd_dkdv_wgmma<D>\n"]],
         "no dQ": [["flash_bwd.cu", "  flash_bwd_dq_wgmma<D>\n",
                    "  if (0) flash_bwd_dq_wgmma<D>\n"]],
+    },
+    # each launch of the selective-scan backward alone (wrong on
+    # purpose): the forward's carries (pass 1), the backward scan (pass
+    # 2), the partials' sums (pass 3); and pass 2 without its dB / dC sums
+    # (no contributions to shared memory, no block or cluster sums)
+    "bwd_scan1_breakdown": {
+        "as is": [],
+        "states pass alone": [_SCAN1_BWD_NO_B, _SCAN1_BWD_NO_FINISH],
+        "backward pass alone": [_SCAN1_BWD_NO_A, _SCAN1_BWD_NO_FINISH],
+        "finish alone": [_SCAN1_BWD_NO_A, _SCAN1_BWD_NO_B],
+        "no dB / dC sums": _SCAN1_BWD_NO_SUMS,
+    },
+    # where the selective-scan backward pass's time goes (wrong on
+    # purpose): its dB / dC sums cut (no contributions to shared memory,
+    # no partials written), its lane scan cut; and 8 channels a block in
+    # bf16, two blocks an SM (right; twice the partials)
+    "bwd_scan1_cuts": {
+        "as is": [],
+        "8 channels a block, two an SM": [
+            ["scan1_bwd.cu", "constexpr int kCT = sizeof(T) == 2 ? 16 : 8;",
+             "constexpr int kCT = 8;"],
+            ["scan1_bwd.cu", "  auto bwd = scan1_bwd_kernel<T, N, kK, CT, kG, 1>;",
+             "  auto bwd = scan1_bwd_kernel<T, N, kK, CT, kG, "
+             "sizeof(T) == 2 ? 2 : 1>;"],
+            ["../scan1/ops.py", "BWD_CHANNELS = {2: 16, 4: 8}",
+             "BWD_CHANNELS = {2: 8, 4: 8}"]],
+        "no dB / dC sums": _SCAN1_BWD_NO_SUMS,
+        "no lane scan": [
+            ["scan1_bwd.cu",
+             "      for (int off = 1; off < 32; off *= 2) {\n#pragma unroll\n"
+             "        for (int g = 0; g < G; ++g) {\n"
+             "          const float qp",
+             "      for (int off = 32; off < 32; off *= 2) {\n#pragma unroll\n"
+             "        for (int g = 0; g < G; ++g) {\n"
+             "          const float qp"]],
     },
     # the flash backward's score products over the padded d (d = 80: 8
     # k-steps instead of 5), and the depth of its ring
@@ -807,11 +859,11 @@ def ssd_child() -> int:
 
 
 def bwd_child(which: str) -> int:
-    """The flash (``which`` "flash") or SSD backward's check at
-    ``chip_smoke.bwd_cases`` (B=4, S=512, bf16: the worst gradient's ratio
-    to ``BWD_TOL`` of its max |g|, inf if two calls differ) and its time
-    at the training shapes (zamba2-2.7b's B=4, S=2048; smollm-135m's flash
-    at B=8)."""
+    """The flash (``which`` "flash"), SSD ("ssd") or selective-scan
+    ("scan1") backward's check at ``chip_smoke.bwd_cases`` (B=4, S=512,
+    bf16: the worst gradient's ratio to ``BWD_TOL`` of its max |g|, inf if
+    two calls differ) and its time at the training shapes (zamba2-2.7b's
+    B=4, S=2048; smollm-135m's flash and mamba-130m's scan at B=8)."""
     import torch
 
     sys.path.insert(1, ROOT)
@@ -820,11 +872,14 @@ def bwd_child(which: str) -> int:
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    for b, s in ((4, 512), (4, 2048), (8, 2048)):
+    at_b8 = {"flash_bwd_smollm", "scan1_bwd"}
+    shapes = ((4, 512), (8, 2048)) if which == "scan1" else (
+        (4, 512), (4, 2048), (8, 2048))
+    for b, s in shapes:
         for name, (kern, plain, *_r) in cs.bwd_cases(gen, bf16, b,
                                                      s).items():
             if not name.startswith(which + "_bwd") or (
-                    b == 8 and name != "flash_bwd_smollm"):
+                    b == 8 and name not in at_b8):
                 continue
             got, again, want = kern(), kern(), plain()
             ratio = max(cs.whole_ratio(g, w, cs.BWD_TOL[bf16],
@@ -977,7 +1032,8 @@ def run_variant(name: str, edits, micro: bool, kind: str, tree: str,
     flag = {"ssd": ["--ssd"], "decode": ["--decode"], "m1": ["--m1"],
             "conv": ["--conv"], "scan1": ["--scan1"], "fwd": ["--fwd"],
             "conv_bwd": ["--conv-bwd"],
-            "bwd_flash": ["--bwd", "flash"], "bwd_ssd": ["--bwd", "ssd"]}.get(
+            "bwd_flash": ["--bwd", "flash"], "bwd_ssd": ["--bwd", "ssd"],
+            "bwd_scan1": ["--bwd", "scan1"]}.get(
                 kind, ["--micro"] if micro else [])
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
                           "--child"] + flag, env=env, capture_output=True,
@@ -1009,6 +1065,7 @@ def main(spec: str, micro: bool, tree: str) -> int:
             variants = json.load(f)
     names = list(variants)
     kind = ("bwd_ssd" if spec.startswith("bwd_ssd") else
+            "bwd_scan1" if spec.startswith("bwd_scan1") else
             "bwd_flash" if spec.startswith("bwd_flash") else
             "ssd" if spec.startswith("ssd") else
             "scan1" if spec.startswith("scan1") else

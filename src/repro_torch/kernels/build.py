@@ -48,7 +48,7 @@ SIGNATURES: Dict[str, Tuple] = {
                               L, L, L, L, L, L, L, L, I, P),
     "repro_scan1_fwd": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     "repro_scan1_bwd": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
-                        I, I, P),
+                        I, I, I, P),
     "repro_mamba1_decode_fwd": (P, P, P, P, P, P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, P),
 }

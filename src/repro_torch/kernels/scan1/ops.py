@@ -198,41 +198,77 @@ class ScanFn(torch.autograd.Function):
         return selective_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy, dfinal)
 
 
-CHUNK_BWD = 32        # steps a chunk of the backward (csrc/scan1_bwd.cu)
-BWD_THREADS = 256     # (channel, state) lanes a block
+# the backward's plan (``csrc/scan1_bwd.cu``): steps a lane (a tile is 32
+# of them), states a group, channels a block (a warp each) by element
+# size: 16 in bf16, 8 in fp32
+BWD_STEPS, BWD_GROUP = 8, 2
+BWD_CHANNELS = {2: 16, 4: 8}
+BWD_TILE = 32 * BWD_STEPS
 
 
 class Scan1BwdPlan(NamedTuple):
-    """How one backward call is cut: ``channels`` a block (256 / N, one
-    batch row), ``blocks`` (channel blocks x B) of the main kernel,
-    ``chunks`` of 32 steps (h is kept at each one's start), and
-    ``scratch``, the elements of its one fp32 scratch: h at the chunks'
-    starts [B, chunks, C, N], dA and dD partials a batch row [B, C, N]
-    and [B, C], and dB and dC partials a (step, channel block) [B, S,
-    channel blocks, N] each."""
+    """How one backward call is cut: ``tile`` steps (32 lanes' runs of 8;
+    the first launch keeps h where each run starts), ``channels`` a
+    block of one batch row, ``ldc`` the row length the kernels read (C
+    rounded up to a block's channels, zeros past C), ``blocks`` of each
+    scan launch,
+    ``tiles``, ``partials`` (channel blocks a batch row: the fp32
+    partials of dB and dC a (batch row, step)), ``smem_bytes`` of dynamic
+    shared memory a block of the states pass and of the backward pass,
+    and ``scratch``, the elements of the one fp32 scratch: h where each
+    lane's 8 steps start [B, tiles, ldc, N, 32], dA and dD partials a
+    batch row [B, ldc, N] and [B, ldc], and the dB and dC partials [B,
+    partials, 2, N, S]."""
+    tile: int
     channels: int
+    ldc: int
     blocks: int
-    chunks: int
+    tiles: int
+    partials: int
+    smem_bytes: Tuple[int, int]
     scratch: int
 
 
-def scan1_bwd_plan(b: int, s: int, c: int, n: int) -> Scan1BwdPlan:
+def _bwd_smem(esz: int, n: int, ct: int) -> Tuple[int, int]:
+    """Bytes of ``csrc/scan1_bwd.cu``'s StatesLayout and BwdLayout: two
+    stages of the x (and dy) and dt runs (K rows each, then 16 bytes), B
+    (and C) raw and cooked (runs of K rows and a word); the backward
+    pass also each warp's dB / dC contributions of a group (runs of K + 1
+    words)."""
+    k, g = BWD_STEPS, BWD_GROUP
+    run_x, run_d = k * ct * esz + 16, k * ct * 4 + 16
+    raw, cooked = BWD_TILE * n * esz, 128 * (k * n * esz // 4 + 1)
+    states = 2 * 32 * (run_x + run_d) + raw + cooked
+    bwd = (2 * 32 * (2 * run_x + run_d) + 2 * (raw + cooked)
+           + ct * 2 * g * 32 * (k + 1) * 4)
+    return states, bwd
+
+
+def scan1_bwd_plan(b: int, s: int, c: int, n: int,
+                   dtype=torch.bfloat16) -> Scan1BwdPlan:
     if n not in D_STATES:
         raise ValueError(f"selective scan backward built for d_state in "
                          f"{D_STATES}, got {n}")
-    cb = BWD_THREADS // n
-    nblk = -(-c // cb)
-    nch = -(-s // CHUNK_BWD)
-    return Scan1BwdPlan(cb, nblk * b, nch,
-                        b * (nch * c * n + c * n + c + 2 * s * nblk * n))
+    esz = build.dtype_size(dtype)
+    ct = BWD_CHANNELS[esz]
+    ldc = -(-c // ct) * ct
+    tiles = -(-s // BWD_TILE)
+    nblk = ldc // ct
+    return Scan1BwdPlan(BWD_TILE, ct, ldc, b * nblk, tiles, nblk,
+                        _bwd_smem(esz, n, ct),
+                        b * (tiles * ldc * n * 32 + ldc * n + ldc
+                             + 2 * nblk * n * s))
 
 
 def selective_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy, dfinal=None):
-    """The backward kernel (``csrc/scan1_bwd.cu``) of the selective scan
+    """The backward kernels (``csrc/scan1_bwd.cu``) of the selective scan
     from a zero initial state: (dx, ddt, dA, dB, dC, dD), each in its
     input's dtype, from the forward's inputs, ``dy`` [B,S,C] and the
-    final state's gradient ``dfinal`` ([B,C,N] or None).  Two launches
-    (the scan, then the fixed-order sums of the partials), one call."""
+    final state's gradient ``dfinal`` ([B,C,N] or None).  Three launches
+    (the forward's states where each lane's run starts, the backward
+    scan, the fixed-order sums of the partials), one call; rows of x, dt
+    and dy are padded with zeros to ``ldc`` where C is off a block's
+    channels."""
     if x.device.type != "cuda":
         raise ValueError(f"selective scan backward kernel needs a CUDA "
                          f"tensor, got {x.device}")
@@ -247,10 +283,17 @@ def selective_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy, dfinal=None):
     if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError("x, B and C must share one dtype")
     code = build.dtype_code(x.dtype)
-    plan = scan1_bwd_plan(b, s, c, n)
-    xc, bc, cc = x.contiguous(), Bm.contiguous(), Cm.contiguous()
-    dyc = dy.to(x.dtype).contiguous()
-    dtf, Af, Df = (t.float().contiguous() for t in (dt, A, D))
+    plan = scan1_bwd_plan(b, s, c, n, x.dtype)
+    # the kernels stage x, dt, dy (rows ldc long), B and C in 16-byte
+    # pieces
+    pad = plan.ldc - c
+    xc, dtf, dyc = (torch.nn.functional.pad(t.contiguous(), (0, pad))
+                    if pad else t.contiguous()
+                    for t in (x, dt.float(), dy.to(x.dtype)))
+    xc, dtf, dyc, bc, cc = (t.clone() if t.data_ptr() % 16 else t
+                            for t in (xc, dtf, dyc, Bm.contiguous(),
+                                      Cm.contiguous()))
+    Af, Df = (t.float().contiguous() for t in (A, D))
     dff = None if dfinal is None else dfinal.float().contiguous()
     scratch = torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(xc)
@@ -262,10 +305,12 @@ def selective_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy, dfinal=None):
         cc.data_ptr(), Df.data_ptr(), dyc.data_ptr(),
         0 if dff is None else dff.data_ptr(), scratch.data_ptr(),
         dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-        dC.data_ptr(), dD.data_ptr(), b, s, c, n, code,
+        dC.data_ptr(), dD.data_ptr(), b, s, c, plan.ldc, n, code,
         build.stream_ptr(x.device))
     build.check(rc, "repro_scan1_bwd")
     selective_scan_bwd_cuda.launches += 1
+    if pad:
+        dx, ddt = dx[..., :c].contiguous(), ddt[..., :c].contiguous()
     return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB.to(Bm.dtype),
             dC.to(Cm.dtype), dD.to(D.dtype))
 

@@ -1337,11 +1337,14 @@ def _bwd_case(kind, rn, td):
                 lambda: ssd_ref.ssd_chunked_bwd_ref(x, dt, A, Bm, Cm, D, dy,
                                                     st, chunk=q))
     if kind.startswith("scan1"):
-        # the Mamba-1 scan's backward over 5 chunks of 32 steps and a
-        # ragged last one, channels off the block (N = 16: 16 a block;
-        # N = 8: 32), with the final state's gradient
+        # the Mamba-1 scan's backward with the final state's gradient:
+        # inside one 256-step tile with channels off the block (40, 50);
+        # over three tiles, the last ragged, channels off the cluster's 64
+        # (200), at N = 16 and 8
         b, s, c, n = {"scan1": (2, 150, 40, 16),
-                      "scan1_n8": (3, 70, 50, 8)}[kind]
+                      "scan1_n8": (3, 70, 50, 8),
+                      "scan1_tiles": (2, 700, 200, 16),
+                      "scan1_tiles_n8": (2, 700, 200, 8)}[kind]
         gen = torch.Generator(device="cuda").manual_seed(2)
         (x, dt, A, Bm, Cm, D), _ = scan_ref.model_scale_inputs(gen, b, s, c,
                                                                n, td)
@@ -1416,7 +1419,8 @@ def test_conv1d_bwd_kernel(cuda, dtype, c, s, k):
                                   "flash80", "flash128", "flash256",
                                   "flash_window16", "flash_window64",
                                   "flash_window256", "flash_noncausal16",
-                                  "flash_noncausal80", "scan1", "scan1_n8"])
+                                  "flash_noncausal80", "scan1", "scan1_n8",
+                                  "scan1_tiles", "scan1_tiles_n8"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_kernels_match_plain_and_repeat(cuda, dtype, kind):
     """Each backward kernel against its plain backward: every gradient

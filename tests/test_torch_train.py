@@ -310,6 +310,146 @@ def test_ssd_backward_three_passes():
         _hold(a, w, name=f"ssd three-pass grad {i}")
 
 
+def _lane_scan_up(pa, pb):
+    """Five-level inclusive scan of the maps h -> pa h + pb over the last
+    dim (32 lanes), lower lanes first, as the kernel's __shfl_up_sync."""
+    lane = torch.arange(32)
+    for off in (1, 2, 4, 8, 16):
+        qa = torch.roll(pa, off, -1)
+        qb = torch.roll(pb, off, -1)
+        on = lane >= off
+        pb = torch.where(on, pa * qb + pb, pb)
+        pa = torch.where(on, pa * qa, pa)
+    return pa, pb
+
+
+def _lane_scan_down(P, Q):
+    """Five-level inclusive suffix scan of the maps c -> P c + Q over the
+    last dim: lane l ends with lanes l..31 composed, l's map outermost
+    (__shfl_down_sync)."""
+    lane = torch.arange(32)
+    for off in (1, 2, 4, 8, 16):
+        qp = torch.roll(P, -off, -1)
+        qq = torch.roll(Q, -off, -1)
+        on = lane + off < 32
+        Q = torch.where(on, P * qq + Q, Q)
+        P = torch.where(on, P * qp, P)
+    return P, Q
+
+
+def _scan1_bwd_tiles(x, dt, A, Bm, Cm, D, dy, dfin, k):
+    """``csrc/scan1_bwd.cu``'s decomposition in plain fp32: tiles of 32 k
+    steps, lane l owning steps l k .. l k + k - 1.  Pass 1 keeps h where
+    each lane's run starts (each lane's folded map, the lanes' scan from
+    the carried state).  Pass 2 walks the tiles in reverse: the
+    gradient's map c -> a (C dy + c) folded backwards over each run (its
+    product that of the run's a), the suffix scan over lanes from the
+    carry out of the tile above (seeded from ``dfin``) give the carry
+    into each lane's last step; one backward walk gives g, one forward
+    walk from pass 1's start h and the contributions."""
+    b, s, c = x.shape
+    n = A.shape[-1]
+    T = 32 * k
+    tiles = -(-s // T)
+    pad = tiles * T - s
+
+    def tiled(t):   # [b, S, ...] -> [tiles, b, 32 lanes, k, ...]
+        t = torch.nn.functional.pad(t, (0,) * (2 * (t.dim() - 2)) + (0, pad))
+        return t.reshape(b, tiles, 32, k, *t.shape[2:]).transpose(0, 1)
+    xt, dtt, dyt = tiled(x), tiled(dt), tiled(dy)
+    Bt, Ct = tiled(Bm), tiled(Cm)
+    # [tiles, b, lane, k, c, n]
+    a = torch.exp(dtt[..., None] * A)
+    u = (dtt * xt)[..., None] * Bt[..., None, :]
+    cdy = dyt[..., None] * Ct[..., None, :]
+
+    def fold(i):
+        pa, pb = a[i][:, :, 0], u[i][:, :, 0]
+        for j in range(1, k):
+            pb = a[i][:, :, j] * pb + u[i][:, :, j]
+            pa = pa * a[i][:, :, j]
+        return pa, pb                                  # [b, lane, c, n]
+
+    def lanes_last(t):
+        return t.permute(0, 2, 3, 1)                   # [b, c, n, lane]
+
+    # pass 1: h where each lane's run starts, every tile
+    starts, carry = [], torch.zeros(b, c, n)
+    for i in range(tiles):
+        pa, pb = (lanes_last(t) for t in fold(i))
+        pa, pb = _lane_scan_up(pa, pb)
+        hend = pa * carry[..., None] + pb
+        starts.append(torch.cat([carry[..., None], hend[..., :31]], -1))
+        carry = hend[..., 31]
+    # pass 2
+    dx = torch.zeros(tiles, b, 32, k, c)
+    ddt = torch.zeros_like(dx)
+    dB = torch.zeros(tiles, b, 32, k, n)
+    dC = torch.zeros_like(dB)
+    dA = torch.zeros(c, n)
+    gc = torch.zeros(b, c, n) if dfin is None else dfin.clone()
+    for i in reversed(range(tiles)):
+        ai, qi = a[i], cdy[i]
+        own = lanes_last(torch.prod(ai, 2))
+        Q = ai[:, :, k - 1] * qi[:, :, k - 1]
+        for j in range(k - 2, -1, -1):
+            Q = ai[:, :, j] * (qi[:, :, j] + Q)
+        P, Q = _lane_scan_down(own, lanes_last(Q))
+        cend = P * gc[..., None] + Q
+        cin = torch.cat([cend[..., 1:], gc[..., None]], -1)
+        gc = cend[..., 0]
+        g = [None] * k
+        cc = cin.permute(0, 3, 1, 2)                   # [b, lane, c, n]
+        for j in range(k - 1, -1, -1):
+            g[j] = qi[:, :, j] + cc
+            cc = ai[:, :, j] * g[j]
+        h = starts[i].permute(0, 3, 1, 2)
+        for j in range(k):
+            ah = ai[:, :, j] * h
+            h = ah + u[i][:, :, j]
+            w = ah * g[j]
+            dtj, xj, dyj = dtt[i][:, :, j], xt[i][:, :, j], dyt[i][:, :, j]
+            usum = (Bt[i][:, :, j, None, :] * g[j]).sum(-1)
+            dx[i][:, :, j] = dtj * usum + D * dyj
+            ddt[i][:, :, j] = xj * usum + (A * w).sum(-1)
+            dA += (dtj[..., None] * w).sum((0, 1))
+            dB[i][:, :, j] = ((dtj * xj)[..., None] * g[j]).sum(2)
+            dC[i][:, :, j] = (h * dyj[..., None]).sum(2)
+
+    def untile(t):
+        return t.transpose(0, 1).reshape(b, tiles * T, *t.shape[4:])[:, :s]
+    return (untile(dx), untile(ddt), dA, untile(dB), untile(dC),
+            (x * dy).sum((0, 1)))
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_scan1_backward_tile_decomposition(n):
+    """The selective-scan backward kernel's algebra (tiles of 32 K steps
+    with the kernel's K, the lanes' folded maps, the forward and suffix
+    scans over lanes, the state and gradient carries between tiles) in
+    plain fp32 against ``jax.vjp`` of the reference's
+    ``selective_scan_ref``: 3 tiles, the last ragged, channels off the
+    kernel's block, the final state's gradient; each gradient within
+    1e-5 of its max |g|."""
+    rng = np.random.default_rng(5)
+    b, s, c = 2, 2 * scan_ops.BWD_TILE + 37, 5
+    x = rng.standard_normal((b, s, c)).astype(np.float32)
+    dt = (0.001 + 0.05 * rng.random((b, s, c))).astype(np.float32)
+    A = -(1.0 + 15 * rng.random((c, n))).astype(np.float32)
+    Bm = rng.standard_normal((b, s, n)).astype(np.float32)
+    Cm = rng.standard_normal((b, s, n)).astype(np.float32)
+    D = rng.standard_normal(c).astype(np.float32)
+    dy = rng.standard_normal((b, s, c)).astype(np.float32)
+    dfin = rng.standard_normal((b, c, n)).astype(np.float32)
+    ins = (x, dt, A, Bm, Cm, D)
+    _, vjp = jax.vjp(lambda *a: jscan.selective_scan_ref(*a), *ins)
+    want = vjp((dy, dfin))
+    t = [torch.from_numpy(v) for v in ins + (dy, dfin)]
+    got = _scan1_bwd_tiles(*t, k=scan_ops.BWD_STEPS)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _hold(g, w, tol=1e-5, name=f"scan1 tiles n={n} grad {i}")
+
+
 @pytest.mark.parametrize("arch", ["gemma3-1b", "hubert-xlarge",
                                   "mamba-130m"])
 def test_new_backward_plans(arch):
@@ -318,9 +458,10 @@ def test_new_backward_plans(arch):
     on wgmma in 64-key and 64-row blocks (within a block's 227 KB of
     shared memory; its fp32 on CUDA cores in 32-row tiles),
     hubert-xlarge's non-causal d = 80 on wgmma, and mamba-130m's
-    selective-scan backward: 16 channels a block, chunks of 32 steps, its
-    scratch as the kernel lays it out (h at the chunks' starts, dA and dD
-    a batch row, dB and dC a channel block)."""
+    selective-scan backward: 256-step tiles, 16 channels a block in bf16
+    (8 in fp32; one dB / dC partial a block), within a block's shared
+    memory, its scratch as the kernels lay it out (h where each lane's
+    run starts, dA and dD a batch row, dB and dC a channel block)."""
     from repro_torch.core.registry import get
     cfg = get(arch)
     for s in (2048, 1500):
@@ -344,12 +485,21 @@ def test_new_backward_plans(arch):
                 assert max(plan.smem_bytes) <= 227 * 1024
         if cfg.ssm is not None:
             c, n = cfg.ssm.d_inner(cfg.d_model), cfg.ssm.d_state
-            plan = scan_ops.scan1_bwd_plan(4, s, c, n)
-            nblk, nch = -(-c // 16), -(-s // 32)
-            assert (plan.channels, plan.blocks, plan.chunks) == (16, 4 * nblk,
-                                                                 nch)
-            assert plan.scratch == 4 * (nch * c * n + c * n + c
-                                        + 2 * s * nblk * n)
+            plan = scan_ops.scan1_bwd_plan(4, s, c, n, torch.bfloat16)
+            tiles, nblk = -(-s // 256), -(-c // 16)
+            assert (plan.tile, plan.channels) == (256, 16)
+            assert (plan.ldc, plan.tiles, plan.partials) == (c, tiles, nblk)
+            assert plan.blocks == 4 * nblk
+            # dB and dC summed over each block's 16 channels on chip: a
+            # partial a (batch row, step) is C / 16 floats
+            assert plan.partials == c // 16
+            assert plan.scratch == 4 * (tiles * c * n * 32 + c * n + c
+                                        + 2 * nblk * n * s)
+            # one block of 16 warps an SM in bf16; fp32 8 warps
+            assert max(plan.smem_bytes) <= 227 * 1024
+            plan32 = scan_ops.scan1_bwd_plan(4, s, c, n, torch.float32)
+            assert (plan32.channels, plan32.partials) == (8, c // 8)
+            assert max(plan32.smem_bytes) <= 227 * 1024
 
 
 def test_grad_check_decides_the_route():
