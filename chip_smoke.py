@@ -14,14 +14,18 @@ Phases (each prints its lines and is fatal on failure):
      mamba-130m, also with valid lengths 0, 1, 2, K-1, 200 and S across
      rows (the new state held bit for bit) and timed once with L2
      flushed before each call;
-     the Mamba-2 kernels at mamba2-2.7b's, zamba2-2.7b's and
-     falcon-h1-0.5b's shapes (SSD also on a 16-chunk sequence, and the
+     the Mamba-2 kernels at mamba2-2.7b's, zamba2-2.7b's,
+     falcon-h1-0.5b's and the paper's zamba2-1.2b's (64 heads, d_state
+     64), mamba2-780m's (48 heads) and mamba2-130m's (24) shapes, conv1d
+     at theirs (C = 4224, 3328, 1792; SSD also on a 16-chunk sequence, and the
      decode step again, with dt, A and the states drawn at the model's
      scales; each (token, head) row of SSD's y held to a limit of its
      own), the attention kernels at zamba2-2.7b's (d=80), llama3-8b's
      (d=128, GQA 4:1), qwen2.5-0.5b's (d=64, GQA 7:1), phi-3-mini's
-     (d=96), falcon-h1-0.5b's (d=128, GQA 2:1) and glm4-9b's (d=128, 16
-     query heads per KV head) shapes and a decode whose valid lengths fall
+     (d=96), falcon-h1-0.5b's (d=128, GQA 2:1), glm4-9b's (d=128, 16
+     query heads per KV head), zamba2-1.2b's (32 heads of 128, no GQA),
+     qwen2.5-1.5b's (12 on 2 of 128) and llama3.2-1b's (32 on 8 of 64)
+     shapes and a decode whose valid lengths fall
      on tile and split edges, each attention query row held to a limit of
      its own;
      the Mamba-1 kernels (selective scan, fused decode step) at
@@ -49,7 +53,11 @@ Phases (each prints its lines and is fatal on failure):
      global), falcon-h1-0.5b (18 ``hybrid_par`` layers: attention
      and Mamba-2 side by side), then qwen3-moe-235b-a22b cut to 8 of its
      94 ``moe`` layers with bf16 params (42.3 GB; each layer is 2.49 B
-     parameters); the launch counters are reset just before each run and
+     parameters), then the paper's fig1, fig7 and fig8 models:
+     qwen2.5-0.5b (24 layers), mamba2-780m (48), mamba2-130m (24) and
+     zamba2-1.2b (38: 19 shared-block positions), each row of phase 3 at
+     them printed again with its launches; the launch counters are
+     reset just before each run and
      read just after, each run must launch exactly the kernels of its
      layer kinds, each exactly once per layer and prefill chunk (flash,
      ring flash, conv1d, SSD or the scan) or token step (decode
@@ -67,7 +75,12 @@ Phases (each prints its lines and is fatal on failure):
      of the gshard and the ragged dispatch on the served cache, the
      ragged tokens equal to gshard's up to a near tie and their
      teacher-forced logits within phase 5's bf16 limit
-     (``phase_moe_decode``);
+     (``phase_moe_decode``); on zamba2-1.2b's served cache a 64-token
+     burst sampled at temperature 0.8 (``phase_sampling``: one seed
+     twice, bit for bit, tokens below the vocab, the sentinel clear,
+     exact launches, no host sync) and its ms a step beside the greedy
+     eager burst's; then ``launch.serve`` on reduced zamba2-1.2b at the
+     default device (``phase_launcher``);
   5. the kernel path against the plain path on the card (one prompt,
      teacher-forced decode): mamba2-2.7b at 8 layers, zamba2-2.7b at 12
      layers (two shared-block positions), a 4-layer ``dense`` model at
@@ -82,7 +95,9 @@ Phases (each prints its lines and is fatal on failure):
      KV head) at 4 layers in bf16 and fp32, qwen3-moe-235b-a22b at 4
      layers in bf16 and 2 in fp32 and llama4-maverick at one unit (2
      layers) in bf16 only (its fp32 copy does not fit), params in the
-     compute dtype; the plain run must launch no kernel; for a MoE model
+     compute dtype; the paper's mamba2-130m, mamba2-780m and zamba2-1.2b
+     at full depth, qwen2.5-1.5b and llama3.2-1b at 4 layers, in bf16
+     and fp32; the plain run must launch no kernel; for a MoE model
      every routed choice that differs between the paths must be a near
      tie of the router's logits (the share of such choices is printed),
      and in bf16 the limit holds on the logits rows whose own token kept
@@ -211,6 +226,10 @@ from unittest import mock
 import torch
 
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
+# the paper's models whose kernel instances phase 3 runs beside the
+# earlier configs' (rows labelled by model)
+PAPER_MODELS = ("zamba2-1.2b", "mamba2-780m", "mamba2-130m", "qwen2.5-0.5b",
+                "qwen2.5-1.5b", "llama3.2-1b")
 PEAK_FLOPS = {torch.bfloat16: 989e12,            # dense bf16 tensor cores
               torch.float32: 67e12}              # fp32 outside tensor cores
 # exponentials a second: the special-function units issue 16 ex2 a clock
@@ -878,8 +897,10 @@ def attention_cases():
     shared attention, llama3-8b's GQA, gemma3-1b's global layers,
     qwen2.5-0.5b's d=64 GQA 7:1, phi-3-mini's d=96, falcon-h1-0.5b's
     attention half (GQA 2:1), glm4-9b's and qwen3-moe-235b-a22b's 16
-    query heads per KV head and llama4-maverick's 5; a flash chunk of 256
-    queries, and decode rows of the serving run's lengths."""
+    query heads per KV head and llama4-maverick's 5, zamba2-1.2b's shared
+    attention (32 heads of 128, no GQA), qwen2.5-1.5b's (12 on 2 of 128)
+    and llama3.2-1b's (32 on 8 of 64); a flash chunk of 256 queries, and
+    decode rows of the serving run's lengths."""
     offs = [0, 512, 1024, 1792]
     lens = [301, 701, 1001, 2048]
     return [("zamba2-2.7b", 32, 32, 80, 2048, offs, lens),
@@ -890,7 +911,10 @@ def attention_cases():
             ("falcon-h1-0.5b", 8, 4, 128, 2048, offs, lens),
             ("glm4-9b", 32, 2, 128, 2048, offs, lens),
             ("qwen3-moe-235b-a22b", 64, 4, 128, 2048, offs, lens),
-            ("llama4-maverick-400b-a17b", 40, 8, 128, 2048, offs, lens)]
+            ("llama4-maverick-400b-a17b", 40, 8, 128, 2048, offs, lens),
+            ("zamba2-1.2b", 32, 32, 128, 2048, offs, lens),
+            ("qwen2.5-1.5b", 12, 2, 128, 2048, offs, lens),
+            ("llama3.2-1b", 32, 8, 64, 2048, offs, lens)]
 
 
 B_ATTN, SQ_ATTN, MAX_SEQ_ATTN = 4, 256, 4096
@@ -1470,6 +1494,98 @@ def phase_steady_bursts(cfg, eng, gen):
     out["spare_state_bytes"] = nbytes(*tree_leaves(spare))
     out["graph_pool_bytes"] = graph_pool_bytes(runner)
     return out
+
+
+def phase_sampling(cfg, eng, n: int = 64, temperature: float = 0.8,
+                   seed: int = 0):
+    """A sampled ``n``-token burst (``decode_tokens`` at ``temperature``,
+    a generator on the card seeded with ``seed``) on clones of the served
+    cache, all 4 slots live where phase 4 left them: twice from one seed,
+    tokens bit for bit, every token below the vocab, the sentinel clear,
+    exactly one decode-step or decode-attention launch a layer and step,
+    and no host sync inside the burst (``torch.cuda.set_sync_debug_mode``
+    raises on one); its ms a token step (median of 3 after one more)
+    beside the greedy eager burst's from the same cache."""
+    from repro_torch.models.lm import decode_tokens
+    from repro_torch.serving.bucketing import clamped_bucket
+    pos = [int(p) for p in eng.cache["pos"].tolist()]
+    bucket = clamped_bucket(max(pos) + n, eng.kv_extent)
+    first = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+
+    def burst(temperature_, gen=None, checked=False):
+        cache = clone_cache(eng.cache)
+        torch.cuda.synchronize()
+        if checked:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = decode_tokens(cfg, eng.params, cache, first, n,
+                                kv_bucket=bucket, rope_len=eng.rope_len,
+                                with_sentinel=True,
+                                temperature=temperature_, generator=gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return out
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    reset_counters()
+    toks, _, ok = burst(temperature, seeded(), checked=True)
+    launches = {k: v for k, v in read_counters().items() if v}
+    want = {k: v for k, v in exact_launches(cfg, 0, n).items() if v}
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: a sampled burst launched "
+                             f"{launches}, expected {want}")
+    again, _, ok2 = burst(temperature, seeded())
+    if not torch.equal(toks, again):
+        raise AssertionError(f"{cfg.name}: one seed gave two bursts")
+    if not (bool(ok.all()) and bool(ok2.all())):
+        raise AssertionError(f"{cfg.name}: the sentinel flags a sampled row")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: a sampled token outside the "
+                             "vocab")
+    greedy = burst(0.0)[0]
+    out = dict(batch=4, tokens=n, temperature=temperature, kv_bucket=bucket,
+               same_seed_identical=True, sentinel_ok=True,
+               distinct_tokens=int(toks.unique().numel()),
+               tokens_equal_to_greedy=float((toks == greedy).float().mean()),
+               launches=launches)
+    for name, run in (("sampled", lambda: burst(temperature, seeded())),
+                      ("greedy_eager", lambda: burst(0.0))):
+        times = []
+        for _ in range(4):
+            ts = time.monotonic()
+            run()
+            times.append(time.monotonic() - ts)
+        out[f"{name}_ms_per_token_step"] = (
+            statistics.median(times[1:]) * 1e3 / n)
+    return out
+
+
+def phase_launcher(arch: str):
+    """``repro_torch.launch.serve.main`` at the default device (the card)
+    on ``arch`` reduced: every request ``ok`` with ``--max-new`` tokens,
+    and the launches of the kernels of its layer kinds, none else."""
+    from repro_torch.configs import reduced
+    from repro_torch.core.registry import get
+    from repro_torch.launch import serve
+    reset_counters()
+    t0 = time.monotonic()
+    done = serve.main(["--arch", arch, "--requests", "8", "--slots", "4",
+                       "--max-new", "16"])
+    wall = time.monotonic() - t0
+    launches = {k: v for k, v in read_counters().items() if v}
+    if len(done) != 8 or any(r.status != "ok" or len(r.out) != 16
+                             for r in done):
+        raise AssertionError(f"launch.serve {arch}: "
+                             f"{[(r.rid, r.status, len(r.out)) for r in done]}")
+    on_path = path_kernels(reduced(get(arch)))
+    if set(launches) != on_path:
+        raise AssertionError(f"launch.serve {arch}: launched {launches}, "
+                             f"its kernels are {sorted(on_path)}")
+    return dict(requests=len(done), tokens=sum(len(r.out) for r in done),
+                wall_s=wall, launches=launches)
 
 
 def plain_attention():
@@ -3323,7 +3439,10 @@ def main() -> int:
                                      mamba2_2p7b, mamba_130m,
                                      qwen3_moe_235b, smollm_135m,
                                      zamba2_2p7b)
-    from repro_torch.configs.paper_models import PHI3_MINI, QWEN25_05B
+    from repro_torch.configs.paper_models import (LLAMA32_1B, MAMBA2_130M,
+                                                  MAMBA2_780M, PHI3_MINI,
+                                                  QWEN25_05B, QWEN25_15B,
+                                                  ZAMBA2_12B)
     from repro_torch.kernels import build
 
     card = card_line()
@@ -3341,7 +3460,10 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for cfg in (mamba2_2p7b, zamba2_2p7b, falcon_h1_05b):
+    # the paper's models: SSD and the decode step at zamba2-1.2b's d_state
+    # 64 (64 heads), at 48 and 24 heads; conv1d at C = 4224, 3328, 1792
+    for cfg in (mamba2_2p7b, zamba2_2p7b, falcon_h1_05b, ZAMBA2_12B,
+                MAMBA2_780M, MAMBA2_130M):
         for r in phase_kernels(cfg, gen):
             rows.append(dict(r, at=cfg.name))
     rows += phase_attention(gen)
@@ -3357,6 +3479,7 @@ def main() -> int:
     # the kernels line: zamba2-2.7b's shapes, the path that runs the five
     # Mamba-2 and attention kernels, mamba-130m's for the Mamba-1 two, and
     # gemma3-1b's serving chunk (bf16) for the ring mode
+    paper_rows = [r for r in rows if r["at"] in PAPER_MODELS]
     rows = [r for r in rows if r["at"] == zamba2_2p7b.name
             or (r["at"] == mamba_130m.name and r["name"] != "causal_conv1d")]
     rows.append(dict(ring_rows[0], at=gemma3_1b.name))
@@ -3369,7 +3492,10 @@ def main() -> int:
                           (mamba_130m, None, ""), (gemma3_1b, None, ""),
                           (falcon_h1_05b, None, ""),
                           (qwen3_8, torch.bfloat16,
-                           f" of {qwen3_moe_235b.n_layers}, bf16 params")):
+                           f" of {qwen3_moe_235b.n_layers}, bf16 params"),
+                          # the paper's fig1, fig7 and fig8 models
+                          (QWEN25_05B, None, ""), (MAMBA2_780M, None, ""),
+                          (MAMBA2_130M, None, ""), (ZAMBA2_12B, None, "")):
         t0 = time.perf_counter()
         serving, launches[cfg.name], reuse = phase_serving(cfg, gen, pdt)
         torch.cuda.empty_cache()
@@ -3395,8 +3521,27 @@ def main() -> int:
                   f"layers{cut}), B=4, gshard against ragged "
                   f"({time.perf_counter() - t0:.1f} s): "
                   + json.dumps(moe_dec), flush=True)
+        if cfg is ZAMBA2_12B:
+            t0 = time.perf_counter()
+            sampled = phase_sampling(cfg, reuse["eng"])
+            print(f"phase 4 sampled burst, {cfg.name}, B=4, "
+                  f"{sampled['tokens']} tokens, T={sampled['temperature']}, "
+                  f"against the greedy eager burst "
+                  f"({time.perf_counter() - t0:.1f} s): "
+                  + json.dumps(sampled), flush=True)
         del reuse
         torch.cuda.empty_cache()
+    for r in paper_rows:
+        r["launches"] = launches.get(r["at"], {}).get(r["name"])
+        print(f"phase 3 kernel at the paper's {r['at']}, launches from its "
+              f"phase 4 run (null: phase 5 only): " + json.dumps(r),
+              flush=True)
+    t0 = time.perf_counter()
+    launched = phase_launcher(ZAMBA2_12B.name)
+    print(f"phase 4 launch.serve --arch {ZAMBA2_12B.name} (reduced), 8 "
+          f"requests of 32 tokens, 16 new, at the default device "
+          f"({time.perf_counter() - t0:.1f} s): " + json.dumps(launched),
+          flush=True)
 
     for cfg, n, cd, plen, *pdt in ((mamba2_2p7b, 8, "bfloat16", 512),
                              (zamba2_2p7b, 12, "bfloat16", 512),
@@ -3424,6 +3569,25 @@ def main() -> int:
                               512),
                              (glm4_9b, 4, "bfloat16", 512),
                              (glm4_9b, 4, "float32", 512),
+                             # the paper's models: the Mamba-2 ones and
+                             # zamba2-1.2b at full depth, the dense ones
+                             # at full width
+                             (MAMBA2_130M, MAMBA2_130M.n_layers, "bfloat16",
+                              512),
+                             (MAMBA2_130M, MAMBA2_130M.n_layers, "float32",
+                              512),
+                             (MAMBA2_780M, MAMBA2_780M.n_layers, "bfloat16",
+                              512),
+                             (MAMBA2_780M, MAMBA2_780M.n_layers, "float32",
+                              512),
+                             (ZAMBA2_12B, ZAMBA2_12B.n_layers, "bfloat16",
+                              512),
+                             (ZAMBA2_12B, ZAMBA2_12B.n_layers, "float32",
+                              512),
+                             (QWEN25_15B, 4, "bfloat16", 512),
+                             (QWEN25_15B, 4, "float32", 512),
+                             (LLAMA32_1B, 4, "bfloat16", 512),
+                             (LLAMA32_1B, 4, "float32", 512),
                              # params in the compute dtype: 4 layers of
                              # 2.49 B parameters, 19.9 GB in bf16, 39.8 GB
                              # in fp32

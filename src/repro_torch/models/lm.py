@@ -62,10 +62,11 @@ Entry points:
 * :func:`lm_prefill_chunk` — one state-carrying chunk of a chunked
   prefill, with per-row valid ``lengths``.
 * :func:`lm_decode_step` — one token for all rows.
-* :func:`decode_tokens` — ``n`` greedy steps with the token selected on
-  the device; the caller reads the whole burst with one host transfer.
-  On the card the serving layer runs it as one captured CUDA graph per
-  burst shape (``repro_torch.serving.graphs``).
+* :func:`decode_tokens` — ``n`` steps with the token selected on the
+  device (greedy, or sampled at a temperature); the caller reads the
+  whole burst with one host transfer.  On the card the serving layer
+  runs its greedy bursts as one captured CUDA graph per burst shape
+  (``repro_torch.serving.graphs``).
 """
 from __future__ import annotations
 
@@ -546,13 +547,46 @@ def lm_decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
     return _head(cfg, params, x), {"segments": new_segs, "pos": pos + 1}
 
 
+def _check_generator(generator: Optional[torch.Generator],
+                     device: torch.device) -> None:
+    """A generator on ``device`` (``cuda`` with no index is the current
+    card, as ``torch.Generator(device="cuda")`` gives it)."""
+    def indexed(d: torch.device) -> torch.device:
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    if generator is None:
+        raise ValueError("temperature sampling requires a generator")
+    if indexed(generator.device) != indexed(device):
+        raise ValueError(f"the generator is on {generator.device}, the "
+                         f"cache on {device}")
+
+
+def _select(lg: torch.Tensor, temperature: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The next tokens [B, 1] int32 from one step's logits [B, V]: the
+    argmax, or with ``temperature > 0`` ``jax.random.categorical``'s
+    Gumbel-max draw, ``argmax(lg / T - log(-log(u)))`` with ``u`` uniform
+    in fp32 in [tiny, 1) from one ``torch.rand`` on ``generator``."""
+    if temperature > 0.0:
+        u = torch.rand(lg.shape, generator=generator, device=lg.device,
+                       dtype=torch.float32)
+        u.clamp_min_(torch.finfo(torch.float32).tiny)
+        lg = lg.float() / temperature - torch.log(-torch.log(u))
+    return torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+
+
 def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
                   n: int, *, kv_bucket: Optional[int] = None,
                   rope_len: Optional[int] = None, with_sentinel: bool = False,
+                  temperature: float = 0.0,
+                  generator: Optional[torch.Generator] = None,
                   _spare_states=None):
-    """``n`` greedy steps: ``first_token`` ([B,1]) feeds the first step and
-    each next input is the argmax (first maximal index) taken on the
-    device, so the burst needs no host sync.  Returns (tokens [B,n] int32
+    """``n`` decode steps: ``first_token`` ([B,1]) feeds the first step and
+    each next input is selected on the device from the step's logits over
+    the first ``cfg.vocab_size`` columns, so the burst needs no host
+    sync: the argmax (first maximal index), or with ``temperature > 0`` a
+    draw from ``softmax(logits / temperature)``.  Returns (tokens [B,n] int32
     on the device, cache); token ``[:, i]`` is the output after consuming
     the (i-1)-th emitted token, exactly as ``n`` sequential
     :func:`lm_decode_step` calls.  ``kv_bucket`` (None for the whole
@@ -561,6 +595,15 @@ def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
     row whose ``pos`` is past the bucket writes nothing.  ``rope_len``
     (None, or the serving layer's ``max_seq``) extends the rope tables
     past the KV rows.
+
+    Sampling is the reference's ``jax.random.categorical`` with
+    ``generator`` (a ``torch.Generator`` on the cache's device) in place of
+    its ``rng`` key: ``argmax(logits / temperature + g)`` with Gumbel noise
+    ``g = -log(-log(u))``, ``u`` uniform in fp32 from one
+    ``torch.rand(..., generator=generator)`` a step, in step order.  The
+    generator's stream differs from ``jax.random``'s, so the tokens are
+    the same distribution, not the same draws.  ``temperature == 0``
+    draws nothing.
 
     ``with_sentinel`` adds the reference's divergence sentinel: ``ok``
     ([B] bool, on the device) is True where every step's logits over the
@@ -577,6 +620,8 @@ def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
     the burst reads and writes the same buffers on every replay.
     Without it the input cache's state leaves are left as they were."""
     _check_kv_bucket(cfg, kv_bucket)
+    if temperature > 0.0:
+        _check_generator(generator, tree_leaves(cache["segments"])[0].device)
     own = _state_leaves(cache) if _spare_states is not None else None
     tok = first_token.to(torch.int32)
     ok = (torch.ones((tok.shape[0],), dtype=torch.bool, device=tok.device)
@@ -591,7 +636,7 @@ def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
         lg = logits[:, 0, :cfg.vocab_size]
         if with_sentinel:
             ok = ok & torch.isfinite(lg).all(-1)
-        tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+        tok = _select(lg, temperature, generator)
         out.append(tok)
     if own is not None and n % 2:
         for a, s in zip(tree_leaves(own), tree_leaves(_spare_states)):

@@ -99,6 +99,12 @@ _OWN = "repro:"
 _LOOKAHEAD = 64
 _MAX_UNMATCHED = 0.01
 
+# small launches, each waited for, that open every trace: the tracer
+# loses the device records of a trace's first launches on the card
+# (dozens, and past a hundred, late in a long process), which would
+# leave a window's first graph replay unmatched
+TRACER_PRIMER = 256
+
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
@@ -417,10 +423,11 @@ class Profiler:
         try:
             with profile(activities=acts) as prof:
                 if torch.cuda.is_available():
-                    # one small operation first, so the tracer is live
-                    # when the window starts (it is not read)
-                    torch.ones(1, device="cuda").sum()
-                    _sync()
+                    # the primer comes before the window (it is not read)
+                    primer = torch.zeros(1, device="cuda")
+                    for _ in range(TRACER_PRIMER):
+                        primer.add_(1.0)
+                        _sync()
                 with _scope.recording(trace=True), record_function(WINDOW):
                     yield out
                 _sync()

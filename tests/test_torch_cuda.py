@@ -16,7 +16,12 @@ gemma3-1b's head_dim 256, qwen2.5-0.5b's 64 and phi-3-mini's 96, decode
 attention at glm4-9b's 16 query heads per KV head (and 10 at d=64, off
 the tiles), and the
 SSD scan at both served Mamba-2 models' (P, N) on 2 and 16 chunks at the
-model's scales, SSD, conv1d (with ragged valid lengths) and both decode
+model's scales, SSD and the Mamba-2 decode step at the paper's
+zamba2-1.2b's (64 heads, d_state 64), mamba2-780m's and mamba2-130m's
+heads, flash and decode attention at zamba2-1.2b's 32 heads of 128 on
+32, qwen2.5-1.5b's 12 on 2 and llama3.2-1b's 32 on 8 of 64, a sampled
+decode burst (``temperature``, ``generator``) repeated bit for bit,
+SSD, conv1d (with ragged valid lengths) and both decode
 steps writing into slots of stacked cache leaves, and the wrappers'
 refusals (unbuilt shapes, a destination that overlaps an input, a
 Mamba-1 d_inner past a cluster of 8 blocks); the full mamba2-2.7b,
@@ -255,6 +260,37 @@ def test_mamba2_decode_kernel(cuda, dtype, n):
     _close(got, dec_ref.mamba2_decode_fused_ref(*args, **kw), TOL[dtype])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,n", [(64, 64), (48, 128), (24, 128)],
+                         ids=["zamba2-1.2b", "mamba2-780m", "mamba2-130m"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_kernels_at_paper_models(cuda, dtype, h, n):
+    """The SSD scan on 2 chunks and the Mamba-2 decode step at the paper's
+    models' heads and d_state (P = 64, one group, chunk 128), inputs at
+    the model's scales: zamba2-1.2b's N = 64 over 64 heads (the
+    tensor-core SSD instance (128, 64, 64) in bf16), mamba2-780m's 48
+    and mamba2-130m's 24 heads at N = 128."""
+    td = DTYPES[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    args, h0 = ssd_ref.model_scale_inputs(gen, 2, 256, h, 64, n, td)
+    got = ssd_ops.ssd_chunked_cuda(*args, chunk=128, initial_state=h0)
+    torch.cuda.synchronize()
+    want = ssd_ref.ssd_chunked_ref(*args, chunk=128, initial_state=h0)
+    _close_rows(got[0], want[0], TOL[dtype])
+    _close(got[1:], want[1:], TOL[dtype])
+    rn = _rn(gen, cuda)
+    b, p, g, k = 4, 64, 1, 4
+    c = h * p + 2 * g * n
+    dargs = (rn(b, k - 1, c, dt=td), rn(b, h, p, n), rn(b, c, dt=td),
+             rn(c, k), rn(c), rn(b, h, dt=td), rn(h), rn(h), rn(h))
+    kw = dict(n_groups=g, d_state=n, headdim=p)
+    n0 = dec_ops.mamba2_decode_fused.launches
+    dgot = dec_ops.mamba2_decode_fused(*dargs, **kw)
+    torch.cuda.synchronize()
+    assert dec_ops.mamba2_decode_fused.launches == n0 + 1
+    _close(dgot, dec_ref.mamba2_decode_fused_ref(*dargs, **kw), TOL[dtype])
+
+
 def _cache_view(rn, b, s, kvh, d, dt):
     """k or v as the model hands it over: [B,KVH,S,d] view of [B,S,KVH,d]."""
     return rn(b, s, kvh, d, dt=dt).transpose(1, 2)
@@ -263,14 +299,17 @@ def _cache_view(rn, b, s, kvh, d, dt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,h,kvh", [(80, 4, 4), (128, 8, 2), (16, 4, 2),
                                      (32, 8, 2), (256, 4, 1), (64, 14, 2),
-                                     (96, 4, 4)])
+                                     (96, 4, 4), (128, 32, 32),
+                                     (128, 12, 2), (64, 32, 8)])
 @pytest.mark.parametrize("mode", ["offsets", "causal", "full", "window"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel(cuda, dtype, mode, d, h, kvh):
     """Per-row q_offset against a longer KV prefix (chunked prefill), plain
     causal, non-causal and windowed, at head_dim 80, 128 (GQA 4:1), 256
-    (gemma3-1b, GQA 4:1), 64 (qwen2.5-0.5b, GQA 7:1), 96 (phi-3-mini) and
-    the reduced sizes; query and key counts off the 64-row tiles."""
+    (gemma3-1b, GQA 4:1), 64 (qwen2.5-0.5b, GQA 7:1), 96 (phi-3-mini),
+    zamba2-1.2b's shared block (32 heads of 128, no GQA), qwen2.5-1.5b's
+    (12 on 2 of 128), llama3.2-1b's (32 on 8 of 64) and the reduced
+    sizes; query and key counts off the 64-row tiles."""
     rn = _rn(torch.Generator(device=cuda).manual_seed(3), cuda)
     td = DTYPES[dtype]
     b, sq = 3, 70
@@ -376,14 +415,17 @@ def test_flash_kernel_ring(cuda, dtype, d, h, kvh, case):
 @pytest.mark.parametrize("d,h,kvh", [(80, 32, 32), (128, 32, 8), (16, 4, 2),
                                      (64, 4, 1), (256, 4, 1), (64, 14, 2),
                                      (96, 4, 4), (128, 32, 2), (128, 12, 2),
-                                     (128, 8, 4), (64, 9, 3)])
+                                     (128, 8, 4), (64, 9, 3), (128, 32, 32),
+                                     (64, 32, 8)])
 @pytest.mark.parametrize("split_k", [None, 1, 3, 8])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel(cuda, dtype, split_k, d, h, kvh):
     """GQA groups of 1, 4, 2, 4, 4 (gemma3-1b's head_dim 256, whose fp32
     instance runs two warps a block), 7 (qwen2.5-0.5b, d=64), 1
     (phi-3-mini, d=96), 16 (glm4-9b: two N tiles of queries), 6
-    (hymba-1.5b), 2 (falcon-h1-0.5b) and 3 (smollm-135m, d=64); valid_len
+    (hymba-1.5b, qwen2.5-1.5b), 2 (falcon-h1-0.5b), 3 (smollm-135m, d=64),
+    1 at 32 heads of 128 (zamba2-1.2b's shared block) and 4 at 32 heads
+    of 64 (llama3.2-1b); valid_len
     of 1, on a tile edge (32, 64), one past it, and the whole cache; every
     split count gives the plain result."""
     rn = _rn(torch.Generator(device=cuda).manual_seed(4), cuda)
@@ -1617,3 +1659,32 @@ def test_train_step_kernel_path_matches_plain_path(cuda):
     for a, b in zip(g_k, g_p):
         err = float((a - b).abs().max())
         assert err <= 1e-4 * max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "llama3-8b"])
+def test_sampled_burst_on_the_card(cuda, arch):
+    """``decode_tokens`` at temperature 0.8 through the kernels: one seed
+    gives one burst bit for bit, tokens below the vocab, the sentinel
+    clear; temperature 0 with a generator is the greedy burst bit for bit
+    and draws nothing; a generator on the CPU is refused."""
+    from repro_torch.models import lm
+    cfg, params = _graph_model(arch, cuda)
+    cache = _prefilled_cache(cfg, params, cuda)
+    first = torch.zeros((4, 1), dtype=torch.int32, device=cuda)
+
+    def burst(gen, temperature=0.8):
+        return lm.decode_tokens(cfg, params, _clone_cache(cache), first, 8,
+                                with_sentinel=True, temperature=temperature,
+                                generator=gen)
+    a = burst(torch.Generator(device=cuda).manual_seed(5))
+    b = burst(torch.Generator(device=cuda).manual_seed(5))
+    _assert_same_burst(a, b)
+    assert bool(a[2].all()) and int(a[0].max()) < cfg.vocab_size
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    state = gen.get_state()
+    _assert_same_burst(burst(gen, 0.0), lm.decode_tokens(
+        cfg, params, _clone_cache(cache), first, 8, with_sentinel=True))
+    assert torch.equal(gen.get_state(), state)
+    with pytest.raises(ValueError, match="generator is on cpu"):
+        burst(torch.Generator(device="cpu").manual_seed(5))

@@ -1,8 +1,8 @@
 """Package rules of the PyTorch port.
 
-* Nothing under ``src/repro_torch/`` nor ``chip_smoke.py`` imports ``jax``
-  or the reference package ``repro``, and the port reads no ``REPRO_*``
-  environment variable.
+* Nothing under ``src/repro_torch/``, nor ``chip_smoke.py`` nor an
+  ``examples/torch_*.py``, imports ``jax`` or the reference package
+  ``repro``, and the port reads no ``REPRO_*`` environment variable.
 * Entry points default to the card and raise where there is none.
 * A kernel op on a CPU tensor runs its plain version; on a ``meta`` tensor
   (the static walk's stand-in for the card) it returns empty outputs of
@@ -22,7 +22,9 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) >= 4
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 10
     return files
 
