@@ -198,6 +198,17 @@ Phases (each prints its lines and is fatal on failure):
      TFLOP/s, peak memory and a traced step's backward-kernel time
      against its forward kernels', every kernel of each backward route
      found in the trace by a name that sums into its own row;
+ 11. distribution (``phase_distribution``): (a) a world-1 NCCL process
+     group and a (1, 1) ``DeviceMesh("cuda")``; zamba2-1.2b at full size
+     served through ``ServingEngine(plan=...)`` on phase 4's requests,
+     its streams, statuses, exact launches, graph keys, captures and
+     replays equal to ``plan=None``'s, and a graph burst under the plan
+     bit for bit against the eager burst; one mamba2-130m ``Trainer``
+     step (B=4 x S=512) under the plan (DTensor params, ZeRO-1 moments)
+     bit for bit against the step without it; (b) shard rows: each kernel
+     at the local shapes a rank of the 16 x 16 production plan holds for
+     the phase-4 models (``phase_shard_rows``), held to its plain
+     version, timed beside it and its bound; (c) the group destroyed;
 then a ``kernels`` JSON line (the five Mamba-2 and attention kernels at
 zamba2-2.7b's shapes, the two Mamba-1 kernels at mamba-130m's and the
 flash kernel's ring mode at gemma3-1b's, each with the launches of its
@@ -3426,6 +3437,432 @@ def phase_train_full(cfg, gen, b: int, s: int, steps: int = 8,
             backward_over_forward=bwd_ms / fwd_ms if fwd_ms else None))
 
 
+# ------------------------------------------------------------ phase 11
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def serve_under(cfg, params, plan):
+    """Phase 4's four requests (prompts 300, 700, 1000, 2048 from seed 0;
+    32 new tokens) through ``ServingEngine(plan=plan)``, with its launches
+    read just after and held to ``exact_launches``.  Returns (the run's
+    streams, statuses, launches and graph counts; the engine)."""
+    import numpy as np
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    rng = np.random.default_rng(0)
+    eng = ServingEngine(cfg, params, slots=4, max_seq=4096, chunk_size=256,
+                        decode_block=8, plan=plan, device="cuda")
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new=32) for i, n in enumerate((300, 700, 1000, 2048))]
+    runner, steps = eng._decode_n, [0]
+
+    def counted(p, c, f, n, *a, **kw):
+        steps[0] += n
+        return runner(p, c, f, n, *a, **kw)
+    eng._decode_n = counted
+    reset_counters()
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    eng._decode_n = runner
+    want = exact_launches(cfg, eng.stats["prefill_chunks"], steps[0])
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{cfg.name} under {plan and 'a plan'}: "
+                             f"launches {launches}, expected {want}")
+    return dict(streams=[[int(t) for t in r.out] for r in reqs],
+                statuses=[r.status for r in reqs], launches=launches,
+                captures=runner.captures, replays=runner.replays,
+                keys=[list(k) for k in runner.keys]), eng
+
+
+def graph_against_eager(cfg, eng, plan, gen):
+    """One 8-token burst on clones of the engine's served cache through its
+    runner, as a replay of the graph captured at that key, against the
+    eager ``decode_tokens`` with the plan's knobs: tokens, sentinel and
+    every cache leaf bit for bit."""
+    from repro_torch.distributed.sharding import activations, model_kwargs
+    from repro_torch.models.lm import decode_tokens, init_spare_states
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.bucketing import clamped_bucket
+
+    base = clone_cache(eng.cache)
+    kvb = clamped_bucket(int(base["pos"].max()) + 8, eng.kv_extent)
+    first = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    cg = clone_cache(base)
+    spare = init_spare_states(cg)
+    runner = eng._decode_n
+    runner(eng.params, cg, first, 8, kvb, eng.rope_len, True, spare=spare)
+    for a, b in zip(tree_leaves(cg), tree_leaves(base)):
+        a.copy_(b)
+    replays = runner.replays
+    toks, _, ok = runner(eng.params, cg, first, 8, kvb, eng.rope_len, True,
+                         spare=spare)
+    if runner.replays != replays + 1:
+        raise AssertionError("the second burst at a key was not a replay")
+    toks, ok = toks.clone(), ok.clone()
+    ce = clone_cache(base)
+    with activations(plan):
+        etoks, _, eok = decode_tokens(
+            cfg, eng.params, ce, first, 8, kv_bucket=kvb,
+            rope_len=eng.rope_len, with_sentinel=True,
+            _spare_states=init_spare_states(ce), **model_kwargs(plan))
+    check_equal("phase 11 graph burst tokens", toks, etoks)
+    check_equal("phase 11 graph burst sentinel", ok, eok)
+    for i, (a, b) in enumerate(zip(tree_leaves(cg), tree_leaves(ce))):
+        check_equal(f"phase 11 graph burst cache leaf {i}", a, b)
+    return dict(kv_bucket=kvb, tokens_equal=True, cache_leaves_equal=len(
+        tree_leaves(cg)))
+
+
+def train_under(cfg, plan):
+    """One ``Trainer`` step (B=4 x S=512, ``OptConfig()``) with and without
+    ``plan``: the loss and every updated param bit for bit."""
+    from repro_torch.distributed.sharding import full_value
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    tc = TrainerConfig(steps=1, ckpt_every=0, log_every=1000)
+    out = []
+    for p in (None, plan):
+        t = Trainer(cfg, OptConfig(), tc, plan=p, seq_len=512,
+                    global_batch=4, device="cuda")
+        state = t.run(log=lambda line: None)
+        out.append((state.losses, [full_value(x) for x in
+                                   tree_leaves(t.params)]))
+        del t
+    (la, pa), (lb, pb) = out
+    if la != lb:
+        raise AssertionError(f"phase 11 trainer losses {la} != {lb}")
+    for i, (a, b) in enumerate(zip(pa, pb)):
+        check_equal(f"phase 11 trainer param leaf {i}", b, a)
+    return dict(loss=la[0], params_equal=len(pa))
+
+
+def shard_row(name, at, shape, got, want, tol, ratio, kernel, plain, bytes_,
+              flops, dt, source, replaces, calls=10, library=None):
+    """One shard row: the kernel at a rank's local shapes held to its plain
+    version (``ratio`` at most 1), both timed, beside the bound."""
+    check_close(f"phase 11 {name} at {at} {shape}", got, want, tol,
+                ratio=ratio)
+    bms, by = bound(bytes_, flops, dt)
+    return dict(name=name, route="cuda", at=at, shape=shape, source=source,
+                replaces=replaces, max_abs_err=max_err(got, want),
+                of_limit=max(ratio(a, b, tol) for a, b in zip(got, want)),
+                ms=device_ms(kernel, calls=calls),
+                plain_ms=device_ms(plain, calls=1, reps=3),
+                bound_ms=bms, bound_by=by,
+                library_ms=None if library is None else device_ms(library))
+
+
+def phase_shard_rows(gen):
+    """Each kernel at the local shapes a rank of the 16 x 16 production plan
+    holds for the phase-4 models (bf16), against its plain version: SSD
+    and conv1d at mamba2-2.7b's prefill (B=4, S=256: the batch does not
+    split 16 ways; 5 of 80 heads, 336 of 5376 channels), the Mamba-2 step
+    at its decode_32k rank (8 of 128 rows, every head: the step splits the
+    batch only), the selective scan at mamba-130m's (96 of 1536
+    channels) and its step (8 rows), flash at llama3-8b's train_4k rank
+    (16 rows, 2 query heads on 1 KV head after kv_repeat = 2), decode
+    attention at its decode_32k rank (8 rows, 2 on 1, a full 32768-row
+    cache), and gemma3-1b's seq-mode flash at its prefill_32k rank (2
+    rows, 4 heads on 1, 2048 query rows against all 32768 keys at the
+    rank's first row as q_offset: rank 15 causal, rank 7 in the 512-key
+    window)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import (gemma3_1b, llama3_8b, mamba2_2p7b,
+                                     mamba_130m)
+    from repro_torch.core.config import SHAPES
+    from repro_torch.distributed.sharding import plan_sharding
+    from repro_torch.kernels.attn_decode import (ops as dec_attn,
+                                                 ref as dec_attn_ref)
+    from repro_torch.kernels.conv1d import ops as conv_ops, ref as conv_ref
+    from repro_torch.kernels.decode_fused import (ops as dec_ops,
+                                                  ref as dec_ref)
+    from repro_torch.kernels.flash import ops as flash_ops, ref as flash_ref
+    from repro_torch.kernels.scan1 import ops as scan_ops, ref as scan_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.mamba1 import dt_rank
+
+    bf = torch.bfloat16
+    mesh = make_production_mesh()
+    phase3 = dataclasses.replace(SHAPES["prefill_32k"], name="phase 3",
+                                 seq_len=256, global_batch=4)
+
+    def local(cfg, wl, axes, shape):
+        return plan_sharding(cfg, wl, mesh).local_shape(axes, shape,
+                                                        activation=True)
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    rows = []
+    # SSD at mamba2-2.7b: x [B, S, H, P] over (batch, ssm_heads)
+    s = mamba2_2p7b.ssm
+    H, P, N, K = (s.n_ssm_heads(mamba2_2p7b.d_model), s.headdim, s.d_state,
+                  s.conv_kernel)
+    b, sq, h, _ = local(mamba2_2p7b, phase3,
+                        ("batch", "seq", "ssm_heads", None), (4, 256, H, P))
+    x, dts = rn(b, sq, h, P, dtype=bf), ssd_ref.softplus(rn(b, sq, h) - 2.0)
+    A, D, h0 = -torch.exp(rn(h)), rn(h), rn(b, h, P, N)
+    Bm, Cm = rn(b, sq, 1, N, dtype=bf), rn(b, sq, 1, N, dtype=bf)
+    args = (x, dts, A, Bm, Cm, D)
+    got = ssd_ops.ssd_chunked(*args, chunk=s.chunk, initial_state=h0)
+    want = ssd_ref.ssd_chunked_ref(*args, chunk=s.chunk, initial_state=h0)
+    check_ssd("phase 11 ssd shard", got, want, bf)
+    q = s.chunk
+    rows.append(shard_row(
+        "ssd_chunked", mamba2_2p7b.name, f"B={b} S={sq} H={h} of {H}",
+        got, want, TOL["ssd"][bf], whole_ratio,
+        lambda: ssd_ops.ssd_chunked(*args, chunk=q, initial_state=h0),
+        lambda: ssd_ref.ssd_chunked_ref(*args, chunk=q, initial_state=h0),
+        nbytes(*args, h0) + nbytes(*got),
+        2.0 * b * h * (sq // q) * (q * q * N + q * q * P + 2 * q * P * N), bf,
+        "src/repro_torch/kernels/csrc/ssd.cu",
+        "src/repro/kernels/ssd/kernel.py:84"))
+    # conv1d at mamba2-2.7b: [B, S, C] over (batch, conv_dim)
+    C = s.d_inner(mamba2_2p7b.d_model) + 2 * s.n_groups * N
+    b, sq, c = local(mamba2_2p7b, phase3, ("batch", "seq", "conv_dim"),
+                     (4, 256, C))
+    x, w, bias = rn(b, sq, c, dtype=bf), rn(c, K), rn(c)
+    st = rn(b, K - 1, c, dtype=bf)
+    got = conv_ops.causal_conv1d(x, w, bias, initial_state=st)
+    want = conv_ref.causal_conv1d_ref(x, w, bias, st)
+    check_equal("phase 11 conv1d shard state", got[1], want[1])
+    xp = torch.cat([st, x], 1).transpose(1, 2).contiguous()
+    wl_, bl_ = w.to(bf)[:, None, :].contiguous(), bias.to(bf)
+    rows.append(shard_row(
+        "causal_conv1d", mamba2_2p7b.name, f"B={b} S={sq} C={c} of {C}",
+        got, want, TOL["conv1d"][bf], whole_ratio,
+        lambda: conv_ops.causal_conv1d(x, w, bias, initial_state=st),
+        lambda: conv_ref.causal_conv1d_ref(x, w, bias, st),
+        nbytes(x, w, bias, st) + nbytes(*got), 2.0 * K * b * sq * c, bf,
+        "src/repro_torch/kernels/csrc/conv1d.cu",
+        "src/repro/kernels/conv1d/kernel.py:52",
+        library=lambda: F.conv1d(xp, wl_, bl_, groups=c)))
+    # the Mamba-2 decode step at mamba2-2.7b's decode_32k rank: batch only
+    b = local(mamba2_2p7b, SHAPES["decode_32k"], ("batch",), (128,))[0]
+    args = mamba2_decode_inputs(gen, b, H, P, 1, N, K, bf)
+    kw = dict(n_groups=1, d_state=N, headdim=P)
+    got = dec_ops.mamba2_decode_fused(*args, **kw)
+    want = dec_ref.mamba2_decode_fused_ref(*args, **kw)
+    rows.append(shard_row(
+        "mamba2_decode_fused", mamba2_2p7b.name, f"B={b} of 128, H={H}",
+        got, want, TOL["decode_fused"][bf], whole_ratio,
+        lambda: dec_ops.mamba2_decode_fused(*args, **kw),
+        lambda: dec_ref.mamba2_decode_fused_ref(*args, **kw),
+        nbytes(*args) + nbytes(*got), 6.0 * b * H * P * N, bf,
+        "src/repro_torch/kernels/csrc/decode_fused.cu",
+        "src/repro/kernels/decode_fused/kernel.py:77"))
+    # the selective scan at mamba-130m: channels over the model axis
+    m1 = mamba_130m.ssm
+    C1, N1 = m1.d_inner(mamba_130m.d_model), m1.d_state
+    b, sq, c = local(mamba_130m, phase3, ("batch", "seq", "conv_dim"),
+                     (4, 256, C1))
+    (sx, sdt, sA, sB, sC, sD), sh0 = scan_ref.model_scale_inputs(
+        gen, b, sq, c, N1, bf)
+    sargs = (sx, sdt, sA, sB, sC, sD)
+    got = scan_ops.selective_scan(*sargs, initial_state=sh0)
+    want = scan_ref.selective_scan_ref(*sargs, sh0)
+    r = scan_ratio(got, want, bf)
+    if not r <= 1.0:
+        raise AssertionError(f"phase 11 selective scan shard: {r} x limit")
+    bms, by = scan_bound(sargs + (sh0,), got)
+    rows.append(dict(
+        name="selective_scan", route="cuda", at=mamba_130m.name,
+        shape=f"B={b} S={sq} C={c} of {C1} N={N1}",
+        source="src/repro_torch/kernels/csrc/scan1.cu",
+        replaces="src/repro/kernels/scan1/kernel.py:67",
+        max_abs_err=max_err(got, want), of_limit=r,
+        ms=device_ms(lambda: scan_ops.selective_scan(*sargs,
+                                                     initial_state=sh0)),
+        plain_ms=device_ms(lambda: scan_ref.selective_scan_ref(*sargs, sh0),
+                           calls=1, reps=3),
+        bound_ms=bms, bound_by=by, library_ms=None))
+    # the Mamba-1 step at mamba-130m's decode_32k rank: batch only
+    b = local(mamba_130m, SHAPES["decode_32k"], ("batch",), (128,))[0]
+    R = dt_rank(mamba_130m.d_model, m1)
+    args = mamba1_decode_inputs(gen, b, C1, N1, R, m1.conv_kernel, bf)
+    kw = dict(d_state=N1, dt_rank=R)
+    got = dec_ops.mamba1_decode_fused(*args, **kw)
+    want = dec_ref.mamba1_decode_fused_ref(*args, **kw)
+    rows.append(shard_row(
+        "mamba1_decode_fused", mamba_130m.name, f"B={b} of 128, C={C1}",
+        got, want, TOL["decode_fused"][bf], whole_ratio,
+        lambda: dec_ops.mamba1_decode_fused(*args, **kw),
+        lambda: dec_ref.mamba1_decode_fused_ref(*args, **kw),
+        nbytes(*args) + nbytes(*got),
+        b * (2.0 * m1.conv_kernel * C1 + 2.0 * C1 * (R + 2 * N1)
+             + 2.0 * R * C1 + 8.0 * C1 * N1), bf,
+        "src/repro_torch/kernels/csrc/decode_fused.cu",
+        "src/repro/kernels/decode_fused/kernel.py:148"))
+
+    def attn_row(name, at, q_, k_, v_, off, window, causal=True):
+        """flash at ``q_offset=off`` (each row's, on the card) against
+        attention_ref, rows held each to its own limit; keys seen counted
+        per query row; the library yardstick SDPA (GQA, the causal and
+        window masks as one boolean mask where there is an offset or a
+        window)."""
+        b_, h_, sq_, d_ = q_.shape
+        if off == 0 and window is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q_, k_, v_, is_causal=True, enable_gqa=True)
+        else:
+            qpos = torch.arange(sq_, device="cuda")[:, None] + off
+            kpos = torch.arange(k_.shape[2], device="cuda")[None, :]
+            mask = kpos <= qpos
+            if window is not None:
+                mask &= qpos - kpos < window
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q_, k_, v_, attn_mask=mask, enable_gqa=True)
+        offt = torch.full((b_,), off, dtype=torch.int32, device="cuda")
+        got = [flash_ops.flash_attention(q_, k_, v_, causal=causal,
+                                         window=window, q_offset=offt)]
+        want = [flash_ref.attention_ref(q_, k_, v_, causal=causal,
+                                        window=window, q_offset=offt)]
+        pos = torch.arange(sq_, dtype=torch.float64) + off
+        seen = torch.clamp(pos + 1, max=k_.shape[2])
+        if window is not None:
+            seen = torch.clamp(seen, max=window)
+        flops = 4.0 * d_ * h_ * b_ * float(seen.sum())
+        return shard_row(
+            name, at, f"B={b_} H={h_} on {k_.shape[1]} Sq={sq_} "
+            f"Skv={k_.shape[2]} d={d_} q_offset={off}"
+            + (f" window={window}" if window else ""), got, want,
+            TOL["attention"][bf], row_ratio,
+            lambda: flash_ops.flash_attention(q_, k_, v_, causal=causal,
+                                              window=window, q_offset=offt),
+            lambda: flash_ref.attention_ref(q_, k_, v_, causal=causal,
+                                            window=window, q_offset=offt),
+            nbytes(q_, k_, v_) + nbytes(*got), flops, bf,
+            "src/repro_torch/kernels/csrc/flash.cu",
+            "src/repro/kernels/flash/kernel.py:169", calls=3, library=lib)
+
+    # flash at llama3-8b's train_4k rank: heads and repeated KV heads
+    a = llama3_8b.attn
+    plan = plan_sharding(llama3_8b, SHAPES["train_4k"], mesh)
+    kvr = a.n_kv_heads * plan.kv_repeat
+    b, h, sq, d = plan.local_shape(("batch", "heads", None, None),
+                                   (256, a.n_heads, 4096, a.head_dim),
+                                   activation=True)
+    kv = plan.local_shape(("batch", "kv_heads", None, None),
+                          (256, kvr, 4096, a.head_dim), activation=True)[1]
+    qa, ka, va = (rn(b, h, sq, d, dtype=bf), rn(b, kv, sq, d, dtype=bf),
+                  rn(b, kv, sq, d, dtype=bf))
+    rows.append(attn_row("flash_attention", llama3_8b.name, qa, ka, va, 0,
+                         None))
+    del qa, ka, va
+    # decode attention at llama3-8b's decode_32k rank over a full cache
+    plan = plan_sharding(llama3_8b, SHAPES["decode_32k"], mesh)
+    b, h, d = plan.local_shape(("batch", "heads", None),
+                               (128, a.n_heads, a.head_dim), activation=True)
+    kv = plan.local_shape(("batch", "kv_heads", None, None),
+                          (128, kvr, 32768, a.head_dim), activation=True)[1]
+    qd = rn(b, h, d, dtype=bf)
+    kd, vd = rn(b, kv, 32768, d, dtype=bf), rn(b, kv, 32768, d, dtype=bf)
+    vl = torch.full((b,), 32768, dtype=torch.int32, device="cuda")
+    got = [dec_attn.decode_attention(qd, kd, vd, valid_len=vl)]
+    want = [dec_attn_ref.decode_attention_ref(qd, kd, vd, valid_len=vl)]
+    rows.append(shard_row(
+        "decode_attention", llama3_8b.name,
+        f"B={b} H={h} on {kv} S=32768 d={d}", got, want,
+        TOL["attention"][bf], row_ratio,
+        lambda: dec_attn.decode_attention(qd, kd, vd, valid_len=vl),
+        lambda: dec_attn_ref.decode_attention_ref(qd, kd, vd, valid_len=vl),
+        nbytes(qd, kd, vd) + nbytes(*got), 4.0 * d * h * b * 32768, bf,
+        "src/repro_torch/kernels/csrc/attn_decode.cu",
+        "src/repro/kernels/attn_decode/kernel.py:109",
+        library=lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kd, vd, enable_gqa=True)))
+    del qd, kd, vd
+    # gemma3-1b in seq mode: each rank's query rows at its first row
+    g = gemma3_1b.attn
+    plan = plan_sharding(gemma3_1b, SHAPES["prefill_32k"], mesh)
+    if plan.attn_mode != "seq":
+        raise AssertionError("gemma3-1b's prefill_32k plan is not seq mode")
+    b, h, sq, d = plan.local_shape(("batch", "heads", "seq", None),
+                                   (32, g.n_heads, 32768, g.head_dim),
+                                   activation=True)
+    kg, vg = rn(b, 1, 32768, d, dtype=bf), rn(b, 1, 32768, d, dtype=bf)
+    for rank, window in ((15, None), (7, g.sliding_window)):
+        qg = rn(b, h, sq, d, dtype=bf)
+        rows.append(attn_row("flash_attention_seq", gemma3_1b.name, qg, kg,
+                             vg, rank * sq, window))
+    del kg, vg, qg
+    return rows
+
+
+def phase_distribution(gen):
+    """Phase 11: (a) a world-1 NCCL process group and a (1, 1)
+    ``DeviceMesh("cuda")``: zamba2-1.2b at full size served through
+    ``ServingEngine(plan=...)`` on phase 4's requests equal to
+    ``plan=None`` (streams, statuses, exact launches, graph keys and
+    counts), a graph burst under the plan bit for bit against the eager
+    burst, and one mamba2-130m ``Trainer`` step under the plan (DTensor
+    params, ZeRO-1 moments) equal to the step without it; (b) the shard
+    rows (:func:`phase_shard_rows`); (c) the group destroyed."""
+    import torch.distributed as dist
+    from repro_torch.configs.paper_models import MAMBA2_130M, ZAMBA2_12B
+    from repro_torch.core.config import WorkloadConfig
+    from repro_torch.distributed.sharding import plan_sharding
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.lm import init_lm_params
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_device_mesh((1, 1), ("data", "model"), "cuda")
+        serve_wl = WorkloadConfig("serve", "decode", 4096, 4)
+        plan = plan_sharding(ZAMBA2_12B, serve_wl, mesh)
+        params = init_lm_params(ZAMBA2_12B, gen, device="cuda")
+        base, eng0 = serve_under(ZAMBA2_12B, params, None)
+        del eng0
+        got, eng = serve_under(ZAMBA2_12B, params, plan)
+        for key in ("streams", "statuses", "launches", "captures",
+                    "replays", "keys"):
+            if got[key] != base[key]:
+                raise AssertionError(f"phase 11 {ZAMBA2_12B.name} {key} "
+                                     f"under the plan: {got[key]} != "
+                                     f"{base[key]}")
+        burst = graph_against_eager(ZAMBA2_12B, eng, plan, gen)
+        del eng, params
+        torch.cuda.empty_cache()
+        serve_s = time.perf_counter() - t0
+        tplan = plan_sharding(MAMBA2_130M, WorkloadConfig(
+            "train", "train", 512, 4), mesh)
+        t1 = time.perf_counter()
+        trained = train_under(MAMBA2_130M, tplan)
+        train_s = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        rows = phase_shard_rows(gen)
+        rows_s = time.perf_counter() - t1
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return dict(mesh=[1, 1], plan=dict(attn_mode=plan.attn_mode,
+                                       kv_repeat=plan.kv_repeat,
+                                       moe_groups=plan.moe_groups),
+                served=dict(captures=got["captures"],
+                            replays=got["replays"],
+                            launches={k: v for k, v in
+                                      got["launches"].items() if v}),
+                graph_burst=burst, trainer=trained, serve_s=serve_s,
+                train_s=train_s, rows_s=rows_s,
+                seconds=time.perf_counter() - t0), rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3739,6 +4176,14 @@ def main() -> int:
             ("flash_bwd_noncausal", hubert_xlarge, "flash_bwd.noncausal")):
         rows.append(dict(bwd_rows[name],
                          launches=train[cfg.name]["launches"][key]))
+    dist_res, shard_rows = phase_distribution(gen)
+    print(f"phase 11 distribution, world-1 NCCL group, (1, 1) mesh "
+          f"({dist_res['seconds']:.1f} s): " + json.dumps(dist_res),
+          flush=True)
+    for r in shard_rows:
+        print(f"phase 11 shard row {r['name']} at {r['at']} ({r['shape']}, "
+              f"bf16), {100 * r['bound_ms'] / r['ms']:.2f}% of its bound: "
+              + json.dumps(r), flush=True)
     print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} "
           f"s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -17,6 +17,11 @@ them as 2-byte void, read back bit for bit through an int16 view).
   and writes it on a background thread, overlapping the disk with
   training.
 * Retention: the newest ``keep`` checkpoints are kept.
+* Elastic restore: a tree of DTensors is saved as its global values
+  (every rank gathers, global rank 0 writes); ``restore(...,
+  shardings=)`` places each leaf as a DTensor by a matching tree of
+  (mesh, placements), so a checkpoint written under one mesh restores
+  onto another, as the reference's ``NamedSharding`` restore does.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def _paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -49,7 +55,10 @@ def _paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
 def _host(leaf) -> np.ndarray:
     """A host copy of ``leaf`` that shares no memory with it: the
     optimizer updates its tensors in place while an asynchronous write
-    is still reading the copy."""
+    is still reading the copy.  A DTensor's copy is its global value (a
+    collective: every rank calls this)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -64,9 +73,28 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
     return {k: _host(v) for k, v in _paths(tree)}
 
 
+def _writes(tree) -> bool:
+    """Whether this rank writes ``tree``'s files: always for plain
+    tensors; for DTensors (every rank holding the gathered values) only
+    global rank 0."""
+    if not any(isinstance(v, DTensor) for _, v in _paths(tree)):
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
 def save(path: str, step: int, tree: Any, *, keep: int = 3) -> str:
-    """Synchronous atomic save.  Returns the final checkpoint dir."""
-    return _write(path, step, _flatten(tree), keep)
+    """Synchronous atomic save.  Returns the final checkpoint dir.  With
+    DTensor leaves every rank calls it; rank 0 writes and the others wait
+    for it."""
+    flat = _flatten(tree)
+    final = os.path.join(path, f"step_{step:08d}")
+    if _writes(tree):
+        final = _write(path, step, flat, keep)
+    if any(isinstance(v, DTensor) for _, v in _paths(tree)):
+        import torch.distributed as dist
+        dist.barrier()
+    return final
 
 
 def _write(path: str, step: int, flat: Dict[str, np.ndarray],
@@ -111,10 +139,14 @@ def latest_step(path: str) -> Optional[int]:
 
 
 def restore(path: str, target: Any, *, step: Optional[int] = None,
-            verify: bool = True) -> Any:
+            shardings: Any = None, verify: bool = True) -> Any:
     """Restore into the structure of ``target`` (a tree of tensors): each
     leaf on the target leaf's device, in its dtype.  ``step`` None takes
-    the latest."""
+    the latest.  ``shardings``: a matching tree of (DeviceMesh,
+    placements), None where a leaf stays a plain tensor; each such leaf
+    comes back as a DTensor with those placements on the mesh's device
+    (this rank's shard of the stored global value), whatever mesh wrote
+    it."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -128,16 +160,47 @@ def restore(path: str, target: Any, *, step: Optional[int] = None,
     if set(keys) != set(manifest["keys"]):
         raise ValueError("checkpoint/tree structure mismatch: "
                          f"{sorted(set(keys) ^ set(manifest['keys']))[:5]}")
+    shard_of = (dict(_sharding_paths(shardings)) if shardings is not None
+                else {})
     leaves = {}
     for key, like in pairs:
         arr = data[key]
         if verify and zlib.crc32(arr.tobytes()) != manifest["crc"][key]:
             raise IOError(f"checkpoint corruption detected in leaf {key}")
         t = _leaf_tensor(key, arr, manifest["dtypes"][key])
-        if isinstance(like, torch.Tensor):
+        sh = shard_of.get(key)
+        if sh is not None:
+            from repro_torch.distributed.sharding import place
+            mesh = sh[0]
+            dev = torch.device(mesh.device_type, torch.cuda.current_device()
+                               ) if mesh.device_type == "cuda" else \
+                torch.device(mesh.device_type)
+            if isinstance(like, torch.Tensor):
+                t = t.to(dtype=like.dtype)
+            t = place(t.to(dev), sh)
+        elif isinstance(like, torch.Tensor):
             t = t.to(device=like.device, dtype=like.dtype)
         leaves[key] = t
     return _rebuild(target, leaves)
+
+
+def _sharding_paths(tree, prefix: str = ""):
+    """(path, sharding) of a shardings tree in :func:`_paths`' naming; a
+    None leaf (no sharding) is left out."""
+    from repro_torch.distributed.sharding import is_sharding
+    if tree is None:
+        return []
+    if is_sharding(tree):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    else:
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    out = []
+    for name, val in items:
+        out.extend(_sharding_paths(val, f"{prefix}/{name}" if prefix
+                                   else name))
+    return out
 
 
 def _leaf_tensor(key: str, arr: np.ndarray, dtype: str) -> torch.Tensor:
@@ -177,6 +240,8 @@ class AsyncCheckpointer:
     def save(self, step: int, tree: Any) -> None:
         self.wait()
         flat = _flatten(tree)          # device->host copy happens here
+        if not _writes(tree):
+            return                     # another rank writes the files
 
         def _write_async():
             try:

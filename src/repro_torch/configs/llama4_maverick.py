@@ -1,8 +1,8 @@
 """llama4-maverick-400b-a17b — interleaved MoE (every 2nd layer), top-1
 routing with an always-on shared expert, early fusion.
 [hf:meta-llama/Llama-4-Scout-17B-16E; unverified]  48L d_model=5120 40H
-(kv=8) d_ff=8192 vocab=202048, MoE 128e top-1.  The reference also sets
-its sharding field ``fsdp``; the port has no mesh and no such field."""
+(kv=8) d_ff=8192 vocab=202048, MoE 128e top-1.  ``fsdp`` as the
+reference sets it: a plan shards the params' d_model dim over ``data``."""
 from repro_torch.core.config import AttnConfig, ModelConfig, MoEConfig
 from repro_torch.core.registry import register
 
@@ -19,4 +19,5 @@ CONFIG = register(ModelConfig(
                   interleave_step=2, shared_expert=True,
                   capacity_factor=1.25),
     layer_pattern=("dense_moe", "moe"),
+    fsdp=True,
 ), tags=("assigned", "moe"))

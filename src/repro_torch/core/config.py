@@ -10,9 +10,12 @@ layers; ``MoEConfig`` the feed-forward of ``moe`` layers
 (``repro_torch.models.moe``: ``impl`` picks the ``gshard`` or the
 ``ragged`` dispatch).  ``remat`` is the reference's: ``"block"``
 rematerialises each layer unit in the backward of a training forward
-(``lm_forward(..., train=True)``), ``"none"`` keeps its activations.  The
-reference's sharding fields (``scan_layers``, ``fsdp``) are not copied:
-the port has no mesh.  ``WorkloadConfig`` / ``SHAPES`` and ``HardwareSpec`` / ``HARDWARE``
+(``lm_forward(..., train=True)``), ``"none"`` keeps its activations.
+``fsdp`` is the reference's sharding knob: under a plan
+(:func:`repro_torch.distributed.sharding.plan_sharding`) it shards the
+params' ``embed`` dim over the ``data`` mesh axis (ZeRO-3).  The
+reference's ``scan_layers`` is not copied: the port loops over its
+layers and has no scan to switch.  ``WorkloadConfig`` / ``SHAPES`` and ``HardwareSpec`` / ``HARDWARE``
 are the reference's too, with one more device, :data:`H100_SXM`, the card
 the port runs on.
 """
@@ -93,6 +96,7 @@ class ModelConfig:
     shared_attn: Optional[AttnConfig] = None
     shared_attn_d_ff: int = 0
     remat: str = "block"         # "none" | "block" (remat each layer unit)
+    fsdp: bool = False           # params' embed dim sharded over "data"
 
     @property
     def padded_vocab(self) -> int:

@@ -32,6 +32,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.op_analysis import kernel_cost
 from repro_torch.core.scope import scope
@@ -70,7 +71,12 @@ def split_layout(batch: int, kv_heads: int, seq: int,
 def decode_attention(q, k, v, *, valid_len,
                      split_k: Optional[int] = None) -> torch.Tensor:
     """q: [B, H, d]; k, v: [B, KVH, S, d]; valid_len: a scalar or [B].
-    ``split_k`` None takes the H100 rule (:func:`split_layout`)."""
+    ``split_k`` None takes the H100 rule (:func:`split_layout`).  DTensor
+    inputs run on their shards (:mod:`repro_torch.kernels.sharded`)."""
+    if isinstance(q, DTensor) or isinstance(k, DTensor):
+        from repro_torch.kernels import sharded
+        return sharded.decode_attention(decode_attention, q, k, v,
+                                        valid_len=valid_len, split_k=split_k)
     with scope("attn_core"):
         if q.device.type == "cpu":
             return _ref.decode_attention_ref(q, k, v, valid_len=valid_len)

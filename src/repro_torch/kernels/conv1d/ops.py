@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.op_analysis import kernel_cost
 from repro_torch.core.scope import scope
@@ -78,7 +79,13 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     ``lengths[b] .. lengths[b] + K - 2`` of ``[initial_state; x]``).
     ``out_state`` (a contiguous tensor of that shape and type, e.g. a slot
     of a new cache, apart from x and initial_state) receives the new
-    state and is returned as it."""
+    state and is returned as it.  DTensor inputs run on their shards
+    (:mod:`repro_torch.kernels.sharded`)."""
+    if isinstance(x, DTensor):
+        from repro_torch.kernels import sharded
+        return sharded.causal_conv1d(
+            causal_conv1d, x, w, b, initial_state=initial_state,
+            activation=activation, lengths=lengths, out_state=out_state)
     with scope("conv1d"):
         if needs_grad(x, w, b, initial_state) and x.device.type != "meta":
             if (initial_state is None and lengths is None

@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.op_analysis import kernel_cost
 from repro_torch.core.scope import scope
@@ -38,7 +39,15 @@ def mamba2_decode_fused(conv_state, ssm_state, xbc_t, conv_w, conv_b,
     ssm' [B,H,P,N] fp32).  ``out_conv`` and ``out_ssm`` (contiguous
     tensors of those shapes and types, e.g. slots of a new cache, apart
     from the inputs) receive the new window and state, and are returned
-    as them."""
+    as them.  DTensor inputs run on their batch shards
+    (:mod:`repro_torch.kernels.sharded`)."""
+    if isinstance(xbc_t, DTensor):
+        from repro_torch.kernels import sharded
+        return sharded.mamba2_decode_fused(
+            mamba2_decode_fused, conv_state, ssm_state, xbc_t, conv_w,
+            conv_b, dt_raw, dt_bias, A_log, D, n_groups=n_groups,
+            d_state=d_state, headdim=headdim, out_conv=out_conv,
+            out_ssm=out_ssm)
     with scope("decode_fused"):
         if xbc_t.device.type == "cpu":
             return _ref.mamba2_decode_fused_ref(
@@ -158,7 +167,14 @@ def mamba1_decode_fused(conv_state, ssm_state, xi_t, conv_w, conv_b, x_proj,
     Returns (y [B,di] fp32, conv window' [B,K-1,di], ssm' [B,di,N] fp32).
     ``out_conv`` and ``out_ssm`` (contiguous tensors of those shapes and
     types, e.g. slots of a new cache, apart from the inputs) receive the
-    new window and state, and are returned as them."""
+    new window and state, and are returned as them.  DTensor inputs run on
+    their batch shards (:mod:`repro_torch.kernels.sharded`)."""
+    if isinstance(xi_t, DTensor):
+        from repro_torch.kernels import sharded
+        return sharded.mamba1_decode_fused(
+            mamba1_decode_fused, conv_state, ssm_state, xi_t, conv_w, conv_b,
+            x_proj, dt_proj, dt_bias, A_log, D, d_state=d_state,
+            dt_rank=dt_rank, out_conv=out_conv, out_ssm=out_ssm)
     with scope("decode_fused"):
         if xi_t.device.type == "cpu":
             return _ref.mamba1_decode_fused_ref(

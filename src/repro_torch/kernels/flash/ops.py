@@ -42,6 +42,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.op_analysis import kernel_cost
 from repro_torch.core.scope import scope
@@ -232,7 +233,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q: [B, H, Sq, d]; k, v: [B, KVH, Skv, d] -> [B, H, Sq, d].
     ``q_offset`` (None, a scalar or [B] int32): query i of row b sits at
     absolute position ``q_offset[b] + i``.  ``kv_wrap`` (a scalar or [B])
-    and ``ring_len`` select the ring layout."""
+    and ``ring_len`` select the ring layout.  DTensor inputs (under a
+    sharding plan) run on their shards (:mod:`repro_torch.kernels.sharded`)."""
+    if isinstance(q, DTensor) or isinstance(k, DTensor):
+        from repro_torch.kernels import sharded
+        return sharded.flash_attention(
+            flash_attention, q, k, v, causal=causal, window=window,
+            q_offset=q_offset, kv_wrap=kv_wrap, ring_len=ring_len)
     check_ring(causal, window, kv_wrap, ring_len, k.shape[2])
     with scope("attn_core"):
         if needs_grad(q, k, v) and q.device.type != "meta":

@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.op_analysis import kernel_cost
 from repro_torch.core.scope import scope
@@ -88,7 +89,13 @@ def selective_scan(x, dt, A, Bm, Cm, D, *,
     final state [B,C,N] fp32).  ``out_state`` (a contiguous, 16-byte
     aligned fp32 [B,C,N], e.g. a cache slot, apart from the other inputs;
     it may be the initial state) receives the final state and is returned
-    as it."""
+    as it.  DTensor inputs run on their shards
+    (:mod:`repro_torch.kernels.sharded`)."""
+    if isinstance(x, DTensor):
+        from repro_torch.kernels import sharded
+        return sharded.selective_scan(selective_scan, x, dt, A, Bm, Cm, D,
+                                      initial_state=initial_state,
+                                      out_state=out_state)
     with scope("ssm_core"):
         if x.device.type == "cpu":
             if (needs_grad(x, dt, A, Bm, Cm, D) and initial_state is None

@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.op_analysis import kernel_cost
 from repro_torch.core.scope import scope
@@ -136,7 +137,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128,
     """Chunked SSD scan. Returns (y [B,S,H,P], final_state [B,H,P,N]).
     ``out_state`` (a contiguous, 16-byte aligned fp32 [B,H,P,N], e.g. a
     cache slot, apart from the other inputs) receives the final state, and
-    is returned as it."""
+    is returned as it.  DTensor inputs run on their shards
+    (:mod:`repro_torch.kernels.sharded`)."""
+    if isinstance(x, DTensor):
+        from repro_torch.kernels import sharded
+        return sharded.ssd_chunked(ssd_chunked, x, dt, A, Bm, Cm, D,
+                                   chunk=chunk, initial_state=initial_state,
+                                   out_state=out_state)
     with scope("ssd_core"):
         if (needs_grad(x, dt, A, Bm, Cm, D, initial_state)
                 and x.device.type != "meta"):

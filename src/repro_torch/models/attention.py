@@ -42,8 +42,17 @@ ring's positions or ``valid_len``, as in the reference.
 The KV projection stays in the ``[B, S, KV, hd]`` layout of the cache; the
 kernels read ``transpose(1, 2)`` views of it, so attending a bucket of the
 cache copies nothing (a ring chunk copies the ring once, into
-``[ring | chunk]``).  ``kv_repeat`` (a sharding knob of the reference) is
-not ported: it is always 1.  The reference's ``_local_banded_attention``
+``[ring | chunk]``).
+
+**Under a sharding plan** (:mod:`repro_torch.distributed.sharding`), as
+in the reference: the cache stores the exact KV heads, and ``kv_repeat``
+(the plan's) repeats each KV head that many times at compute time only,
+so ``KV * kv_repeat`` heads shard over the model axis beside the query
+heads.  ``constrain`` pins q, the repeated K/V and the output to the
+plan's layouts at the reference's sites (no-ops without a plan).  A
+cache leaf that is a DTensor is written in place through its gathered
+value (:func:`_write`), whatever axes shard it.  With ``kv_repeat == 1``
+and no plan every step is as before.  The reference's ``_local_banded_attention``
 (its ``ref``-backend lowering of a long windowed prompt) is not ported:
 the flash kernel's window mode, and on the CPU ``attention_ref`` with a
 ``window``, compute the same function.
@@ -54,8 +63,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.core.config import AttnConfig
 from repro_torch.core.scope import scope
+from repro_torch.distributed.sharding import (constrain, full_value,
+                                              local_shard)
 from repro_torch.kernels.attn_decode.ops import decode_attention
 from repro_torch.kernels.flash.ops import flash_attention
 from repro_torch.models.norms import rms_norm
@@ -103,6 +116,43 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, s, _ = x.shape
     return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).view(
         b, s, w.shape[1], w.shape[2])
+
+
+def _repeat_kv(t: torch.Tensor, r: int) -> torch.Tensor:
+    """[B, S, KV, hd] -> [B, S, KV * r, hd], each head ``r`` times in a row
+    (the reference's ``jnp.repeat`` on the head axis); ``t`` itself for
+    r == 1."""
+    if r == 1:
+        return t
+    b, s, kv, hd = t.shape
+    return t[:, :, :, None].expand(b, s, kv, r, hd).reshape(b, s, kv * r, hd)
+
+
+def _write(fn, full: torch.Tensor, *args) -> None:
+    """``fn(full, *args)``, which writes into ``full`` in place.  On a
+    DTensor leaf it writes the gathered value and each rank copies its
+    own shard back into its local tensor (the leaf's storage), so the
+    write lands in place whatever axes shard the cache; the other
+    arguments are gathered too."""
+    if not isinstance(full, DTensor):
+        fn(full, *args)
+        return
+    g = full.full_tensor()
+    fn(g, *[full_value(a) for a in args])
+    full.to_local().copy_(local_shard(g, full.device_mesh, full.placements))
+
+
+def _write_prefix(full: torch.Tensor, new: torch.Tensor) -> None:
+    full[:, :new.shape[1]] = new.to(full.dtype)
+
+
+def _write_rows(full: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
+                ok: torch.Tensor) -> None:
+    """A decode step's write: row ``b`` takes ``new[b, 0]`` at ``slot[b]``
+    where ``ok[b]``, and keeps its row elsewhere."""
+    bi = torch.arange(full.shape[0], device=full.device)
+    full[bi, slot] = torch.where(ok[:, None, None],
+                                 new[:, 0].to(full.dtype), full[bi, slot])
 
 
 def _write_chunk(full: torch.Tensor, new: torch.Tensor,
@@ -163,7 +213,7 @@ def attention(p: Dict, x: torch.Tensor, a: AttnConfig, *,
               pos: Optional[torch.Tensor] = None,
               valid_len: Optional[torch.Tensor] = None,
               chunk_mask: Optional[torch.Tensor] = None,
-              eps: float = 1e-6
+              eps: float = 1e-6, kv_repeat: int = 1
               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full attention sub-block: qkv proj -> rope -> core -> out proj.
     ``rope`` is the (sin, cos) pair at this call's token positions
@@ -176,8 +226,9 @@ def attention(p: Dict, x: torch.Tensor, a: AttnConfig, *,
     row's valid tokens; it gates the ring writes, since an invalid token
     must never overwrite live ring history.  Append-only caches need no
     mask: an invalid token's KV row is overwritten later or hidden by the
-    causal mask and ``valid_len``.  Returns (y [B,S,D], the cache it wrote
-    or None)."""
+    causal mask and ``valid_len``.  ``kv_repeat`` (a plan's) repeats each
+    KV head for the compute, never in the cache.  Returns (y [B,S,D], the
+    cache it wrote or None)."""
     b, s, _ = x.shape
     with scope("qkv_proj"):
         q = _proj(x, p["wq"])
@@ -190,38 +241,49 @@ def attention(p: Dict, x: torch.Tensor, a: AttnConfig, *,
     if rope is not None:
         q = apply_rope(q, *rope)
         k = apply_rope(k, *rope)
+    # the cache stores the exact KV heads; a plan's kv_repeat replicates
+    # them for the compute only
+    q = constrain(q, ("batch", "seq", "heads", None))
+
+    def heads(t, seq_axis):
+        return constrain(_repeat_kv(t, kv_repeat),
+                         ("batch", seq_axis, "kv_heads", None))
 
     if cache is None or pos is None:
         # no cache, or a one-shot prefill
-        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=a.causal,
+        o = flash_attention(q.transpose(1, 2),
+                            heads(k, "seq").transpose(1, 2),
+                            heads(v, "seq").transpose(1, 2), causal=a.causal,
                             window=window)
         if cache is not None and window is not None and (
                 cache["k"].shape[1] == window):
-            _roll_into_ring(cache["k"], k, window)
-            _roll_into_ring(cache["v"], v, window)
+            _write(_roll_into_ring, cache["k"], k, window)
+            _write(_roll_into_ring, cache["v"], v, window)
         elif cache is not None:
-            cache["k"][:, :s] = k.to(cache["k"].dtype)
-            cache["v"][:, :s] = v.to(cache["v"].dtype)
+            _write(_write_prefix, cache["k"], k)
+            _write(_write_prefix, cache["v"], v)
     elif s > 1 and window is not None and cache["k"].shape[1] <= window:
         # a chunk over a ring: attend [ring | chunk], then fold the chunk in
         ring_len = cache["k"].shape[1]
         kcat = torch.cat([cache["k"].to(k.dtype), k], dim=1)
         vcat = torch.cat([cache["v"].to(v.dtype), v], dim=1)
-        o = flash_attention(q.transpose(1, 2), kcat.transpose(1, 2),
-                            vcat.transpose(1, 2), causal=a.causal,
-                            window=window, q_offset=pos, kv_wrap=pos,
-                            ring_len=ring_len)
+        o = flash_attention(q.transpose(1, 2),
+                            heads(kcat, "kv_seq").transpose(1, 2),
+                            heads(vcat, "kv_seq").transpose(1, 2),
+                            causal=a.causal, window=window, q_offset=pos,
+                            kv_wrap=pos, ring_len=ring_len)
         lens = (chunk_mask.sum(1) if chunk_mask is not None
                 else torch.full((b,), s, device=x.device))
-        _ring_write(cache["k"], k, pos, lens, window)
-        _ring_write(cache["v"], v, pos, lens, window)
+        _write(_ring_write, cache["k"], k, pos, lens, window)
+        _write(_ring_write, cache["v"], v, pos, lens, window)
     elif s > 1:
-        _write_chunk(cache["k"], k, pos)
-        _write_chunk(cache["v"], v, pos)
+        _write(_write_chunk, cache["k"], k, pos)
+        _write(_write_chunk, cache["v"], v, pos)
         o = flash_attention(q.transpose(1, 2),
-                            cache["k"].to(x.dtype).transpose(1, 2),
-                            cache["v"].to(x.dtype).transpose(1, 2),
+                            heads(cache["k"].to(x.dtype),
+                                  "kv_seq").transpose(1, 2),
+                            heads(cache["v"].to(x.dtype),
+                                  "kv_seq").transpose(1, 2),
                             causal=a.causal, window=window, q_offset=pos)
     else:
         skv = cache["k"].shape[1]
@@ -230,18 +292,15 @@ def attention(p: Dict, x: torch.Tensor, a: AttnConfig, *,
             slot = torch.remainder(slot, skv)     # a full-window ring
         ok = (slot >= 0) & (slot < skv)
         slot = slot.clamp(0, skv - 1)
-        bi = torch.arange(b, device=x.device)
-        for key, new in (("k", k), ("v", v)):
-            full = cache[key]
-            full[bi, slot] = torch.where(ok[:, None, None],
-                                         new[:, 0].to(full.dtype),
-                                         full[bi, slot])
+        _write(_write_rows, cache["k"], k, slot, ok)
+        _write(_write_rows, cache["v"], v, slot, ok)
         if valid_len is None:
             valid_len = torch.clamp(pos + 1, max=skv).to(torch.int32)
-        o = decode_attention(q[:, 0], cache["k"].to(x.dtype).transpose(1, 2),
-                             cache["v"].to(x.dtype).transpose(1, 2),
-                             valid_len=valid_len)[:, :, None]  # [B,H,1,hd]
+        o = decode_attention(
+            q[:, 0], heads(cache["k"].to(x.dtype), "kv_seq").transpose(1, 2),
+            heads(cache["v"].to(x.dtype), "kv_seq").transpose(1, 2),
+            valid_len=valid_len)[:, :, None]  # [B,H,1,hd]
     o = o.transpose(1, 2).reshape(b, s, a.n_heads * a.head_dim)
     with scope("o_proj"):
         y = o @ p["wo"].to(x.dtype).reshape(a.n_heads * a.head_dim, -1)
-    return y, cache
+    return constrain(y, ("batch", "seq", "embed")), cache

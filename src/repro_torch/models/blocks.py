@@ -9,8 +9,8 @@ Every layer kind of the reference is served:
   table (theta 1e4) where the model has one.  A ``dense_moe`` layer is a
   ``dense`` layer at the MoE interleave positions (llama4).  A ``moe``
   layer's feed-forward is the mixture of experts
-  (:mod:`repro_torch.models.moe`, over one dispatch group: the
-  reference's ``plan.moe_groups`` is 1 without a sharding plan).
+  (:mod:`repro_torch.models.moe`, over ``moe_groups`` dispatch groups:
+  a sharding plan's, 1 without one).
   An ``encoder`` layer attends bidirectionally (``AttnConfig.causal``
   False) with no cache, and its cache is empty.
 * ``mamba2``, ``mamba2+shared`` (Zamba2: a Mamba-2 layer followed by the
@@ -20,7 +20,10 @@ Every layer kind of the reference is served:
   MLP; its cache is one flat dict of the Mamba-2 leaves ``conv``,
   ``ssm`` and the KV leaves ``k``, ``v``.
 
-An unknown kind raises ``ValueError``, as in the reference.
+A layer's input and output are constrained to the residual layout
+(``("batch", "residual_seq", "embed")``: sequence-sharded in a plan's
+seq mode) as in the reference; without a plan that is a no-op.  An
+unknown kind raises ``ValueError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import mamba1 as m1
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.attention import (attention, attn_param_defs,
@@ -117,9 +121,15 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
     raise _unknown(kind)
 
 
+def _residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream's layout (a no-op unless a plan shards
+    ``residual_seq``)."""
+    return constrain(x, ("batch", "residual_seq", "embed"))
+
+
 def _attn_ff(cfg: ModelConfig, p: Dict, a, x: torch.Tensor, *, rope, cache,
-             pos, valid_len, chunk_mask=None, window=None
-             ) -> Tuple[torch.Tensor, Optional[Dict]]:
+             pos, valid_len, chunk_mask=None, window=None, kv_repeat=1,
+             moe_groups=1) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Pre-norm attention then the pre-norm feed-forward (the MLP, or the
     mixture of experts where ``p`` holds ``moe``), each added to the
     residual."""
@@ -127,11 +137,12 @@ def _attn_ff(cfg: ModelConfig, p: Dict, a, x: torch.Tensor, *, rope, cache,
     h = rms_norm(x, p["ln1"], eps)
     a_out, new_cache = attention(p["attn"], h, a, rope=rope, window=window,
                                  cache=cache, pos=pos, valid_len=valid_len,
-                                 chunk_mask=chunk_mask, eps=eps)
+                                 chunk_mask=chunk_mask, eps=eps,
+                                 kv_repeat=kv_repeat)
     x = x + a_out
     h = rms_norm(x, p["ln2"], eps)
     if "moe" in p:
-        return x + moe(p["moe"], h, cfg.moe, 1, cfg.act), new_cache
+        return x + moe(p["moe"], h, cfg.moe, moe_groups, cfg.act), new_cache
     return x + mlp(p["mlp"], h, cfg.act), new_cache
 
 
@@ -157,8 +168,8 @@ def _mamba(cfg: ModelConfig, kind: str, p: Dict, h: torch.Tensor, *, cache,
 
 
 def _hybrid_par(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, rope, cache,
-                pos, valid_len, chunk_mask, chunk_lengths, slots
-                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                pos, valid_len, chunk_mask, chunk_lengths, slots,
+                kv_repeat=1) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Falcon-H1-style parallel heads: attention (KV leaves written in
     place) and Mamba-2 (new states into ``slots``) read the same normed
     input, and both outputs join the residual in the reference's order,
@@ -169,7 +180,8 @@ def _hybrid_par(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, rope, cache,
         p["attn"], h, cfg.attn, rope=rope,
         cache=({"k": cache["k"], "v": cache["v"]} if cache is not None
                else None),
-        pos=pos, valid_len=valid_len, chunk_mask=chunk_mask, eps=eps)
+        pos=pos, valid_len=valid_len, chunk_mask=chunk_mask, eps=eps,
+        kv_repeat=kv_repeat)
     m_out, new_m = _mamba(cfg, "hybrid_par", p["mamba"], h, cache=cache,
                           pos=pos, chunk_mask=chunk_mask,
                           chunk_lengths=chunk_lengths, slots=slots)
@@ -190,7 +202,8 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
                 chunk_mask: Optional[torch.Tensor] = None,
                 chunk_lengths: Optional[torch.Tensor] = None,
                 valid_len: Optional[torch.Tensor] = None,
-                slots: Optional[Dict] = None
+                slots: Optional[Dict] = None, kv_repeat: int = 1,
+                shared_kv_repeat: int = 1, moe_groups: int = 1
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """``chunk_mask`` ([B, S] bool) marks valid tokens during a chunked
     prefill, a prefix of ``chunk_lengths`` ([B] int32) per row; SSM layers
@@ -205,10 +218,27 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
     :mod:`repro_torch.models.attention`); a Mamba layer's kernels write
     its new states into ``slots`` (the layer's slots in the new cache:
     {"conv", "ssm"}) where they can, and return them.  An ``encoder``
-    layer attends with no cache and returns an empty one."""
+    layer attends with no cache and returns an empty one.  ``kv_repeat``,
+    ``shared_kv_repeat`` (the shared block's) and ``moe_groups`` are a
+    sharding plan's knobs, as the reference threads them."""
+    x = _residual(x)
+    x, new_cache = _apply(cfg, kind, p, x, rope=rope, rope_local=rope_local,
+                          cache=cache, pos=pos, shared=shared,
+                          chunk_mask=chunk_mask, chunk_lengths=chunk_lengths,
+                          valid_len=valid_len, slots=slots,
+                          kv_repeat=kv_repeat,
+                          shared_kv_repeat=shared_kv_repeat,
+                          moe_groups=moe_groups)
+    return _residual(x), new_cache
+
+
+def _apply(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *, rope,
+           rope_local, cache, pos, shared, chunk_mask, chunk_lengths,
+           valid_len, slots, kv_repeat, shared_kv_repeat, moe_groups
+           ) -> Tuple[torch.Tensor, Optional[Dict]]:
     if kind == "encoder":
         x, _ = _attn_ff(cfg, p, cfg.attn, x, rope=rope, cache=None, pos=None,
-                        valid_len=None)
+                        valid_len=None, kv_repeat=kv_repeat)
         return x, {}
     if kind in ("dense", "local", "moe", "dense_moe"):
         local = kind == "local"
@@ -216,11 +246,13 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
             cfg, p, cfg.attn, x,
             rope=rope_local if local and rope_local is not None else rope,
             cache=cache, pos=pos, valid_len=valid_len, chunk_mask=chunk_mask,
-            window=cfg.attn.sliding_window if local else None)
+            window=cfg.attn.sliding_window if local else None,
+            kv_repeat=kv_repeat, moe_groups=moe_groups)
     if kind == "hybrid_par":
         return _hybrid_par(cfg, p, x, rope=rope, cache=cache, pos=pos,
                            valid_len=valid_len, chunk_mask=chunk_mask,
-                           chunk_lengths=chunk_lengths, slots=slots)
+                           chunk_lengths=chunk_lengths, slots=slots,
+                           kv_repeat=kv_repeat)
     if kind not in ("mamba2", "mamba2+shared", "mamba1"):
         raise _unknown(kind)
     eps = cfg.norm_eps
@@ -236,7 +268,8 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Dict, x: torch.Tensor, *,
         x, new_attn = _attn_ff(cfg, shared, cfg.shared_attn, x, rope=rope,
                                cache=(cache["attn"] if cache is not None
                                       else None),
-                               pos=pos, valid_len=valid_len)
+                               pos=pos, valid_len=valid_len,
+                               kv_repeat=shared_kv_repeat)
         if new_cache is not None:
             new_cache["attn"] = new_attn
     return x, new_cache

@@ -67,25 +67,41 @@ Entry points:
   whole burst with one host transfer.  On the card the serving layer
   runs its greedy bursts as one captured CUDA graph per burst shape
   (``repro_torch.serving.graphs``).
+
+Every entry point takes a sharding plan's knobs as the reference's do:
+``kv_repeat`` (attention layers' KV heads repeated for the compute),
+``shared_kv_repeat`` (the shared block's) and ``moe_groups`` (the MoE's
+dispatch groups); the defaults are the plan-less values.  Under
+``plan.activations()`` with params, inputs and cache placed as DTensors
+(:mod:`repro_torch.launch.steps`), the same code runs sharded: the
+embedding and the logits are constrained to the plan's layouts, each
+layer's residual too (:mod:`repro_torch.models.blocks`), the kernels run
+on shards (:mod:`repro_torch.kernels.sharded`), a DTensor cache's KV
+leaves are written through their gathered value and its state leaves
+are copied (never written in place by a kernel).  A DTensor cache takes
+no ``kv_bucket``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.scope import scope
+from repro_torch.distributed.sharding import (activations, active_plan,
+                                              constrain)
 from repro_torch.models import blocks
 from repro_torch.models.attention import ATTN_KEYS
 from repro_torch.models import mamba1, mamba2
 from repro_torch.models.mlp import MLP_KEYS
 from repro_torch.models.moe import EXPERT_KEYS
 from repro_torch.models.norms import rms_norm
-from repro_torch.models.params import (ParamDef, init_params, stack_defs,
-                                       tree_leaves, tree_map)
+from repro_torch.models.params import (ParamDef, init_params, param_axes,
+                                       stack_defs, tree_leaves, tree_map)
 from repro_torch.models.rope import LOCAL_ROPE_THETA, rope_at, rope_tables
 
 KV_KEYS = ("k", "v")
@@ -120,6 +136,11 @@ def model_param_defs(cfg: ModelConfig) -> Dict[str, Any]:
                                          (None, "embed"),
                                          fan_in=cfg.frontend_feature_dim)
     return defs
+
+
+def lm_param_axes(cfg: ModelConfig):
+    """Every param leaf's logical axes, in the params' layout."""
+    return param_axes(model_param_defs(cfg))
 
 
 def init_lm_params(cfg: ModelConfig,
@@ -225,12 +246,13 @@ def _embed(cfg: ModelConfig, params, tokens: Optional[torch.Tensor],
             if features is None:
                 raise ValueError(f"{cfg.name}: an audio model embeds "
                                  "features=, not tokens")
-            return features.to(cd) @ params["frontend_proj"].to(cd)
-        x = params["embed"][tokens.long()].to(cd)
-        if cfg.frontend == "vision" and features is not None:
-            feats = features.to(cd) @ params["frontend_proj"].to(cd)
-            x = torch.cat([feats, x], dim=1)
-        return x
+            x = features.to(cd) @ params["frontend_proj"].to(cd)
+        else:
+            x = params["embed"][tokens.long()].to(cd)
+            if cfg.frontend == "vision" and features is not None:
+                feats = features.to(cd) @ params["frontend_proj"].to(cd)
+                x = torch.cat([feats, x], dim=1)
+    return constrain(x, ("batch", "seq", "embed"))
 
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -240,6 +262,8 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
             logits = x @ params["embed"].to(x.dtype).T
         else:
             logits = x @ params["lm_head"].to(x.dtype)
+        # (a DTensor's partial sums are reduced before the in-place mask)
+        logits = constrain(logits, ("batch", "seq", "vocab"))
         if cfg.padded_vocab != cfg.vocab_size:
             pad = (torch.arange(cfg.padded_vocab, device=x.device)
                    >= cfg.vocab_size)
@@ -318,7 +342,11 @@ def _store_state(dst, src, r: int) -> int:
             copies += _store_state(dst[key], val, r)
         elif key not in KV_KEYS:
             slot = dst[key][r]
-            if not (val.data_ptr() == slot.data_ptr()
+            if isinstance(slot, DTensor):
+                slot.copy_(val.redistribute(slot.device_mesh,
+                                            slot.placements))
+                copies += 1
+            elif not (val.data_ptr() == slot.data_ptr()
                     and val.shape == slot.shape
                     and val.stride() == slot.stride()):
                 slot.copy_(val)
@@ -370,7 +398,8 @@ def _decode_valid_lens(pos: torch.Tensor):
 def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
                   pos=None, chunk_mask=None, chunk_lengths=None,
                   rope=(None, None), kv_bucket=None, valid_lens=None,
-                  out_states=None, remat: bool = False):
+                  out_states=None, remat: bool = False, kv_repeat: int = 1,
+                  shared_kv_repeat: int = 1, moe_groups: int = 1):
     """Every layer in order.  Each layer gets views of its cache: state
     leaves at its repeat, KV leaves cut to their first ``kv_bucket`` rows
     (None: all), so its KV writes land in the full cache; and its state
@@ -384,9 +413,11 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
     (no cache) runs each unit, one repeat of a segment's layers, under
     ``torch.utils.checkpoint``: its activations are dropped after the
     forward and recomputed in the backward, as the reference's
-    ``jax.checkpoint`` of its scanned unit.  Returns (x, the new segments:
-    new state leaves, the cache's own KV leaves)."""
+    ``jax.checkpoint`` of its scanned unit.  ``kv_repeat``,
+    ``shared_kv_repeat`` and ``moe_groups`` go to every layer.  Returns
+    (x, the new segments: new state leaves, the cache's own KV leaves)."""
     shared = params.get("shared")
+    plan = active_plan()
     new_segs = []
     for si, (unit, n_rep) in enumerate(cfg.segments()):
         seg_p = params["segments"][si]
@@ -400,7 +431,8 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
                      new_seg=new_seg):
             for li, kind in enumerate(unit):
                 p = tree_map(lambda t: t[r], seg_p[li])
-                c = (_map_cache(lambda t: t[r, :, :kv_bucket],
+                c = (_map_cache(lambda t: (t[r] if kv_bucket is None
+                                           else t[r, :, :kv_bucket]),
                                 lambda t: t[r], seg_c[li])
                      if seg_c is not None else None)
                 kv = next(_kv_leaves(c), None) if c is not None else None
@@ -412,11 +444,18 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
                                if valid_lens is not None and kv is not None
                                else None),
                     slots=(_state_slots(new_seg[li], r)
-                           if new_seg is not None else None))
+                           if new_seg is not None else None),
+                    kv_repeat=kv_repeat, shared_kv_repeat=shared_kv_repeat,
+                    moe_groups=moe_groups)
                 if new_seg is not None:
                     _store_state(new_seg[li], nc, r)
             return x
 
+        if remat and plan is not None:
+            # the backward's recompute runs outside the caller's context
+            def run_unit(x, r, inner=run_unit):
+                with activations(plan):
+                    return inner(x, r)
         for r in range(n_rep):
             x = (checkpoint(run_unit, x, r, use_reentrant=False) if remat
                  else run_unit(x, r))
@@ -424,7 +463,8 @@ def _run_segments(cfg: ModelConfig, params, x: torch.Tensor, *, cache=None,
     return x, new_segs
 
 
-def _check_kv_bucket(cfg: ModelConfig, kv_bucket: Optional[int]) -> None:
+def _check_kv_bucket(cfg: ModelConfig, kv_bucket: Optional[int],
+                     cache=None) -> None:
     if kv_bucket is None:
         return
     if kv_bucket < 1:
@@ -433,6 +473,10 @@ def _check_kv_bucket(cfg: ModelConfig, kv_bucket: Optional[int]) -> None:
         raise ValueError(
             "kv_bucket requires causal KV caches; encoder (bidirectional) "
             "layers cannot be prefix-sliced")
+    if cache is not None and any(isinstance(t, DTensor) for t in
+                                 tree_leaves(cache["segments"])):
+        raise ValueError("kv_bucket slices the KV leaves as views; a "
+                         "sharded (DTensor) cache is attended whole")
 
 
 def _kv_rows(cache, kv_bucket: Optional[int]) -> Optional[int]:
@@ -444,7 +488,9 @@ def _kv_rows(cache, kv_bucket: Optional[int]) -> Optional[int]:
 
 def lm_forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
                *, features: Optional[torch.Tensor] = None,
-               train: bool = True) -> torch.Tensor:
+               train: bool = True, kv_repeat: int = 1,
+               shared_kv_repeat: int = 1, moe_groups: int = 1
+               ) -> torch.Tensor:
     """Full-sequence forward with no cache: logits [B, S, V] of every
     position.  ``tokens`` [B, S], and ``features`` as :func:`_embed` takes
     them (an audio model's frames alone).  ``train`` (the reference's
@@ -457,12 +503,16 @@ def lm_forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
     s = x.shape[1]
     rope = _rope_for(cfg, s, None, s, x.device)
     remat = train and cfg.remat == "block" and torch.is_grad_enabled()
-    x, _ = _run_segments(cfg, params, x, rope=rope, remat=remat)
+    x, _ = _run_segments(cfg, params, x, rope=rope, remat=remat,
+                         kv_repeat=kv_repeat,
+                         shared_kv_repeat=shared_kv_repeat,
+                         moe_groups=moe_groups)
     return _head(cfg, params, x)
 
 
 def lm_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *,
-               features: Optional[torch.Tensor] = None
+               features: Optional[torch.Tensor] = None, kv_repeat: int = 1,
+               shared_kv_repeat: int = 1, moe_groups: int = 1
                ) -> Tuple[torch.Tensor, Any]:
     """Process the prompt [B,S] (a vision model's ``features`` [B,N,F]
     before it: N + S positions), fill the cache.  Returns (last-token
@@ -471,7 +521,10 @@ def lm_prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *,
     b, seq = x.shape[0], x.shape[1]
     rope = _rope_for(cfg, max(seq, cache_kv_extent(cache) or seq), None, seq,
                      x.device)
-    x, new_segs = _run_segments(cfg, params, x, cache=cache, rope=rope)
+    x, new_segs = _run_segments(cfg, params, x, cache=cache, rope=rope,
+                                kv_repeat=kv_repeat,
+                                shared_kv_repeat=shared_kv_repeat,
+                                moe_groups=moe_groups)
     logits = _head(cfg, params, x[:, -1:])
     return logits, {"segments": new_segs,
                     "pos": torch.full((b,), seq, dtype=torch.int32,
@@ -482,7 +535,8 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
                      *, lengths: Optional[torch.Tensor] = None,
                      kv_bucket: Optional[int] = None,
                      rope_len: Optional[int] = None,
-                     with_sentinel: bool = False):
+                     with_sentinel: bool = False, kv_repeat: int = 1,
+                     shared_kv_repeat: int = 1, moe_groups: int = 1):
     """One state-carrying prefill chunk of ``S`` tokens per row, starting at
     each row's running offset ``cache["pos"]``.  ``lengths`` ([B] int32,
     default all-S) counts each row's valid leading tokens; the rest are
@@ -500,7 +554,7 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
     (logits, cache, ok): ``ok`` ([B] bool, on the device) is True where the
     final hidden states of the row's valid tokens and its logits over the
     vocab are all finite; a row with no valid token passes."""
-    _check_kv_bucket(cfg, kv_bucket)
+    _check_kv_bucket(cfg, kv_bucket, cache)
     x = _embed(cfg, params, tokens)
     b, s = x.shape[0], x.shape[1]
     pos = cache["pos"].to(torch.int32).expand(b)
@@ -514,7 +568,10 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
                               rope_len or 0), pos, s, x.device)
     x, new_segs = _run_segments(cfg, params, x, cache=cache, pos=pos,
                                 chunk_mask=chunk_mask, chunk_lengths=lengths,
-                                rope=rope, kv_bucket=kv_bucket)
+                                rope=rope, kv_bucket=kv_bucket,
+                                kv_repeat=kv_repeat,
+                                shared_kv_repeat=shared_kv_repeat,
+                                moe_groups=moe_groups)
     last = torch.clamp(lengths - 1, 0, s - 1).long()
     x_last = torch.gather(x, 1, last[:, None, None].expand(b, 1, x.shape[2]))
     logits = _head(cfg, params, x_last)
@@ -530,12 +587,14 @@ def lm_prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
 
 def lm_decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
                    kv_bucket: Optional[int] = None,
-                   rope_len: Optional[int] = None, _out_states=None) -> Tuple[torch.Tensor, Any]:
+                   rope_len: Optional[int] = None, kv_repeat: int = 1,
+                   shared_kv_repeat: int = 1, moe_groups: int = 1,
+                   _out_states=None) -> Tuple[torch.Tensor, Any]:
     """One token step. token: [B, 1]; ``cache["pos"]`` is a [B] vector.
     ``kv_bucket`` and ``rope_len`` as in :func:`decode_tokens`.
     ``_out_states`` (private; :func:`init_spare_states`'s layout, apart
     from the cache's state leaves) receives the new state leaves."""
-    _check_kv_bucket(cfg, kv_bucket)
+    _check_kv_bucket(cfg, kv_bucket, cache)
     pos = cache["pos"]
     x = _embed(cfg, params, token)
     rows = _kv_rows(cache, kv_bucket)
@@ -543,7 +602,9 @@ def lm_decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
     x, new_segs = _run_segments(cfg, params, x, cache=cache, pos=pos,
                                 rope=rope, kv_bucket=kv_bucket,
                                 valid_lens=_decode_valid_lens(pos),
-                                out_states=_out_states)
+                                out_states=_out_states, kv_repeat=kv_repeat,
+                                shared_kv_repeat=shared_kv_repeat,
+                                moe_groups=moe_groups)
     return _head(cfg, params, x), {"segments": new_segs, "pos": pos + 1}
 
 
@@ -581,7 +642,8 @@ def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
                   rope_len: Optional[int] = None, with_sentinel: bool = False,
                   temperature: float = 0.0,
                   generator: Optional[torch.Generator] = None,
-                  _spare_states=None):
+                  kv_repeat: int = 1, shared_kv_repeat: int = 1,
+                  moe_groups: int = 1, _spare_states=None):
     """``n`` decode steps: ``first_token`` ([B,1]) feeds the first step and
     each next input is selected on the device from the step's logits over
     the first ``cfg.vocab_size`` columns, so the burst needs no host
@@ -619,7 +681,7 @@ def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
     leaves then hold the burst's final states, and a captured graph of
     the burst reads and writes the same buffers on every replay.
     Without it the input cache's state leaves are left as they were."""
-    _check_kv_bucket(cfg, kv_bucket)
+    _check_kv_bucket(cfg, kv_bucket, cache)
     if temperature > 0.0:
         _check_generator(generator, tree_leaves(cache["segments"])[0].device)
     own = _state_leaves(cache) if _spare_states is not None else None
@@ -632,6 +694,9 @@ def decode_tokens(cfg: ModelConfig, params, cache, first_token: torch.Tensor,
         logits, cache = lm_decode_step(cfg, params, tok, cache,
                                        kv_bucket=kv_bucket,
                                        rope_len=rope_len,
+                                       kv_repeat=kv_repeat,
+                                       shared_kv_repeat=shared_kv_repeat,
+                                       moe_groups=moe_groups,
                                        _out_states=dst)
         lg = logits[:, 0, :cfg.vocab_size]
         if with_sentinel:

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.config import SSMConfig
 from repro_torch.core.scope import scope
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.conv1d.ops import causal_conv1d
 from repro_torch.kernels.conv1d.ref import silu
 from repro_torch.kernels.decode_fused.ops import mamba1_decode_fused
@@ -74,6 +75,7 @@ def mamba1_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
     with scope("ssm_in_proj"):
         xi = x @ p["wx"].to(dt_)
         z = x @ p["wz"].to(dt_)
+    xi = constrain(xi, ("batch", "seq", "conv_dim"))
     init_conv = cache["conv"] if cache is not None else None
     xi, conv_state = causal_conv1d(
         xi, p["conv_w"], p["conv_b"], initial_state=init_conv,
@@ -104,7 +106,7 @@ def mamba1_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
     if cache is not None:
         new_cache = {"conv": conv_state.to(cache["conv"].dtype),
                      "ssm": ssm_state.float()}
-    return out, new_cache
+    return constrain(out, ("batch", "seq", "embed")), new_cache
 
 
 def mamba1_decode(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,

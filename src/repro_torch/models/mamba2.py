@@ -5,16 +5,21 @@ matmuls, as in the reference, where they sit outside every Pallas kernel.
 They take the weights in the compute dtype: the reference casts them per
 use (``p["wz"].astype(dt_)``), and :func:`repro_torch.models.lm.prepare_params`
 casts them once at load instead, which gives the same bits and saves
-re-reading the fp32 weights on every decode step.
+re-reading the fp32 weights on every decode step.  ``constrain`` pins
+the conv input, the SSD heads, the scan output and the block's output to
+a sharding plan's layouts at the reference's sites (no-ops without a
+plan).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.config import SSMConfig
 from repro_torch.core.scope import scope
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.conv1d.ops import causal_conv1d
 from repro_torch.kernels.decode_fused.ops import mamba2_decode_fused
 from repro_torch.kernels.ssd.ops import ssd_chunked_raw
@@ -94,6 +99,7 @@ def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
         z = x @ p["wz"].to(dt_)
         xbc = x @ p["wxBC"].to(dt_)
         dt_raw = x @ p["wdt"].to(dt_)
+    xbc = constrain(xbc, ("batch", "seq", "conv_dim"))
     if mask is not None:
         dt_raw = torch.where(mask[:, :, None], dt_raw,
                              torch.full((), INERT_DT, dtype=dt_,
@@ -104,7 +110,8 @@ def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
         lengths=conv_lengths(mask, lengths),
         out_state=state_slot(slots, "conv", dt_))
     xs, bm, cm = _split_xbc(xbc, s, d_model)
-    xh = xs.reshape(b, seq, nh, s.headdim)
+    xh = constrain(xs.reshape(b, seq, nh, s.headdim),
+                   ("batch", "seq", "ssm_heads", None))
 
     # pad the sequence to a chunk multiple with inert tokens
     pad = (-seq) % s.chunk
@@ -120,10 +127,13 @@ def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
                                    chunk=s.chunk, initial_state=init_ssm,
                                    out_state=state_slot(slots, "ssm",
                                                    torch.float32))
-    y = y[:, :seq].reshape(b, seq, di)
+    y = y[:, :seq]
+    if isinstance(y, DTensor):
+        y = y.contiguous()       # DTensor reshapes its shards as views
+    y = constrain(y.reshape(b, seq, di), ("batch", "seq", "conv_dim"))
     y = gated_rms_norm(y, z, p["norm_scale"], eps)
     with scope("ssm_out_proj"):
-        out = y @ p["out_proj"].to(dt_)
+        out = constrain(y @ p["out_proj"].to(dt_), ("batch", "seq", "embed"))
     new_cache = None
     if cache is not None:
         new_cache = {"conv": conv_state.to(cache["conv"].dtype),
@@ -134,8 +144,11 @@ def mamba2_block(p: Dict, x: torch.Tensor, s: SSMConfig, d_model: int, *,
 def state_slot(slots: Optional[Dict], key: str, dtype: torch.dtype):
     """``slots[key]`` where the kernel can write it in place: present, of
     ``dtype``, contiguous and 16-byte aligned; else None (the caller
-    copies)."""
+    copies).  A DTensor slot is never written in place: the kernels see
+    only shards."""
     t = None if slots is None else slots.get(key)
+    if isinstance(t, DTensor):
+        return None
     return t if (t is not None and t.dtype == dtype and t.is_contiguous()
                  and t.data_ptr() % 16 == 0) else None
 

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.scope import scope
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.params import ParamDef
 
 # the matmul weights the compute dtype reads (cast once at load)
@@ -36,15 +37,21 @@ def activation(act: str):
 
 
 def gated(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
-          wo: torch.Tensor, act: str) -> torch.Tensor:
+          wo: torch.Tensor, act: str, h_axes=None) -> torch.Tensor:
     """``act(x @ wg) * (x @ wi) @ wo`` in ``x``'s dtype, with no scope (the
-    caller opens its own: ``mlp``, or the MoE's ``moe_shared_expert``)."""
+    caller opens its own: ``mlp``, or the MoE's ``moe_shared_expert``).
+    ``h_axes`` (the MLP's) constrains the gated hidden to a plan's
+    layout."""
     dt = x.dtype
     h = x @ wi.to(dt)
     g = x @ wg.to(dt)
-    return (activation(act)(g) * h) @ wo.to(dt)
+    h = activation(act)(g) * h
+    if h_axes is not None:
+        h = constrain(h, h_axes)
+    return h @ wo.to(dt)
 
 
 def mlp(p: Dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     with scope("mlp"):
-        return gated(x, p["wi"], p["wg"], p["wo"], act)
+        return gated(x, p["wi"], p["wg"], p["wo"], act,
+                     h_axes=("batch", "seq", "ff"))

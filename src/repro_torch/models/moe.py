@@ -36,8 +36,16 @@ backward rejects a broadcast gradient, stride 0, such as a ``.sum()``'s).
 
 The router runs in fp32 in the ``moe_route`` scope; its weight stays
 fp32 (``repro_torch.models.lm.prepare_params`` casts only the expert
-weights).  The reference's ``constrain`` calls are sharding annotations,
-no-ops without a mesh: the port has none.
+weights).
+
+Under a sharding plan the gshard path keeps the reference's
+``constrain`` sites: groups on the batch axes, the token-major dispatch
+and combine with experts on the model axis, the expert-major buffers
+with experts on ``experts_ep`` (the reshard between them is the EP
+all-to-all) and capacity rows on the model axis; its ``moe_groups``
+(the plan's) sets the groups, each with its own capacity.  The ragged
+path has no sharded form (its sort and grouped product run on local
+tensors only) and raises on a DTensor.
 """
 from __future__ import annotations
 
@@ -45,9 +53,11 @@ import math
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.config import MoEConfig
 from repro_torch.core.scope import scope
+from repro_torch.distributed.sharding import constrain, wrap_local
 from repro_torch.models.mlp import activation, gated
 from repro_torch.models.params import ParamDef
 
@@ -90,8 +100,25 @@ def _router(p, x: torch.Tensor, m: MoEConfig):
     logits; idx [g, t, k] int64, largest logit first)."""
     with scope("moe_route"):
         logits = torch.matmul(x.float(), p["router"].float())
-        gates, idx = torch.topk(logits, m.experts_per_token, dim=-1)
+        gates, idx = _topk(logits, m.experts_per_token)
         return torch.softmax(gates, dim=-1), idx
+
+
+def _topk(logits: torch.Tensor, k: int):
+    """``torch.topk`` over the experts.  A DTensor runs it on its shards
+    with the experts whole (each row's choice is local): DTensor's cached
+    propagation of ``topk`` keys on the input alone and would hand a
+    later call of another ``k`` the earlier output shape."""
+    if not isinstance(logits, DTensor):
+        return torch.topk(logits, k, dim=-1)
+    last = logits.dim() - 1
+    pl = tuple(Replicate() if isinstance(q, Shard) and q.dim == last else q
+               for q in logits.placements)
+    loc = logits.redistribute(logits.device_mesh, pl).to_local()
+    gates, idx = torch.topk(loc, k, dim=-1)
+    shape = tuple(logits.shape[:-1]) + (k,)
+    return tuple(wrap_local(t, logits.device_mesh, pl, shape)
+                 for t in (gates, idx))
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -116,7 +143,7 @@ def moe_gshard(p: Dict, x: torch.Tensor, m: MoEConfig, n_groups: int,
     while t % g:
         g -= 1
     tg = t // g
-    xg = x.reshape(g, tg, d)
+    xg = constrain(x.reshape(g, tg, d), ("groups", None, "embed"))
     cap = _capacity(tg, m)
     e, k = m.n_experts, m.experts_per_token
 
@@ -135,26 +162,35 @@ def moe_gshard(p: Dict, x: torch.Tensor, m: MoEConfig, n_groups: int,
         combine = torch.bmm(weighted.reshape(g * tg, k, e).transpose(1, 2),
                             capslot.reshape(g * tg, k, cap)).reshape(
             g, tg, e * cap)
+        # token-major: groups on data, experts on model
+        combine = constrain(combine, ("groups", None, "experts"))
         dispatch = (combine > 0).to(x.dtype)
         # gtec,gtd->gecd
         ex_in = torch.bmm(dispatch.transpose(1, 2), xg)     # [g, e*cap, d]
+        ex_in = constrain(ex_in, ("groups", "experts", None))
     with scope("moe_expert"):
         dt = x.dtype
         # expert-major rows: [e, g*cap, d]
-        xe = ex_in.reshape(g, e, cap, d).transpose(0, 1).reshape(
-            e, g * cap, d)
+        # (the reshard from token-major is the EP all-to-all)
+        xe = constrain(ex_in.reshape(g, e, cap, d).transpose(0, 1).reshape(
+            e, g * cap, d), ("experts_ep", "expert_cap", None))
         h = torch.bmm(xe, p["wi"].to(dt))
         hg = torch.bmm(xe, p["wg"].to(dt))
-        ex_out = torch.bmm(activation(act)(hg) * h, p["wo"].to(dt))
-        ex_out = ex_out.reshape(e, g, cap, d).transpose(0, 1).reshape(
-            g, e * cap, d)
+        h = constrain(activation(act)(hg) * h,
+                      ("experts_ep", None, "expert_ff"))
+        ex_out = constrain(torch.bmm(h, p["wo"].to(dt)),
+                           ("experts_ep", "expert_cap", None))
+        # reverse all-to-all: back to token-major before the combine
+        ex_out = constrain(ex_out.reshape(e, g, cap, d).transpose(0, 1)
+                           .reshape(g, e * cap, d),
+                           ("groups", "experts", None))
     with scope("moe_combine"):
         # gtec,gecd->gtd
         y = torch.bmm(combine.to(dt), ex_out)
     y = y.reshape(b, s, d)
     if m.shared_expert:
         y = y + _shared_expert(p, x, act)
-    return y
+    return constrain(y, ("batch", "seq", "embed"))
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -178,6 +214,9 @@ def moe_ragged(p: Dict, x: torch.Tensor, m: MoEConfig,
                act: str = "silu") -> torch.Tensor:
     """Sort-based MoE: flatten, sort by expert, grouped products, unsort.
     No capacity drop."""
+    if isinstance(x, DTensor):
+        raise NotImplementedError("the ragged MoE path has no sharded form: "
+                                  "under a plan use impl='gshard'")
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)

@@ -57,6 +57,11 @@ def cast_tree(params, dtype: torch.dtype):
                     params)
 
 
+def param_axes(defs):
+    """The logical axes of every leaf of a ParamDef tree."""
+    return tree_map(lambda d: d.axes, defs)
+
+
 def stack_defs(defs, n: int, axis_name: str = "layers"):
     """Add a leading stacked-layers dim to every ParamDef in the tree."""
     return tree_map(lambda d: ParamDef((n,) + d.shape, (axis_name,) + d.axes,

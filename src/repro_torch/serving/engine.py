@@ -54,10 +54,20 @@ the decode graphs' keys, which hold the leaves' addresses, stay the same.
 Encoder-only and audio models have no autoregressive path: the engine
 refuses them, as the reference's does, and :func:`make_encode_step`
 serves them (one full forward).  A vision model is served token-only;
-:func:`greedy_generate` takes its patch features.  MoE models run with
-one dispatch group, as the reference's do without a sharding plan.
+:func:`greedy_generate` takes its patch features.
 
-Not ported yet (ROADMAP.md): the reference's sharding ``plan=``.
+A sharding plan (``plan=``, :mod:`repro_torch.distributed.sharding`)
+sets the model's ``kv_repeat`` and ``moe_groups``, as the reference's
+engine takes them from it, and the engine's model calls run under
+``plan.activations()``.  The engine is one replica, as the reference's
+is: its params, cache and decode graphs are this process's own tensors
+(the graphs capture over those local buffers), so under a plan whose
+knobs are the defaults (a world of one) it serves bit for bit as with
+none.  :func:`make_prefill_step`, :func:`make_decode_step` and
+:func:`make_encode_step` are the reference's step builders, which a
+distributed cell (:mod:`repro_torch.launch.steps`) runs on DTensors;
+the decode burst's builder is :func:`repro_torch.serving.graphs.make_decode_tokens`.
+MoE models run with one dispatch group without a plan.
 """
 from __future__ import annotations
 
@@ -73,9 +83,12 @@ import torch
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.op_analysis import analyze, meta_like
+from repro_torch.distributed.sharding import (ShardingPlan, activations,
+                                              model_kwargs)
 from repro_torch.models.lm import (decode_tokens, init_lm_cache,
-                                   init_spare_states, lm_forward, lm_prefill,
-                                   lm_prefill_chunk, prepare_params)
+                                   init_spare_states, lm_decode_step,
+                                   lm_forward, lm_prefill, lm_prefill_chunk,
+                                   prepare_params)
 from repro_torch.models.params import tree_leaves
 from repro_torch.serving.bucketing import (clamped_bucket, kv_cache_extent,
                                            rope_len_for)
@@ -107,24 +120,56 @@ def _on_device(params, dev: torch.device) -> None:
         raise ValueError(f"params live on {sorted(bad)}, not {dev}")
 
 
-def make_encode_step(cfg: ModelConfig, *,
-                     device: Optional[Union[str, torch.device]] = None):
+def make_prefill_step(cfg: ModelConfig, plan: Optional[ShardingPlan] = None):
+    """The reference's prefill step: ``prefill_step(params, inputs, cache)
+    -> (last-token logits, cache)``, :func:`lm_prefill` with the plan's
+    knobs under ``plan.activations()``.  ``inputs`` holds ``tokens`` (and a
+    vision model's ``features``)."""
+    kw = model_kwargs(plan)
+
+    def prefill_step(params, inputs: Dict[str, torch.Tensor], cache):
+        with activations(plan):
+            return lm_prefill(cfg, params, inputs["tokens"], cache,
+                              features=inputs.get("features"), **kw)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, plan: Optional[ShardingPlan] = None):
+    """The reference's decode step: ``decode_step(params, token, cache) ->
+    (logits, cache)``, one :func:`lm_decode_step` with the plan's knobs
+    under ``plan.activations()``."""
+    kw = model_kwargs(plan)
+
+    def decode_step(params, token: torch.Tensor, cache):
+        with activations(plan):
+            return lm_decode_step(cfg, params, token, cache, **kw)
+
+    return decode_step
+
+
+def make_encode_step(cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
+                     *, device: Optional[Union[str, torch.device]] = None):
     """The serve step of an encoder-only model (hubert): one full forward,
     :func:`~repro_torch.models.lm.lm_forward` with no cache.  The step
     takes (params, inputs): ``inputs`` holds ``features`` (an audio
     model's frames [B, S, F]) and/or ``tokens``, and is moved to the
     device; params from :func:`~repro_torch.models.lm.prepare_params`
     are read as they are, raw ones are cast on every use.  Returns the
-    logits [B, S, V]."""
+    logits [B, S, V].  ``plan`` sets ``kv_repeat`` and the step runs under
+    its ``activations()``."""
     dev = resolve_device(device)
+    kw = model_kwargs(plan)
 
     def encode_step(params, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
         _on_device(params, dev)
         tokens, feats = inputs.get("tokens"), inputs.get("features")
-        return lm_forward(cfg, params,
-                          None if tokens is None else tokens.to(dev),
-                          features=None if feats is None else feats.to(dev),
-                          train=False)
+        with activations(plan):
+            return lm_forward(
+                cfg, params, None if tokens is None else tokens.to(dev),
+                features=None if feats is None else feats.to(dev),
+                train=False, kv_repeat=kw["kv_repeat"],
+                shared_kv_repeat=kw["shared_kv_repeat"])
 
     return encode_step
 
@@ -235,6 +280,7 @@ class ServingEngine:
                  store: Optional[CheckpointStore] = None,
                  store_dir: Optional[str] = None,
                  profiler: Optional[Profiler] = None,
+                 plan: Optional[ShardingPlan] = None,
                  device: Optional[Union[str, torch.device]] = None):
         if not supports_chunked_prefill(cfg):
             raise ValueError(
@@ -244,6 +290,9 @@ class ServingEngine:
         self.device = resolve_device(device)
         _on_device(params, self.device)
         self.cfg = cfg
+        self.plan = plan
+        self.kv_repeat = model_kwargs(plan)["kv_repeat"]
+        self.moe_groups = model_kwargs(plan)["moe_groups"]
         self.params = prepare_params(cfg, params)
         self.slots = slots
         self.max_seq = max_seq
@@ -270,11 +319,11 @@ class ServingEngine:
         self.rope_len = rope_len_for(cfg, max_seq)
         self.cache = init_lm_cache(cfg, slots, max_seq, device=self.device)
         self._spare = init_spare_states(self.cache)
-        self._decode_n = make_decode_tokens(cfg, self.profiler)
+        self._decode_n = make_decode_tokens(cfg, self.profiler, plan=plan)
         self._chunked_prefill = ChunkedPrefill(
             cfg, self.params, max_seq=max_seq, chunk_size=self.chunk_size,
             sentinel=self.sentinel, fault_plan=self.faults,
-            metrics=self.metrics)
+            metrics=self.metrics, plan=plan)
         # slots reserved for the in-flight prefill group: row i of the
         # group lands in slot _pending[i][0] when its prompt completes
         self._pending: List[Tuple[int, Request]] = []
@@ -1074,7 +1123,8 @@ class ServingEngine:
                                 device="meta"), self.decode_block,
                     kv_bucket=kv_bucket, rope_len=self.rope_len,
                     with_sentinel=self.sentinel,
-                    _spare_states=init_spare_states(cache)))
+                    _spare_states=init_spare_states(cache),
+                    **model_kwargs(self.plan)))
             if not prof.registered("prefill") and self._prefill_seen:
                 batch, kv_bucket = max(self._prefill_seen,
                                        key=lambda s: (s[0], s[1] or 0))
@@ -1087,7 +1137,7 @@ class ServingEngine:
                     lengths=torch.full((batch,), self.chunk_size,
                                        dtype=torch.int32, device="meta"),
                     kv_bucket=kv_bucket, rope_len=self.rope_len,
-                    with_sentinel=self.sentinel))
+                    with_sentinel=self.sentinel, **model_kwargs(self.plan)))
         return prof.snapshot()
 
     def _abort_inflight(self, status: str, err: RequestError) -> None:

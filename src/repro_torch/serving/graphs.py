@@ -37,7 +37,10 @@ their addresses; KV rows are written in place as on the eager path.
   suspended during capture: nothing a scope does may be captured.
 
 A capture or replay error raises; there is no eager fallback on the card.
-A CPU cache runs :func:`decode_tokens` itself (the plain path).
+A CPU cache runs :func:`decode_tokens` itself (the plain path).  A
+sharding plan's ``kv_repeat`` and ``moe_groups`` go to every burst, which
+runs (and is captured) under ``plan.activations()``; the graph reads and
+writes the runner's local buffers, as without a plan.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ import torch
 
 from repro_torch.core import scope as _scope
 from repro_torch.core.config import ModelConfig
+from repro_torch.distributed.sharding import activations, model_kwargs
 from repro_torch.kernels.attn_decode.ops import decode_attention
 from repro_torch.kernels.conv1d.ops import causal_conv1d
 from repro_torch.kernels.decode_fused.ops import (mamba1_decode_fused,
@@ -98,8 +102,11 @@ class DecodeGraphs:
     ``capture_ms`` the host time of each capture by key; ``profiler``
     (default: one that is off) learns each graph in trace mode."""
 
-    def __init__(self, cfg: ModelConfig, profiler: Optional[Profiler] = None):
+    def __init__(self, cfg: ModelConfig, profiler: Optional[Profiler] = None,
+                 plan=None):
         self.cfg = cfg
+        self.plan = plan
+        self._kw = model_kwargs(plan)
         self.profiler = profiler if profiler is not None else Profiler()
         self._bursts: Dict[tuple, _Burst] = {}
         self._pool = None
@@ -118,10 +125,11 @@ class DecodeGraphs:
         in place."""
         dev = tree_leaves(cache["segments"])[0].device
         if dev.type != "cuda":
-            return decode_tokens(self.cfg, params, cache, first_token, n,
-                                 kv_bucket=kv_bucket, rope_len=rope_len,
-                                 with_sentinel=with_sentinel,
-                                 _spare_states=spare)
+            with activations(self.plan):
+                return decode_tokens(self.cfg, params, cache, first_token, n,
+                                     kv_bucket=kv_bucket, rope_len=rope_len,
+                                     with_sentinel=with_sentinel,
+                                     _spare_states=spare, **self._kw)
         if spare is None:
             raise ValueError("a decode burst on the card needs the cache's "
                              "spare state set: lm.init_spare_states(cache)")
@@ -142,11 +150,12 @@ class DecodeGraphs:
             return burst.out
 
         def run():
-            return decode_tokens(self.cfg, params,
-                                 dict(cache, pos=burst.pos), burst.tok, n,
-                                 kv_bucket=kv_bucket, rope_len=rope_len,
-                                 with_sentinel=with_sentinel,
-                                 _spare_states=spare)
+            with activations(self.plan):
+                return decode_tokens(self.cfg, params,
+                                     dict(cache, pos=burst.pos), burst.tok, n,
+                                     kv_bucket=kv_bucket, rope_len=rope_len,
+                                     with_sentinel=with_sentinel,
+                                     _spare_states=spare, **self._kw)
         with self.profiler.learn() as gid:
             result = run()
         burst.gid = gid
@@ -180,10 +189,12 @@ class DecodeGraphs:
 
 
 def make_decode_tokens(cfg: ModelConfig,
-                       profiler: Optional[Profiler] = None) -> DecodeGraphs:
-    """The reference's builder of the fused decode burst, less its sharding
-    plan: ``decode_n(params, cache, first_token, n, kv_bucket=None,
-    rope_len=None, with_sentinel=False)``, a CUDA graph per key on the
-    card and :func:`decode_tokens` on the CPU; ``profiler`` learns each
+                       profiler: Optional[Profiler] = None, *,
+                       plan=None) -> DecodeGraphs:
+    """The reference's builder of the fused decode burst: ``decode_n(params,
+    cache, first_token, n, kv_bucket=None, rope_len=None,
+    with_sentinel=False)``, a CUDA graph per key on the card and
+    :func:`decode_tokens` on the CPU, with ``plan``'s ``kv_repeat`` and
+    ``moe_groups`` under its ``activations()``; ``profiler`` learns each
     graph in trace mode."""
-    return DecodeGraphs(cfg, profiler)
+    return DecodeGraphs(cfg, profiler, plan)

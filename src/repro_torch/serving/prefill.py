@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.distributed.sharding import activations, model_kwargs
 from repro_torch.models.lm import (cache_kv_extent, init_lm_cache,
                                    lm_prefill_chunk)
 from repro_torch.models.params import tree_map
@@ -108,16 +109,19 @@ class ChunkedPrefill:
     then runs on a private copy of its cache, so the template reused by
     later groups stays clean.  ``metrics`` (a
     :class:`~repro_torch.serving.metrics.MetricsRegistry`) gets the
-    reference's chunk, quarantine and row instruments."""
+    reference's chunk, quarantine and row instruments.  ``plan`` (a
+    sharding plan) sets the model's ``kv_repeat`` and ``moe_groups`` and
+    each chunk runs under its ``activations()``."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_seq: int,
                  chunk_size: int = 256, sentinel: bool = True,
-                 fault_plan=None, metrics=None):
+                 fault_plan=None, metrics=None, plan=None):
         if not supports_chunked_prefill(cfg):
             raise ValueError(f"{cfg.name}: architecture does not support "
                              "chunked prefill")
         self.cfg = cfg
         self.params = params
+        self.plan = plan
         self.device = params["embed"].device
         self.max_seq = max_seq
         self.chunk = int(chunk_size)
@@ -247,11 +251,12 @@ class ChunkedPrefill:
         self._dispatched.add(combo)
         if self._m_chunks is not None:
             self._m_chunks.inc()
-        out = lm_prefill_chunk(
-            self.cfg, self.params, g["tokens"][:, off:off + self.chunk],
-            g["cache"], lengths=torch.from_numpy(clens).to(self.device),
-            kv_bucket=kv_bucket, rope_len=self.rope_len,
-            with_sentinel=self.sentinel)
+        with activations(self.plan):
+            out = lm_prefill_chunk(
+                self.cfg, self.params, g["tokens"][:, off:off + self.chunk],
+                g["cache"], lengths=torch.from_numpy(clens).to(self.device),
+                kv_bucket=kv_bucket, rope_len=self.rope_len,
+                with_sentinel=self.sentinel, **model_kwargs(self.plan))
         logits, g["cache"] = out[0], out[1]
         g["idx"] += 1
         fin &= ~g["emitted"]

@@ -10,6 +10,13 @@ type the train step accumulates gradients in.  The reference returns new
 trees; :func:`adamw_update` writes the new values into the params and
 moments it is given (the trees it returns hold the same tensors), which
 keeps one copy of each in device memory.
+
+ZeRO-1: where a param is a DTensor its moments are DTensors placed by
+``zero1_rules(plan)`` (``init_opt_state(..., shardings=)``), and the
+update runs on each rank's moment shard: the gradient and the param are
+taken to the moments' placements (a local cut), the new param shard is
+gathered back to the param's own placements.  Each element's arithmetic
+is the unsharded one.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.scope import scope
 from repro_torch.models.params import tree_leaves, tree_map
@@ -35,15 +43,36 @@ class OptConfig:
     state_dtype: str = "float32"     # m/v dtype (bf16 halves optimizer memory)
 
 
-def init_opt_state(params, cfg: OptConfig) -> Dict[str, Any]:
+def init_opt_state(params, cfg: OptConfig, shardings=None) -> Dict[str, Any]:
     """Zero moments in ``state_dtype`` beside each leaf, and the step count
-    (an int32 scalar on the params' device)."""
+    (an int32 scalar on the params' device).  ``shardings`` (a tree of
+    ``(mesh, placements)`` matching the params, ``zero1_rules``') makes
+    each moment a DTensor of those placements."""
     sd = getattr(torch, cfg.state_dtype)
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else torch.device("cpu")
     zeros = lambda p: torch.zeros(p.shape, dtype=sd, device=p.device)  # noqa: E731
-    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+    if shardings is None:
+        m, v = tree_map(zeros, params), tree_map(zeros, params)
+    else:
+        from repro_torch.distributed.sharding import place
+        from repro_torch.models.params import tree_unflatten
+        shs = _sharding_leaves(shardings)
+        m = tree_unflatten(params, [place(zeros(p), s)
+                                    for p, s in zip(leaves, shs)])
+        v = tree_unflatten(params, [place(zeros(p), s)
+                                    for p, s in zip(leaves, shs)])
+    return {"m": m, "v": v,
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _sharding_leaves(tree):
+    from repro_torch.distributed.sharding import is_sharding
+    if is_sharding(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _sharding_leaves(v)]
+    return [x for v in tree for x in _sharding_leaves(v)]
 
 
 def _schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
@@ -62,7 +91,16 @@ def global_norm(tree) -> torch.Tensor:
 def adamw_update(params, grads, state, cfg: OptConfig
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: (params, state, {"grad_norm", "lr"}).  The params'
-    and moments' tensors are updated in place."""
+    and moments' tensors are updated in place (DTensor moments shard by
+    shard: ZeRO-1)."""
+    if any(isinstance(p, DTensor) for p in tree_leaves(params)):
+        from repro_torch.distributed.sharding import implicit_replication
+        with implicit_replication():
+            return _adamw(params, grads, state, cfg)
+    return _adamw(params, grads, state, cfg)
+
+
+def _adamw(params, grads, state, cfg: OptConfig):
     with scope("optimizer"):
         step = state["step"] + 1
         gnorm = global_norm(grads)
@@ -74,6 +112,9 @@ def adamw_update(params, grads, state, cfg: OptConfig
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state["m"]),
                               tree_leaves(state["v"])):
+            if isinstance(m, DTensor):
+                _zero1_leaf(p, g, m, v, scale, lr, c1, c2, cfg, sd)
+                continue
             g = g.float() * scale
             m1 = cfg.b1 * m.float() + (1 - cfg.b1) * g
             v1 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
@@ -85,3 +126,20 @@ def adamw_update(params, grads, state, cfg: OptConfig
             v.copy_(v1.to(sd))
     return (params, {"m": state["m"], "v": state["v"], "step": step},
             {"grad_norm": gnorm, "lr": lr})
+
+
+def _zero1_leaf(p, g, m, v, scale, lr, c1, c2, cfg: OptConfig, sd) -> None:
+    """One leaf's AdamW on this rank's moment shard: the gradient and the
+    param cut to the moments' placements, the new param shard gathered
+    back into the param's placements."""
+    mesh, zp = m.device_mesh, m.placements
+    g = g.redistribute(mesh, zp).float() * scale
+    pz = p.redistribute(mesh, zp).float()
+    m1 = cfg.b1 * m.float() + (1 - cfg.b1) * g
+    v1 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
+    delta = (m1 / c1) / (torch.sqrt(v1 / c2) + cfg.eps)
+    if p.dim() >= 2:   # no decay on norms/scalars/biases
+        delta = delta + cfg.weight_decay * pz
+    p.copy_((pz - lr * delta).redistribute(p.device_mesh, p.placements))
+    m.copy_(m1.to(sd))
+    v.copy_(v1.to(sd))

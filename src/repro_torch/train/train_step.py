@@ -1,7 +1,6 @@
 """The loss and the train step with microbatch gradient accumulation.
 
-The port of the reference's ``repro.train.train_step`` without a sharding
-plan (``plan=None``; distribution is a later slice).  The loss casts the
+The port of the reference's ``repro.train.train_step``.  The loss casts the
 fp32 master params to the compute dtype once, so their gradients land on
 the fp32 leaves, and runs :func:`repro_torch.models.lm.lm_forward` with
 ``train=True`` (each layer unit rematerialised in the backward when
@@ -9,15 +8,27 @@ the fp32 leaves, and runs :func:`repro_torch.models.lm.lm_forward` with
 (the ``grad_compress`` scope) and, over microbatches, summed in that type.
 On the card every kernel of the forward has its backward kernel or raises
 (:mod:`repro_torch.kernels.grad`).
+
+Under a sharding plan (``plan=``) the loss runs ``lm_forward`` with the
+plan's ``kv_repeat`` and ``moe_groups`` under ``plan.activations()``, as
+the reference's does; params placed by the plan (DTensors: the fp32
+masters by the plan's rules, ``m`` and ``v`` by ``zero1_rules(plan)``,
+:mod:`repro_torch.launch.steps`) get gradients in the params' own
+placements, and :func:`repro_torch.train.optimizer.adamw_update` updates
+each moment's shard where it lives (ZeRO-1).  The metrics come back as
+plain tensors (the loss and norm replicated on every rank).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.scope import scope
+from repro_torch.distributed.sharding import (activations, full_value,
+                                              model_kwargs)
 from repro_torch.models.lm import lm_forward
 from repro_torch.models.params import cast_tree, tree_leaves, tree_unflatten
 from repro_torch.train.optimizer import OptConfig, adamw_update
@@ -38,21 +49,24 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def make_loss_fn(cfg: ModelConfig, plan=None):
     """loss_fn(params, batch) -> scalar: next-token cross entropy (the
     causal shift), per-frame for encoders.  ``batch`` holds ``labels`` and
-    ``tokens`` and/or ``features``."""
-    if plan is not None:
-        raise NotImplementedError("sharding plans are not ported")
+    ``tokens`` and/or ``features``.  ``plan`` sets ``kv_repeat`` and
+    ``moe_groups`` and the loss runs under its ``activations()``."""
     cd = getattr(torch, cfg.compute_dtype)
+    kw = model_kwargs(plan)
 
     def loss_fn(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        params = cast_tree(params, cd)
-        logits = lm_forward(cfg, params, batch.get("tokens"),
-                            features=batch.get("features"), train=True)
-        labels = batch["labels"]
-        if labels.shape[1] != logits.shape[1]:
-            labels = labels[:, :logits.shape[1]]
-        if cfg.family in ("encoder", "audio"):
-            return cross_entropy(logits, labels, cfg.vocab_size)
-        return cross_entropy(logits[:, :-1], labels[:, 1:], cfg.vocab_size)
+        with activations(plan):
+            params = cast_tree(params, cd)
+            logits = lm_forward(cfg, params, batch.get("tokens"),
+                                features=batch.get("features"), train=True,
+                                **kw)
+            labels = batch["labels"]
+            if labels.shape[1] != logits.shape[1]:
+                labels = labels[:, :logits.shape[1]]
+            if cfg.family in ("encoder", "audio"):
+                return cross_entropy(logits, labels, cfg.vocab_size)
+            return cross_entropy(logits[:, :-1], labels[:, 1:],
+                                 cfg.vocab_size)
 
     return loss_fn
 
@@ -77,9 +91,17 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, plan=None,
         loss = loss_fn(tree_unflatten(params, live), batch)
         # a leaf the loss does not reach (a frontend without features) gets
         # zeros, as jax.grad gives it
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        with activations(plan):
+            # (the backward meets the forward's plain tensors as replicated)
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
         del live
         with scope("grad_compress"):
+            if plan is not None:
+                # each gradient in its param's placements
+                return full_value(loss.detach()), [
+                    (torch.zeros_like(p, dtype=gdtype) if g is None
+                     else _placed_like(g.to(gdtype), p))
+                    for p, g in zip(tree_leaves(params), grads)]
             return loss.detach(), [
                 (torch.zeros(p.shape, dtype=gdtype, device=p.device)
                  if g is None else g.to(gdtype))
@@ -114,6 +136,16 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, plan=None,
             flat = [g / microbatches for g in flat]
         grads = tree_unflatten(params, flat)
         params, opt_state, om = adamw_update(params, grads, opt_state, opt)
+        if plan is not None:
+            om = {k: full_value(v) for k, v in om.items()}
         return params, opt_state, {"loss": loss, **om}
 
     return train_step
+
+
+def _placed_like(g, p):
+    """``g`` in ``p``'s placements where both are DTensors."""
+    if isinstance(g, DTensor) and isinstance(p, DTensor) and (
+            tuple(g.placements) != tuple(p.placements)):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g

@@ -15,6 +15,14 @@ tokens) unless ``data`` or ``batch_fn`` is given.
 Params come from the port's seeded :func:`init_lm_params` on ``device``
 (None: the card); a test may replace ``params`` and ``opt_state`` with
 trees carried over from the reference (:mod:`repro_torch.convert`).
+
+``plan`` (a :class:`~repro_torch.distributed.sharding.ShardingPlan` on a
+``DeviceMesh``, every rank building the same trainer) goes to the train
+step, and the trainer places its trees by it: the params by the plan's
+rules, ``m`` and ``v`` by ``zero1_rules(plan)`` (ZeRO-1), each batch by
+its input placements.  Checkpoints hold the global values (rank 0 writes
+them) and restore onto this trainer's placements, whatever mesh wrote
+them.
 """
 from __future__ import annotations
 
@@ -69,9 +77,27 @@ class Trainer:
                      if tcfg.ckpt_dir else None)
         gen = torch.Generator(device=self.device).manual_seed(tcfg.seed)
         self.params = init_lm_params(cfg, gen, device=self.device)
-        self.opt_state = init_opt_state(self.params, opt)
+        self._shardings = None
+        if plan is not None:
+            from repro_torch.distributed.sharding import (distribute_tree,
+                                                          zero1_rules)
+            from repro_torch.launch.steps import param_shardings
+            psh = param_shardings(cfg, plan)
+            zsh = param_shardings(cfg, plan, zero1_rules(plan))
+            self.params = distribute_tree(self.params, psh)
+            self.opt_state = init_opt_state(self.params, opt, shardings=zsh)
+            self._shardings = {"params": psh,
+                               "opt": {"m": zsh, "v": zsh, "step": None}}
+        else:
+            self.opt_state = init_opt_state(self.params, opt)
         self._step_fn = make_train_step(cfg, opt, plan,
                                         microbatches=tcfg.microbatches)
+
+    def _place_batch(self, batch):
+        from repro_torch.distributed.sharding import place
+        from repro_torch.launch.steps import input_shardings
+        shs = input_shardings(self.cfg, batch, self.plan)
+        return {k: place(v, shs[k]) for k, v in batch.items()}
 
     # -- fault tolerance -----------------------------------------------------
     def maybe_restore(self) -> bool:
@@ -81,7 +107,8 @@ class Trainer:
         if step is None:
             return False
         tree = {"params": self.params, "opt": self.opt_state}
-        restored = restore(self.tcfg.ckpt_dir, tree, step=step)
+        restored = restore(self.tcfg.ckpt_dir, tree, step=step,
+                           shardings=self._shardings)
         self.params, self.opt_state = restored["params"], restored["opt"]
         self.state.step = step
         return True
@@ -98,6 +125,8 @@ class Trainer:
             t0 = time.perf_counter()     # full iteration: data + step
             batch = {k: torch.as_tensor(v, device=self.device)
                      for k, v in self.batch_fn(t.step).items()}
+            if self.plan is not None:
+                batch = self._place_batch(batch)
             self.params, self.opt_state, metrics = self._step_fn(
                 self.params, self.opt_state, batch)
             loss = float(metrics["loss"])

@@ -372,11 +372,11 @@ def _fields(cfg):
 def test_config_matches_reference_field_for_field(arch):
     """Every field of the port's config equals the reference's, ``remat``
     (the training step's rematerialisation) included; the reference's
-    only extra fields are the sharding knobs ``scan_layers`` and
-    ``fsdp``.  The registry tags too."""
+    only extra field is the sharding knob ``scan_layers`` (the port has
+    no layer scan).  The registry tags too."""
     got = _fields(tregistry.get(arch))
     want = _fields(jregistry.get(arch))
-    assert set(want) - set(got) == {"scan_layers", "fsdp"}
+    assert set(want) - set(got) == {"scan_layers"}
     assert got["remat"] == want["remat"]
     for key, val in got.items():
         if isinstance(val, dict):
