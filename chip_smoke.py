@@ -75,7 +75,7 @@ Phases (each prints its lines and is fatal on failure):
      of the gshard and the ragged dispatch on the served cache, the
      ragged tokens equal to gshard's up to a near tie and their
      teacher-forced logits within phase 5's bf16 limit
-     (``phase_moe_decode``); on zamba2-1.2b's served cache a 64-token
+     (``phase_moe_decode``); on zamba2-1.2b's served cache a 32-token
      burst sampled at temperature 0.8 (``phase_sampling``: one seed
      twice, bit for bit, tokens below the vocab, the sentinel clear,
      exact launches, no host sync) and its ms a step beside the greedy
@@ -208,7 +208,17 @@ Phases (each prints its lines and is fatal on failure):
      bit for bit against the step without it; (b) shard rows: each kernel
      at the local shapes a rank of the 16 x 16 production plan holds for
      the phase-4 models (``phase_shard_rows``), held to its plain
-     version, timed beside it and its bound; (c) the group destroyed;
+     version, timed beside it and its bound; (c) the sharded decode
+     step's kernel modes at the 16 x 16 plan's decode_32k ranks
+     (``phase_sharded_decode``), every rank of one model-axis group in
+     turn, combined as the collective combines them and held against
+     the unsharded kernel, in bf16 and fp32: decode attention's partials
+     mode over llama3-8b's 16 x 2048 cache rows merged in fp32 (ranks with
+     no live key write m = -1e30, l = 0, acc = 0), the Mamba-2 step on
+     mamba2-2.7b's 16 x 5 heads (bit for bit), mamba-130m's 16 x 96
+     channels through the two launches around an fp32 sum; then rank 0
+     of each mode timed beside its plain version and its bound; (d) the
+     group destroyed;
 then a ``kernels`` JSON line (the five Mamba-2 and attention kernels at
 zamba2-2.7b's shapes, the two Mamba-1 kernels at mamba-130m's and the
 flash kernel's ring mode at gemma3-1b's, each with the launches of its
@@ -216,8 +226,10 @@ own config's serving run; the three backward kernels at zamba2-2.7b's
 training shape with the launches of its 8 training steps; the selective
 scan's backward at mamba-130m's, the flash backward in its window and
 causal at d=256 at gemma3-1b's and non-causal at hubert-xlarge's, each
-with the launches of its model's 8 training steps), the card line, and
-the result line last.
+with the launches of its model's 8 training steps; the sharded decode
+step's four kernel modes at their rank 0, each with the launches of
+phase 11 (c)'s rank-by-rank run), the card line, and the result line
+last.
 Imports nothing of JAX nor of the reference package.
 """
 from __future__ import annotations
@@ -1507,7 +1519,7 @@ def phase_steady_bursts(cfg, eng, gen):
     return out
 
 
-def phase_sampling(cfg, eng, n: int = 64, temperature: float = 0.8,
+def phase_sampling(cfg, eng, n: int = 32, temperature: float = 0.8,
                    seed: int = 0):
     """A sampled ``n``-token burst (``decode_tokens`` at ``temperature``,
     a generator on the card seeded with ``seed``) on clones of the served
@@ -1515,19 +1527,22 @@ def phase_sampling(cfg, eng, n: int = 64, temperature: float = 0.8,
     tokens bit for bit, every token below the vocab, the sentinel clear,
     exactly one decode-step or decode-attention launch a layer and step,
     and no host sync inside the burst (``torch.cuda.set_sync_debug_mode``
-    raises on one); its ms a token step (median of 3 after one more)
-    beside the greedy eager burst's from the same cache."""
+    raises on one); its ms a token step (the median of the second burst
+    and two more) beside the greedy eager burst's from the same cache
+    (the median of three)."""
     from repro_torch.models.lm import decode_tokens
     from repro_torch.serving.bucketing import clamped_bucket
     pos = [int(p) for p in eng.cache["pos"].tolist()]
     bucket = clamped_bucket(max(pos) + n, eng.kv_extent)
     first = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    times = {"sampled": [], "greedy_eager": []}
 
-    def burst(temperature_, gen=None, checked=False):
+    def burst(temperature_, gen=None, checked=False, timed=None):
         cache = clone_cache(eng.cache)
         torch.cuda.synchronize()
         if checked:
             torch.cuda.set_sync_debug_mode("error")
+        ts = time.monotonic()
         try:
             out = decode_tokens(cfg, eng.params, cache, first, n,
                                 kv_bucket=bucket, rope_len=eng.rope_len,
@@ -1536,6 +1551,8 @@ def phase_sampling(cfg, eng, n: int = 64, temperature: float = 0.8,
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
+        if timed is not None:
+            times[timed].append(time.monotonic() - ts)
         return out
 
     def seeded():
@@ -1548,7 +1565,7 @@ def phase_sampling(cfg, eng, n: int = 64, temperature: float = 0.8,
     if launches != want:
         raise AssertionError(f"{cfg.name}: a sampled burst launched "
                              f"{launches}, expected {want}")
-    again, _, ok2 = burst(temperature, seeded())
+    again, _, ok2 = burst(temperature, seeded(), timed="sampled")
     if not torch.equal(toks, again):
         raise AssertionError(f"{cfg.name}: one seed gave two bursts")
     if not (bool(ok.all()) and bool(ok2.all())):
@@ -1556,21 +1573,17 @@ def phase_sampling(cfg, eng, n: int = 64, temperature: float = 0.8,
     if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"{cfg.name}: a sampled token outside the "
                              "vocab")
-    greedy = burst(0.0)[0]
+    greedy = burst(0.0, timed="greedy_eager")[0]
+    for _ in range(2):
+        burst(temperature, seeded(), timed="sampled")
+        burst(0.0, timed="greedy_eager")
     out = dict(batch=4, tokens=n, temperature=temperature, kv_bucket=bucket,
                same_seed_identical=True, sentinel_ok=True,
                distinct_tokens=int(toks.unique().numel()),
                tokens_equal_to_greedy=float((toks == greedy).float().mean()),
                launches=launches)
-    for name, run in (("sampled", lambda: burst(temperature, seeded())),
-                      ("greedy_eager", lambda: burst(0.0))):
-        times = []
-        for _ in range(4):
-            ts = time.monotonic()
-            run()
-            times.append(time.monotonic() - ts)
-        out[f"{name}_ms_per_token_step"] = (
-            statistics.median(times[1:]) * 1e3 / n)
+    for name, ts in times.items():
+        out[f"{name}_ms_per_token_step"] = statistics.median(ts) * 1e3 / n
     return out
 
 
@@ -3567,31 +3580,23 @@ def phase_shard_rows(gen):
     """Each kernel at the local shapes a rank of the 16 x 16 production plan
     holds for the phase-4 models (bf16), against its plain version: SSD
     and conv1d at mamba2-2.7b's prefill (B=4, S=256: the batch does not
-    split 16 ways; 5 of 80 heads, 336 of 5376 channels), the Mamba-2 step
-    at its decode_32k rank (8 of 128 rows, every head: the step splits the
-    batch only), the selective scan at mamba-130m's (96 of 1536
-    channels) and its step (8 rows), flash at llama3-8b's train_4k rank
-    (16 rows, 2 query heads on 1 KV head after kv_repeat = 2), decode
-    attention at its decode_32k rank (8 rows, 2 on 1, a full 32768-row
-    cache), and gemma3-1b's seq-mode flash at its prefill_32k rank (2
-    rows, 4 heads on 1, 2048 query rows against all 32768 keys at the
-    rank's first row as q_offset: rank 15 causal, rank 7 in the 512-key
-    window)."""
+    split 16 ways; 5 of 80 heads, 336 of 5376 channels), the selective
+    scan at mamba-130m's (96 of 1536 channels), flash at llama3-8b's
+    train_4k rank (16 rows, 2 query heads on 1 KV head after kv_repeat =
+    2), and gemma3-1b's seq-mode flash at its prefill_32k rank (2 rows, 4
+    heads on 1, 2048 query rows against all 32768 keys at the rank's
+    first row as q_offset: rank 15 causal, rank 7 in the 512-key window).
+    The decode steps' rank rows are :func:`phase_sharded_decode`'s."""
     import torch.nn.functional as F
     from repro_torch.configs import (gemma3_1b, llama3_8b, mamba2_2p7b,
                                      mamba_130m)
     from repro_torch.core.config import SHAPES
     from repro_torch.distributed.sharding import plan_sharding
-    from repro_torch.kernels.attn_decode import (ops as dec_attn,
-                                                 ref as dec_attn_ref)
     from repro_torch.kernels.conv1d import ops as conv_ops, ref as conv_ref
-    from repro_torch.kernels.decode_fused import (ops as dec_ops,
-                                                  ref as dec_ref)
     from repro_torch.kernels.flash import ops as flash_ops, ref as flash_ref
     from repro_torch.kernels.scan1 import ops as scan_ops, ref as scan_ref
     from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.models.mamba1 import dt_rank
 
     bf = torch.bfloat16
     mesh = make_production_mesh()
@@ -3649,20 +3654,6 @@ def phase_shard_rows(gen):
         "src/repro_torch/kernels/csrc/conv1d.cu",
         "src/repro/kernels/conv1d/kernel.py:52",
         library=lambda: F.conv1d(xp, wl_, bl_, groups=c)))
-    # the Mamba-2 decode step at mamba2-2.7b's decode_32k rank: batch only
-    b = local(mamba2_2p7b, SHAPES["decode_32k"], ("batch",), (128,))[0]
-    args = mamba2_decode_inputs(gen, b, H, P, 1, N, K, bf)
-    kw = dict(n_groups=1, d_state=N, headdim=P)
-    got = dec_ops.mamba2_decode_fused(*args, **kw)
-    want = dec_ref.mamba2_decode_fused_ref(*args, **kw)
-    rows.append(shard_row(
-        "mamba2_decode_fused", mamba2_2p7b.name, f"B={b} of 128, H={H}",
-        got, want, TOL["decode_fused"][bf], whole_ratio,
-        lambda: dec_ops.mamba2_decode_fused(*args, **kw),
-        lambda: dec_ref.mamba2_decode_fused_ref(*args, **kw),
-        nbytes(*args) + nbytes(*got), 6.0 * b * H * P * N, bf,
-        "src/repro_torch/kernels/csrc/decode_fused.cu",
-        "src/repro/kernels/decode_fused/kernel.py:77"))
     # the selective scan at mamba-130m: channels over the model axis
     m1 = mamba_130m.ssm
     C1, N1 = m1.d_inner(mamba_130m.d_model), m1.d_state
@@ -3688,23 +3679,6 @@ def phase_shard_rows(gen):
         plain_ms=device_ms(lambda: scan_ref.selective_scan_ref(*sargs, sh0),
                            calls=1, reps=3),
         bound_ms=bms, bound_by=by, library_ms=None))
-    # the Mamba-1 step at mamba-130m's decode_32k rank: batch only
-    b = local(mamba_130m, SHAPES["decode_32k"], ("batch",), (128,))[0]
-    R = dt_rank(mamba_130m.d_model, m1)
-    args = mamba1_decode_inputs(gen, b, C1, N1, R, m1.conv_kernel, bf)
-    kw = dict(d_state=N1, dt_rank=R)
-    got = dec_ops.mamba1_decode_fused(*args, **kw)
-    want = dec_ref.mamba1_decode_fused_ref(*args, **kw)
-    rows.append(shard_row(
-        "mamba1_decode_fused", mamba_130m.name, f"B={b} of 128, C={C1}",
-        got, want, TOL["decode_fused"][bf], whole_ratio,
-        lambda: dec_ops.mamba1_decode_fused(*args, **kw),
-        lambda: dec_ref.mamba1_decode_fused_ref(*args, **kw),
-        nbytes(*args) + nbytes(*got),
-        b * (2.0 * m1.conv_kernel * C1 + 2.0 * C1 * (R + 2 * N1)
-             + 2.0 * R * C1 + 8.0 * C1 * N1), bf,
-        "src/repro_torch/kernels/csrc/decode_fused.cu",
-        "src/repro/kernels/decode_fused/kernel.py:148"))
 
     def attn_row(name, at, q_, k_, v_, off, window, causal=True):
         """flash at ``q_offset=off`` (each row's, on the card) against
@@ -3761,29 +3735,6 @@ def phase_shard_rows(gen):
     rows.append(attn_row("flash_attention", llama3_8b.name, qa, ka, va, 0,
                          None))
     del qa, ka, va
-    # decode attention at llama3-8b's decode_32k rank over a full cache
-    plan = plan_sharding(llama3_8b, SHAPES["decode_32k"], mesh)
-    b, h, d = plan.local_shape(("batch", "heads", None),
-                               (128, a.n_heads, a.head_dim), activation=True)
-    kv = plan.local_shape(("batch", "kv_heads", None, None),
-                          (128, kvr, 32768, a.head_dim), activation=True)[1]
-    qd = rn(b, h, d, dtype=bf)
-    kd, vd = rn(b, kv, 32768, d, dtype=bf), rn(b, kv, 32768, d, dtype=bf)
-    vl = torch.full((b,), 32768, dtype=torch.int32, device="cuda")
-    got = [dec_attn.decode_attention(qd, kd, vd, valid_len=vl)]
-    want = [dec_attn_ref.decode_attention_ref(qd, kd, vd, valid_len=vl)]
-    rows.append(shard_row(
-        "decode_attention", llama3_8b.name,
-        f"B={b} H={h} on {kv} S=32768 d={d}", got, want,
-        TOL["attention"][bf], row_ratio,
-        lambda: dec_attn.decode_attention(qd, kd, vd, valid_len=vl),
-        lambda: dec_attn_ref.decode_attention_ref(qd, kd, vd, valid_len=vl),
-        nbytes(qd, kd, vd) + nbytes(*got), 4.0 * d * h * b * 32768, bf,
-        "src/repro_torch/kernels/csrc/attn_decode.cu",
-        "src/repro/kernels/attn_decode/kernel.py:109",
-        library=lambda: F.scaled_dot_product_attention(
-            qd[:, :, None], kd, vd, enable_gqa=True)))
-    del qd, kd, vd
     # gemma3-1b in seq mode: each rank's query rows at its first row
     g = gemma3_1b.attn
     plan = plan_sharding(gemma3_1b, SHAPES["prefill_32k"], mesh)
@@ -3801,6 +3752,268 @@ def phase_shard_rows(gen):
     return rows
 
 
+# the sharded decode step: one group of ranks of the 16 x 16 production
+# plan's decode_32k cell, run in turn on the one card
+DEAD = -1e30        # a partial's m where its rank has no live key
+
+
+def decode_32k_plan(cfg):
+    from repro_torch.core.config import SHAPES
+    from repro_torch.distributed.sharding import plan_sharding
+    from repro_torch.launch.mesh import make_production_mesh
+    return plan_sharding(cfg, SHAPES["decode_32k"], make_production_mesh())
+
+
+def sharded_attention_case(gen, dt):
+    """Decode attention at llama3-8b's decode_32k rank: the cache's 32768
+    rows over the model axis (its 8 KV heads do not divide it; 16 heads
+    after kv_repeat = 2), 8 batch rows a rank, q gathered (all 32 heads).
+    Every rank of one kv_seq group runs the partials mode over its 2048
+    rows, its live keys ``clamp(valid - first_row, 0, 2048)``; the
+    partials are merged as the all-to-all's receivers merge them and held
+    per query row against the unsharded kernel on the whole cache.  Rows'
+    valid lengths 32768, 30001, 20480, 16385, 2048, 2047, 100 and 1: most
+    ranks of the last rows have no live key, and must write m = -1e30,
+    l = 0, acc = 0.  Returns (readings, rank 0's inputs)."""
+    from repro_torch.configs import llama3_8b
+    from repro_torch.kernels.attn_decode import ops, ref
+    a = llama3_8b.attn
+    plan = decode_32k_plan(llama3_8b)
+    S = 32768
+    kvr = a.n_kv_heads * plan.kv_repeat
+    b, rows, kv, d = plan.local_shape(("batch", "kv_seq", "kv_heads", None),
+                                      (128, S, kvr, a.head_dim),
+                                      activation=True)
+    n = S // rows
+    q = torch.randn((b, a.n_heads, d), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((b, S, kv, d), generator=gen, device="cuda").to(
+        dt).transpose(1, 2) for _ in range(2))
+    valid = torch.tensor([S, 30001, 20480, 16385, 2048, 2047, 100, 1],
+                         dtype=torch.int32, device="cuda")[:b]
+    want = ops.decode_attention(q, k, v, valid_len=valid)
+    parts, dead_ok = [], True
+    for r in range(n):
+        vl = torch.clamp(valid - r * rows, 0, rows).to(torch.int32)
+        acc, m, l = ops.decode_attention_partials(
+            q, k[:, :, r * rows:(r + 1) * rows],
+            v[:, :, r * rows:(r + 1) * rows], valid_len=vl)
+        none = vl == 0
+        dead_ok &= bool((m[none] == DEAD).all() and (l[none] == 0).all()
+                        and (acc[none] == 0).all())
+        parts.append((acc, m, l))
+    acc, m, l = (torch.stack(t) for t in zip(*parts))
+    got = ref.merge_partials(acc, m, l).to(dt)
+    del k, v, acc, parts
+    tol = TOL["attention"][dt]
+    reading = dict(ratio=row_ratio(got, want, tol) if dead_ok
+                   else float("inf"),
+                   max_abs_err=max_err([got], [want]), ranks=n,
+                   dead_ranks_exact=dead_ok,
+                   shape=f"B={b} H={a.n_heads} on {kv} S={rows} of {S} "
+                         f"d={d}")
+    return reading, (q, b, kv, rows, d, valid)
+
+
+def sharded_mamba2_case(gen, dt):
+    """The Mamba-2 step at mamba2-2.7b's decode_32k rank: 5 of its 80 heads
+    (ssm_heads on the model axis), 8 rows, the window and the token whole.
+    Every rank's head slice against the unsharded kernel's heads: y and
+    the state bit for bit (the same code runs each head), and the shifted
+    window the ranks keep against the kernel's.  Returns (readings, the
+    readings' ratio, rank 0's arguments)."""
+    from repro_torch.configs import mamba2_2p7b
+    from repro_torch.kernels.decode_fused import ops
+    s = mamba2_2p7b.ssm
+    H, P, N, G, K = (s.n_ssm_heads(mamba2_2p7b.d_model), s.headdim,
+                     s.d_state, s.n_groups, s.conv_kernel)
+    b, hl = decode_32k_plan(mamba2_2p7b).local_shape(
+        ("batch", "ssm_heads"), (128, H), activation=True)
+    args = mamba2_decode_inputs(gen, b, H, P, G, N, K, dt)
+    conv, ssm, xbc, w, cb, dtr, dtb, al, D = args
+    kw = dict(n_groups=G, d_state=N, headdim=P)
+    want = ops.mamba2_decode_fused(*args, **kw)
+    ys, sts, rank0 = [], [], None
+    for r in range(H // hl):
+        hs = slice(r * hl, (r + 1) * hl)
+        mine = (conv, ssm[:, hs].contiguous(), xbc, w, cb,
+                dtr[:, hs].contiguous(), dtb[hs], al[hs], D[hs])
+        rank0 = rank0 or mine
+        y, st = ops.mamba2_decode_heads(*mine, head_offset=r * hl, **kw)
+        ys.append(y)
+        sts.append(st)
+    window = torch.cat([conv[:, 1:], xbc[:, None]], 1)
+    got = (torch.cat(ys, 1), window, torch.cat(sts, 1))
+    equal = all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+    ratio = max(whole_ratio(g_, w_, TOL["decode_fused"][dt])
+                for g_, w_ in zip(got, want))
+    return dict(ratio=ratio if equal else float("inf"),
+                max_abs_err=max_err(got, want), ranks=H // hl,
+                bit_equal=equal, shape=f"B={b} H={hl} of {H} P={P} N={N}"
+                ), rank0, kw
+
+
+def sharded_mamba1_case(gen, dt):
+    """The Mamba-1 step at mamba-130m's decode_32k rank: 96 of its 1536
+    channels (conv_dim on the model axis), 8 rows.  Every rank's launch
+    (a), the shares of x_proj summed in fp32 in rank order (the
+    all-reduce), then every rank's launch (b); y, the window and the state
+    against the unsharded fused kernel's (the window bit for bit).
+    Returns (readings, rank 0's arguments of (a) and (b))."""
+    from repro_torch.configs import mamba_130m
+    from repro_torch.kernels.decode_fused import ops
+    from repro_torch.models.mamba1 import dt_rank
+    s = mamba_130m.ssm
+    C, N, K = s.d_inner(mamba_130m.d_model), s.d_state, s.conv_kernel
+    R = dt_rank(mamba_130m.d_model, s)
+    b, cl = decode_32k_plan(mamba_130m).local_shape(
+        ("batch", "conv_dim"), (128, C), activation=True)
+    args = mamba1_decode_inputs(gen, b, C, N, R, K, dt)
+    conv, ssm, xi, w, cb, xp, dtp, dtb, al, D = args
+    kw = dict(d_state=N, dt_rank=R)
+    want = ops.mamba1_decode_fused(*args, **kw)
+    cuts = [slice(r * cl, (r + 1) * cl) for r in range(C // cl)]
+    a_args = [(conv[..., cs].contiguous(), xi[:, cs].contiguous(), w[cs],
+               cb[cs], xp[cs]) for cs in cuts]
+    firsts = [ops.mamba1_decode_conv_proj(*a) for a in a_args]
+    proj = torch.stack([f[2] for f in firsts]).sum(0)
+    b_args = [(ssm[:, cs].contiguous(), f[0], proj, dtp[:, cs].contiguous(),
+               dtb[cs], al[cs], D[cs]) for cs, f in zip(cuts, firsts)]
+    outs = [ops.mamba1_decode_state(*a, **kw) for a in b_args]
+    got = (torch.cat([o[0] for o in outs], 1),
+           torch.cat([f[1] for f in firsts], 2),
+           torch.cat([o[1] for o in outs], 1))
+    window_equal = torch.equal(got[1], want[1])
+    ratio = max(whole_ratio(g_, w_, TOL["decode_fused"][dt])
+                for g_, w_ in zip(got, want))
+    return dict(ratio=ratio if window_equal else float("inf"),
+                max_abs_err=max_err(got, want), ranks=len(cuts),
+                window_equal=window_equal,
+                shape=f"B={b} C={cl} of {C} N={N} R={R}"
+                ), (a_args[0], b_args[0]), kw
+
+
+def sharded_decode_readings(gen, keep: bool = False):
+    """Every new mode's rank-by-rank case in bf16 and fp32 (1 is each
+    check's limit).  With ``keep``, also returns the bf16 cases' rank-0
+    arguments {mode: ...}."""
+    out, rank0 = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        tag = str(dt)[6:]
+        for name, case in (("decode_attention_partials",
+                            sharded_attention_case),
+                           ("mamba2_decode_heads", sharded_mamba2_case),
+                           ("mamba1_decode_split", sharded_mamba1_case)):
+            reading, *args = case(gen, dt)
+            out[f"{name} {tag}"] = reading
+            if keep and dt == torch.bfloat16:
+                rank0[name] = (reading, *args)
+        torch.cuda.empty_cache()
+    return (out, rank0) if keep else out
+
+
+def phase_sharded_decode(gen):
+    """Phase 11 (c): the sharded decode step's kernel modes, every rank of
+    one model-axis group of the 16 x 16 plan's decode_32k cell in turn,
+    combined as the collectives combine them and held against the
+    unsharded kernels, in bf16 and fp32 (launches counted from zero over
+    these runs); then rank 0 of each mode held to its plain version and
+    timed beside it and its bound, in bf16.  Returns (readings, launches,
+    rows)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attn_decode import ops as attn_ops
+    from repro_torch.kernels.attn_decode import ref as attn_ref
+    from repro_torch.kernels.decode_fused import ops as dec_ops
+    from repro_torch.kernels.decode_fused import ref as dec_ref
+
+    names = ("decode_attention_partials", "mamba2_decode_heads",
+             "mamba1_decode_conv_proj", "mamba1_decode_state")
+    reset_counters()
+    readings, rank0 = sharded_decode_readings(gen, keep=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counters().items() if k in names}
+    for key, r in readings.items():
+        if not r["ratio"] <= 1.0:
+            raise AssertionError(f"phase 11 sharded decode {key}: "
+                                 f"{json.dumps(r)}")
+    bf = torch.bfloat16
+    rows = []
+    # decode attention's partials mode at rank 0: its own 2048 rows, the
+    # live keys of each batch row (all but the last two rows' are live)
+    reading, (q, b, kv, n_rows, d, valid) = rank0[
+        "decode_attention_partials"]
+    k, v = (torch.randn((b, n_rows, kv, d), generator=gen,
+                        device="cuda").to(bf).transpose(1, 2)
+            for _ in range(2))
+    kw = dict(valid_len=torch.clamp(valid, 0, n_rows).to(torch.int32))
+    live = int(kw["valid_len"].sum())
+    h = q.shape[1]
+    got = attn_ops.decode_attention_partials(q, k, v, **kw)
+    want = attn_ref.decode_attention_partials_ref(q, k, v, **kw)
+    row = shard_row(
+        "decode_attention_partials", "llama3-8b", reading["shape"], got,
+        want, TOL["attention"][bf], row_ratio,
+        lambda: attn_ops.decode_attention_partials(q, k, v, **kw),
+        lambda: attn_ref.decode_attention_partials_ref(q, k, v, **kw),
+        nbytes(q) + 2 * live * kv * d * k.element_size() + nbytes(*got),
+        4.0 * d * h * live, bf,
+        "src/repro_torch/kernels/csrc/attn_decode.cu",
+        "src/repro/kernels/attn_decode/kernel.py:82")
+    # no PyTorch call returns the partials (acc, m, l): library_ms stays
+    # null; SDPA over the rank's rows, normalised, is printed beside them
+    row["sdpa_over_rank_rows_ms"] = device_ms(
+        lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                               enable_gqa=True))
+    rows.append(dict(row, ranks=reading["ranks"]))
+    del k, v
+    # the Mamba-2 step's head slice at rank 0
+    reading, mine, kw = rank0["mamba2_decode_heads"]
+    kw = dict(kw, head_offset=0)
+    got = dec_ops.mamba2_decode_heads(*mine, **kw)
+    want = dec_ref.mamba2_decode_heads_ref(*mine, **kw)
+    conv, ssm, xbc, w, cb, dtr, dtb, al, D = mine
+    b, hl, p, n = ssm.shape
+    # the state read and written; of the window, the token and the conv
+    # weights only the rank's x channels and its group's B and C
+    chans = hl * p + 2 * n
+    rows.append(dict(shard_row(
+        "mamba2_decode_heads", "mamba2-2.7b", reading["shape"], got, want,
+        TOL["decode_fused"][bf], whole_ratio,
+        lambda: dec_ops.mamba2_decode_heads(*mine, **kw),
+        lambda: dec_ref.mamba2_decode_heads_ref(*mine, **kw),
+        nbytes(ssm, dtr, dtb, al, D) + nbytes(*got)
+        + chans * (b * (conv.shape[1] + 1) * conv.element_size()
+                   + (w.shape[1] + 1) * 4),
+        6.0 * b * hl * p * n, bf,
+        "src/repro_torch/kernels/csrc/decode_fused.cu",
+        "src/repro/kernels/decode_fused/kernel.py:66"),
+        ranks=reading["ranks"]))
+    # the Mamba-1 step's two launches at rank 0
+    reading, (a_args, b_args), kw = rank0["mamba1_decode_split"]
+    conv, xi, w, cb, xp = a_args
+    b, c = xi.shape
+    kk, f = w.shape[1], xp.shape[1]
+    n, r = kw["d_state"], kw["dt_rank"]
+    for name, fn, plain, args, kw_, flops in (
+            ("mamba1_decode_conv_proj", dec_ops.mamba1_decode_conv_proj,
+             dec_ref.mamba1_decode_conv_proj_ref, a_args, {},
+             b * (2.0 * kk * c + 2.0 * c * f)),
+            ("mamba1_decode_state", dec_ops.mamba1_decode_state,
+             dec_ref.mamba1_decode_state_ref, b_args, kw,
+             b * (2.0 * r * c + 8.0 * c * n))):
+        got, want = fn(*args, **kw_), plain(*args, **kw_)
+        rows.append(dict(shard_row(
+            name, "mamba-130m", reading["shape"], got, want,
+            TOL["decode_fused"][bf], whole_ratio,
+            lambda: fn(*args, **kw_), lambda: plain(*args, **kw_),
+            nbytes(*args) + nbytes(*got), flops, bf,
+            "src/repro_torch/kernels/csrc/mamba1_decode.cu",
+            "src/repro/kernels/decode_fused/kernel.py:138"),
+            ranks=reading["ranks"]))
+    for r_ in rows:
+        r_["launches"] = launches[r_["name"]]
+    return readings, launches, rows
+
+
 def phase_distribution(gen):
     """Phase 11: (a) a world-1 NCCL process group and a (1, 1)
     ``DeviceMesh("cuda")``: zamba2-1.2b at full size served through
@@ -3809,7 +4022,9 @@ def phase_distribution(gen):
     counts), a graph burst under the plan bit for bit against the eager
     burst, and one mamba2-130m ``Trainer`` step under the plan (DTensor
     params, ZeRO-1 moments) equal to the step without it; (b) the shard
-    rows (:func:`phase_shard_rows`); (c) the group destroyed."""
+    rows (:func:`phase_shard_rows`); (c) the sharded decode step's kernel
+    modes rank by rank (:func:`phase_sharded_decode`); (d) the group
+    destroyed.  Returns (results, shard rows, the decode modes' rows)."""
     import torch.distributed as dist
     from repro_torch.configs.paper_models import MAMBA2_130M, ZAMBA2_12B
     from repro_torch.core.config import WorkloadConfig
@@ -3848,6 +4063,9 @@ def phase_distribution(gen):
         t1 = time.perf_counter()
         rows = phase_shard_rows(gen)
         rows_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        readings, sharded_launches, decode_rows = phase_sharded_decode(gen)
+        sharded_s = time.perf_counter() - t1
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -3860,7 +4078,10 @@ def phase_distribution(gen):
                                       got["launches"].items() if v}),
                 graph_burst=burst, trainer=trained, serve_s=serve_s,
                 train_s=train_s, rows_s=rows_s,
-                seconds=time.perf_counter() - t0), rows
+                sharded_decode=dict(readings=readings,
+                                    launches=sharded_launches,
+                                    seconds=sharded_s),
+                seconds=time.perf_counter() - t0), rows, decode_rows
 
 
 def main() -> int:
@@ -4176,14 +4397,17 @@ def main() -> int:
             ("flash_bwd_noncausal", hubert_xlarge, "flash_bwd.noncausal")):
         rows.append(dict(bwd_rows[name],
                          launches=train[cfg.name]["launches"][key]))
-    dist_res, shard_rows = phase_distribution(gen)
+    dist_res, shard_rows, decode_rows = phase_distribution(gen)
     print(f"phase 11 distribution, world-1 NCCL group, (1, 1) mesh "
           f"({dist_res['seconds']:.1f} s): " + json.dumps(dist_res),
           flush=True)
-    for r in shard_rows:
+    for r in shard_rows + decode_rows:
         print(f"phase 11 shard row {r['name']} at {r['at']} ({r['shape']}, "
               f"bf16), {100 * r['bound_ms'] / r['ms']:.2f}% of its bound: "
               + json.dumps(r), flush=True)
+    # the sharded decode step's modes, with the launches of their
+    # rank-by-rank run (phase 11 (c))
+    rows += decode_rows
     print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} "
           f"s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

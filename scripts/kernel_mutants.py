@@ -60,6 +60,15 @@ mutant's kernel (every check for the unchanged sources):
   backward's
   window and non-causal modes have theirs.
 
+- ``sharded_decode``: the sharded decode step's kernel modes at the 16 x
+  16 plan's decode_32k ranks (``chip_smoke.sharded_decode_readings``):
+  decode attention's partials mode over llama3-8b's 16 ranks of cache
+  rows, merged, per query row against the unsharded kernel; the Mamba-2
+  step's head slices over mamba2-2.7b's 16 ranks bit for bit against the
+  unsharded kernel; mamba-130m's two-launch channel split over 16 ranks
+  against the fused kernel; bf16 and fp32.  ``old_ratio`` is ``ratio``
+  (no check preceded it).
+
 1 is the limit.  Exits 1 if the unchanged kernels fail a check or a
 mutant passes its kernel's check (or, for ``scan1``, fails it by less
 than 10x), or if a mutant of ``EXPECT_EQUAL`` (a fault no input can
@@ -128,6 +137,26 @@ MUTANTS = {
         "    for (int q = 0; q < kCluster - 1; ++q) s += parts[q * F + f];\n",
         "Mamba-1 decode: the rank-order sum of the x_proj partials leaves "
         "out the last block's"),
+    "decode_partials_normalised": (
+        "sharded_decode", "attn_decode.cu", "      inv = 1.0f;\n", "",
+        "decode attention, partials mode: a split merge inside the kernel "
+        "normalises the sums it writes"),
+    "mamba2_heads_ignore_offset": (
+        "sharded_decode", "decode_fused.cu",
+        "hl = blockIdx.x % Hl, h = h0 + hl;",
+        "hl = blockIdx.x % Hl, h = hl;",
+        "Mamba-2 decode, head-slice mode: every rank reads the first heads' "
+        "x channels and groups"),
+    "mamba1_conv_proj_drops_last_channel": (
+        "sharded_decode", "mamba1_decode.cu",
+        "    for (int i = r; i < c; i += R)\n",
+        "    for (int i = r; i < c - 1; i += R)\n",
+        "Mamba-1 decode, channel split (a): a rank's x_proj share leaves out "
+        "its last channel"),
+    "mamba1_state_drops_skip": (
+        "sharded_decode", "mamba1_decode.cu",
+        "    xd = __fmul_rn(x, Dv[i]);\n", "    xd = 0.0f;\n",
+        "Mamba-1 decode, channel split (b): y loses D * x"),
     "conv1d_drop_halo": (
         "conv1d", "conv1d.cu",
         "  // the new state: rows len .. len + K - 2 of [init; x], copied as "
@@ -541,6 +570,14 @@ def backward_readings(cs, torch, gen) -> dict:
     return out
 
 
+def sharded_decode_readings(cs, torch, gen) -> dict:
+    out = {}
+    for key, r in cs.sharded_decode_readings(gen).items():
+        out[key] = dict(ratio=r["ratio"], old_ratio=r["ratio"],
+                        max_abs_err=r["max_abs_err"])
+    return out
+
+
 CHECKS = {"attention": attention_readings,
           "mamba1_decode": mamba1_decode_readings,
           "conv1d": conv1d_readings,
@@ -548,7 +585,8 @@ CHECKS = {"attention": attention_readings,
           "ssd": ssd_readings,
           "mamba2_decode": mamba2_decode_readings,
           "scan1": scan1_readings,
-          "backward": backward_readings}
+          "backward": backward_readings,
+          "sharded_decode": sharded_decode_readings}
 # how far past its limit a mutant of a check must land (1 where unlisted)
 MUST_FAIL_BY = {"scan1": 10.0}
 # mutants of a kernel whose one route serves both types: each type's

@@ -26,6 +26,13 @@ that start at or past a row's
 launch per call), through a per-(row, KV head) ticket counter that it
 leaves at zero.  The result is the same for every split count up to
 rounding.
+
+``decode_attention_partials`` runs the same kernel in its partials mode
+(one launch, its own counter): each (row, query head)'s unnormalised
+fp32 sum of p * v and its (m, l) over this call's keys, the splits
+merged but not normalised.  A sharded cache's ranks each run it over
+their own rows and merge the partials with :func:`ref.merge_partials`
+(:mod:`repro_torch.kernels.sharded`).
 """
 from __future__ import annotations
 
@@ -76,7 +83,8 @@ def decode_attention(q, k, v, *, valid_len,
     if isinstance(q, DTensor) or isinstance(k, DTensor):
         from repro_torch.kernels import sharded
         return sharded.decode_attention(decode_attention, q, k, v,
-                                        valid_len=valid_len, split_k=split_k)
+                                        valid_len=valid_len, split_k=split_k,
+                                        partials=decode_attention_partials)
     with scope("attn_core"):
         if q.device.type == "cpu":
             return _ref.decode_attention_ref(q, k, v, valid_len=valid_len)
@@ -93,8 +101,45 @@ def decode_attention(q, k, v, *, valid_len,
                                      split_k=split_k)
 
 
+def decode_attention_partials(q, k, v, *, valid_len,
+                              split_k: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The partials of :func:`decode_attention` over these keys: (acc
+    [B, H, d], m [B, H], l [B, H]), all fp32: acc the unnormalised sum of
+    p * v, m the running max of the scaled scores (-1e30 where a row has
+    no live key) and l the sum of p = exp(score - m).  A CPU tensor runs
+    ``decode_attention_partials_ref``, a CUDA tensor the kernel's partials
+    mode, or raises."""
+    with scope("attn_core"):
+        if q.device.type == "cpu":
+            return _ref.decode_attention_partials_ref(q, k, v,
+                                                      valid_len=valid_len)
+        if q.device.type == "meta":
+            b, h, d = q.shape
+            acc = torch.empty((b, h, d), dtype=torch.float32,
+                              device=q.device)
+            m, l = (torch.empty((b, h), dtype=torch.float32,
+                                device=q.device) for _ in range(2))
+            kernel_cost("decode_attention_partials",
+                        4.0 * b * h * d * k.shape[2], (q, k, v), (acc, m, l))
+            return acc, m, l
+        if needs_grad(q, k, v):
+            raise no_backward("decode_attention_partials",
+                              "decode attention")
+        return _launch(decode_attention_partials, q, k, v,
+                       valid_len=valid_len, split_k=split_k, partials=True)
+
+
 def decode_attention_cuda(q, k, v, *, valid_len,
                           split_k: Optional[int] = None):
+    return _launch(decode_attention, q, k, v, valid_len=valid_len,
+                   split_k=split_k, partials=False)
+
+
+def _launch(wrapper, q, k, v, *, valid_len, split_k, partials: bool):
+    """One launch of the kernel: the output in q's dtype, or in partials
+    mode (acc, m, l) in fp32; counted on ``wrapper``."""
     if q.device.type != "cuda":
         raise ValueError(f"decode attention kernel needs a CUDA tensor, got "
                          f"{q.device}")
@@ -117,7 +162,12 @@ def decode_attention_cuda(q, k, v, *, valid_len,
     valid = row_vector(valid_len, b, q.device, "valid_len")
     nsplit, split_len = split_layout(b, kvh, s, split_k)
     g = h // kvh
-    o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    o = acc = ml = None
+    if partials:
+        acc = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+        ml = torch.empty((b, h, 2), dtype=torch.float32, device=q.device)
+    else:
+        o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     part_acc = part_ml = tickets = None
     if nsplit > 1:
         part_acc = torch.empty((b, kvh, nsplit, g, d), dtype=torch.float32,
@@ -128,14 +178,18 @@ def decode_attention_cuda(q, k, v, *, valid_len,
     lib = build.library()
     rc = lib.repro_decode_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        o.data_ptr(), 0 if part_acc is None else part_acc.data_ptr(),
+        0 if o is None else o.data_ptr(),
+        0 if acc is None else acc.data_ptr(),
+        0 if ml is None else ml.data_ptr(),
+        0 if part_acc is None else part_acc.data_ptr(),
         0 if part_ml is None else part_ml.data_ptr(),
         0 if tickets is None else tickets.data_ptr(), b, h, kvh, s, d,
         nsplit, split_len, *q.stride()[:2], *k.stride()[:3],
         *v.stride()[:3], code, build.stream_ptr(q.device))
     build.check(rc, "repro_decode_attn_fwd")
-    decode_attention.launches += 1
-    return o
+    wrapper.launches += 1
+    return (acc, ml[..., 0], ml[..., 1]) if partials else o
 
 
 decode_attention.launches = 0
+decode_attention_partials.launches = 0

@@ -28,6 +28,35 @@ def decode_attention_ref(q, k, v, *, valid_len) -> torch.Tensor:
     return o.reshape(b, h, d).to(q.dtype)
 
 
+def decode_attention_partials_ref(q, k, v, *, valid_len):
+    """The partials of ``decode_attention_ref`` over these keys, as the
+    kernel's partials mode writes them: (acc [B, H, d], m [B, H], l [B, H])
+    in fp32, acc the unnormalised sum of p * v, m the max scaled score over
+    the live keys (-1e30 where there is none) and l the sum of
+    p = exp(score - m) over them (0 where there is none)."""
+    b, h, d = q.shape
+    kvh, s_len = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, d).float()
+    s = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * (1.0 / math.sqrt(d))
+    vl = torch.as_tensor(valid_len, device=q.device).to(torch.int64)
+    vl = vl.reshape(-1).expand(b)[:, None, None, None]
+    live = torch.arange(s_len, device=q.device)[None, None, None, :] < vl
+    s = torch.where(live, s, torch.full((), NEG_INF, device=q.device))
+    m = s.amax(-1)
+    p = torch.where(live, torch.exp(s - m[..., None]),
+                    torch.zeros((), device=q.device))
+    acc = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    return acc.reshape(b, h, d), m.reshape(b, h), p.sum(-1).reshape(b, h)
+
+
+def merge_partials(acc, m, l) -> torch.Tensor:
+    """Partials of one query over ``n`` disjoint key sets, stacked first
+    (acc [n, ..., d], m and l [n, ...]), merged as :func:`merge_splits`
+    merges splits: [..., d] in fp32."""
+    return merge_splits(acc.movedim(0, -2), m.movedim(0, -1),
+                        l.movedim(0, -1))
+
+
 def merge_splits(acc, m, l) -> torch.Tensor:
     """The exact online-softmax merge of split partials, as the kernels
     run it (the reference's ``attn_decode/kernel.py:146-150``): ``acc``

@@ -45,7 +45,16 @@
 // splits exactly as at :146-150 (a split with no live key carries
 // m = -1e30, l = 0 and vanishes) and writes the counter back to zero, so
 // the next call, or the next replay of a CUDA graph, starts from zero.
-// One launch per call.  At most 16 splits: the merging block loads every
+// One launch per call.
+//
+// Partials mode (out_acc set; a rank's share of a cache whose rows are
+// split over ranks): the same merge of the block's own splits, but written
+// without the final normalisation, as the unnormalised fp32 acc [B, H, D]
+// and (m, l) [B, H, 2] over this call's keys.  The caller merges the
+// ranks' partials as finish_split merges splits.  A row with no live key
+// (valid 0: a rank whose rows all lie past valid_len) runs one empty
+// split and writes m = -1e30, l = 0 and acc = 0, which the merge weighs
+// by exp(-1e30 - max m) = 0.  At most 16 splits: the merging block loads every
 // split's partial at once, and its time grows with their number (a first
 // version with 32 one-tile splits at gemma3-1b's global layers, merged one
 // load at a time, lost to SDPA).
@@ -77,7 +86,9 @@ struct DecodeParams {
   const void* k;
   const void* v;
   const int* valid;          // [B]
-  void* o;                   // [B, H, D]
+  void* o;                   // [B, H, D]; unused in partials mode
+  float* out_acc;            // partials mode: [B, H, D] fp32, else null
+  float* out_ml;             // partials mode: [B, H, 2] fp32 (m, l)
   float* part_acc;           // [B, KVH, nsplit, G, D] when nsplit > 1
   float* part_ml;            // [B, KVH, nsplit, G, 2]
   int* tickets;              // [B * KVH], zero between calls
@@ -95,7 +106,8 @@ struct DecodeParams {
 // exp(m_s - max m) / sum_s l_s exp(m_s - max m), then the outputs four
 // columns a thread, every split's partial loaded before the first is
 // summed, so the merge costs one round trip to L2 rather than one per
-// split.
+// split.  In partials mode the weights leave out the division and the
+// block writes (max m, sum_s l_s exp(m_s - max m)) beside the sums.
 template <typename T, int D, int GM>
 __device__ void finish_split(const DecodeParams& p, const float* ml,
                              const float* acc, int b, int kvh, int sp,
@@ -103,8 +115,16 @@ __device__ void finish_split(const DecodeParams& p, const float* ml,
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int G = p.G;
   const int bk = b * p.KVH + kvh;
-  T* og = static_cast<T*>(p.o) + ((long long)b * p.H + kvh * G) * D;
+  const long long row = (long long)b * p.H + kvh * G;   // first query head
+  T* og = p.o != nullptr ? static_cast<T*>(p.o) + row * D : nullptr;
+  float* oacc = p.out_acc != nullptr ? p.out_acc + row * D : nullptr;
+  float* oml = p.out_ml != nullptr ? p.out_ml + row * 2 : nullptr;
   if (nlive == 1) {
+    if (p.out_acc != nullptr) {
+      for (int e = tid; e < G * D; e += nthr) oacc[e] = acc[e];
+      if (tid < 2 * G) oml[tid] = ml[tid];
+      return;
+    }
     for (int e = tid; e < G * D; e += nthr)
       og[e] = repro::from_f32<T>(acc[e] /
                                  fmaxf(ml[(e / D) * 2 + 1], 1e-37f));
@@ -139,7 +159,12 @@ __device__ void finish_split(const DecodeParams& p, const float* ml,
       m[s] = expf(m[s] - mall);
       lsum += l[s] * m[s];
     }
-    const float inv = 1.0f / fmaxf(lsum, 1e-37f);
+    float inv = 1.0f / fmaxf(lsum, 1e-37f);
+    if (p.out_acc != nullptr) {
+      oml[tid * 2] = mall;
+      oml[tid * 2 + 1] = lsum;
+      inv = 1.0f;
+    }
 #pragma unroll
     for (int s = 0; s < kMaxSplit; ++s) w[s][tid] = m[s] * inv;
   }
@@ -162,10 +187,14 @@ __device__ void finish_split(const DecodeParams& p, const float* ml,
         o.w = fmaf(w[s][g], a[s].w, o.w);
       }
     }
-    og[4 * c] = repro::from_f32<T>(o.x);
-    og[4 * c + 1] = repro::from_f32<T>(o.y);
-    og[4 * c + 2] = repro::from_f32<T>(o.z);
-    og[4 * c + 3] = repro::from_f32<T>(o.w);
+    if (p.out_acc != nullptr) {
+      reinterpret_cast<float4*>(oacc)[c] = o;
+    } else {
+      og[4 * c] = repro::from_f32<T>(o.x);
+      og[4 * c + 1] = repro::from_f32<T>(o.y);
+      og[4 * c + 2] = repro::from_f32<T>(o.z);
+      og[4 * c + 3] = repro::from_f32<T>(o.w);
+    }
   }
   if (tid == 0) p.tickets[bk] = 0;
 }
@@ -645,13 +674,16 @@ cudaError_t dispatch(const DecodeParams& p, int B, int D, cudaStream_t st) {
 
 // q: [B,H,D] through (batch, head) strides; k, v: [B,KVH,S,D] through
 // (batch, head, row) strides, unit stride along D; valid: [B] int32;
-// o: [B,H,D] contiguous; part_acc [B,KVH,nsplit,G,D] and part_ml
+// o: [B,H,D] contiguous, or, when out_acc is given (partials mode), null
+// and out_acc [B,H,D] and out_ml [B,H,2] fp32, contiguous and 16-byte
+// aligned, receive the unnormalised partials; part_acc [B,KVH,nsplit,G,D] and part_ml
 // [B,KVH,nsplit,G,2] fp32 scratch, used when nsplit > 1; tickets: [B*KVH]
 // int32, zero before the call and zero after it; split_len keys per split,
 // a multiple of 64.  dtype 0 = float32, 1 = bfloat16.
 extern "C" int repro_decode_attn_fwd(
     const void* q, const void* k, const void* v, const void* valid, void* o,
-    void* part_acc, void* part_ml, void* tickets, int B, int H, int KVH,
+    void* out_acc, void* out_ml, void* part_acc, void* part_ml, void* tickets,
+    int B, int H, int KVH,
     int S, int D, int nsplit, int split_len, long long q_sb, long long q_sh,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, int dtype, void* stream) {
@@ -660,9 +692,11 @@ extern "C" int repro_decode_attn_fwd(
       split_len % kSplitTile ||
       (long long)nsplit * split_len < S ||
       (nsplit > 1 && (part_acc == nullptr || part_ml == nullptr ||
-                      tickets == nullptr)))
+                      tickets == nullptr)) ||
+      (out_acc == nullptr ? o == nullptr : out_ml == nullptr))
     return (int)cudaErrorInvalidValue;
   DecodeParams p{q, k, v, static_cast<const int*>(valid), o,
+                 static_cast<float*>(out_acc), static_cast<float*>(out_ml),
                  static_cast<float*>(part_acc), static_cast<float*>(part_ml),
                  static_cast<int*>(tickets),
                  H, KVH, S, H / KVH, nsplit, split_len,

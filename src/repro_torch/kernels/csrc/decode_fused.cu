@@ -28,6 +28,15 @@
 // (h*da + (dt*B)*x), so the new state matches the plain version without
 // fused multiply-add differences.  The new window and state go to the
 // caller's destination, a slot of the new cache when it gives one.
+//
+// Head-slice mode (a rank of a plan that splits ssm_heads): the launch
+// covers Hl of the H heads, from head h0.  The state, y, dt_raw and the
+// per-head parameters are the rank's ([B,Hl,P,N], [B,Hl,P], [B,Hl],
+// [Hl]); the window, the token and the conv parameters are whole, read
+// at the global channels of the rank's heads and their groups.  nconv is
+// null there: the caller keeps its own even shard of the shifted window,
+// which does not line up with the heads.  The unsharded call is h0 = 0,
+// Hl = H.
 #include "common.cuh"
 
 namespace {
@@ -44,7 +53,8 @@ m2_decode_kernel(const T* __restrict__ conv, const float* __restrict__ ssm,
                  const float* __restrict__ dt_bias,
                  const float* __restrict__ A_log, const float* __restrict__ Dv,
                  T* __restrict__ y, T* __restrict__ nconv,
-                 float* __restrict__ nssm, int H, int P, int G, int K) {
+                 float* __restrict__ nssm, int H, int P, int G, int K,
+                 int h0, int Hl) {
   constexpr int LPR = N / 4;                      // lanes a state row
   constexpr int KL = kMaxP * N / 4 / kThreads;    // vectors a thread
   static_assert(KL >= 1 && 32 % LPR == 0, "tile shapes");
@@ -53,8 +63,9 @@ m2_decode_kernel(const T* __restrict__ conv, const float* __restrict__ ssm,
   __shared__ float csm[N];
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const size_t base = ((size_t)b * H + h) * P * N;
+  // hl: the head among this launch's Hl, h: among all H
+  const int b = blockIdx.x / Hl, hl = blockIdx.x % Hl, h = h0 + hl;
+  const size_t base = ((size_t)b * Hl + hl) * P * N;
   const int nv = P * LPR;                         // vectors in the tile
 
   // every state load of this thread, in flight before the conv step
@@ -70,14 +81,14 @@ m2_decode_kernel(const T* __restrict__ conv, const float* __restrict__ ssm,
   const int di = H * P;
   const int C = di + 2 * G * N;
   const T* conv_b = conv + (size_t)b * (K - 1) * C;
-  T* nconv_b = nconv + (size_t)b * (K - 1) * C;
-  const bool bc_writer = (h % hpg) == 0;
+  T* nconv_b = nconv != nullptr ? nconv + (size_t)b * (K - 1) * C : nullptr;
+  const bool bc_writer = (h % hpg) == 0 && nconv != nullptr;
 
   // conv step over this block's P + 2N channels
   for (int e = tid; e < P + 2 * N; e += kThreads) {
     int c;
     float* dst;
-    bool write_window = true;
+    bool write_window = nconv != nullptr;
     if (e < P) {
       c = h * P + e;
       dst = xs + e;
@@ -113,10 +124,10 @@ m2_decode_kernel(const T* __restrict__ conv, const float* __restrict__ ssm,
   }
   __syncthreads();
 
-  const float dt = repro::softplus(dt_raw[b * H + h] + dt_bias[h]);
-  const float a = -expf(A_log[h]);
+  const float dt = repro::softplus(dt_raw[b * Hl + hl] + dt_bias[hl]);
+  const float a = -expf(A_log[hl]);
   const float da = expf(dt * a);
-  const float dskip = Dv[h];
+  const float dskip = Dv[hl];
   float4* ho = reinterpret_cast<float4*>(nssm + base);
 #pragma unroll
   for (int k = 0; k < KL; ++k) {
@@ -146,7 +157,8 @@ m2_decode_kernel(const T* __restrict__ conv, const float* __restrict__ ssm,
     for (int off = LPR / 2; off > 0; off >>= 1)
       part += __shfl_xor_sync(0xffffffffu, part, off);
     if (f < nv && f % LPR == 0)
-      y[((size_t)b * H + h) * P + p] = repro::from_f32<T>(part + xp * dskip);
+      y[((size_t)b * Hl + hl) * P + p] =
+          repro::from_f32<T>(part + xp * dskip);
   }
 }
 
@@ -155,14 +167,15 @@ cudaError_t launch(const void* conv, const void* ssm, const void* xbc,
                    const void* w, const void* cb, const void* dt_raw,
                    const void* dt_bias, const void* A_log, const void* D,
                    void* y, void* nconv, void* nssm, int B, int H, int P,
-                   int G, int K, cudaStream_t stream) {
-  m2_decode_kernel<T, N><<<B * H, kThreads, 0, stream>>>(
+                   int G, int K, int h0, int Hl, cudaStream_t stream) {
+  m2_decode_kernel<T, N><<<B * Hl, kThreads, 0, stream>>>(
       static_cast<const T*>(conv), static_cast<const float*>(ssm),
       static_cast<const T*>(xbc), static_cast<const float*>(w),
       static_cast<const float*>(cb), static_cast<const float*>(dt_raw),
       static_cast<const float*>(dt_bias), static_cast<const float*>(A_log),
       static_cast<const float*>(D), static_cast<T*>(y),
-      static_cast<T*>(nconv), static_cast<float*>(nssm), H, P, G, K);
+      static_cast<T*>(nconv), static_cast<float*>(nssm), H, P, G, K, h0,
+      Hl);
   return cudaGetLastError();
 }
 
@@ -171,15 +184,17 @@ cudaError_t dispatch(const void* conv, const void* ssm, const void* xbc,
                      const void* w, const void* cb, const void* dt_raw,
                      const void* dt_bias, const void* A_log, const void* D,
                      void* y, void* nconv, void* nssm, int B, int H, int P,
-                     int G, int N, int K, cudaStream_t st) {
+                     int G, int N, int K, int h0, int Hl, cudaStream_t st) {
   switch (N) {
     case 16: return launch<T, 16>(conv, ssm, xbc, w, cb, dt_raw, dt_bias,
-                                  A_log, D, y, nconv, nssm, B, H, P, G, K, st);
+                                  A_log, D, y, nconv, nssm, B, H, P, G, K, h0,
+                                  Hl, st);
     case 64: return launch<T, 64>(conv, ssm, xbc, w, cb, dt_raw, dt_bias,
-                                  A_log, D, y, nconv, nssm, B, H, P, G, K, st);
+                                  A_log, D, y, nconv, nssm, B, H, P, G, K, h0,
+                                  Hl, st);
     case 128: return launch<T, 128>(conv, ssm, xbc, w, cb, dt_raw, dt_bias,
                                     A_log, D, y, nconv, nssm, B, H, P, G, K,
-                                    st);
+                                    h0, Hl, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -191,23 +206,28 @@ cudaError_t dispatch(const void* conv, const void* ssm, const void* xbc,
 // 16-byte aligned, N in {16, 64, 128}, P <= 64; w: [C,K], cb: [C],
 // dt_raw: [B,H], dt_bias, A_log, D: [H], all fp32.  nconv and nssm may be
 // views into a larger cache (a slot of a stacked leaf); they must not
-// overlap conv and ssm.
+// overlap conv and ssm.  Head-slice mode: heads h0 .. h0 + Hl - 1 of H,
+// with ssm, nssm [B,Hl,P,N], y [B,Hl,P], dt_raw [B,Hl], dt_bias, A_log,
+// D [Hl] and nconv null (no window written); h0 = 0, Hl = H otherwise.
 extern "C" int repro_mamba2_decode_fwd(
     const void* conv, const void* ssm, const void* xbc, const void* w,
     const void* cb, const void* dt_raw, const void* dt_bias,
     const void* A_log, const void* D, void* y, void* nconv, void* nssm,
-    int B, int H, int P, int G, int N, int K, int dtype, void* stream) {
+    int B, int H, int P, int G, int N, int K, int h0, int Hl, int dtype,
+    void* stream) {
   if (B <= 0 || H <= 0 || G <= 0 || H % G || K < 2 || K > kMaxK || P <= 0 ||
-      P > kMaxP)
+      P > kMaxP || h0 < 0 || Hl <= 0 || h0 + Hl > H ||
+      (Hl < H && nconv != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       dtype == 0 ? dispatch<float>(conv, ssm, xbc, w, cb, dt_raw, dt_bias,
                                    A_log, D, y, nconv, nssm, B, H, P, G, N, K,
-                                   st)
+                                   h0, Hl, st)
       : dtype == 1 ? dispatch<__nv_bfloat16>(conv, ssm, xbc, w, cb, dt_raw,
                                              dt_bias, A_log, D, y, nconv,
-                                             nssm, B, H, P, G, N, K, st)
+                                             nssm, B, H, P, G, N, K, h0, Hl,
+                                             st)
                    : cudaErrorInvalidValue;
   return (int)err;
 }

@@ -45,6 +45,17 @@
 // reference's oracle reads them (ref.py:51, :55).  The state update uses
 // rounded multiplies and adds in the oracle's order (h*dA + (dt*x)*B),
 // so no fused multiply-add changes the new state.
+//
+// Channel split (a rank of a plan that splits conv_dim holds c of the di
+// channels, and its state [B,c,N]): the x_proj product sums over every
+// channel, so the step becomes two launches around the caller's
+// all-reduce.  (a) m1_conv_proj_kernel, one block a batch row: the conv
+// step and the new window of the rank's channels, the conv output in the
+// input type, and the rank's fp32 share of xi @ x_proj.  The caller sums
+// the shares over the ranks in fp32.  (b) m1_state_kernel: that sum
+// rounded to the input type, as the fused kernel rounds its cluster's
+// sum, then dt_proj, softplus, the state update and y of the rank's
+// channels, N lanes a channel, in the fused kernel's rounded order.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -422,7 +433,189 @@ cudaError_t launch(const void* conv, const void* ssm, const void* xi,
   }
 }
 
+// ------------------------------------------------------- channel split
+
+constexpr int kSplitMaxC = 8192;   // a rank's channels: xs staged, 32 KB
+
+// (a): the conv step of the rank's c channels and its share of x_proj;
+// one block a batch row.  Shared memory: xs [c], then R partial rows [F].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+m1_conv_proj_kernel(const T* __restrict__ conv, const T* __restrict__ xit,
+                    const float* __restrict__ w,
+                    const float* __restrict__ cbias,
+                    const T* __restrict__ xp, T* __restrict__ xs_out,
+                    T* __restrict__ nconv, float* __restrict__ part, int c,
+                    int F, int K) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;
+  float* red = smem + c;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const T* conv_b = conv + (size_t)b * (K - 1) * c;
+  T* nconv_b = nconv + (size_t)b * (K - 1) * c;
+  for (int i = tid; i < c; i += kThreads) {
+    const T xt = xit[(size_t)b * c + i];
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) {
+      if (k < K) {
+        const float v = k < K - 1 ? repro::to_f32(conv_b[(size_t)k * c + i])
+                                  : repro::to_f32(xt);
+        acc = __fadd_rn(acc, __fmul_rn(v, w[i * K + k]));
+      }
+    }
+    acc = __fadd_rn(acc, cbias[i]);
+    const T xv = repro::from_f32<T>(repro::silu(acc));
+    xs[i] = repro::to_f32(xv);
+    xs_out[(size_t)b * c + i] = xv;
+    for (int k = 0; k < K - 2; ++k)
+      nconv_b[(size_t)k * c + i] = conv_b[(size_t)(k + 1) * c + i];
+    nconv_b[(size_t)(K - 2) * c + i] = xt;
+  }
+  __syncthreads();
+  // thread (r, f) sums rows r, r + R, ... of column f; then the R rows in
+  // order
+  const int R = kThreads / F;
+  if (tid < R * F) {
+    const int r = tid / F, f = tid % F;
+    float acc = 0.0f;
+    for (int i = r; i < c; i += R)
+      acc = fmaf(xs[i], repro::to_f32(xp[(size_t)i * F + f]), acc);
+    red[r * F + f] = acc;
+  }
+  __syncthreads();
+  for (int f = tid; f < F; f += kThreads) {
+    float sum = 0.0f;
+    for (int r = 0; r < R; ++r) sum += red[r * F + f];
+    part[(size_t)b * F + f] = sum;
+  }
+}
+
+// (b): dt_proj, the state update and y of the rank's channels, from the
+// summed x_proj row; N lanes a channel, kThreads / N channels a block.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+m1_state_kernel(const float* __restrict__ ssm, const T* __restrict__ xs,
+                const float* __restrict__ proj, const T* __restrict__ dtp,
+                const float* __restrict__ dt_bias,
+                const float* __restrict__ A_log,
+                const float* __restrict__ Dv, float* __restrict__ y,
+                float* __restrict__ nssm, int c, int dtr) {
+  static_assert(32 % N == 0, "N: 8 or 16");
+  constexpr int kPer = kThreads / N;
+  __shared__ float pr[kMaxF];   // (dt_low, B, C) in the input type
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int F = dtr + 2 * N;
+  for (int f = tid; f < F; f += kThreads)
+    pr[f] = repro::to_f32(repro::from_f32<T>(proj[(size_t)b * F + f]));
+  __syncthreads();
+  const int i = blockIdx.x * kPer + tid / N, n = tid % N;
+  const bool live = i < c;   // the same for a channel's N lanes
+  // dt_low . dt_proj[:, i]: lane n takes ranks n, n + N, ...
+  float s = 0.0f;
+  if (live)
+    for (int r = n; r < dtr; r += N)
+      s = fmaf(pr[r], repro::to_f32(dtp[(size_t)r * c + i]), s);
+#pragma unroll
+  for (int off = N / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  float v = 0.0f, xd = 0.0f;
+  if (live) {
+    const float dt = repro::softplus(
+        repro::to_f32(repro::from_f32<T>(s)) + dt_bias[i]);
+    const float x = repro::to_f32(xs[(size_t)b * c + i]);
+    const float da = expf(dt * -expf(A_log[i * N + n]));
+    const size_t at = ((size_t)b * c + i) * N + n;
+    const float hn = __fadd_rn(__fmul_rn(ssm[at], da),
+                               __fmul_rn(__fmul_rn(dt, x), pr[dtr + n]));
+    nssm[at] = hn;
+    v = __fmul_rn(hn, pr[dtr + N + n]);
+    xd = __fmul_rn(x, Dv[i]);
+  }
+#pragma unroll
+  for (int off = N / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (live && n == 0) y[(size_t)b * c + i] = __fadd_rn(v, xd);
+}
+
+template <typename T>
+cudaError_t launch_conv_proj(const void* conv, const void* xi, const void* w,
+                             const void* cb, const void* xp, void* xs,
+                             void* nconv, void* part, int B, int c, int F,
+                             int K, cudaStream_t st) {
+  const size_t smem = ((size_t)c + kThreads) * sizeof(float);
+  m1_conv_proj_kernel<T><<<B, kThreads, smem, st>>>(
+      static_cast<const T*>(conv), static_cast<const T*>(xi),
+      static_cast<const float*>(w), static_cast<const float*>(cb),
+      static_cast<const T*>(xp), static_cast<T*>(xs), static_cast<T*>(nconv),
+      static_cast<float*>(part), c, F, K);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_state(const void* ssm, const void* xs, const void* proj,
+                         const void* dtp, const void* dt_bias,
+                         const void* A_log, const void* D, void* y,
+                         void* nssm, int B, int c, int N, int dtr,
+                         cudaStream_t st) {
+  auto run = [&](auto kern, int per) {
+    kern<<<dim3((c + per - 1) / per, B), kThreads, 0, st>>>(
+        static_cast<const float*>(ssm), static_cast<const T*>(xs),
+        static_cast<const float*>(proj), static_cast<const T*>(dtp),
+        static_cast<const float*>(dt_bias), static_cast<const float*>(A_log),
+        static_cast<const float*>(D), static_cast<float*>(y),
+        static_cast<float*>(nssm), c, dtr);
+    return cudaGetLastError();
+  };
+  switch (N) {
+    case 8: return run(m1_state_kernel<T, 8>, kThreads / 8);
+    case 16: return run(m1_state_kernel<T, 16>, kThreads / 16);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+// Launch (a) of the channel split: conv, nconv: [B,K-1,c], xi: [B,c],
+// x_proj: [c,F] and xs (the conv output): [B,c] in one dtype (0 =
+// float32, 1 = bfloat16); w: [c,K], cb: [c] and part: [B,F] fp32.
+extern "C" int repro_mamba1_decode_conv_proj_fwd(
+    const void* conv, const void* xi, const void* w, const void* cb,
+    const void* xp, void* xs, void* nconv, void* part, int B, int c, int F,
+    int K, int dtype, void* stream) {
+  if (B <= 0 || c <= 0 || c > kSplitMaxC || F <= 0 ||
+      F > kMaxF || K < 2 || K > kMaxK)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      dtype == 0 ? launch_conv_proj<float>(conv, xi, w, cb, xp, xs, nconv,
+                                           part, B, c, F, K, st)
+      : dtype == 1 ? launch_conv_proj<__nv_bfloat16>(conv, xi, w, cb, xp, xs,
+                                                     nconv, part, B, c, F, K,
+                                                     st)
+                   : cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// Launch (b): ssm, nssm: [B,c,N], proj: [B,dtr+2N] (the summed shares),
+// dt_bias, D: [c], A_log: [c,N] and y: [B,c] fp32; xs: [B,c] and dt_proj:
+// [dtr,c] in the input dtype.
+extern "C" int repro_mamba1_decode_state_fwd(
+    const void* ssm, const void* xs, const void* proj, const void* dtp,
+    const void* dt_bias, const void* A_log, const void* D, void* y,
+    void* nssm, int B, int c, int N, int dtr, int dtype, void* stream) {
+  if (B <= 0 || B > 65535 || c <= 0 || dtr <= 0 || dtr + 2 * N > kMaxF)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      dtype == 0 ? launch_state<float>(ssm, xs, proj, dtp, dt_bias, A_log, D,
+                                       y, nssm, B, c, N, dtr, st)
+      : dtype == 1 ? launch_state<__nv_bfloat16>(ssm, xs, proj, dtp, dt_bias,
+                                                 A_log, D, y, nssm, B, c, N,
+                                                 dtr, st)
+                   : cudaErrorInvalidValue;
+  return (int)err;
+}
 
 // conv, nconv: [B,K-1,di], xi: [B,di], x_proj: [di,dtr+2N] and
 // dt_proj: [dtr,di] in one dtype (0 = float32, 1 = bfloat16); ssm, nssm:

@@ -23,10 +23,6 @@ Independent placements, by kernel:
 * SSD: batch and ``ssm_heads`` (B/C's groups follow the heads where
   there are several; heads whose groups do not split stay whole).
 * conv1d and the selective scan: batch and ``conv_dim`` channels.
-* The Mamba-2 and Mamba-1 decode steps: batch.  Their channels are not
-  independent: the Mamba-2 step's conv window interleaves every head's x
-  channels with the shared B/C channels, and the Mamba-1 step contracts
-  x_proj over all channels inside the kernel.
 * Flash attention in head mode and decode attention: batch and
   ``kv_heads`` (after ``kv_repeat``); the query heads follow.  A query
   head split that its KV heads do not share is undone (both whole).
@@ -35,8 +31,31 @@ Independent placements, by kernel:
   its own query rows through the kernel's per-row ``q_offset`` mode, its
   first row's position added to the offset.  The ring layout keeps every
   query row on every rank.
-* Decode attention over a ``kv_seq``-sharded cache gathers the rows
-  first (the log-sum-exp merge of per-rank partials is later work).
+
+The decode steps keep the cache where the plan placed it; no token step
+moves a K/V cache or an SSM state:
+
+* Decode attention over a ``kv_seq``-sharded cache (the plan shards the
+  rows where the KV heads do not divide the model axis, and over
+  ``("data", "model")`` for a single stream): q is gathered over the
+  ``kv_seq`` mesh dims, each rank runs the kernel's partials mode over
+  its own rows (its live keys ``clamp(valid_len - first_row, 0,
+  rows)``), the partials (acc, m, l) go to the ranks that own each
+  output head (one all-to-all, or an all-gather where the output keeps
+  its heads whole), and they merge in fp32 as the kernel merges its
+  splits (``attn_decode.ref.merge_partials``).  A ring cache's slots are
+  rows like any other: the merge does not depend on their order.
+* The Mamba-2 step on ``ssm_heads``: the state stays on its heads; the
+  window and the token, a few rows of ``conv_dim``, are gathered, the
+  kernel's head-slice mode updates the rank's heads, and each rank keeps
+  its even ``conv_dim`` shard of the shifted window.  Heads that do not
+  split, or several groups that do not split with them (as SSD's rule),
+  take the batch-only step.
+* The Mamba-1 step on ``conv_dim``: two launches around one all-reduce
+  of the rank's fp32 share of the x_proj product (the conv step, then
+  dt_proj and the state update on the rank's channels).  Channels that
+  do not split take the batch-only step.
+* Otherwise the decode steps split the batch only.
 """
 from __future__ import annotations
 
@@ -48,6 +67,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.distributed.sharding import (active_plan, local_shard,
                                               shard_offsets,
                                               wrap_local as _wrap)
+from repro_torch.kernels.attn_decode.ref import merge_partials
 
 
 def _plan():
@@ -150,17 +170,54 @@ def flash_attention(fn, q, k, v, *, causal, window, q_offset, kv_wrap,
     return _wrap(o, mesh, qp, q.shape)
 
 
-def decode_attention(fn, q, k, v, *, valid_len, split_k):
+def decode_attention(fn, q, k, v, *, valid_len, split_k, partials):
     plan = _plan()
     mesh = _mesh(q, k, v)
-    qp = _pl(plan, ("batch", "heads", None), q.shape)
-    # kv_seq is gathered: each rank attends its rows' whole cache
-    kp = _pl(plan, ("batch", "kv_heads", None, None), k.shape)
-    _align_heads(qp, kp, 1, 1)
-    o = fn(_local(q, mesh, qp), _local(k, mesh, kp), _local(v, mesh, kp),
-           valid_len=_row_vector(valid_len, mesh, _batch_only(qp)),
-           split_k=split_k)
-    return _wrap(o, mesh, qp, q.shape)
+    b, kvh, s, d = k.shape
+    # the cache's placements, resolved in its own [B, S, KV, d] order
+    # (kv_seq takes the model axis before kv_heads), then on k's dims
+    to_k = {0: 0, 1: 2, 2: 1}
+    kp = [Shard(to_k[pl.dim]) if isinstance(pl, Shard) else pl
+          for pl in _pl(plan, ("batch", "kv_seq", "kv_heads", None),
+                        (b, s, kvh, d))]
+    seq = [i for i, pl in enumerate(kp) if isinstance(pl, Shard)
+           and pl.dim == 2]
+    if not seq:
+        qp = _pl(plan, ("batch", "heads", None), q.shape)
+        kp = _pl(plan, ("batch", "kv_heads", None, None), k.shape)
+        _align_heads(qp, kp, 1, 1)
+        o = fn(_local(q, mesh, qp), _local(k, mesh, kp),
+               _local(v, mesh, kp),
+               valid_len=_row_vector(valid_len, mesh, _batch_only(qp)),
+               split_k=split_k)
+        return _wrap(o, mesh, qp, q.shape)
+    # q as the cache is split: batch and heads alike, whole on kv_seq
+    qp = [pl if isinstance(pl, Shard) and pl.dim < 2 else Replicate()
+          for pl in kp]
+    op = _pl(plan, ("batch", "heads", None), q.shape)   # the output's
+    ql = _local(q, mesh, qp)
+    (_, _, rows, _), off = shard_offsets(mesh, kp, k.shape)
+    vlen = torch.as_tensor(_row_vector(valid_len, mesh, _batch_only(kp)),
+                           device=ql.device)
+    # this rank's live keys, on the device (no host sync)
+    vlen = torch.clamp(vlen - off[2], 0, rows).to(torch.int32)
+    acc, m, l = partials(ql, _local(k, mesh, kp), _local(v, mesh, kp),
+                         valid_len=vlen, split_k=split_k)
+    # [1, B, H, d + 2] a rank, stacked over the kv_seq ranks: to the ranks
+    # of each output head
+    part = torch.cat([acc, m[..., None], l[..., None]], -1)[None]
+    n = 1
+    for i in seq:
+        n *= mesh.size(i)
+    pp = [Shard(0) if i in seq else
+          Shard(pl.dim + 1) if isinstance(pl, Shard) else pl
+          for i, pl in enumerate(qp)]
+    want = [Shard(pl.dim + 1) if isinstance(pl, Shard) else Replicate()
+            for pl in op]
+    got = _wrap(part, mesh, pp, (n, q.shape[0], q.shape[1], d + 2)
+                ).redistribute(mesh, want).to_local()
+    o = merge_partials(got[..., :d], got[..., d], got[..., d + 1])
+    return _wrap(o.to(q.dtype), mesh, op, q.shape)
 
 
 def causal_conv1d(fn, x, w, b, *, initial_state, activation, lengths,
@@ -252,33 +309,101 @@ def _decode_step(fn, batch_args, rep_args, kwargs, out_shapes):
     return tuple(_wrap(o, mesh, bp, s) for o, s in zip(outs, out_shapes))
 
 
+def _on(placements, dim: int, to: int, batch: bool = True):
+    """``placements`` with ``Shard(dim)`` moved to ``Shard(to)``, the
+    batch's ``Shard(0)`` kept where ``batch``, and every other placement
+    ``Replicate``: another tensor split as this one is, on its own dims
+    (a parameter, ``batch=False``, has no batch dim)."""
+    return [Shard(to) if isinstance(pl, Shard) and pl.dim == dim else
+            pl if batch and isinstance(pl, Shard) and pl.dim == 0
+            else Replicate() for pl in placements]
+
+
 def mamba2_decode_fused(fn, conv_state, ssm_state, xbc_t, conv_w, conv_b,
                         dt_raw, dt_bias, A_log, D, *, n_groups, d_state,
-                        headdim, out_conv, out_ssm):
+                        headdim, out_conv, out_ssm, heads_fn):
     if out_conv is not None or out_ssm is not None:
         raise ValueError("a sharded Mamba-2 step returns its states; it "
                          "takes no destinations")
     b = xbc_t.shape[0]
     h = dt_raw.shape[1]
-
-    def run(cs, ss, xb, dr, cw, cb, bias, al, dd, **kw):
-        return fn(cs, ss, xb, cw, cb, dr, bias, al, dd, **kw)
-    return _decode_step(
-        run, (conv_state, ssm_state, xbc_t, dt_raw),
-        (conv_w, conv_b, dt_bias, A_log, D),
-        dict(n_groups=n_groups, d_state=d_state, headdim=headdim),
-        ((b, h, headdim), tuple(conv_state.shape), tuple(ssm_state.shape)))
+    plan = _plan()
+    mesh = _mesh(conv_state, ssm_state, xbc_t)
+    sp = _pl(plan, ("batch", "ssm_heads", None, None), ssm_state.shape)
+    for i, pl in enumerate(sp):
+        if isinstance(pl, Shard) and pl.dim == 1 and n_groups > 1 and (
+                n_groups % mesh.size(i)):
+            sp[i] = Replicate()     # the heads' groups do not split
+    sp = _on(sp, 1, 1)
+    if not any(isinstance(pl, Shard) and pl.dim == 1 for pl in sp):
+        def run(cs, ss, xb, dr, cw, cb, bias, al, dd, **kw):
+            return fn(cs, ss, xb, cw, cb, dr, bias, al, dd, **kw)
+        return _decode_step(
+            run, (conv_state, ssm_state, xbc_t, dt_raw),
+            (conv_w, conv_b, dt_bias, A_log, D),
+            dict(n_groups=n_groups, d_state=d_state, headdim=headdim),
+            ((b, h, headdim), tuple(conv_state.shape),
+             tuple(ssm_state.shape)))
+    bp = _batch_only(sp)
+    rep = [Replicate()] * mesh.ndim
+    cp = _on(_pl(plan, ("batch", None, "conv_dim"), conv_state.shape), 2, 2)
+    # the window and the token whole on the rank's rows: a few rows of
+    # conv_dim; the state as placed
+    cs, xb = _local(conv_state, mesh, bp), _local(xbc_t, mesh, bp)
+    _, off = shard_offsets(mesh, sp, ssm_state.shape)
+    y, ss = heads_fn(cs, _local(ssm_state, mesh, sp), xb,
+                     _local(conv_w, mesh, rep), _local(conv_b, mesh, rep),
+                     _local(dt_raw, mesh, sp),
+                     *(_local(t, mesh, _on(sp, 1, 0, batch=False))
+                       for t in (dt_bias, A_log, D)),
+                     n_groups=n_groups, d_state=d_state, headdim=headdim,
+                     head_offset=off[1])
+    # the shifted window, whole on the rank's rows; each rank keeps its own
+    # conv_dim shard (no communication)
+    window = torch.cat([cs[:, 1:], xb[:, None].to(cs.dtype)], 1)
+    nconv = _wrap(window, mesh, bp, conv_state.shape).redistribute(mesh, cp)
+    return (_wrap(y, mesh, sp, (b, h, headdim)), nconv,
+            _wrap(ss, mesh, sp, ssm_state.shape))
 
 
 def mamba1_decode_fused(fn, conv_state, ssm_state, xi_t, conv_w, conv_b,
                         x_proj, dt_proj, dt_bias, A_log, D, *, d_state,
-                        dt_rank, out_conv, out_ssm):
+                        dt_rank, out_conv, out_ssm, split_fns):
     if out_conv is not None or out_ssm is not None:
         raise ValueError("a sharded Mamba-1 step returns its states; it "
                          "takes no destinations")
     b, c = xi_t.shape
-    return _decode_step(
-        fn, (conv_state, ssm_state, xi_t),
-        (conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D),
-        dict(d_state=d_state, dt_rank=dt_rank),
-        ((b, c), tuple(conv_state.shape), tuple(ssm_state.shape)))
+    plan = _plan()
+    mesh = _mesh(conv_state, ssm_state, xi_t)
+    cp = _on(_pl(plan, ("batch", None, "conv_dim"), conv_state.shape), 2, 2)
+    sp = _on(_pl(plan, ("batch", "ssm_heads", None), ssm_state.shape), 1, 1)
+    chan = [i for i, pl in enumerate(cp) if isinstance(pl, Shard)
+            and pl.dim == 2]
+    if not chan or chan != [i for i, pl in enumerate(sp)
+                            if isinstance(pl, Shard) and pl.dim == 1]:
+        return _decode_step(
+            fn, (conv_state, ssm_state, xi_t),
+            (conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D),
+            dict(d_state=d_state, dt_rank=dt_rank),
+            ((b, c), tuple(conv_state.shape), tuple(ssm_state.shape)))
+    conv_proj, state = split_fns
+    xp = _on(cp, 2, 1)                          # xi_t, y: [B, C]
+    wp = _on(cp, 2, 0, batch=False)             # [C, ...] parameters
+    dp = _on(cp, 2, 1, batch=False)             # dt_proj [R, C]
+    xi, nconv, part = conv_proj(
+        _local(conv_state, mesh, cp), _local(xi_t, mesh, xp),
+        _local(conv_w, mesh, wp), _local(conv_b, mesh, wp),
+        _local(x_proj, mesh, wp))
+    # every rank's share summed in fp32: one all-reduce over the channels'
+    # mesh dims
+    pp = [Partial() if i in chan else pl
+          for i, pl in enumerate(_batch_only(cp))]
+    proj = _wrap(part, mesh, pp, (b, part.shape[-1])).redistribute(
+        mesh, _batch_only(cp)).to_local()
+    y, ss = state(_local(ssm_state, mesh, sp), xi, proj,
+                  _local(dt_proj, mesh, dp), _local(dt_bias, mesh, wp),
+                  _local(A_log, mesh, wp), _local(D, mesh, wp),
+                  d_state=d_state, dt_rank=dt_rank)
+    return (_wrap(y, mesh, xp, (b, c)), _wrap(nconv, mesh, cp,
+                                                 conv_state.shape),
+            _wrap(ss, mesh, sp, ssm_state.shape))

@@ -50,7 +50,8 @@ in the reference: the cache stores the exact KV heads, and ``kv_repeat``
 so ``KV * kv_repeat`` heads shard over the model axis beside the query
 heads.  ``constrain`` pins q, the repeated K/V and the output to the
 plan's layouts at the reference's sites (no-ops without a plan).  A
-cache leaf that is a DTensor is written in place through its gathered
+cache leaf that is a DTensor is written in place: a decode step's row by
+the rank that holds it, a prefill's rows through the leaf's gathered
 value (:func:`_write`), whatever axes shard it.  With ``kv_repeat == 1``
 and no plan every step is as before.  The reference's ``_local_banded_attention``
 (its ``ref``-backend lowering of a long windowed prompt) is not ported:
@@ -63,12 +64,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.config import AttnConfig
 from repro_torch.core.scope import scope
 from repro_torch.distributed.sharding import (constrain, full_value,
-                                              local_shard)
+                                              local_shard, shard_offsets)
 from repro_torch.kernels.attn_decode.ops import decode_attention
 from repro_torch.kernels.flash.ops import flash_attention
 from repro_torch.models.norms import rms_norm
@@ -130,12 +131,16 @@ def _repeat_kv(t: torch.Tensor, r: int) -> torch.Tensor:
 
 def _write(fn, full: torch.Tensor, *args) -> None:
     """``fn(full, *args)``, which writes into ``full`` in place.  On a
-    DTensor leaf it writes the gathered value and each rank copies its
-    own shard back into its local tensor (the leaf's storage), so the
-    write lands in place whatever axes shard the cache; the other
-    arguments are gathered too."""
+    DTensor leaf a decode step's row write is each rank's own
+    (:func:`_write_rows_local`); any other write goes to the gathered
+    value and each rank copies its own shard back into its local tensor
+    (the leaf's storage), so the write lands in place whatever axes shard
+    the cache; the other arguments are gathered too."""
     if not isinstance(full, DTensor):
         fn(full, *args)
+        return
+    if fn is _write_rows:
+        _write_rows_local(full, *args)
         return
     g = full.full_tensor()
     fn(g, *[full_value(a) for a in args])
@@ -153,6 +158,26 @@ def _write_rows(full: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
     bi = torch.arange(full.shape[0], device=full.device)
     full[bi, slot] = torch.where(ok[:, None, None],
                                  new[:, 0].to(full.dtype), full[bi, slot])
+
+
+def _write_rows_local(full: DTensor, new: torch.Tensor, slot: torch.Tensor,
+                      ok: torch.Tensor) -> None:
+    """:func:`_write_rows` into a DTensor leaf without moving it: each rank
+    writes the rows it holds (of its batch rows, at the slots in its own
+    range of rows), from the new row placed as the leaf is but whole along
+    the rows."""
+    mesh, pls = full.device_mesh, full.placements
+    (nb, nrows, _, _), off = shard_offsets(mesh, pls, full.shape)
+    npl = [Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
+           for pl in pls]
+    if isinstance(new, DTensor):
+        new = new.redistribute(mesh, npl).to_local()
+    else:
+        new = local_shard(new, mesh, npl)
+    mine = slice(off[0], off[0] + nb)
+    slot = full_value(slot)[mine] - off[1]
+    ok = full_value(ok)[mine] & (slot >= 0) & (slot < nrows)
+    _write_rows(full.to_local(), new, slot.clamp(0, nrows - 1), ok)
 
 
 def _write_chunk(full: torch.Tensor, new: torch.Tensor,

@@ -52,10 +52,14 @@ import torch
 from repro_torch.core import scope as _scope
 from repro_torch.core.config import ModelConfig
 from repro_torch.distributed.sharding import activations, model_kwargs
-from repro_torch.kernels.attn_decode.ops import decode_attention
+from repro_torch.kernels.attn_decode.ops import (decode_attention,
+                                                 decode_attention_partials)
 from repro_torch.kernels.conv1d.ops import causal_conv1d
-from repro_torch.kernels.decode_fused.ops import (mamba1_decode_fused,
-                                                  mamba2_decode_fused)
+from repro_torch.kernels.decode_fused.ops import (mamba1_decode_conv_proj,
+                                                  mamba1_decode_fused,
+                                                  mamba1_decode_state,
+                                                  mamba2_decode_fused,
+                                                  mamba2_decode_heads)
 from repro_torch.kernels.flash.ops import flash_attention
 from repro_torch.kernels.scan1.ops import selective_scan
 from repro_torch.kernels.ssd.ops import ssd_chunked
@@ -70,7 +74,12 @@ LAUNCH_COUNTERS = ((causal_conv1d, "launches"), (ssd_chunked, "launches"),
                    (selective_scan, "launches"),
                    (flash_attention, "launches"),
                    (flash_attention, "ring_launches"),
-                   (decode_attention, "launches"))
+                   (decode_attention, "launches"),
+                   # the sharded decode step's modes
+                   (decode_attention_partials, "launches"),
+                   (mamba2_decode_heads, "launches"),
+                   (mamba1_decode_conv_proj, "launches"),
+                   (mamba1_decode_state, "launches"))
 
 
 def _read_counters():

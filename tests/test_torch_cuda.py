@@ -1688,3 +1688,160 @@ def test_sampled_burst_on_the_card(cuda, arch):
     assert torch.equal(gen.get_state(), state)
     with pytest.raises(ValueError, match="generator is on cpu"):
         burst(torch.Generator(device="cpu").manual_seed(5))
+
+
+# ------------------------------------------------- the sharded decode step
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,kvh", [(128, 32, 16), (256, 4, 1), (64, 14, 2)])
+@pytest.mark.parametrize("shards,split_k", [(2, None), (4, 1), (4, 3),
+                                            (8, None)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_partials_merge(cuda, dtype, shards, split_k, d, h,
+                                         kvh):
+    """The partials mode over ``shards`` ranks' rows of one cache (a view
+    of ``[B, S, KV, d]``, as the sharded path hands each rank its rows),
+    each rank's live keys ``clamp(valid - first_row, 0, rows)``: each
+    rank's (acc, m, l) against the plain partials, a rank with no live key
+    exactly (m = -1e30, l = 0, acc = 0), and the merged partials against
+    the unsharded kernel on the whole cache, per query row; one launch a
+    rank on its own counter."""
+    rn = _rn(torch.Generator(device=cuda).manual_seed(21), cuda)
+    td = DTYPES[dtype]
+    b, s = 5, 1024
+    rows = s // shards
+    q = rn(b, h, d, dt=td)
+    k = _cache_view(rn, b, s, kvh, d, td)
+    v = _cache_view(rn, b, s, kvh, d, td)
+    valid = torch.tensor([1, rows, rows + 1, 700, s], dtype=torch.int32,
+                         device=cuda)
+    want = dec_attn_ops.decode_attention(q, k, v, valid_len=valid)
+    n0 = dec_attn_ops.decode_attention_partials.launches
+    parts = []
+    for r in range(shards):
+        vl = torch.clamp(valid - r * rows, 0, rows).to(torch.int32)
+        kr, vr = k[:, :, r * rows:(r + 1) * rows], v[:, :, r * rows:
+                                                      (r + 1) * rows]
+        got = dec_attn_ops.decode_attention_partials(q, kr, vr, valid_len=vl,
+                                                     split_k=split_k)
+        plain = dec_attn_ref.decode_attention_partials_ref(q, kr, vr,
+                                                           valid_len=vl)
+        torch.cuda.synchronize()
+        none = vl == 0
+        assert bool((got[1][none] == -1e30).all()
+                    and (got[2][none] == 0).all()
+                    and (got[0][none] == 0).all())
+        live = ~none
+        if bool(live.any()):
+            _close_rows(got[0][live], plain[0][live], TOL[dtype])
+            for a, p_ in zip(got[1:], plain[1:]):
+                _close([a[live]], [p_[live]], TOL[dtype])
+        parts.append(got)
+    assert dec_attn_ops.decode_attention_partials.launches == n0 + shards
+    acc, m, l = (torch.stack(t) for t in zip(*parts))
+    _close_rows(dec_attn_ref.merge_partials(acc, m, l).to(td), want,
+                TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,p,g,n", [(80, 64, 1, 128), (8, 16, 2, 16),
+                                     (64, 64, 1, 64)],
+                         ids=["mamba2-2.7b", "groups2", "zamba2-1.2b"])
+@pytest.mark.parametrize("shards", [2, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_decode_heads_kernel(cuda, dtype, shards, h, p, g, n):
+    """The head-slice mode on every rank's heads (a state shard of its
+    own, the window and the token whole): y and the state bit for bit
+    the unsharded kernel's at those heads, and within the limit of the
+    plain head slice; the window and the old state untouched."""
+    if h % shards:
+        pytest.skip(f"{h} heads do not split {shards} ways")
+    rn = _rn(torch.Generator(device=cuda).manual_seed(22), cuda)
+    td = DTYPES[dtype]
+    b, k = 3, 4
+    c = h * p + 2 * g * n
+    args = (rn(b, k - 1, c, dt=td), rn(b, h, p, n), rn(b, c, dt=td),
+            rn(c, k), rn(c), rn(b, h, dt=td), rn(h), rn(h), rn(h))
+    conv, ssm, xbc, w, cb, dtr, dtb, al, D = args
+    kw = dict(n_groups=g, d_state=n, headdim=p)
+    y, _, st = dec_ops.mamba2_decode_fused(*args, **kw)
+    hl = h // shards
+    before = conv.clone()
+    n0 = dec_ops.mamba2_decode_heads.launches
+    for r in range(shards):
+        hs = slice(r * hl, (r + 1) * hl)
+        mine = (conv, ssm[:, hs].contiguous(), xbc, w, cb,
+                dtr[:, hs].contiguous(), dtb[hs], al[hs], D[hs])
+        old = mine[1].clone()
+        got = dec_ops.mamba2_decode_heads(*mine, **kw, head_offset=r * hl)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], y[:, hs]) and torch.equal(got[1],
+                                                             st[:, hs])
+        assert torch.equal(mine[1], old)
+        _close(got, dec_ref.mamba2_decode_heads_ref(*mine, **kw,
+                                                    head_offset=r * hl),
+               TOL[dtype])
+    assert dec_ops.mamba2_decode_heads.launches == n0 + shards
+    assert torch.equal(conv, before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("di,n,dtr,shards", [(1536, 16, 48, 16),
+                                             (1536, 16, 48, 2),
+                                             (1000, 8, 20, 4),
+                                             (2560, 16, 96, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba1_decode_split_kernels(cuda, dtype, di, n, dtr, shards):
+    """The two launches on every rank's channels, the fp32 shares of
+    x_proj summed in rank order between them: y and the state within the
+    limit of the unsharded fused kernel's (the sum runs in another order),
+    the window bit for bit; each launch within the limit of its plain
+    version; one launch of each a rank.  Widths: mamba-130m's over 16 and
+    2 ranks, off the tiles with d_state 8, and 1280 channels a rank (past
+    the fused kernel's cluster) with x_proj 128 wide."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    rn = _rn(gen, cuda)
+    td = DTYPES[dtype]
+    b, k = 4, 4
+    u = torch.rand((di,), generator=gen, device=cuda)
+    dt0 = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+    args = (rn(b, k - 1, di, dt=td), rn(b, di, n), rn(b, di, dt=td),
+            rn(di, k) / k ** 0.5, rn(di),
+            (rn(di, dtr + 2 * n) / di ** 0.5).to(td),
+            (rn(dtr, di) / dtr ** 0.5).to(td),
+            dt0 + torch.log(-torch.expm1(-dt0)),
+            torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device=cuda)).repeat(di, 1), rn(di))
+    conv, ssm, xi, w, cb, xp, dtp, dtb, al, D = args
+    kw = dict(d_state=n, dt_rank=dtr)
+    plain = dec_ref.mamba1_decode_fused_ref(*args, **kw)
+    whole = (dec_ops.mamba1_decode_fused(*args, **kw) if di <= 2048
+             else plain)
+    cl = di // shards
+    cuts = [slice(r * cl, (r + 1) * cl) for r in range(shards)]
+    na = dec_ops.mamba1_decode_conv_proj.launches
+    nb = dec_ops.mamba1_decode_state.launches
+    firsts = []
+    for cs in cuts:
+        a = (conv[..., cs].contiguous(), xi[:, cs].contiguous(), w[cs],
+             cb[cs], xp[cs])
+        got = dec_ops.mamba1_decode_conv_proj(*a)
+        _close(got, dec_ref.mamba1_decode_conv_proj_ref(*a), TOL[dtype])
+        firsts.append(got)
+    proj = torch.stack([f[2] for f in firsts]).sum(0)
+    outs = []
+    for cs, f in zip(cuts, firsts):
+        a = (ssm[:, cs].contiguous(), f[0], proj, dtp[:, cs].contiguous(),
+             dtb[cs], al[cs], D[cs])
+        got = dec_ops.mamba1_decode_state(*a, **kw)
+        _close(got, dec_ref.mamba1_decode_state_ref(*a, **kw), TOL[dtype])
+        outs.append(got)
+    torch.cuda.synchronize()
+    assert dec_ops.mamba1_decode_conv_proj.launches == na + shards
+    assert dec_ops.mamba1_decode_state.launches == nb + shards
+    y = torch.cat([o[0] for o in outs], 1)
+    st = torch.cat([o[1] for o in outs], 1)
+    window = torch.cat([f[1] for f in firsts], 2)
+    assert torch.equal(window, whole[1])
+    _close((y, st), (whole[0], whole[2]), TOL[dtype])
+    _close((y, st), (plain[0], plain[2]), TOL[dtype])

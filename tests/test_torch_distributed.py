@@ -32,7 +32,23 @@ on the same weights (``convert.from_jax``):
   and params (as the ZeRO-1 step);
 * elastic restore: a checkpoint saved from DTensors on (1, 2) restores
   onto (2, 1) bit for bit, as ``tests/test_elastic_reshard.py`` holds the
-  reference.
+  reference;
+* the sharded decode step on (1, 2), reduced to one unit at max_seq 32:
+  a 12-token prefill chunk (row 1 ragged at 7) and an 8-token
+  ``decode_tokens`` burst under a decode plan give the plan-less greedy
+  streams, and one more step's logits within 1e-4.  What each rank's
+  decode kernel receives during the burst shows that no cache moved: a
+  dense model with one KV head (``kv_seq`` on the model axis) and
+  gemma3-1b (its 8-slot rings and 32-row global cache) attend through
+  the partials mode over half their rows (row 1 never reaches the second
+  rank's rows: a rank with no live key); mamba2-2.7b's step runs on half
+  its heads, mamba-130m's two launches on half its channels;
+* one stream on four ranks, a (2, 2) mesh (a second spawn, ≈ 9 s):
+  reduced gemma3-1b in seq mode, its cache rows over ``("data",
+  "model")``, a quarter a rank; 9 teacher-forced ``lm_decode_step``s
+  from an unsharded prefill, logits within 1e-4 of the plan-less steps.
+  The prefill and ``decode_tokens`` themselves fail under that plan, in
+  code the decode step does not reach (ROADMAP §3).
 """
 import dataclasses
 import socket
@@ -60,12 +76,14 @@ def _port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn(specs, out_dir, timeout):
-    """Two ranks of ``torch_dist_worker.run``; raises on a rank's error or
-    past ``timeout`` seconds (the ranks are killed)."""
-    ctx = mp.start_processes(torch_dist_worker.run,
-                             args=(2, _port(), specs, str(out_dir)),
-                             nprocs=2, join=False, start_method="spawn")
+def _spawn(specs, out_dir, timeout, body=torch_dist_worker.run, ranks=2):
+    """``ranks`` ranks of ``body`` (``torch_dist_worker.run`` with
+    ``specs``); raises on a rank's error or past ``timeout`` seconds (the
+    ranks are killed)."""
+    args = (ranks, _port()) + ((specs,) if specs is not None else ()) + (
+        str(out_dir),)
+    ctx = mp.start_processes(body, args=args, nprocs=ranks, join=False,
+                             start_method="spawn")
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=0.5):
         if time.monotonic() > deadline:
@@ -104,6 +122,12 @@ def runs(tmp_path_factory):
                  tmp_path_factory.mktemp("ranks"), timeout=150)
     out["ref"] = {"dense": dense_ref, "seq": seq_ref, "moe": moe_ref}
     return out
+
+
+@pytest.fixture(scope="module")
+def runs4(tmp_path_factory):
+    return _spawn(None, tmp_path_factory.mktemp("ranks4"), timeout=120,
+                  body=torch_dist_worker.run4, ranks=4)
 
 
 def test_dense_kv_repeat_logits_match_reference(runs):
@@ -166,8 +190,51 @@ def test_engine_under_a_plan_serves_the_plan_less_streams(runs):
     assert all(status == "ok" for status, _ in got["streams"])
 
 
+@pytest.mark.parametrize("name", ["dense", "ring", "mamba2", "mamba1"])
+def test_sharded_decode_burst_keeps_the_cache_in_place(runs, name):
+    got = runs["1x2"][f"decode_{name}"]
+    np.testing.assert_array_equal(got["tokens"], got["want"])
+    np.testing.assert_allclose(got["logits"], got["logits_want"],
+                               rtol=TOL, atol=TOL)
+    # reduced configs at max_seq 32: mamba2-2.7b 8 heads of 16 and a
+    # conv_dim of 160, mamba-130m 128 channels of d_state 16
+    kv, rows = got["kv_heads"], 32 // 2
+    if name in ("dense", "ring"):
+        assert got["kv_seq"] == "model"
+        extents = (rows,) if name == "dense" else (rows, got["window"] // 2)
+        want = {("decode_attention_partials_ref",
+                 ((2, 4, 16), (2, kv, r, 16), (2, kv, r, 16)))
+                for r in extents}
+    elif name == "mamba2":
+        want = {("mamba2_decode_heads_ref",
+                 ((2, 3, 160), (2, 4, 16, 16), (2, 160), (160, 4), (160,),
+                  (2, 4), (4,), (4,), (4,)))}
+    else:
+        want = {("mamba1_decode_conv_proj_ref",
+                 ((2, 3, 64), (2, 64), (64, 4), (64,), (64, 36))),
+                ("mamba1_decode_state_ref",
+                 ((2, 64, 16), (2, 64), (2, 36), (4, 64), (64,), (64, 16),
+                  (64,)))}
+    for rank in got["calls"]:
+        assert {(n, tuple(map(tuple, shapes))) for n, shapes in rank} == want
+
+
 def test_trainer_under_a_plan_matches_the_plan_less_trainer(runs):
     got = runs["2x1"]["trainer"]
     np.testing.assert_allclose(got["losses"], got["losses_want"], rtol=1e-5)
     for a, b in zip(got["params"], got["params_want"]):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=0.05 * got["lr"])
+
+
+def test_single_stream_decode_over_two_mesh_dims(runs4):
+    """Four ranks, (2, 2): one stream's cache rows split over data and
+    model, the partials merged over both mesh dims."""
+    got = runs4
+    assert got["attn_mode"] == "seq" and got["kv_seq"] == ("data", "model")
+    for a, b in zip(got["logits"], got["logits_want"]):
+        np.testing.assert_allclose(a, b, rtol=TOL, atol=TOL)
+    # the 8-slot rings and the 32-row global cache, a quarter a rank
+    want = {("decode_attention_partials_ref",
+             ((1, 3, 16), (1, 1, r, 16), (1, 1, r, 16))) for r in (2, 8)}
+    for rank in got["calls"]:
+        assert {(n, tuple(map(tuple, shapes))) for n, shapes in rank} == want

@@ -5,10 +5,12 @@ Each rank joins a gloo process group, builds its meshes, runs its
 checks' sharded calls and the unsharded ones they are held against, and
 rank 0 saves what the test compares with ``torch.save``.
 """
+import contextlib
 import dataclasses
 import os
 import time
 import warnings
+from unittest import mock
 
 import torch
 import torch.distributed as dist
@@ -91,6 +93,121 @@ def _hybrid(mesh):
         lg, got = run(dp, dt, dc, model_kwargs(plan))
     return {"tokens": got.full_tensor().numpy(), "want": want.numpy(),
             "logits": lg.full_tensor().numpy(), "logits_want": lg0.numpy()}
+
+
+# the plain versions the decode kernels run on the CPU: (module, name)
+DECODE_FNS = (("attn_decode", "decode_attention_ref"),
+              ("attn_decode", "decode_attention_partials_ref"),
+              ("decode_fused", "mamba2_decode_fused_ref"),
+              ("decode_fused", "mamba2_decode_heads_ref"),
+              ("decode_fused", "mamba1_decode_fused_ref"),
+              ("decode_fused", "mamba1_decode_conv_proj_ref"),
+              ("decode_fused", "mamba1_decode_state_ref"))
+
+
+@contextlib.contextmanager
+def _recording(calls):
+    """Each decode kernel's plain version records its name and the shapes
+    of its tensor arguments (what the kernel receives on this rank)."""
+    import importlib
+    with contextlib.ExitStack() as stack:
+        for mod, name in DECODE_FNS:
+            m = importlib.import_module(f"repro_torch.kernels.{mod}.ref")
+            real = getattr(m, name)
+
+            def rec(*a, _real=real, _name=name, **kw):
+                calls.add((_name, tuple(tuple(t.shape) for t in a
+                                        if isinstance(t, torch.Tensor))))
+                return _real(*a, **kw)
+            stack.enter_context(mock.patch.object(m, name, rec))
+        yield
+
+
+def _sharded_decode(mesh, arch, attn=None):
+    """A 12-token prefill chunk (row 1 ragged at 7) and an 8-token
+    ``decode_tokens`` burst of reduced ``arch`` (one unit, max_seq 32)
+    under a decode plan, against the same calls with no plan; then one
+    more ``lm_decode_step``'s logits.  Records, on every rank, what the
+    decode kernels' plain versions receive during the sharded burst."""
+    from repro_torch.distributed.sharding import (distribute_tree,
+                                                  model_kwargs)
+    from repro_torch.launch.steps import cache_shardings
+    from repro_torch.models.lm import (decode_tokens, init_lm_cache,
+                                       init_lm_params, lm_decode_step,
+                                       lm_prefill_chunk)
+    cfg = _cfg(arch, n_units=1, **(attn or {}))
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    lengths = torch.tensor([12, 7], dtype=torch.int32)
+    calls = set()
+
+    def run(p, tok, cache, kw, record=False):
+        lg, cache = lm_prefill_chunk(cfg, p, tok, cache, lengths=lengths,
+                                     **kw)
+        first = torch.argmax(lg[:, -1, :cfg.vocab_size], -1).to(
+            torch.int32)[:, None]
+        with _recording(calls) if record else contextlib.nullcontext():
+            out, cache = decode_tokens(cfg, p, cache, first, 8, **kw)
+        lg, _ = lm_decode_step(cfg, p, out[:, -1:], cache, **kw)
+        return out, lg
+
+    want, lg0 = run(params, tokens, init_lm_cache(
+        cfg, 2, 32, dtype=torch.float32, device="cpu"), {})
+    plan = _plan(cfg, mesh, 2, 32, kind="decode")
+    dp, dt = _placed(cfg, plan, params, tokens)
+    cache = init_lm_cache(cfg, 2, 32, dtype=torch.float32, device="cpu")
+    dc = distribute_tree(cache, cache_shardings(cache, plan))
+    with plan.activations():
+        got, lg = run(dp, dt, dc, model_kwargs(plan), record=True)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, sorted(calls))
+    a = cfg.attn
+    return {"tokens": got.full_tensor().numpy(), "want": want.numpy(),
+            "logits": lg.full_tensor().numpy(), "logits_want": lg0.numpy(),
+            "calls": every, "kv_seq": plan.act_rules["kv_seq"],
+            "kv_heads": None if a is None else a.n_kv_heads * plan.kv_repeat,
+            "window": None if a is None else a.sliding_window}
+
+
+def _single_stream_decode(mesh):
+    """One stream of reduced gemma3-1b (3 query heads: seq mode, so its
+    caches' rows split over ``("data", "model")``): a 12-token prefill with
+    no plan, its cache placed by a decode plan, then 9 teacher-forced
+    ``lm_decode_step``s under the plan against the same steps with none;
+    records what the decode kernels receive on every rank."""
+    from repro_torch.distributed.sharding import (distribute_tree,
+                                                  model_kwargs)
+    from repro_torch.launch.steps import cache_shardings
+    from repro_torch.models.lm import (init_lm_cache, init_lm_params,
+                                       lm_decode_step, lm_prefill_chunk)
+    from repro_torch.models.params import tree_map
+    cfg = _cfg("gemma3_1b", n_units=1, n_heads=3)
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 12), generator=g)
+    steps = torch.randint(0, cfg.vocab_size, (1, 9), generator=g)
+    _, cache = lm_prefill_chunk(cfg, params, tokens, init_lm_cache(
+        cfg, 1, 32, dtype=torch.float32, device="cpu"))
+    plan = _plan(cfg, mesh, 1, 32, kind="decode")
+    dp, _ = _placed(cfg, plan, params, tokens)
+    dc = distribute_tree(tree_map(torch.clone, cache),
+                         cache_shardings(cache, plan))
+    want, got, calls = [], [], set()
+    for i in range(steps.shape[1]):
+        lg, cache = lm_decode_step(cfg, params, steps[:, i:i + 1], cache)
+        want.append(lg.numpy())
+    with plan.activations(), _recording(calls):
+        for i in range(steps.shape[1]):
+            lg, dc = lm_decode_step(cfg, dp, steps[:, i:i + 1], dc,
+                                    **model_kwargs(plan))
+            got.append(lg.full_tensor().numpy())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, sorted(calls))
+    return {"logits": got, "logits_want": want, "calls": every,
+            "kv_seq": plan.act_rules["kv_seq"], "attn_mode": plan.attn_mode}
 
 
 def _train(mesh):
@@ -238,12 +355,35 @@ def run(rank, world, port, specs, out_dir):
             for name, spec in checks.items():
                 timed(mesh, name, _forward, spec, meshes[mesh])
         timed("1x2", "hybrid", _hybrid, meshes["1x2"])
+        for name, arch, attn in (
+                ("decode_dense", "llama3_8b", {"n_kv_heads": 1}),
+                ("decode_ring", "gemma3_1b", None),
+                ("decode_mamba2", "mamba2_2p7b", None),
+                ("decode_mamba1", "mamba_130m", None)):
+            timed("1x2", name, _sharded_decode, meshes["1x2"], arch, attn)
         timed("2x1", "train", _train, meshes["2x1"])
         timed("1x2", "engine", _engine, meshes["1x2"])
         timed("2x1", "trainer", _trainer, meshes["2x1"])
         timed("1x2", "elastic", _elastic, os.path.join(out_dir, "ckpt"),
               meshes["1x2"], meshes["2x1"])
         res["seconds"] = secs
+        if rank == 0:
+            torch.save(res, os.path.join(out_dir, "out.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run4(rank, world, port, out_dir):
+    """One rank of a four-rank gloo group: the single-stream decode on a
+    (2, 2) mesh."""
+    warnings.filterwarnings("ignore")
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        from repro_torch.launch.mesh import make_device_mesh
+        mesh = make_device_mesh((2, 2), ("data", "model"), "cpu")
+        res = _single_stream_decode(mesh)
         if rank == 0:
             torch.save(res, os.path.join(out_dir, "out.pt"))
     finally:
